@@ -1,0 +1,238 @@
+"""FCVIIndex - the paper's Algorithm 1 in PyTorch (flat backend, fp32).
+
+Offline: fit per-dim normalizers, fit psi, transform the corpus (the fused
+transform kernel on the card), build the flat backend over the transformed
+vectors, keep the normalized originals for re-scoring.
+
+Online: transform the query with its filter, over-retrieve
+k' = min(c * k/lambda * 1/alpha^2, N) (Thm 5.4), re-score the candidates with
+lambda*cos(v,q) + (1-lambda)*cos(f,F_q) (the rescore kernel), return top-k.
+
+Mirrors ``repro.core.fcvi``. The IVF and PQ backends (ROADMAP A8, A9) and
+reduced-precision storage (A6) are later slices and raise here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import theory
+from repro_torch.core.transform import Normalizer, Transform, fit_transform
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.index import flat as flat_mod
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import topk_first
+
+Tensor = torch.Tensor
+
+BACKENDS = ("flat", "ivf", "pq")
+_LATER = {"ivf": "ROADMAP A8", "pq": "ROADMAP A9"}
+
+
+@dataclasses.dataclass(frozen=True)
+class FCVIConfig:
+    """Static configuration of an FCVI index.
+
+    ``alpha`` is the filter fold strength, ``lam`` the combined-score
+    weight, ``c`` the k' over-retrieval headroom, ``mode`` the psi variant.
+    ``backend`` and ``storage_dtype`` name what the JAX package offers; this
+    slice serves ``"flat"`` at ``"float32"`` and raises NotImplementedError
+    naming the ROADMAP item for the rest."""
+
+    alpha: float = 1.0
+    lam: float = 0.5            # lambda in [0,1]: 1 => pure vector similarity
+    c: float = 4.0              # k' headroom constant (Alg. 1 line 7)
+    mode: str = "partition"     # psi variant
+    backend: str = "flat"
+    auto_alpha: bool = False    # alpha = max(1, sqrt((1-lam)/lam)), Thm 5.4
+    normalize: bool = True
+    storage_dtype: str = "float32"
+
+    def resolved_alpha(self) -> float:
+        if self.auto_alpha:
+            return float(theory.optimal_alpha(self.lam))
+        return max(1.0, float(self.alpha))
+
+    def check_supported(self) -> None:
+        """Raise for a backend or storage dtype this slice does not serve."""
+        if self.backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}")
+        if self.backend in _LATER:
+            raise NotImplementedError(
+                f"backend={self.backend!r} is {_LATER[self.backend]}; this "
+                "slice of the port serves backend='flat'")
+        if self.storage_dtype not in ("float32", "bfloat16", "int8"):
+            raise ValueError(
+                f"storage_dtype must be float32, bfloat16 or int8, got "
+                f"{self.storage_dtype!r}")
+        if self.storage_dtype != "float32":
+            raise NotImplementedError(
+                f"storage_dtype={self.storage_dtype!r} is ROADMAP A6; this "
+                "slice of the port stores float32")
+
+
+@dataclasses.dataclass(frozen=True)
+class FCVIIndex:
+    config: FCVIConfig
+    transform: Transform
+    backend: flat_mod.FlatIndex  # transformed space
+    vectors_n: Tensor            # (n, d) normalized originals (re-scoring)
+    filters_n: Tensor            # (n, m) normalized filters
+
+    @property
+    def size(self) -> int:
+        return self.vectors_n.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.vectors_n.device
+
+
+def _tensor(x, device: torch.device) -> Tensor:
+    """A float32 tensor on ``device`` from a tensor or array-like (arrays
+    are copied, so the index never aliases the caller's memory)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32).contiguous()
+    return torch.tensor(np.asarray(x, np.float32), device=device)
+
+
+def cosine_sim(a: Tensor, b: Tensor, eps: float = 1e-8) -> Tensor:
+    num = torch.sum(a * b, dim=-1)
+    den = (torch.linalg.vector_norm(a, dim=-1)
+           * torch.linalg.vector_norm(b, dim=-1) + eps)
+    return num / den
+
+
+def build(vectors, filters, config: FCVIConfig,
+          device: DeviceLike = "cuda") -> FCVIIndex:
+    """Offline indexing (Alg. 1 lines 1-5) on ``device``. vectors (n, d) and
+    filters (n, m) are float32 arrays or tensors."""
+    config.check_supported()
+    dev = resolve_device(device)
+    vectors, filters = _tensor(vectors, dev), _tensor(filters, dev)
+    tfm = fit_transform(vectors, filters, config.resolved_alpha(),
+                        config.mode, normalize=config.normalize)
+    vn, fn = tfm.normalize(vectors, filters)
+    backend = flat_mod.build(tfm.apply_normalized(vn, fn))
+    return FCVIIndex(config=config, transform=tfm, backend=backend,
+                     vectors_n=vn, filters_n=fn)
+
+
+def combined_score(cand_v: Tensor, cand_f: Tensor, qn: Tensor, fqn: Tensor,
+                   lam: float) -> Tensor:
+    """lam*cos(v, q) + (1-lam)*cos(f, F_q) per candidate (the rescore
+    kernel on the card). cand_v (b, kp, d); cand_f (b, kp, m); qn (b, d);
+    fqn (b, m). Returns (b, kp)."""
+    return ops.rescore(cand_v, cand_f, qn, fqn, lam)
+
+
+def rescore(index: FCVIIndex, qn: Tensor, fqn: Tensor, cand_idx: Tensor,
+            k: int):
+    """Alg. 1 lines 10-16: combined-score re-ranking of candidates
+    cand_idx (b, k'). Returns (scores (b, k), ids (b, k))."""
+    cand = cand_idx.long()
+    score = combined_score(index.vectors_n[cand], index.filters_n[cand],
+                           qn, fqn, index.config.lam)
+    vals, pos = topk_first(score, k)
+    return vals, torch.gather(cand_idx, -1, pos)
+
+
+def query(index: FCVIIndex, q: Tensor, f_q: Tensor, k: int,
+          k_prime: Optional[int] = None):
+    """Online query processing (Alg. 1 lines 6-16), batched. q (b, d) and
+    f_q (b, m) on the index's device. Returns (scores (b, k), ids (b, k))."""
+    cfg = index.config
+    kp = k_prime if k_prime is not None else theory.k_prime(
+        k, cfg.lam, cfg.resolved_alpha(), index.size, cfg.c)
+    qn, fqn = index.transform.normalize(q, f_q)
+    _, cand = index.backend.search(index.transform.apply_normalized(qn, fqn),
+                                   kp)
+    return rescore(index, qn, fqn, cand, k)
+
+
+def ground_truth_combined(vectors_n: Tensor, filters_n: Tensor, qn: Tensor,
+                          fqn: Tensor, k: int, lam: float):
+    """Exact top-k under the paper's combined score (the recall reference).
+
+    The cosines' dot products are one (b, n) matmul each instead of the
+    JAX package's broadcast mul+sum, which would hold a (b, n, d) product
+    in memory in eager PyTorch; equal up to fp32 rounding."""
+    def cos(rows, qs):
+        den = (torch.linalg.vector_norm(rows, dim=-1)[None, :]
+               * torch.linalg.vector_norm(qs, dim=-1)[:, None] + 1e-8)
+        return (qs @ rows.T) / den
+
+    score = lam * cos(vectors_n, qn) + (1.0 - lam) * cos(filters_n, fqn)
+    return topk_first(score, k)
+
+
+def recall_at_k(pred_ids, true_ids) -> float:
+    """|pred intersect true| / k, averaged over the query batch."""
+    pred = torch.as_tensor(np.asarray(pred_ids, np.int64))
+    true = torch.as_tensor(np.asarray(true_ids, np.int64))
+    hits = (pred[:, :, None] == true[:, None, :]).any(-1)
+    return float(hits.to(torch.float32).mean(dim=-1).mean())
+
+
+# ---------------------------------------------------------------------------
+# State handoff (the JAX package's ``fcvi.index_state`` format)
+# ---------------------------------------------------------------------------
+
+def index_state(index: FCVIIndex) -> dict:
+    """The array state of an index as a nested dict, in the layout of
+    ``repro.core.fcvi.index_state``: the fitted transform, the re-rank
+    originals and the backend's source arrays (squared norms are derived and
+    rematerialised by ``index_from_state``)."""
+    tfm = index.transform
+    t = {"alpha": torch.tensor(tfm.alpha, dtype=torch.float32),
+         "vec_mean": tfm.vec_norm.mean, "vec_std": tfm.vec_norm.std,
+         "filt_mean": tfm.filt_norm.mean, "filt_std": tfm.filt_norm.std}
+    if tfm.centers is not None:
+        t["centers"] = tfm.centers
+    if tfm.proj is not None:
+        t["proj"] = tfm.proj
+    return {"transform": t, "backend": {"vectors": index.backend.vectors},
+            "vectors_n": index.vectors_n, "filters_n": index.filters_n}
+
+
+def index_from_state(config: FCVIConfig, state: dict,
+                     device: DeviceLike = "cuda") -> FCVIIndex:
+    """Rebuild an ``FCVIIndex`` on ``device`` from ``index_state`` output:
+    this package's, or the JAX package's with its leaves converted to numpy.
+    No re-fitting; the squared norms are recomputed in fp32 from the stored
+    vectors."""
+    config.check_supported()
+    dev = resolve_device(device)
+    t, b = state["transform"], state["backend"]
+    if "scales" in b:
+        raise NotImplementedError("int8 storage state is ROADMAP A6")
+    tfm = Transform(
+        mode=config.mode,
+        alpha=float(t["alpha"]),
+        vec_norm=Normalizer(mean=_tensor(t["vec_mean"], dev),
+                            std=_tensor(t["vec_std"], dev)),
+        filt_norm=Normalizer(mean=_tensor(t["filt_mean"], dev),
+                             std=_tensor(t["filt_std"], dev)),
+        centers=_tensor(t["centers"], dev) if "centers" in t else None,
+        proj=_tensor(t["proj"], dev) if "proj" in t else None)
+    return FCVIIndex(config=config, transform=tfm,
+                     backend=flat_mod.build(_tensor(b["vectors"], dev)),
+                     vectors_n=_tensor(state["vectors_n"], dev),
+                     filters_n=_tensor(state["filters_n"], dev))
+
+
+def extend(index: FCVIIndex, new_vectors: Tensor,
+           new_filters: Tensor) -> FCVIIndex:
+    """Append rows and rebuild the backend over the re-transformed corpus
+    (normalizers and centers stay frozen, paper section 4.2). The engine
+    calls this on compaction."""
+    tfm = index.transform
+    vn_new, fn_new = tfm.normalize(new_vectors, new_filters)
+    vectors_n = torch.cat([index.vectors_n, vn_new], dim=0)
+    filters_n = torch.cat([index.filters_n, fn_new], dim=0)
+    backend = flat_mod.build(tfm.apply_normalized(vectors_n, filters_n))
+    return FCVIIndex(config=index.config, transform=tfm, backend=backend,
+                     vectors_n=vectors_n, filters_n=filters_n)

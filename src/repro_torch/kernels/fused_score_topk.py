@@ -1,0 +1,136 @@
+"""CUDA kernels B2/B3: fused L2 scan + first-occurrence top-k (+ rows).
+
+One CUDA source (``csrc/fused_score_topk.cu``) serves both output contracts:
+
+* ``score_topk`` (B2) replaces the plain variant of the Pallas kernel
+  ``repro/kernels/fused_score_topk.py::score_topk``;
+* ``score_topk_rows`` (B3) replaces ``score_topk_rows`` for fp32 storage:
+  the same (vals, ids) bit for bit, plus the winners' corpus rows and
+  payload rows.
+
+Pass 1 splits the corpus into chunks scanned by parallel blocks, each
+keeping its chunk's top-kk per query; pass 2 merges the chunks per query
+(see the source's header). ``plan`` sizes both passes from the shapes and
+the card's SM count; it is plain Python so the CPU tests reach it. The plain
+versions are ``ref.ref_score_topk`` and ``ref.ref_score_topk_rows``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+NAME = "score_topk"
+NAME_ROWS = "score_topk_rows"
+
+TILE = 128            # corpus rows staged per step (kTile in the source)
+THREADS = 256         # threads per block (kThreads)
+MAX_K = 2048          # largest kk the kernels take
+SMEM_LIMIT = 232_448  # shared memory one block may use on Hopper (bytes)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    bq: int           # queries per pass-1 block: 16, 8 or 4
+    cap: int          # pass-1 candidate buffer per query (power of two)
+    nchunks: int      # corpus chunks, one pass-1 block column each
+    chunk_rows: int   # corpus rows per chunk (multiple of TILE)
+    merge_cap: int    # pass-2 candidate buffer (power of two)
+
+
+def _pow2(x: int) -> int:
+    return 1 << (x - 1).bit_length()
+
+
+def scan_smem(bq: int, cap: int, d: int) -> int:
+    """Pass-1 dynamic shared memory in bytes (mirrors ``scan_smem`` in the
+    source)."""
+    ds = ((d + 3) & ~3) + 4
+    return 4 * (bq * ds + TILE * ds + TILE + 4 * bq + 4 + 2 * bq * cap)
+
+
+def plan(n: int, nq: int, kk: int, d: int, num_sms: int) -> ScanPlan:
+    """Choose the launch shape for ``nq`` queries against ``n`` rows of
+    width ``d``. Each buffer holds kk plus two tiles, so a trim is needed
+    at most every few tiles; the query tile shrinks for large kk so the
+    buffers fit in shared memory; the chunk count gives about two blocks
+    per SM."""
+    if not 0 < kk <= MAX_K:
+        raise ValueError(f"kk={kk} outside the kernels' range 1..{MAX_K}")
+    if kk > n:
+        raise ValueError(f"k={kk} > corpus size {n}")
+    cap = _pow2(kk + 2 * TILE)
+    bq = 16 if nq > 8 else 8 if nq > 4 else 4
+    while bq > 4 and scan_smem(bq, cap, d) > SMEM_LIMIT:
+        bq //= 2
+    if scan_smem(bq, cap, d) > SMEM_LIMIT:
+        raise ValueError(f"d={d} with kk={kk} does not fit in shared memory")
+    qtiles = math.ceil(nq / bq)
+    nchunks = max(1, min(math.ceil(n / TILE), math.ceil(2 * num_sms / qtiles)))
+    chunk_rows = math.ceil(math.ceil(n / nchunks) / TILE) * TILE
+    nchunks = math.ceil(n / chunk_rows)
+    return ScanPlan(bq=bq, cap=cap, nchunks=nchunks, chunk_rows=chunk_rows,
+                    merge_cap=_pow2(kk + 2 * THREADS))
+
+
+def _launch(corpus, sq_norms, queries, k, payload_v=None, payload_f=None):
+    if corpus.dim() != 2 or queries.dim() != 2:
+        raise ValueError("corpus and queries must be 2-D")
+    n, d = corpus.shape
+    nq = queries.shape[0]
+    dev = corpus.device
+    if n >= 2 ** 31:
+        raise ValueError("corpus ids must fit in int32")
+    _build.require(corpus, "corpus", (n, d), dev)
+    _build.require(sq_norms, "sq_norms", (n,), dev)
+    _build.require(queries, "queries", (nq, d), dev)
+    p = plan(n, nq, k, d, torch.cuda.get_device_properties(dev).multi_processor_count)
+    part_s = torch.empty((nq, p.nchunks, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((nq, p.nchunks, k), dtype=torch.int32, device=dev)
+    vals = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    rows = (None, None, None)
+    dv = m = 0
+    if payload_v is not None:
+        dv, m = payload_v.shape[1], payload_f.shape[1]
+        _build.require(payload_v, "payload_v", (n, dv), dev)
+        _build.require(payload_f, "payload_f", (n, m), dev)
+        rows = tuple(torch.empty((nq, k, w), dtype=torch.float32, device=dev)
+                     for w in (d, dv, m))
+    ptr = _build.ptr
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        code = lib.fcvi_score_topk(
+            corpus.data_ptr(), sq_norms.data_ptr(), queries.data_ptr(), n, nq,
+            d, k, p.bq, p.cap, p.nchunks, p.chunk_rows, p.merge_cap,
+            part_s.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
+            ids.data_ptr(), ptr(payload_v), ptr(payload_f), dv, m,
+            *map(ptr, rows), _build.stream(dev))
+    return code, vals, ids, rows
+
+
+def score_topk(corpus: torch.Tensor, sq_norms: torch.Tensor,
+               queries: torch.Tensor, k: int):
+    """corpus (n, d), sq_norms (n,), queries (q, d), float32 on one CUDA
+    device. Returns (scores (q, k) f32, ids (q, k) int32): negative squared
+    L2, descending, ties to the smaller id."""
+    code, vals, ids, _ = _launch(corpus, sq_norms, queries, k)
+    _build.check(code, NAME)
+    _build.count(NAME)
+    return vals, ids
+
+
+def score_topk_rows(corpus: torch.Tensor, sq_norms: torch.Tensor,
+                    payload_v: torch.Tensor, payload_f: torch.Tensor,
+                    queries: torch.Tensor, k: int):
+    """Gather-free scan: ``score_topk``'s (scores, ids) plus the winners'
+    corpus rows (q, k, d), payload_v rows (q, k, dv) and payload_f rows
+    (q, k, m); payloads are row-aligned with the corpus."""
+    code, vals, ids, rows = _launch(corpus, sq_norms, queries, k,
+                                    payload_v, payload_f)
+    _build.check(code, NAME_ROWS)
+    _build.count(NAME_ROWS)
+    return (vals, ids, *rows)

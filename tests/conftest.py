@@ -13,3 +13,7 @@ def pytest_configure(config):
         "markers",
         "property: randomized property-based differential test "
         "(hypothesis-driven when installed, fixed-seed fallback otherwise)")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (the port's CUDA kernels have no CPU "
+        "mode); skips where there is none")
