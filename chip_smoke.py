@@ -17,22 +17,36 @@ Phases, each of which raises (and exits non-zero) on a failure:
    agreement outside near-ties, and the kernel's time beside its bound, the
    plain version's time and, where one PyTorch call computes the same
    function, that call's time (CUDA events, after a warm-up).
-3. end to end: a synthetic SIFT1M-shaped corpus, ``fcvi.build`` on the card
-   with every ``FCVIConfig`` default, ``FCVIEngine`` with every
+3. end to end, flat: a synthetic SIFT1M-shaped corpus, ``fcvi.build`` on
+   the card with every ``FCVIConfig`` default, ``FCVIEngine`` with every
    ``EngineConfig`` default, then 512 queries, the first 64 again (cache
    hits), 1,000 inserts (the delta tier's scan goes through the rows
    kernel), 64 queries, ``compact()``, 64 queries, and one ``fcvi.query``
    call (the ids-only scan). The first batch is checked against a CPU
    engine (the plain path) on the same state; recall@10 is measured
    against ``ground_truth_combined`` on the card.
-4. a ``kernels`` JSON line with each kernel's launches in phase 3 (each
-   must be > 0), errors, times and bound.
+3b. end to end, IVF: the same corpus and queries with
+   ``FCVIConfig(backend="ivf", nlist=1024, nprobe=16)`` (every other field
+   and all of ``EngineConfig`` at their defaults). The build prints the
+   k-means time and the list layout (max_list, mean list, pad fraction).
+   Then the IVF kernels B5, B6 and B7 are held against their plain
+   versions on the built index's slabs with a batch's coarse probes, at
+   k=80 and k=320 (the escalated k'), as phase 2 holds the others. Then
+   the same serving sequence as phase 3, one ``fcvi.query`` (B5) and one
+   direct ``ops.ivf_score_topk_batch`` call on the index's slabs (B7: no
+   serving path calls it, in the JAX package either). Checks: the first
+   batch against a CPU engine on the same state; one batch at
+   ``nprobe=nlist`` against the flat engine on the same corpus; recall@10
+   printed beside the flat path's (IVF is approximate: no floor).
+4. a ``kernels`` JSON line with each kernel's launches over phases 3 and 3b
+   (each must be > 0), errors, times and bound.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
 the script prints no result and exits 1.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -45,9 +59,11 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-from repro_torch.core import fcvi, theory  # noqa: E402
+from repro_torch.core import clustering, fcvi, theory  # noqa: E402
 from repro_torch.data.synthetic import (CorpusSpec, make_corpus,  # noqa: E402
                                         sample_queries)
+from repro_torch.index import flat as flat_mod  # noqa: E402
+from repro_torch.index import ivf as ivf_mod  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.serve import engine as engine_mod  # noqa: E402
 
@@ -57,6 +73,7 @@ PEAK_FP32_S = 67e12
 
 N, D, M, B = 1_000_000, 128, 8, 64
 KP = 80                      # k' of the defaults: k=10, lam=0.5, c=4
+NLIST, NPROBE = 1024, 16     # IVF-Flat at SIFT1M's size: nlist ~ sqrt(n)
 L2_RTOL, L2_ATOL = 1e-5, 1e-4
 COS_ATOL = 1e-5
 
@@ -69,6 +86,12 @@ SOURCES = {
                         "src/repro/kernels/fused_score_topk.py:287"),
     "rescore": ("src/repro_torch/csrc/rescore.cu",
                 "src/repro/kernels/rescore.py:46"),
+    "ivf_score_topk_dedup": ("src/repro_torch/csrc/ivf_score.cu",
+                             "src/repro/kernels/ivf_score.py:209"),
+    "ivf_score_topk_dedup_rows": ("src/repro_torch/csrc/ivf_score.cu",
+                                  "src/repro/kernels/ivf_score.py:315"),
+    "ivf_score_topk_batch": ("src/repro_torch/csrc/ivf_score.cu",
+                             "src/repro/kernels/ivf_score.py:94"),
 }
 
 
@@ -232,8 +255,20 @@ def phase_kernels(dev, gen) -> dict:
     return res
 
 
-def phase_end_to_end(dev, power: str) -> dict:
-    """The user's path at SIFT1M scale; returns the kernels' launch counts."""
+@dataclasses.dataclass
+class Inputs:
+    """The corpus and query stream both end-to-end phases serve (host)."""
+
+    corpus: object
+    q_all: np.ndarray      # 640 queries: 512 timed, then 64 + 64 after inserts
+    f_all: np.ndarray
+    q_warm: np.ndarray     # the warm-up batch, apart from the timed ones
+    f_warm: np.ndarray
+    new_v: np.ndarray      # 1,000 inserts
+    new_f: np.ndarray
+
+
+def make_inputs() -> Inputs:
     t0 = time.perf_counter()
     corpus = make_corpus(CorpusSpec(n=N, d=D, n_categories=6, n_numeric=2,
                                     seed=0))
@@ -245,98 +280,331 @@ def phase_end_to_end(dev, power: str) -> dict:
     new_f = corpus.filters[rng.integers(0, N, 1000)]
     print(f"[e2e] corpus n={N} d={D} m={M}: {time.perf_counter() - t0:.1f} s "
           "(host, setup)")
+    return Inputs(corpus, q_all, f_all, q_warm, f_warm, new_v, new_f)
 
-    _build.reset_launch_counts()
-    t0 = time.perf_counter()
-    index = fcvi.build(corpus.vectors, corpus.filters, fcvi.FCVIConfig(),
-                       device=dev)
-    torch.cuda.synchronize()
-    print(f"[e2e] build on the card: {time.perf_counter() - t0:.2f} s")
-    state0 = fcvi.index_state(index)
-    eng = engine_mod.FCVIEngine(index, engine_mod.EngineConfig(), device=dev)
 
+def serve(tag: str, eng, inp: Inputs, power: str):
+    """The serving sequence of phases 3 and 3b: a warm-up batch, 512 timed
+    queries in batches of 64, the first 64 again (cache hits), 1,000
+    inserts, 64 queries, ``compact()``, 64 queries. Returns (scores, ids)
+    of the 512."""
     t0 = time.perf_counter()
-    eng.search(q_warm, f_warm)      # first-call allocations, kept apart
+    eng.search(inp.q_warm, inp.f_warm)   # first-call allocations, kept apart
     cold = time.perf_counter() - t0
     warm_esc = eng.stats.escalations
     lat, served = [], []
     for s in range(0, 512, B):
         t0 = time.perf_counter()
-        served.append(eng.search(q_all[s:s + B], f_all[s:s + B]))
+        served.append(eng.search(inp.q_all[s:s + B], inp.f_all[s:s + B]))
         lat.append(time.perf_counter() - t0)
     scores = np.concatenate([s for s, _ in served])
     ids = np.concatenate([i for _, i in served])
     check(scores.shape == (512, 10) and np.isfinite(scores).all(),
-          "scores are not finite (512, 10)")
-    check(((ids >= 0) & (ids < N)).all(), "ids out of range")
+          f"{tag}: scores are not finite (512, 10)")
+    check(((ids >= 0) & (ids < N)).all(), f"{tag}: ids out of range")
     esc = eng.stats.escalations - warm_esc
-    again = eng.search(q_all[:B], f_all[:B])
-    check(eng.stats.cache_hits == B, "the repeated batch missed the cache")
-    check(np.array_equal(again[1], ids[:B]), "cached ids differ")
-    eng.insert(new_v, new_f)
-    mid = eng.search(q_all[512:576], f_all[512:576])
+    again = eng.search(inp.q_all[:B], inp.f_all[:B])
+    check(eng.stats.cache_hits == B, f"{tag}: the repeated batch missed the "
+          "cache")
+    check(np.array_equal(again[1], ids[:B]), f"{tag}: cached ids differ")
+    eng.insert(inp.new_v, inp.new_f)
+    mid = eng.search(inp.q_all[512:576], inp.f_all[512:576])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     eng.compact()
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t0
     check(eng.index.size == N + 1000 and eng.stats.compactions == 1,
-          "compaction did not fold the inserts")
-    late = eng.search(q_all[576:], f_all[576:])
+          f"{tag}: compaction did not fold the inserts")
+    late = eng.search(inp.q_all[576:], inp.f_all[576:])
     for s, i in (mid, late):
         check(np.isfinite(s).all() and ((i >= 0) & (i < N + 1000)).all(),
-              "post-insert results out of range")
-    qv, qf = (torch.tensor(a, device=dev) for a in (q_all[:B], f_all[:B]))
-    fcvi.query(eng.index, qv, qf, 10)
-    torch.cuda.synchronize()
-    counts = _build.launch_counts()
+              f"{tag}: post-insert results out of range")
     total_s = sum(lat)
-    print(f"[e2e] counts {json.dumps(counts)}")
-    print(f"[e2e] 512 queries in batches of {B}: qps {512 / total_s:.1f} "
+    print(f"[{tag}] 512 queries in batches of {B}: qps {512 / total_s:.1f} "
           f"batch p50 {1e3 * np.percentile(lat, 50):.2f} ms p99 "
           f"{1e3 * np.percentile(lat, 99):.2f} ms (first, cold batch "
           f"{1e3 * cold:.2f} ms, not in these); escalations {esc} of 512; "
-          f"cache hits {eng.stats.cache_hits}; card {power}")
-    print(f"[e2e] batch ms {[round(1e3 * t, 2) for t in lat]}")
+          f"cache hits {eng.stats.cache_hits}; compact() {compact_s:.2f} s; "
+          f"card {power}")
+    print(f"[{tag}] batch ms {[round(1e3 * t, 2) for t in lat]}")
+    return scores, ids
 
-    # recall@10 against the exact combined-score top-10, on the card
+
+def recall_vs_truth(index, state0, inp: Inputs, ids, dev) -> float:
+    """recall@10 of ``ids`` (the 512 timed queries) against the exact
+    combined-score top-10 over the original corpus, on the card."""
     vn, fn = state0["vectors_n"], state0["filters_n"]
     true = []
     for s in range(0, 512, B):
         qn, fqn = index.transform.normalize(
-            torch.tensor(q_all[s:s + B], device=dev),
-            torch.tensor(f_all[s:s + B], device=dev))
+            torch.tensor(inp.q_all[s:s + B], device=dev),
+            torch.tensor(inp.f_all[s:s + B], device=dev))
         true.append(fcvi.ground_truth_combined(vn, fn, qn, fqn, 10, 0.5)[1]
                     .cpu().numpy())
-    recall = fcvi.recall_at_k(ids, np.concatenate(true))
-    print(f"[e2e] recall@10 {recall:.4f} over 512 queries; card {power}")
-    check(recall >= 0.9, f"recall@10 {recall} below 0.9")
+    return fcvi.recall_at_k(ids, np.concatenate(true))
 
-    # the first batch against a CPU engine (plain path) on the same state
+
+def margins(eng, q: np.ndarray, f: np.ndarray) -> np.ndarray:
+    """Each query's first-stage top-10 margin, as the engine's escalation
+    test reads it."""
+    kp = theory.k_prime(10, 0.5, 1.0, eng.index.size, 4.0)
+    dev = eng.device
+    _, _, margin = eng._step(None, torch.tensor(q, device=dev),
+                             torch.tensor(f, device=dev), k=10, kp=kp, kd=0)
+    return margin.cpu().numpy()
+
+
+def same_top10(tag: str, scores, ids, want_s, want_i, exclude) -> None:
+    """Combined scores within COS_ATOL and ids equal outside near-ties of
+    the reference (want_*), over the queries not in ``exclude``."""
+    rows = ~exclude
+    err = float(np.abs(scores[rows] - want_s[rows]).max())
+    check(err <= COS_ATOL, f"{tag}: scores differ by {err}")
+    diff = np.zeros_like(want_s, bool)
+    diff[rows] = ids[rows] != want_i[rows]
+    gap = np.abs(np.diff(want_s.astype(np.float64), axis=1))
+    tie = np.zeros_like(diff)
+    tie[:, 1:] |= gap <= COS_ATOL
+    tie[:, :-1] |= gap <= COS_ATOL
+    tie[:, -1] = True          # the reference's 11th score is unknown
+    check(not (diff & ~tie).any(), f"{tag}: ids differ outside near-ties")
+    print(f"[{tag}] max score err {err:.3g}, {int(diff.sum())} id slots "
+          f"differ, all at near-ties; {int(exclude.sum())} of "
+          f"{len(exclude)} queries excluded")
+
+
+def against_cpu_engine(tag: str, index, state0, scores, ids, q, f,
+                       exclude) -> None:
+    """The first batch against a CPU engine (the plain path) on the same
+    state; escalation-boundary queries and those in ``exclude`` are left
+    out."""
     t0 = time.perf_counter()
     cpu_ix = fcvi.index_from_state(index.config, state0, device="cpu")
     cpu_eng = engine_mod.FCVIEngine(cpu_ix, engine_mod.EngineConfig(),
                                     device="cpu")
-    cs, ci = cpu_eng.search(q_all[:B], f_all[:B])
-    qc, fc = torch.tensor(q_all[:B]), torch.tensor(f_all[:B])
-    kp = theory.k_prime(10, 0.5, 1.0, N, 4.0)
-    _, _, margin = engine_mod._batch_step(cpu_ix, None, qc, fc, k=10, kp=kp,
-                                          kd=0, gather_free=True)
-    edge = (margin - eng.cfg.escalate_margin).abs().numpy() < 1e-5
-    rows = ~edge
-    err = float(np.abs(scores[:B][rows] - cs[rows]).max())
-    check(err <= COS_ATOL, f"first batch scores differ from the CPU engine "
-          f"by {err}")
-    diff = np.zeros_like(cs, bool)
-    diff[rows] = ids[:B][rows] != ci[rows]
-    gap = np.abs(np.diff(cs.astype(np.float64), axis=1))
-    tie = np.zeros_like(diff)
-    tie[:, 1:] |= gap <= COS_ATOL
-    tie[:, :-1] |= gap <= COS_ATOL
-    tie[:, -1] = True          # the CPU engine's 11th score is unknown
-    check(not (diff & ~tie).any(), "first batch ids differ from the CPU "
-          "engine outside near-ties")
-    print(f"[e2e] first batch vs CPU engine (plain path): max score err "
-          f"{err:.3g}, {int(diff.sum())} id slots differ, all at near-ties; "
-          f"{int(edge.sum())} escalation-boundary queries excluded; "
+    cs, ci = cpu_eng.search(q, f)
+    edge = np.abs(margins(cpu_eng, q, f) - cpu_eng.cfg.escalate_margin) < 1e-5
+    same_top10(f"{tag} first batch vs CPU engine (plain path)", scores, ids,
+               cs, ci, edge | exclude)
+    print(f"[{tag}] {int(edge.sum())} escalation-boundary queries excluded; "
           f"{time.perf_counter() - t0:.1f} s")
-    return counts
+
+
+def phase_end_to_end(dev, power: str, inp: Inputs):
+    """The flat path at SIFT1M scale; returns its kernels' launch counts and
+    recall@10."""
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    index = fcvi.build(inp.corpus.vectors, inp.corpus.filters,
+                       fcvi.FCVIConfig(), device=dev)
+    torch.cuda.synchronize()
+    print(f"[e2e] build on the card: {time.perf_counter() - t0:.2f} s")
+    state0 = fcvi.index_state(index)
+    eng = engine_mod.FCVIEngine(index, engine_mod.EngineConfig(), device=dev)
+    scores, ids = serve("e2e", eng, inp, power)
+    qv, qf = (torch.tensor(a, device=dev) for a in (inp.q_all[:B],
+                                                    inp.f_all[:B]))
+    fcvi.query(eng.index, qv, qf, 10)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    print(f"[e2e] counts {json.dumps(counts)}")
+    recall = recall_vs_truth(index, state0, inp, ids, dev)
+    print(f"[e2e] recall@10 {recall:.4f} over 512 queries; card {power}")
+    check(recall >= 0.9, f"recall@10 {recall} below 0.9")
+    against_cpu_engine("e2e", index, state0, scores[:B], ids[:B],
+                       inp.q_all[:B], inp.f_all[:B], np.zeros(B, bool))
+    return counts, recall
+
+
+def probe_ties(centroids, q_t, nprobe) -> np.ndarray:
+    """(b,) bool: queries whose nprobe-th and (nprobe+1)-th coarse scores
+    (float64) lie within the L2 tolerance: fp32 rounding may give the card
+    and the CPU different probe sets there."""
+    c = centroids.double().cpu().numpy()
+    q = q_t.double().cpu().numpy()
+    d2 = np.sort(((q * q).sum(1)[:, None] - 2 * q @ c.T
+                  + (c * c).sum(1)[None]), axis=1)
+    a, b = d2[:, nprobe - 1], d2[:, nprobe]
+    return (b - a) <= L2_ATOL + L2_RTOL * np.abs(b)
+
+
+def ivf_bound(be, uniq, member, nq, k, row_floats):
+    """(bound ms, what bounds it, real-row bytes, padded bytes) of one IVF
+    scan: the unique probed lists' valid flags and live rows (vector + norm)
+    read once, the queries and member matrix read, (vals, ids) and
+    ``row_floats`` payload floats per winner written (and read); fp32
+    operations 2d + 2 per (member pair, live row)."""
+    sizes = be.list_sizes.long().cpu().numpy()
+    mem = member.cpu().numpy() > 0.5
+    live = mem.any(axis=1)
+    lists = uniq.long().cpu().numpy()[live]
+    rows = int(sizes[lists].sum())
+    pair_rows = int((mem[live].sum(axis=1) * sizes[lists]).sum())
+    d = be.grouped.shape[-1]
+    real = 4 * rows * (d + 1) + 4 * len(lists) * be.max_list
+    padded = 4 * len(lists) * be.max_list * (d + 2)
+    io = 4 * (nq * d + member.numel()) + 8 * nq * k + 8 * nq * k * row_floats
+    bnd, by = bound_ms(real + io, pair_rows * (2 * d + 2))
+    return bnd, by, real, padded
+
+
+def ivf_kernels(index, inp: Inputs, dev, power: str) -> dict:
+    """B5, B6 and B7 against their plain versions on the built index's slabs,
+    with the coarse probes of the first timed batch, at k=80 and 320."""
+    be = index.backend
+    q = torch.tensor(inp.q_all[:B], device=dev)
+    f = torch.tensor(inp.f_all[:B], device=dev)
+    q_t = index.transform.apply(q, f).contiguous()
+    c2 = torch.sum(be.centroids * be.centroids, dim=-1)
+    _, probes = ops.score_topk(be.centroids, c2, q_t, NPROBE)
+    uniq, member = ops.dedup_probes(probes, NLIST)
+    gpv = ivf_mod.build_grouped_payload(index.vectors_n, be.lists)
+    gpf = ivf_mod.build_grouped_payload(index.filters_n, be.lists)
+    n_live = int((member > 0.5).any(dim=1).sum())
+    print(f"[ivf-kernel] batch of {B}: {n_live} unique probed lists of "
+          f"{NLIST} ({B * NPROBE} probes)")
+    grp = (be.grouped, be.grouped_sq, be.valid)
+    ded = (*grp, uniq, member, q_t)
+    res = {}
+    for k in (KP, 4 * KP):
+        vals, ids = ops.ivf_score_topk_dedup(*ded, k)
+        rvals, rids = ref.ref_ivf_score_topk_dedup(*ded, k + 1)
+        out = ops.ivf_score_topk_dedup_rows(*ded, gpv, gpf, k)
+        check(torch.equal(out[0], vals) and torch.equal(out[1], ids),
+              "ivf_score_topk_dedup_rows (vals, ids) differ from B5's")
+        dead = torch.isneginf(vals)[..., None]
+        idx = ids.long()
+        check(torch.equal(out[2], torch.where(dead, 0.0,
+                                              gpv.reshape(-1, D)[idx]))
+              and torch.equal(out[3], torch.where(dead, 0.0,
+                                                  gpf.reshape(-1, M)[idx])),
+              "ivf_score_topk_dedup_rows rows differ from the gathered rows")
+        bv, bi = ops.ivf_score_topk_batch(*grp, probes, q_t, k)
+        rbv, rbi = ref.ref_ivf_score_topk_batch(*grp, probes, q_t, k + 1)
+        runs = {
+            "ivf_score_topk_dedup": (
+                (vals, ids), (rvals, rids),
+                lambda: ops.ivf_score_topk_dedup(*ded, k),
+                lambda: ref.ref_ivf_score_topk_dedup(*ded, k), 0),
+            "ivf_score_topk_dedup_rows": (
+                (vals, ids), (rvals, rids),
+                lambda: ops.ivf_score_topk_dedup_rows(*ded, gpv, gpf, k),
+                lambda: ref.ref_ivf_score_topk_dedup_rows(*ded, gpv, gpf, k),
+                D + M),
+            "ivf_score_topk_batch": (
+                (bv, bi), (rbv, rbi),
+                lambda: ops.ivf_score_topk_batch(*grp, probes, q_t, k),
+                lambda: ref.ref_ivf_score_topk_batch(*grp, probes, q_t, k),
+                0),
+        }
+        for name, (got, want, kernel, plain_fn, row_floats) in runs.items():
+            wv = want[0][:, :k]
+            live = ~torch.isneginf(wv)
+            err = (got[0] - wv)[live].abs().max().item()
+            tol = (L2_ATOL + L2_RTOL * wv[live].abs()).max().item()
+            agree, total = ids_outside_ties(want[0], want[1], got[1], L2_RTOL,
+                                            L2_ATOL)
+            check(err <= tol, f"{name} k={k} error {err} > {tol}")
+            check(agree == total, f"{name} k={k}: {total - agree} ids differ "
+                  "outside near-ties")
+            ms = time_ms(kernel, 20)
+            plain = time_ms(plain_fn, 3)
+            bnd, by, real, padded = ivf_bound(be, uniq, member, B, k,
+                                              row_floats)
+            print(f"[kernel] {name} b={B} nlist={NLIST} max_list="
+                  f"{be.max_list} d={D} nprobe={NPROBE} k={k}: max_abs_err "
+                  f"{err:.3g} ids {agree}/{total} outside near-ties; "
+                  f"kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms "
+                  f"{bnd:.4f} ({by}; probed lists {real / 1e6:.1f} MB of "
+                  f"real rows, {padded / 1e6:.1f} MB padded)")
+            if k == KP:       # the main path's default width goes in the line
+                res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                 bound_ms=bnd, bound_by=by, library_ms=None)
+            else:
+                res[name]["max_abs_err"] = max(err, res[name]["max_abs_err"])
+    print("[ivf-kernel] B6 (vals, ids) bit-equal to B5's and its rows "
+          f"bit-equal to the gathered rows at k={KP} and {4 * KP}; card "
+          f"{power}")
+    return res
+
+
+def phase_ivf(dev, power: str, inp: Inputs, flat_recall: float):
+    """The IVF path at SIFT1M scale; returns the IVF kernels' results and
+    the launch counts of its build and serving (the kernel checks between
+    them are not counted)."""
+    cfg = fcvi.FCVIConfig(backend="ivf", nlist=NLIST, nprobe=NPROBE)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    index = fcvi.build(inp.corpus.vectors, inp.corpus.filters, cfg,
+                       device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    be = index.backend
+    t0 = time.perf_counter()
+    clustering.kmeans(be.vectors, NLIST, iters=15,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    kmeans_s = time.perf_counter() - t0
+    sizes = be.list_sizes.double()
+    pad = 1.0 - N / (NLIST * be.max_list)
+    slab_mb = (be.grouped.nbytes + be.grouped_sq.nbytes
+               + be.valid.nbytes) / 1e6
+    print(f"[ivf] build on the card {build_s:.2f} s (k-means nlist={NLIST} "
+          f"iters=15 alone, same inputs: {kmeans_s:.2f} s); max_list "
+          f"{be.max_list}, mean list {sizes.mean().item():.1f}, smallest "
+          f"{int(sizes.min().item())}, pad fraction {pad:.3f}; serving slabs "
+          f"{slab_mb:.0f} MB, grouped payloads "
+          f"{4 * NLIST * be.max_list * (D + M) / 1e6:.0f} MB; card {power}")
+    res = ivf_kernels(index, inp, dev, power)
+    torch.cuda.empty_cache()
+
+    state0 = fcvi.index_state(index)
+    eng = engine_mod.FCVIEngine(index, engine_mod.EngineConfig(), device=dev)
+    _build.reset_launch_counts()
+    scores, ids = serve("ivf", eng, inp, power)
+    qv, qf = (torch.tensor(a, device=dev) for a in (inp.q_all[:B],
+                                                    inp.f_all[:B]))
+    fcvi.query(eng.index, qv, qf, 10)
+    ib = eng.index.backend
+    q_t = eng.index.transform.apply(qv, qf).contiguous()
+    c2 = torch.sum(ib.centroids * ib.centroids, dim=-1)
+    probes = ops.score_topk(ib.centroids, c2, q_t, NPROBE)[1]
+    vals, _ = ops.ivf_score_topk_batch(ib.grouped, ib.grouped_sq, ib.valid,
+                                       probes, q_t, KP)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(vals).all()), "ivf_score_topk_batch on the "
+          "index's slabs returned non-finite scores")
+    for name, n in _build.launch_counts().items():
+        counts[name] = counts.get(name, 0) + n
+    print(f"[ivf] counts {json.dumps(counts)}")
+
+    recall = recall_vs_truth(index, state0, inp, ids, dev)
+    print(f"[ivf] recall@10 {recall:.4f} over 512 queries (flat path "
+          f"{flat_recall:.4f}); card {power}")
+    qb, fb = inp.q_all[:B], inp.f_all[:B]
+    ties = probe_ties(be.centroids, index.transform.apply(qv, qf), NPROBE)
+    print(f"[ivf] {int(ties.sum())} of {B} first-batch queries at a probe "
+          "near-tie")
+    against_cpu_engine("ivf", index, state0, scores[:B], ids[:B], qb, fb,
+                       ties)
+
+    # full probe scans every row: the flat engine's top-10 on the same
+    # corpus and state, queries at either engine's escalation boundary
+    # left out
+    full = dataclasses.replace(index, config=dataclasses.replace(
+        cfg, nprobe=NLIST))
+    flat_ix = dataclasses.replace(index, config=fcvi.FCVIConfig(),
+                                  backend=flat_mod.build(be.vectors))
+    engs = [engine_mod.FCVIEngine(ix, engine_mod.EngineConfig(), device=dev)
+            for ix in (full, flat_ix)]
+    (fs, fi), (ls, li) = (e.search(qb, fb) for e in engs)
+    edge = np.zeros(B, bool)
+    for e in engs:
+        edge |= np.abs(margins(e, qb, fb) - e.cfg.escalate_margin) < 1e-5
+    same_top10(f"ivf nprobe={NLIST} vs flat engine", fs, fi, ls, li, edge)
+    return res, counts
 
 
 def main() -> int:
@@ -350,12 +618,18 @@ def main() -> int:
           f"{torch.version.cuda}")
     phase_build()
     res = phase_kernels(dev, torch.Generator(device=dev).manual_seed(0))
-    counts = phase_end_to_end(dev, power)
+    inp = make_inputs()
+    counts, recall = phase_end_to_end(dev, power, inp)
+    torch.cuda.empty_cache()
+    ivf_res, ivf_counts = phase_ivf(dev, power, inp, recall)
+    res.update(ivf_res)
+    for name, n in ivf_counts.items():
+        counts[name] = counts.get(name, 0) + n
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         launches = counts.get(name, 0)
         check(launches > 0, f"kernel {name} was not launched on the main "
-              "path")
+              "paths (phases 3 and 3b)")
         r = res[name]
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches,

@@ -3,8 +3,9 @@
 The port of ``repro`` (JAX/Pallas), one slice at a time. It imports torch
 and numpy, never JAX or the ``repro`` package. Layout mirrors ``repro``:
 
-  * ``core``    - transform (psi), theory (k'), the FCVI index and query;
-  * ``index``   - the flat backend;
+  * ``core``    - transform (psi), theory (k'), k-means, the FCVI index and
+    query;
+  * ``index``   - the flat and IVF backends and the grouped slab layout;
   * ``kernels`` - the CUDA kernels, their plain PyTorch versions, and the
     ``ops`` layer that picks between them by the device of the inputs;
   * ``serve``   - the meshless serving engine;

@@ -1,35 +1,37 @@
-"""FCVIIndex - the paper's Algorithm 1 in PyTorch (flat backend, fp32).
+"""FCVIIndex - the paper's Algorithm 1 in PyTorch (flat and IVF, fp32).
 
 Offline: fit per-dim normalizers, fit psi, transform the corpus (the fused
-transform kernel on the card), build the flat backend over the transformed
-vectors, keep the normalized originals for re-scoring.
+transform kernel on the card), build the flat or IVF backend over the
+transformed vectors, keep the normalized originals for re-scoring.
 
 Online: transform the query with its filter, over-retrieve
 k' = min(c * k/lambda * 1/alpha^2, N) (Thm 5.4), re-score the candidates with
 lambda*cos(v,q) + (1-lambda)*cos(f,F_q) (the rescore kernel), return top-k.
 
-Mirrors ``repro.core.fcvi``. The IVF and PQ backends (ROADMAP A8, A9) and
+Mirrors ``repro.core.fcvi``. The PQ backend (ROADMAP A9) and
 reduced-precision storage (A6) are later slices and raise here.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core import theory
+from repro_torch.core.clustering import Seed, make_generator
 from repro_torch.core.transform import Normalizer, Transform, fit_transform
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.index import flat as flat_mod
+from repro_torch.index import ivf as ivf_mod
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import topk_first
 
 Tensor = torch.Tensor
 
 BACKENDS = ("flat", "ivf", "pq")
-_LATER = {"ivf": "ROADMAP A8", "pq": "ROADMAP A9"}
+_LATER = {"pq": "ROADMAP A9"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,10 +39,12 @@ class FCVIConfig:
     """Static configuration of an FCVI index.
 
     ``alpha`` is the filter fold strength, ``lam`` the combined-score
-    weight, ``c`` the k' over-retrieval headroom, ``mode`` the psi variant.
-    ``backend`` and ``storage_dtype`` name what the JAX package offers; this
-    slice serves ``"flat"`` at ``"float32"`` and raises NotImplementedError
-    naming the ROADMAP item for the rest."""
+    weight, ``c`` the k' over-retrieval headroom, ``mode`` the psi variant
+    (``n_clusters`` centers in cluster mode), ``nlist`` / ``nprobe`` the IVF
+    lists and the lists each query probes. ``backend`` and
+    ``storage_dtype`` name what the JAX package offers; the port serves
+    ``"flat"`` and ``"ivf"`` at ``"float32"`` and raises
+    NotImplementedError naming the ROADMAP item for the rest."""
 
     alpha: float = 1.0
     lam: float = 0.5            # lambda in [0,1]: 1 => pure vector similarity
@@ -50,6 +54,9 @@ class FCVIConfig:
     auto_alpha: bool = False    # alpha = max(1, sqrt((1-lam)/lam)), Thm 5.4
     normalize: bool = True
     storage_dtype: str = "float32"
+    n_clusters: int = 16        # cluster mode
+    nlist: int = 64             # IVF
+    nprobe: int = 8
 
     def resolved_alpha(self) -> float:
         if self.auto_alpha:
@@ -57,28 +64,29 @@ class FCVIConfig:
         return max(1.0, float(self.alpha))
 
     def check_supported(self) -> None:
-        """Raise for a backend or storage dtype this slice does not serve."""
+        """Raise for a backend or storage dtype the port does not serve
+        yet."""
         if self.backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}")
         if self.backend in _LATER:
             raise NotImplementedError(
-                f"backend={self.backend!r} is {_LATER[self.backend]}; this "
-                "slice of the port serves backend='flat'")
+                f"backend={self.backend!r} is {_LATER[self.backend]}; the "
+                "port serves backend='flat' and backend='ivf'")
         if self.storage_dtype not in ("float32", "bfloat16", "int8"):
             raise ValueError(
                 f"storage_dtype must be float32, bfloat16 or int8, got "
                 f"{self.storage_dtype!r}")
         if self.storage_dtype != "float32":
             raise NotImplementedError(
-                f"storage_dtype={self.storage_dtype!r} is ROADMAP A6; this "
-                "slice of the port stores float32")
+                f"storage_dtype={self.storage_dtype!r} is ROADMAP A6; the "
+                f"port stores {self.backend} indexes in float32")
 
 
 @dataclasses.dataclass(frozen=True)
 class FCVIIndex:
     config: FCVIConfig
     transform: Transform
-    backend: flat_mod.FlatIndex  # transformed space
+    backend: Union[flat_mod.FlatIndex, ivf_mod.IVFIndex]  # transformed space
     vectors_n: Tensor            # (n, d) normalized originals (re-scoring)
     filters_n: Tensor            # (n, m) normalized filters
 
@@ -91,12 +99,12 @@ class FCVIIndex:
         return self.vectors_n.device
 
 
-def _tensor(x, device: torch.device) -> Tensor:
-    """A float32 tensor on ``device`` from a tensor or array-like (arrays
+def _tensor(x, device: torch.device, dtype=torch.float32) -> Tensor:
+    """A ``dtype`` tensor on ``device`` from a tensor or array-like (arrays
     are copied, so the index never aliases the caller's memory)."""
     if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.float32).contiguous()
-    return torch.tensor(np.asarray(x, np.float32), device=device)
+        return x.to(device=device, dtype=dtype).contiguous()
+    return torch.tensor(np.asarray(x), dtype=dtype, device=device)
 
 
 def cosine_sim(a: Tensor, b: Tensor, eps: float = 1e-8) -> Tensor:
@@ -106,19 +114,39 @@ def cosine_sim(a: Tensor, b: Tensor, eps: float = 1e-8) -> Tensor:
     return num / den
 
 
-def build(vectors, filters, config: FCVIConfig,
-          device: DeviceLike = "cuda") -> FCVIIndex:
+def build(vectors, filters, config: FCVIConfig, device: DeviceLike = "cuda",
+          rng: Seed = None) -> FCVIIndex:
     """Offline indexing (Alg. 1 lines 1-5) on ``device``. vectors (n, d) and
-    filters (n, m) are float32 arrays or tensors."""
+    filters (n, m) are float32 arrays or tensors. ``rng`` (a seed or a
+    ``torch.Generator`` on ``device``) draws the k-means of cluster mode and
+    of the IVF quantizer, in that order."""
     config.check_supported()
     dev = resolve_device(device)
+    gen = make_generator(rng, dev)
     vectors, filters = _tensor(vectors, dev), _tensor(filters, dev)
     tfm = fit_transform(vectors, filters, config.resolved_alpha(),
-                        config.mode, normalize=config.normalize)
+                        config.mode, n_clusters=config.n_clusters,
+                        generator=gen, normalize=config.normalize)
     vn, fn = tfm.normalize(vectors, filters)
-    backend = flat_mod.build(tfm.apply_normalized(vn, fn))
+    backend = build_backend(tfm.apply_normalized(vn, fn), config, gen)
     return FCVIIndex(config=config, transform=tfm, backend=backend,
                      vectors_n=vn, filters_n=fn)
+
+
+def build_backend(transformed: Tensor, config: FCVIConfig,
+                  generator: Seed = None):
+    """The configured backend over the transformed corpus; IVF trains its
+    quantizer with ``generator`` (seed 0 when None)."""
+    if config.backend == "ivf":
+        return ivf_mod.build(transformed, config.nlist, generator)
+    return flat_mod.build(transformed)
+
+
+def _backend_search(index: FCVIIndex, q_t: Tensor, kp: int):
+    """Top-kp candidates (scores, ids) of the transformed queries."""
+    if index.config.backend == "ivf":
+        return index.backend.search(q_t, kp, nprobe=index.config.nprobe)
+    return index.backend.search(q_t, kp)
 
 
 def combined_score(cand_v: Tensor, cand_f: Tensor, qn: Tensor, fqn: Tensor,
@@ -148,8 +176,8 @@ def query(index: FCVIIndex, q: Tensor, f_q: Tensor, k: int,
     kp = k_prime if k_prime is not None else theory.k_prime(
         k, cfg.lam, cfg.resolved_alpha(), index.size, cfg.c)
     qn, fqn = index.transform.normalize(q, f_q)
-    _, cand = index.backend.search(index.transform.apply_normalized(qn, fqn),
-                                   kp)
+    _, cand = _backend_search(index, index.transform.apply_normalized(qn, fqn),
+                              kp)
     return rescore(index, qn, fqn, cand, k)
 
 
@@ -194,7 +222,12 @@ def index_state(index: FCVIIndex) -> dict:
         t["centers"] = tfm.centers
     if tfm.proj is not None:
         t["proj"] = tfm.proj
-    return {"transform": t, "backend": {"vectors": index.backend.vectors},
+    b = index.backend
+    bstate = {"vectors": b.vectors}
+    if index.config.backend == "ivf":
+        bstate.update(centroids=b.centroids, lists=b.lists,
+                      list_sizes=b.list_sizes)
+    return {"transform": t, "backend": bstate,
             "vectors_n": index.vectors_n, "filters_n": index.filters_n}
 
 
@@ -202,8 +235,9 @@ def index_from_state(config: FCVIConfig, state: dict,
                      device: DeviceLike = "cuda") -> FCVIIndex:
     """Rebuild an ``FCVIIndex`` on ``device`` from ``index_state`` output:
     this package's, or the JAX package's with its leaves converted to numpy.
-    No re-fitting; the squared norms are recomputed in fp32 from the stored
-    vectors."""
+    No re-fitting: the normalizers, centers, IVF centroids and id lists come
+    from the state; the squared norms (and the IVF serving slabs) are
+    rematerialised in fp32 from the stored vectors."""
     config.check_supported()
     dev = resolve_device(device)
     t, b = state["transform"], state["backend"]
@@ -218,8 +252,15 @@ def index_from_state(config: FCVIConfig, state: dict,
                              std=_tensor(t["filt_std"], dev)),
         centers=_tensor(t["centers"], dev) if "centers" in t else None,
         proj=_tensor(t["proj"], dev) if "proj" in t else None)
-    return FCVIIndex(config=config, transform=tfm,
-                     backend=flat_mod.build(_tensor(b["vectors"], dev)),
+    vectors = _tensor(b["vectors"], dev)
+    if config.backend == "ivf":
+        backend = ivf_mod.from_lists(
+            vectors, _tensor(b["centroids"], dev),
+            _tensor(b["lists"], dev, torch.int32),
+            _tensor(b["list_sizes"], dev, torch.int32))
+    else:
+        backend = flat_mod.build(vectors)
+    return FCVIIndex(config=config, transform=tfm, backend=backend,
                      vectors_n=_tensor(state["vectors_n"], dev),
                      filters_n=_tensor(state["filters_n"], dev))
 
@@ -228,11 +269,17 @@ def extend(index: FCVIIndex, new_vectors: Tensor,
            new_filters: Tensor) -> FCVIIndex:
     """Append rows and rebuild the backend over the re-transformed corpus
     (normalizers and centers stay frozen, paper section 4.2). The engine
-    calls this on compaction."""
+    calls this on compaction.
+
+    As in the reference (``build_backend`` with its default key), an IVF
+    backend is rebuilt from scratch: its k-means is re-trained on the whole
+    corpus with the seed-0 generator, so compaction costs a k-means at full
+    width, and the new quantizer differs from the old one."""
     tfm = index.transform
     vn_new, fn_new = tfm.normalize(new_vectors, new_filters)
     vectors_n = torch.cat([index.vectors_n, vn_new], dim=0)
     filters_n = torch.cat([index.filters_n, fn_new], dim=0)
-    backend = flat_mod.build(tfm.apply_normalized(vectors_n, filters_n))
+    backend = build_backend(tfm.apply_normalized(vectors_n, filters_n),
+                            index.config)
     return FCVIIndex(config=index.config, transform=tfm, backend=backend,
                      vectors_n=vectors_n, filters_n=filters_n)

@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.clustering import Seed, kmeans
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import partition_matrix
 
@@ -150,21 +151,16 @@ class Transform:
 
 
 def fit_transform(vectors: Tensor, filters: Tensor, alpha: float,
-                  mode: str = "partition", *, proj: Optional[Tensor] = None,
+                  mode: str = "partition", *, n_clusters: int = 0,
+                  proj: Optional[Tensor] = None, generator: Seed = None,
                   normalize: bool = True) -> Transform:
-    """Fit the normalizers on the corpus and return the Transform.
-
-    Cluster mode needs k-means, which comes with the IVF slice (ROADMAP A8);
-    a cluster-mode Transform is served from centers handed across in an
-    index state (``fcvi.index_from_state``)."""
+    """Fit the normalizers (and, in cluster mode, ``n_clusters`` k-means
+    centers of the normalized filters, drawn with ``generator``) on the
+    corpus and return the Transform."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    if mode == "cluster":
-        raise NotImplementedError(
-            "fitting cluster mode needs k-means (ROADMAP A8); load fitted "
-            "centers with fcvi.index_from_state")
     d, m = vectors.shape[-1], filters.shape[-1]
-    if mode == "partition":
+    if mode != "embedding":
         check_partition(d, m)
     dev = vectors.device
     if normalize:
@@ -172,6 +168,12 @@ def fit_transform(vectors: Tensor, filters: Tensor, alpha: float,
     else:
         vec_norm = Normalizer.identity(d, vectors.dtype, dev)
         filt_norm = Normalizer.identity(m, filters.dtype, dev)
+    centers = None
+    if mode == "cluster":
+        if n_clusters <= 0:
+            raise ValueError("cluster mode needs n_clusters > 0")
+        centers, _ = kmeans(filt_norm.apply(filters), n_clusters,
+                            generator=generator)
     w = None
     if mode == "embedding":
         if proj is None:
@@ -187,4 +189,4 @@ def fit_transform(vectors: Tensor, filters: Tensor, alpha: float,
                 raise ValueError(
                     f"proj must be (d={d}, m={m}), got {tuple(w.shape)}")
     return Transform(mode=mode, alpha=float(alpha), vec_norm=vec_norm,
-                     filt_norm=filt_norm, proj=w)
+                     filt_norm=filt_norm, centers=centers, proj=w)

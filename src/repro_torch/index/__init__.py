@@ -1,1 +1,2 @@
-"""Search backends over the transformed corpus (flat in this slice)."""
+"""Search backends over the transformed corpus: flat and IVF (PQ is
+ROADMAP A9)."""

@@ -3,9 +3,11 @@
 ``search(queries, k) -> (scores, ids)``: queries (q, d) in the backend's
 (transformed) space; scores (q, k) float32, descending, negative squared L2
 for the exact backends; ids (q, k) int32 corpus row ids. Rows that cannot be
-filled carry ``-inf`` scores. Kernel dispatch follows the device of the
-backend's tensors (``repro_torch.kernels.ops``). Mirrors
-``repro.index.backend``; this slice has the flat backend only.
+filled carry ``-inf`` scores (and id 0). Kernel dispatch follows the
+device of the backend's tensors (``repro_torch.kernels.ops``). Mirrors
+``repro.index.backend``; the port has the flat (``index.flat.FlatIndex``)
+and IVF (``index.ivf.IVFIndex``, whose ``search`` also takes ``nprobe``)
+backends, and PQ is ROADMAP A9.
 """
 from __future__ import annotations
 

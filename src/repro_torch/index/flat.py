@@ -55,7 +55,7 @@ def build(vectors: Tensor, storage_dtype=None) -> FlatIndex:
     if storage_dtype is not None:
         raise NotImplementedError(
             f"storage_dtype={storage_dtype!r}: reduced-precision storage is "
-            "ROADMAP A6; this slice stores float32")
+            "ROADMAP A6; the port stores flat indexes in float32")
     vectors = vectors.to(torch.float32).contiguous()
     return FlatIndex(vectors=vectors, sq_norms=torch.sum(vectors * vectors,
                                                          dim=-1))

@@ -43,6 +43,9 @@ SIGNATURES = {
     "fcvi_score_topk": [_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _L, _I, _P,
                         _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     "fcvi_rescore": [_P, _P, _P, _P, _F, _F, _P, _I, _I, _I, _I, _P],
+    "fcvi_ivf_score_topk": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
+                            _P, _P],
 }
 
 _lock = threading.Lock()
@@ -56,7 +59,7 @@ def sources() -> list:
 
 def build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):  # sources and their headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
@@ -150,13 +153,13 @@ def ptr(t):
 
 
 def require(t: torch.Tensor, name: str, shape: tuple,
-            device: torch.device) -> None:
-    """Raise unless ``t`` is a contiguous float32 tensor of ``shape`` on
+            device: torch.device, dtype=torch.float32) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
     ``device`` (the only layout the kernels take)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")

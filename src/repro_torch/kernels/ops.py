@@ -18,6 +18,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels import fcvi_transform as _transform
 from repro_torch.kernels import fused_score_topk as _scan
+from repro_torch.kernels import ivf_score as _ivf
 from repro_torch.kernels import rescore as _rescore
 
 Tensor = torch.Tensor
@@ -62,3 +63,61 @@ def rescore(cand_v: Tensor, cand_f: Tensor, qn: Tensor, fqn: Tensor,
     if cand_v.is_cuda:
         return _rescore.rescore(cand_v, cand_f, qn, fqn, lam)
     return ref.ref_rescore(cand_v, cand_f, qn, fqn, lam)
+
+
+# IVF scans over the grouped (nlist, max_list, d) slabs: scores 2<x,q> -
+# ||x||^2 (the caller adds -||q||^2 back), flat slot ids, dead slots (-inf, 0)
+
+def ivf_score_topk_batch(grouped: Tensor, grouped_sq: Tensor, valid: Tensor,
+                         probes: Tensor, queries: Tensor, k: int):
+    """Query-major probed scan: probes (b, nprobe) int32, queries (b, d).
+    Ties go to the earlier probe position, then the earlier slot."""
+    if grouped.is_cuda:
+        return _ivf.ivf_score_topk_batch(grouped, grouped_sq, valid, probes,
+                                         queries, k)
+    return ref.ref_ivf_score_topk_batch(grouped, grouped_sq, valid, probes,
+                                        queries, k)
+
+
+def ivf_score_topk(grouped: Tensor, grouped_sq: Tensor, valid: Tensor,
+                   probes: Tensor, query: Tensor, k: int):
+    """One query: probes (nprobe,) int32, query (d,) -> (vals (k,), ids
+    (k,)); ``ivf_score_topk_batch`` at batch 1."""
+    vals, ids = ivf_score_topk_batch(grouped, grouped_sq, valid,
+                                     probes[None, :], query[None, :], k)
+    return vals[0], ids[0]
+
+
+def ivf_score_topk_dedup(grouped: Tensor, grouped_sq: Tensor, valid: Tensor,
+                         uniq: Tensor, member: Tensor, queries: Tensor,
+                         k: int):
+    """Probe-major scan of the batch's unique probed lists: uniq (s,) int32,
+    member (s, b) float 0/1 (see ``dedup_probes``). Ties go to the smaller
+    flat id when uniq ascends."""
+    if grouped.is_cuda:
+        return _ivf.ivf_score_topk_dedup(grouped, grouped_sq, valid, uniq,
+                                         member, queries, k)
+    return ref.ref_ivf_score_topk_dedup(grouped, grouped_sq, valid, uniq,
+                                        member, queries, k)
+
+
+def ivf_score_topk_dedup_rows(grouped: Tensor, grouped_sq: Tensor,
+                              valid: Tensor, uniq: Tensor, member: Tensor,
+                              queries: Tensor, payload_v: Tensor,
+                              payload_f: Tensor, k: int):
+    """``ivf_score_topk_dedup`` plus the winners' grouped payload rows
+    (b, k, dv) / (b, k, m); dead slots carry zero rows."""
+    if grouped.is_cuda:
+        return _ivf.ivf_score_topk_dedup_rows(grouped, grouped_sq, valid,
+                                              uniq, member, queries,
+                                              payload_v, payload_f, k)
+    return ref.ref_ivf_score_topk_dedup_rows(grouped, grouped_sq, valid, uniq,
+                                             member, queries, payload_v,
+                                             payload_f, k)
+
+
+def dedup_probes(probes: Tensor, nlist: int):
+    """(uniq (s,) int32 ascending, member (s, b) float 0/1) from a (b,
+    nprobe) probe matrix. A plain torch op on every device: the reference
+    computes it in jnp outside its kernels."""
+    return ref.dedup_probes(probes, nlist)

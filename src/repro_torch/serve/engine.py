@@ -11,11 +11,15 @@ The serving-side optimizations around one ``FCVIIndex``:
   * a delta buffer for inserts with compaction into the main index.
 
 The per-batch step (``_batch_step``) is normalize -> psi fold (fused
-transform kernel) -> scan + top-(k'+REFINE_PAD) (fused scan kernel, carrying
-the winners' rows when ``gather_free``) -> exact refine -> combined-cosine
-rescore (rescore kernel) -> top-k -> delta-tier search + ``merge_topk`` ->
-escalation margin. Eager PyTorch runs it as it stands; there is no trace to
-count. Cache, stats and the escalation decision are host-side.
+transform kernel) -> candidates -> combined-cosine rescore (rescore kernel)
+-> top-k -> delta-tier search + ``merge_topk`` -> escalation margin. The
+flat backend's candidates are a scan + top-(k'+REFINE_PAD) (fused scan
+kernel) and an exact refine; the IVF backend's are the coarse quantizer
+(fused scan kernel over the centroids) and the probe-major scan of the
+batch's unique probed lists (IVF dedup kernel). With ``gather_free`` the
+scan kernels carry the winners' re-rank rows out. Eager PyTorch runs it as
+it stands; there is no trace to count. Cache, stats and the escalation
+decision are host-side.
 
 Mirrors the meshless similarity-mode path of ``repro.serve.engine``.
 Predicate search (``filter=``/``plan=``) is ROADMAP A7, meshes and routing
@@ -35,6 +39,7 @@ from repro_torch.core import fcvi, theory
 from repro_torch.core.fcvi import FCVIIndex
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.index import flat as flat_mod
+from repro_torch.index import ivf as ivf_mod
 from repro_torch.kernels.ref import topk_first
 from repro_torch.serve.health import BackpressureError, TransientShardError
 
@@ -73,7 +78,8 @@ def _delta_candidates(delta: _DeltaBuffer, q_t: Tensor, kd: int,
 
 
 def _batch_step(index: FCVIIndex, delta: Optional[_DeltaBuffer], q: Tensor,
-                f: Tensor, *, k: int, kp: int, kd: int, gather_free: bool):
+                f: Tensor, *, k: int, kp: int, kd: int, gather_free: bool,
+                grouped_payload=(None, None)):
     """The per-batch hot path: transform -> candidates -> combined-score
     re-rank -> delta search + merge_topk -> escalation margin. Returns
     (scores (b, k), ids (b, k) int32, margin (b,)).
@@ -81,15 +87,22 @@ def _batch_step(index: FCVIIndex, delta: Optional[_DeltaBuffer], q: Tensor,
     ``gather_free`` takes the re-rank rows from the scan kernel's epilogue
     (``_batch_step_rows`` in the JAX package) instead of gathering them by
     id from ``vectors_n``/``filters_n`` (its ``_batch_step``); the results
-    are the same."""
+    are the same. ``grouped_payload`` is the IVF backend's (grouped_pv,
+    grouped_pf), the re-rank originals in the grouped layout that the IVF
+    rows scan reads (see ``FCVIEngine._rows_payload``)."""
     cfg = index.config
     qn, fqn = index.transform.normalize(q, f)
     q_t = index.transform.apply_normalized(qn, fqn)
-    if gather_free:
+    if gather_free and cfg.backend == "ivf":
+        gpv, gpf = grouped_payload
+        _, cand, rv, rf = index.backend.search_rows(
+            q_t, kp, index.vectors_n, index.filters_n, grouped_pv=gpv,
+            grouped_pf=gpf, nprobe=cfg.nprobe)
+    elif gather_free:
         _, cand, rv, rf = index.backend.search_rows(
             q_t, kp, index.vectors_n, index.filters_n)
     else:
-        _, cand = index.backend.search(q_t, kp)
+        _, cand = fcvi._backend_search(index, q_t, kp)
         rows = cand.long()
         rv, rf = index.vectors_n[rows], index.filters_n[rows]
     score = fcvi.combined_score(rv, rf, qn, fqn, cfg.lam)
@@ -143,7 +156,7 @@ class EngineStats:
     compactions: int = 0
     total_time_s: float = 0.0
     # device-memory bytes the candidate scans stream, modeled per batch from
-    # the slab sizes (the whole flat slab plus the delta slab)
+    # the slab sizes (see FCVIEngine._batch_scan_bytes)
     bytes_scanned: int = 0
     scan_batches: int = 0          # batches the bytes model accounted
     retries: int = 0               # TransientShardError retries
@@ -184,8 +197,8 @@ class FCVIEngine:
                  routing: str = "dense"):
         if mesh is not None or routing != "dense":
             raise NotImplementedError(
-                "mesh-sharded and routed serving are ROADMAP A12; this "
-                "slice of the port serves meshless")
+                "mesh-sharded and routed serving are ROADMAP A12; the "
+                "port serves meshless")
         self.device = resolve_device(device)
         if index.device != self.device:
             raise ValueError(
@@ -200,6 +213,7 @@ class FCVIEngine:
         self._delta_v: list = []
         self._delta_f: list = []
         self._delta: Optional[_DeltaBuffer] = None
+        self._grouped_payload = None  # IVF gather-free payload slabs (lazy)
         # hook for a fault-injection harness: an object whose
         # ``before_batch()`` may raise TransientShardError
         self.fault_injector = None
@@ -226,11 +240,21 @@ class FCVIEngine:
             self._cache.popitem(last=False)
 
     # -- storage-bandwidth accounting (host-side model) --------------------
-    def _batch_scan_bytes(self) -> int:
-        """Modeled device-memory bytes one batch's candidate scans stream:
-        the flat slab (vectors + squared norms) plus the delta slab."""
+    def _batch_scan_bytes(self, b: int) -> int:
+        """Modeled device-memory bytes the candidate scans of one padded
+        batch of ``b`` queries stream: the whole flat slab (vectors +
+        squared norms), or the probed share of the IVF grouped slabs (capped
+        at every list once, as the dedup scan reads a shared list once) plus
+        the centroids; a pending delta adds its flat slab. The reference's
+        model, so the two engines' counters agree."""
         be = self.index.backend
-        n = be.vectors.nbytes + be.sq_norms.nbytes
+        cfg = self.index.config
+        if cfg.backend == "ivf":
+            slab = be.grouped.nbytes + be.grouped_sq.nbytes
+            probed = min(b * min(cfg.nprobe, be.nlist), be.nlist)
+            n = slab * probed // be.nlist + be.centroids.nbytes
+        else:
+            n = be.vectors.nbytes + be.sq_norms.nbytes
         if self._delta is not None:
             n += self._delta.flat.vectors.nbytes + self._delta.flat.sq_norms.nbytes
         return int(n)
@@ -327,7 +351,7 @@ class FCVIEngine:
             scores, ids = self._dispatch_batch(
                 torch.tensor(q, device=self.device),
                 torch.tensor(f, device=self.device), k, n_real=len(idxs))
-            self.stats.bytes_scanned += self._batch_scan_bytes()
+            self.stats.bytes_scanned += self._batch_scan_bytes(bs)
             self.stats.scan_batches += 1
             scores = scores.cpu().numpy()
             ids = ids.cpu().numpy().astype(np.int64)
@@ -405,10 +429,26 @@ class FCVIEngine:
         out = self._step(delta, q[sel_t], f[sel_t], k=k, kp=kp, kd=kd)
         return tuple(o[: len(idxs)] for o in out)
 
+    def _rows_payload(self):
+        """The IVF gather-free payload slabs (lazy): ``vectors_n`` and
+        ``filters_n`` regrouped into the (nlist, max_list, dim) list layout,
+        which the IVF rows scan reads beside the corpus slabs. (None, None)
+        for flat, whose corpus order is its payload order. Dropped on
+        ``compact()``, the one event that changes the corpus."""
+        if self.index.config.backend != "ivf" or not self.cfg.gather_free:
+            return None, None
+        if self._grouped_payload is None:
+            lists = self.index.backend.lists
+            self._grouped_payload = (
+                ivf_mod.build_grouped_payload(self.index.vectors_n, lists),
+                ivf_mod.build_grouped_payload(self.index.filters_n, lists))
+        return self._grouped_payload
+
     def _step(self, delta, q: Tensor, f: Tensor, *, k: int, kp: int,
               kd: int):
         return _batch_step(self.index, delta, q, f, k=k, kp=kp, kd=kd,
-                           gather_free=self.cfg.gather_free)
+                           gather_free=self.cfg.gather_free,
+                           grouped_payload=self._rows_payload())
 
     # -- updates ----------------------------------------------------------
     def insert(self, vectors: np.ndarray, filters: np.ndarray):
@@ -443,12 +483,14 @@ class FCVIEngine:
 
     def compact(self):
         """Fold the pending inserts into the main index (``fcvi.extend``
-        re-transforms the whole corpus)."""
+        re-transforms the whole corpus; an IVF backend re-trains its
+        k-means)."""
         if not self._delta_v:
             return
         self.index = fcvi.extend(self.index, *self._pending())
         self._delta_v, self._delta_f = [], []
         self._delta = None
+        self._grouped_payload = None  # corpus changed: payload slabs stale
         self.stats.compactions += 1
 
     # -- later slices -------------------------------------------------------

@@ -77,9 +77,13 @@ def test_cluster_mode_serves_handed_over_centers(data):
     vals, ids = fcvi.query(idx, tensor(q), tensor(fq), 10)
     jv, ji = jfcvi.query(jidx, jnp.asarray(q), jnp.asarray(fq), 10)
     assert_topk_match(jv, ji, vals, ids, **TOL)
-    with pytest.raises(NotImplementedError, match="A8"):
-        fcvi.build(corpus.vectors, corpus.filters,
-                   fcvi.FCVIConfig(mode="cluster"), device="cpu")
+    # the port now fits cluster mode itself: n_clusters centers of the
+    # normalized filters, each the mean of its members
+    own = fcvi.build(corpus.vectors, corpus.filters,
+                     fcvi.FCVIConfig(mode="cluster", n_clusters=6),
+                     device="cpu")
+    assert own.transform.centers.shape == (6, corpus.filters.shape[1])
+    assert torch.isfinite(own.transform.centers).all()
 
 
 @pytest.mark.parametrize("cfg", [dict(), dict(alpha=2.0, mode="embedding"),
@@ -173,7 +177,8 @@ def test_extend_matches_jax(data):
     assert_topk_match(jv, ji, vals, ids, **TOL)
 
 
-@pytest.mark.parametrize("cfg,item", [(dict(backend="ivf"), "A8"),
+@pytest.mark.parametrize("cfg,item", [(dict(backend="ivf",
+                                            storage_dtype="int8"), "A6"),
                                       (dict(backend="pq"), "A9"),
                                       (dict(storage_dtype="int8"), "A6"),
                                       (dict(storage_dtype="bfloat16"), "A6")])

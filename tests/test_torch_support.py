@@ -93,6 +93,40 @@ def tie_inputs(n=600, b=4, d=16):
     return x, (x * x).sum(-1), q
 
 
+def ivf_inputs(nlist, max_list, b, nprobe, d=64, m=8, seed=0, ints=False):
+    """Grouped slabs (nlist, max_list, d), their squared norms, a ``valid``
+    mask that is no prefix and leaves list 0 empty, (b, nprobe) probes
+    (distinct per row, in no list order), queries (b, d), and grouped
+    payloads (nlist, max_list, d) / (nlist, max_list, m). ``ints`` draws
+    small integers, so every score is exact in fp32 and only the tie rule
+    orders equal scores."""
+    rng = np.random.default_rng(seed)
+    if ints:
+        grouped = rng.integers(-2, 3, (nlist, max_list, d)).astype(np.float32)
+        q = rng.integers(-2, 3, (b, d)).astype(np.float32)
+    else:
+        grouped, q = normal(rng, nlist, max_list, d), normal(rng, b, d)
+    valid = (rng.random((nlist, max_list)) > 0.2).astype(np.float32)
+    valid[0] = 0.0
+    probes = np.stack([rng.permutation(nlist)[:nprobe]
+                       for _ in range(b)]).astype(np.int32)
+    return (grouped, (grouped * grouped).sum(-1), valid, probes, q,
+            normal(rng, nlist, max_list, d), normal(rng, nlist, max_list, m))
+
+
+def probe_ties(centroids, queries, nprobe, *, rtol=1e-5, atol=1e-4):
+    """(b,) bool: queries whose nprobe-th and (nprobe+1)-th coarse scores
+    (-||q - c||^2, in float64) lie within the L2 tolerance, so fp32 rounding
+    may give the two packages different probe sets."""
+    c = np.asarray(centroids, np.float64)
+    q = np.asarray(queries, np.float64)
+    if nprobe >= c.shape[0]:
+        return np.zeros(q.shape[0], bool)
+    d2 = np.sort(((q[:, None, :] - c[None]) ** 2).sum(-1), axis=1)
+    a, b = d2[:, nprobe - 1], d2[:, nprobe]
+    return (b - a) <= atol + rtol * b
+
+
 @pytest.fixture
 def cuda():
     """The card for ``gpu``-marked tests; skips where there is none (the

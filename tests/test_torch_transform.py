@@ -113,8 +113,11 @@ def test_fit_transform_defaults_and_refusals():
     _close(emb.proj, jemb.proj)   # the tiled identity
     raw = tf.fit_transform(tensor(v), tensor(f), 1.0, normalize=False)
     assert torch.equal(raw.vec_norm.std, torch.ones(64))
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(ValueError, match="n_clusters"):
         tf.fit_transform(tensor(v), tensor(f), 1.0, "cluster")
+    with pytest.raises(ValueError):
+        tf.fit_transform(tensor(v), tensor(f[:, :5]), 1.0, "cluster",
+                         n_clusters=4)
     with pytest.raises(ValueError):
         tf.fit_transform(tensor(v), tensor(f[:, :5]), 1.0, "partition")
     with pytest.raises(ValueError):
