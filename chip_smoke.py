@@ -38,8 +38,22 @@ Phases, each of which raises (and exits non-zero) on a failure:
    batch against a CPU engine on the same state; one batch at
    ``nprobe=nlist`` against the flat engine on the same corpus; recall@10
    printed beside the flat path's (IVF is approximate: no floor).
-4. a ``kernels`` JSON line with each kernel's launches over phases 3 and 3b
-   (each must be > 0), errors, times and bound.
+3c. end to end, PQ: the same corpus and queries with
+   ``FCVIConfig(backend="pq")``, every field at its default (pq_m=8,
+   pq_ksub=256, pq_coarse=32: 64-bit codes) and all of ``EngineConfig`` at
+   its defaults. The build prints the coarse and subspace k-means seconds
+   and the bytes of the codes and coarse ids. Then the PQ kernels B8, B9
+   and B10 are held against their plain versions on the built index's
+   codebooks, combined codes and one batch's LUTs (B9 at b=64 and at an
+   escalation sub-batch's b=16), and the first-occurrence top-k of the
+   (64, 1M) ADC distances is timed and checked against a stable sort. Then
+   the serving sequence of phase 3, one ``fcvi.query`` and one direct
+   ``ops.pq_score`` call (B10: no serving path calls it, in the JAX
+   package either). Checks: the first batch against a CPU engine on the
+   same state, queries at a candidate near-tie left out; recall@10 printed
+   beside the flat and IVF values (PQ is approximate: no floor).
+4. a ``kernels`` JSON line with each kernel's launches over phases 3, 3b
+   and 3c (each must be > 0), errors, times and bound.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
 the script prints no result and exits 1.
@@ -64,6 +78,7 @@ from repro_torch.data.synthetic import (CorpusSpec, make_corpus,  # noqa: E402
                                         sample_queries)
 from repro_torch.index import flat as flat_mod  # noqa: E402
 from repro_torch.index import ivf as ivf_mod  # noqa: E402
+from repro_torch.index import pq as pq_mod  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.serve import engine as engine_mod  # noqa: E402
 
@@ -74,6 +89,7 @@ PEAK_FP32_S = 67e12
 N, D, M, B = 1_000_000, 128, 8, 64
 KP = 80                      # k' of the defaults: k=10, lam=0.5, c=4
 NLIST, NPROBE = 1024, 16     # IVF-Flat at SIFT1M's size: nlist ~ sqrt(n)
+B_ESC = 16                   # an escalation sub-batch's size (B9 check)
 L2_RTOL, L2_ATOL = 1e-5, 1e-4
 COS_ATOL = 1e-5
 
@@ -92,6 +108,12 @@ SOURCES = {
                                   "src/repro/kernels/ivf_score.py:315"),
     "ivf_score_topk_batch": ("src/repro_torch/csrc/ivf_score.cu",
                              "src/repro/kernels/ivf_score.py:94"),
+    "pq_lut_qdot": ("src/repro_torch/csrc/pq_lut.cu",
+                    "src/repro/kernels/pq_lut.py:69"),
+    "pq_score_batch": ("src/repro_torch/csrc/pq_lut.cu",
+                       "src/repro/kernels/pq_lut.py:120"),
+    "pq_score": ("src/repro_torch/csrc/pq_lut.cu",
+                 "src/repro/kernels/pq_lut.py:36"),
 }
 
 
@@ -375,10 +397,10 @@ def same_top10(tag: str, scores, ids, want_s, want_i, exclude) -> None:
 
 
 def against_cpu_engine(tag: str, index, state0, scores, ids, q, f,
-                       exclude) -> None:
+                       exclude) -> np.ndarray:
     """The first batch against a CPU engine (the plain path) on the same
     state; escalation-boundary queries and those in ``exclude`` are left
-    out."""
+    out. Returns the CPU engine's ids."""
     t0 = time.perf_counter()
     cpu_ix = fcvi.index_from_state(index.config, state0, device="cpu")
     cpu_eng = engine_mod.FCVIEngine(cpu_ix, engine_mod.EngineConfig(),
@@ -389,6 +411,7 @@ def against_cpu_engine(tag: str, index, state0, scores, ids, q, f,
                cs, ci, edge | exclude)
     print(f"[{tag}] {int(edge.sum())} escalation-boundary queries excluded; "
           f"{time.perf_counter() - t0:.1f} s")
+    return ci
 
 
 def phase_end_to_end(dev, power: str, inp: Inputs):
@@ -604,6 +627,213 @@ def phase_ivf(dev, power: str, inp: Inputs, flat_recall: float):
     for e in engs:
         edge |= np.abs(margins(e, qb, fb) - e.cfg.escalate_margin) < 1e-5
     same_top10(f"ivf nprobe={NLIST} vs flat engine", fs, fi, ls, li, edge)
+    return res, counts, recall
+
+
+def candidate_ties(be, q_t, kp, window: int = 64):
+    """((b,) bool, (b,) bool): queries whose kp-th and (kp+1)-th ADC scores
+    lie within the L2 tolerance, and those of them where the rows within
+    the tolerance of that boundary do not all carry the same combined
+    codes. Rows with equal codes score the same on every device and go by
+    row id, so only the second kind may give the card and the CPU
+    candidate sets that differ by a row."""
+    v, i = pq_mod.search(be, q_t, kp + window)
+    v = v.double().cpu().numpy()
+    i = i.long().cpu().numpy()
+    s, t = v[:, kp - 1], v[:, kp]
+    tol = L2_ATOL + L2_RTOL * np.abs(t)
+    near = ((np.abs(v - s[:, None]) <= tol[:, None])
+            | (np.abs(v - t[:, None]) <= tol[:, None]))
+    tie = (s - t) <= tol
+    mixed = np.zeros_like(tie)
+    codes = be.ccodes.cpu().numpy()
+    for r in np.nonzero(tie)[0]:
+        rows = codes[i[r][near[r]]]
+        mixed[r] = near[r, -1] or not (rows == rows[0]).all()
+    return tie, mixed
+
+
+def pq_check(name, got, want, shape) -> float:
+    """Largest error of a PQ kernel against its plain version; raises past
+    the L2 tolerance (atol 1e-4 + rtol 1e-5 of the plain value)."""
+    err = (got - want).abs().max().item()
+    tol = (L2_ATOL + L2_RTOL * want.abs()).max().item()
+    check(err <= tol, f"{name} {shape} error {err} > {tol}")
+    return err
+
+
+def pq_kernels(be, q_t, power: str) -> dict:
+    """B8, B9 and B10 against their plain versions on the built index's
+    codebooks and combined codes and the first timed batch's LUTs, and the
+    first-occurrence top-k of that batch's (64, n) ADC distances."""
+    m, ksub, dsub = be.codebooks.shape
+    n = be.size
+    res = {}
+    qs = q_t.reshape(B, m, dsub).contiguous()
+    got = ops.pq_lut_qdot(qs, be.codebooks)
+    err = pq_check("pq_lut_qdot", got, ref.ref_pq_lut_qdot(qs, be.codebooks),
+                   (B, m, dsub, ksub))
+    ms = time_ms(lambda: ops.pq_lut_qdot(qs, be.codebooks), 50)
+    plain = time_ms(lambda: ref.ref_pq_lut_qdot(qs, be.codebooks), 50)
+    lib = time_ms(lambda: torch.einsum("qmd,mkd->qmk", qs, be.codebooks), 50)
+    bnd, by = bound_ms(4 * (B * m * dsub + m * ksub * dsub + B * m * ksub),
+                       2 * B * m * ksub * dsub)
+    print(f"[kernel] pq_lut_qdot ({B},{m},{dsub})x({m},{ksub},{dsub}): "
+          f"max_abs_err {err:.3g} kernel_ms {ms:.4f} plain_ms {plain:.4f} "
+          f"library_ms(einsum) {lib:.4f} bound_ms {bnd:.5f} ({by})")
+    res["pq_lut_qdot"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                              bound_ms=bnd, bound_by=by, library_ms=lib)
+
+    luts = pq_mod.scan_luts(be, q_t)
+    kk = luts.shape[-1]
+    codes = be.ccodes
+    pos = codes.long() + kk * torch.arange(m, device=codes.device)
+    for b in (B, B_ESC):
+        lb = luts[:b].contiguous()
+        w = lb.permute(1, 2, 0).reshape(m * kk, b).contiguous()
+        got = ops.pq_score_batch(codes, lb)
+        want = ref.ref_pq_score_batch(codes, lb)
+        err = pq_check("pq_score_batch", got, want, (n, m, b, kk))
+        exact = bool(torch.equal(got, want))
+        lib_out = torch.nn.functional.embedding_bag(pos, w, mode="sum")
+        lib_err = (lib_out.T - want).abs().max().item()
+        ms = time_ms(lambda: ops.pq_score_batch(codes, lb))
+        plain = time_ms(lambda: ref.ref_pq_score_batch(codes, lb), 3)
+        lib = time_ms(lambda: torch.nn.functional.embedding_bag(
+            pos, w, mode="sum"))
+        bnd, by = bound_ms(codes.nbytes + lb.nbytes + 4 * b * n, b * n * m)
+        print(f"[kernel] pq_score_batch codes ({n},{m}) int32, luts "
+              f"({b},{m},{kk}): max_abs_err {err:.3g} (bit-equal {exact}) "
+              f"kernel_ms {ms:.4f} plain_ms {plain:.4f} "
+              f"library_ms(embedding_bag) {lib:.4f} (its error {lib_err:.3g}) "
+              f"bound_ms {bnd:.4f} ({by})")
+        if b == B:
+            res["pq_score_batch"] = dict(max_abs_err=err, ms=ms,
+                                         plain_ms=plain, bound_ms=bnd,
+                                         bound_by=by, library_ms=lib)
+            d2 = got
+        else:
+            res["pq_score_batch"]["max_abs_err"] = max(
+                err, res["pq_score_batch"]["max_abs_err"])
+        del got, want, lib_out
+
+    lut = luts[0].contiguous()
+    w = lut.reshape(m * kk, 1)
+    got = ops.pq_score(codes, lut)
+    err = pq_check("pq_score", got, ref.ref_pq_score(codes, lut), (n, m, kk))
+    ms = time_ms(lambda: ops.pq_score(codes, lut), 20)
+    plain = time_ms(lambda: ref.ref_pq_score(codes, lut), 5)
+    lib = time_ms(lambda: torch.nn.functional.embedding_bag(pos, w,
+                                                            mode="sum"), 20)
+    bnd, by = bound_ms(codes.nbytes + lut.nbytes + 4 * n, n * m)
+    print(f"[kernel] pq_score codes ({n},{m}), lut ({m},{kk}): max_abs_err "
+          f"{err:.3g} kernel_ms {ms:.4f} plain_ms {plain:.4f} "
+          f"library_ms(embedding_bag) {lib:.4f} bound_ms {bnd:.4f} ({by})")
+    res["pq_score"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                           bound_ms=bnd, bound_by=by, library_ms=lib)
+    del pos
+
+    # the candidate selection after B9 (lax.top_k in the reference)
+    neg = -d2
+    for k in (KP, 4 * KP):
+        vals, idx = ref.topk_first_packed(neg, k)
+        sv, si = ref.topk_first(neg, k)
+        check(torch.equal(vals, sv) and torch.equal(idx, si),
+              f"packed top-{k} differs from the stable sort")
+        t_packed = time_ms(lambda: ref.topk_first_packed(neg, k), 10)
+        t_sort = time_ms(lambda: ref.topk_first(neg, k), 3)
+        t_topk = time_ms(lambda: torch.topk(neg, k), 10)
+        print(f"[pq] first-occurrence top-{k} of ({B},{n}): packed-key topk "
+              f"{t_packed:.4f} ms (equal to the stable sort, "
+              f"{t_sort:.4f} ms; torch.topk alone, no tie rule, "
+              f"{t_topk:.4f} ms); card {power}")
+    return res
+
+
+def phase_pq(dev, power: str, inp: Inputs, flat_recall: float,
+             ivf_recall: float):
+    """The PQ path at SIFT1M scale with every FCVIConfig default but the
+    backend; returns the PQ kernels' results and the launch counts of its
+    build and serving (the kernel checks between them are not counted)."""
+    cfg = fcvi.FCVIConfig(backend="pq")
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    index = fcvi.build(inp.corpus.vectors, inp.corpus.filters, cfg,
+                       device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    be = index.backend
+    # the k-means alone, on the same inputs and the same draws' order
+    x = index.transform.apply_normalized(index.vectors_n, index.filters_n)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    centers, labels = clustering.kmeans(x, cfg.pq_coarse, iters=15,
+                                        generator=gen)
+    torch.cuda.synchronize()
+    coarse_s = time.perf_counter() - t0
+    sub = (x - centers[labels]).reshape(N, cfg.pq_m, -1)
+    t0 = time.perf_counter()
+    for j in range(cfg.pq_m):
+        clustering.kmeans(sub[:, j, :].contiguous(), cfg.pq_ksub, iters=15,
+                          generator=gen)
+    torch.cuda.synchronize()
+    sub_s = time.perf_counter() - t0
+    del x, sub, centers, labels
+    print(f"[pq] build on the card {build_s:.2f} s (k-means alone, same "
+          f"inputs: coarse {cfg.pq_coarse} centers {coarse_s:.2f} s, "
+          f"{cfg.pq_m} subspaces x {cfg.pq_ksub} codewords {sub_s:.2f} s); "
+          f"codes {tuple(be.codes.shape)} {be.codes.dtype} "
+          f"{be.codes.nbytes / 1e6:.1f} MB, coarse ids "
+          f"{be.coarse_ids.nbytes / 1e6:.1f} MB, combined codes "
+          f"{be.ccodes.nbytes / 1e6:.1f} MB, re-rank originals "
+          f"{(index.vectors_n.nbytes + index.filters_n.nbytes) / 1e6:.0f} MB; "
+          f"card {power}")
+    qv, qf = (torch.tensor(a, device=dev) for a in (inp.q_all[:B],
+                                                    inp.f_all[:B]))
+    q_t = index.transform.apply(qv, qf).contiguous()
+    res = pq_kernels(be, q_t, power)
+    torch.cuda.empty_cache()
+    (t1, m1), (t4, m4) = (candidate_ties(be, q_t, kp) for kp in (KP, 4 * KP))
+    ties = m1 | m4
+    print(f"[pq] {int((t1 | t4).sum())} of {B} first-batch queries at a "
+          f"candidate near-tie (k'={KP} or {4 * KP}); {int(ties.sum())} of "
+          "them between rows whose combined codes differ (left out below)")
+
+    state0 = fcvi.index_state(index)
+    eng = engine_mod.FCVIEngine(index, engine_mod.EngineConfig(), device=dev)
+    _build.reset_launch_counts()
+    scores, ids = serve("pq", eng, inp, power)
+    fcvi.query(eng.index, qv, qf, 10)
+    ib = eng.index.backend
+    one = pq_mod.scan_luts(ib, eng.index.transform.apply(qv[:1], qf[:1]))
+    d2 = ops.pq_score(ib.ccodes, one[0])
+    torch.cuda.synchronize()
+    check(d2.shape == (ib.size,) and bool(torch.isfinite(d2).all()),
+          "pq_score on the index's codes returned non-finite distances")
+    for name, n in _build.launch_counts().items():
+        counts[name] = counts.get(name, 0) + n
+    print(f"[pq] counts {json.dumps(counts)}")
+
+    recall = recall_vs_truth(index, state0, inp, ids, dev)
+    print(f"[pq] recall@10 {recall:.4f} over 512 queries (flat path "
+          f"{flat_recall:.4f}, IVF {ivf_recall:.4f}); card {power}")
+    sweep = []
+    for kp in (KP, 4 * KP, 16 * KP):   # the default k', escalated, wider
+        kp_ids = np.concatenate([fcvi.query(
+            index, torch.tensor(inp.q_all[s:s + B], device=dev),
+            torch.tensor(inp.f_all[s:s + B], device=dev), 10,
+            k_prime=kp)[1].cpu().numpy() for s in range(0, 512, B)])
+        r = recall_vs_truth(index, state0, inp, kp_ids, dev)
+        sweep.append(f"k'={kp} {r:.4f}")
+    print(f"[pq] recall@10 of fcvi.query (no escalation) by k': "
+          f"{', '.join(sweep)}")
+    ci = against_cpu_engine("pq", index, state0, scores[:B], ids[:B],
+                            inp.q_all[:B], inp.f_all[:B], ties)
+    same = (ci == ids[:B]).all(axis=1)
+    print(f"[pq] of the {int(ties.sum())} queries left out, "
+          f"{int(same[ties].sum())} have the CPU engine's top-10 ids all the "
+          "same anyway")
     return res, counts
 
 
@@ -612,6 +842,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); nothing was run", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     power = card()
     print(f"[card] {power}; torch {torch.__version__} CUDA "
@@ -621,15 +852,18 @@ def main() -> int:
     inp = make_inputs()
     counts, recall = phase_end_to_end(dev, power, inp)
     torch.cuda.empty_cache()
-    ivf_res, ivf_counts = phase_ivf(dev, power, inp, recall)
-    res.update(ivf_res)
-    for name, n in ivf_counts.items():
-        counts[name] = counts.get(name, 0) + n
+    ivf_res, ivf_counts, ivf_recall = phase_ivf(dev, power, inp, recall)
+    torch.cuda.empty_cache()
+    pq_res, pq_counts = phase_pq(dev, power, inp, recall, ivf_recall)
+    for r, c in ((ivf_res, ivf_counts), (pq_res, pq_counts)):
+        res.update(r)
+        for name, n in c.items():
+            counts[name] = counts.get(name, 0) + n
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         launches = counts.get(name, 0)
         check(launches > 0, f"kernel {name} was not launched on the main "
-              "paths (phases 3 and 3b)")
+              "paths (phases 3, 3b and 3c)")
         r = res[name]
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches,
@@ -637,6 +871,7 @@ def main() -> int:
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"],
                             library_ms=r["library_ms"]))
+    print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(power)
     print(json.dumps({"ok": True, "device": {

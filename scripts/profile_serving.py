@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Where one serving batch's time goes on the card: a ``torch.profiler``
-trace of timed batches of the flat and IVF engines at ``chip_smoke.py``'s
-full width (SIFT1M-shaped corpus, n=1,000,000, d=128, m=8, batches of 64;
-IVF with nlist=1024, nprobe=16; every other setting at its default).
+trace of timed batches of the flat, IVF and PQ engines at
+``chip_smoke.py``'s full width (SIFT1M-shaped corpus, n=1,000,000, d=128,
+m=8, batches of 64; IVF with nlist=1024, nprobe=16; PQ with every
+``FCVIConfig`` default but the backend; every other setting at its
+default).
 
 Run from the root of the repository on a machine with one CUDA device:
 
-    python3 scripts/profile_serving.py [--batches 8]
+    python3 scripts/profile_serving.py [--batches 8] [--backend pq ...]
 
-For each engine it prints the host wall time per batch, the device's busy
+``--backend`` (repeatable; all three when absent) picks the engines. For
+each engine it prints the host wall time per batch, the device's busy
 time per batch (the sum of the kernels' device time in the trace), the
 idle share 1 - busy / wall, and the kernels that take the most device time.
 The last line is a JSON object with those numbers and the card's name and
@@ -30,6 +33,14 @@ sys.path.insert(0, ROOT)
 import chip_smoke as smoke  # noqa: E402
 from repro_torch.core import fcvi  # noqa: E402
 from repro_torch.serve import engine as engine_mod  # noqa: E402
+
+
+CONFIGS = {
+    "flat": fcvi.FCVIConfig(),
+    "ivf": fcvi.FCVIConfig(backend="ivf", nlist=smoke.NLIST,
+                           nprobe=smoke.NPROBE),
+    "pq": fcvi.FCVIConfig(backend="pq"),
+}
 
 
 def profile(tag: str, eng, inp, batches: int) -> dict:
@@ -91,6 +102,8 @@ def profile(tag: str, eng, inp, batches: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batches", type=int, default=8)
+    ap.add_argument("--backend", action="append",
+                    choices=sorted(CONFIGS), help="engines to profile")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_serving: no CUDA device; nothing was run",
@@ -100,9 +113,8 @@ def main() -> int:
     power = smoke.card()
     inp = smoke.make_inputs()
     res = {"card": power}
-    for tag, cfg in (("flat", fcvi.FCVIConfig()),
-                     ("ivf", fcvi.FCVIConfig(backend="ivf", nlist=smoke.NLIST,
-                                             nprobe=smoke.NPROBE))):
+    for tag in args.backend or CONFIGS:
+        cfg = CONFIGS[tag]
         index = fcvi.build(inp.corpus.vectors, inp.corpus.filters, cfg,
                            device=dev)
         eng = engine_mod.FCVIEngine(index, engine_mod.EngineConfig(),

@@ -1,15 +1,17 @@
-"""FCVIIndex - the paper's Algorithm 1 in PyTorch (flat and IVF, fp32).
+"""FCVIIndex - the paper's Algorithm 1 in PyTorch (flat, IVF and PQ).
 
 Offline: fit per-dim normalizers, fit psi, transform the corpus (the fused
-transform kernel on the card), build the flat or IVF backend over the
-transformed vectors, keep the normalized originals for re-scoring.
+transform kernel on the card), build the flat, IVF or residual-PQ backend
+over the transformed vectors, keep the normalized originals for
+re-scoring.
 
 Online: transform the query with its filter, over-retrieve
 k' = min(c * k/lambda * 1/alpha^2, N) (Thm 5.4), re-score the candidates with
 lambda*cos(v,q) + (1-lambda)*cos(f,F_q) (the rescore kernel), return top-k.
 
-Mirrors ``repro.core.fcvi``. The PQ backend (ROADMAP A9) and
-reduced-precision storage (A6) are later slices and raise here.
+Mirrors ``repro.core.fcvi``. Reduced-precision flat and IVF storage (ROADMAP
+A6) is a later slice and raises here; PQ stores codes and ignores
+``storage_dtype``, as in the reference.
 """
 from __future__ import annotations
 
@@ -25,13 +27,13 @@ from repro_torch.core.transform import Normalizer, Transform, fit_transform
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.index import flat as flat_mod
 from repro_torch.index import ivf as ivf_mod
+from repro_torch.index import pq as pq_mod
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import topk_first
 
 Tensor = torch.Tensor
 
 BACKENDS = ("flat", "ivf", "pq")
-_LATER = {"pq": "ROADMAP A9"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,10 +43,11 @@ class FCVIConfig:
     ``alpha`` is the filter fold strength, ``lam`` the combined-score
     weight, ``c`` the k' over-retrieval headroom, ``mode`` the psi variant
     (``n_clusters`` centers in cluster mode), ``nlist`` / ``nprobe`` the IVF
-    lists and the lists each query probes. ``backend`` and
-    ``storage_dtype`` name what the JAX package offers; the port serves
-    ``"flat"`` and ``"ivf"`` at ``"float32"`` and raises
-    NotImplementedError naming the ROADMAP item for the rest."""
+    lists and the lists each query probes, ``pq_m`` / ``pq_ksub`` /
+    ``pq_coarse`` the PQ subspaces, codewords per subspace and coarse
+    centers. ``storage_dtype`` names what the JAX package offers; the port
+    stores flat and IVF indexes at ``"float32"`` and raises
+    NotImplementedError naming ROADMAP A6 for the rest (PQ ignores it)."""
 
     alpha: float = 1.0
     lam: float = 0.5            # lambda in [0,1]: 1 => pure vector similarity
@@ -57,6 +60,9 @@ class FCVIConfig:
     n_clusters: int = 16        # cluster mode
     nlist: int = 64             # IVF
     nprobe: int = 8
+    pq_m: int = 8               # PQ subspaces
+    pq_ksub: int = 256
+    pq_coarse: int = 32         # residual-PQ coarse centers
 
     def resolved_alpha(self) -> float:
         if self.auto_alpha:
@@ -68,15 +74,11 @@ class FCVIConfig:
         yet."""
         if self.backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}")
-        if self.backend in _LATER:
-            raise NotImplementedError(
-                f"backend={self.backend!r} is {_LATER[self.backend]}; the "
-                "port serves backend='flat' and backend='ivf'")
         if self.storage_dtype not in ("float32", "bfloat16", "int8"):
             raise ValueError(
                 f"storage_dtype must be float32, bfloat16 or int8, got "
                 f"{self.storage_dtype!r}")
-        if self.storage_dtype != "float32":
+        if self.storage_dtype != "float32" and self.backend != "pq":
             raise NotImplementedError(
                 f"storage_dtype={self.storage_dtype!r} is ROADMAP A6; the "
                 f"port stores {self.backend} indexes in float32")
@@ -86,7 +88,8 @@ class FCVIConfig:
 class FCVIIndex:
     config: FCVIConfig
     transform: Transform
-    backend: Union[flat_mod.FlatIndex, ivf_mod.IVFIndex]  # transformed space
+    backend: Union[flat_mod.FlatIndex, ivf_mod.IVFIndex,
+                   pq_mod.PQIndex]      # transformed space
     vectors_n: Tensor            # (n, d) normalized originals (re-scoring)
     filters_n: Tensor            # (n, m) normalized filters
 
@@ -100,8 +103,9 @@ class FCVIIndex:
 
 
 def _tensor(x, device: torch.device, dtype=torch.float32) -> Tensor:
-    """A ``dtype`` tensor on ``device`` from a tensor or array-like (arrays
-    are copied, so the index never aliases the caller's memory)."""
+    """A ``dtype`` tensor (``x``'s own dtype when None) on ``device`` from a
+    tensor or array-like (arrays are copied, so the index never aliases the
+    caller's memory)."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype).contiguous()
     return torch.tensor(np.asarray(x), dtype=dtype, device=device)
@@ -119,7 +123,7 @@ def build(vectors, filters, config: FCVIConfig, device: DeviceLike = "cuda",
     """Offline indexing (Alg. 1 lines 1-5) on ``device``. vectors (n, d) and
     filters (n, m) are float32 arrays or tensors. ``rng`` (a seed or a
     ``torch.Generator`` on ``device``) draws the k-means of cluster mode and
-    of the IVF quantizer, in that order."""
+    then of the IVF quantizer or of PQ's coarse quantizer and codebooks."""
     config.check_supported()
     dev = resolve_device(device)
     gen = make_generator(rng, dev)
@@ -135,10 +139,14 @@ def build(vectors, filters, config: FCVIConfig, device: DeviceLike = "cuda",
 
 def build_backend(transformed: Tensor, config: FCVIConfig,
                   generator: Seed = None):
-    """The configured backend over the transformed corpus; IVF trains its
-    quantizer with ``generator`` (seed 0 when None)."""
+    """The configured backend over the transformed corpus; IVF and PQ train
+    their k-means with ``generator`` (seed 0 when None)."""
     if config.backend == "ivf":
         return ivf_mod.build(transformed, config.nlist, generator)
+    if config.backend == "pq":
+        return pq_mod.build(transformed, m_subspaces=config.pq_m,
+                            ksub=config.pq_ksub, generator=generator,
+                            ncoarse=config.pq_coarse)
     return flat_mod.build(transformed)
 
 
@@ -223,10 +231,15 @@ def index_state(index: FCVIIndex) -> dict:
     if tfm.proj is not None:
         t["proj"] = tfm.proj
     b = index.backend
-    bstate = {"vectors": b.vectors}
-    if index.config.backend == "ivf":
-        bstate.update(centroids=b.centroids, lists=b.lists,
-                      list_sizes=b.list_sizes)
+    if index.config.backend == "pq":
+        bstate = {"codebooks": b.codebooks, "codes": b.codes,
+                  "coarse_centers": b.coarse_centers,
+                  "coarse_ids": b.coarse_ids}
+    elif index.config.backend == "ivf":
+        bstate = {"vectors": b.vectors, "centroids": b.centroids,
+                  "lists": b.lists, "list_sizes": b.list_sizes}
+    else:
+        bstate = {"vectors": b.vectors}
     return {"transform": t, "backend": bstate,
             "vectors_n": index.vectors_n, "filters_n": index.filters_n}
 
@@ -235,9 +248,10 @@ def index_from_state(config: FCVIConfig, state: dict,
                      device: DeviceLike = "cuda") -> FCVIIndex:
     """Rebuild an ``FCVIIndex`` on ``device`` from ``index_state`` output:
     this package's, or the JAX package's with its leaves converted to numpy.
-    No re-fitting: the normalizers, centers, IVF centroids and id lists come
-    from the state; the squared norms (and the IVF serving slabs) are
-    rematerialised in fp32 from the stored vectors."""
+    No re-fitting: the normalizers, centers, IVF centroids and id lists, and
+    the PQ codebooks, codes (in their dtype) and coarse quantizer come from
+    the state; the squared norms, the IVF serving slabs and PQ's build-time
+    LUT terms and combined codes are rematerialised."""
     config.check_supported()
     dev = resolve_device(device)
     t, b = state["transform"], state["backend"]
@@ -252,14 +266,18 @@ def index_from_state(config: FCVIConfig, state: dict,
                              std=_tensor(t["filt_std"], dev)),
         centers=_tensor(t["centers"], dev) if "centers" in t else None,
         proj=_tensor(t["proj"], dev) if "proj" in t else None)
-    vectors = _tensor(b["vectors"], dev)
-    if config.backend == "ivf":
+    if config.backend == "pq":
+        backend = pq_mod.from_arrays(
+            _tensor(b["codebooks"], dev), _tensor(b["codes"], dev, None),
+            _tensor(b["coarse_centers"], dev),
+            _tensor(b["coarse_ids"], dev, torch.int32))
+    elif config.backend == "ivf":
         backend = ivf_mod.from_lists(
-            vectors, _tensor(b["centroids"], dev),
+            _tensor(b["vectors"], dev), _tensor(b["centroids"], dev),
             _tensor(b["lists"], dev, torch.int32),
             _tensor(b["list_sizes"], dev, torch.int32))
     else:
-        backend = flat_mod.build(vectors)
+        backend = flat_mod.build(_tensor(b["vectors"], dev))
     return FCVIIndex(config=config, transform=tfm, backend=backend,
                      vectors_n=_tensor(state["vectors_n"], dev),
                      filters_n=_tensor(state["filters_n"], dev))
@@ -271,10 +289,11 @@ def extend(index: FCVIIndex, new_vectors: Tensor,
     (normalizers and centers stay frozen, paper section 4.2). The engine
     calls this on compaction.
 
-    As in the reference (``build_backend`` with its default key), an IVF
-    backend is rebuilt from scratch: its k-means is re-trained on the whole
-    corpus with the seed-0 generator, so compaction costs a k-means at full
-    width, and the new quantizer differs from the old one."""
+    As in the reference (``build_backend`` with its default key), an IVF or
+    PQ backend is rebuilt from scratch: its k-means is re-trained on the
+    whole corpus with the seed-0 generator, so compaction costs the k-means
+    at full width, and the new quantizer (and codebooks) differ from the old
+    ones."""
     tfm = index.transform
     vn_new, fn_new = tfm.normalize(new_vectors, new_filters)
     vectors_n = torch.cat([index.vectors_n, vn_new], dim=0)

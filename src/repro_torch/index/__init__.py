@@ -1,2 +1,2 @@
-"""Search backends over the transformed corpus: flat and IVF (PQ is
-ROADMAP A9)."""
+"""Search backends over the transformed corpus: flat, IVF and residual
+PQ."""

@@ -46,6 +46,8 @@ SIGNATURES = {
     "fcvi_ivf_score_topk": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                             _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
                             _P, _P],
+    "fcvi_pq_lut_qdot": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "fcvi_pq_score": [_P, _I, _P, _P, _L, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

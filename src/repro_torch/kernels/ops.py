@@ -19,6 +19,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import fcvi_transform as _transform
 from repro_torch.kernels import fused_score_topk as _scan
 from repro_torch.kernels import ivf_score as _ivf
+from repro_torch.kernels import pq_lut as _pq
 from repro_torch.kernels import rescore as _rescore
 
 Tensor = torch.Tensor
@@ -121,3 +122,28 @@ def dedup_probes(probes: Tensor, nlist: int):
     nprobe) probe matrix. A plain torch op on every device: the reference
     computes it in jnp outside its kernels."""
     return ref.dedup_probes(probes, nlist)
+
+
+# PQ ADC (codes uint8 or int32 in [0, K); sums left to right over m)
+
+def pq_lut_qdot(queries_sub: Tensor, codebooks: Tensor) -> Tensor:
+    """The q . codebook cross term of PQ LUT construction: queries_sub
+    (q, M, dsub) x codebooks (M, ksub, dsub) -> (q, M, ksub)."""
+    if queries_sub.is_cuda:
+        return _pq.pq_lut_qdot(queries_sub, codebooks)
+    return ref.ref_pq_lut_qdot(queries_sub, codebooks)
+
+
+def pq_score_batch(codes: Tensor, luts: Tensor) -> Tensor:
+    """Multi-query ADC: codes (n, M), luts (q, M, K) -> squared distances
+    (q, n)."""
+    if codes.is_cuda:
+        return _pq.pq_score_batch(codes, luts)
+    return ref.ref_pq_score_batch(codes, luts)
+
+
+def pq_score(codes: Tensor, lut: Tensor) -> Tensor:
+    """Single-LUT ADC: codes (n, M), lut (M, K) -> squared distances (n,)."""
+    if codes.is_cuda:
+        return _pq.pq_score(codes, lut)
+    return ref.ref_pq_score(codes, lut)

@@ -183,3 +183,53 @@ def dedup_probes(probes: Tensor, nlist: int):
                          device=probes.device)
     member[pos, order // nprobe] = 1.0              # slot x probing query
     return uniq, member
+
+
+# ---------------------------------------------------------------------------
+# PQ (B8, B9, B10): the LUT cross term and the ADC gather-accumulate. Codes
+# may be uint8 (a uint8 index tensor is a boolean mask in PyTorch), so every
+# gather by codes widens them first. Sums run over m = 0..M-1 in order, as
+# the Pallas kernel adds one LUT value per subspace (its one-hot matmuls), so
+# they are a left-to-right fp32 sum.
+# ---------------------------------------------------------------------------
+
+def ref_pq_lut_qdot(queries_sub: Tensor, codebooks: Tensor) -> Tensor:
+    """PQ LUT q.codebook cross term: (q, M, dsub) x (M, ksub, dsub) ->
+    (q, M, ksub), out[i, m, j] = <queries_sub[i, m], codebooks[m, j]>."""
+    return torch.einsum("qmd,mkd->qmk", queries_sub, codebooks)
+
+
+def ref_pq_score_batch(codes: Tensor, luts: Tensor) -> Tensor:
+    """Multi-query ADC: codes (n, M) uint8 or int32, luts (q, M, K) ->
+    squared distances (q, n), d2[i, r] = sum_m luts[i, m, codes[r, m]].
+
+    One (q, n) gather per subspace, added in subspace order: a one-shot
+    (q, n, M) gather would hold 2 GB at q=64, n=1M."""
+    idx = codes.long()
+    total = luts[:, 0, :][:, idx[:, 0]]
+    for m in range(1, codes.shape[1]):
+        total = total + luts[:, m, :][:, idx[:, m]]
+    return total
+
+
+def ref_pq_score(codes: Tensor, lut: Tensor) -> Tensor:
+    """Single-LUT ADC: codes (n, M), lut (M, K) -> squared distances (n,);
+    ``ref_pq_score_batch`` at one LUT."""
+    return ref_pq_score_batch(codes, lut[None])[0]
+
+
+def topk_first_packed(x: Tensor, k: int):
+    """``topk_first`` along the last axis of a float32 (b, n) tensor with
+    n < 2**32, by ``torch.topk`` on one int64 key per entry: the value's
+    order-preserving bits above, ``2**32 - 1 - index`` below, so equal
+    values go to the smaller index and the result is exact, with no sort of
+    the whole row. The bits order -0.0 below +0.0, as ``lax.top_k`` does
+    (``topk_first`` counts them equal). Returns (values, int64
+    positions)."""
+    bits = x.contiguous().view(torch.int32)
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long()
+    low = (1 << 32) - 1 - torch.arange(x.shape[-1], device=x.device)
+    keys = (ordered << 32) | low
+    top = torch.topk(keys, k, dim=-1).values
+    pos = (1 << 32) - 1 - (top & 0xFFFFFFFF)
+    return torch.gather(x, -1, pos), pos

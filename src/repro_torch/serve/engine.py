@@ -16,8 +16,11 @@ transform kernel) -> candidates -> combined-cosine rescore (rescore kernel)
 flat backend's candidates are a scan + top-(k'+REFINE_PAD) (fused scan
 kernel) and an exact refine; the IVF backend's are the coarse quantizer
 (fused scan kernel over the centroids) and the probe-major scan of the
-batch's unique probed lists (IVF dedup kernel). With ``gather_free`` the
-scan kernels carry the winners' re-rank rows out. Eager PyTorch runs it as
+batch's unique probed lists (IVF dedup kernel); the PQ backend's are the
+LUTs (LUT cross-term kernel) and the ADC scan of every row's codes (ADC
+kernel) with a first-occurrence top-k. With ``gather_free`` the flat and
+IVF scan kernels carry the winners' re-rank rows out; PQ always gathers
+them by id, as the reference does. Eager PyTorch runs it as
 it stands; there is no trace to count. Cache, stats and the escalation
 decision are host-side.
 
@@ -87,7 +90,8 @@ def _batch_step(index: FCVIIndex, delta: Optional[_DeltaBuffer], q: Tensor,
     ``gather_free`` takes the re-rank rows from the scan kernel's epilogue
     (``_batch_step_rows`` in the JAX package) instead of gathering them by
     id from ``vectors_n``/``filters_n`` (its ``_batch_step``); the results
-    are the same. ``grouped_payload`` is the IVF backend's (grouped_pv,
+    are the same; PQ has no rows scan, and ``FCVIEngine._step`` passes
+    False for it. ``grouped_payload`` is the IVF backend's (grouped_pv,
     grouped_pf), the re-rank originals in the grouped layout that the IVF
     rows scan reads (see ``FCVIEngine._rows_payload``)."""
     cfg = index.config
@@ -243,13 +247,16 @@ class FCVIEngine:
     def _batch_scan_bytes(self, b: int) -> int:
         """Modeled device-memory bytes the candidate scans of one padded
         batch of ``b`` queries stream: the whole flat slab (vectors +
-        squared norms), or the probed share of the IVF grouped slabs (capped
+        squared norms), the probed share of the IVF grouped slabs (capped
         at every list once, as the dedup scan reads a shared list once) plus
-        the centroids; a pending delta adds its flat slab. The reference's
-        model, so the two engines' counters agree."""
+        the centroids, or PQ's codes and coarse ids; a pending delta adds
+        its flat slab. The reference's model, so the two engines' counters
+        agree."""
         be = self.index.backend
         cfg = self.index.config
-        if cfg.backend == "ivf":
+        if cfg.backend == "pq":
+            n = be.codes.nbytes + be.coarse_ids.nbytes
+        elif cfg.backend == "ivf":
             slab = be.grouped.nbytes + be.grouped_sq.nbytes
             probed = min(b * min(cfg.nprobe, be.nlist), be.nlist)
             n = slab * probed // be.nlist + be.centroids.nbytes
@@ -446,8 +453,14 @@ class FCVIEngine:
 
     def _step(self, delta, q: Tensor, f: Tensor, *, k: int, kp: int,
               kd: int):
+        """One padded batch through ``_batch_step``; PQ takes the id-gather
+        variant whatever ``gather_free`` says (its re-rank rows are the
+        originals, which no PQ scan reads), so its delta tier scans ids
+        only, as in the reference."""
+        gather_free = (self.cfg.gather_free
+                       and self.index.config.backend != "pq")
         return _batch_step(self.index, delta, q, f, k=k, kp=kp, kd=kd,
-                           gather_free=self.cfg.gather_free,
+                           gather_free=gather_free,
                            grouped_payload=self._rows_payload())
 
     # -- updates ----------------------------------------------------------
@@ -483,7 +496,7 @@ class FCVIEngine:
 
     def compact(self):
         """Fold the pending inserts into the main index (``fcvi.extend``
-        re-transforms the whole corpus; an IVF backend re-trains its
+        re-transforms the whole corpus; an IVF or PQ backend re-trains its
         k-means)."""
         if not self._delta_v:
             return

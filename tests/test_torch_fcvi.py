@@ -179,7 +179,6 @@ def test_extend_matches_jax(data):
 
 @pytest.mark.parametrize("cfg,item", [(dict(backend="ivf",
                                             storage_dtype="int8"), "A6"),
-                                      (dict(backend="pq"), "A9"),
                                       (dict(storage_dtype="int8"), "A6"),
                                       (dict(storage_dtype="bfloat16"), "A6")])
 def test_later_slices_refuse_by_roadmap_item(data, cfg, item):

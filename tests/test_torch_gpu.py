@@ -9,7 +9,9 @@ Tolerances: fused_transform rtol = atol = 1e-5, and bit for bit with the
 0/1 partition fold; scan scores (flat and IVF) rtol 1e-5, atol 1e-4 with
 ids equal outside near-ties (the kernel sums the dot product in another
 order than the plain matmul); the carried rows and the rows variants'
-(scores, ids) exactly; rescore atol 1e-5.
+(scores, ids) exactly; rescore atol 1e-5; the PQ LUT cross term rtol 1e-5,
+atol 1e-4 (dot products summed in another order), the PQ ADC scans bit for
+bit (both sides add the LUT values left to right in fp32).
 """
 import numpy as np
 import pytest
@@ -17,11 +19,13 @@ import torch
 
 from repro_torch.core import fcvi
 from repro_torch.data.synthetic import CorpusSpec, make_corpus, sample_queries
+from repro_torch.index import pq
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.serve.engine import EngineConfig, FCVIEngine
-from test_torch_support import (assert_topk_match, cuda,  # noqa: F401
-                                ivf_inputs, normal, scan_inputs, tensor,
-                                tie_inputs, transform_inputs)
+from test_torch_support import (assert_topk_match,  # noqa: F401
+                                candidate_ties, cuda, ivf_inputs, normal,
+                                scan_inputs, tensor, tie_inputs,
+                                transform_inputs)
 
 pytestmark = pytest.mark.gpu
 
@@ -250,3 +254,93 @@ def test_engine_on_card_matches_cpu_engine(cuda):
     counts = _build.launch_counts()
     for name in ("fused_transform", "score_topk_rows", "rescore"):
         assert counts.get(name, 0) > 0, counts
+
+
+@pytest.mark.parametrize("b,m,dsub,ksub", [(64, 8, 16, 256), (1, 8, 16, 256),
+                                           (5, 4, 8, 32), (130, 2, 4, 1024),
+                                           (3, 3, 7, 100)])
+def test_pq_lut_qdot_matches_plain(cuda, b, m, dsub, ksub):
+    """B8 at the serving shapes, b = 1, more queries than one block holds,
+    a codebook past 48 KB of shared memory and an odd dsub."""
+    rng = np.random.default_rng(b + ksub)
+    qs, cb = (tensor(a, cuda) for a in (normal(rng, b, m, dsub),
+                                        normal(rng, m, ksub, dsub)))
+    torch.testing.assert_close(ops.pq_lut_qdot(qs, cb),
+                               ref.ref_pq_lut_qdot(qs, cb),
+                               rtol=L2_RTOL, atol=L2_ATOL)
+
+
+@pytest.mark.parametrize("n,m,k,b,dtype", [
+    (1000, 8, 8192, 64, torch.int32), (4099, 8, 256, 1, torch.uint8),
+    (300, 4, 32, 9, torch.uint8), (70001, 8, 8192, 17, torch.int32),
+    (1, 8, 256, 3, torch.int32)])
+def test_pq_score_kernels_match_plain(cuda, n, m, k, b, dtype):
+    """B9 and B10 bit for bit: kernel and plain version both add the M LUT
+    values left to right in fp32. Ragged n and b, uint8 and int32 codes."""
+    rng = np.random.default_rng(n + b)
+    codes = tensor(rng.integers(0, k, (n, m)), cuda).to(dtype)
+    luts = tensor(rng.random((b, m, k)).astype(np.float32), cuda)
+    got = ops.pq_score_batch(codes, luts)
+    assert torch.equal(got, ref.ref_pq_score_batch(codes, luts))
+    one = ops.pq_score(codes, luts[-1])
+    assert torch.equal(one, ref.ref_pq_score(codes, luts[-1]))
+    assert torch.equal(one, got[-1])
+
+
+def test_pq_wrappers_count_launches_and_check_inputs(cuda):
+    rng = np.random.default_rng(0)
+    codes = tensor(rng.integers(0, 64, (500, 4)).astype(np.int32), cuda)
+    luts = tensor(rng.random((3, 4, 64)).astype(np.float32), cuda)
+    qs, cb = tensor(normal(rng, 3, 4, 8), cuda), tensor(normal(rng, 4, 64, 8),
+                                                        cuda)
+    _build.reset_launch_counts()
+    ops.pq_lut_qdot(qs, cb)
+    ops.pq_score_batch(codes, luts)
+    ops.pq_score(codes, luts[0])
+    want = {"pq_lut_qdot": 1, "pq_score_batch": 1, "pq_score": 1}
+    assert _build.launch_counts() == want
+    for bad in (lambda: ops.pq_score_batch(codes.long(), luts),
+                lambda: ops.pq_score_batch(codes, luts[:, :3]),
+                lambda: ops.pq_score_batch(codes, luts.transpose(1, 2)),
+                lambda: ops.pq_lut_qdot(qs, cb[:2])):
+        with pytest.raises(ValueError):
+            bad()
+    assert _build.launch_counts() == want
+
+
+def test_pq_engine_on_card_matches_cpu_engine(cuda):
+    """The PQ serving path through B1, B8, B9, B4 and (delta tier) B2, with
+    escalation and compaction, against the plain path on the same state;
+    queries at a candidate near-tie are left out."""
+    corpus = make_corpus(CorpusSpec(n=4000, d=64, n_categories=5,
+                                    n_numeric=3, seed=2))
+    q, fq = sample_queries(corpus, 100, seed=3)
+    fcfg = fcvi.FCVIConfig(backend="pq", pq_ksub=64, pq_coarse=8)
+    gpu_ix = fcvi.build(corpus.vectors, corpus.filters, fcfg, device=cuda)
+    cpu_ix = fcvi.index_from_state(fcfg, fcvi.index_state(gpu_ix),
+                                   device="cpu")
+    qn, fqn = cpu_ix.transform.normalize(tensor(q), tensor(fq))
+    q_t = cpu_ix.transform.apply_normalized(qn, fqn)
+    keep = np.ones(len(q), bool)
+    for kp in (80, 320):
+        vals = pq.search(cpu_ix.backend, q_t, kp + 1)[0]
+        keep &= ~candidate_ties(vals, kp)
+    cfg = EngineConfig(k=10, batch_size=32, escalate_margin=0.05)
+    engines = [FCVIEngine(gpu_ix, cfg, device=cuda),
+               FCVIEngine(cpu_ix, EngineConfig(**vars(cfg)), device="cpu")]
+    _build.reset_launch_counts()
+    new_v = normal(np.random.default_rng(4), 300, 64)
+    for e in engines:
+        e.insert(new_v, corpus.filters[:300])
+    (gs, gi), (cs, ci) = (e.search(q, fq) for e in engines)
+    assert_topk_match(cs[keep], ci[keep], gs[keep], gi[keep], rtol=0,
+                      atol=1e-5)
+    assert engines[0].stats.escalations == engines[1].stats.escalations > 0
+    counts = _build.launch_counts()
+    for name in ("fused_transform", "pq_lut_qdot", "pq_score_batch",
+                 "rescore", "score_topk"):
+        assert counts.get(name, 0) > 0, counts
+    engines[0].compact()
+    assert engines[0].index.size == 4300
+    s, i = engines[0].search(q, fq)
+    assert np.isfinite(s).all() and ((i >= 0) & (i < 4300)).all()

@@ -52,11 +52,12 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
 
 def test_module_list_covers_every_slice():
     """The import check above walks the package, so each new module is in
-    it; pin the IVF slice's modules there."""
+    it; pin the IVF and PQ slices' modules there."""
     mods = set(_modules())
     assert {"repro_torch.core.clustering", "repro_torch.index.ivf",
             "repro_torch.index.slab", "repro_torch.kernels.ivf_score",
-            "repro_torch.kernels.fused_score_topk"} <= mods
+            "repro_torch.kernels.fused_score_topk", "repro_torch.index.pq",
+            "repro_torch.kernels.pq_lut"} <= mods
 
 
 def test_entry_points_default_to_cuda_and_raise_without_a_card():
@@ -68,14 +69,15 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     rng = np.random.default_rng(0)
     v = rng.normal(size=(64, 16)).astype(np.float32)
     f = rng.normal(size=(64, 4)).astype(np.float32)
-    for cfg in (fcvi.FCVIConfig(), fcvi.FCVIConfig(backend="ivf", nlist=4)):
+    for cfg in (fcvi.FCVIConfig(), fcvi.FCVIConfig(backend="ivf", nlist=4),
+                fcvi.FCVIConfig(backend="pq", pq_ksub=16, pq_coarse=2)):
         with pytest.raises(RuntimeError, match="cuda"):
             fcvi.build(v, f, cfg)
-    index = fcvi.build(v, f, fcvi.FCVIConfig(), device="cpu")
-    with pytest.raises(RuntimeError, match="cuda"):
-        fcvi.index_from_state(index.config, fcvi.index_state(index))
-    with pytest.raises(RuntimeError, match="cuda"):
-        FCVIEngine(index)
+        index = fcvi.build(v, f, cfg, device="cpu")
+        with pytest.raises(RuntimeError, match="cuda"):
+            fcvi.index_from_state(index.config, fcvi.index_state(index))
+        with pytest.raises(RuntimeError, match="cuda"):
+            FCVIEngine(index)
 
 
 def test_no_handler_falls_back():

@@ -127,6 +127,14 @@ def probe_ties(centroids, queries, nprobe, *, rtol=1e-5, atol=1e-4):
     return (b - a) <= atol + rtol * b
 
 
+def candidate_ties(vals, k, *, rtol=1e-5, atol=1e-4):
+    """(b,) bool: queries whose k-th and (k+1)-th candidate scores (``vals``
+    (b, > k), descending) lie within the L2 tolerance, so fp32 rounding may
+    give two implementations candidate sets that differ by one row."""
+    v = np.asarray(vals, np.float64)
+    return np.abs(v[:, k - 1] - v[:, k]) <= atol + rtol * np.abs(v[:, k])
+
+
 @pytest.fixture
 def cuda():
     """The card for ``gpu``-marked tests; skips where there is none (the
