@@ -52,8 +52,32 @@ Phases, each of which raises (and exits non-zero) on a failure:
    package either). Checks: the first batch against a CPU engine on the
    same state, queries at a candidate near-tie left out; recall@10 printed
    beside the flat and IVF values (PQ is approximate: no floor).
-4. a ``kernels`` JSON line with each kernel's launches over phases 3, 3b
-   and 3c (each must be > 0), errors, times and bound.
+3d. the storage ladder, flat: the same corpus and queries with
+   ``FCVIConfig(storage_dtype="bfloat16")`` and then ``"int8"`` (every other
+   field and all of ``EngineConfig`` at their defaults). For each: the bytes
+   of the stored rows, scales and norms on the card; the variant of B2 and
+   B3 (``score_topk_bf16``/``_int8``, ``score_topk_rows_bf16``/``_int8``)
+   against its plain version on the built index with the first batch's
+   transformed queries, at kk=88 and 328 (scores within rtol 1e-5 / atol
+   1e-4, ids equal outside near-ties, B3's (vals, ids) bit-equal to B2's,
+   its carried rows bit-equal to the plain dequantized rows); the serving
+   sequence of phase 3 (the delta tier stores its rows at the index's
+   dtype) and one ``fcvi.query``; the first batch against a CPU engine on
+   the same state; recall@10, held to >= 0.9 as in phase 3; and the share
+   of the 512 queries whose top-10 equals the fp32 flat engine's.
+3e. the storage ladder, IVF: ``FCVIConfig(backend="ivf", nlist=1024,
+   nprobe=16, storage_dtype="int8")``. The build prints the bytes of the
+   codes, scales and slabs. B5, B6 and B7 at int8 (with the grouped
+   scales) are held against their plain versions as in phase 3b, and so
+   are their bf16 variants on bf16 slabs built from the same lists. Then
+   the serving sequence of phase 3, one ``fcvi.query`` and one direct
+   ``ops.ivf_score_topk_batch`` call (B7 int8); the first batch against a
+   CPU engine on the same state (probe near-ties left out); recall@10
+   printed beside IVF fp32's (no floor). Last, an engine over the bf16
+   slabs serves its warm-up batch and one batch of 64, one ``fcvi.query``
+   and one direct B7 call, its first batch against a CPU engine too.
+4. a ``kernels`` JSON line with each kernel variant's launches over phases
+   3, 3b, 3c, 3d and 3e (each must be > 0), errors, times and bound.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
 the script prints no result and exits 1.
@@ -114,7 +138,29 @@ SOURCES = {
                        "src/repro/kernels/pq_lut.py:120"),
     "pq_score": ("src/repro_torch/csrc/pq_lut.cu",
                  "src/repro/kernels/pq_lut.py:36"),
+    # the storage ladder's variants: the Pallas kernel body each replaces
+    "score_topk_bf16": ("src/repro_torch/csrc/fused_score_topk.cu",
+                        "src/repro/kernels/fused_score_topk.py:79"),
+    "score_topk_int8": ("src/repro_torch/csrc/fused_score_topk.cu",
+                        "src/repro/kernels/fused_score_topk.py:103"),
+    "score_topk_rows_bf16": ("src/repro_torch/csrc/fused_score_topk.cu",
+                             "src/repro/kernels/fused_score_topk.py:245"),
+    "score_topk_rows_int8": ("src/repro_torch/csrc/fused_score_topk.cu",
+                             "src/repro/kernels/fused_score_topk.py:245"),
+    "ivf_score_topk_dedup_bf16": ("src/repro_torch/csrc/ivf_score.cu",
+                                  "src/repro/kernels/ivf_score.py:146"),
+    "ivf_score_topk_dedup_int8": ("src/repro_torch/csrc/ivf_score.cu",
+                                  "src/repro/kernels/ivf_score.py:176"),
+    "ivf_score_topk_dedup_rows_bf16": ("src/repro_torch/csrc/ivf_score.cu",
+                                       "src/repro/kernels/ivf_score.py:270"),
+    "ivf_score_topk_dedup_rows_int8": ("src/repro_torch/csrc/ivf_score.cu",
+                                       "src/repro/kernels/ivf_score.py:270"),
+    "ivf_score_topk_batch_bf16": ("src/repro_torch/csrc/ivf_score.cu",
+                                  "src/repro/kernels/ivf_score.py:36"),
+    "ivf_score_topk_batch_int8": ("src/repro_torch/csrc/ivf_score.cu",
+                                  "src/repro/kernels/ivf_score.py:64"),
 }
+SUFFIX = {"float32": "", "bfloat16": "_bf16", "int8": "_int8"}
 
 
 def card() -> str:
@@ -415,8 +461,8 @@ def against_cpu_engine(tag: str, index, state0, scores, ids, q, f,
 
 
 def phase_end_to_end(dev, power: str, inp: Inputs):
-    """The flat path at SIFT1M scale; returns its kernels' launch counts and
-    recall@10."""
+    """The flat path at SIFT1M scale; returns its kernels' launch counts,
+    recall@10 and the 512 timed queries' ids."""
     _build.reset_launch_counts()
     t0 = time.perf_counter()
     index = fcvi.build(inp.corpus.vectors, inp.corpus.filters,
@@ -437,7 +483,7 @@ def phase_end_to_end(dev, power: str, inp: Inputs):
     check(recall >= 0.9, f"recall@10 {recall} below 0.9")
     against_cpu_engine("e2e", index, state0, scores[:B], ids[:B],
                        inp.q_all[:B], inp.f_all[:B], np.zeros(B, bool))
-    return counts, recall
+    return counts, recall, ids
 
 
 def probe_ties(centroids, q_t, nprobe) -> np.ndarray:
@@ -454,10 +500,11 @@ def probe_ties(centroids, q_t, nprobe) -> np.ndarray:
 
 def ivf_bound(be, uniq, member, nq, k, row_floats):
     """(bound ms, what bounds it, real-row bytes, padded bytes) of one IVF
-    scan: the unique probed lists' valid flags and live rows (vector + norm)
-    read once, the queries and member matrix read, (vals, ids) and
-    ``row_floats`` payload floats per winner written (and read); fp32
-    operations 2d + 2 per (member pair, live row)."""
+    scan: the unique probed lists' valid flags and live rows (stored vector,
+    norm and, for int8, scale) read once, the queries and member matrix
+    read, (vals, ids) and ``row_floats`` payload floats per winner written
+    (and read); fp32 operations 2d + 2 per (member pair, live row), one more
+    with a scale."""
     sizes = be.list_sizes.long().cpu().numpy()
     mem = member.cpu().numpy() > 0.5
     live = mem.any(axis=1)
@@ -465,17 +512,25 @@ def ivf_bound(be, uniq, member, nq, k, row_floats):
     rows = int(sizes[lists].sum())
     pair_rows = int((mem[live].sum(axis=1) * sizes[lists]).sum())
     d = be.grouped.shape[-1]
-    real = 4 * rows * (d + 1) + 4 * len(lists) * be.max_list
-    padded = 4 * len(lists) * be.max_list * (d + 2)
+    row_bytes = d * be.grouped.element_size() + 4
+    per_op = 2 * d + 2
+    if be.grouped_scales is not None:
+        row_bytes += 4
+        per_op += 1
+    real = rows * row_bytes + 4 * len(lists) * be.max_list
+    padded = len(lists) * be.max_list * (row_bytes + 4)
     io = 4 * (nq * d + member.numel()) + 8 * nq * k + 8 * nq * k * row_floats
-    bnd, by = bound_ms(real + io, pair_rows * (2 * d + 2))
+    bnd, by = bound_ms(real + io, pair_rows * per_op)
     return bnd, by, real, padded
 
 
 def ivf_kernels(index, inp: Inputs, dev, power: str) -> dict:
-    """B5, B6 and B7 against their plain versions on the built index's slabs,
-    with the coarse probes of the first timed batch, at k=80 and 320."""
+    """B5, B6 and B7 against their plain versions on the built index's slabs
+    (the variants of its storage dtype, with its grouped scales), with the
+    coarse probes of the first timed batch, at k=80 and 320."""
     be = index.backend
+    sc = be.grouped_scales
+    suffix = SUFFIX[index.config.storage_dtype]
     q = torch.tensor(inp.q_all[:B], device=dev)
     f = torch.tensor(inp.f_all[:B], device=dev)
     q_t = index.transform.apply(q, f).contiguous()
@@ -486,14 +541,14 @@ def ivf_kernels(index, inp: Inputs, dev, power: str) -> dict:
     gpf = ivf_mod.build_grouped_payload(index.filters_n, be.lists)
     n_live = int((member > 0.5).any(dim=1).sum())
     print(f"[ivf-kernel] batch of {B}: {n_live} unique probed lists of "
-          f"{NLIST} ({B * NPROBE} probes)")
+          f"{NLIST} ({B * NPROBE} probes); slabs {be.grouped.dtype}")
     grp = (be.grouped, be.grouped_sq, be.valid)
     ded = (*grp, uniq, member, q_t)
     res = {}
     for k in (KP, 4 * KP):
-        vals, ids = ops.ivf_score_topk_dedup(*ded, k)
-        rvals, rids = ref.ref_ivf_score_topk_dedup(*ded, k + 1)
-        out = ops.ivf_score_topk_dedup_rows(*ded, gpv, gpf, k)
+        vals, ids = ops.ivf_score_topk_dedup(*ded, k, scales=sc)
+        rvals, rids = ref.ref_ivf_score_topk_dedup(*ded, k + 1, sc)
+        out = ops.ivf_score_topk_dedup_rows(*ded, gpv, gpf, k, scales=sc)
         check(torch.equal(out[0], vals) and torch.equal(out[1], ids),
               "ivf_score_topk_dedup_rows (vals, ids) differ from B5's")
         dead = torch.isneginf(vals)[..., None]
@@ -503,25 +558,30 @@ def ivf_kernels(index, inp: Inputs, dev, power: str) -> dict:
               and torch.equal(out[3], torch.where(dead, 0.0,
                                                   gpf.reshape(-1, M)[idx])),
               "ivf_score_topk_dedup_rows rows differ from the gathered rows")
-        bv, bi = ops.ivf_score_topk_batch(*grp, probes, q_t, k)
-        rbv, rbi = ref.ref_ivf_score_topk_batch(*grp, probes, q_t, k + 1)
+        bv, bi = ops.ivf_score_topk_batch(*grp, probes, q_t, k, scales=sc)
+        rbv, rbi = ref.ref_ivf_score_topk_batch(*grp, probes, q_t, k + 1, sc)
         runs = {
             "ivf_score_topk_dedup": (
                 (vals, ids), (rvals, rids),
-                lambda: ops.ivf_score_topk_dedup(*ded, k),
-                lambda: ref.ref_ivf_score_topk_dedup(*ded, k), 0),
+                lambda: ops.ivf_score_topk_dedup(*ded, k, scales=sc),
+                lambda: ref.ref_ivf_score_topk_dedup(*ded, k, sc), 0),
             "ivf_score_topk_dedup_rows": (
                 (vals, ids), (rvals, rids),
-                lambda: ops.ivf_score_topk_dedup_rows(*ded, gpv, gpf, k),
-                lambda: ref.ref_ivf_score_topk_dedup_rows(*ded, gpv, gpf, k),
+                lambda: ops.ivf_score_topk_dedup_rows(*ded, gpv, gpf, k,
+                                                      scales=sc),
+                lambda: ref.ref_ivf_score_topk_dedup_rows(*ded, gpv, gpf, k,
+                                                          sc),
                 D + M),
             "ivf_score_topk_batch": (
                 (bv, bi), (rbv, rbi),
-                lambda: ops.ivf_score_topk_batch(*grp, probes, q_t, k),
-                lambda: ref.ref_ivf_score_topk_batch(*grp, probes, q_t, k),
+                lambda: ops.ivf_score_topk_batch(*grp, probes, q_t, k,
+                                                 scales=sc),
+                lambda: ref.ref_ivf_score_topk_batch(*grp, probes, q_t, k,
+                                                     sc),
                 0),
         }
-        for name, (got, want, kernel, plain_fn, row_floats) in runs.items():
+        for base, (got, want, kernel, plain_fn, row_floats) in runs.items():
+            name = base + suffix
             wv = want[0][:, :k]
             live = ~torch.isneginf(wv)
             err = (got[0] - wv)[live].abs().max().item()
@@ -546,9 +606,9 @@ def ivf_kernels(index, inp: Inputs, dev, power: str) -> dict:
                                  bound_ms=bnd, bound_by=by, library_ms=None)
             else:
                 res[name]["max_abs_err"] = max(err, res[name]["max_abs_err"])
-    print("[ivf-kernel] B6 (vals, ids) bit-equal to B5's and its rows "
-          f"bit-equal to the gathered rows at k={KP} and {4 * KP}; card "
-          f"{power}")
+    print(f"[ivf-kernel] B6{suffix} (vals, ids) bit-equal to B5{suffix}'s "
+          f"and its rows bit-equal to the gathered rows at k={KP} and "
+          f"{4 * KP}; card {power}")
     return res
 
 
@@ -837,6 +897,219 @@ def phase_pq(dev, power: str, inp: Inputs, flat_recall: float,
     return res, counts
 
 
+def stored_bytes(be) -> str:
+    """The bytes a flat or IVF backend keeps on the card, by array."""
+    parts = [("rows", be.vectors), ("scales", be.scales),
+             ("sq_norms", be.sq_norms)]
+    if hasattr(be, "grouped"):
+        parts += [("grouped slabs", be.grouped),
+                  ("grouped scales", be.grouped_scales),
+                  ("grouped_sq", be.grouped_sq), ("valid", be.valid)]
+    return ", ".join(f"{name} {t.nbytes / 1e6:.1f} MB" for name, t in parts
+                     if t is not None)
+
+
+def flat_variant_kernels(index, q_t) -> dict:
+    """The index's variants of B2 and B3 (its storage dtype, its scales)
+    against their plain versions on its stored rows, with the payloads the
+    engine carries and the first timed batch's transformed queries, at
+    kk=88 and 328."""
+    be = index.backend
+    x, sq, sc = be.vectors, be.sq_norms, be.scales
+    suffix = SUFFIX[index.config.storage_dtype]
+    pv, pf = index.vectors_n, index.filters_n
+    scan_in = (x.nbytes + sq.nbytes + (0 if sc is None else sc.nbytes)
+               + q_t.nbytes)
+    scan_ops = 2 * B * N * D + (4 if sc is not None else 3) * B * N
+    res = {}
+    for kk in (88, 328):
+        vals, ids = ops.score_topk(x, sq, q_t, kk, scales=sc)
+        rvals, rids = ref.ref_score_topk(x, sq, q_t, kk + 1, sc)
+        err = (vals - rvals[:, :kk]).abs().max().item()
+        tol = (L2_ATOL + L2_RTOL * rvals[:, :kk].abs()).max().item()
+        agree, total = ids_outside_ties(rvals, rids, ids, L2_RTOL, L2_ATOL)
+        name, name_rows = "score_topk" + suffix, "score_topk_rows" + suffix
+        check(err <= tol, f"{name} kk={kk} error {err} > {tol}")
+        check(agree == total, f"{name} kk={kk}: {total - agree} ids differ "
+              "outside near-ties")
+        out = ops.score_topk_rows(x, sq, pv, pf, q_t, kk, scales=sc)
+        check(torch.equal(out[0], vals) and torch.equal(out[1], ids),
+              f"{name_rows} (vals, ids) differ from {name}'s")
+        idx = ids.long()
+        rows = x[idx].to(torch.float32)
+        if sc is not None:
+            rows = rows * sc[idx][..., None]
+        check(torch.equal(out[2], rows) and torch.equal(out[3], pv[idx])
+              and torch.equal(out[4], pf[idx]),
+              f"{name_rows} rows differ from the plain dequantized rows")
+        ms = time_ms(lambda: ops.score_topk(x, sq, q_t, kk, scales=sc))
+        ms_rows = time_ms(lambda: ops.score_topk_rows(x, sq, pv, pf, q_t, kk,
+                                                      scales=sc))
+        plain = time_ms(lambda: ref.ref_score_topk(x, sq, q_t, kk, sc), 5)
+        plain_rows = time_ms(
+            lambda: ref.ref_score_topk_rows(x, sq, pv, pf, q_t, kk, sc), 5)
+        bnd, by = bound_ms(scan_in + 8 * B * kk, scan_ops)
+        rows_bytes = 4 * B * kk * (2 * (D + M) + D)
+        bnd_rows, by_rows = bound_ms(scan_in + 8 * B * kk + rows_bytes,
+                                     scan_ops)
+        print(f"[kernel] {name} b={B} n={N} d={D} {x.dtype} kk={kk}: "
+              f"max_abs_err {err:.3g} ids {agree}/{total} outside near-ties; "
+              f"kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms {bnd:.4f} "
+              f"({by})")
+        print(f"[kernel] {name_rows} kk={kk}: (vals, ids) = {name}'s, rows "
+              f"exact; kernel_ms {ms_rows:.4f} plain_ms {plain_rows:.4f} "
+              f"bound_ms {bnd_rows:.4f} ({by_rows})")
+        if kk == 88:  # the main path's default width goes in the JSON line
+            res[name] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                             library_ms=None)
+            res[name_rows] = dict(ms=ms_rows, plain_ms=plain_rows,
+                                  bound_ms=bnd_rows, bound_by=by_rows,
+                                  library_ms=None)
+        for n in (name, name_rows):
+            res[n]["max_abs_err"] = max(err, res[n].get("max_abs_err", 0.0))
+        del vals, ids, rvals, rids, out, rows
+    return res
+
+
+def phase_storage_flat(dev, power: str, inp: Inputs, flat_ids):
+    """Phase 3d: flat at bf16 and at int8. Returns the B2/B3 variants'
+    results and the launch counts of the two builds and serving runs."""
+    res, counts = {}, {}
+    qv, qf = (torch.tensor(a, device=dev) for a in (inp.q_all[:B],
+                                                    inp.f_all[:B]))
+    for dtype in ("bfloat16", "int8"):
+        tag = f"flat-{dtype}"
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        index = fcvi.build(inp.corpus.vectors, inp.corpus.filters,
+                           fcvi.FCVIConfig(storage_dtype=dtype), device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        run = _build.launch_counts()
+        print(f"[{tag}] build on the card {build_s:.2f} s; on the card: "
+              f"{stored_bytes(index.backend)} (fp32 rows: "
+              f"{4 * N * D / 1e6:.1f} MB); card {power}")
+        res.update(flat_variant_kernels(
+            index, index.transform.apply(qv, qf).contiguous()))
+        torch.cuda.empty_cache()
+
+        state0 = fcvi.index_state(index)
+        eng = engine_mod.FCVIEngine(index, engine_mod.EngineConfig(),
+                                    device=dev)
+        _build.reset_launch_counts()
+        scores, ids = serve(tag, eng, inp, power)
+        check(eng._delta is None and eng.index.backend.vectors.dtype
+              == index.backend.vectors.dtype, f"{tag}: compaction changed "
+              "the storage dtype")
+        fcvi.query(eng.index, qv, qf, 10)
+        torch.cuda.synchronize()
+        for name, n in _build.launch_counts().items():
+            run[name] = run.get(name, 0) + n
+        print(f"[{tag}] counts {json.dumps(run)}")
+        for name, n in run.items():
+            counts[name] = counts.get(name, 0) + n
+        recall = recall_vs_truth(index, state0, inp, ids, dev)
+        same = float((ids == flat_ids).all(axis=1).mean())
+        print(f"[{tag}] recall@10 {recall:.4f} over 512 queries; top-10 equal "
+              f"to the fp32 flat engine's for {same:.4f} of them; card "
+              f"{power}")
+        check(recall >= 0.9, f"{tag}: recall@10 {recall} below 0.9")
+        against_cpu_engine(tag, index, state0, scores[:B], ids[:B],
+                           inp.q_all[:B], inp.f_all[:B], np.zeros(B, bool))
+        del eng, index, state0
+        torch.cuda.empty_cache()
+    return res, counts
+
+
+def phase_storage_ivf(dev, power: str, inp: Inputs, ivf_recall: float):
+    """Phase 3e: IVF at int8, and its lists' bf16 slabs. Returns the B5-B7
+    variants' results and the launch counts of the build and both serving
+    runs (the kernel checks between them are not counted)."""
+    cfg = fcvi.FCVIConfig(backend="ivf", nlist=NLIST, nprobe=NPROBE,
+                          storage_dtype="int8")
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    index = fcvi.build(inp.corpus.vectors, inp.corpus.filters, cfg,
+                       device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    be = index.backend
+    print(f"[ivf-int8] build on the card {build_s:.2f} s; max_list "
+          f"{be.max_list}; on the card: {stored_bytes(be)}; card {power}")
+    res = ivf_kernels(index, inp, dev, power)
+    # bf16 slabs over the same lists, from the fp32 transformed corpus
+    x_t = index.transform.apply_normalized(index.vectors_n, index.filters_n)
+    half_be = ivf_mod.from_lists(x_t.to(torch.bfloat16), be.centroids,
+                                 be.lists, be.list_sizes)
+    del x_t
+    half = dataclasses.replace(index, config=dataclasses.replace(
+        cfg, storage_dtype="bfloat16"), backend=half_be)
+    print(f"[ivf-bf16] the same lists at bf16; on the card: "
+          f"{stored_bytes(half_be)}")
+    res.update(ivf_kernels(half, inp, dev, power))
+    torch.cuda.empty_cache()
+
+    qv, qf = (torch.tensor(a, device=dev) for a in (inp.q_all[:B],
+                                                    inp.f_all[:B]))
+    qb, fb = inp.q_all[:B], inp.f_all[:B]
+
+    def direct_b7(ix):
+        ib = ix.backend
+        q_t = ix.transform.apply(qv, qf).contiguous()
+        c2 = torch.sum(ib.centroids * ib.centroids, dim=-1)
+        probes = ops.score_topk(ib.centroids, c2, q_t, NPROBE)[1]
+        vals, _ = ops.ivf_score_topk_batch(ib.grouped, ib.grouped_sq,
+                                           ib.valid, probes, q_t, KP,
+                                           scales=ib.grouped_scales)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(vals).all()), "ivf_score_topk_batch on "
+              f"the {ib.grouped.dtype} slabs returned non-finite scores")
+        return q_t
+
+    state0 = fcvi.index_state(index)
+    eng = engine_mod.FCVIEngine(index, engine_mod.EngineConfig(), device=dev)
+    _build.reset_launch_counts()
+    scores, ids = serve("ivf-int8", eng, inp, power)
+    check(eng.index.backend.grouped.dtype == torch.int8, "ivf-int8: "
+          "compaction changed the storage dtype")
+    fcvi.query(eng.index, qv, qf, 10)
+    direct_b7(eng.index)
+    for name, n in _build.launch_counts().items():
+        counts[name] = counts.get(name, 0) + n
+    del eng
+    recall = recall_vs_truth(index, state0, inp, ids, dev)
+    print(f"[ivf-int8] recall@10 {recall:.4f} over 512 queries (IVF fp32 "
+          f"{ivf_recall:.4f}); card {power}")
+    ties = probe_ties(be.centroids, index.transform.apply(qv, qf), NPROBE)
+    print(f"[ivf-int8] {int(ties.sum())} of {B} first-batch queries at a "
+          "probe near-tie")
+    against_cpu_engine("ivf-int8", index, state0, scores[:B], ids[:B], qb, fb,
+                       ties)
+    del index, state0
+    torch.cuda.empty_cache()
+
+    # the bf16 slabs serve too: warm-up, one batch of 64, fcvi.query, B7
+    hstate = fcvi.index_state(half)
+    eng = engine_mod.FCVIEngine(half, engine_mod.EngineConfig(), device=dev)
+    _build.reset_launch_counts()
+    eng.search(inp.q_warm, inp.f_warm)
+    hs, hi = eng.search(qb, fb)
+    fcvi.query(half, qv, qf, 10)
+    direct_b7(half)
+    run = _build.launch_counts()
+    for name, n in run.items():
+        counts[name] = counts.get(name, 0) + n
+    check(hs.shape == (B, 10) and np.isfinite(hs).all()
+          and ((hi >= 0) & (hi < N)).all(), "ivf-bf16: results out of range")
+    print(f"[ivf-bf16] counts {json.dumps(run)}; top-10 equal to the int8 "
+          f"engine's for {float((hi == ids[:B]).all(axis=1).mean()):.4f} of "
+          f"the first {B} queries")
+    against_cpu_engine("ivf-bf16", half, hstate, hs, hi, qb, fb, ties)
+    print(f"[3e] counts {json.dumps(counts)}")
+    return res, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -850,20 +1123,29 @@ def main() -> int:
     phase_build()
     res = phase_kernels(dev, torch.Generator(device=dev).manual_seed(0))
     inp = make_inputs()
-    counts, recall = phase_end_to_end(dev, power, inp)
+    counts, recall, flat_ids = phase_end_to_end(dev, power, inp)
+    phases = {"3": dict(counts)}
     torch.cuda.empty_cache()
     ivf_res, ivf_counts, ivf_recall = phase_ivf(dev, power, inp, recall)
     torch.cuda.empty_cache()
     pq_res, pq_counts = phase_pq(dev, power, inp, recall, ivf_recall)
-    for r, c in ((ivf_res, ivf_counts), (pq_res, pq_counts)):
+    torch.cuda.empty_cache()
+    sf_res, sf_counts = phase_storage_flat(dev, power, inp, flat_ids)
+    si_res, si_counts = phase_storage_ivf(dev, power, inp, ivf_recall)
+    for tag, r, c in (("3b", ivf_res, ivf_counts), ("3c", pq_res, pq_counts),
+                      ("3d", sf_res, sf_counts), ("3e", si_res, si_counts)):
+        phases[tag] = dict(c)
         res.update(r)
         for name, n in c.items():
             counts[name] = counts.get(name, 0) + n
+    print("[counts] launches by phase: "
+          + json.dumps({name: [phases[p].get(name, 0) for p in phases]
+                        for name in SOURCES}))
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         launches = counts.get(name, 0)
         check(launches > 0, f"kernel {name} was not launched on the main "
-              "paths (phases 3, 3b and 3c)")
+              "paths (phases 3, 3b, 3c, 3d and 3e)")
         r = res[name]
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches,

@@ -9,8 +9,11 @@ default).
 Run from the root of the repository on a machine with one CUDA device:
 
     python3 scripts/profile_serving.py [--batches 8] [--backend pq ...]
+        [--storage int8]
 
-``--backend`` (repeatable; all three when absent) picks the engines. For
+``--backend`` (repeatable; all three when absent) picks the engines, and
+``--storage`` the flat and IVF corpus storage (``FCVIConfig.storage_dtype``:
+float32, the default, bfloat16 or int8; PQ ignores it). For
 each engine it prints the host wall time per batch, the device's busy
 time per batch (the sum of the kernels' device time in the trace), the
 idle share 1 - busy / wall, and the kernels that take the most device time.
@@ -36,10 +39,9 @@ from repro_torch.serve import engine as engine_mod  # noqa: E402
 
 
 CONFIGS = {
-    "flat": fcvi.FCVIConfig(),
-    "ivf": fcvi.FCVIConfig(backend="ivf", nlist=smoke.NLIST,
-                           nprobe=smoke.NPROBE),
-    "pq": fcvi.FCVIConfig(backend="pq"),
+    "flat": dict(),
+    "ivf": dict(backend="ivf", nlist=smoke.NLIST, nprobe=smoke.NPROBE),
+    "pq": dict(backend="pq"),
 }
 
 
@@ -104,6 +106,9 @@ def main() -> int:
     ap.add_argument("--batches", type=int, default=8)
     ap.add_argument("--backend", action="append",
                     choices=sorted(CONFIGS), help="engines to profile")
+    ap.add_argument("--storage", default="float32",
+                    choices=sorted(fcvi.STORAGE_DTYPES),
+                    help="flat and IVF corpus storage dtype")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_serving: no CUDA device; nothing was run",
@@ -112,9 +117,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     power = smoke.card()
     inp = smoke.make_inputs()
-    res = {"card": power}
+    res = {"card": power, "storage": args.storage}
     for tag in args.backend or CONFIGS:
-        cfg = CONFIGS[tag]
+        cfg = fcvi.FCVIConfig(storage_dtype=args.storage, **CONFIGS[tag])
         index = fcvi.build(inp.corpus.vectors, inp.corpus.filters, cfg,
                            device=dev)
         eng = engine_mod.FCVIEngine(index, engine_mod.EngineConfig(),

@@ -9,9 +9,11 @@ Online: transform the query with its filter, over-retrieve
 k' = min(c * k/lambda * 1/alpha^2, N) (Thm 5.4), re-score the candidates with
 lambda*cos(v,q) + (1-lambda)*cos(f,F_q) (the rescore kernel), return top-k.
 
-Mirrors ``repro.core.fcvi``. Reduced-precision flat and IVF storage (ROADMAP
-A6) is a later slice and raises here; PQ stores codes and ignores
-``storage_dtype``, as in the reference.
+``FCVIConfig.storage_dtype`` selects the flat and IVF corpus storage:
+"float32", "bfloat16" (half the bytes) or "int8" (a quarter, with one fp32
+scale per row, ``repro_torch.index.quant``). Norms and accumulation stay
+fp32 and the exact refine and re-rank run on fp32 rows. PQ stores codes and
+ignores it, as in the reference. Mirrors ``repro.core.fcvi``.
 """
 from __future__ import annotations
 
@@ -34,6 +36,8 @@ from repro_torch.kernels.ref import topk_first
 Tensor = torch.Tensor
 
 BACKENDS = ("flat", "ivf", "pq")
+STORAGE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16,
+                  "int8": torch.int8}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,9 +49,8 @@ class FCVIConfig:
     (``n_clusters`` centers in cluster mode), ``nlist`` / ``nprobe`` the IVF
     lists and the lists each query probes, ``pq_m`` / ``pq_ksub`` /
     ``pq_coarse`` the PQ subspaces, codewords per subspace and coarse
-    centers. ``storage_dtype`` names what the JAX package offers; the port
-    stores flat and IVF indexes at ``"float32"`` and raises
-    NotImplementedError naming ROADMAP A6 for the rest (PQ ignores it)."""
+    centers. ``storage_dtype`` ("float32", "bfloat16" or "int8") is the
+    flat and IVF corpus storage (PQ ignores it)."""
 
     alpha: float = 1.0
     lam: float = 0.5            # lambda in [0,1]: 1 => pure vector similarity
@@ -69,19 +72,20 @@ class FCVIConfig:
             return float(theory.optimal_alpha(self.lam))
         return max(1.0, float(self.alpha))
 
-    def check_supported(self) -> None:
-        """Raise for a backend or storage dtype the port does not serve
-        yet."""
-        if self.backend not in BACKENDS:
-            raise ValueError(f"backend must be one of {BACKENDS}")
-        if self.storage_dtype not in ("float32", "bfloat16", "int8"):
+    def resolved_storage_dtype(self) -> Optional[torch.dtype]:
+        """The backends' build-time storage dtype: None keeps fp32, else
+        ``torch.bfloat16`` or ``torch.int8``."""
+        if self.storage_dtype not in STORAGE_DTYPES:
             raise ValueError(
                 f"storage_dtype must be float32, bfloat16 or int8, got "
                 f"{self.storage_dtype!r}")
-        if self.storage_dtype != "float32" and self.backend != "pq":
-            raise NotImplementedError(
-                f"storage_dtype={self.storage_dtype!r} is ROADMAP A6; the "
-                f"port stores {self.backend} indexes in float32")
+        return STORAGE_DTYPES[self.storage_dtype]
+
+    def check_supported(self) -> None:
+        """Raise ValueError for an unknown backend or storage dtype."""
+        if self.backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}")
+        self.resolved_storage_dtype()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,10 +109,16 @@ class FCVIIndex:
 def _tensor(x, device: torch.device, dtype=torch.float32) -> Tensor:
     """A ``dtype`` tensor (``x``'s own dtype when None) on ``device`` from a
     tensor or array-like (arrays are copied, so the index never aliases the
-    caller's memory)."""
+    caller's memory). A numpy array of bfloat16 (``ml_dtypes.bfloat16``,
+    what the JAX package's bf16 leaves become) is taken by its 16-bit
+    pattern, which torch's bfloat16 shares."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype).contiguous()
-    return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        t = torch.tensor(a.view(np.int16), device=device).view(torch.bfloat16)
+        return t if dtype is None else t.to(dtype)
+    return torch.tensor(a, dtype=dtype, device=device)
 
 
 def cosine_sim(a: Tensor, b: Tensor, eps: float = 1e-8) -> Tensor:
@@ -139,15 +149,18 @@ def build(vectors, filters, config: FCVIConfig, device: DeviceLike = "cuda",
 
 def build_backend(transformed: Tensor, config: FCVIConfig,
                   generator: Seed = None):
-    """The configured backend over the transformed corpus; IVF and PQ train
-    their k-means with ``generator`` (seed 0 when None)."""
+    """The configured backend over the transformed corpus, flat and IVF
+    stored at the configured storage dtype; IVF and PQ train their k-means
+    with ``generator`` (seed 0 when None)."""
+    st = config.resolved_storage_dtype()
     if config.backend == "ivf":
-        return ivf_mod.build(transformed, config.nlist, generator)
+        return ivf_mod.build(transformed, config.nlist, generator,
+                             storage_dtype=st)
     if config.backend == "pq":
         return pq_mod.build(transformed, m_subspaces=config.pq_m,
                             ksub=config.pq_ksub, generator=generator,
                             ncoarse=config.pq_coarse)
-    return flat_mod.build(transformed)
+    return flat_mod.build(transformed, storage_dtype=st)
 
 
 def _backend_search(index: FCVIIndex, q_t: Tensor, kp: int):
@@ -240,6 +253,8 @@ def index_state(index: FCVIIndex) -> dict:
                   "lists": b.lists, "list_sizes": b.list_sizes}
     else:
         bstate = {"vectors": b.vectors}
+    if index.config.backend != "pq" and b.scales is not None:
+        bstate["scales"] = b.scales
     return {"transform": t, "backend": bstate,
             "vectors_n": index.vectors_n, "filters_n": index.filters_n}
 
@@ -250,13 +265,14 @@ def index_from_state(config: FCVIConfig, state: dict,
     this package's, or the JAX package's with its leaves converted to numpy.
     No re-fitting: the normalizers, centers, IVF centroids and id lists, and
     the PQ codebooks, codes (in their dtype) and coarse quantizer come from
-    the state; the squared norms, the IVF serving slabs and PQ's build-time
-    LUT terms and combined codes are rematerialised."""
+    the state, as do the stored flat and IVF rows in their dtype (fp32,
+    bf16, or int8 codes with their ``scales``); the squared norms, the IVF
+    serving slabs and grouped scales, and PQ's build-time LUT terms and
+    combined codes are rematerialised."""
     config.check_supported()
     dev = resolve_device(device)
     t, b = state["transform"], state["backend"]
-    if "scales" in b:
-        raise NotImplementedError("int8 storage state is ROADMAP A6")
+    scales = _tensor(b["scales"], dev) if "scales" in b else None
     tfm = Transform(
         mode=config.mode,
         alpha=float(t["alpha"]),
@@ -273,11 +289,12 @@ def index_from_state(config: FCVIConfig, state: dict,
             _tensor(b["coarse_ids"], dev, torch.int32))
     elif config.backend == "ivf":
         backend = ivf_mod.from_lists(
-            _tensor(b["vectors"], dev), _tensor(b["centroids"], dev),
+            _tensor(b["vectors"], dev, None), _tensor(b["centroids"], dev),
             _tensor(b["lists"], dev, torch.int32),
-            _tensor(b["list_sizes"], dev, torch.int32))
+            _tensor(b["list_sizes"], dev, torch.int32), scales)
     else:
-        backend = flat_mod.build(_tensor(b["vectors"], dev))
+        backend = flat_mod.from_stored(_tensor(b["vectors"], dev, None),
+                                       scales)
     return FCVIIndex(config=config, transform=tfm, backend=backend,
                      vectors_n=_tensor(state["vectors_n"], dev),
                      filters_n=_tensor(state["filters_n"], dev))
@@ -289,8 +306,10 @@ def extend(index: FCVIIndex, new_vectors: Tensor,
     (normalizers and centers stay frozen, paper section 4.2). The engine
     calls this on compaction.
 
-    As in the reference (``build_backend`` with its default key), an IVF or
-    PQ backend is rebuilt from scratch: its k-means is re-trained on the
+    The backend is rebuilt at the configured storage dtype (int8 rows are
+    re-quantized from the fp32 transformed corpus). As in the reference
+    (``build_backend`` with its default key), an IVF or PQ backend is
+    rebuilt from scratch: its k-means is re-trained on the
     whole corpus with the seed-0 generator, so compaction costs the k-means
     at full width, and the new quantizer (and codebooks) differ from the old
     ones."""

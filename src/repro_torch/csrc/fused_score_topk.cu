@@ -1,27 +1,40 @@
 // Fused negative-squared-L2 scan + first-occurrence top-k, with an optional
 // epilogue that gathers the winners' rows.
 //
-// Replaces src/repro/kernels/fused_score_topk.py::score_topk (plain variant)
-// and ::score_topk_rows (fp32 storage), Pallas kernels for the TPU.
+// Replaces src/repro/kernels/fused_score_topk.py::score_topk (the plain
+// variant `_kernel`, at fp32 and bf16 storage, and the int8 variant
+// `_scaled_kernel`) and ::score_topk_rows (`_rows_kernel` at every storage
+// dtype), Pallas kernels for the TPU.
 //
-// Scores are 2 * <q, x> - ||x||^2 - ||q||^2 in IEEE fp32, the TPU kernel's
-// order. Results are ordered by (score desc, id asc), the TPU kernel's
+// Rows are stored as fp32, bf16 or int8 codes (the storage ladder), with an
+// optional per-row fp32 scale (int8). Scores are
+// ((2 * <q, x>) * scale - ||x||^2) - ||q||^2 in IEEE fp32, the TPU kernels'
+// order: the dot product accumulates in fp32 over the stored values cast up
+// (exactly), and the scale multiplies its output, never the rows, so the
+// rounding is the reference's and a missing scale (1.0) changes nothing.
+// Results are ordered by (score desc, id asc), the TPU kernel's
 // first-occurrence rule, so equal scores keep the smaller corpus id.
 //
 // Bound on the H100: operations. At the main path's shapes (64 queries,
 // 1,000,000 x 128 fp32 rows) the scan is about 16.4 GFLOP on the fp32 CUDA
 // cores (0.25 ms at 67 TFLOP/s) against 516 MB of reads (0.15 ms at
-// 3.35 TB/s). The tensor cores are not used: TF32 would perturb the scores
-// beyond what the exact refine absorbs.
+// 3.35 TB/s); bf16 and int8 rows move a half and a quarter of those bytes
+// and leave the operations as they are. The tensor cores are not used: TF32
+// would perturb the scores beyond what the exact refine absorbs, and bf16 or
+// int8 products would round the fp32 queries.
 //
 // Design. The TPU kernel walks the corpus as a sequential grid axis and
 // carries the running top-k in its output block. Blocks on Hopper run in
 // parallel with no carry, so the corpus is split across blocks instead:
 //
 //   pass 1 (scan_kernel): one block per (query tile, corpus chunk). The
-//     block stages kTile corpus rows at a time in shared memory, with every
-//     16-byte copy of the tile in flight at once (cp.async; rows whose
-//     width is no multiple of 4 floats take a slower scalar path), and each
+//     block stages kTile corpus rows at a time in shared memory as fp32:
+//     fp32 rows with every 16-byte copy of the tile in flight at once
+//     (cp.async), bf16 and int8 rows through registers, up to eight 16-byte
+//     loads a thread in flight, each cast up once as it is stored (so the
+//     inner loop is the fp32 one, and shared memory holds no second, raw
+//     copy of the tile); rows whose width is no multiple of 16 bytes take a
+//     slower scalar path. Each
 //     thread computes a QPT x 2 register tile of dot products. A score
 //     enters its query's candidate buffer in shared memory only if it beats
 //     the query's current threshold (the kk-th best seen so far); when a
@@ -51,9 +64,10 @@ constexpr int kRowGroups = 64;                  // threads along the row axis
 constexpr int kQueryGroups = kThreads / kRowGroups;
 constexpr int kWarps = kThreads / 32;
 
-template <int QPT>
+template <int ET, int QPT>
 __global__ void __launch_bounds__(kThreads)
-scan_kernel(const float* __restrict__ x, const float* __restrict__ xsq,
+scan_kernel(const typename Elem<ET>::T* __restrict__ x,
+            const float* __restrict__ xsq, const float* __restrict__ scale,
             const float* __restrict__ q, long long n, int nq, int d, int kk,
             int cap, long long chunk_rows, float* __restrict__ part_s,
             int* __restrict__ part_i) {
@@ -65,7 +79,8 @@ scan_kernel(const float* __restrict__ x, const float* __restrict__ xsq,
   float* qs = smem;                              // (BQ, ds)
   float* xs = qs + BQ * ds;                      // (kTile, ds)
   float* xsq_s = xs + kTile * ds;                // (kTile,)
-  float* qsq_s = xsq_s + kTile;                  // (BQ,)
+  float* sc_s = xsq_s + kTile;                   // (kTile,) 1.0 without scale
+  float* qsq_s = sc_s + kTile;                   // (BQ,)
   float* thr_s = qsq_s + BQ;                     // (BQ,)
   int* thr_i = reinterpret_cast<int*>(thr_s + BQ);
   int* cnt = thr_i + BQ;
@@ -102,7 +117,8 @@ scan_kernel(const float* __restrict__ x, const float* __restrict__ xsq,
     qsq_s[tid] = acc;
   }
 
-  const bool vec = (d & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const bool vec = (d * sizeof(*x)) % 16 == 0 &&
+                   (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   const int rg = tid % kRowGroups;
   const int qg = tid / kRowGroups;
   const float* xa = xs + rg * ds;
@@ -112,25 +128,35 @@ scan_kernel(const float* __restrict__ x, const float* __restrict__ xsq,
   for (long long t0 = r_begin; t0 < r_end; t0 += kTile) {
     const int rows = (int)(r_end - t0 < kTile ? r_end - t0 : kTile);
     __syncthreads();  // the previous stage's readers are done with xs
-    if (vec) {
+    if (vec && ET == kF32) {
       // every 16-byte copy of the tile in flight at once; rows past the
       // chunk and the pad columns are zero-filled by the copy itself
+      const float* xf = reinterpret_cast<const float*>(x);
       for (int i = tid; i < kTile * ds4; i += kThreads) {
         const int r = i / ds4;
         const int c = (i - r * ds4) * 4;
         const bool ok = r < rows && c < d;
-        cp_async16(xs + r * ds + c, ok ? x + (t0 + r) * d + c : x, ok ? 16 : 0);
+        cp_async16(xs + r * ds + c, ok ? xf + (t0 + r) * d + c : xf,
+                   ok ? 16 : 0);
       }
       cp_async_wait_all();
+    } else if (vec) {
+      if constexpr (ET != kF32)
+        stage_up<ET, kTile, kThreads>(xs, ds, x + t0 * d, rows, d,
+                                      [](int) { return true; });
     } else {
       for (int r = warp; r < kTile; r += kWarps) {
         const bool ok = r < rows;
-        const float* src = x + (t0 + r) * d;
+        const long long row = (t0 + r) * d;
         float* dst = xs + r * ds;
-        for (int c = lane; c < ds; c += 32) dst[c] = (ok && c < d) ? src[c] : 0.f;
+        for (int c = lane; c < ds; c += 32)
+          dst[c] = (ok && c < d) ? Elem<ET>::at(x, row + c) : 0.f;
       }
     }
-    if (tid < kTile) xsq_s[tid] = tid < rows ? xsq[t0 + tid] : 0.f;
+    if (tid < kTile) {
+      xsq_s[tid] = tid < rows ? xsq[t0 + tid] : 0.f;
+      sc_s[tid] = tid < rows && scale != nullptr ? scale[t0 + tid] : 1.f;
+    }
     __syncthreads();
 
     float acc0[QPT], acc1[QPT];
@@ -165,8 +191,9 @@ scan_kernel(const float* __restrict__ x, const float* __restrict__ xsq,
         const int r = rg + h * kRowGroups;
         if (r >= rows) continue;
         const float dot = h == 0 ? acc0[i] : acc1[i];
-        const float s = __fsub_rn(__fsub_rn(__fmul_rn(2.f, dot), xsq_s[r]),
-                                  qsq_s[qi]);
+        const float s = __fsub_rn(
+            __fsub_rn(__fmul_rn(__fmul_rn(2.f, dot), sc_s[r]), xsq_s[r]),
+            qsq_s[qi]);
         const int rid = (int)(t0 + r);
         if (better(s, rid, thr_s[qi], thr_i[qi])) {
           const int pos = atomicAdd(&cnt[qi], 1);
@@ -197,10 +224,12 @@ scan_kernel(const float* __restrict__ x, const float* __restrict__ xsq,
   }
 }
 
+template <int ET>
 __global__ void __launch_bounds__(kThreads)
 merge_kernel(const float* __restrict__ part_s, const int* __restrict__ part_i,
              long long len, int kk, int cap, float* __restrict__ vals,
-             int* __restrict__ ids, const float* __restrict__ x,
+             int* __restrict__ ids, const typename Elem<ET>::T* __restrict__ x,
+             const float* __restrict__ scale,
              const float* __restrict__ pv, const float* __restrict__ pf, int d,
              int dv, int m, float* __restrict__ rows_x,
              float* __restrict__ rows_v, float* __restrict__ rows_f) {
@@ -254,7 +283,8 @@ merge_kernel(const float* __restrict__ part_s, const int* __restrict__ part_i,
     const long long j = i / d;
     const long long c = i - j * d;
     const long long id = bi[j] == INT_MAX ? 0 : bi[j];
-    rows_x[qi * kk * d + i] = x[id * d + c];
+    const float v = Elem<ET>::at(x, id * d + c);  // dequantized: code * scale
+    rows_x[qi * kk * d + i] = scale != nullptr ? __fmul_rn(v, scale[id]) : v;
   }
   for (long long i = tid; i < (long long)kk * dv; i += kThreads) {
     const long long j = i / dv;
@@ -272,32 +302,74 @@ merge_kernel(const float* __restrict__ part_s, const int* __restrict__ part_i,
 
 size_t scan_smem(int bq, int cap, int d) {
   const size_t ds = (size_t)((d + 3) & ~3) + 4;
-  const size_t words = bq * ds + kTile * ds + kTile + 4 * (size_t)bq + 4 +
-                       2 * (size_t)bq * cap;
+  const size_t words = bq * ds + kTile * ds + 2 * kTile + 4 * (size_t)bq +
+                       4 + 2 * (size_t)bq * cap;
   return words * sizeof(float);
 }
 
-template <int QPT>
-cudaError_t launch_scan(const float* x, const float* xsq, const float* q,
-                        long long n, int nq, int d, int kk, int cap,
-                        int nchunks, long long chunk_rows, float* part_s,
-                        int* part_i, cudaStream_t stream) {
+template <int ET, int QPT>
+cudaError_t launch_scan(const typename Elem<ET>::T* x, const float* xsq,
+                        const float* scale, const float* q, long long n,
+                        int nq, int d, int kk, int cap, int nchunks,
+                        long long chunk_rows, float* part_s, int* part_i,
+                        cudaStream_t stream) {
   constexpr int BQ = kQueryGroups * QPT;
   const size_t smem = scan_smem(BQ, cap, d);
   cudaError_t err = cudaFuncSetAttribute(
-      scan_kernel<QPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      scan_kernel<ET, QPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((nq + BQ - 1) / BQ, nchunks);
-  scan_kernel<QPT><<<grid, kThreads, smem, stream>>>(
-      x, xsq, q, n, nq, d, kk, cap, chunk_rows, part_s, part_i);
+  scan_kernel<ET, QPT><<<grid, kThreads, smem, stream>>>(
+      x, xsq, scale, q, n, nq, d, kk, cap, chunk_rows, part_s, part_i);
   return cudaGetLastError();
+}
+
+template <int ET>
+int score_topk(const void* xv, const float* xsq, const float* scale,
+               const float* q, long long n, int nq, int d, int kk, int bq,
+               int cap, int nchunks, long long chunk_rows, int merge_cap,
+               float* part_s, int* part_i, float* vals, int* ids,
+               const float* pv, const float* pf, int dv, int m, float* rows_x,
+               float* rows_v, float* rows_f, cudaStream_t st) {
+  const auto* x = static_cast<const typename Elem<ET>::T*>(xv);
+  cudaError_t err;
+  switch (bq) {
+    case 16:
+      err = launch_scan<ET, 4>(x, xsq, scale, q, n, nq, d, kk, cap, nchunks,
+                               chunk_rows, part_s, part_i, st);
+      break;
+    case 8:
+      err = launch_scan<ET, 2>(x, xsq, scale, q, n, nq, d, kk, cap, nchunks,
+                               chunk_rows, part_s, part_i, st);
+      break;
+    case 4:
+      err = launch_scan<ET, 1>(x, xsq, scale, q, n, nq, d, kk, cap, nchunks,
+                               chunk_rows, part_s, part_i, st);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = sizeof(float) * (2 * (size_t)merge_cap + 4);
+  err = cudaFuncSetAttribute(merge_kernel<ET>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  merge_kernel<ET><<<nq, kThreads, smem, st>>>(
+      part_s, part_i, (long long)nchunks * kk, kk, merge_cap, vals, ids, x,
+      scale, pv, pf, d, dv, m, rows_x, rows_v, rows_f);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Scratch part_s / part_i hold (nq, nchunks, kk) entries. The rows pointers
-// (pv, pf, rows_x, rows_v, rows_f) are all null for the ids-only variant.
-extern "C" int fcvi_score_topk(const float* x, const float* xsq, const float* q,
+// et selects the stored element type of x (0 fp32, 1 bf16, 2 int8); scale
+// (n,) is the per-row dequantization scale, null for 1.0. Scratch part_s /
+// part_i hold (nq, nchunks, kk) entries. The rows pointers (pv, pf, rows_x,
+// rows_v, rows_f) are all null for the ids-only variant.
+extern "C" int fcvi_score_topk(const void* x, int et, const float* xsq,
+                               const float* scale, const float* q,
                                long long n, int nq, int d, int kk, int bq,
                                int cap, int nchunks, long long chunk_rows,
                                int merge_cap, float* part_s, int* part_i,
@@ -306,31 +378,23 @@ extern "C" int fcvi_score_topk(const float* x, const float* xsq, const float* q,
                                float* rows_v, float* rows_f, void* stream) {
   if (nq <= 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  switch (bq) {
-    case 16:
-      err = launch_scan<4>(x, xsq, q, n, nq, d, kk, cap, nchunks, chunk_rows,
-                           part_s, part_i, st);
-      break;
-    case 8:
-      err = launch_scan<2>(x, xsq, q, n, nq, d, kk, cap, nchunks, chunk_rows,
-                           part_s, part_i, st);
-      break;
-    case 4:
-      err = launch_scan<1>(x, xsq, q, n, nq, d, kk, cap, nchunks, chunk_rows,
-                           part_s, part_i, st);
-      break;
+  switch (et) {
+    case kF32:
+      return score_topk<kF32>(x, xsq, scale, q, n, nq, d, kk, bq, cap,
+                              nchunks, chunk_rows, merge_cap, part_s, part_i,
+                              vals, ids, pv, pf, dv, m, rows_x, rows_v,
+                              rows_f, st);
+    case kBF16:
+      return score_topk<kBF16>(x, xsq, scale, q, n, nq, d, kk, bq, cap,
+                               nchunks, chunk_rows, merge_cap, part_s, part_i,
+                               vals, ids, pv, pf, dv, m, rows_x, rows_v,
+                               rows_f, st);
+    case kI8:
+      return score_topk<kI8>(x, xsq, scale, q, n, nq, d, kk, bq, cap,
+                             nchunks, chunk_rows, merge_cap, part_s, part_i,
+                             vals, ids, pv, pf, dv, m, rows_x, rows_v, rows_f,
+                             st);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem = sizeof(float) * (2 * (size_t)merge_cap + 4);
-  err = cudaFuncSetAttribute(merge_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  merge_kernel<<<nq, kThreads, smem, st>>>(
-      part_s, part_i, (long long)nchunks * kk, kk, merge_cap, vals, ids, x, pv,
-      pf, d, dv, m, rows_x, rows_v, rows_f);
-  return (int)cudaGetLastError();
 }

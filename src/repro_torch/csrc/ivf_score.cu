@@ -2,16 +2,23 @@
 // an optional epilogue that gathers the winners' grouped payload rows.
 //
 // Replaces three Pallas kernels for the TPU, all in
-// src/repro/kernels/ivf_score.py:
-//   * ivf_score_topk_dedup (fp32): the probe-major scan of the batch's
+// src/repro/kernels/ivf_score.py, each at every storage dtype:
+//   * ivf_score_topk_dedup (`_dedup_kernel` for fp32 and bf16 slabs,
+//     `_dedup_scaled_kernel` for int8): the probe-major scan of the batch's
 //     unique probed lists, each query kept only on the lists it probed;
-//   * ivf_score_topk_dedup_rows: the same (vals, ids), plus the winners'
-//     payload_v / payload_f rows (dead slots carry zero rows);
-//   * ivf_score_topk_batch (and ivf_score_topk, its batch-1 wrapper): the
-//     query-major scan over a (b, nprobe) probe grid.
+//   * ivf_score_topk_dedup_rows (`_dedup_rows_kernel`): the same (vals,
+//     ids), plus the winners' payload_v / payload_f rows (dead slots carry
+//     zero rows);
+//   * ivf_score_topk_batch (`_batch_kernel`, `_batch_scaled_kernel`; and
+//     ivf_score_topk, its batch-1 wrapper): the query-major scan over a
+//     (b, nprobe) probe grid.
 //
-// Scores are 2 * <x, q> - ||x||^2 in IEEE fp32 (the ||q||^2 constant is
-// left to the caller, as on the TPU), kept only where valid > 0.5 (and, for
+// The grouped slab holds fp32, bf16 or int8 codes, with an optional
+// per-slot fp32 scale (int8's grouped_scales). Scores are
+// (2 * <x, q>) * scale - ||x||^2 in IEEE fp32, the TPU kernels' order: the
+// dot product accumulates in fp32 over the stored values cast up (exactly)
+// and the scale multiplies its output (1.0 without scales; the ||q||^2
+// constant is left to the caller, as on the TPU), kept only where valid > 0.5 (and, for
 // the dedup scan, member > 0.5). A result id is the flat slot id
 // list * max_list + slot. Order, as the TPU kernels' running top-k gives it:
 //   * dedup: (score desc, flat id asc). The TPU grid walks the unique lists
@@ -27,9 +34,10 @@
 //
 // Bound on the H100: bytes. At the IVF path's shapes (nlist 1024, about 977
 // rows a list, d=128, b=64, nprobe=16) the dedup scan reads the unique
-// probed lists' rows once, some hundreds of MB, against well under a GFLOP
-// of fp32 for the member pairs: the bytes take about 20 times as long as the
-// operations at the card's peaks.
+// probed lists' rows once, some hundreds of MB at fp32 (a half at bf16, a
+// quarter at int8), against well under a GFLOP of fp32 for the member
+// pairs: the bytes take several times as long as the operations at the
+// card's peaks.
 //
 // Design. The TPU kernel carries one running top-k across a sequential grid
 // over the lists and scores all b queries against each list, masking the
@@ -45,8 +53,9 @@
 //     empty slot. An item is one list (a unique list for dedup, one query's
 //     probe for batch) and up to kBQ member queries (gathered by a ballot
 //     over the member column). The block streams the list kTile rows at a
-//     time through shared memory with cp.async, reading only the rows that
-//     are valid and skipping tiles with none. Only member queries are
+//     time through shared memory as fp32 (fp32 rows with cp.async, bf16 and
+//     int8 rows through registers, cast up once as they are stored),
+//     reading only the rows that are valid and skipping tiles with none. Only member queries are
 //     scored, so no work goes to the masked (query, list) pairs that
 //     dominate the TPU's grid at b=64, nprobe=16, nlist=1024. Each member
 //     query keeps a thresholded candidate buffer trimmed by a bitonic sort,
@@ -131,9 +140,11 @@ offsets_kernel(const int* __restrict__ groups, int nsrc,
 // item i is source i, query i / nprobe's (i % nprobe)-th probe, and its own
 // partial. Items of one list are adjacent, so a list with many member
 // groups is read from device memory about once and from L2 after.
+template <int ET>
 __global__ void __launch_bounds__(kThreads)
-list_scan_kernel(const float* __restrict__ grouped,
+list_scan_kernel(const typename Elem<ET>::T* __restrict__ grouped,
                  const float* __restrict__ gsq,
+                 const float* __restrict__ gsc,
                  const float* __restrict__ valid,
                  const int* __restrict__ src_list,
                  const float* __restrict__ member,
@@ -148,7 +159,8 @@ list_scan_kernel(const float* __restrict__ grouped,
   float* qs = smem;                              // (kBQ, ds)
   float* xs = qs + kBQ * ds;                     // (kTile, ds)
   float* xsq_s = xs + kTile * ds;                // (kTile,)
-  int* ok_s = reinterpret_cast<int*>(xsq_s + kTile);  // (kTile,)
+  float* sc_s = xsq_s + kTile;                   // (kTile,) 1.0 without gsc
+  int* ok_s = reinterpret_cast<int*>(sc_s + kTile);  // (kTile,)
   int* qidx = ok_s + kTile;                      // (kBQ,) member query ids
   float* thr_s = reinterpret_cast<float*>(qidx + kBQ);
   int* thr_i = reinterpret_cast<int*>(thr_s + kBQ);
@@ -162,8 +174,8 @@ list_scan_kernel(const float* __restrict__ grouped,
   const int lane = tid & 31;
   const bool dedup = member != nullptr;
   const int items = dedup ? offsets[nsrc] : nsrc;
-  const bool vec =
-      (d & 3) == 0 && (reinterpret_cast<uintptr_t>(grouped) & 15) == 0;
+  const bool vec = (d * sizeof(*grouped)) % 16 == 0 &&
+                   (reinterpret_cast<uintptr_t>(grouped) & 15) == 0;
   const int rg = tid % kRowGroups;
   const int qg = tid / kRowGroups;
   const float* xa = xs + rg * ds;
@@ -194,8 +206,9 @@ list_scan_kernel(const float* __restrict__ grouped,
     const int list = src_list[src];
     // the ordering key of slot r is key_base + r (see the header)
     const int key_base = dedup ? list * L : (int)(src % nprobe) * L;
-    const float* xg = grouped + (long long)list * L * d;
+    const auto* xg = grouped + (long long)list * L * d;
     const float* sqg = gsq + (long long)list * L;
+    const float* scg = gsc == nullptr ? nullptr : gsc + (long long)list * L;
     const float* vg = valid + (long long)list * L;
 
     if (warp == 0) {
@@ -246,26 +259,32 @@ list_scan_kernel(const float* __restrict__ grouped,
         ok = tid < rows && vg[t0 + tid] > 0.5f;
         ok_s[tid] = ok;
         xsq_s[tid] = ok ? sqg[t0 + tid] : 0.f;
+        sc_s[tid] = ok && scg != nullptr ? scg[t0 + tid] : 1.f;
       }
       if (!__syncthreads_or(ok)) continue;       // no valid row in the tile
-      if (vec) {
+      if (vec && ET == kF32) {
         // every 16-byte copy of the tile in flight at once; invalid rows and
         // the pad columns are zero-filled without a read
+        const float* xf = reinterpret_cast<const float*>(xg);
         for (int i = tid; i < kTile * ds4; i += kThreads) {
           const int r = i / ds4;
           const int c = (i - r * ds4) * 4;
           const bool live = ok_s[r] && c < d;
-          const float* from = live ? xg + (long long)(t0 + r) * d + c : xg;
+          const float* from = live ? xf + (long long)(t0 + r) * d + c : xf;
           cp_async16(xs + r * ds + c, from, live ? 16 : 0);
         }
         cp_async_wait_all();
+      } else if (vec) {
+        if constexpr (ET != kF32)
+          stage_up<ET, kTile, kThreads>(xs, ds, xg + (long long)t0 * d, rows,
+                                        d, [&](int r) { return ok_s[r] != 0; });
       } else {
         for (int r = warp; r < kTile; r += kWarps) {
           const bool live = ok_s[r];
-          const float* srow = xg + (long long)(t0 + r) * d;
+          const long long row = (long long)(t0 + r) * d;
           float* dst = xs + r * ds;
           for (int c = lane; c < ds; c += 32)
-            dst[c] = (live && c < d) ? srow[c] : 0.f;
+            dst[c] = (live && c < d) ? Elem<ET>::at(xg, row + c) : 0.f;
         }
       }
       __syncthreads();
@@ -289,8 +308,9 @@ list_scan_kernel(const float* __restrict__ grouped,
         for (int h = 0; h < 2; ++h) {
           const int r = rg + h * kRowGroups;
           if (!ok_s[r]) continue;
-          const float s =
-              __fsub_rn(__fmul_rn(2.f, h == 0 ? acc0 : acc1), xsq_s[r]);
+          const float s = __fsub_rn(
+              __fmul_rn(__fmul_rn(2.f, h == 0 ? acc0 : acc1), sc_s[r]),
+              xsq_s[r]);
           const int key = key_base + t0 + r;
           if (better(s, key, thr_s[qg], thr_i[qg])) {
             const int pos = atomicAdd(&cnt[qg], 1);
@@ -425,28 +445,66 @@ list_merge_kernel(const float* __restrict__ part_s,
 
 size_t list_scan_smem(int cap, int d) {
   const size_t ds = (size_t)((d + 3) & ~3) + 4;
-  const size_t words = kBQ * ds + kTile * ds + 2 * kTile + 4 * kBQ + 8 +
+  const size_t words = kBQ * ds + kTile * ds + 3 * kTile + 4 * kBQ + 8 +
                        2 * (size_t)kBQ * cap;
   return words * sizeof(float);
 }
 
+template <int ET>
+cudaError_t launch_list_scan(const void* grouped, const float* gsq,
+                             const float* gsc, const float* valid,
+                             const int* src_list, const float* member,
+                             const int* offsets, int* next, const float* q,
+                             int nsrc, int b, int nprobe, int L, int d, int kk,
+                             int cap, float* part_s, int* part_i,
+                             cudaStream_t st) {
+  const size_t smem = list_scan_smem(cap, d);
+  cudaError_t err = cudaFuncSetAttribute(
+      list_scan_kernel<ET>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, list_scan_kernel<ET>, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  // enough blocks to fill the card once; idle ones exit at once
+  const long long most = member != nullptr
+                             ? (long long)nsrc * ((b + kBQ - 1) / kBQ)
+                             : nsrc;
+  const long long fill = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const int blocks = (int)(most < fill ? most : fill);
+  list_scan_kernel<ET><<<blocks, kThreads, smem, st>>>(
+      static_cast<const typename Elem<ET>::T*>(grouped), gsq, gsc, valid,
+      src_list, member, offsets, next, q, nsrc, b, nprobe, L, d, kk, cap,
+      part_s, part_i);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// One entry point for the three kernels. member != nullptr selects the dedup
+// One entry point for the three kernels. et selects the slab's stored
+// element type (0 fp32, 1 bf16, 2 int8) and gsc (nlist, max_list) its
+// per-slot scale, null for 1.0. member != nullptr selects the dedup
 // scan (src_list = uniq, nsrc = s slots, member (s, b)); member == nullptr
 // the batch scan (src_list = probes (b, nprobe), nsrc = b * nprobe). Scratch
 // part_s / part_i hold (nsrc * b, kk) entries for dedup and (b * nprobe, kk)
 // for batch; work holds 2 * nsrc + 2 ints (the plan's offsets, the work
-// counter, and each source's item count). The rows pointers (pv, pf, rows_v, rows_f) are all null for
-// the ids-only variants.
+// counter, and each source's item count). The rows pointers (pv, pf, rows_v,
+// rows_f) are all null for the ids-only variants.
 extern "C" int fcvi_ivf_score_topk(
-    const float* grouped, const float* gsq, const float* valid,
-    const int* src_list, int nsrc, const float* member, const float* q, int b,
-    int nprobe, int L, int d, int kk, int cap, int merge_cap, float* part_s,
-    int* part_i, int* work, float* vals, int* ids, const float* pv,
-    const float* pf, int dv, int m, float* rows_v, float* rows_f,
-    void* stream) {
+    const void* grouped, int et, const float* gsq, const float* gsc,
+    const float* valid, const int* src_list, int nsrc, const float* member,
+    const float* q, int b, int nprobe, int L, int d, int kk, int cap,
+    int merge_cap, float* part_s, int* part_i, int* work, float* vals,
+    int* ids, const float* pv, const float* pf, int dv, int m, float* rows_v,
+    float* rows_f, void* stream) {
   if (b <= 0) return (int)cudaSuccess;
+  if (et != kF32 && et != kBF16 && et != kI8)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   if (nsrc > 0) {
@@ -463,29 +521,24 @@ extern "C" int fcvi_ivf_score_topk(
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
-    const size_t smem = list_scan_smem(cap, d);
-    err = cudaFuncSetAttribute(list_scan_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    int dev = 0, sms = 0, per_sm = 0;
-    err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, list_scan_kernel, kThreads, smem);
-    if (err != cudaSuccess) return (int)err;
-    // enough blocks to fill the card once; idle ones exit at once
-    const long long most = member != nullptr
-                               ? (long long)nsrc * ((b + kBQ - 1) / kBQ)
-                               : nsrc;
-    const long long fill = (long long)sms * (per_sm > 0 ? per_sm : 1);
-    const int blocks = (int)(most < fill ? most : fill);
-    list_scan_kernel<<<blocks, kThreads, smem, st>>>(
-        grouped, gsq, valid, src_list, member, offsets, next, q, nsrc, b,
-        nprobe, L, d, kk, cap, part_s, part_i);
-    err = cudaGetLastError();
+    switch (et) {
+      case kF32:
+        err = launch_list_scan<kF32>(grouped, gsq, gsc, valid, src_list,
+                                     member, offsets, next, q, nsrc, b,
+                                     nprobe, L, d, kk, cap, part_s, part_i,
+                                     st);
+        break;
+      case kBF16:
+        err = launch_list_scan<kBF16>(grouped, gsq, gsc, valid, src_list,
+                                      member, offsets, next, q, nsrc, b,
+                                      nprobe, L, d, kk, cap, part_s, part_i,
+                                      st);
+        break;
+      default:
+        err = launch_list_scan<kI8>(grouped, gsq, gsc, valid, src_list,
+                                    member, offsets, next, q, nsrc, b, nprobe,
+                                    L, d, kk, cap, part_s, part_i, st);
+    }
     if (err != cudaSuccess) return (int)err;
   }
   const size_t smem = sizeof(float) * (2 * (size_t)merge_cap + 4);

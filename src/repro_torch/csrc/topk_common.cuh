@@ -1,6 +1,7 @@
 // Device helpers shared by the top-k scans (fused_score_topk.cu and
 // ivf_score.cu): the (score desc, key asc) total order, 16-byte cp.async
-// staging, and the thresholded candidate buffers' bitonic trim.
+// staging, the stored element types (fp32, bf16, int8) and their staging
+// cast up to fp32, and the thresholded candidate buffers' bitonic trim.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -27,6 +28,89 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// Stored element types of the scanned rows (the storage ladder), passed to
+// the C entry points as an int: fp32, bf16 (raw 16-bit words: the upper half
+// of an fp32) and int8 codes. Casting each up to fp32 is exact.
+enum : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
+
+template <int ET> struct Elem;
+template <> struct Elem<kF32> {
+  using T = float;
+  __device__ static float at(const T* p, long long i) { return p[i]; }
+};
+template <> struct Elem<kBF16> {
+  using T = unsigned short;
+  __device__ static float at(const T* p, long long i) {
+    return __uint_as_float((unsigned)p[i] << 16);
+  }
+};
+template <> struct Elem<kI8> {
+  using T = signed char;
+  __device__ static float at(const T* p, long long i) { return (float)p[i]; }
+};
+
+// 16 bytes of bf16 or int8 values (8 or 16 of them) cast up to fp32 and
+// stored at dst, which is 16-byte aligned in shared memory.
+__device__ __forceinline__ void store_up(float* dst, uint4 w, Elem<kBF16>) {
+  const unsigned v[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    *reinterpret_cast<float4*>(dst + 4 * h) = make_float4(
+        __uint_as_float(v[2 * h] << 16), __uint_as_float(v[2 * h] & 0xffff0000u),
+        __uint_as_float(v[2 * h + 1] << 16),
+        __uint_as_float(v[2 * h + 1] & 0xffff0000u));
+  }
+}
+
+__device__ __forceinline__ void store_up(float* dst, uint4 w, Elem<kI8>) {
+  const unsigned v[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    // byte j (little-endian) sign-extended: shift it to the top, then down
+    const unsigned u = v[h];
+    *reinterpret_cast<float4*>(dst + 4 * h) = make_float4(
+        (float)((int)(u << 24) >> 24), (float)((int)(u << 16) >> 24),
+        (float)((int)(u << 8) >> 24), (float)((int)u >> 24));
+  }
+}
+
+// Stage rows of a tile of bf16 or int8 rows, cast up to fp32, into the
+// shared-memory layout the inner loop reads (row r at dst + r * ds). The
+// tile's `rows` rows are contiguous at src, each d elements wide, with
+// d * sizeof(T) a multiple of 16 and src 16-byte aligned; rows r with
+// live(r) false, and rows from `rows` up to kTileRows, are zero-filled
+// without a read. Each thread loads up to kLoads 16-byte words into
+// registers before it converts any, so those loads are in flight together.
+// The caller synchronises before the rows are read.
+template <int ET, int kTileRows, int kThreadsPerBlock, typename Live>
+__device__ __forceinline__ void stage_up(float* dst, int ds,
+                                         const typename Elem<ET>::T* src,
+                                         int rows, int d, Live live) {
+  constexpr int kPer = 16 / sizeof(typename Elem<ET>::T);  // values a word
+  constexpr int kLoads = 8;
+  const int cpr = d / kPer;                                // words a row
+  const int total = kTileRows * cpr;
+  const uint4* s4 = reinterpret_cast<const uint4*>(src);
+  for (int base = 0; base < total; base += kLoads * kThreadsPerBlock) {
+    uint4 w[kLoads];
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+      const int i = base + j * kThreadsPerBlock + (int)threadIdx.x;
+      const int r = i / cpr;
+      w[j] = (i < total && r < rows && live(r)) ? __ldg(s4 + i)
+                                                : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+      const int i = base + j * kThreadsPerBlock + (int)threadIdx.x;
+      if (i < total) {
+        const int r = i / cpr;
+        store_up(dst + r * ds + (i - r * cpr) * kPer, w[j], Elem<ET>());
+      }
+    }
+  }
 }
 
 // Bitonic sort, best first, of `segs` independent segments of `cap` (a power

@@ -11,8 +11,11 @@ coarse quantizer is ``ops.score_topk`` over the centroids, the probed lists
 are deduplicated across the batch (``ops.dedup_probes``), and the unique
 lists are scanned probe-major (``ops.ivf_score_topk_dedup``, or its rows
 variant for the gather-free step). Each query scores nprobe/nlist of the
-corpus. Mirrors ``repro.index.ivf`` for fp32 storage; the filter-algebra
-helpers (``grouped_mask``, ``masked_candidates``, ``routed_candidates``,
+corpus. The corpus and the slabs may be stored as fp32, bf16 or int8
+codes with one fp32 scale per row (``scales``, grouped as
+``grouped_scales``); the quantizer is trained in fp32 and the squared
+norms are those of the stored rows. Mirrors ``repro.index.ivf``; the
+filter-algebra helpers (``grouped_mask``, ``masked_candidates``, ``routed_candidates``,
 ``eligible_lists``) are ROADMAP A7.
 """
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.clustering import Seed, assign, kmeans
+from repro_torch.index import quant
 from repro_torch.index.slab import build_grouped
 from repro_torch.kernels import ops
 
@@ -31,14 +35,16 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class IVFIndex:
-    vectors: Tensor     # (n, d) corpus (transformed space)
-    sq_norms: Tensor    # (n,)
+    vectors: Tensor     # (n, d) corpus (transformed space): fp32/bf16/int8
+    sq_norms: Tensor    # (n,) fp32, of the (dequantized) stored rows
     centroids: Tensor   # (nlist, d)
     lists: Tensor       # (nlist, max_list) int32 corpus ids, -1 pad
     list_sizes: Tensor  # (nlist,) int32
     grouped: Tensor     # (nlist, max_list, d) corpus grouped by list
     grouped_sq: Tensor  # (nlist, max_list)
     valid: Tensor       # (nlist, max_list) float 0/1 (1 = real row)
+    scales: Optional[Tensor] = None          # (n,) int8 per-row scales
+    grouped_scales: Optional[Tensor] = None  # (nlist, max_list), 1.0 on pads
 
     @property
     def size(self) -> int:
@@ -87,39 +93,54 @@ def lists_from_labels(labels: Tensor, nlist: int, pad_to_multiple: int = 8):
 
 
 def from_lists(vectors: Tensor, centroids: Tensor, lists: Tensor,
-               list_sizes: Tensor) -> IVFIndex:
-    """An IVFIndex over fp32 ``vectors`` with the given quantizer and id
-    lists; squared norms and the serving slabs are materialised here."""
-    vectors = vectors.to(torch.float32).contiguous()
-    sq_norms = torch.sum(vectors * vectors, dim=-1)
+               list_sizes: Tensor, scales: Optional[Tensor] = None
+               ) -> IVFIndex:
+    """An IVFIndex over ``vectors`` as stored (fp32, bf16, or int8 codes
+    with their per-row ``scales``) with the given quantizer and id lists;
+    squared norms, the serving slabs and the grouped scales are
+    materialised here."""
+    vectors = vectors.contiguous()
+    lists = lists.to(torch.int32).contiguous()
+    grouped_scales = None
+    if scales is not None:
+        scales = scales.to(torch.float32).contiguous()
+        sq_norms = quant.sq_norms_of(vectors, scales)
+        grouped_scales = _group_scales(scales, lists)
+    else:
+        sq_norms = torch.sum(vectors.to(torch.float32) ** 2, dim=-1)
     grouped, grouped_sq, valid = build_grouped(vectors, sq_norms, lists)
     return IVFIndex(vectors=vectors, sq_norms=sq_norms,
                     centroids=centroids.to(torch.float32).contiguous(),
-                    lists=lists.to(torch.int32).contiguous(),
-                    list_sizes=list_sizes.to(torch.int32),
-                    grouped=grouped, grouped_sq=grouped_sq, valid=valid)
+                    lists=lists, list_sizes=list_sizes.to(torch.int32),
+                    grouped=grouped, grouped_sq=grouped_sq, valid=valid,
+                    scales=scales, grouped_scales=grouped_scales)
 
 
 def build(vectors: Tensor, nlist: int, generator: Seed = None,
           iters: int = 15, pad_to_multiple: int = 8,
           storage_dtype=None) -> IVFIndex:
-    """Train the coarse quantizer (k-means with ``generator``) and
-    materialise both list layouts on the vectors' device. Reduced storage
-    (bfloat16, int8) is ROADMAP A6."""
-    if storage_dtype is not None:
-        raise NotImplementedError(
-            f"storage_dtype={storage_dtype!r}: reduced-precision IVF storage "
-            "is ROADMAP A6; the port stores IVF slabs in float32")
+    """Train the coarse quantizer (k-means with ``generator``, in fp32) and
+    materialise both list layouts on the vectors' device, with the corpus
+    stored at ``storage_dtype``: None (fp32), ``torch.bfloat16`` or
+    ``torch.int8`` (per-row codes and scales)."""
     vectors = vectors.to(torch.float32).contiguous()
     centroids, labels = kmeans(vectors, nlist, iters=iters,
                                generator=generator)
     lists, sizes = lists_from_labels(labels, nlist, pad_to_multiple)
-    return from_lists(vectors, centroids, lists, sizes)
+    scales = None
+    if quant.is_quantized(storage_dtype):
+        vectors, scales = quant.quantize_rows(vectors)
+    elif storage_dtype is not None:
+        vectors = vectors.to(storage_dtype)
+    return from_lists(vectors, centroids, lists, sizes, scales)
 
 
 def _group_scales(scales: Tensor, lists: Tensor) -> Tensor:
-    raise NotImplementedError(
-        "int8 IVF storage (grouped per-row scales) is ROADMAP A6")
+    """Per-row scales grouped by list as ``build_grouped`` groups the rows;
+    pad slots get 1.0 (masked by ``valid``, and a unit scale keeps any
+    dequantization of them finite)."""
+    return torch.where(lists >= 0, scales[torch.clamp(lists, min=0).long()],
+                       1.0).contiguous()
 
 
 def _probe(index: IVFIndex, queries: Tensor, nprobe: int):
@@ -148,7 +169,7 @@ def search(index: IVFIndex, queries: Tensor, k: int, nprobe: int = 8):
     uniq, member = _probe(index, queries, nprobe)
     vals, flat_ids = ops.ivf_score_topk_dedup(
         index.grouped, index.grouped_sq, index.valid, uniq, member, queries,
-        k)
+        k, scales=index.grouped_scales)
     vals, ids, _ = _corpus_ids(index, vals, flat_ids, queries)
     return vals, ids
 
@@ -171,7 +192,7 @@ def search_rows(index: IVFIndex, queries: Tensor, k: int, payload_v: Tensor,
     uniq, member = _probe(index, queries, nprobe)
     vals, flat_ids, rows_v, rows_f = ops.ivf_score_topk_dedup_rows(
         index.grouped, index.grouped_sq, index.valid, uniq, member, queries,
-        grouped_pv, grouped_pf, k)
+        grouped_pv, grouped_pf, k, scales=index.grouped_scales)
     vals, ids, dead = _corpus_ids(index, vals, flat_ids, queries)
     rows_v = torch.where(dead[..., None], payload_v[0], rows_v)
     rows_f = torch.where(dead[..., None], payload_f[0], rows_f)
@@ -189,7 +210,8 @@ def add(index: IVFIndex, new_vectors: Tensor) -> IVFIndex:
     """Incremental insert: centroids stay fixed; each new row joins its
     nearest list after the list's current rows, in input order, and the
     serving slabs are rebuilt. ``max_list`` grows to a multiple of 8 when a
-    list outgrows it."""
+    list outgrows it. New rows are stored as the index stores its rows:
+    quantized with their own scales for int8, cast for bf16."""
     new_vectors = new_vectors.to(torch.float32)
     labels = assign(new_vectors, index.centroids)
     nlist, max_list = index.lists.shape
@@ -205,5 +227,12 @@ def add(index: IVFIndex, new_vectors: Tensor) -> IVFIndex:
     rank = (torch.arange(labels.shape[0], device=labels.device)
             - (torch.cumsum(counts, 0) - counts)[by_list])
     lists[by_list, old[by_list] + rank] = (index.size + order).to(torch.int32)
-    vectors = torch.cat([index.vectors, new_vectors], dim=0)
-    return from_lists(vectors, index.centroids, lists, sizes)
+    scales = None
+    if index.scales is not None:
+        codes, new_scales = quant.quantize_rows(new_vectors)
+        vectors = torch.cat([index.vectors, codes], dim=0)
+        scales = torch.cat([index.scales, new_scales], dim=0)
+    else:
+        vectors = torch.cat([index.vectors,
+                             new_vectors.to(index.vectors.dtype)], dim=0)
+    return from_lists(vectors, index.centroids, lists, sizes, scales)

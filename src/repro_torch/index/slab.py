@@ -13,6 +13,8 @@ def build_grouped(vectors: Tensor, sq_norms: Tensor, lists: Tensor):
 
     ``lists`` is (nlist, max_list) int32 corpus ids with -1 padding. Returns
     (grouped, grouped_sq, valid) with ``valid`` float 0/1 (1 = real row);
-    pad slots hold corpus row 0, masked by ``valid``, as in the reference."""
+    ``grouped`` keeps the stored rows' dtype (fp32, bf16 or int8 codes).
+    Pad slots hold corpus row 0, masked by ``valid``, as in the
+    reference."""
     safe = torch.clamp(lists, min=0).long()
     return (vectors[safe], sq_norms[safe], (lists >= 0).to(torch.float32))

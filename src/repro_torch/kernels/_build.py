@@ -40,12 +40,12 @@ _F = ctypes.c_float
 SIGNATURES = {
     "fcvi_fused_transform": [_P, _P, _P, _F, _P, _P, _P, _P, _P, _L, _I, _I,
                              _P],
-    "fcvi_score_topk": [_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _L, _I, _P,
-                        _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+    "fcvi_score_topk": [_P, _I, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _L,
+                        _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     "fcvi_rescore": [_P, _P, _P, _P, _F, _F, _P, _I, _I, _I, _I, _P],
-    "fcvi_ivf_score_topk": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
-                            _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
-                            _P, _P],
+    "fcvi_ivf_score_topk": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
+                            _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                            _I, _P, _P, _P],
     "fcvi_pq_lut_qdot": [_P, _P, _P, _I, _I, _I, _I, _P],
     "fcvi_pq_score": [_P, _I, _P, _P, _L, _I, _I, _I, _P],
 }
@@ -167,6 +167,22 @@ def require(t: torch.Tensor, name: str, shape: tuple,
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+# the stored element types the scan kernels take, by their code in the C
+# entry points (kF32, kBF16, kI8 in csrc/topk_common.cuh), and the suffix of
+# each variant's launch counter
+ELEMENT_TYPES = {torch.float32: (0, ""), torch.bfloat16: (1, "_bf16"),
+                 torch.int8: (2, "_int8")}
+
+
+def element_type(t: torch.Tensor, name: str):
+    """(code, counter suffix) of the scanned rows' dtype; raises for a dtype
+    the scan kernels do not take (nothing is cast quietly)."""
+    if t.dtype not in ELEMENT_TYPES:
+        raise ValueError(f"{name} must be float32, bfloat16 or int8, got "
+                         f"{t.dtype}")
+    return ELEMENT_TYPES[t.dtype]
 
 
 def count(name: str) -> None:

@@ -2,11 +2,17 @@
 
 One CUDA source (``csrc/fused_score_topk.cu``) serves both output contracts:
 
-* ``score_topk`` (B2) replaces the plain variant of the Pallas kernel
-  ``repro/kernels/fused_score_topk.py::score_topk``;
-* ``score_topk_rows`` (B3) replaces ``score_topk_rows`` for fp32 storage:
-  the same (vals, ids) bit for bit, plus the winners' corpus rows and
-  payload rows.
+* ``score_topk`` (B2) replaces the plain and int8-scaled variants of the
+  Pallas kernel ``repro/kernels/fused_score_topk.py::score_topk``;
+* ``score_topk_rows`` (B3) replaces ``score_topk_rows``: the same (vals,
+  ids) bit for bit, plus the winners' corpus rows (dequantized to fp32)
+  and payload rows.
+
+The corpus is stored as fp32, bf16 or int8 codes (the storage ladder); an
+optional per-row ``scales`` (n,) multiplies each dot product's output, as
+the int8 rung needs. Each stored dtype has its own launch counter
+(``score_topk``, ``score_topk_bf16``, ``score_topk_int8``, and the same for
+the rows variant); a CUDA corpus of any other dtype raises.
 
 Pass 1 splits the corpus into chunks scanned by parallel blocks, each
 keeping its chunk's top-kk per query; pass 2 merges the chunks per query
@@ -18,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 
@@ -47,9 +54,10 @@ def _pow2(x: int) -> int:
 
 def scan_smem(bq: int, cap: int, d: int) -> int:
     """Pass-1 dynamic shared memory in bytes (mirrors ``scan_smem`` in the
-    source)."""
+    source). The same at every stored dtype: bf16 and int8 tiles are cast
+    up to fp32 as they are stored, with no raw copy in shared memory."""
     ds = ((d + 3) & ~3) + 4
-    return 4 * (bq * ds + TILE * ds + TILE + 4 * bq + 4 + 2 * bq * cap)
+    return 4 * (bq * ds + TILE * ds + 2 * TILE + 4 * bq + 4 + 2 * bq * cap)
 
 
 def plan(n: int, nq: int, kk: int, d: int, num_sms: int) -> ScanPlan:
@@ -76,7 +84,10 @@ def plan(n: int, nq: int, kk: int, d: int, num_sms: int) -> ScanPlan:
                     merge_cap=_pow2(kk + 2 * THREADS))
 
 
-def _launch(corpus, sq_norms, queries, k, payload_v=None, payload_f=None):
+def _launch(corpus, sq_norms, queries, k, payload_v=None, payload_f=None,
+            scales=None):
+    """Check the operands, allocate outputs and scratch, launch. Returns
+    (error code, counter suffix of the corpus dtype, vals, ids, rows)."""
     if corpus.dim() != 2 or queries.dim() != 2:
         raise ValueError("corpus and queries must be 2-D")
     n, d = corpus.shape
@@ -84,8 +95,11 @@ def _launch(corpus, sq_norms, queries, k, payload_v=None, payload_f=None):
     dev = corpus.device
     if n >= 2 ** 31:
         raise ValueError("corpus ids must fit in int32")
-    _build.require(corpus, "corpus", (n, d), dev)
+    et, suffix = _build.element_type(corpus, "corpus")
+    _build.require(corpus, "corpus", (n, d), dev, corpus.dtype)
     _build.require(sq_norms, "sq_norms", (n,), dev)
+    if scales is not None:
+        _build.require(scales, "scales", (n,), dev)
     _build.require(queries, "queries", (nq, d), dev)
     p = plan(n, nq, k, d, torch.cuda.get_device_properties(dev).multi_processor_count)
     part_s = torch.empty((nq, p.nchunks, k), dtype=torch.float32, device=dev)
@@ -104,33 +118,38 @@ def _launch(corpus, sq_norms, queries, k, payload_v=None, payload_f=None):
     lib = _build.library()
     with torch.cuda.device(dev):
         code = lib.fcvi_score_topk(
-            corpus.data_ptr(), sq_norms.data_ptr(), queries.data_ptr(), n, nq,
-            d, k, p.bq, p.cap, p.nchunks, p.chunk_rows, p.merge_cap,
-            part_s.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
-            ids.data_ptr(), ptr(payload_v), ptr(payload_f), dv, m,
-            *map(ptr, rows), _build.stream(dev))
-    return code, vals, ids, rows
+            corpus.data_ptr(), et, sq_norms.data_ptr(), ptr(scales),
+            queries.data_ptr(), n, nq, d, k, p.bq, p.cap, p.nchunks,
+            p.chunk_rows, p.merge_cap, part_s.data_ptr(), part_i.data_ptr(),
+            vals.data_ptr(), ids.data_ptr(), ptr(payload_v), ptr(payload_f),
+            dv, m, *map(ptr, rows), _build.stream(dev))
+    return code, suffix, vals, ids, rows
 
 
 def score_topk(corpus: torch.Tensor, sq_norms: torch.Tensor,
-               queries: torch.Tensor, k: int):
-    """corpus (n, d), sq_norms (n,), queries (q, d), float32 on one CUDA
-    device. Returns (scores (q, k) f32, ids (q, k) int32): negative squared
-    L2, descending, ties to the smaller id."""
-    code, vals, ids, _ = _launch(corpus, sq_norms, queries, k)
-    _build.check(code, NAME)
-    _build.count(NAME)
+               queries: torch.Tensor, k: int,
+               scales: Optional[torch.Tensor] = None):
+    """corpus (n, d) float32, bfloat16 or int8 codes, sq_norms (n,),
+    queries (q, d) and the optional per-row scales (n,) float32, on one
+    CUDA device. Returns (scores (q, k) f32, ids (q, k) int32): negative
+    squared L2, descending, ties to the smaller id."""
+    code, suffix, vals, ids, _ = _launch(corpus, sq_norms, queries, k,
+                                         scales=scales)
+    _build.check(code, NAME + suffix)
+    _build.count(NAME + suffix)
     return vals, ids
 
 
 def score_topk_rows(corpus: torch.Tensor, sq_norms: torch.Tensor,
                     payload_v: torch.Tensor, payload_f: torch.Tensor,
-                    queries: torch.Tensor, k: int):
+                    queries: torch.Tensor, k: int,
+                    scales: Optional[torch.Tensor] = None):
     """Gather-free scan: ``score_topk``'s (scores, ids) plus the winners'
-    corpus rows (q, k, d), payload_v rows (q, k, dv) and payload_f rows
-    (q, k, m); payloads are row-aligned with the corpus."""
-    code, vals, ids, rows = _launch(corpus, sq_norms, queries, k,
-                                    payload_v, payload_f)
-    _build.check(code, NAME_ROWS)
-    _build.count(NAME_ROWS)
+    corpus rows dequantized to fp32 (q, k, d), payload_v rows (q, k, dv)
+    and payload_f rows (q, k, m); payloads are fp32, row-aligned with the
+    corpus."""
+    code, suffix, vals, ids, rows = _launch(corpus, sq_norms, queries, k,
+                                            payload_v, payload_f, scales)
+    _build.check(code, NAME_ROWS + suffix)
+    _build.count(NAME_ROWS + suffix)
     return (vals, ids, *rows)

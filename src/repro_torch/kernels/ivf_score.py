@@ -1,7 +1,7 @@
 """CUDA kernels B5/B6/B7: IVF list scans + first-occurrence top-k.
 
 One CUDA source (``csrc/ivf_score.cu``) serves the three output contracts
-of ``repro/kernels/ivf_score.py``, for fp32 storage:
+of ``repro/kernels/ivf_score.py``, at every storage dtype:
 
 * ``ivf_score_topk_dedup`` (B5): the probe-major scan of the batch's unique
   probed lists (``uniq`` (s,), ``member`` (s, b));
@@ -10,8 +10,14 @@ of ``repro/kernels/ivf_score.py``, for fp32 storage:
 * ``ivf_score_topk_batch`` (B7) and ``ivf_score_topk``, its batch-1 call:
   the query-major scan over a (b, nprobe) probe grid.
 
-Scores are ``2 <x, q> - ||x||^2`` (the caller adds ``-||q||^2`` back) and
-ids are flat slot ids ``list * max_list + slot``. Ties go to the smaller
+The grouped slab holds fp32, bf16 or int8 codes; the optional per-slot
+``scales`` (nlist, max_list) (int8's ``grouped_scales``) multiplies each
+dot product's output. Each stored dtype has its own launch counter (the
+names below, then ``_bf16`` and ``_int8``); a CUDA slab of any other dtype
+raises.
+
+Scores are ``(2 <x, q>) scale - ||x||^2`` (the caller adds ``-||q||^2``
+back) and ids are flat slot ids ``list * max_list + slot``. Ties go to the smaller
 flat id for B5/B6 and to the earlier (probe position, slot) for B7, as the
 TPU kernels' running top-k orders them; dead slots read (-inf, id 0).
 
@@ -26,6 +32,7 @@ own).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -54,9 +61,10 @@ def _pow2(x: int) -> int:
 
 def scan_smem(cap: int, d: int) -> int:
     """Pass-1 dynamic shared memory in bytes (mirrors ``list_scan_smem`` in
-    the source)."""
+    the source). The same at every stored dtype: bf16 and int8 tiles are
+    cast up to fp32 as they are stored."""
     ds = ((d + 3) & ~3) + 4
-    return 4 * (BQ * ds + TILE * ds + 2 * TILE + 4 * BQ + 8 + 2 * BQ * cap)
+    return 4 * (BQ * ds + TILE * ds + 3 * TILE + 4 * BQ + 8 + 2 * BQ * cap)
 
 
 def plan(k: int, d: int) -> ListPlan:
@@ -73,10 +81,11 @@ def plan(k: int, d: int) -> ListPlan:
 
 
 def _launch(grouped, grouped_sq, valid, src_list, member, queries, k,
-            payload_v=None, payload_f=None):
+            payload_v=None, payload_f=None, scales=None):
     """Check the operands, allocate outputs and scratch, launch. ``member``
     None selects the batch scan (``src_list`` is the (b, nprobe) probe
-    matrix), otherwise the dedup scan (``src_list`` is ``uniq``)."""
+    matrix), otherwise the dedup scan (``src_list`` is ``uniq``). Returns
+    (error code, counter suffix of the slab dtype, vals, ids, rows)."""
     if grouped.dim() != 3 or queries.dim() != 2:
         raise ValueError("grouped must be 3-D and queries 2-D")
     nlist, max_list, d = grouped.shape
@@ -84,8 +93,12 @@ def _launch(grouped, grouped_sq, valid, src_list, member, queries, k,
     dev = grouped.device
     if nlist * max_list >= 2 ** 31:
         raise ValueError("flat slot ids (nlist * max_list) must fit in int32")
-    _build.require(grouped, "grouped", (nlist, max_list, d), dev)
+    et, suffix = _build.element_type(grouped, "grouped")
+    _build.require(grouped, "grouped", (nlist, max_list, d), dev,
+                   grouped.dtype)
     _build.require(grouped_sq, "grouped_sq", (nlist, max_list), dev)
+    if scales is not None:
+        _build.require(scales, "scales", (nlist, max_list), dev)
     _build.require(valid, "valid", (nlist, max_list), dev)
     _build.require(queries, "queries", (b, d), dev)
     if member is None:
@@ -121,25 +134,28 @@ def _launch(grouped, grouped_sq, valid, src_list, member, queries, k,
     lib = _build.library()
     with torch.cuda.device(dev):
         code = lib.fcvi_ivf_score_topk(
-            grouped.data_ptr(), grouped_sq.data_ptr(), valid.data_ptr(),
-            src_list.data_ptr(), nsrc, ptr(member), queries.data_ptr(), b,
-            nprobe, max_list, d, k, p.cap, p.merge_cap, part_s.data_ptr(),
-            part_i.data_ptr(), work.data_ptr(), vals.data_ptr(),
-            ids.data_ptr(), ptr(payload_v), ptr(payload_f), dv, m,
-            *map(ptr, rows), _build.stream(dev))
-    return code, vals, ids, rows
+            grouped.data_ptr(), et, grouped_sq.data_ptr(), ptr(scales),
+            valid.data_ptr(), src_list.data_ptr(), nsrc, ptr(member),
+            queries.data_ptr(), b, nprobe, max_list, d, k, p.cap,
+            p.merge_cap, part_s.data_ptr(), part_i.data_ptr(),
+            work.data_ptr(), vals.data_ptr(), ids.data_ptr(), ptr(payload_v),
+            ptr(payload_f), dv, m, *map(ptr, rows), _build.stream(dev))
+    return code, suffix, vals, ids, rows
 
 
 def ivf_score_topk_dedup(grouped: torch.Tensor, grouped_sq: torch.Tensor,
                          valid: torch.Tensor, uniq: torch.Tensor,
-                         member: torch.Tensor, queries: torch.Tensor, k: int):
-    """grouped (nlist, max_list, d), grouped_sq / valid (nlist, max_list)
-    float32, uniq (s,) int32, member (s, b) float 0/1, queries (b, d), on
-    one CUDA device. Returns (vals (b, k) f32, flat ids (b, k) int32)."""
-    code, vals, ids, _ = _launch(grouped, grouped_sq, valid, uniq, member,
-                                 queries, k)
-    _build.check(code, NAME_DEDUP)
-    _build.count(NAME_DEDUP)
+                         member: torch.Tensor, queries: torch.Tensor, k: int,
+                         scales: Optional[torch.Tensor] = None):
+    """grouped (nlist, max_list, d) float32, bfloat16 or int8 codes,
+    grouped_sq / valid (nlist, max_list) float32, uniq (s,) int32, member
+    (s, b) float 0/1, queries (b, d), the optional scales (nlist, max_list)
+    float32, on one CUDA device. Returns (vals (b, k) f32, flat ids (b, k)
+    int32)."""
+    code, suffix, vals, ids, _ = _launch(grouped, grouped_sq, valid, uniq,
+                                         member, queries, k, scales=scales)
+    _build.check(code, NAME_DEDUP + suffix)
+    _build.count(NAME_DEDUP + suffix)
     return vals, ids
 
 
@@ -147,25 +163,30 @@ def ivf_score_topk_dedup_rows(grouped: torch.Tensor, grouped_sq: torch.Tensor,
                               valid: torch.Tensor, uniq: torch.Tensor,
                               member: torch.Tensor, queries: torch.Tensor,
                               payload_v: torch.Tensor,
-                              payload_f: torch.Tensor, k: int):
+                              payload_f: torch.Tensor, k: int,
+                              scales: Optional[torch.Tensor] = None):
     """``ivf_score_topk_dedup``'s (vals, ids) plus the winners' rows of the
-    grouped payloads payload_v (nlist, max_list, dv) and payload_f (nlist,
-    max_list, m): (b, k, dv) and (b, k, m), zero rows for dead slots."""
-    code, vals, ids, rows = _launch(grouped, grouped_sq, valid, uniq, member,
-                                    queries, k, payload_v, payload_f)
-    _build.check(code, NAME_ROWS)
-    _build.count(NAME_ROWS)
+    grouped fp32 payloads payload_v (nlist, max_list, dv) and payload_f
+    (nlist, max_list, m): (b, k, dv) and (b, k, m), zero rows for dead
+    slots."""
+    code, suffix, vals, ids, rows = _launch(grouped, grouped_sq, valid, uniq,
+                                            member, queries, k, payload_v,
+                                            payload_f, scales)
+    _build.check(code, NAME_ROWS + suffix)
+    _build.count(NAME_ROWS + suffix)
     return (vals, ids, *rows)
 
 
 def ivf_score_topk_batch(grouped: torch.Tensor, grouped_sq: torch.Tensor,
                          valid: torch.Tensor, probes: torch.Tensor,
-                         queries: torch.Tensor, k: int):
+                         queries: torch.Tensor, k: int,
+                         scales: Optional[torch.Tensor] = None):
     """Query-major probed scan: probes (b, nprobe) int32 list ids, queries
-    (b, d). Returns (vals (b, k) f32, flat ids (b, k) int32); ties go to the
-    earlier probe position, then the earlier slot."""
-    code, vals, ids, _ = _launch(grouped, grouped_sq, valid, probes, None,
-                                 queries, k)
-    _build.check(code, NAME_BATCH)
-    _build.count(NAME_BATCH)
+    (b, d); the slab operands as in ``ivf_score_topk_dedup``. Returns (vals
+    (b, k) f32, flat ids (b, k) int32); ties go to the earlier probe
+    position, then the earlier slot."""
+    code, suffix, vals, ids, _ = _launch(grouped, grouped_sq, valid, probes,
+                                         None, queries, k, scales=scales)
+    _build.check(code, NAME_BATCH + suffix)
+    _build.count(NAME_BATCH + suffix)
     return vals, ids

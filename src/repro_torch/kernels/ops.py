@@ -8,6 +8,11 @@ plain versions stay importable from ``ref`` for comparing on the card.
 The kernels take unpadded shapes and mask the ragged corpus and query edges
 themselves, so there is no ``*_padded`` layer as in ``repro.kernels.ops``:
 padding the corpus in eager PyTorch would copy it on every batch.
+
+The scans take the corpus or grouped slab as stored (float32, bfloat16 or
+int8 codes) and an optional ``scales=`` operand, the int8 rung's per-row
+dequantization scale, which multiplies each dot product's output. A CUDA
+tensor of another dtype raises in the kernel's wrapper; it is never cast.
 """
 from __future__ import annotations
 
@@ -39,28 +44,31 @@ def fused_transform(v: Tensor, f: Tensor, proj: Tensor, alpha: float,
                                    mean_f, std_f)
 
 
-def score_topk(corpus: Tensor, sq_norms: Tensor, queries: Tensor, k: int):
+def score_topk(corpus: Tensor, sq_norms: Tensor, queries: Tensor, k: int,
+               *, scales: Optional[Tensor] = None):
     """Negative squared-L2 top-k: (vals (q, k) f32, ids (q, k) int32),
     descending, ties to the smaller id."""
     if corpus.is_cuda:
-        return _scan.score_topk(corpus, sq_norms, queries, k)
-    return ref.ref_score_topk(corpus, sq_norms, queries, k)
+        return _scan.score_topk(corpus, sq_norms, queries, k, scales)
+    return ref.ref_score_topk(corpus, sq_norms, queries, k, scales)
 
 
 def score_topk_rows(corpus: Tensor, sq_norms: Tensor, payload_v: Tensor,
-                    payload_f: Tensor, queries: Tensor, k: int):
-    """``score_topk`` plus the winners' corpus rows (q, k, d) and payload
-    rows (q, k, dv) / (q, k, m)."""
+                    payload_f: Tensor, queries: Tensor, k: int, *,
+                    scales: Optional[Tensor] = None):
+    """``score_topk`` plus the winners' corpus rows dequantized to fp32
+    (q, k, d) and payload rows (q, k, dv) / (q, k, m)."""
     if corpus.is_cuda:
         return _scan.score_topk_rows(corpus, sq_norms, payload_v, payload_f,
-                                     queries, k)
+                                     queries, k, scales)
     return ref.ref_score_topk_rows(corpus, sq_norms, payload_v, payload_f,
-                                   queries, k)
+                                   queries, k, scales)
 
 
 def rescore(cand_v: Tensor, cand_f: Tensor, qn: Tensor, fqn: Tensor,
             lam: float) -> Tensor:
-    """lam * cos(v, q) + (1 - lam) * cos(f, F_q) per candidate: (b, kp)."""
+    """lam * cos(v, q) + (1 - lam) * cos(f, F_q) per candidate: (b, kp).
+    bf16 candidate tiles are cast up to fp32 first, on either device."""
     if cand_v.is_cuda:
         return _rescore.rescore(cand_v, cand_f, qn, fqn, lam)
     return ref.ref_rescore(cand_v, cand_f, qn, fqn, lam)
@@ -70,51 +78,55 @@ def rescore(cand_v: Tensor, cand_f: Tensor, qn: Tensor, fqn: Tensor,
 # ||x||^2 (the caller adds -||q||^2 back), flat slot ids, dead slots (-inf, 0)
 
 def ivf_score_topk_batch(grouped: Tensor, grouped_sq: Tensor, valid: Tensor,
-                         probes: Tensor, queries: Tensor, k: int):
+                         probes: Tensor, queries: Tensor, k: int, *,
+                         scales: Optional[Tensor] = None):
     """Query-major probed scan: probes (b, nprobe) int32, queries (b, d).
     Ties go to the earlier probe position, then the earlier slot."""
     if grouped.is_cuda:
         return _ivf.ivf_score_topk_batch(grouped, grouped_sq, valid, probes,
-                                         queries, k)
+                                         queries, k, scales)
     return ref.ref_ivf_score_topk_batch(grouped, grouped_sq, valid, probes,
-                                        queries, k)
+                                        queries, k, scales)
 
 
 def ivf_score_topk(grouped: Tensor, grouped_sq: Tensor, valid: Tensor,
-                   probes: Tensor, query: Tensor, k: int):
+                   probes: Tensor, query: Tensor, k: int, *,
+                   scales: Optional[Tensor] = None):
     """One query: probes (nprobe,) int32, query (d,) -> (vals (k,), ids
     (k,)); ``ivf_score_topk_batch`` at batch 1."""
     vals, ids = ivf_score_topk_batch(grouped, grouped_sq, valid,
-                                     probes[None, :], query[None, :], k)
+                                     probes[None, :], query[None, :], k,
+                                     scales=scales)
     return vals[0], ids[0]
 
 
 def ivf_score_topk_dedup(grouped: Tensor, grouped_sq: Tensor, valid: Tensor,
                          uniq: Tensor, member: Tensor, queries: Tensor,
-                         k: int):
+                         k: int, *, scales: Optional[Tensor] = None):
     """Probe-major scan of the batch's unique probed lists: uniq (s,) int32,
     member (s, b) float 0/1 (see ``dedup_probes``). Ties go to the smaller
     flat id when uniq ascends."""
     if grouped.is_cuda:
         return _ivf.ivf_score_topk_dedup(grouped, grouped_sq, valid, uniq,
-                                         member, queries, k)
+                                         member, queries, k, scales)
     return ref.ref_ivf_score_topk_dedup(grouped, grouped_sq, valid, uniq,
-                                        member, queries, k)
+                                        member, queries, k, scales)
 
 
 def ivf_score_topk_dedup_rows(grouped: Tensor, grouped_sq: Tensor,
                               valid: Tensor, uniq: Tensor, member: Tensor,
                               queries: Tensor, payload_v: Tensor,
-                              payload_f: Tensor, k: int):
+                              payload_f: Tensor, k: int, *,
+                              scales: Optional[Tensor] = None):
     """``ivf_score_topk_dedup`` plus the winners' grouped payload rows
     (b, k, dv) / (b, k, m); dead slots carry zero rows."""
     if grouped.is_cuda:
         return _ivf.ivf_score_topk_dedup_rows(grouped, grouped_sq, valid,
                                               uniq, member, queries,
-                                              payload_v, payload_f, k)
+                                              payload_v, payload_f, k, scales)
     return ref.ref_ivf_score_topk_dedup_rows(grouped, grouped_sq, valid, uniq,
                                              member, queries, payload_v,
-                                             payload_f, k)
+                                             payload_f, k, scales)
 
 
 def dedup_probes(probes: Tensor, nlist: int):

@@ -44,29 +44,41 @@ def ref_fused_transform(v: Tensor, f: Tensor, proj: Tensor, alpha: float,
     return vn - alpha * (fn @ proj)
 
 
-def ref_score_topk(corpus: Tensor, sq_norms: Tensor, queries: Tensor, k: int):
-    """Exact negative-squared-L2 top-k (plain variant): (vals (q, k) f32,
-    ids (q, k) int32), descending, first occurrence on ties."""
+def ref_score_topk(corpus: Tensor, sq_norms: Tensor, queries: Tensor, k: int,
+                   scales: Optional[Tensor] = None):
+    """Exact negative-squared-L2 top-k: (vals (q, k) f32, ids (q, k) int32),
+    descending, first occurrence on ties. ``corpus`` is fp32, bf16 or int8
+    codes with their per-row ``scales`` (n,), cast up to fp32; the score is
+    the kernels' ``((2 dot) scale - ||x||^2) - ||q||^2``: the scale
+    multiplies the dot product's output, never the rows."""
     q2 = torch.sum(queries * queries, dim=-1, keepdim=True)
-    dot = queries @ corpus.T
-    scores = -(q2 - 2.0 * dot + sq_norms[None, :])
-    vals, ids = topk_first(scores, k)
+    s = 2.0 * (queries @ corpus.to(torch.float32).T)
+    if scales is not None:
+        s = s * scales
+    vals, ids = topk_first((s - sq_norms[None, :]) - q2, k)
     return vals, ids.to(torch.int32)
 
 
 def ref_score_topk_rows(corpus: Tensor, sq_norms: Tensor, payload_v: Tensor,
-                        payload_f: Tensor, queries: Tensor, k: int):
-    """``ref_score_topk`` plus the winners' scan rows and payload rows,
+                        payload_f: Tensor, queries: Tensor, k: int,
+                        scales: Optional[Tensor] = None):
+    """``ref_score_topk`` plus the winners' scan rows, dequantized to fp32
+    (``codes * scale`` for int8, the upcast for bf16), and payload rows,
     gathered by id (the semantic definition of what the kernel carries)."""
-    vals, ids = ref_score_topk(corpus, sq_norms, queries, k)
-    return vals, ids, corpus[ids], payload_v[ids], payload_f[ids]
+    vals, ids = ref_score_topk(corpus, sq_norms, queries, k, scales)
+    idx = ids.long()
+    rows = corpus[idx].to(torch.float32)
+    if scales is not None:
+        rows = rows * scales[idx][..., None]
+    return vals, ids, rows, payload_v[idx], payload_f[idx]
 
 
 def ref_rescore(cand_v: Tensor, cand_f: Tensor, qn: Tensor, fqn: Tensor,
                 lam: float) -> Tensor:
     """Combined cosine score per candidate (Alg. 1 line 13).
 
-    cand_v: (b, kp, d); cand_f: (b, kp, m); qn: (b, d); fqn: (b, m). The
+    cand_v: (b, kp, d); cand_f: (b, kp, m); qn: (b, d); fqn: (b, m). All
+    inputs are cast up to fp32 first (bf16 candidate tiles included). The
     cosine is mul+sum, each row reduced on its own, as in the JAX package.
     """
     def cos(a, b):
@@ -75,6 +87,8 @@ def ref_rescore(cand_v: Tensor, cand_f: Tensor, qn: Tensor, fqn: Tensor,
                * torch.linalg.vector_norm(b, dim=-1) + 1e-8)
         return num / den
 
+    cand_v, cand_f, qn, fqn = (t.to(torch.float32)
+                               for t in (cand_v, cand_f, qn, fqn))
     s_v = cos(cand_v, qn[:, None, :])
     s_f = cos(cand_f, fqn[:, None, :])
     return lam * s_v + (1.0 - lam) * s_f
@@ -105,16 +119,20 @@ def _topk_padded(scores: Tensor, flat_ids: Tensor, k: int):
 
 def ref_ivf_score_topk_batch(grouped: Tensor, grouped_sq: Tensor,
                              valid: Tensor, probes: Tensor, queries: Tensor,
-                             k: int):
+                             k: int, scales: Optional[Tensor] = None):
     """Query-major probed scan: probes (b, nprobe) list ids, queries (b, d).
     Candidates are flattened in probe order, so ties go to the earlier probe
     position, then the earlier slot (a list probed twice competes twice).
-    Returns (vals (b, k) f32, flat ids (b, k) int32)."""
+    ``grouped`` is fp32, bf16 or int8 codes with their per-row ``scales``
+    (nlist, max_list): ``(2 <x, q>) scale - ||x||^2``. Returns (vals (b, k)
+    f32, flat ids (b, k) int32)."""
     max_list = grouped.shape[1]
     pr = probes.long()
-    slabs = grouped[pr]                                # (b, nprobe, L, d)
-    s = 2.0 * torch.einsum("bpld,bd->bpl", slabs, queries) - grouped_sq[pr]
-    s = torch.where(valid[pr] > 0.5, s, float("-inf"))
+    slabs = grouped[pr].to(torch.float32)              # (b, nprobe, L, d)
+    s = 2.0 * torch.einsum("bpld,bd->bpl", slabs, queries)
+    if scales is not None:
+        s = s * scales[pr]
+    s = torch.where(valid[pr] > 0.5, s - grouped_sq[pr], float("-inf"))
     flat = pr[:, :, None] * max_list + torch.arange(max_list,
                                                    device=pr.device)
     return _topk_padded(s.reshape(s.shape[0], -1),
@@ -122,12 +140,16 @@ def ref_ivf_score_topk_batch(grouped: Tensor, grouped_sq: Tensor,
 
 
 def _dedup_scores(grouped: Tensor, grouped_sq: Tensor, valid: Tensor,
-                  uniq: Tensor, member: Tensor, queries: Tensor):
+                  uniq: Tensor, member: Tensor, queries: Tensor,
+                  scales: Optional[Tensor] = None):
     """The dedup scans' (b, s * max_list) masked scores and flat id map."""
     max_list = grouped.shape[1]
     u = uniq.long()
-    s = (2.0 * torch.einsum("bd,sld->bsl", queries, grouped[u])
-         - grouped_sq[u][None])
+    s = 2.0 * torch.einsum("bd,sld->bsl", queries,
+                           grouped[u].to(torch.float32))
+    if scales is not None:
+        s = s * scales[u][None]
+    s = s - grouped_sq[u][None]
     keep = (valid[u] > 0.5)[None, :, :] & (member.T > 0.5)[:, :, None]
     s = torch.where(keep, s, float("-inf"))
     flat = (u[:, None] * max_list
@@ -137,13 +159,15 @@ def _dedup_scores(grouped: Tensor, grouped_sq: Tensor, valid: Tensor,
 
 def ref_ivf_score_topk_dedup(grouped: Tensor, grouped_sq: Tensor,
                              valid: Tensor, uniq: Tensor, member: Tensor,
-                             queries: Tensor, k: int):
+                             queries: Tensor, k: int,
+                             scales: Optional[Tensor] = None):
     """Probe-major scan of the unique probed lists: uniq (s,) list ids,
     member (s, b) float 0/1 (query b probed list uniq[s]). Candidates are
     flattened in uniq order, so with an ascending uniq ties go to the
-    smaller flat id. Returns (vals (b, k) f32, flat ids (b, k) int32)."""
+    smaller flat id. ``scales`` as in ``ref_ivf_score_topk_batch``. Returns
+    (vals (b, k) f32, flat ids (b, k) int32)."""
     s, flat = _dedup_scores(grouped, grouped_sq, valid, uniq, member,
-                            queries)
+                            queries, scales)
     return _topk_padded(s, flat, k)
 
 
@@ -151,12 +175,12 @@ def ref_ivf_score_topk_dedup_rows(grouped: Tensor, grouped_sq: Tensor,
                                   valid: Tensor, uniq: Tensor,
                                   member: Tensor, queries: Tensor,
                                   payload_v: Tensor, payload_f: Tensor,
-                                  k: int):
+                                  k: int, scales: Optional[Tensor] = None):
     """``ref_ivf_score_topk_dedup`` plus the winners' rows of the grouped
     payloads (nlist, max_list, dv) / (nlist, max_list, m), gathered by flat
     id; dead slots carry zero rows."""
     vals, ids = ref_ivf_score_topk_dedup(grouped, grouped_sq, valid, uniq,
-                                         member, queries, k)
+                                         member, queries, k, scales)
     dead = torch.isneginf(vals)[..., None]
     idx = ids.long()
     rows = [torch.where(dead, 0.0, p.reshape(-1, p.shape[-1])[idx])

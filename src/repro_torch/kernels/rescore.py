@@ -3,7 +3,9 @@
 score = lam * cos(v, q) + (1 - lam) * cos(f, F_q) per candidate, one warp per
 candidate row (``csrc/rescore.cu``). Replaces the Pallas kernel
 ``repro/kernels/rescore.py::rescore``; its plain version is
-``ref.ref_rescore``.
+``ref.ref_rescore``. bf16 inputs are cast up to fp32 before the kernel, as
+the reference casts every input up first; any other dtype than fp32 and
+bf16 raises.
 """
 from __future__ import annotations
 
@@ -17,7 +19,10 @@ NAME = "rescore"
 def rescore(cand_v: torch.Tensor, cand_f: torch.Tensor, qn: torch.Tensor,
             fqn: torch.Tensor, lam: float) -> torch.Tensor:
     """cand_v: (b, kp, d); cand_f: (b, kp, m); qn: (b, d); fqn: (b, m), all
-    float32 on one CUDA device. Returns (b, kp) float32."""
+    float32 or bfloat16 on one CUDA device. Returns (b, kp) float32."""
+    cand_v, cand_f, qn, fqn = (
+        t.to(torch.float32) if t.dtype == torch.bfloat16 else t
+        for t in (cand_v, cand_f, qn, fqn))
     if cand_v.dim() != 3 or cand_f.dim() != 3:
         raise ValueError("cand_v and cand_f must be 3-D")
     b, kp, d = cand_v.shape

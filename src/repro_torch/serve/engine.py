@@ -59,7 +59,8 @@ class _DeltaBuffer:
 
     vn: Tensor                 # (nd, d) normalized new vectors
     fn: Tensor                 # (nd, m) normalized new filters
-    flat: flat_mod.FlatIndex   # transformed-space index over the delta rows
+    flat: flat_mod.FlatIndex   # transformed-space index over the delta rows,
+                               # stored at the index's storage dtype
 
 
 def _delta_candidates(delta: _DeltaBuffer, q_t: Tensor, kd: int,
@@ -246,24 +247,29 @@ class FCVIEngine:
     # -- storage-bandwidth accounting (host-side model) --------------------
     def _batch_scan_bytes(self, b: int) -> int:
         """Modeled device-memory bytes the candidate scans of one padded
-        batch of ``b`` queries stream: the whole flat slab (vectors +
-        squared norms), the probed share of the IVF grouped slabs (capped
-        at every list once, as the dedup scan reads a shared list once) plus
-        the centroids, or PQ's codes and coarse ids; a pending delta adds
-        its flat slab. The reference's model, so the two engines' counters
-        agree."""
+        batch of ``b`` queries stream: the whole flat slab (vectors,
+        squared norms and int8 scales), the probed share of the IVF grouped
+        slabs and grouped scales (capped at every list once, as the dedup
+        scan reads a shared list once) plus the centroids, or PQ's codes and
+        coarse ids; a pending delta adds its flat slab. The reference's
+        model, so the two engines' counters agree."""
         be = self.index.backend
         cfg = self.index.config
+
+        def nbytes(*ts):
+            return sum(t.nbytes for t in ts if t is not None)
+
         if cfg.backend == "pq":
             n = be.codes.nbytes + be.coarse_ids.nbytes
         elif cfg.backend == "ivf":
-            slab = be.grouped.nbytes + be.grouped_sq.nbytes
+            slab = nbytes(be.grouped, be.grouped_sq, be.grouped_scales)
             probed = min(b * min(cfg.nprobe, be.nlist), be.nlist)
             n = slab * probed // be.nlist + be.centroids.nbytes
         else:
-            n = be.vectors.nbytes + be.sq_norms.nbytes
+            n = nbytes(be.vectors, be.sq_norms, be.scales)
         if self._delta is not None:
-            n += self._delta.flat.vectors.nbytes + self._delta.flat.sq_norms.nbytes
+            dl = self._delta.flat
+            n += nbytes(dl.vectors, dl.sq_norms, dl.scales)
         return int(n)
 
     # -- input hardening ---------------------------------------------------
@@ -485,13 +491,14 @@ class FCVIEngine:
 
     def _ensure_delta(self) -> Optional[_DeltaBuffer]:
         """Materialise the delta tier on first use after an insert, with the
-        index's frozen normalizers (lazy, so back-to-back inserts cost
-        nothing until a query)."""
+        index's frozen normalizers and storage dtype (lazy, so back-to-back
+        inserts cost nothing until a query)."""
         if self._delta is None and self._delta_v:
             tfm = self.index.transform
             vn, fn = tfm.normalize(*self._pending())
-            self._delta = _DeltaBuffer(
-                vn=vn, fn=fn, flat=flat_mod.build(tfm.apply_normalized(vn, fn)))
+            self._delta = _DeltaBuffer(vn=vn, fn=fn, flat=flat_mod.build(
+                tfm.apply_normalized(vn, fn),
+                storage_dtype=self.index.config.resolved_storage_dtype()))
         return self._delta
 
     def compact(self):

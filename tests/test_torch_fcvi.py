@@ -177,14 +177,63 @@ def test_extend_matches_jax(data):
     assert_topk_match(jv, ji, vals, ids, **TOL)
 
 
+def _stored(x):
+    """Stored rows as numpy: bf16 through fp32 (exact), codes as they are."""
+    if isinstance(x, torch.Tensor):
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    x = np.asarray(x)
+    return x.astype(np.float32) if x.dtype.name == "bfloat16" else x
+
+
 @pytest.mark.parametrize("cfg,item", [(dict(backend="ivf",
                                             storage_dtype="int8"), "A6"),
                                       (dict(storage_dtype="int8"), "A6"),
                                       (dict(storage_dtype="bfloat16"), "A6")])
 def test_later_slices_refuse_by_roadmap_item(data, cfg, item):
+    """The storage configs ROADMAP ``item`` (A6) once refused now build on
+    the CPU and store what the JAX package stores. The backend built over
+    the JAX package's transformed corpus matches its stored rows exactly
+    (int8 codes and scales bit for bit, bf16 bit for bit; squared norms
+    within rtol 1e-6, the two sums' order); the port's own ``build`` from
+    the raw corpus, whose transform agrees to 1e-5, stores rows within one
+    quantization step or bf16 rounding of them."""
+    assert item == "A6"
     corpus, _, _ = data
-    with pytest.raises(NotImplementedError, match=item):
-        fcvi.build(corpus.vectors, corpus.filters, fcvi.FCVIConfig(**cfg),
-                   device="cpu")
+    config = fcvi.FCVIConfig(**cfg)
+    jidx = _jax_index(corpus, **cfg)
+    jb = jidx.backend
+    jt = jidx.transform.apply_normalized(jidx.vectors_n, jidx.filters_n)
+    exact = fcvi.build_backend(tensor(jt), config, 0)
+    own = fcvi.build(corpus.vectors, corpus.filters, config, device="cpu",
+                     rng=0).backend
+    want_dtype = {"int8": torch.int8, "bfloat16": torch.bfloat16}
+    for b in (exact, own):
+        assert b.vectors.dtype == want_dtype[cfg["storage_dtype"]]
+        assert (b.scales is not None) == (jb.scales is not None)
+    np.testing.assert_array_equal(_stored(exact.vectors), _stored(jb.vectors))
+    np.testing.assert_allclose(exact.sq_norms.numpy(),
+                               np.asarray(jb.sq_norms), rtol=1e-6)
+    if jb.scales is not None:
+        np.testing.assert_array_equal(exact.scales.numpy(),
+                                      np.asarray(jb.scales))
+        np.testing.assert_allclose(own.scales.numpy(), np.asarray(jb.scales),
+                                   rtol=1e-5, atol=1e-7)
+        step = np.abs(_stored(own.vectors).astype(np.int32)
+                      - _stored(jb.vectors).astype(np.int32))
+        assert step.max() <= 1 and (step == 0).mean() > 0.99
+    else:
+        # one bf16 step (2**-7 relative at most) where the fp32 transforms
+        # straddle a rounding boundary
+        np.testing.assert_allclose(_stored(own.vectors), _stored(jb.vectors),
+                                   rtol=2.0 ** -7, atol=1e-5)
+        assert (_stored(own.vectors) == _stored(jb.vectors)).mean() > 0.99
+    if cfg.get("backend") == "ivf":
+        # the grouped scales follow the port's own lists, 1.0 on pad slots
+        lists = exact.lists.long()
+        want = torch.where(lists >= 0, exact.scales[lists.clamp(min=0)], 1.0)
+        assert torch.equal(exact.grouped_scales, want)
+        assert exact.grouped.dtype == torch.int8
     with pytest.raises(ValueError):
         fcvi.FCVIConfig(backend="hnsw").check_supported()
+    with pytest.raises(ValueError):
+        fcvi.FCVIConfig(storage_dtype="float16").check_supported()

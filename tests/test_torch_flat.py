@@ -96,5 +96,12 @@ def test_build_norms_and_storage_refusal():
                                rtol=1e-6)
     assert (index.size, index.dim) == (100, 32)
     assert isinstance(index, SearchBackend)
-    with pytest.raises(NotImplementedError, match="A6"):
-        flat.build(tensor(x), storage_dtype=torch.bfloat16)
+    # a bf16 build stores the cast rows and upcasts them for the norms, as
+    # the JAX package's bf16 build does
+    half = flat.build(tensor(x), storage_dtype=torch.bfloat16)
+    jhalf = jflat.build(jnp.asarray(x), storage_dtype=jnp.bfloat16)
+    assert half.vectors.dtype == torch.bfloat16 and half.scales is None
+    np.testing.assert_array_equal(half.vectors.float().numpy(),
+                                  np.asarray(jhalf.vectors, np.float32))
+    np.testing.assert_allclose(half.sq_norms.numpy(),
+                               np.asarray(jhalf.sq_norms), rtol=1e-6)

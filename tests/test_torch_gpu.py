@@ -11,7 +11,10 @@ ids equal outside near-ties (the kernel sums the dot product in another
 order than the plain matmul); the carried rows and the rows variants'
 (scores, ids) exactly; rescore atol 1e-5; the PQ LUT cross term rtol 1e-5,
 atol 1e-4 (dot products summed in another order), the PQ ADC scans bit for
-bit (both sides add the LUT values left to right in fp32).
+bit (both sides add the LUT values left to right in fp32). The bf16 and
+int8-scaled scan variants are held the same way as the fp32 scans, their
+carried rows bit for bit against the plain dequantized rows, and exactly
+on integer codes with power-of-two scales.
 """
 import numpy as np
 import pytest
@@ -344,3 +347,219 @@ def test_pq_engine_on_card_matches_cpu_engine(cuda):
     assert engines[0].index.size == 4300
     s, i = engines[0].search(q, fq)
     assert np.isfinite(s).all() and ((i >= 0) & (i < 4300)).all()
+
+
+# -- the storage ladder: bf16 and int8-scaled variants of B2, B3, B5-B7 -----
+
+def _stored(x, dtype, misalign=False):
+    """(rows stored at ``dtype``, per-row scales or None, squared norms of
+    the stored rows) of fp32 rows ``x`` on the card. ``misalign`` places
+    the rows 8 bytes past a 16-byte boundary, so the kernels take their
+    scalar staging path."""
+    from repro_torch.index import quant
+
+    if dtype == "int8":
+        rows, scales = quant.quantize_rows(x)
+        sq = quant.sq_norms_of(rows, scales)
+    else:
+        rows, scales = x.to(torch.bfloat16), None
+        sq = torch.sum(rows.float() ** 2, dim=-1)
+    if misalign:
+        shift = 8 // rows.element_size()
+        buf = torch.empty(rows.numel() + shift, dtype=rows.dtype,
+                          device=rows.device)
+        rows = buf[shift:].view(rows.shape).copy_(rows)
+    return rows, scales, sq
+
+
+def _dequant(rows, scales):
+    out = rows.float()
+    return out if scales is None else out * scales[..., None]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("n,b,k,d,misalign", [
+    (1000, 5, 10, 64, False), (1000, 70, 300, 64, False),
+    (5000, 17, 1500, 128, False), (2000, 9, 88, 128, True),
+    (1000, 5, 88, 30, False), (1000, 5, 40, 40, False)])
+def test_score_topk_variants_match_plain(cuda, dtype, n, b, k, d, misalign):
+    """B2/B3 at bf16 and int8 (scaled): ragged tiles, a row width that is no
+    multiple of 16 bytes (d=30; d=40 for int8) and a misaligned corpus (the
+    scalar staging path). B3's (vals, ids) equal B2's bit for bit and its
+    rows equal the plain dequantized rows bit for bit."""
+    x, _, q, pv, pf = (tensor(a, cuda) for a in scan_inputs(n, b, d=d))
+    rows, scales, sq = _stored(x, dtype, misalign)
+    vals, ids = ops.score_topk(rows, sq, q, k, scales=scales)
+    rv, ri = ref.ref_score_topk(rows, sq, q, k, scales)
+    nxt = None
+    if k < n:
+        nxt = ref.ref_score_topk(rows, sq, q, k + 1, scales)[0][:, -1].cpu()
+    assert_topk_match(rv.cpu(), ri.cpu(), vals.cpu(), ids.cpu(),
+                      rtol=L2_RTOL, atol=L2_ATOL, next_vals=nxt)
+    out = ops.score_topk_rows(rows, sq, pv, pf, q, k, scales=scales)
+    assert torch.equal(out[0], vals) and torch.equal(out[1], ids)
+    idx = ids.long()
+    assert torch.equal(out[2], _dequant(rows, scales)[idx])
+    assert torch.equal(out[3], pv[idx]) and torch.equal(out[4], pf[idx])
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("nlist,max_list,b,nprobe,k,d", [
+    (16, 40, 5, 4, 10, 64), (64, 136, 70, 16, 320, 128),
+    (8, 24, 3, 8, 200, 30), (16, 200, 4, 16, 2048, 64)])
+def test_ivf_variants_match_plain(cuda, dtype, nlist, max_list, b, nprobe, k,
+                                  d):
+    """B5, B6 and B7 on bf16 and int8 slabs (with grouped scales) against
+    their plain versions, as ``test_ivf_kernels_match_plain`` holds fp32."""
+    g, _, valid, probes, q, pv, pf = (
+        tensor(a, cuda) for a in ivf_inputs(nlist, max_list, b, nprobe, d=d))
+    flat, scales, sq = _stored(g.reshape(-1, d), dtype)
+    grouped = flat.reshape(nlist, max_list, d)
+    gsq = sq.reshape(nlist, max_list)
+    gsc = None if scales is None else scales.reshape(nlist, max_list)
+    uniq, member = ops.dedup_probes(probes, nlist)
+    total = nlist * max_list
+
+    def nxt(fn, *args):
+        return fn(*args, k + 1, gsc) if k < total else None
+
+    ded = (grouped, gsq, valid, uniq, member, q)
+    got = ops.ivf_score_topk_dedup(*ded, k, scales=gsc)
+    _ivf_check(got, ref.ref_ivf_score_topk_dedup(*ded, k, gsc),
+               nxt(ref.ref_ivf_score_topk_dedup, *ded))
+    out = ops.ivf_score_topk_dedup_rows(*ded, pv, pf, k, scales=gsc)
+    assert torch.equal(out[0], got[0]) and torch.equal(out[1], got[1])
+    dead = torch.isneginf(got[0])[..., None]
+    idx = got[1].long()
+    assert torch.equal(out[2], torch.where(dead, 0.0, pv.reshape(-1, d)[idx]))
+    assert torch.equal(out[3], torch.where(dead, 0.0,
+                                           pf.reshape(-1, pf.shape[-1])[idx]))
+    bat = (grouped, gsq, valid, probes, q)
+    got = ops.ivf_score_topk_batch(*bat, k, scales=gsc)
+    _ivf_check(got, ref.ref_ivf_score_topk_batch(*bat, k, gsc),
+               nxt(ref.ref_ivf_score_topk_batch, *bat))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_ivf_variant_tie_orders(cuda, dtype):
+    """Integer codes with power-of-two scales: exact scores, so B5 and B7
+    equal their plain versions bit for bit, tie orders included."""
+    g, _, valid, probes, q, _, _ = (
+        tensor(a, cuda) for a in ivf_inputs(12, 48, 6, 5, d=16, ints=True))
+    probes[0, 4] = probes[0, 1]
+    grouped = g.to(torch.int8 if dtype == "int8" else torch.bfloat16)
+    gsc = None
+    if dtype == "int8":
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        pick = torch.randint(0, 4, (12, 48), device=cuda, generator=gen)
+        gsc = torch.tensor([0.25, 0.5, 1.0, 2.0], device=cuda)[pick]
+    gsq = torch.sum(_dequant(grouped, gsc) ** 2, dim=-1)
+    uniq, member = ops.dedup_probes(probes, 12)
+    for k in (30, 150):
+        args = (grouped, gsq, valid, uniq, member, q)
+        vals, ids = ops.ivf_score_topk_dedup(*args, k, scales=gsc)
+        rv, ri = ref.ref_ivf_score_topk_dedup(*args, k, gsc)
+        assert torch.equal(vals, rv) and torch.equal(ids, ri)
+        assert (vals[:, 1:] == vals[:, :-1]).any()   # the data really ties
+        args = (grouped, gsq, valid, probes, q)
+        vals, ids = ops.ivf_score_topk_batch(*args, k, scales=gsc)
+        rv, ri = ref.ref_ivf_score_topk_batch(*args, k, gsc)
+        assert torch.equal(vals, rv) and torch.equal(ids, ri)
+
+
+def test_variant_counters_and_refusals(cuda):
+    """Each stored dtype counts on its own counter; a dtype the kernels do
+    not take raises before a launch, and nothing is cast quietly."""
+    x, sq, q, pv, pf = (tensor(a, cuda) for a in scan_inputs(300, 3))
+    g, gsq, valid, probes, gq, gpv, gpf = (
+        tensor(a, cuda) for a in ivf_inputs(8, 16, 3, 2))
+    uniq, member = ops.dedup_probes(probes, 8)
+    _build.reset_launch_counts()
+    want = {}
+    for dtype, suffix in (("bfloat16", "_bf16"), ("int8", "_int8")):
+        rows, scales, rsq = _stored(x, dtype)
+        ops.score_topk(rows, rsq, q, 10, scales=scales)
+        ops.score_topk_rows(rows, rsq, pv, pf, q, 10, scales=scales)
+        flat, gs, fsq = _stored(g.reshape(-1, g.shape[-1]), dtype)
+        grouped, gsq2 = flat.reshape(g.shape), fsq.reshape(gsq.shape)
+        gsc = None if gs is None else gs.reshape(gsq.shape)
+        ded = (grouped, gsq2, valid, uniq, member, gq)
+        ops.ivf_score_topk_dedup(*ded, 5, scales=gsc)
+        ops.ivf_score_topk_dedup_rows(*ded, gpv, gpf, 5, scales=gsc)
+        ops.ivf_score_topk_batch(grouped, gsq2, valid, probes, gq, 5,
+                                 scales=gsc)
+        for name in ("score_topk", "score_topk_rows", "ivf_score_topk_dedup",
+                     "ivf_score_topk_dedup_rows", "ivf_score_topk_batch"):
+            want[name + suffix] = 1
+    assert _build.launch_counts() == want
+    rows, scales, rsq = _stored(x, "int8")
+    for bad in (lambda: ops.score_topk(x.half(), sq, q, 10),
+                lambda: ops.score_topk(rows, rsq, q, 10,
+                                       scales=scales.double()),
+                lambda: ops.score_topk(rows, rsq, q, 10, scales=scales[:5]),
+                lambda: ops.ivf_score_topk_dedup(g.half(), gsq, valid, uniq,
+                                                 member, gq, 5),
+                lambda: ops.ivf_score_topk_batch(
+                    g, gsq, valid, probes, gq, 5, scales=gsq[:2])):
+        with pytest.raises(ValueError):
+            bad()
+    with pytest.raises(ValueError):
+        ops.rescore(*(t.half() for t in (pv[:3, None], pf[:3, None], q,
+                                         pf[:3])), 0.5)
+    assert _build.launch_counts() == want
+
+
+def test_rescore_takes_bf16_tiles(cuda):
+    rng = np.random.default_rng(3)
+    args = [tensor(a, cuda) for a in (normal(rng, 5, 80, 64),
+                                      normal(rng, 5, 80, 8),
+                                      normal(rng, 5, 64), normal(rng, 5, 8))]
+    half = [a.to(torch.bfloat16) for a in args]
+    got = ops.rescore(*half, 0.6)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, ops.rescore(*(a.float() for a in half), 0.6))
+    torch.testing.assert_close(got, ref.ref_rescore(*half, 0.6), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("backend", ["flat", "ivf"])
+def test_int8_engine_on_card_matches_cpu_engine(cuda, backend):
+    """An int8 index served through the scaled kernels (B2/B3, or B2 and
+    B5/B6) with its int8 delta tier, against a CPU engine on the same
+    state; then compaction, which re-quantizes the grown corpus. Flat
+    compacts the same way on both devices and is compared again; IVF
+    re-trains its k-means from generators that differ across devices, so
+    only its card engine's results are checked for range."""
+    corpus = make_corpus(CorpusSpec(n=4000, d=64, n_categories=5,
+                                    n_numeric=3, seed=2))
+    q, fq = sample_queries(corpus, 100, seed=3)
+    extra = dict(backend="ivf", nlist=32, nprobe=6) if backend == "ivf" else {}
+    fcfg = fcvi.FCVIConfig(storage_dtype="int8", **extra)
+    gpu_ix = fcvi.build(corpus.vectors, corpus.filters, fcfg, device=cuda)
+    assert gpu_ix.backend.vectors.dtype == torch.int8
+    cpu_ix = fcvi.index_from_state(fcfg, fcvi.index_state(gpu_ix),
+                                   device="cpu")
+    cfg = EngineConfig(k=10, batch_size=32, escalate_margin=0.05,
+                       compact_threshold=600)
+    engines = [FCVIEngine(gpu_ix, cfg, device=cuda),
+               FCVIEngine(cpu_ix, EngineConfig(**vars(cfg)), device="cpu")]
+    _build.reset_launch_counts()
+    rng = np.random.default_rng(4)
+    new_v, new_f = normal(rng, 700, 64), corpus.filters[:700]
+    for step in range(2):
+        for e in engines:
+            e.insert(new_v[step * 300:(step + 1) * 300],
+                     new_f[step * 300:(step + 1) * 300])
+        (gs, gi), (cs, ci) = (e.search(q, fq) for e in engines)
+        if step == 0 or backend == "flat":
+            assert_topk_match(cs, ci, gs, gi, rtol=0, atol=1e-5)
+            assert (engines[0].stats.escalations
+                    == engines[1].stats.escalations)
+    assert engines[0].stats.compactions == engines[1].stats.compactions == 1
+    assert engines[0].index.backend.vectors.dtype == torch.int8
+    assert np.isfinite(gs).all() and ((gi >= 0) & (gi < 4600)).all()
+    counts = _build.launch_counts()
+    scan = ("ivf_score_topk_dedup_rows_int8" if backend == "ivf"
+            else "score_topk_rows_int8")
+    for name in ("fused_transform", scan, "rescore"):
+        assert counts.get(name, 0) > 0, counts

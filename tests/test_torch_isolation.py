@@ -1,8 +1,9 @@
 """The port stands alone and never falls back quietly.
 
 * Importing every ``repro_torch`` module, and ``chip_smoke.py``, leaves no
-  ``jax`` and no ``repro``/``repro.*`` in ``sys.modules`` (checked in a fresh
-  interpreter, since this test process imports both).
+  ``jax``, no ``repro``/``repro.*`` and no ``ml_dtypes`` (which the card's
+  machine may lack; bf16 state arrives by bit pattern) in ``sys.modules``
+  (checked in a fresh interpreter, since this test process imports both).
 * The entry points default to ``device="cuda"`` and raise where there is no
   card; whether there is one is decided inside the test.
 * No handler in the package catches an exception to fall back to the plain
@@ -40,7 +41,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
         import chip_smoke
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
-                     or m == "repro" or m.startswith("repro."))
+                     or m == "repro" or m.startswith("repro.")
+                     or m == "ml_dtypes")
         print("LEAKED", bad)
         sys.exit(1 if bad else 0)
     """)
@@ -52,12 +54,12 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
 
 def test_module_list_covers_every_slice():
     """The import check above walks the package, so each new module is in
-    it; pin the IVF and PQ slices' modules there."""
+    it; pin the IVF, PQ and storage-ladder slices' modules there."""
     mods = set(_modules())
     assert {"repro_torch.core.clustering", "repro_torch.index.ivf",
             "repro_torch.index.slab", "repro_torch.kernels.ivf_score",
             "repro_torch.kernels.fused_score_topk", "repro_torch.index.pq",
-            "repro_torch.kernels.pq_lut"} <= mods
+            "repro_torch.kernels.pq_lut", "repro_torch.index.quant"} <= mods
 
 
 def test_entry_points_default_to_cuda_and_raise_without_a_card():
@@ -70,7 +72,10 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     v = rng.normal(size=(64, 16)).astype(np.float32)
     f = rng.normal(size=(64, 4)).astype(np.float32)
     for cfg in (fcvi.FCVIConfig(), fcvi.FCVIConfig(backend="ivf", nlist=4),
-                fcvi.FCVIConfig(backend="pq", pq_ksub=16, pq_coarse=2)):
+                fcvi.FCVIConfig(backend="pq", pq_ksub=16, pq_coarse=2),
+                fcvi.FCVIConfig(storage_dtype="int8"),
+                fcvi.FCVIConfig(backend="ivf", nlist=4,
+                                storage_dtype="bfloat16")):
         with pytest.raises(RuntimeError, match="cuda"):
             fcvi.build(v, f, cfg)
         index = fcvi.build(v, f, cfg, device="cpu")

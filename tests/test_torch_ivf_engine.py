@@ -149,9 +149,28 @@ def test_ivf_compaction_against_jax_state_and_own_rebuild(data):
 
 
 def test_ivf_engine_refusals_name_a6(data):
-    corpus = data[0]
+    """The bf16 and int8 IVF configs ROADMAP A6 once refused now serve:
+    both engines over the JAX package's bf16 or int8 IVF state (the stored
+    rows and scales handed across, bf16 as ``ml_dtypes.bfloat16`` numpy)
+    give the same top-10 in both step variants, and the same bytes."""
+    corpus, q, fq, _, _, _ = data
     for dtype in ("bfloat16", "int8"):
-        with pytest.raises(NotImplementedError, match="A6"):
-            fcvi.build(corpus.vectors, corpus.filters,
-                       fcvi.FCVIConfig(storage_dtype=dtype, **CFG),
-                       device="cpu")
+        cfg = dict(CFG, storage_dtype=dtype)
+        jidx = jfcvi.build(jnp.asarray(corpus.vectors),
+                           jnp.asarray(corpus.filters),
+                           jfcvi.FCVIConfig(**cfg))
+        port = fcvi.index_from_state(fcvi.FCVIConfig(**cfg),
+                                     to_numpy_tree(jfcvi.index_state(jidx)),
+                                     device="cpu")
+        assert port.backend.grouped.dtype == {"bfloat16": torch.bfloat16,
+                                              "int8": torch.int8}[dtype]
+        _no_probe_ties(port, q, fq)
+        for gather_free in (True, False):
+            ecfg = dict(batch_size=32, escalate_margin=0.05,
+                        gather_free=gather_free)
+            engines = (jengine.FCVIEngine(jidx, jengine.EngineConfig(**ecfg)),
+                       engine.FCVIEngine(port, engine.EngineConfig(**ecfg),
+                                         device="cpu"))
+            _same_search(engines, q, fq)
+            assert (engines[1].stats.bytes_scanned
+                    == engines[0].stats.bytes_scanned)
