@@ -76,8 +76,25 @@ Phases, each of which raises (and exits non-zero) on a failure:
    printed beside IVF fp32's (no floor). Last, an engine over the bf16
    slabs serves its warm-up batch and one batch of 64, one ``fcvi.query``
    and one direct B7 call, its first batch against a CPU engine too.
+3f. predicate search (the filter algebra) on the same corpus with its raw
+   attribute table (``attributes=corpus.filters``): P1 ``F.range("f7",
+   0.0, 0.6)``, P2 ``F.eq("f0", 1.0) & F.range("f7", 0.25, 0.75)``, P3
+   ``F.eq("f5", 1.0) & F.range("f7", 0.0, 0.1)`` and P4 ``F.range("f7",
+   2.0, 3.0)`` (no row). First B2 masked (fp32 rows and the same rows at
+   bf16) and masked+scaled (int8 codes) at kk=18 and 128 under the P2, P3
+   and a 10-row mask (dead slots exactly (-inf, 0)), and B5 ``mask=`` over
+   every list at k=18 on IVF fp32 and int8 slabs, against their plain
+   versions. Then flat fp32, flat int8 and IVF fp32 (nlist=1024,
+   nprobe=16) engines serve a warm-up batch and 512 queries in batches of
+   64 per predicate (qps, p50/p99, plan counters); each first batch
+   against an fp64 brute force over the eligible rows on the card, then
+   against a CPU engine on the same state; forced plans bit for bit (P1
+   fold = mask on flat, P3 routed = mask on IVF, with the lists P3 routes
+   to); P4 certified empty; P2 after 1,000 inserts against the oracle over
+   both tiers; flat bf16 and IVF int8 engines serve one batch of P2 and P3
+   each, checked against the oracle.
 4. a ``kernels`` JSON line with each kernel variant's launches over phases
-   3, 3b, 3c, 3d and 3e (each must be > 0), errors, times and bound.
+   3, 3b, 3c, 3d, 3e and 3f (each must be > 0), errors, times and bound.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
 the script prints no result and exits 1.
@@ -98,6 +115,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.core import clustering, fcvi, theory  # noqa: E402
+from repro_torch.core.filters import F, compile_predicate  # noqa: E402
+from repro_torch.core.filters import eval_mask  # noqa: E402
 from repro_torch.data.synthetic import (CorpusSpec, make_corpus,  # noqa: E402
                                         sample_queries)
 from repro_torch.index import flat as flat_mod  # noqa: E402
@@ -159,6 +178,18 @@ SOURCES = {
                                   "src/repro/kernels/ivf_score.py:36"),
     "ivf_score_topk_batch_int8": ("src/repro_torch/csrc/ivf_score.cu",
                                   "src/repro/kernels/ivf_score.py:64"),
+    # the filter algebra's variants: B2 masked (fp32, bf16) and
+    # masked+scaled (int8), and B5's mask= (valid * mask, then the scan)
+    "score_topk_masked": ("src/repro_torch/csrc/fused_score_topk.cu",
+                          "src/repro/kernels/fused_score_topk.py:128"),
+    "score_topk_masked_bf16": ("src/repro_torch/csrc/fused_score_topk.cu",
+                               "src/repro/kernels/fused_score_topk.py:128"),
+    "score_topk_masked_int8": ("src/repro_torch/csrc/fused_score_topk.cu",
+                               "src/repro/kernels/fused_score_topk.py:154"),
+    "ivf_score_topk_dedup_masked": ("src/repro_torch/csrc/ivf_score.cu",
+                                    "src/repro/kernels/ivf_score.py:229"),
+    "ivf_score_topk_dedup_masked_int8": ("src/repro_torch/csrc/ivf_score.cu",
+                                         "src/repro/kernels/ivf_score.py:229"),
 }
 SUFFIX = {"float32": "", "bfloat16": "_bf16", "int8": "_int8"}
 
@@ -1110,6 +1141,391 @@ def phase_storage_ivf(dev, power: str, inp: Inputs, ivf_recall: float):
     return res, counts
 
 
+# -- phase 3f: predicate search (the filter algebra) --------------------------
+
+PREDICATES = {
+    "P1": F.range("f7", 0.0, 0.6),                        # numeric, broad
+    "P2": F.eq("f0", 1.0) & F.range("f7", 0.25, 0.75),    # category x band
+    "P3": F.eq("f5", 1.0) & F.range("f7", 0.0, 0.1),      # selective
+}
+P4 = F.range("f7", 2.0, 3.0)                               # matches nothing
+K_MASK = 18                  # k + CANDIDATE_PAD: the mask/routed scan width
+K_FOLD = 128                 # the fold plan's width at P1's selectivity
+
+
+def eligibility(eng, pred) -> torch.Tensor:
+    """(n,) bool rows of the engine's attribute table that ``pred``
+    matches, evaluated on the card as the engine evaluates them."""
+    cp = compile_predicate(pred, eng._attr_names)
+    return eval_mask(eng._attrs, *cp.as_arrays(eng.device))
+
+
+def folded(eng, pred, q: np.ndarray) -> torch.Tensor:
+    """The queries folded to the predicate's raw target, as the engine
+    folds them."""
+    cp = compile_predicate(pred, eng._attr_names)
+    return fcvi.fold_queries(eng.index, torch.tensor(q, device=eng.device),
+                             cp.fold_target_raw(eng._col_means))
+
+
+def dequantized(be) -> torch.Tensor:
+    rows = be.vectors.double()
+    return rows if be.scales is None else rows * be.scales.double()[:, None]
+
+
+def filtered_oracle(rows, elig, q_t, k):
+    """fp64 brute force over the eligible rows (b, k+1): (-d2 descending,
+    row ids); rows (n, d) float64 dequantized."""
+    ids = torch.nonzero(elig).flatten()
+    x = rows[ids]
+    q = q_t.double()
+    d2 = ((q * q).sum(1)[:, None] - 2.0 * (q @ x.T)
+          + (x * x).sum(1)[None, :])
+    vals, pos = torch.topk(-d2, min(k + 1, ids.numel()), dim=1)
+    return vals, ids[pos]
+
+
+def against_oracle(tag, scores, ids, want_v, want_i) -> None:
+    """Engine scores (-d2, fp32) within the L2 tolerance of the fp64 oracle
+    and ids equal outside its near-ties."""
+    k = scores.shape[1]
+    wv = want_v[:, :k].cpu().numpy()
+    err = float(np.abs(scores - wv).max())
+    tol = float((L2_ATOL + L2_RTOL * np.abs(wv)).max())
+    agree, total = ids_outside_ties(want_v, want_i, torch.from_numpy(ids),
+                                    L2_RTOL, L2_ATOL)
+    check(err <= tol, f"{tag}: scores differ from the fp64 oracle by {err}")
+    check(agree == total, f"{tag}: {total - agree} ids differ from the fp64 "
+          "oracle outside near-ties")
+    print(f"[{tag}] first batch vs fp64 oracle: max score err {err:.3g}, ids "
+          f"{agree}/{total} equal outside near-ties")
+
+
+def masked_kernels(flat_ix, int8_ix, ivf_ix, ivf8_ix, masks, q_t,
+                   power) -> dict:
+    """B2 masked (fp32 rows, the same rows at bf16) and masked+scaled (the
+    int8 index's codes) at kk=18 and 128 under the P2 and P3 masks, and
+    under the first 10 rows of P3 (dead slots); B5 mask= as the mask plan's
+    exhaustive all-lists scan at k=18 on the IVF fp32 and int8 slabs. Each
+    against its plain version on the same CUDA tensors."""
+    res = {}
+    be = flat_ix.backend
+    half = be.vectors.to(torch.bfloat16)
+    rungs = {"": (be.vectors, be.sq_norms, None),
+             "_bf16": (half, torch.sum(half.float() ** 2, dim=-1), None),
+             "_int8": (int8_ix.backend.vectors, int8_ix.backend.sq_norms,
+                       int8_ix.backend.scales)}
+    few = torch.zeros_like(masks["P3"])
+    few[torch.nonzero(masks["P3"]).flatten()[:10]] = 1.0
+    cases = [("P2", masks["P2"]), ("P3", masks["P3"]), ("P3[:10]", few)]
+    for suffix, (x, sq, sc) in rungs.items():
+        name = "score_topk_masked" + suffix
+        row_bytes = x.element_size() * D + 4 + (0 if sc is None else 4)
+        for pname, mask in cases:
+            tiles = int(mask[: N - N % 128].reshape(-1, 128).any(1).sum()
+                        + (mask[N - N % 128:].any() if N % 128 else 0))
+            for kk in (K_MASK, K_FOLD):
+                vals, ids = ops.score_topk(x, sq, q_t, kk, scales=sc,
+                                           mask=mask)
+                rv, ri = ref.ref_score_topk(x, sq, q_t, kk + 1, sc, mask)
+                dead = torch.isneginf(rv[:, :kk])
+                check(torch.equal(torch.isneginf(vals), dead)
+                      and bool((ids[dead] == 0).all()),
+                      f"{name} {pname} kk={kk}: dead slots are not "
+                      "(-inf, 0)")
+                live = ~dead
+                err = (vals - rv[:, :kk])[live].abs().max().item()
+                tol = (L2_ATOL + L2_RTOL * rv[:, :kk][live].abs()).max()
+                check(err <= tol.item(), f"{name} {pname} kk={kk} error "
+                      f"{err} > {tol.item()}")
+                # dead slots read -1e30 here, so the near-tie rule sees
+                # finite gaps (equal dead slots tie with each other)
+                agree, total = ids_outside_ties(
+                    torch.where(torch.isneginf(rv), -1e30, rv), ri, ids,
+                    L2_RTOL, L2_ATOL)
+                check(agree == total, f"{name} {pname} kk={kk}: "
+                      f"{total - agree} ids differ outside near-ties")
+                ms = time_ms(lambda: ops.score_topk(x, sq, q_t, kk,
+                                                    scales=sc, mask=mask))
+                plain = time_ms(lambda: ref.ref_score_topk(x, sq, q_t, kk,
+                                                           sc, mask), 3)
+                # the kernel skips tiles with no eligible row: count the
+                # rows of the eligible tiles, plus the whole mask
+                rows = tiles * 128
+                bnd, by = bound_ms(
+                    4 * N + rows * row_bytes + q_t.nbytes + 8 * B * kk,
+                    B * rows * (2 * D + (4 if sc is not None else 3)))
+                print(f"[kernel] {name} mask {pname} ({int(mask.sum())} "
+                      f"eligible rows, {tiles} of {-(-N // 128)} tiles) "
+                      f"b={B} kk={kk}: max_abs_err {err:.3g} ids "
+                      f"{agree}/{total} outside near-ties, "
+                      f"{int(dead.sum())} dead slots (-inf, 0); kernel_ms "
+                      f"{ms:.4f} plain_ms {plain:.4f} bound_ms {bnd:.4f} "
+                      f"({by})")
+                if pname == "P2" and kk == K_MASK:
+                    res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                     bound_ms=bnd, bound_by=by,
+                                     library_ms=None)
+                else:
+                    res[name]["max_abs_err"] = max(err,
+                                                   res[name]["max_abs_err"])
+                del vals, ids, rv, ri
+    del half, rungs
+    torch.cuda.empty_cache()
+
+    for suffix, ix in (("", ivf_ix), ("_int8", ivf8_ix)):
+        name = "ivf_score_topk_dedup_masked" + suffix
+        ib = ix.backend
+        gsc = ib.grouped_scales
+        every = torch.arange(NLIST, dtype=torch.int32, device=q_t.device)
+        member = torch.ones((NLIST, B), device=q_t.device)
+        row_bytes = ib.grouped.element_size() * D + 4 + (
+            0 if gsc is None else 4)
+        for pname in ("P2", "P3"):
+            gmask = ivf_mod.grouped_mask(ib, masks[pname] > 0.5)
+            ded = (ib.grouped, ib.grouped_sq, ib.valid, every, member, q_t)
+            vals, ids = ops.ivf_score_topk_dedup(*ded, K_MASK, scales=gsc,
+                                                 mask=gmask)
+            rv, ri = ref.ref_ivf_score_topk_dedup(*ded, K_MASK + 1, gsc,
+                                                  gmask)
+            err = (vals - rv[:, :K_MASK]).abs().max().item()
+            tol = (L2_ATOL + L2_RTOL * rv[:, :K_MASK].abs()).max().item()
+            agree, total = ids_outside_ties(rv, ri, ids, L2_RTOL, L2_ATOL)
+            check(err <= tol, f"{name} {pname} error {err} > {tol}")
+            check(agree == total, f"{name} {pname}: {total - agree} ids "
+                  "differ outside near-ties")
+            ms = time_ms(lambda: ops.ivf_score_topk_dedup(
+                *ded, K_MASK, scales=gsc, mask=gmask), 5)
+            plain = time_ms(lambda: ref.ref_ivf_score_topk_dedup(
+                *ded, K_MASK, gsc, gmask), 2)
+            live = int((ib.valid * gmask > 0.5).sum())
+            # the live eligible rows read once, valid and mask flags, the
+            # queries and member matrix; each (query, eligible row) pair
+            bnd, by = bound_ms(live * row_bytes + 8 * NLIST * ib.max_list
+                               + q_t.nbytes + member.nbytes
+                               + 8 * B * K_MASK,
+                               B * live * (2 * D + (3 if gsc is not None
+                                                    else 2)))
+            print(f"[kernel] {name} all {NLIST} lists, mask {pname} ({live} "
+                  f"eligible rows) b={B} k={K_MASK}: max_abs_err {err:.3g} "
+                  f"ids {agree}/{total} outside near-ties; kernel_ms "
+                  f"{ms:.4f} plain_ms {plain:.4f} bound_ms {bnd:.4f} ({by})")
+            if pname == "P2":
+                res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                 bound_ms=bnd, bound_by=by, library_ms=None)
+            else:
+                res[name]["max_abs_err"] = max(err, res[name]["max_abs_err"])
+            del vals, ids, rv, ri, gmask
+        torch.cuda.empty_cache()
+    print(f"[3f-kernel] masked variants agree with their plain versions; "
+          f"card {power}")
+    return res
+
+
+def serve_predicates(tag, eng, inp: Inputs, power, preds, timed=512):
+    """A warm-up batch and ``timed`` queries in batches of 64 per predicate;
+    prints qps, p50/p99 and the plan counters. Returns {predicate: (plan,
+    kp, p50 ms, first batch (scores, ids))}."""
+    out = {}
+    for pname in preds:
+        pred = PREDICATES[pname]
+        cp = compile_predicate(pred, eng._attr_names)
+        plan = eng.planner.choose(cp)
+        kp = eng.planner.kp_for(plan, cp, eng.cfg.k)
+        before = dataclasses.replace(eng.stats)
+        eng.search(inp.q_warm, filter=pred)
+        lat, runs = [], []
+        for s in range(0, timed, B):
+            t0 = time.perf_counter()
+            runs.append(eng.search(inp.q_all[s:s + B], filter=pred))
+            lat.append(time.perf_counter() - t0)
+        first = runs[0]
+        st = eng.stats
+        plans = {p: getattr(st, f"plan_{p}") - getattr(before, f"plan_{p}")
+                 for p in ("fold", "mask", "routed")}
+        fb = st.filtered_fallbacks - before.filtered_fallbacks
+        p50 = 1e3 * float(np.percentile(lat, 50))
+        print(f"[{tag}] {pname} plan {plan} kp {kp} (planner sel "
+              f"{eng.planner.selectivity(cp):.4f}): {timed} queries in "
+              f"batches of {B}: qps {timed / sum(lat):.1f} batch p50 "
+              f"{p50:.2f} ms p99 {1e3 * np.percentile(lat, 99):.2f} ms; "
+              f"plans {plans}, fold fallbacks {fb}; card {power}")
+        check(np.isfinite(first[0]).all() and (first[1] >= 0).all(),
+              f"{tag} {pname}: the first batch has dead or non-finite slots")
+        out[pname] = (plan, kp, p50, first)
+    return out
+
+
+def predicate_checks(tag, eng, inp: Inputs, served, state0) -> None:
+    """The first batch of each predicate against the fp64 oracle on the
+    card, then against a CPU engine on the same state and attributes."""
+    rows = dequantized(eng.index.backend)
+    q = inp.q_all[:B]
+    for pname, (plan, kp, _, (scores, ids)) in served.items():
+        pred = PREDICATES[pname]
+        wv, wi = filtered_oracle(rows, eligibility(eng, pred),
+                                 folded(eng, pred, q), eng.cfg.k)
+        against_oracle(f"{tag} {pname}", scores, ids, wv, wi)
+    del rows
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu_ix = fcvi.index_from_state(eng.index.config, state0, device="cpu")
+    cpu_eng = engine_mod.FCVIEngine(cpu_ix, engine_mod.EngineConfig(),
+                                    device="cpu",
+                                    attributes=inp.corpus.filters)
+    for pname, (plan, kp, _, (scores, ids)) in served.items():
+        cs, ci = cpu_eng.search(q, filter=PREDICATES[pname])
+        err = float(np.abs(scores - cs).max())
+        tol = float((L2_ATOL + L2_RTOL * np.abs(cs)).max())
+        # the CPU engine's 11th score is unknown: its last slot counts as a
+        # near-tie, as in ``same_top10``
+        nxt = np.concatenate([cs, cs[:, -1:]], axis=1)
+        agree, total = ids_outside_ties(torch.from_numpy(nxt),
+                                        torch.from_numpy(ci),
+                                        torch.from_numpy(ids), L2_RTOL,
+                                        L2_ATOL)
+        check(err <= tol and agree == total, f"{tag} {pname}: first batch "
+              f"differs from the CPU engine (err {err}, ids {agree}/{total})")
+        same = int((cs == scores).all(axis=1).sum())
+        print(f"[{tag}] {pname} first batch vs CPU engine ({plan}): max "
+              f"score err {err:.3g}, ids {agree}/{total} outside near-ties, "
+              f"{same} of {B} rows bit-equal")
+    print(f"[{tag}] CPU engine checks {time.perf_counter() - t0:.1f} s")
+
+
+def phase_predicates(dev, power: str, inp: Inputs):
+    """Phase 3f: predicate search at n=1M on flat fp32, flat int8 and IVF
+    fp32 (512 timed queries per predicate), flat bf16 and IVF int8 (a
+    warm-up and one batch each); the masked kernels against their plain
+    versions; forced plans bit for bit; P4 certified empty; the delta tier.
+    Returns the masked kernels' results and the serving runs' launch
+    counts (the kernel checks are not counted)."""
+    attrs = inp.corpus.filters
+    ecfg = engine_mod.EngineConfig()
+    configs = {
+        "flat": fcvi.FCVIConfig(),
+        "flat-int8": fcvi.FCVIConfig(storage_dtype="int8"),
+        "flat-bf16": fcvi.FCVIConfig(storage_dtype="bfloat16"),
+        "ivf": fcvi.FCVIConfig(backend="ivf", nlist=NLIST, nprobe=NPROBE),
+        "ivf-int8": fcvi.FCVIConfig(backend="ivf", nlist=NLIST,
+                                    nprobe=NPROBE, storage_dtype="int8"),
+    }
+    counts, res, p50s = {}, {}, {}
+
+    def add(run):
+        for name, n in run.items():
+            counts[name] = counts.get(name, 0) + n
+
+    def build(tag):
+        t0 = time.perf_counter()
+        ix = fcvi.build(inp.corpus.vectors, attrs, configs[tag], device=dev)
+        torch.cuda.synchronize()
+        eng = engine_mod.FCVIEngine(ix, ecfg, device=dev, attributes=attrs)
+        print(f"[3f] {tag}: build {time.perf_counter() - t0:.2f} s")
+        return ix, eng
+
+    flat_ix, flat_eng = build("flat")
+    int8_ix, int8_eng = build("flat-int8")
+    ivf_ix, ivf_eng = build("ivf")
+    ivf8_ix, ivf8_eng = build("ivf-int8")
+    masks, sel = {}, {}
+    for pname, pred in PREDICATES.items():
+        elig = eligibility(flat_eng, pred)
+        masks[pname] = elig.to(torch.float32)
+        sel[pname] = float(elig.double().mean())
+    print(f"[3f] true selectivity on the corpus: "
+          + ", ".join(f"{p} {v:.4f}" for p, v in sel.items()))
+    q_t = folded(flat_eng, PREDICATES["P2"], inp.q_all[:B]).contiguous()
+    res.update(masked_kernels(flat_ix, int8_ix, ivf_ix, ivf8_ix, masks, q_t,
+                              power))
+    del ivf8_ix, ivf8_eng
+    torch.cuda.empty_cache()
+
+    for tag, eng in (("flat", flat_eng), ("flat-int8", int8_eng),
+                     ("ivf", ivf_eng)):
+        state0 = fcvi.index_state(eng.index)
+        _build.reset_launch_counts()
+        served = serve_predicates(tag, eng, inp, power, PREDICATES)
+        torch.cuda.synchronize()
+        run = _build.launch_counts()
+        add(run)
+        print(f"[{tag}] 3f counts {json.dumps(run)}")
+        for pname, (plan, _, p50, _) in served.items():
+            p50s[f"{tag} {pname} {plan}"] = round(p50, 2)
+        predicate_checks(tag, eng, inp, served, state0)
+        del state0
+        torch.cuda.empty_cache()
+
+    # forced plans, bit for bit, on the first batch
+    qb = inp.q_all[:B]
+    for tag, eng, pname, plans in (("flat", flat_eng, "P1", ("fold", "mask")),
+                                   ("ivf", ivf_eng, "P3",
+                                    ("routed", "mask"))):
+        _build.reset_launch_counts()
+        (s0, i0), (s1, i1) = (eng.search(qb, filter=PREDICATES[pname],
+                                         plan=p) for p in plans)
+        add(_build.launch_counts())
+        check(np.array_equal(s0, s1) and np.array_equal(i0, i1),
+              f"{tag} {pname}: plan={plans[0]} and plan={plans[1]} differ")
+        print(f"[{tag}] {pname}: plan={plans[0]} and plan={plans[1]} equal "
+              f"bit for bit over {B} queries")
+    route = ivf_mod.eligible_lists(ivf_eng.index.backend.lists,
+                                   masks["P3"] > 0.5)
+    print(f"[ivf] P3 routes to {route[1]} of {NLIST} lists "
+          f"({route[0].numel()} slots)")
+
+    # P4 matches nothing: certified empty
+    _build.reset_launch_counts()
+    s, i = flat_eng.search(qb, filter=P4)
+    check((i == -1).all() and np.isneginf(s).all(),
+          "P4: a zero-match predicate did not return (-inf, -1)")
+    check(not _build.launch_counts(), "P4: a zero-match predicate launched "
+          "a kernel")
+    print("[flat] P4 (no row matches): every slot (-inf, -1), no launch")
+
+    # the delta tier: 1,000 inserts, P2 against the oracle over both tiers
+    _build.reset_launch_counts()
+    flat_eng.insert(inp.new_v, inp.new_f)
+    s, i = flat_eng.search(qb, filter=PREDICATES["P2"])
+    add(_build.launch_counts())
+    delta = flat_eng._ensure_delta()
+    rows = torch.cat([dequantized(flat_eng.index.backend),
+                      dequantized(delta.flat)])
+    elig = torch.cat([eligibility(flat_eng, PREDICATES["P2"]),
+                      eval_mask(torch.tensor(inp.new_f, device=dev),
+                                *compile_predicate(
+                                    PREDICATES["P2"],
+                                    flat_eng._attr_names).as_arrays(dev))])
+    wv, wi = filtered_oracle(rows, elig, folded(flat_eng, PREDICATES["P2"],
+                                                qb), 10)
+    against_oracle("flat P2 + 1,000 inserts", s, i, wv, wi)
+    print(f"[flat] P2 after 1,000 inserts: {int((i >= N).sum())} result "
+          f"slots are delta rows ({int(elig[N:].sum())} eligible inserts)")
+    del rows, delta
+    torch.cuda.empty_cache()
+
+    # the bf16 flat rung and the IVF int8 slabs serve one batch each
+    for tag in ("flat-bf16", "ivf-int8"):
+        ix, eng = build(tag)
+        _build.reset_launch_counts()
+        served = serve_predicates(tag, eng, inp, power, ("P2", "P3"), B)
+        run = _build.launch_counts()
+        add(run)
+        print(f"[{tag}] 3f counts {json.dumps(run)}")
+        rows = dequantized(ix.backend)
+        for pname, (_, _, _, (scores, ids)) in served.items():
+            pred = PREDICATES[pname]
+            wv, wi = filtered_oracle(rows, eligibility(eng, pred),
+                                     folded(eng, pred, qb), 10)
+            against_oracle(f"{tag} {pname}", scores, ids, wv, wi)
+        del ix, eng, rows
+        torch.cuda.empty_cache()
+    print(f"[3f] batch p50 ms by index, predicate and plan: "
+          f"{json.dumps(p50s)}; card {power}")
+    print(f"[3f] counts {json.dumps(counts)}")
+    return res, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1132,8 +1548,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     sf_res, sf_counts = phase_storage_flat(dev, power, inp, flat_ids)
     si_res, si_counts = phase_storage_ivf(dev, power, inp, ivf_recall)
+    torch.cuda.empty_cache()
+    pf_res, pf_counts = phase_predicates(dev, power, inp)
     for tag, r, c in (("3b", ivf_res, ivf_counts), ("3c", pq_res, pq_counts),
-                      ("3d", sf_res, sf_counts), ("3e", si_res, si_counts)):
+                      ("3d", sf_res, sf_counts), ("3e", si_res, si_counts),
+                      ("3f", pf_res, pf_counts)):
         phases[tag] = dict(c)
         res.update(r)
         for name, n in c.items():
@@ -1145,7 +1564,7 @@ def main() -> int:
     for name, (source, replaces) in SOURCES.items():
         launches = counts.get(name, 0)
         check(launches > 0, f"kernel {name} was not launched on the main "
-              "paths (phases 3, 3b, 3c, 3d and 3e)")
+              "paths (phases 3, 3b, 3c, 3d, 3e and 3f)")
         r = res[name]
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches,

@@ -9,11 +9,15 @@ default).
 Run from the root of the repository on a machine with one CUDA device:
 
     python3 scripts/profile_serving.py [--batches 8] [--backend pq ...]
-        [--storage int8]
+        [--storage int8] [--predicate P2 ...]
 
 ``--backend`` (repeatable; all three when absent) picks the engines, and
 ``--storage`` the flat and IVF corpus storage (``FCVIConfig.storage_dtype``:
-float32, the default, bfloat16 or int8; PQ ignores it). For
+float32, the default, bfloat16 or int8; PQ ignores it). ``--predicate``
+(repeatable: P1, P2, P3, the predicates of ``chip_smoke.py`` phase 3f)
+profiles predicate search (``search(q, filter=...)`` over the corpus's raw
+attribute table, the plan the planner picks) instead of similarity search,
+on the flat and IVF engines. For
 each engine it prints the host wall time per batch, the device's busy
 time per batch (the sum of the kernels' device time in the trace), the
 idle share 1 - busy / wall, and the kernels that take the most device time.
@@ -35,6 +39,7 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as smoke  # noqa: E402
 from repro_torch.core import fcvi  # noqa: E402
+from repro_torch.core.filters import compile_predicate  # noqa: E402
 from repro_torch.serve import engine as engine_mod  # noqa: E402
 
 
@@ -45,12 +50,19 @@ CONFIGS = {
 }
 
 
-def profile(tag: str, eng, inp, batches: int) -> dict:
+def profile(tag: str, eng, inp, batches: int, pred=None) -> dict:
     """Warm up, then trace ``batches`` batches of 64 (distinct queries, so
-    no cache hits; escalation as the engine decides)."""
+    no cache hits; escalation as the engine decides). With ``pred``, the
+    batches are predicate searches."""
     B = smoke.B
-    eng.search(inp.q_warm, inp.f_warm)
-    eng.search(inp.q_all[:B], inp.f_all[:B])
+
+    def search(q, f):
+        if pred is None:
+            return eng.search(q, f)
+        return eng.search(q, filter=pred)
+
+    search(inp.q_warm, inp.f_warm)
+    search(inp.q_all[:B], inp.f_all[:B])
     eng._cache.clear()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -60,7 +72,7 @@ def profile(tag: str, eng, inp, batches: int) -> dict:
         t0 = time.perf_counter()
         for s in range(batches):
             lo = (s % 8) * B
-            eng.search(inp.q_all[lo:lo + B], inp.f_all[lo:lo + B])
+            search(inp.q_all[lo:lo + B], inp.f_all[lo:lo + B])
             eng._cache.clear()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -109,6 +121,9 @@ def main() -> int:
     ap.add_argument("--storage", default="float32",
                     choices=sorted(fcvi.STORAGE_DTYPES),
                     help="flat and IVF corpus storage dtype")
+    ap.add_argument("--predicate", action="append",
+                    choices=sorted(smoke.PREDICATES),
+                    help="profile predicate search with these predicates")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_serving: no CUDA device; nothing was run",
@@ -123,8 +138,19 @@ def main() -> int:
         index = fcvi.build(inp.corpus.vectors, inp.corpus.filters, cfg,
                            device=dev)
         eng = engine_mod.FCVIEngine(index, engine_mod.EngineConfig(),
-                                    device=dev)
-        res[tag] = profile(tag, eng, inp, args.batches)
+                                    device=dev,
+                                    attributes=inp.corpus.filters)
+        if not args.predicate:
+            res[tag] = profile(tag, eng, inp, args.batches)
+        for name in args.predicate or ():
+            if tag == "pq":
+                continue   # PQ serves no predicate search
+            pred = smoke.PREDICATES[name]
+            cp = compile_predicate(pred, eng._attr_names)
+            plan = eng.planner.choose(cp)
+            res[f"{tag} {name}"] = dict(
+                plan=plan, **profile(f"{tag} {name} {plan}", eng, inp,
+                                     args.batches, pred))
         del eng, index
         torch.cuda.empty_cache()
     print(json.dumps(res))

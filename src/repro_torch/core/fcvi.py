@@ -202,6 +202,26 @@ def query(index: FCVIIndex, q: Tensor, f_q: Tensor, k: int,
     return rescore(index, qn, fqn, cand, k)
 
 
+# ---------------------------------------------------------------------------
+# Predicate (filtered) search support
+# ---------------------------------------------------------------------------
+
+def filters_raw(index: FCVIIndex) -> Tensor:
+    """Raw-space attribute table (n, m) recovered from the stored normalized
+    filters. Predicates evaluate over RAW attribute values; an engine built
+    with an explicit ``attributes=`` table uses that, and this inverse is
+    the default when only the normalized copy exists."""
+    return index.transform.filt_norm.inverse(index.filters_n)
+
+
+def fold_queries(index: FCVIIndex, q: Tensor, fold_raw) -> Tensor:
+    """Transform raw queries (b, d) against a predicate's raw fold target
+    (m,) (``CompiledPredicate.fold_target_raw``): every physical plan for
+    the predicate scores in this one transformed frame."""
+    fold = torch.as_tensor(fold_raw, dtype=torch.float32, device=q.device)
+    return index.transform.fold_query(q, fold)
+
+
 def ground_truth_combined(vectors_n: Tensor, filters_n: Tensor, qn: Tensor,
                           fqn: Tensor, k: int, lam: float):
     """Exact top-k under the paper's combined score (the recall reference).

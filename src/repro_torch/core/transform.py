@@ -149,6 +149,20 @@ class Transform:
             fn = nearest_center(fn, self.centers)
         return self._fused(vn, fn, None, None)
 
+    def fold_query(self, q_raw: Tensor, fold_raw: Tensor) -> Tensor:
+        """Transform RAW queries (..., d) against one RAW-space fold target
+        (m,), broadcast across the batch: psi(norm(q), norm(fold), alpha).
+
+        Predicate search has no per-query filter vector; the planner derives
+        one representative point per predicate (``fold_target_raw``), so all
+        of a predicate's candidates are scored in one transformed frame.
+        Normalizes, then the fused transform with identity normalizers, as
+        the reference's ``fold_query`` does."""
+        fold = fold_raw.to(q_raw.dtype).expand(*q_raw.shape[:-1],
+                                               fold_raw.shape[-1])
+        qn, fn = self.normalize(q_raw, fold)
+        return self.apply_normalized(qn, fn)
+
 
 def fit_transform(vectors: Tensor, filters: Tensor, alpha: float,
                   mode: str = "partition", *, n_clusters: int = 0,

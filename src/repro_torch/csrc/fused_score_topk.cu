@@ -2,9 +2,10 @@
 // epilogue that gathers the winners' rows.
 //
 // Replaces src/repro/kernels/fused_score_topk.py::score_topk (the plain
-// variant `_kernel`, at fp32 and bf16 storage, and the int8 variant
-// `_scaled_kernel`) and ::score_topk_rows (`_rows_kernel` at every storage
-// dtype), Pallas kernels for the TPU.
+// variant `_kernel`, at fp32 and bf16 storage, the int8 variant
+// `_scaled_kernel`, and the filtered variants `_masked_kernel` (fp32, bf16)
+// and `_masked_scaled_kernel` (int8)) and ::score_topk_rows (`_rows_kernel`
+// at every storage dtype), Pallas kernels for the TPU.
 //
 // Rows are stored as fp32, bf16 or int8 codes (the storage ladder), with an
 // optional per-row fp32 scale (int8). Scores are
@@ -14,6 +15,14 @@
 // rounding is the reference's and a missing scale (1.0) changes nothing.
 // Results are ordered by (score desc, id asc), the TPU kernel's
 // first-occurrence rule, so equal scores keep the smaller corpus id.
+//
+// The filtered variants take an optional per-row fp32 0/1 mask (the filter
+// algebra's in-kernel mask plan): a row whose mask is <= 0.5 scores -inf
+// after its score is formed, as the TPU kernel's select does, and a -inf
+// score never beats a buffer's threshold, so it never enters. A tile with
+// no eligible row is skipped before it is staged (__syncthreads_or), which
+// changes no result. With fewer than kk eligible rows the unfilled slots
+// read (-inf, id 0).
 //
 // Bound on the H100: operations. At the main path's shapes (64 queries,
 // 1,000,000 x 128 fp32 rows) the scan is about 16.4 GFLOP on the fp32 CUDA
@@ -68,6 +77,7 @@ template <int ET, int QPT>
 __global__ void __launch_bounds__(kThreads)
 scan_kernel(const typename Elem<ET>::T* __restrict__ x,
             const float* __restrict__ xsq, const float* __restrict__ scale,
+            const float* __restrict__ mask,
             const float* __restrict__ q, long long n, int nq, int d, int kk,
             int cap, long long chunk_rows, float* __restrict__ part_s,
             int* __restrict__ part_i) {
@@ -80,7 +90,8 @@ scan_kernel(const typename Elem<ET>::T* __restrict__ x,
   float* xs = qs + BQ * ds;                      // (kTile, ds)
   float* xsq_s = xs + kTile * ds;                // (kTile,)
   float* sc_s = xsq_s + kTile;                   // (kTile,) 1.0 without scale
-  float* qsq_s = sc_s + kTile;                   // (BQ,)
+  float* mk_s = sc_s + kTile;                    // (kTile,) 1 eligible, 0 not
+  float* qsq_s = mk_s + kTile;                   // (BQ,)
   float* thr_s = qsq_s + BQ;                     // (BQ,)
   int* thr_i = reinterpret_cast<int*>(thr_s + BQ);
   int* cnt = thr_i + BQ;
@@ -128,6 +139,15 @@ scan_kernel(const typename Elem<ET>::T* __restrict__ x,
   for (long long t0 = r_begin; t0 < r_end; t0 += kTile) {
     const int rows = (int)(r_end - t0 < kTile ? r_end - t0 : kTile);
     __syncthreads();  // the previous stage's readers are done with xs
+    if (mask != nullptr) {
+      // the tile's eligibility; a tile with no eligible row is not staged
+      int ok = 0;
+      if (tid < kTile) {
+        ok = tid < rows && mask[t0 + tid] > 0.5f;
+        mk_s[tid] = ok ? 1.f : 0.f;
+      }
+      if (!__syncthreads_or(ok)) continue;
+    }
     if (vec && ET == kF32) {
       // every 16-byte copy of the tile in flight at once; rows past the
       // chunk and the pad columns are zero-filled by the copy itself
@@ -191,9 +211,10 @@ scan_kernel(const typename Elem<ET>::T* __restrict__ x,
         const int r = rg + h * kRowGroups;
         if (r >= rows) continue;
         const float dot = h == 0 ? acc0[i] : acc1[i];
-        const float s = __fsub_rn(
+        float s = __fsub_rn(
             __fsub_rn(__fmul_rn(__fmul_rn(2.f, dot), sc_s[r]), xsq_s[r]),
             qsq_s[qi]);
+        if (mask != nullptr && mk_s[r] == 0.f) s = -INFINITY;
         const int rid = (int)(t0 + r);
         if (better(s, rid, thr_s[qi], thr_i[qi])) {
           const int pos = atomicAdd(&cnt[qi], 1);
@@ -302,17 +323,17 @@ merge_kernel(const float* __restrict__ part_s, const int* __restrict__ part_i,
 
 size_t scan_smem(int bq, int cap, int d) {
   const size_t ds = (size_t)((d + 3) & ~3) + 4;
-  const size_t words = bq * ds + kTile * ds + 2 * kTile + 4 * (size_t)bq +
+  const size_t words = bq * ds + kTile * ds + 3 * kTile + 4 * (size_t)bq +
                        4 + 2 * (size_t)bq * cap;
   return words * sizeof(float);
 }
 
 template <int ET, int QPT>
 cudaError_t launch_scan(const typename Elem<ET>::T* x, const float* xsq,
-                        const float* scale, const float* q, long long n,
-                        int nq, int d, int kk, int cap, int nchunks,
-                        long long chunk_rows, float* part_s, int* part_i,
-                        cudaStream_t stream) {
+                        const float* scale, const float* mask,
+                        const float* q, long long n, int nq, int d, int kk,
+                        int cap, int nchunks, long long chunk_rows,
+                        float* part_s, int* part_i, cudaStream_t stream) {
   constexpr int BQ = kQueryGroups * QPT;
   const size_t smem = scan_smem(BQ, cap, d);
   cudaError_t err = cudaFuncSetAttribute(
@@ -321,31 +342,31 @@ cudaError_t launch_scan(const typename Elem<ET>::T* x, const float* xsq,
   if (err != cudaSuccess) return err;
   const dim3 grid((nq + BQ - 1) / BQ, nchunks);
   scan_kernel<ET, QPT><<<grid, kThreads, smem, stream>>>(
-      x, xsq, scale, q, n, nq, d, kk, cap, chunk_rows, part_s, part_i);
+      x, xsq, scale, mask, q, n, nq, d, kk, cap, chunk_rows, part_s, part_i);
   return cudaGetLastError();
 }
 
 template <int ET>
 int score_topk(const void* xv, const float* xsq, const float* scale,
-               const float* q, long long n, int nq, int d, int kk, int bq,
-               int cap, int nchunks, long long chunk_rows, int merge_cap,
-               float* part_s, int* part_i, float* vals, int* ids,
+               const float* mask, const float* q, long long n, int nq, int d,
+               int kk, int bq, int cap, int nchunks, long long chunk_rows,
+               int merge_cap, float* part_s, int* part_i, float* vals, int* ids,
                const float* pv, const float* pf, int dv, int m, float* rows_x,
                float* rows_v, float* rows_f, cudaStream_t st) {
   const auto* x = static_cast<const typename Elem<ET>::T*>(xv);
   cudaError_t err;
   switch (bq) {
     case 16:
-      err = launch_scan<ET, 4>(x, xsq, scale, q, n, nq, d, kk, cap, nchunks,
-                               chunk_rows, part_s, part_i, st);
+      err = launch_scan<ET, 4>(x, xsq, scale, mask, q, n, nq, d, kk, cap,
+                               nchunks, chunk_rows, part_s, part_i, st);
       break;
     case 8:
-      err = launch_scan<ET, 2>(x, xsq, scale, q, n, nq, d, kk, cap, nchunks,
-                               chunk_rows, part_s, part_i, st);
+      err = launch_scan<ET, 2>(x, xsq, scale, mask, q, n, nq, d, kk, cap,
+                               nchunks, chunk_rows, part_s, part_i, st);
       break;
     case 4:
-      err = launch_scan<ET, 1>(x, xsq, scale, q, n, nq, d, kk, cap, nchunks,
-                               chunk_rows, part_s, part_i, st);
+      err = launch_scan<ET, 1>(x, xsq, scale, mask, q, n, nq, d, kk, cap,
+                               nchunks, chunk_rows, part_s, part_i, st);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -365,32 +386,34 @@ int score_topk(const void* xv, const float* xsq, const float* scale,
 }  // namespace
 
 // et selects the stored element type of x (0 fp32, 1 bf16, 2 int8); scale
-// (n,) is the per-row dequantization scale, null for 1.0. Scratch part_s /
-// part_i hold (nq, nchunks, kk) entries. The rows pointers (pv, pf, rows_x,
-// rows_v, rows_f) are all null for the ids-only variant.
+// (n,) is the per-row dequantization scale, null for 1.0; mask (n,) is the
+// per-row 0/1 eligibility of the filtered variants, null for every row.
+// Scratch part_s / part_i hold (nq, nchunks, kk) entries. The rows pointers
+// (pv, pf, rows_x, rows_v, rows_f) are all null for the ids-only variant.
 extern "C" int fcvi_score_topk(const void* x, int et, const float* xsq,
-                               const float* scale, const float* q,
-                               long long n, int nq, int d, int kk, int bq,
-                               int cap, int nchunks, long long chunk_rows,
-                               int merge_cap, float* part_s, int* part_i,
-                               float* vals, int* ids, const float* pv,
-                               const float* pf, int dv, int m, float* rows_x,
-                               float* rows_v, float* rows_f, void* stream) {
+                               const float* scale, const float* mask,
+                               const float* q, long long n, int nq, int d,
+                               int kk, int bq, int cap, int nchunks,
+                               long long chunk_rows, int merge_cap,
+                               float* part_s, int* part_i, float* vals,
+                               int* ids, const float* pv, const float* pf,
+                               int dv, int m, float* rows_x, float* rows_v,
+                               float* rows_f, void* stream) {
   if (nq <= 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
   switch (et) {
     case kF32:
-      return score_topk<kF32>(x, xsq, scale, q, n, nq, d, kk, bq, cap,
+      return score_topk<kF32>(x, xsq, scale, mask, q, n, nq, d, kk, bq, cap,
                               nchunks, chunk_rows, merge_cap, part_s, part_i,
                               vals, ids, pv, pf, dv, m, rows_x, rows_v,
                               rows_f, st);
     case kBF16:
-      return score_topk<kBF16>(x, xsq, scale, q, n, nq, d, kk, bq, cap,
+      return score_topk<kBF16>(x, xsq, scale, mask, q, n, nq, d, kk, bq, cap,
                                nchunks, chunk_rows, merge_cap, part_s, part_i,
                                vals, ids, pv, pf, dv, m, rows_x, rows_v,
                                rows_f, st);
     case kI8:
-      return score_topk<kI8>(x, xsq, scale, q, n, nq, d, kk, bq, cap,
+      return score_topk<kI8>(x, xsq, scale, mask, q, n, nq, d, kk, bq, cap,
                              nchunks, chunk_rows, merge_cap, part_s, part_i,
                              vals, ids, pv, pf, dv, m, rows_x, rows_v, rows_f,
                              st);

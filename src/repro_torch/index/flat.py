@@ -11,7 +11,9 @@ The corpus may be stored as fp32, bf16 or int8 codes with one fp32 scale
 per row (``storage_dtype``, the storage ladder). The squared norms are
 those of the stored rows cast up (or dequantized), the scan accumulates
 fp32, and the refine runs on fp32 rows, so the scores are exact for the
-stored corpus. Mirrors ``repro.index.flat``.
+stored corpus. Mirrors ``repro.index.flat``, the filter algebra's helpers
+included (``search_masked``, ``filtered_d2``, ``lexsort_topk``,
+``finalize_filtered``, ``masked_candidates``, ``filtered_refine``).
 """
 from __future__ import annotations
 
@@ -104,23 +106,29 @@ def merge_topk(vals_a: Tensor, idx_a: Tensor, vals_b: Tensor, idx_b: Tensor,
 
 
 def _exact_refine(vectors: Tensor, queries: Tensor, cand_idx: Tensor, k: int,
-                  scales: Optional[Tensor] = None):
+                  scales: Optional[Tensor] = None,
+                  mask: Optional[Tensor] = None):
     """Re-score gathered candidates with a direct (q - x)^2 pass, top-k, in
     fp32 whatever the storage dtype: bf16 rows are cast up and int8 rows
-    dequantized with their ``scales``."""
+    dequantized with their ``scales``. Candidates whose row is False in the
+    (n,) bool ``mask`` score -inf."""
     idx = cand_idx.long()
     rows = vectors[idx].to(torch.float32)
     if scales is not None:
         rows = rows * scales[idx][..., None]
-    vals, pos = _refine_carried(rows, queries, k)
+    keep = None if mask is None else mask[idx]
+    vals, pos = _refine_carried(rows, queries, k, keep)
     return vals, torch.gather(cand_idx, -1, pos)
 
 
-def _refine_carried(scan_rows: Tensor, queries: Tensor, k: int):
+def _refine_carried(scan_rows: Tensor, queries: Tensor, k: int,
+                    keep: Optional[Tensor] = None):
     """Exact refine over the kernel-carried candidate rows: the arithmetic
     of ``_exact_refine`` without the gather. Returns (vals, pos) with pos
-    into the carried candidate axis."""
+    into the carried candidate axis; slots False in ``keep`` score -inf."""
     d2 = torch.sum((queries[:, None, :] - scan_rows) ** 2, dim=-1)
+    if keep is not None:
+        d2 = torch.where(keep, d2, float("inf"))
     return topk_first(-d2, k)
 
 
@@ -159,3 +167,123 @@ def search_rows(index: FlatIndex, queries: Tensor, k: int, payload_v: Tensor,
     rows_f = torch.gather(rows_f, 1, pos[..., None].expand(-1, -1,
                                                            rows_f.shape[-1]))
     return vals, ids, rows_v, rows_f
+
+
+def search_masked(index: FlatIndex, queries: Tensor, k: int, mask: Tensor):
+    """Exact search restricted to ``mask`` (n,) bool, the pre-filtering
+    primitive: ineligible rows score -inf inside the scan (the masked
+    variants of B2 on the card), then the exact refine over the eligible
+    candidates. Returns (scores (q, k), ids (q, k)); slots past the
+    eligible rows read -inf."""
+    k_out, kk = _widths(index, k)
+    _, cand = ops.score_topk(index.vectors, index.sq_norms, queries, kk,
+                             scales=index.scales, mask=mask.to(torch.float32))
+    return _exact_refine(index.vectors, queries, cand, k_out, index.scales,
+                         mask)
+
+
+# ---------------------------------------------------------------------------
+# Filtered refine: the shared exactness anchor of the filter-algebra plans
+# ---------------------------------------------------------------------------
+#
+# Every physical plan (psi fold / in-kernel mask / routed pruning) finishes
+# through these primitives, which compute per-row fp32 squared distances
+# with ONE canonical expression and break ties by (distance, id). Identical
+# candidate rows therefore give identical bits under every plan: candidate
+# generation only has to guarantee that the true filtered top-k is IN the
+# candidate set, never how it is ordered.
+
+#: id sentinel for dead (ineligible / unfilled) slots while sorting; -1 in
+#: the final output. Sorts after every real id at equal distance.
+DEAD_ID = 2 ** 31 - 1
+
+
+def filtered_d2(queries: Tensor, rows: Tensor) -> Tensor:
+    """Canonical fp32 squared distance: queries (b, d) x rows (b, c, d) or
+    (c, d) -> (b, c).
+
+    Elementwise subtract and multiply, then a sum over d in one fixed
+    order: the last axis is zero-padded to a power of two and folded in
+    halves, each fold one elementwise add. A reduction kernel would choose
+    its summation order from the tensor's shape (and the plans' c differ:
+    kp for the fold plan, k + 8 for mask and routed, nd for the delta
+    tier); elementwise adds round the same way whatever the shape or
+    device, so a row's d2 has the same bits under every plan, on the card
+    and on the CPU. (The reference's ``jnp.sum`` agrees to fp32
+    tolerance.)"""
+    if rows.dim() == 2:
+        rows = rows[None, :, :]
+    diff = queries[:, None, :].to(torch.float32) - rows
+    sq = diff * diff
+    d = sq.shape[-1]
+    width = 1 << max(0, (d - 1).bit_length())
+    if width != d:
+        sq = torch.nn.functional.pad(sq, (0, width - d))
+    while sq.shape[-1] > 1:
+        half = sq.shape[-1] // 2
+        sq = sq[..., :half] + sq[..., half:]
+    return sq[..., 0]
+
+
+def lexsort_topk(d2: Tensor, ids: Tensor, k: int):
+    """Smallest-k by (d2 asc, id asc) along the last axis; pads with
+    (+inf, DEAD_ID) when fewer than ``k`` entries exist.
+
+    One sort of a packed int64 key: d2 >= +0 or +inf (a sum of squares,
+    never NaN), whose fp32 bits order as its values do, in the high word,
+    and the id (0 <= id <= DEAD_ID) in the low word. Exact; the keys are
+    unique except for equal dead slots."""
+    c = d2.shape[-1]
+    if c < k:
+        pad = k - c
+        d2 = torch.cat([d2, d2.new_full((*d2.shape[:-1], pad),
+                                        float("inf"))], dim=-1)
+        ids = torch.cat([ids, ids.new_full((*ids.shape[:-1], pad), DEAD_ID)],
+                        dim=-1)
+    bits = d2.to(torch.float32).contiguous().view(torch.int32).long()
+    key = (bits << 32) | ids.long()
+    key = torch.sort(key, dim=-1).values[..., :k]
+    d2s = (key >> 32).to(torch.int32).view(torch.float32)
+    return d2s, (key & 0xFFFFFFFF).to(torch.int32)
+
+
+def finalize_filtered(d2: Tensor, ids: Tensor):
+    """(d2, ids) -> (scores, ids) in the filtered-result convention:
+    scores = -d2, dead slots = (-inf, -1)."""
+    dead = torch.isinf(d2)
+    return (torch.where(dead, float("-inf"), -d2),
+            torch.where(dead, -1, ids))
+
+
+def masked_candidates(index: FlatIndex, queries: Tensor, kk: int,
+                      elig: Tensor):
+    """Masked-scan candidate generation for the mask plan: the (n,)
+    eligibility rides into the scan as its mask operand (B2's masked
+    variants on the card), so ineligible rows score -inf inside the scan.
+    Returns (cand (b, kk) corpus ids, valid (b, kk) bool) for
+    ``filtered_refine``."""
+    vals, cand = ops.score_topk(index.vectors, index.sq_norms, queries, kk,
+                                scales=index.scales,
+                                mask=elig.to(torch.float32))
+    return torch.clamp(cand, min=0), ~torch.isneginf(vals)
+
+
+def filtered_refine(vectors: Tensor, scales: Optional[Tensor],
+                    queries: Tensor, cand_idx: Tensor, cand_valid: Tensor,
+                    elig: Tensor, k: int):
+    """Exact filtered top-k over a candidate set.
+
+    cand_idx: (b, c) corpus ids (valid entries duplicate-free); cand_valid:
+    (b, c) bool (False = unfilled scan slot); elig: (n,) bool row
+    eligibility. Ineligible or invalid candidates get (+inf, DEAD_ID) and
+    the rest sort by (exact fp32 d2, id). Returns (d2 (b, k), ids (b, k)
+    int32); callers finish with ``finalize_filtered``."""
+    idx = cand_idx.long()
+    rows = vectors[idx].to(torch.float32)                   # (b, c, d)
+    if scales is not None:
+        rows = rows * scales[idx][..., None]
+    d2 = filtered_d2(queries, rows)
+    ok = cand_valid & elig[idx]
+    d2 = torch.where(ok, d2, float("inf"))
+    ids = torch.where(ok, cand_idx.to(torch.int32), DEAD_ID)
+    return lexsort_topk(d2, ids, k)

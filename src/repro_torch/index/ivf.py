@@ -14,9 +14,9 @@ variant for the gather-free step). Each query scores nprobe/nlist of the
 corpus. The corpus and the slabs may be stored as fp32, bf16 or int8
 codes with one fp32 scale per row (``scales``, grouped as
 ``grouped_scales``); the quantizer is trained in fp32 and the squared
-norms are those of the stored rows. Mirrors ``repro.index.ivf``; the
-filter-algebra helpers (``grouped_mask``, ``masked_candidates``, ``routed_candidates``,
-``eligible_lists``) are ROADMAP A7.
+norms are those of the stored rows. Mirrors ``repro.index.ivf``, the
+filter-algebra helpers included (``grouped_mask``, ``masked_candidates``,
+``routed_candidates``, ``eligible_lists``).
 """
 from __future__ import annotations
 
@@ -236,3 +236,76 @@ def add(index: IVFIndex, new_vectors: Tensor) -> IVFIndex:
         vectors = torch.cat([index.vectors,
                              new_vectors.to(index.vectors.dtype)], dim=0)
     return from_lists(vectors, index.centroids, lists, sizes, scales)
+
+
+# ---------------------------------------------------------------------------
+# Filter-algebra candidate generation (mask / routed plans)
+# ---------------------------------------------------------------------------
+
+def grouped_mask(index: IVFIndex, elig: Tensor) -> Tensor:
+    """Row eligibility (n,) bool -> the grouped-layout candidate mask
+    (nlist, max_list) float 0/1 the dedup scan takes (pad slots 0)."""
+    safe = torch.clamp(index.lists, min=0).long()
+    return (elig[safe] & (index.lists >= 0)).to(torch.float32)
+
+
+def _masked_scan(index: IVFIndex, queries: Tensor, kk: int, elig: Tensor,
+                 uniq: Tensor, member: Tensor):
+    """The dedup scan over ``uniq`` with the eligibility as its ``mask=``
+    operand; returns (cand (b, kk) corpus ids, valid (b, kk) bool)."""
+    vals, flat_ids = ops.ivf_score_topk_dedup(
+        index.grouped, index.grouped_sq, index.valid, uniq, member, queries,
+        kk, scales=index.grouped_scales, mask=grouped_mask(index, elig))
+    cand = index.lists.reshape(-1)[flat_ids.long()]
+    return torch.clamp(cand, min=0), ~torch.isneginf(vals)
+
+
+def masked_candidates(index: IVFIndex, queries: Tensor, kk: int,
+                      elig: Tensor):
+    """Exhaustive masked scan over ALL lists, the mask plan's candidate
+    generator: every eligible row competes (uniq = every list id, an
+    all-ones member matrix) and ineligible rows score -inf in the scan.
+    Returns (cand (b, kk') corpus ids, valid (b, kk') bool) for
+    ``flat.filtered_refine``, kk' = min(kk, nlist * max_list)."""
+    nlist, dev = index.nlist, queries.device
+    kk = min(kk, nlist * index.max_list)
+    uniq = torch.arange(nlist, dtype=torch.int32, device=dev)
+    member = torch.ones((nlist, queries.shape[0]), dtype=torch.float32,
+                        device=dev)
+    return _masked_scan(index, queries, kk, elig, uniq, member)
+
+
+def routed_candidates(index: IVFIndex, queries: Tensor, kk: int,
+                      elig: Tensor, uniq: Tensor, n_live: int):
+    """Masked scan restricted to a routed list set, the routed plan's
+    candidate generator: only lists holding at least one eligible row are
+    scanned. uniq (slots,) int32 list ids whose tail slots repeat a live id
+    (``eligible_lists``); their member columns are 0, so they are never
+    scanned. Returns (cand, valid) like ``masked_candidates``; exhaustive
+    over the routed lists' eligible rows."""
+    slots, dev = uniq.shape[0], queries.device
+    kk = min(kk, slots * index.max_list)
+    live = torch.arange(slots, device=dev) < n_live
+    member = live[:, None].to(torch.float32).expand(
+        slots, queries.shape[0]).contiguous()
+    return _masked_scan(index, queries, kk, elig, uniq, member)
+
+
+def eligible_lists(lists: Tensor, elig: Tensor):
+    """Routing: which inverted lists hold >= 1 eligible row. lists
+    (nlist, max_list) int32 with -1 pad, elig (n,) bool, on one device.
+
+    Returns (uniq (slots,) int32, n_live int) with slots the next power of
+    two >= n_live (the tail repeats the first live id and is masked through
+    the member matrix), or None when no list qualifies (the caller returns
+    the certified-empty result). One device-to-host read of n_live."""
+    safe = torch.clamp(lists, min=0).long()
+    has = (elig[safe] & (lists >= 0)).any(dim=1)
+    ids = torch.nonzero(has).flatten().to(torch.int32)
+    n_live = int(ids.shape[0])
+    if n_live == 0:
+        return None
+    slots = 1 << max(0, (n_live - 1).bit_length())
+    uniq = ids[:1].repeat(slots)
+    uniq[:n_live] = ids
+    return uniq, n_live

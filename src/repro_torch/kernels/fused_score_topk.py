@@ -2,8 +2,9 @@
 
 One CUDA source (``csrc/fused_score_topk.cu``) serves both output contracts:
 
-* ``score_topk`` (B2) replaces the plain and int8-scaled variants of the
-  Pallas kernel ``repro/kernels/fused_score_topk.py::score_topk``;
+* ``score_topk`` (B2) replaces the plain, int8-scaled, masked and
+  masked+scaled variants of the Pallas kernel
+  ``repro/kernels/fused_score_topk.py::score_topk``;
 * ``score_topk_rows`` (B3) replaces ``score_topk_rows``: the same (vals,
   ids) bit for bit, plus the winners' corpus rows (dequantized to fp32)
   and payload rows.
@@ -12,7 +13,12 @@ The corpus is stored as fp32, bf16 or int8 codes (the storage ladder); an
 optional per-row ``scales`` (n,) multiplies each dot product's output, as
 the int8 rung needs. Each stored dtype has its own launch counter
 (``score_topk``, ``score_topk_bf16``, ``score_topk_int8``, and the same for
-the rows variant); a CUDA corpus of any other dtype raises.
+the rows variant); a CUDA corpus of any other dtype raises. An optional
+``mask`` (n,) float 0/1 (the filter algebra's mask plan) makes rows at
+<= 0.5 score -inf inside the scan; the masked launches count apart
+(``score_topk_masked``, ``score_topk_masked_bf16``,
+``score_topk_masked_int8``), and slots left without an eligible row read
+(-inf, id 0).
 
 Pass 1 splits the corpus into chunks scanned by parallel blocks, each
 keeping its chunk's top-kk per query; pass 2 merges the chunks per query
@@ -55,9 +61,10 @@ def _pow2(x: int) -> int:
 def scan_smem(bq: int, cap: int, d: int) -> int:
     """Pass-1 dynamic shared memory in bytes (mirrors ``scan_smem`` in the
     source). The same at every stored dtype: bf16 and int8 tiles are cast
-    up to fp32 as they are stored, with no raw copy in shared memory."""
+    up to fp32 as they are stored, with no raw copy in shared memory; the
+    tile's norms, scales and mask flags take a row each."""
     ds = ((d + 3) & ~3) + 4
-    return 4 * (bq * ds + TILE * ds + 2 * TILE + 4 * bq + 4 + 2 * bq * cap)
+    return 4 * (bq * ds + TILE * ds + 3 * TILE + 4 * bq + 4 + 2 * bq * cap)
 
 
 def plan(n: int, nq: int, kk: int, d: int, num_sms: int) -> ScanPlan:
@@ -85,7 +92,7 @@ def plan(n: int, nq: int, kk: int, d: int, num_sms: int) -> ScanPlan:
 
 
 def _launch(corpus, sq_norms, queries, k, payload_v=None, payload_f=None,
-            scales=None):
+            scales=None, mask=None):
     """Check the operands, allocate outputs and scratch, launch. Returns
     (error code, counter suffix of the corpus dtype, vals, ids, rows)."""
     if corpus.dim() != 2 or queries.dim() != 2:
@@ -100,6 +107,8 @@ def _launch(corpus, sq_norms, queries, k, payload_v=None, payload_f=None,
     _build.require(sq_norms, "sq_norms", (n,), dev)
     if scales is not None:
         _build.require(scales, "scales", (n,), dev)
+    if mask is not None:
+        _build.require(mask, "mask", (n,), dev)
     _build.require(queries, "queries", (nq, d), dev)
     p = plan(n, nq, k, d, torch.cuda.get_device_properties(dev).multi_processor_count)
     part_s = torch.empty((nq, p.nchunks, k), dtype=torch.float32, device=dev)
@@ -119,7 +128,7 @@ def _launch(corpus, sq_norms, queries, k, payload_v=None, payload_f=None,
     with torch.cuda.device(dev):
         code = lib.fcvi_score_topk(
             corpus.data_ptr(), et, sq_norms.data_ptr(), ptr(scales),
-            queries.data_ptr(), n, nq, d, k, p.bq, p.cap, p.nchunks,
+            ptr(mask), queries.data_ptr(), n, nq, d, k, p.bq, p.cap, p.nchunks,
             p.chunk_rows, p.merge_cap, part_s.data_ptr(), part_i.data_ptr(),
             vals.data_ptr(), ids.data_ptr(), ptr(payload_v), ptr(payload_f),
             dv, m, *map(ptr, rows), _build.stream(dev))
@@ -128,15 +137,19 @@ def _launch(corpus, sq_norms, queries, k, payload_v=None, payload_f=None,
 
 def score_topk(corpus: torch.Tensor, sq_norms: torch.Tensor,
                queries: torch.Tensor, k: int,
-               scales: Optional[torch.Tensor] = None):
+               scales: Optional[torch.Tensor] = None,
+               mask: Optional[torch.Tensor] = None):
     """corpus (n, d) float32, bfloat16 or int8 codes, sq_norms (n,),
-    queries (q, d) and the optional per-row scales (n,) float32, on one
-    CUDA device. Returns (scores (q, k) f32, ids (q, k) int32): negative
-    squared L2, descending, ties to the smaller id."""
+    queries (q, d), the optional per-row scales (n,) float32 and the
+    optional row mask (n,) float32 0/1, on one CUDA device. Returns (scores
+    (q, k) f32, ids (q, k) int32): negative squared L2, descending, ties to
+    the smaller id; with a mask, rows at <= 0.5 never enter and unfilled
+    slots read (-inf, 0)."""
     code, suffix, vals, ids, _ = _launch(corpus, sq_norms, queries, k,
-                                         scales=scales)
-    _build.check(code, NAME + suffix)
-    _build.count(NAME + suffix)
+                                         scales=scales, mask=mask)
+    name = NAME + ("_masked" if mask is not None else "") + suffix
+    _build.check(code, name)
+    _build.count(name)
     return vals, ids
 
 

@@ -4,7 +4,8 @@ One CUDA source (``csrc/ivf_score.cu``) serves the three output contracts
 of ``repro/kernels/ivf_score.py``, at every storage dtype:
 
 * ``ivf_score_topk_dedup`` (B5): the probe-major scan of the batch's unique
-  probed lists (``uniq`` (s,), ``member`` (s, b));
+  probed lists (``uniq`` (s,), ``member`` (s, b)), with the optional
+  ``mask=`` of the filter algebra multiplied into ``valid``;
 * ``ivf_score_topk_dedup_rows`` (B6): B5's (vals, ids) bit for bit, plus the
   winners' grouped payload rows, zero rows for dead slots;
 * ``ivf_score_topk_batch`` (B7) and ``ivf_score_topk``, its batch-1 call:
@@ -146,16 +147,29 @@ def _launch(grouped, grouped_sq, valid, src_list, member, queries, k,
 def ivf_score_topk_dedup(grouped: torch.Tensor, grouped_sq: torch.Tensor,
                          valid: torch.Tensor, uniq: torch.Tensor,
                          member: torch.Tensor, queries: torch.Tensor, k: int,
-                         scales: Optional[torch.Tensor] = None):
+                         scales: Optional[torch.Tensor] = None,
+                         mask: Optional[torch.Tensor] = None):
     """grouped (nlist, max_list, d) float32, bfloat16 or int8 codes,
     grouped_sq / valid (nlist, max_list) float32, uniq (s,) int32, member
     (s, b) float 0/1, queries (b, d), the optional scales (nlist, max_list)
     float32, on one CUDA device. Returns (vals (b, k) f32, flat ids (b, k)
-    int32)."""
+    int32).
+
+    ``mask`` (nlist, max_list) float 0/1 (the filter algebra's candidate
+    mask, ``mask=`` of the reference, which multiplies it into ``valid``
+    outside its kernel) is multiplied into ``valid`` here, and the same
+    kernel runs: it keeps only rows whose valid flag is > 0.5 and skips
+    tiles with none. Masked launches count apart
+    (``ivf_score_topk_dedup_masked`` and its ``_bf16``/``_int8``)."""
+    name = NAME_DEDUP
+    if mask is not None:
+        _build.require(mask, "mask", tuple(valid.shape), grouped.device)
+        valid = valid * mask
+        name += "_masked"
     code, suffix, vals, ids, _ = _launch(grouped, grouped_sq, valid, uniq,
                                          member, queries, k, scales=scales)
-    _build.check(code, NAME_DEDUP + suffix)
-    _build.count(NAME_DEDUP + suffix)
+    _build.check(code, name + suffix)
+    _build.count(name + suffix)
     return vals, ids
 
 

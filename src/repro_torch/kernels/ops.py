@@ -45,12 +45,15 @@ def fused_transform(v: Tensor, f: Tensor, proj: Tensor, alpha: float,
 
 
 def score_topk(corpus: Tensor, sq_norms: Tensor, queries: Tensor, k: int,
-               *, scales: Optional[Tensor] = None):
+               *, scales: Optional[Tensor] = None,
+               mask: Optional[Tensor] = None):
     """Negative squared-L2 top-k: (vals (q, k) f32, ids (q, k) int32),
-    descending, ties to the smaller id."""
+    descending, ties to the smaller id. ``mask`` (n,) float 0/1 routes to
+    the filtered variants: rows at <= 0.5 score -inf inside the scan, and
+    slots no eligible row fills read (-inf, 0)."""
     if corpus.is_cuda:
-        return _scan.score_topk(corpus, sq_norms, queries, k, scales)
-    return ref.ref_score_topk(corpus, sq_norms, queries, k, scales)
+        return _scan.score_topk(corpus, sq_norms, queries, k, scales, mask)
+    return ref.ref_score_topk(corpus, sq_norms, queries, k, scales, mask)
 
 
 def score_topk_rows(corpus: Tensor, sq_norms: Tensor, payload_v: Tensor,
@@ -102,15 +105,17 @@ def ivf_score_topk(grouped: Tensor, grouped_sq: Tensor, valid: Tensor,
 
 def ivf_score_topk_dedup(grouped: Tensor, grouped_sq: Tensor, valid: Tensor,
                          uniq: Tensor, member: Tensor, queries: Tensor,
-                         k: int, *, scales: Optional[Tensor] = None):
+                         k: int, *, scales: Optional[Tensor] = None,
+                         mask: Optional[Tensor] = None):
     """Probe-major scan of the batch's unique probed lists: uniq (s,) int32,
     member (s, b) float 0/1 (see ``dedup_probes``). Ties go to the smaller
-    flat id when uniq ascends."""
+    flat id when uniq ascends. ``mask`` (nlist, max_list) float 0/1 is the
+    filter algebra's candidate mask, multiplied into ``valid``."""
     if grouped.is_cuda:
         return _ivf.ivf_score_topk_dedup(grouped, grouped_sq, valid, uniq,
-                                         member, queries, k, scales)
+                                         member, queries, k, scales, mask)
     return ref.ref_ivf_score_topk_dedup(grouped, grouped_sq, valid, uniq,
-                                        member, queries, k, scales)
+                                        member, queries, k, scales, mask)
 
 
 def ivf_score_topk_dedup_rows(grouped: Tensor, grouped_sq: Tensor,

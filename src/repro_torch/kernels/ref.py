@@ -45,17 +45,27 @@ def ref_fused_transform(v: Tensor, f: Tensor, proj: Tensor, alpha: float,
 
 
 def ref_score_topk(corpus: Tensor, sq_norms: Tensor, queries: Tensor, k: int,
-                   scales: Optional[Tensor] = None):
+                   scales: Optional[Tensor] = None,
+                   mask: Optional[Tensor] = None):
     """Exact negative-squared-L2 top-k: (vals (q, k) f32, ids (q, k) int32),
     descending, first occurrence on ties. ``corpus`` is fp32, bf16 or int8
     codes with their per-row ``scales`` (n,), cast up to fp32; the score is
     the kernels' ``((2 dot) scale - ||x||^2) - ||q||^2``: the scale
-    multiplies the dot product's output, never the rows."""
+    multiplies the dot product's output, never the rows. ``mask`` (n,)
+    float 0/1 is the filter algebra's candidate mask: rows at <= 0.5 score
+    -inf after the score is formed, and slots left -inf read id 0, as the
+    kernel's unfilled slots do (the reference leaves those ids to its
+    callers, which clamp them)."""
     q2 = torch.sum(queries * queries, dim=-1, keepdim=True)
     s = 2.0 * (queries @ corpus.to(torch.float32).T)
     if scales is not None:
         s = s * scales
-    vals, ids = topk_first((s - sq_norms[None, :]) - q2, k)
+    s = (s - sq_norms[None, :]) - q2
+    if mask is not None:
+        s = torch.where(mask[None, :] > 0.5, s, float("-inf"))
+    vals, ids = topk_first(s, k)
+    if mask is not None:
+        ids = torch.where(torch.isneginf(vals), 0, ids)
     return vals, ids.to(torch.int32)
 
 
@@ -160,12 +170,18 @@ def _dedup_scores(grouped: Tensor, grouped_sq: Tensor, valid: Tensor,
 def ref_ivf_score_topk_dedup(grouped: Tensor, grouped_sq: Tensor,
                              valid: Tensor, uniq: Tensor, member: Tensor,
                              queries: Tensor, k: int,
-                             scales: Optional[Tensor] = None):
+                             scales: Optional[Tensor] = None,
+                             mask: Optional[Tensor] = None):
     """Probe-major scan of the unique probed lists: uniq (s,) list ids,
     member (s, b) float 0/1 (query b probed list uniq[s]). Candidates are
     flattened in uniq order, so with an ascending uniq ties go to the
-    smaller flat id. ``scales`` as in ``ref_ivf_score_topk_batch``. Returns
-    (vals (b, k) f32, flat ids (b, k) int32)."""
+    smaller flat id. ``scales`` as in ``ref_ivf_score_topk_batch``.
+    ``mask`` (nlist, max_list) float 0/1 is the filter algebra's candidate
+    mask; it multiplies into ``valid`` (exact: both are 0/1), as the
+    reference's kernel path does. Returns (vals (b, k) f32, flat ids (b, k)
+    int32)."""
+    if mask is not None:
+        valid = valid * mask
     s, flat = _dedup_scores(grouped, grouped_sq, valid, uniq, member,
                             queries, scales)
     return _topk_padded(s, flat, k)

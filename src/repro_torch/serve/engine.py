@@ -24,9 +24,19 @@ them by id, as the reference does. Eager PyTorch runs it as
 it stands; there is no trace to count. Cache, stats and the escalation
 decision are host-side.
 
-Mirrors the meshless similarity-mode path of ``repro.serve.engine``.
-Predicate search (``filter=``/``plan=``) is ROADMAP A7, meshes and routing
-A12, checkpoints A10 and ``search_predicate`` A11; they raise here.
+Predicate search (``search(q, filter=F.range(...) & F.isin(...))``) runs
+the filter algebra's physical plans: the planner (``serve/planner.py``)
+picks ``fold`` (psi fold against the predicate's representative filter
+point, the unmasked scan, a per-query certificate with a fallback to the
+mask plan), ``mask`` (the scan with the eligibility as its mask operand:
+B2's masked variants for flat, B5's ``mask=`` over every list for IVF) or
+``routed`` (IVF: B5's ``mask=`` over only the lists holding an eligible
+row). Every plan finishes in the same exact refine (``flat.filtered_d2``,
+``flat.lexsort_topk``), so forced plans return the same bits.
+
+Mirrors the meshless paths of ``repro.serve.engine``. Meshes and routing
+are ROADMAP A12, checkpoints A10 and ``search_predicate`` A11; they raise
+here.
 """
 from __future__ import annotations
 
@@ -40,11 +50,17 @@ import torch
 
 from repro_torch.core import fcvi, theory
 from repro_torch.core.fcvi import FCVIIndex
+from repro_torch.core.filters import Predicate, compile_predicate, eval_mask
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.index import flat as flat_mod
 from repro_torch.index import ivf as ivf_mod
+from repro_torch.kernels import ops
+from repro_torch.kernels.fused_score_topk import MAX_K
 from repro_torch.kernels.ref import topk_first
 from repro_torch.serve.health import BackpressureError, TransientShardError
+from repro_torch.serve.planner import (CANDIDATE_PAD, PLAN_FOLD, PLAN_MASK,
+                                       PLAN_ROUTED, PLANS, QueryPlanner,
+                                       _pow2_at_least)
 
 Tensor = torch.Tensor
 
@@ -127,6 +143,75 @@ def _batch_step(index: FCVIIndex, delta: Optional[_DeltaBuffer], q: Tensor,
     return scores, ids, scores[:, 0] - scores[:, -1]
 
 
+# ---------------------------------------------------------------------------
+# Predicate-filtered physical plans (the filter algebra, meshless).
+#
+# All three plans funnel into the SAME refine convention: canonical fp32
+# d2 (``flat.filtered_d2``), the (d2 asc, id asc) sort, dead slots at
+# (+inf, DEAD_ID). So any plan whose candidate set CONTAINS the true
+# eligible top-k gives the same bits.
+# ---------------------------------------------------------------------------
+
+def _filtered_mask_step(backend, q_t: Tensor, elig: Tensor, *, k: int,
+                        kp: int):
+    """MASK plan: the eligibility-masked scan, then the filtered refine.
+    Flat runs the masked top-kp scan (B2's masked variants on the card);
+    IVF the masked EXHAUSTIVE all-lists dedup scan (B5 with ``mask=``), so
+    the candidate set holds every eligible row within kp: exact when
+    kp >= min(k, #eligible)."""
+    mod = flat_mod if isinstance(backend, flat_mod.FlatIndex) else ivf_mod
+    cand, valid = mod.masked_candidates(backend, q_t, kp, elig)
+    return flat_mod.filtered_refine(backend.vectors, backend.scales, q_t,
+                                    cand, valid, elig, k)
+
+
+def _filtered_fold_step(backend: flat_mod.FlatIndex, q_t: Tensor,
+                        elig: Tensor, n_elig: int, *, k: int, kp: int):
+    """FOLD plan (flat fp32 only): the unmasked scan (B2) against the
+    queries folded to the predicate's raw target, the filtered refine over
+    the eligible candidates, and a per-query CERTIFICATE: exact when the kp
+    candidates held >= k eligible rows, or every eligible row there is.
+    Returns (d2, ids, certified (b,) bool)."""
+    vals, cand = ops.score_topk(backend.vectors, backend.sq_norms, q_t, kp,
+                                scales=backend.scales)
+    valid = ~torch.isneginf(vals)
+    cand = torch.clamp(cand, min=0)
+    d2, ids = flat_mod.filtered_refine(backend.vectors, backend.scales, q_t,
+                                       cand, valid, elig, k)
+    elig_in = torch.sum(valid & elig[cand.long()], dim=-1)
+    return d2, ids, (elig_in >= k) | (elig_in == n_elig)
+
+
+def _filtered_routed_step(backend: ivf_mod.IVFIndex, q_t: Tensor,
+                          elig: Tensor, uniq: Tensor, n_live: int, *,
+                          k: int, kp: int):
+    """ROUTED plan (IVF): scan only the lists holding eligible rows (B5
+    with ``mask=`` over ``uniq``). Exact because every eligible row lives
+    in a routed list and the scan is exhaustive over those lists."""
+    cand, valid = ivf_mod.routed_candidates(backend, q_t, kp, elig, uniq,
+                                            n_live)
+    return flat_mod.filtered_refine(backend.vectors, backend.scales, q_t,
+                                    cand, valid, elig, k)
+
+
+def _filtered_delta_step(delta_flat: flat_mod.FlatIndex, q_t: Tensor,
+                         delig: Tensor, *, k: int):
+    """Exact filtered top-k over the delta tier, delta-LOCAL ids: the same
+    canonical d2 over every pending row (dequantized), so the merge with
+    the main tier stays bit-stable. The engine maps id j to
+    ``index.size + j``."""
+    rows = delta_flat.vectors.to(torch.float32)
+    if delta_flat.scales is not None:
+        rows = rows * delta_flat.scales[:, None]
+    nd = rows.shape[0]
+    d2 = flat_mod.filtered_d2(q_t, rows)
+    d2 = torch.where(delig[None, :], d2, float("inf"))
+    ids = torch.where(delig, torch.arange(nd, dtype=torch.int32,
+                                          device=q_t.device),
+                      flat_mod.DEAD_ID)
+    return flat_mod.lexsort_topk(d2, ids[None, :].expand_as(d2), k)
+
+
 @dataclasses.dataclass
 class EngineConfig:
     """Serving-side knobs (host-side policy; none changes result values
@@ -167,6 +252,12 @@ class EngineStats:
     retries: int = 0               # TransientShardError retries
     deadline_misses: int = 0       # batches exceeding cfg.deadline_s
     backpressure_drops: int = 0    # queries shed by BackpressureError
+    # -- predicate-filtered serving (filter algebra + planner) -------------
+    filtered_queries: int = 0      # queries served through search(filter=)
+    plan_fold: int = 0             # queries executed under each plan
+    plan_mask: int = 0
+    plan_routed: int = 0
+    filtered_fallbacks: int = 0    # fold queries re-run under mask
 
     @property
     def qps(self) -> float:
@@ -194,12 +285,18 @@ class FCVIEngine:
     are un-compacted delta rows. ``insert(vectors, filters)`` buffers rows
     in the delta tier until ``compact_threshold`` triggers compaction.
 
+    ``search(queries, filter=pred)`` is predicate search (see ``search``).
+    ``attributes`` (n, m) is the RAW attribute table predicates evaluate
+    against (default: the de-normalized filter columns,
+    ``fcvi.filters_raw``); ``attr_names`` names its columns (default
+    ``f0..f{m-1}``).
+
     ``device`` (default ``"cuda"``) is where the engine serves; the index
     must live there. Asking for a card that is not there raises."""
 
     def __init__(self, index: FCVIIndex, config: Optional[EngineConfig] = None,
                  *, device: DeviceLike = "cuda", mesh=None,
-                 routing: str = "dense"):
+                 routing: str = "dense", attributes=None, attr_names=None):
         if mesh is not None or routing != "dense":
             raise NotImplementedError(
                 "mesh-sharded and routed serving are ROADMAP A12; the "
@@ -222,6 +319,51 @@ class FCVIEngine:
         # hook for a fault-injection harness: an object whose
         # ``before_batch()`` may raise TransientShardError
         self.fault_injector = None
+        self._init_attrs(attributes, attr_names)
+
+    # -- predicate-filtered serving state ----------------------------------
+    def _init_attrs(self, attributes, attr_names):
+        """The RAW attribute table (host copy for the planner and column
+        means, device copy for evaluating predicates), its column names and
+        the planner, whose histograms are built here, once."""
+        mf = self.index.transform.filt_norm.mean.shape[-1]
+        if attributes is None:
+            attrs = fcvi.filters_raw(self.index).cpu().numpy()
+        else:
+            attrs = np.asarray(attributes, np.float32)
+            if attrs.shape != (self.index.size, mf):
+                # the fold plan's target feeds the filter side of psi, and
+                # delta rows are checked against their insert filters
+                raise ValueError(
+                    f"attributes must be (index.size={self.index.size}, "
+                    f"m={mf}); got shape {attrs.shape}")
+        m = attrs.shape[1]
+        if attr_names is None:
+            attr_names = tuple(f"f{j}" for j in range(m))
+        else:
+            attr_names = tuple(attr_names)
+            if len(attr_names) != m:
+                raise ValueError(
+                    f"attr_names has {len(attr_names)} entries for "
+                    f"{m} attribute columns")
+        self._attr_names = attr_names
+        self._set_attrs(attrs)
+
+    def _set_attrs(self, attrs: np.ndarray):
+        self._attrs_np = attrs
+        self._attrs = torch.tensor(attrs, device=self.device)
+        self._col_means = attrs.mean(axis=0).astype(np.float32)
+        self._rebuild_planner()
+
+    def _rebuild_planner(self):
+        cfg = self.index.config
+        if cfg.backend in ("flat", "ivf"):
+            self.planner = QueryPlanner.build(
+                self._attrs_np, backend=cfg.backend,
+                storage_fp32=cfg.resolved_storage_dtype() is None,
+                sharded=False)
+        else:
+            self.planner = None  # PQ: no filtered plans
 
     # -- cache ------------------------------------------------------------
     def _cache_keys(self, queries: np.ndarray,
@@ -317,19 +459,36 @@ class FCVIEngine:
 
     # -- search -----------------------------------------------------------
     def search(self, queries: np.ndarray, filters: Optional[np.ndarray] = None,
-               *, filter=None, plan: Optional[str] = None):
-        """Similarity search: queries (n, d) and filters (n, m), raw fp32.
-        Returns (scores (n, k) fp32, ids (n, k) int64).
+               *, filter: Optional[Predicate] = None,
+               plan: Optional[str] = None):
+        """queries: (n, d) fp32. Two serving modes, selected by the kwargs:
+
+        * SIMILARITY mode (``filters`` (n, m) fp32, raw): the paper's
+          combined-score search. Returns (scores (n, k) fp32, ids (n, k)
+          int64); ids >= ``index.size`` refer to un-compacted delta rows.
+        * PREDICATE mode (``filter=F.range("f7", 0.0, 0.6) &
+          F.eq("f0", 1.0)``): exact top-k by L2 over the rows satisfying
+          the predicate (``repro_torch.core.filters``). The planner picks
+          the physical plan per call (``plan`` forces "fold", "mask" or
+          "routed"); scores are negative squared distances against the
+          fold-transformed queries. Queries with no eligible row return
+          (-inf, -1) rows. This path bypasses the result cache.
 
         Inputs are validated here (see ``_validate_inputs``). Raises
         ``BackpressureError`` when the cache-miss queue exceeds
-        ``cfg.queue_budget`` (> 0). Predicate search (``filter=``,
-        ``plan=``) is ROADMAP A7."""
-        if filter is not None or plan is not None:
-            raise NotImplementedError(
-                "predicate search (filter=, plan=) is ROADMAP A7")
+        ``cfg.queue_budget`` (> 0)."""
+        if filter is not None:
+            if filters is not None:
+                raise ValueError(
+                    "pass either filters= (similarity mode) or filter= "
+                    "(predicate mode), not both")
+            return self._search_filtered(queries, filter, plan=plan)
         if filters is None:
-            raise TypeError("search() needs filters= (similarity mode)")
+            raise TypeError(
+                "search() needs filters= (similarity mode) or filter= "
+                "(predicate mode)")
+        if plan is not None:
+            raise ValueError("plan= only applies to predicate mode (filter=)")
         queries, filters = self._validate_inputs(queries, filters)
         t0 = time.perf_counter()
         n = queries.shape[0]
@@ -375,6 +534,151 @@ class FCVIEngine:
         self.stats.queries += n
         self.stats.total_time_s += time.perf_counter() - t0
         return out_scores, out_ids
+
+    # -- predicate-filtered search (filter algebra + planner) --------------
+    def _search_filtered(self, queries, pred: Predicate,
+                         plan: Optional[str] = None):
+        """Exact predicate-filtered top-k (see ``search``).
+
+        The predicate compiles once per call; eligibility is evaluated on
+        the device over the RAW attribute table held there (``eval_mask``,
+        the same comparisons as the reference's host-side ``eval_np``, so
+        the same rows). All plans score against the SAME fold-transformed
+        queries and funnel into the same refine, so forced plans agree bit
+        for bit. Pending delta rows are checked against the filters they
+        were inserted with."""
+        if self.planner is None:
+            raise ValueError(
+                "predicate-filtered search needs a flat or ivf backend "
+                f"(index backend is {self.index.config.backend!r})")
+        t0 = time.perf_counter()
+        q = np.asarray(queries, np.float32)
+        if q.ndim != 2 or q.shape[0] == 0:
+            raise ValueError(
+                f"queries must be a non-empty (n, d) batch; got shape "
+                f"{np.shape(queries)}")
+        d = self.index.transform.vec_norm.mean.shape[-1]
+        if q.shape[1] != d:
+            raise ValueError(
+                f"query dimension mismatch: got {q.shape[1]}, index expects "
+                f"{d}")
+        if not np.isfinite(q).all():
+            raise ValueError("queries contain NaN/Inf values")
+        n, k = q.shape[0], self.cfg.k
+        cp = compile_predicate(pred, self._attr_names)
+        chosen = plan if plan is not None else self.planner.choose(cp)
+        if plan is not None:
+            if plan not in PLANS:
+                raise ValueError(f"unknown plan {plan!r}; expected one of "
+                                 f"{PLANS}")
+            if plan == PLAN_FOLD and not self.planner.fold_capable(cp):
+                raise ValueError(
+                    "plan='fold' needs a flat fp32 backend and a single-"
+                    "attribute predicate")
+            if plan == PLAN_ROUTED and not self.planner.routed_capable():
+                raise ValueError("plan='routed' needs an IVF backend")
+        kp = self.planner.kp_for(chosen, cp, k)
+        if self.index.config.backend == "flat":
+            kp = min(kp, self.index.size)  # the scan's width <= the corpus
+        if chosen == PLAN_FOLD and self.device.type == "cuda" and kp > MAX_K:
+            # the reference computes it; the card's scan holds kk <= MAX_K
+            raise ValueError(
+                f"plan='fold' at this selectivity needs kp={kp} candidates, "
+                f"beyond the scan kernel's MAX_K={MAX_K}; use plan='mask'")
+        self.stats.queries += n
+        self.stats.filtered_queries += n
+        setattr(self.stats, f"plan_{chosen}",
+                getattr(self.stats, f"plan_{chosen}") + n)
+
+        lo, hi, isin_vals, isin_count = cp.as_arrays(self.device)
+        # only the IN-list slots some column uses: the rest never match
+        arrays = (lo, hi, isin_vals[:, :int(cp.isin_count.max())],
+                  isin_count)
+        elig = eval_mask(self._attrs, *arrays)
+        delta = self._ensure_delta()
+        delig = None
+        if delta is not None:
+            delig = eval_mask(self._pending()[1], *arrays)
+        n_elig = int(elig.sum())
+        nd_elig = 0 if delig is None else int(delig.sum())
+        out_scores = np.full((n, k), -np.inf, np.float32)
+        out_ids = np.full((n, k), -1, np.int64)
+        if n_elig + nd_elig == 0:
+            # zero-match predicate: certified-empty results, not padded
+            # id-0 rows
+            self.stats.total_time_s += time.perf_counter() - t0
+            return out_scores, out_ids
+
+        # every plan scores against the SAME folded queries, computed once
+        fold_raw = cp.fold_target_raw(self._col_means)
+        q_t_all = fcvi.fold_queries(self.index,
+                                    torch.tensor(q, device=self.device),
+                                    fold_raw)
+        route = None
+        if chosen == PLAN_ROUTED and n_elig > 0:
+            route = ivf_mod.eligible_lists(self.index.backend.lists, elig)
+
+        bs = self.cfg.batch_size
+        for s in range(0, n, bs):
+            idxs = np.arange(s, min(s + bs, n))
+            nb = min(bs, _pow2_at_least(len(idxs)))
+            sel = np.full((nb,), idxs[-1], np.int64)
+            sel[: len(idxs)] = idxs
+            q_t = q_t_all[torch.as_tensor(sel, device=self.device)]
+            d2, ids = self._filtered_main(chosen, q_t, elig, n_elig, route,
+                                          k=k, kp=kp)
+            if nd_elig > 0:
+                dd2, dids = _filtered_delta_step(delta.flat, q_t, delig, k=k)
+                dids = torch.where(dids == flat_mod.DEAD_ID,
+                                   flat_mod.DEAD_ID, dids + self.index.size)
+                d2, ids = flat_mod.lexsort_topk(torch.cat([d2, dd2], dim=-1),
+                                                torch.cat([ids, dids], dim=-1),
+                                                k)
+            scores, ids = flat_mod.finalize_filtered(d2, ids)
+            out_scores[idxs] = scores.cpu().numpy()[: len(idxs)]
+            out_ids[idxs] = ids.cpu().numpy().astype(np.int64)[: len(idxs)]
+            self.stats.scan_batches += 1
+
+        self.stats.total_time_s += time.perf_counter() - t0
+        return out_scores, out_ids
+
+    def _filtered_main(self, plan: str, q_t: Tensor, elig: Tensor,
+                       n_elig: int, route, *, k: int, kp: int):
+        """Main-tier (d2, ids) for one padded batch under ``plan``, dead
+        slots at (+inf, DEAD_ID) so the delta tier merges in d2 space.
+        Uncertified fold rows re-run under the mask plan in a power-of-two
+        sub-batch."""
+        b = q_t.shape[0]
+        if n_elig == 0:
+            return (torch.full((b, k), float("inf"), device=q_t.device),
+                    torch.full((b, k), flat_mod.DEAD_ID, dtype=torch.int32,
+                               device=q_t.device))
+        backend = self.index.backend
+        if plan == PLAN_ROUTED:
+            uniq, n_live = route
+            return _filtered_routed_step(backend, q_t, elig, uniq, n_live,
+                                         k=k, kp=kp)
+        if plan == PLAN_MASK:
+            return _filtered_mask_step(backend, q_t, elig, k=k, kp=kp)
+        d2, ids, cert = _filtered_fold_step(backend, q_t, elig, n_elig, k=k,
+                                            kp=kp)
+        need = (~cert).cpu().numpy()
+        if need.any():
+            fidx = np.nonzero(need)[0]
+            self.stats.filtered_fallbacks += len(fidx)
+            nb = b
+            while nb // 2 >= max(len(fidx), 1):
+                nb //= 2
+            sel = np.zeros((nb,), np.int64)
+            sel[: len(fidx)] = fidx
+            kpf = min(k + CANDIDATE_PAD, self.index.size)
+            d2f, idsf = _filtered_mask_step(
+                backend, q_t[torch.as_tensor(sel, device=q_t.device)], elig,
+                k=k, kp=kpf)
+            take = torch.as_tensor(fidx, device=q_t.device)
+            d2[take] = d2f[: len(fidx)]
+            ids[take] = idsf[: len(fidx)]
+        return d2, ids
 
     def _dispatch_batch(self, q: Tensor, f: Tensor, k: int, n_real: int):
         """One padded batch through the resilience envelope: bounded retry
@@ -507,7 +811,12 @@ class FCVIEngine:
         k-means)."""
         if not self._delta_v:
             return
-        self.index = fcvi.extend(self.index, *self._pending())
+        v, f = self._pending()
+        self.index = fcvi.extend(self.index, v, f)
+        # the compacted rows' attribute values are the filters they were
+        # inserted with; refresh the planner's histograms
+        self._set_attrs(np.concatenate([self._attrs_np,
+                                        np.concatenate(self._delta_f)]))
         self._delta_v, self._delta_f = [], []
         self._delta = None
         self._grouped_payload = None  # corpus changed: payload slabs stale

@@ -175,9 +175,13 @@ def test_retry_and_deadline(data):
 def test_later_slices_refuse_by_roadmap_item(data):
     _, q, fq, _, _, jidx = data
     _, mine = _engines(jidx)
-    for call, item in [(lambda: mine.search(q, filter=object()), "A7"),
-                       (lambda: mine.search(q, fq, plan="mask"), "A7"),
-                       (lambda: mine.search_predicate(q, None), "A11"),
+    # predicate search (A7) is served now: what is not a predicate, and a
+    # plan in similarity mode, are refused as the reference refuses them
+    with pytest.raises(TypeError, match="not a predicate"):
+        mine.search(q, filter=object())
+    with pytest.raises(ValueError, match="plan= only applies"):
+        mine.search(q, fq, plan="mask")
+    for call, item in [(lambda: mine.search_predicate(q, None), "A11"),
                        (lambda: mine.save("ckpt"), "A10"),
                        (lambda: engine.FCVIEngine.restore("ckpt"), "A10"),
                        (lambda: mine.heal("ckpt"), "A12"),

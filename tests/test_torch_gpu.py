@@ -563,3 +563,219 @@ def test_int8_engine_on_card_matches_cpu_engine(cuda, backend):
             else "score_topk_rows_int8")
     for name in ("fused_transform", scan, "rescore"):
         assert counts.get(name, 0) > 0, counts
+
+
+# -- the filter algebra: B2's masked variants, B5's mask=, predicate search --
+
+def _row_mask(n, kind, cuda, seed=0):
+    """(n,) float 0/1 row masks: ``sparse`` (about 2% eligible, scattered),
+    ``blocks`` (eligible rows in a few 128-row tiles only, so most tiles
+    are skipped), ``few`` (3 eligible rows), ``none`` and ``all``."""
+    rng = np.random.default_rng(seed)
+    m = np.zeros(n, np.float32)
+    if kind == "sparse":
+        m[rng.random(n) < 0.02] = 1.0
+    elif kind == "blocks":
+        for t in rng.choice(max(1, n // 128), size=3, replace=False):
+            m[t * 128:(t + 1) * 128] = (rng.random(128) < 0.5)
+    elif kind == "few":
+        m[rng.choice(n, 3, replace=False)] = 1.0
+    elif kind == "all":
+        m[:] = 1.0
+    return tensor(m, cuda)
+
+
+def _masked_check(got, want, want_next):
+    """Live slots as the unmasked scans are held (scores within the L2
+    tolerance, ids equal outside near-ties); dead slots exactly (-inf, 0)
+    on both sides, at the same places."""
+    dead = torch.isneginf(want[0])
+    assert torch.equal(torch.isneginf(got[0]), dead)
+    assert (got[1][dead] == 0).all() and (want[1][dead] == 0).all()
+    nxt = None if want_next is None else want_next[0][:, -1].cpu()
+    assert_topk_match(want[0].cpu(), want[1].cpu(), got[0].cpu(),
+                      got[1].cpu(), rtol=L2_RTOL, atol=L2_ATOL,
+                      next_vals=nxt)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("n,b,k,d,kind", [
+    (3000, 5, 18, 64, "sparse"), (3000, 64, 128, 128, "sparse"),
+    (5000, 17, 40, 64, "blocks"), (1000, 9, 18, 30, "few"),
+    (1000, 5, 18, 64, "none"), (4000, 3, 2048, 64, "all")])
+def test_score_topk_masked_matches_plain(cuda, dtype, n, b, k, d, kind):
+    """B2 masked (fp32, bf16) and masked+scaled (int8) against the plain
+    version: selective masks, tiles with no eligible row (skipped), fewer
+    eligible rows than k (dead slots (-inf, 0)), an empty mask, and k at
+    the 2048 limit."""
+    x, _, q, _, _ = (tensor(a, cuda) for a in scan_inputs(n, b, d=d))
+    if dtype == "float32":
+        rows, scales, sq = x, None, torch.sum(x * x, dim=-1)
+    else:
+        rows, scales, sq = _stored(x, dtype)
+    mask = _row_mask(n, kind, cuda)
+    got = ops.score_topk(rows, sq, q, k, scales=scales, mask=mask)
+    want = ref.ref_score_topk(rows, sq, q, k, scales, mask)
+    nxt = (ref.ref_score_topk(rows, sq, q, k + 1, scales, mask)
+           if k < n else None)
+    _masked_check(got, want, nxt)
+    if kind == "all":   # an all-ones mask changes no bit of the scan
+        plain = ops.score_topk(rows, sq, q, k, scales=scales)
+        assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+
+
+def test_score_topk_masked_ties_exact(cuda):
+    """Integer rows with duplicates: exact scores, so the masked scan
+    equals its plain version bit for bit, tie order included."""
+    x, sq, q = (tensor(a, cuda) for a in tie_inputs())
+    mask = _row_mask(x.shape[0], "sparse", cuda, seed=1)
+    mask[: x.shape[0] // 2] = 1.0
+    for k in (18, 200):
+        vals, ids = ops.score_topk(x, sq, q, k, mask=mask)
+        rv, ri = ref.ref_score_topk(x, sq, q, k, mask=mask)
+        assert torch.equal(vals, rv) and torch.equal(ids, ri)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("k", [18, 300])
+def test_ivf_dedup_mask_matches_plain(cuda, dtype, k):
+    """B5 with ``mask=``: the exhaustive all-lists scan (dense member), as
+    the mask plan runs it, and a routed list set whose tail repeats a live
+    id with a zero member column."""
+    nlist, max_list, b, d = 16, 72, 6, 64
+    g, _, valid, _, q, _, _ = (
+        tensor(a, cuda) for a in ivf_inputs(nlist, max_list, b, 4, d=d))
+    if dtype == "float32":
+        grouped, gsc, gsq = g, None, torch.sum(g * g, dim=-1)
+    else:
+        flat, scales, sq = _stored(g.reshape(-1, d), dtype)
+        grouped = flat.reshape(nlist, max_list, d)
+        gsq = sq.reshape(nlist, max_list)
+        gsc = None if scales is None else scales.reshape(nlist, max_list)
+    mask = _row_mask(nlist * max_list, "sparse", cuda, seed=2).reshape(
+        nlist, max_list)
+    mask[3, :10] = 1.0
+    every = torch.arange(nlist, dtype=torch.int32, device=cuda)
+    routed = torch.tensor([3, 5, 9, 3], dtype=torch.int32, device=cuda)
+    rmember = torch.ones((4, b), device=cuda)
+    rmember[3] = 0.0
+    for uniq, member in ((every, torch.ones((nlist, b), device=cuda)),
+                         (routed, rmember)):
+        args = (grouped, gsq, valid, uniq, member, q)
+        kk = min(k, uniq.shape[0] * max_list)
+        got = ops.ivf_score_topk_dedup(*args, kk, scales=gsc, mask=mask)
+        want = ref.ref_ivf_score_topk_dedup(*args, kk, gsc, mask)
+        _masked_check(got, want, None)
+        plain = ref.ref_ivf_score_topk_dedup(grouped, gsq, valid * mask, uniq,
+                                             member, q, kk, gsc)
+        assert torch.equal(want[0], plain[0]) and torch.equal(want[1],
+                                                              plain[1])
+
+
+def test_masked_counters_and_refusals(cuda):
+    """Masked launches count on their own counters, per stored dtype; a
+    mask of the wrong shape or type raises before a launch."""
+    x, sq, q, _, _ = (tensor(a, cuda) for a in scan_inputs(300, 3))
+    g, gsq, valid, probes, gq, _, _ = (
+        tensor(a, cuda) for a in ivf_inputs(8, 16, 3, 2))
+    uniq, member = ops.dedup_probes(probes, 8)
+    mask, gmask = _row_mask(300, "sparse", cuda), torch.ones_like(valid)
+    _build.reset_launch_counts()
+    want = {}
+    for dtype, suffix in (("float32", ""), ("bfloat16", "_bf16"),
+                          ("int8", "_int8")):
+        if dtype == "float32":
+            rows, scales, rsq = x, None, sq
+            grouped, gsq2, gsc = g, gsq, None
+        else:
+            rows, scales, rsq = _stored(x, dtype)
+            flat, gs, fsq = _stored(g.reshape(-1, g.shape[-1]), dtype)
+            grouped, gsq2 = flat.reshape(g.shape), fsq.reshape(gsq.shape)
+            gsc = None if gs is None else gs.reshape(gsq.shape)
+        ops.score_topk(rows, rsq, q, 10, scales=scales, mask=mask)
+        ops.ivf_score_topk_dedup(grouped, gsq2, valid, uniq, member, gq, 5,
+                                 scales=gsc, mask=gmask)
+        want["score_topk_masked" + suffix] = 1
+        want["ivf_score_topk_dedup_masked" + suffix] = 1
+    assert _build.launch_counts() == want
+    for bad in (lambda: ops.score_topk(x, sq, q, 10, mask=mask[:5]),
+                lambda: ops.score_topk(x, sq, q, 10, mask=mask.double()),
+                lambda: ops.ivf_score_topk_dedup(g, gsq, valid, uniq, member,
+                                                 gq, 5, mask=gmask[:2])):
+        with pytest.raises(ValueError):
+            bad()
+    assert _build.launch_counts() == want
+
+
+def _predicate_case(n=6000, d=64, seed=5):
+    corpus = make_corpus(CorpusSpec(n=n, d=d, n_categories=6, n_numeric=2,
+                                    seed=seed))
+    q, _ = sample_queries(corpus, 40, seed=seed + 1)
+    return corpus, q
+
+
+@pytest.mark.parametrize("backend,storage", [
+    ("flat", "float32"), ("flat", "bfloat16"), ("flat", "int8"),
+    ("ivf", "float32"), ("ivf", "int8")])
+def test_predicate_engine_on_card_matches_cpu_engine(cuda, backend, storage):
+    """search(filter=) through the masked kernels on the card against a CPU
+    engine on the same state and raw attributes: every plan the index can
+    run, forced plans bit-equal on the card, the delta tier, and a
+    certified-empty predicate."""
+    from repro_torch.core.filters import F
+
+    corpus, q = _predicate_case()
+    extra = dict(backend="ivf", nlist=32, nprobe=6) if backend == "ivf" else {}
+    fcfg = fcvi.FCVIConfig(storage_dtype=storage, **extra)
+    gpu_ix = fcvi.build(corpus.vectors, corpus.filters, fcfg, device=cuda)
+    cpu_ix = fcvi.index_from_state(fcfg, fcvi.index_state(gpu_ix),
+                                   device="cpu")
+    cfg = EngineConfig(k=10, batch_size=16, compact_threshold=10_000)
+    engines = [FCVIEngine(ix, EngineConfig(**vars(cfg)), device=dev,
+                          attributes=corpus.filters)
+               for ix, dev in ((gpu_ix, cuda), (cpu_ix, "cpu"))]
+    preds = [F.range("f7", 0.0, 0.6),
+             F.eq("f0", 1.0) & F.range("f7", 0.25, 0.75),
+             F.eq("f5", 1.0) & F.range("f7", 0.0, 0.1)]
+    rng = np.random.default_rng(9)
+    new_v = corpus.vectors[:200] + normal(rng, 200, 64)
+    _build.reset_launch_counts()
+    for step in range(2):
+        if step == 1:   # the delta tier joins every plan
+            for e in engines:
+                e.insert(new_v, corpus.filters[200:400])
+        for pred in preds:
+            plans = [None, "mask"]   # None: the planner's choice
+            if backend == "ivf":
+                plans.append("routed")
+            elif storage == "float32" and pred is preds[0]:
+                plans.append("fold")
+            outs = [engines[0].search(q, filter=pred, plan=p) for p in plans]
+            for s, i in outs[1:]:
+                assert np.array_equal(s, outs[0][0])
+                assert np.array_equal(i, outs[0][1])
+            cs, ci = engines[1].search(q, filter=pred)
+            assert_topk_match(cs, ci, outs[0][0], outs[0][1], rtol=1e-5,
+                              atol=1e-4)
+    s, i = engines[0].search(q, filter=F.range("f7", 2.0, 3.0))
+    assert (i == -1).all() and np.isneginf(s).all()
+    counts = _build.launch_counts()
+    suffix = {"float32": "", "bfloat16": "_bf16", "int8": "_int8"}[storage]
+    scan = ("ivf_score_topk_dedup_masked" if backend == "ivf"
+            else "score_topk_masked") + suffix
+    assert counts.get(scan, 0) > 0, counts
+
+
+def test_forced_fold_beyond_max_k_raises_on_card(cuda):
+    """A forced fold plan on a selective predicate asks for more candidates
+    than the scan kernel holds; the card engine names the limit instead of
+    running anything else."""
+    from repro_torch.core.filters import F
+
+    corpus, q = _predicate_case(n=9000)
+    ix = fcvi.build(corpus.vectors, corpus.filters, fcvi.FCVIConfig(),
+                    device=cuda)
+    eng = FCVIEngine(ix, EngineConfig(k=10), device=cuda,
+                     attributes=corpus.filters)
+    with pytest.raises(ValueError, match="MAX_K"):
+        eng.search(q, filter=F.range("f7", 0.0, 0.01), plan="fold")
