@@ -77,22 +77,26 @@ Phases, each of which raises (and exits non-zero) on a failure:
    slabs serves its warm-up batch and one batch of 64, one ``fcvi.query``
    and one direct B7 call, its first batch against a CPU engine too.
 3f. predicate search (the filter algebra) on the same corpus with its raw
-   attribute table (``attributes=corpus.filters``): P1 ``F.range("f7",
-   0.0, 0.6)``, P2 ``F.eq("f0", 1.0) & F.range("f7", 0.25, 0.75)``, P3
-   ``F.eq("f5", 1.0) & F.range("f7", 0.0, 0.1)`` and P4 ``F.range("f7",
-   2.0, 3.0)`` (no row). First B2 masked (fp32 rows and the same rows at
-   bf16) and masked+scaled (int8 codes) at kk=18 and 128 under the P2, P3
-   and a 10-row mask (dead slots exactly (-inf, 0)), and B5 ``mask=`` over
-   every list at k=18 on IVF fp32 and int8 slabs, against their plain
-   versions. Then flat fp32, flat int8 and IVF fp32 (nlist=1024,
-   nprobe=16) engines serve a warm-up batch and 512 queries in batches of
-   64 per predicate (qps, p50/p99, plan counters); each first batch
-   against an fp64 brute force over the eligible rows on the card, then
-   against a CPU engine on the same state; forced plans bit for bit (P1
-   fold = mask on flat, P3 routed = mask on IVF, with the lists P3 routes
-   to); P4 certified empty; P2 after 1,000 inserts against the oracle over
-   both tiers; flat bf16 and IVF int8 engines serve one batch of P2 and P3
-   each, checked against the oracle.
+   attribute table (``attributes=corpus.filters``), over the indexes that
+   phases 3, 3b, 3d and 3e built: P1 ``F.range("f7", 0.0, 0.6)``, P2
+   ``F.eq("f0", 1.0) & F.range("f7", 0.25, 0.75)``, P3 ``F.eq("f5", 1.0)
+   & F.range("f7", 0.0, 0.1)`` and P4 ``F.range("f7", 2.0, 3.0)`` (no
+   row). First B2 masked (the flat fp32 and bf16 rows) and masked+scaled
+   (the flat int8 codes) at kk=18 and 128 under the P2, P3 and a 10-row
+   mask (dead slots exactly (-inf, 0)), and B5 ``mask=`` at k=18 on the
+   IVF fp32, bf16 and int8 slabs, over every list under P2 and P3 and over
+   the lists P3 routes to, against their plain versions. The bound of a
+   masked scan counts the eligible rows; the B2 lines also print the floor
+   of the rows in the tiles the kernel reads. Then flat fp32, flat int8
+   and IVF fp32 (nlist=1024, nprobe=16) engines serve a warm-up batch and
+   512 queries in batches of 64 per predicate (qps, p50/p99, plan
+   counters); each first batch against an fp64 brute force over the
+   eligible rows on the card, then against a CPU engine on the same state;
+   forced plans bit for bit (P1 fold = mask on flat, P3 routed = mask on
+   IVF, with the lists P3 routes to); P4 certified empty; P2 after 1,000
+   inserts against the oracle over both tiers; flat bf16, IVF bf16 and IVF
+   int8 engines serve one batch of P2 and P3 each, checked against the
+   oracle.
 4. a ``kernels`` JSON line with each kernel variant's launches over phases
    3, 3b, 3c, 3d, 3e and 3f (each must be > 0), errors, times and bound.
 
@@ -188,6 +192,8 @@ SOURCES = {
                                "src/repro/kernels/fused_score_topk.py:154"),
     "ivf_score_topk_dedup_masked": ("src/repro_torch/csrc/ivf_score.cu",
                                     "src/repro/kernels/ivf_score.py:229"),
+    "ivf_score_topk_dedup_masked_bf16": ("src/repro_torch/csrc/ivf_score.cu",
+                                         "src/repro/kernels/ivf_score.py:229"),
     "ivf_score_topk_dedup_masked_int8": ("src/repro_torch/csrc/ivf_score.cu",
                                          "src/repro/kernels/ivf_score.py:229"),
 }
@@ -493,7 +499,8 @@ def against_cpu_engine(tag: str, index, state0, scores, ids, q, f,
 
 def phase_end_to_end(dev, power: str, inp: Inputs):
     """The flat path at SIFT1M scale; returns its kernels' launch counts,
-    recall@10 and the 512 timed queries' ids."""
+    recall@10, the 512 timed queries' ids and the index as built (phase
+    3f serves it again)."""
     _build.reset_launch_counts()
     t0 = time.perf_counter()
     index = fcvi.build(inp.corpus.vectors, inp.corpus.filters,
@@ -514,7 +521,7 @@ def phase_end_to_end(dev, power: str, inp: Inputs):
     check(recall >= 0.9, f"recall@10 {recall} below 0.9")
     against_cpu_engine("e2e", index, state0, scores[:B], ids[:B],
                        inp.q_all[:B], inp.f_all[:B], np.zeros(B, bool))
-    return counts, recall, ids
+    return counts, recall, ids, index
 
 
 def probe_ties(centroids, q_t, nprobe) -> np.ndarray:
@@ -644,9 +651,9 @@ def ivf_kernels(index, inp: Inputs, dev, power: str) -> dict:
 
 
 def phase_ivf(dev, power: str, inp: Inputs, flat_recall: float):
-    """The IVF path at SIFT1M scale; returns the IVF kernels' results and
-    the launch counts of its build and serving (the kernel checks between
-    them are not counted)."""
+    """The IVF path at SIFT1M scale; returns the IVF kernels' results, the
+    launch counts of its build and serving (the kernel checks between them
+    are not counted), recall@10 and the index as built."""
     cfg = fcvi.FCVIConfig(backend="ivf", nlist=NLIST, nprobe=NPROBE)
     _build.reset_launch_counts()
     t0 = time.perf_counter()
@@ -718,7 +725,7 @@ def phase_ivf(dev, power: str, inp: Inputs, flat_recall: float):
     for e in engs:
         edge |= np.abs(margins(e, qb, fb) - e.cfg.escalate_margin) < 1e-5
     same_top10(f"ivf nprobe={NLIST} vs flat engine", fs, fi, ls, li, edge)
-    return res, counts, recall
+    return res, counts, recall, index
 
 
 def candidate_ties(be, q_t, kp, window: int = 64):
@@ -1004,8 +1011,9 @@ def flat_variant_kernels(index, q_t) -> dict:
 
 def phase_storage_flat(dev, power: str, inp: Inputs, flat_ids):
     """Phase 3d: flat at bf16 and at int8. Returns the B2/B3 variants'
-    results and the launch counts of the two builds and serving runs."""
-    res, counts = {}, {}
+    results, the launch counts of the two builds and serving runs, and the
+    two indexes as built."""
+    res, counts, built = {}, {}, {}
     qv, qf = (torch.tensor(a, device=dev) for a in (inp.q_all[:B],
                                                     inp.f_all[:B]))
     for dtype in ("bfloat16", "int8"):
@@ -1047,15 +1055,17 @@ def phase_storage_flat(dev, power: str, inp: Inputs, flat_ids):
         check(recall >= 0.9, f"{tag}: recall@10 {recall} below 0.9")
         against_cpu_engine(tag, index, state0, scores[:B], ids[:B],
                            inp.q_all[:B], inp.f_all[:B], np.zeros(B, bool))
+        built["flat" + SUFFIX[dtype].replace("_", "-")] = index
         del eng, index, state0
         torch.cuda.empty_cache()
-    return res, counts
+    return res, counts, built
 
 
 def phase_storage_ivf(dev, power: str, inp: Inputs, ivf_recall: float):
     """Phase 3e: IVF at int8, and its lists' bf16 slabs. Returns the B5-B7
-    variants' results and the launch counts of the build and both serving
-    runs (the kernel checks between them are not counted)."""
+    variants' results, the launch counts of the build and both serving
+    runs (the kernel checks between them are not counted), and the two
+    indexes as built."""
     cfg = fcvi.FCVIConfig(backend="ivf", nlist=NLIST, nprobe=NPROBE,
                           storage_dtype="int8")
     _build.reset_launch_counts()
@@ -1117,7 +1127,7 @@ def phase_storage_ivf(dev, power: str, inp: Inputs, ivf_recall: float):
           "probe near-tie")
     against_cpu_engine("ivf-int8", index, state0, scores[:B], ids[:B], qb, fb,
                        ties)
-    del index, state0
+    del state0
     torch.cuda.empty_cache()
 
     # the bf16 slabs serve too: warm-up, one batch of 64, fcvi.query, B7
@@ -1138,7 +1148,7 @@ def phase_storage_ivf(dev, power: str, inp: Inputs, ivf_recall: float):
           f"the first {B} queries")
     against_cpu_engine("ivf-bf16", half, hstate, hs, hi, qb, fb, ties)
     print(f"[3e] counts {json.dumps(counts)}")
-    return res, counts
+    return res, counts, {"ivf-int8": index, "ivf-bf16": half}
 
 
 # -- phase 3f: predicate search (the filter algebra) --------------------------
@@ -1201,27 +1211,26 @@ def against_oracle(tag, scores, ids, want_v, want_i) -> None:
           f"{agree}/{total} equal outside near-ties")
 
 
-def masked_kernels(flat_ix, int8_ix, ivf_ix, ivf8_ix, masks, q_t,
-                   power) -> dict:
-    """B2 masked (fp32 rows, the same rows at bf16) and masked+scaled (the
-    int8 index's codes) at kk=18 and 128 under the P2 and P3 masks, and
-    under the first 10 rows of P3 (dead slots); B5 mask= as the mask plan's
-    exhaustive all-lists scan at k=18 on the IVF fp32 and int8 slabs. Each
-    against its plain version on the same CUDA tensors."""
+def masked_kernels(ix: dict, masks, q_t, power) -> dict:
+    """B2 masked (the flat fp32 and bf16 indexes' rows) and masked+scaled
+    (the flat int8 index's codes) at kk=18 and 128 under the P2 and P3
+    masks, and under the first 10 rows of P3 (dead slots); B5 mask= on the
+    IVF fp32, bf16 and int8 slabs at k=18, as the mask plan's exhaustive
+    all-lists scan under P2 and P3 and as the routed plan's scan of the
+    lists P3 routes to. Each against its plain version on the same CUDA
+    tensors."""
     res = {}
-    be = flat_ix.backend
-    half = be.vectors.to(torch.bfloat16)
-    rungs = {"": (be.vectors, be.sq_norms, None),
-             "_bf16": (half, torch.sum(half.float() ** 2, dim=-1), None),
-             "_int8": (int8_ix.backend.vectors, int8_ix.backend.sq_norms,
-                       int8_ix.backend.scales)}
     few = torch.zeros_like(masks["P3"])
     few[torch.nonzero(masks["P3"]).flatten()[:10]] = 1.0
     cases = [("P2", masks["P2"]), ("P3", masks["P3"]), ("P3[:10]", few)]
-    for suffix, (x, sq, sc) in rungs.items():
+    for suffix in ("", "_bf16", "_int8"):
         name = "score_topk_masked" + suffix
+        be = ix["flat" + suffix.replace("_", "-")].backend
+        x, sq, sc = be.vectors, be.sq_norms, be.scales
         row_bytes = x.element_size() * D + 4 + (0 if sc is None else 4)
+        per_op = 2 * D + (4 if sc is not None else 3)
         for pname, mask in cases:
+            elig = int(mask.sum())
             tiles = int(mask[: N - N % 128].reshape(-1, 128).any(1).sum()
                         + (mask[N - N % 128:].any() if N % 128 else 0))
             for kk in (K_MASK, K_FOLD):
@@ -1249,19 +1258,22 @@ def masked_kernels(flat_ix, int8_ix, ivf_ix, ivf8_ix, masks, q_t,
                                                     scales=sc, mask=mask))
                 plain = time_ms(lambda: ref.ref_score_topk(x, sq, q_t, kk,
                                                            sc, mask), 3)
-                # the kernel skips tiles with no eligible row: count the
-                # rows of the eligible tiles, plus the whole mask
-                rows = tiles * 128
-                bnd, by = bound_ms(
-                    4 * N + rows * row_bytes + q_t.nbytes + 8 * B * kk,
-                    B * rows * (2 * D + (4 if sc is not None else 3)))
-                print(f"[kernel] {name} mask {pname} ({int(mask.sum())} "
-                      f"eligible rows, {tiles} of {-(-N // 128)} tiles) "
-                      f"b={B} kk={kk}: max_abs_err {err:.3g} ids "
-                      f"{agree}/{total} outside near-ties, "
-                      f"{int(dead.sum())} dead slots (-inf, 0); kernel_ms "
-                      f"{ms:.4f} plain_ms {plain:.4f} bound_ms {bnd:.4f} "
-                      f"({by})")
+                # the function's work: the eligible rows read once and
+                # scored against every query, the whole mask read, queries
+                # read and (vals, ids) written. The kernel reads every row
+                # of each tile that holds an eligible row: its own floor
+                # is printed beside, as tile_bound_ms.
+                io = 4 * N + q_t.nbytes + 8 * B * kk
+                bnd, by = bound_ms(io + elig * row_bytes, B * elig * per_op)
+                tile_bnd, _ = bound_ms(io + tiles * 128 * row_bytes,
+                                       B * tiles * 128 * per_op)
+                print(f"[kernel] {name} mask {pname} ({elig} eligible "
+                      f"rows, {tiles} of {-(-N // 128)} tiles) b={B} "
+                      f"kk={kk}: max_abs_err {err:.3g} ids {agree}/{total} "
+                      f"outside near-ties, {int(dead.sum())} dead slots "
+                      f"(-inf, 0); kernel_ms {ms:.4f} plain_ms {plain:.4f} "
+                      f"bound_ms {bnd:.4f} ({by}) tile_bound_ms "
+                      f"{tile_bnd:.4f}")
                 if pname == "P2" and kk == K_MASK:
                     res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                      bound_ms=bnd, bound_by=by,
@@ -1270,20 +1282,26 @@ def masked_kernels(flat_ix, int8_ix, ivf_ix, ivf8_ix, masks, q_t,
                     res[name]["max_abs_err"] = max(err,
                                                    res[name]["max_abs_err"])
                 del vals, ids, rv, ri
-    del half, rungs
     torch.cuda.empty_cache()
 
-    for suffix, ix in (("", ivf_ix), ("_int8", ivf8_ix)):
+    every = torch.arange(NLIST, dtype=torch.int32, device=q_t.device)
+    for suffix in ("", "_bf16", "_int8"):
         name = "ivf_score_topk_dedup_masked" + suffix
-        ib = ix.backend
+        ib = ix["ivf" + suffix.replace("_", "-")].backend
         gsc = ib.grouped_scales
-        every = torch.arange(NLIST, dtype=torch.int32, device=q_t.device)
-        member = torch.ones((NLIST, B), device=q_t.device)
         row_bytes = ib.grouped.element_size() * D + 4 + (
             0 if gsc is None else 4)
-        for pname in ("P2", "P3"):
+        route, n_live = ivf_mod.eligible_lists(ib.lists, masks["P3"] > 0.5)
+        scans = [("all", pname, every, NLIST) for pname in ("P2", "P3")]
+        scans.append(("routed", "P3", route, n_live))
+        for scan, pname, uniq, n_scan in scans:
+            # the routed plan's member matrix: 0 on the tail slots, which
+            # repeat a live id
+            member = (torch.arange(uniq.numel(), device=q_t.device)
+                      < n_scan)[:, None].to(torch.float32).expand(
+                          uniq.numel(), B).contiguous()
             gmask = ivf_mod.grouped_mask(ib, masks[pname] > 0.5)
-            ded = (ib.grouped, ib.grouped_sq, ib.valid, every, member, q_t)
+            ded = (ib.grouped, ib.grouped_sq, ib.valid, uniq, member, q_t)
             vals, ids = ops.ivf_score_topk_dedup(*ded, K_MASK, scales=gsc,
                                                  mask=gmask)
             rv, ri = ref.ref_ivf_score_topk_dedup(*ded, K_MASK + 1, gsc,
@@ -1291,26 +1309,31 @@ def masked_kernels(flat_ix, int8_ix, ivf_ix, ivf8_ix, masks, q_t,
             err = (vals - rv[:, :K_MASK]).abs().max().item()
             tol = (L2_ATOL + L2_RTOL * rv[:, :K_MASK].abs()).max().item()
             agree, total = ids_outside_ties(rv, ri, ids, L2_RTOL, L2_ATOL)
-            check(err <= tol, f"{name} {pname} error {err} > {tol}")
-            check(agree == total, f"{name} {pname}: {total - agree} ids "
-                  "differ outside near-ties")
+            check(err <= tol, f"{name} {scan} {pname} error {err} > {tol}")
+            check(agree == total, f"{name} {scan} {pname}: {total - agree} "
+                  "ids differ outside near-ties")
             ms = time_ms(lambda: ops.ivf_score_topk_dedup(
                 *ded, K_MASK, scales=gsc, mask=gmask), 5)
             plain = time_ms(lambda: ref.ref_ivf_score_topk_dedup(
                 *ded, K_MASK, gsc, gmask), 2)
-            live = int((ib.valid * gmask > 0.5).sum())
-            # the live eligible rows read once, valid and mask flags, the
-            # queries and member matrix; each (query, eligible row) pair
-            bnd, by = bound_ms(live * row_bytes + 8 * NLIST * ib.max_list
+            scanned = torch.zeros(NLIST, dtype=torch.bool,
+                                  device=q_t.device)
+            scanned[uniq[:n_scan].long()] = True
+            live = int(((ib.valid * gmask) > 0.5)[scanned].sum())
+            # the live eligible rows of the scanned lists read once, their
+            # valid and mask flags, the queries and member matrix; each
+            # (query, eligible row) pair
+            bnd, by = bound_ms(live * row_bytes + 8 * n_scan * ib.max_list
                                + q_t.nbytes + member.nbytes
                                + 8 * B * K_MASK,
                                B * live * (2 * D + (3 if gsc is not None
                                                     else 2)))
-            print(f"[kernel] {name} all {NLIST} lists, mask {pname} ({live} "
-                  f"eligible rows) b={B} k={K_MASK}: max_abs_err {err:.3g} "
-                  f"ids {agree}/{total} outside near-ties; kernel_ms "
-                  f"{ms:.4f} plain_ms {plain:.4f} bound_ms {bnd:.4f} ({by})")
-            if pname == "P2":
+            print(f"[kernel] {name} {scan} ({n_scan} of {NLIST} lists in "
+                  f"{uniq.numel()} slots), mask {pname} ({live} eligible "
+                  f"rows) b={B} k={K_MASK}: max_abs_err {err:.3g} ids "
+                  f"{agree}/{total} outside near-ties; kernel_ms {ms:.4f} "
+                  f"plain_ms {plain:.4f} bound_ms {bnd:.4f} ({by})")
+            if scan == "all" and pname == "P2":
                 res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                  bound_ms=bnd, bound_by=by, library_ms=None)
             else:
@@ -1393,41 +1416,27 @@ def predicate_checks(tag, eng, inp: Inputs, served, state0) -> None:
     print(f"[{tag}] CPU engine checks {time.perf_counter() - t0:.1f} s")
 
 
-def phase_predicates(dev, power: str, inp: Inputs):
-    """Phase 3f: predicate search at n=1M on flat fp32, flat int8 and IVF
-    fp32 (512 timed queries per predicate), flat bf16 and IVF int8 (a
-    warm-up and one batch each); the masked kernels against their plain
-    versions; forced plans bit for bit; P4 certified empty; the delta tier.
-    Returns the masked kernels' results and the serving runs' launch
-    counts (the kernel checks are not counted)."""
+def phase_predicates(dev, power: str, inp: Inputs, ix: dict):
+    """Phase 3f: predicate search at n=1M over the indexes the earlier
+    phases built (``ix``: flat, flat-bf16, flat-int8, ivf, ivf-bf16,
+    ivf-int8): flat fp32, flat int8 and IVF fp32 serve 512 timed queries
+    per predicate, flat bf16, IVF bf16 and IVF int8 a warm-up and one batch
+    each; the masked kernels against their plain versions; forced plans bit
+    for bit; P4 certified empty; the delta tier. Returns the masked
+    kernels' results and the serving runs' launch counts (the kernel checks
+    are not counted)."""
     attrs = inp.corpus.filters
-    ecfg = engine_mod.EngineConfig()
-    configs = {
-        "flat": fcvi.FCVIConfig(),
-        "flat-int8": fcvi.FCVIConfig(storage_dtype="int8"),
-        "flat-bf16": fcvi.FCVIConfig(storage_dtype="bfloat16"),
-        "ivf": fcvi.FCVIConfig(backend="ivf", nlist=NLIST, nprobe=NPROBE),
-        "ivf-int8": fcvi.FCVIConfig(backend="ivf", nlist=NLIST,
-                                    nprobe=NPROBE, storage_dtype="int8"),
-    }
     counts, res, p50s = {}, {}, {}
 
     def add(run):
         for name, n in run.items():
             counts[name] = counts.get(name, 0) + n
 
-    def build(tag):
-        t0 = time.perf_counter()
-        ix = fcvi.build(inp.corpus.vectors, attrs, configs[tag], device=dev)
-        torch.cuda.synchronize()
-        eng = engine_mod.FCVIEngine(ix, ecfg, device=dev, attributes=attrs)
-        print(f"[3f] {tag}: build {time.perf_counter() - t0:.2f} s")
-        return ix, eng
+    def engine(tag):
+        return engine_mod.FCVIEngine(ix[tag], engine_mod.EngineConfig(),
+                                     device=dev, attributes=attrs)
 
-    flat_ix, flat_eng = build("flat")
-    int8_ix, int8_eng = build("flat-int8")
-    ivf_ix, ivf_eng = build("ivf")
-    ivf8_ix, ivf8_eng = build("ivf-int8")
+    flat_eng, ivf_eng = engine("flat"), engine("ivf")
     masks, sel = {}, {}
     for pname, pred in PREDICATES.items():
         elig = eligibility(flat_eng, pred)
@@ -1436,12 +1445,9 @@ def phase_predicates(dev, power: str, inp: Inputs):
     print(f"[3f] true selectivity on the corpus: "
           + ", ".join(f"{p} {v:.4f}" for p, v in sel.items()))
     q_t = folded(flat_eng, PREDICATES["P2"], inp.q_all[:B]).contiguous()
-    res.update(masked_kernels(flat_ix, int8_ix, ivf_ix, ivf8_ix, masks, q_t,
-                              power))
-    del ivf8_ix, ivf8_eng
-    torch.cuda.empty_cache()
+    res.update(masked_kernels(ix, masks, q_t, power))
 
-    for tag, eng in (("flat", flat_eng), ("flat-int8", int8_eng),
+    for tag, eng in (("flat", flat_eng), ("flat-int8", engine("flat-int8")),
                      ("ivf", ivf_eng)):
         state0 = fcvi.index_state(eng.index)
         _build.reset_launch_counts()
@@ -1504,21 +1510,22 @@ def phase_predicates(dev, power: str, inp: Inputs):
     del rows, delta
     torch.cuda.empty_cache()
 
-    # the bf16 flat rung and the IVF int8 slabs serve one batch each
-    for tag in ("flat-bf16", "ivf-int8"):
-        ix, eng = build(tag)
+    # the bf16 flat rung and the IVF bf16 and int8 slabs serve one batch
+    # each
+    for tag in ("flat-bf16", "ivf-bf16", "ivf-int8"):
+        eng = engine(tag)
         _build.reset_launch_counts()
         served = serve_predicates(tag, eng, inp, power, ("P2", "P3"), B)
         run = _build.launch_counts()
         add(run)
         print(f"[{tag}] 3f counts {json.dumps(run)}")
-        rows = dequantized(ix.backend)
+        rows = dequantized(eng.index.backend)
         for pname, (_, _, _, (scores, ids)) in served.items():
             pred = PREDICATES[pname]
             wv, wi = filtered_oracle(rows, eligibility(eng, pred),
                                      folded(eng, pred, qb), 10)
             against_oracle(f"{tag} {pname}", scores, ids, wv, wi)
-        del ix, eng, rows
+        del eng, rows
         torch.cuda.empty_cache()
     print(f"[3f] batch p50 ms by index, predicate and plan: "
           f"{json.dumps(p50s)}; card {power}")
@@ -1539,17 +1546,20 @@ def main() -> int:
     phase_build()
     res = phase_kernels(dev, torch.Generator(device=dev).manual_seed(0))
     inp = make_inputs()
-    counts, recall, flat_ids = phase_end_to_end(dev, power, inp)
+    counts, recall, flat_ids, flat_ix = phase_end_to_end(dev, power, inp)
     phases = {"3": dict(counts)}
     torch.cuda.empty_cache()
-    ivf_res, ivf_counts, ivf_recall = phase_ivf(dev, power, inp, recall)
+    ivf_res, ivf_counts, ivf_recall, ivf_ix = phase_ivf(dev, power, inp,
+                                                        recall)
     torch.cuda.empty_cache()
     pq_res, pq_counts = phase_pq(dev, power, inp, recall, ivf_recall)
     torch.cuda.empty_cache()
-    sf_res, sf_counts = phase_storage_flat(dev, power, inp, flat_ids)
-    si_res, si_counts = phase_storage_ivf(dev, power, inp, ivf_recall)
+    sf_res, sf_counts, built = phase_storage_flat(dev, power, inp, flat_ids)
+    si_res, si_counts, ivf_built = phase_storage_ivf(dev, power, inp,
+                                                     ivf_recall)
     torch.cuda.empty_cache()
-    pf_res, pf_counts = phase_predicates(dev, power, inp)
+    pf_res, pf_counts = phase_predicates(dev, power, inp, dict(
+        flat=flat_ix, ivf=ivf_ix, **built, **ivf_built))
     for tag, r, c in (("3b", ivf_res, ivf_counts), ("3c", pq_res, pq_counts),
                       ("3d", sf_res, sf_counts), ("3e", si_res, si_counts),
                       ("3f", pf_res, pf_counts)):

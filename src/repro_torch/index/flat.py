@@ -106,29 +106,23 @@ def merge_topk(vals_a: Tensor, idx_a: Tensor, vals_b: Tensor, idx_b: Tensor,
 
 
 def _exact_refine(vectors: Tensor, queries: Tensor, cand_idx: Tensor, k: int,
-                  scales: Optional[Tensor] = None,
-                  mask: Optional[Tensor] = None):
+                  scales: Optional[Tensor] = None):
     """Re-score gathered candidates with a direct (q - x)^2 pass, top-k, in
     fp32 whatever the storage dtype: bf16 rows are cast up and int8 rows
-    dequantized with their ``scales``. Candidates whose row is False in the
-    (n,) bool ``mask`` score -inf."""
+    dequantized with their ``scales``."""
     idx = cand_idx.long()
     rows = vectors[idx].to(torch.float32)
     if scales is not None:
         rows = rows * scales[idx][..., None]
-    keep = None if mask is None else mask[idx]
-    vals, pos = _refine_carried(rows, queries, k, keep)
+    vals, pos = _refine_carried(rows, queries, k)
     return vals, torch.gather(cand_idx, -1, pos)
 
 
-def _refine_carried(scan_rows: Tensor, queries: Tensor, k: int,
-                    keep: Optional[Tensor] = None):
+def _refine_carried(scan_rows: Tensor, queries: Tensor, k: int):
     """Exact refine over the kernel-carried candidate rows: the arithmetic
     of ``_exact_refine`` without the gather. Returns (vals, pos) with pos
-    into the carried candidate axis; slots False in ``keep`` score -inf."""
+    into the carried candidate axis."""
     d2 = torch.sum((queries[:, None, :] - scan_rows) ** 2, dim=-1)
-    if keep is not None:
-        d2 = torch.where(keep, d2, float("inf"))
     return topk_first(-d2, k)
 
 
@@ -171,15 +165,14 @@ def search_rows(index: FlatIndex, queries: Tensor, k: int, payload_v: Tensor,
 
 def search_masked(index: FlatIndex, queries: Tensor, k: int, mask: Tensor):
     """Exact search restricted to ``mask`` (n,) bool, the pre-filtering
-    primitive: ineligible rows score -inf inside the scan (the masked
-    variants of B2 on the card), then the exact refine over the eligible
-    candidates. Returns (scores (q, k), ids (q, k)); slots past the
-    eligible rows read -inf."""
+    primitive: the mask plan's candidate generation (``masked_candidates``,
+    B2's masked variants on the card) and exact refine
+    (``filtered_refine``). Returns (scores (q, k), ids (q, k)); slots past
+    the eligible rows read (-inf, -1)."""
     k_out, kk = _widths(index, k)
-    _, cand = ops.score_topk(index.vectors, index.sq_norms, queries, kk,
-                             scales=index.scales, mask=mask.to(torch.float32))
-    return _exact_refine(index.vectors, queries, cand, k_out, index.scales,
-                         mask)
+    cand, valid = masked_candidates(index, queries, kk, mask)
+    return finalize_filtered(*filtered_refine(
+        index.vectors, index.scales, queries, cand, valid, mask, k_out))
 
 
 # ---------------------------------------------------------------------------

@@ -272,6 +272,23 @@ def test_search_masked_matches_reference(handed):
     assert elig[ids.numpy()].all()
 
 
+def test_search_masked_fewer_eligible_than_k(handed):
+    """Three eligible rows and k=10: the reference's three live slots, then
+    (-inf, -1) where the reference leaves the id to its callers."""
+    out, q, _ = handed
+    jidx, mine = out["flat"]
+    few = np.zeros(mine.backend.size, bool)
+    few[[5, 700, 1400]] = True
+    q_t = mine.transform.apply(tensor(q), torch.zeros(6, 8))
+    vals, ids = flat.search_masked(mine.backend, q_t, 10, tensor(few))
+    jv, ji = jflat.search_masked(jidx.backend, jnp.asarray(q_t.numpy()), 10,
+                                 jnp.asarray(few))
+    assert_topk_match(np.asarray(jv)[:, :3], np.asarray(ji)[:, :3],
+                      vals[:, :3], ids[:, :3], **L2)
+    assert np.isneginf(np.asarray(jv)[:, 3:]).all()
+    assert torch.isneginf(vals[:, 3:]).all() and (ids[:, 3:] == -1).all()
+
+
 def test_flat_masked_candidates_match_reference(handed):
     out, q, elig = handed
     jidx, mine = out["flat"]
