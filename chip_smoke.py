@@ -127,6 +127,9 @@ from repro_torch.index import flat as flat_mod  # noqa: E402
 from repro_torch.index import ivf as ivf_mod  # noqa: E402
 from repro_torch.index import pq as pq_mod  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import fused_score_topk as scan_mod  # noqa: E402
+from repro_torch.kernels import ivf_score as ivf_kern  # noqa: E402
+from repro_torch.kernels import pq_lut  # noqa: E402
 from repro_torch.serve import engine as engine_mod  # noqa: E402
 
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
@@ -196,6 +199,22 @@ SOURCES = {
                                          "src/repro/kernels/ivf_score.py:229"),
     "ivf_score_topk_dedup_masked_int8": ("src/repro_torch/csrc/ivf_score.cu",
                                          "src/repro/kernels/ivf_score.py:229"),
+    # the serving path's fused PQ scan + top-k (B9 and lax.top_k as one)
+    "pq_score_topk": ("src/repro_torch/csrc/pq_lut.cu",
+                      "src/repro/kernels/pq_lut.py:120"),
+    # the selection path past the candidate buffers (or when forced)
+    "pq_score_topk_select": ("src/repro_torch/csrc/pq_lut.cu",
+                             "src/repro/kernels/pq_lut.py:120"),
+    "score_topk_select": ("src/repro_torch/csrc/fused_score_topk.cu",
+                          "src/repro/kernels/fused_score_topk.py:191"),
+    "score_topk_rows_select": ("src/repro_torch/csrc/fused_score_topk.cu",
+                               "src/repro/kernels/fused_score_topk.py:287"),
+    "ivf_score_topk_dedup_select": ("src/repro_torch/csrc/ivf_score.cu",
+                                    "src/repro/kernels/ivf_score.py:209"),
+    "ivf_score_topk_dedup_rows_select": ("src/repro_torch/csrc/ivf_score.cu",
+                                         "src/repro/kernels/ivf_score.py:315"),
+    "ivf_score_topk_batch_select": ("src/repro_torch/csrc/ivf_score.cu",
+                                    "src/repro/kernels/ivf_score.py:94"),
 }
 SUFFIX = {"float32": "", "bfloat16": "_bf16", "int8": "_int8"}
 
@@ -451,18 +470,20 @@ def recall_vs_truth(index, state0, inp: Inputs, ids, dev) -> float:
 
 
 def margins(eng, q: np.ndarray, f: np.ndarray) -> np.ndarray:
-    """Each query's first-stage top-10 margin, as the engine's escalation
+    """Each query's first-stage top-k margin, as the engine's escalation
     test reads it."""
-    kp = theory.k_prime(10, 0.5, 1.0, eng.index.size, 4.0)
+    k = eng.cfg.k
+    kp = theory.k_prime(k, 0.5, 1.0, eng.index.size, 4.0)
     dev = eng.device
     _, _, margin = eng._step(None, torch.tensor(q, device=dev),
-                             torch.tensor(f, device=dev), k=10, kp=kp, kd=0)
+                             torch.tensor(f, device=dev), k=k, kp=kp, kd=0)
     return margin.cpu().numpy()
 
 
 def same_top10(tag: str, scores, ids, want_s, want_i, exclude) -> None:
     """Combined scores within COS_ATOL and ids equal outside near-ties of
-    the reference (want_*), over the queries not in ``exclude``."""
+    the reference (want_*), over the queries not in ``exclude``; any k,
+    10 on the default path."""
     rows = ~exclude
     err = float(np.abs(scores[rows] - want_s[rows]).max())
     check(err <= COS_ATOL, f"{tag}: scores differ by {err}")
@@ -472,7 +493,7 @@ def same_top10(tag: str, scores, ids, want_s, want_i, exclude) -> None:
     tie = np.zeros_like(diff)
     tie[:, 1:] |= gap <= COS_ATOL
     tie[:, :-1] |= gap <= COS_ATOL
-    tie[:, -1] = True          # the reference's 11th score is unknown
+    tie[:, -1] = True          # the reference's (k+1)-th score is unknown
     check(not (diff & ~tie).any(), f"{tag}: ids differ outside near-ties")
     print(f"[{tag}] max score err {err:.3g}, {int(diff.sum())} id slots "
           f"differ, all at near-ties; {int(exclude.sum())} of "
@@ -480,14 +501,16 @@ def same_top10(tag: str, scores, ids, want_s, want_i, exclude) -> None:
 
 
 def against_cpu_engine(tag: str, index, state0, scores, ids, q, f,
-                       exclude) -> np.ndarray:
+                       exclude, cfg=None, cpu_ix=None) -> np.ndarray:
     """The first batch against a CPU engine (the plain path) on the same
-    state; escalation-boundary queries and those in ``exclude`` are left
-    out. Returns the CPU engine's ids."""
+    state, under ``cfg`` (the defaults when None); escalation-boundary
+    queries and those in ``exclude`` are left out. ``cpu_ix``: the state
+    already on the host. Returns the CPU engine's ids."""
     t0 = time.perf_counter()
-    cpu_ix = fcvi.index_from_state(index.config, state0, device="cpu")
-    cpu_eng = engine_mod.FCVIEngine(cpu_ix, engine_mod.EngineConfig(),
-                                    device="cpu")
+    if cpu_ix is None:
+        cpu_ix = fcvi.index_from_state(index.config, state0, device="cpu")
+    cfg = cfg or engine_mod.EngineConfig()
+    cpu_eng = engine_mod.FCVIEngine(cpu_ix, cfg, device="cpu")
     cs, ci = cpu_eng.search(q, f)
     edge = np.abs(margins(cpu_eng, q, f) - cpu_eng.cfg.escalate_margin) < 1e-5
     same_top10(f"{tag} first batch vs CPU engine (plain path)", scores, ids,
@@ -562,15 +585,31 @@ def ivf_bound(be, uniq, member, nq, k, row_floats):
     return bnd, by, real, padded
 
 
-def ivf_kernels(index, inp: Inputs, dev, power: str) -> dict:
+def depth_atol(q_t, rows, d: int) -> torch.Tensor:
+    """(b, 1) the absolute term a d-term fp32 dot product's rounding adds to
+    a score: sqrt(d) u ||q|| max ||x|| (u = 2^-24), the usual estimate of a
+    d-term sum's rounding, sqrt(d) u sum |q_i x_i| (the worst case has d in
+    place of sqrt(d)), doubled for the score's 2 <q, x> and again for two
+    implementations that sum in different orders (the kernel, and a plain
+    version that splits or reorders the sum). Phase 3g adds it to the L2
+    tolerance at the widths it brings (d=384, 960)."""
+    xmax = torch.sqrt(torch.max(torch.sum(rows.float() ** 2, dim=-1)))
+    qn = torch.sqrt(torch.sum(q_t * q_t, dim=-1, keepdim=True))
+    return 4.0 * d ** 0.5 * 2.0 ** -24 * qn * xmax
+
+
+def ivf_kernels(index, qb: np.ndarray, fb: np.ndarray, dev, power: str,
+                ks=(KP, 4 * KP), depth: bool = False) -> dict:
     """B5, B6 and B7 against their plain versions on the built index's slabs
     (the variants of its storage dtype, with its grouped scales), with the
-    coarse probes of the first timed batch, at k=80 and 320."""
+    coarse probes of the batch (qb, fb), at k in ``ks`` (80 and 320: the
+    default k' and its escalation). The results of ks[0] are returned.
+    ``depth``: add ``depth_atol`` to the L2 tolerance (phase 3g)."""
     be = index.backend
     sc = be.grouped_scales
     suffix = SUFFIX[index.config.storage_dtype]
-    q = torch.tensor(inp.q_all[:B], device=dev)
-    f = torch.tensor(inp.f_all[:B], device=dev)
+    q = torch.tensor(qb, device=dev)
+    f = torch.tensor(fb, device=dev)
     q_t = index.transform.apply(q, f).contiguous()
     c2 = torch.sum(be.centroids * be.centroids, dim=-1)
     _, probes = ops.score_topk(be.centroids, c2, q_t, NPROBE)
@@ -582,8 +621,9 @@ def ivf_kernels(index, inp: Inputs, dev, power: str) -> dict:
           f"{NLIST} ({B * NPROBE} probes); slabs {be.grouped.dtype}")
     grp = (be.grouped, be.grouped_sq, be.valid)
     ded = (*grp, uniq, member, q_t)
+    d = be.grouped.shape[-1]
     res = {}
-    for k in (KP, 4 * KP):
+    for k in ks:
         vals, ids = ops.ivf_score_topk_dedup(*ded, k, scales=sc)
         rvals, rids = ref.ref_ivf_score_topk_dedup(*ded, k + 1, sc)
         out = ops.ivf_score_topk_dedup_rows(*ded, gpv, gpf, k, scales=sc)
@@ -592,7 +632,7 @@ def ivf_kernels(index, inp: Inputs, dev, power: str) -> dict:
         dead = torch.isneginf(vals)[..., None]
         idx = ids.long()
         check(torch.equal(out[2], torch.where(dead, 0.0,
-                                              gpv.reshape(-1, D)[idx]))
+                                              gpv.reshape(-1, d)[idx]))
               and torch.equal(out[3], torch.where(dead, 0.0,
                                                   gpf.reshape(-1, M)[idx])),
               "ivf_score_topk_dedup_rows rows differ from the gathered rows")
@@ -609,7 +649,7 @@ def ivf_kernels(index, inp: Inputs, dev, power: str) -> dict:
                                                       scales=sc),
                 lambda: ref.ref_ivf_score_topk_dedup_rows(*ded, gpv, gpf, k,
                                                           sc),
-                D + M),
+                d + M),
             "ivf_score_topk_batch": (
                 (bv, bi), (rbv, rbi),
                 lambda: ops.ivf_score_topk_batch(*grp, probes, q_t, k,
@@ -618,15 +658,19 @@ def ivf_kernels(index, inp: Inputs, dev, power: str) -> dict:
                                                      sc),
                 0),
         }
+        atol = (L2_ATOL + depth_atol(q_t, be.grouped.reshape(-1, d), d)
+                if depth else torch.full((B, 1), L2_ATOL, device=dev))
         for base, (got, want, kernel, plain_fn, row_floats) in runs.items():
             name = base + suffix
             wv = want[0][:, :k]
             live = ~torch.isneginf(wv)
+            tol_all = atol + L2_RTOL * wv.abs()
             err = (got[0] - wv)[live].abs().max().item()
-            tol = (L2_ATOL + L2_RTOL * wv[live].abs()).max().item()
+            tol = tol_all[live].max().item()
+            check(bool(((got[0] - wv).abs() <= tol_all)[live].all()),
+                  f"{name} k={k} error {err} past its slot's tolerance")
             agree, total = ids_outside_ties(want[0], want[1], got[1], L2_RTOL,
-                                            L2_ATOL)
-            check(err <= tol, f"{name} k={k} error {err} > {tol}")
+                                            atol.cpu().numpy())
             check(agree == total, f"{name} k={k}: {total - agree} ids differ "
                   "outside near-ties")
             ms = time_ms(kernel, 20)
@@ -634,19 +678,20 @@ def ivf_kernels(index, inp: Inputs, dev, power: str) -> dict:
             bnd, by, real, padded = ivf_bound(be, uniq, member, B, k,
                                               row_floats)
             print(f"[kernel] {name} b={B} nlist={NLIST} max_list="
-                  f"{be.max_list} d={D} nprobe={NPROBE} k={k}: max_abs_err "
-                  f"{err:.3g} ids {agree}/{total} outside near-ties; "
+                  f"{be.max_list} d={d} nprobe={NPROBE} k={k}: max_abs_err "
+                  f"{err:.3g} (tolerance up to {tol:.3g}) ids {agree}/{total} "
+                  "outside near-ties; "
                   f"kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms "
                   f"{bnd:.4f} ({by}; probed lists {real / 1e6:.1f} MB of "
                   f"real rows, {padded / 1e6:.1f} MB padded)")
-            if k == KP:       # the main path's default width goes in the line
+            if k == ks[0]:    # the main path's default width goes in the line
                 res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                  bound_ms=bnd, bound_by=by, library_ms=None)
             else:
                 res[name]["max_abs_err"] = max(err, res[name]["max_abs_err"])
     print(f"[ivf-kernel] B6{suffix} (vals, ids) bit-equal to B5{suffix}'s "
-          f"and its rows bit-equal to the gathered rows at k={KP} and "
-          f"{4 * KP}; card {power}")
+          f"and its rows bit-equal to the gathered rows at k in {ks}, "
+          f"d={d}; card {power}")
     return res
 
 
@@ -678,7 +723,7 @@ def phase_ivf(dev, power: str, inp: Inputs, flat_recall: float):
           f"{int(sizes.min().item())}, pad fraction {pad:.3f}; serving slabs "
           f"{slab_mb:.0f} MB, grouped payloads "
           f"{4 * NLIST * be.max_list * (D + M) / 1e6:.0f} MB; card {power}")
-    res = ivf_kernels(index, inp, dev, power)
+    res = ivf_kernels(index, inp.q_all[:B], inp.f_all[:B], dev, power)
     torch.cuda.empty_cache()
 
     state0 = fcvi.index_state(index)
@@ -845,14 +890,81 @@ def pq_kernels(be, q_t, power: str) -> dict:
               f"{t_packed:.4f} ms (equal to the stable sort, "
               f"{t_sort:.4f} ms; torch.topk alone, no tie rule, "
               f"{t_topk:.4f} ms); card {power}")
+    del d2, neg
+    torch.cuda.empty_cache()
+    res.update(pq_topk_kernels(be, luts, power))
+    return res
+
+
+def pq_topk_kernels(be, luts, power: str) -> dict:
+    """The serving path's fused ADC scan + top-k (``ops.pq_score_topk``)
+    bit-equal to its plain version at kk = 80, 320 and 2048 (EngineConfig(
+    k=64)'s escalated k'), at b=64 and an escalation sub-batch's b=16;
+    timed beside its bound, the plain version, the path it replaced (B9 +
+    the packed-key top-k) and the library pair (embedding_bag + the same
+    top-k); the selection path forced at kk=2048, bit-equal too."""
+    m, kk_all = luts.shape[1], luts.shape[2]
+    n = be.size
+    codes = be.ccodes
+    pos = codes.long() + kk_all * torch.arange(m, device=codes.device)
+    gcodes, gids, goff, _ = be.grouped
+    res = {}
+    for b in (B, B_ESC):
+        lb = luts[:b].contiguous()
+        w = lb.permute(1, 2, 0).reshape(m * kk_all, b).contiguous()
+        for kk in (KP, 4 * KP, 2048):
+            got = ops.pq_score_topk(codes, lb, kk, be.grouped)
+            want = ref.ref_pq_score_topk(codes, lb, kk)
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                  f"pq_score_topk b={b} kk={kk} differs from its plain version")
+            ms = time_ms(lambda: ops.pq_score_topk(codes, lb, kk, be.grouped))
+            plain = time_ms(lambda: ref.ref_pq_score_topk(codes, lb, kk), 3)
+            old = time_ms(lambda: ref.topk_first_packed(
+                -ops.pq_score_batch(codes, lb), kk), 5)
+            pair = time_ms(lambda: ref.topk_first_packed(
+                -torch.nn.functional.embedding_bag(pos, w, mode="sum").T,
+                kk), 5)
+            bnd, by = bound_ms(gcodes.nbytes + gids.nbytes + goff.nbytes
+                               + lb.nbytes + 8 * b * kk, b * n * m)
+            print(f"[kernel] pq_score_topk b={b} n={n} M={m} kk={kk}: "
+                  f"bit-equal to its plain version; kernel_ms {ms:.4f} "
+                  f"plain_ms {plain:.4f} bound_ms {bnd:.4f} ({by}); "
+                  f"replaced path (pq_score_batch + packed top-k) "
+                  f"{old:.4f} ms; library pair (embedding_bag + packed "
+                  f"top-k) {pair:.4f} ms; card {power}")
+            if b == B and kk == KP:
+                res["pq_score_topk"] = dict(max_abs_err=0.0, ms=ms,
+                                            plain_ms=plain, bound_ms=bnd,
+                                            bound_by=by, library_ms=None)
+            if b == B and kk == 2048:   # both paths, forced, bit-equal
+                ms_path = {}
+                for forced in (True, False):
+                    alt = pq_lut.pq_score_topk(*be.grouped, lb, kk,
+                                               _select=forced)
+                    check(torch.equal(alt[0], want[0])
+                          and torch.equal(alt[1], want[1]),
+                          f"pq_score_topk (select={forced}) differs at "
+                          f"kk={kk}")
+                    ms_path[forced] = time_ms(lambda: pq_lut.pq_score_topk(
+                        *be.grouped, lb, kk, _select=forced))
+                print(f"[kernel] pq_score_topk_select (forced) b={b} "
+                      f"kk={kk}: bit-equal; kernel_ms {ms_path[True]:.4f} "
+                      f"(buffered path forced: {ms_path[False]:.4f}) "
+                      f"plain_ms {plain:.4f} bound_ms {bnd:.4f} ({by})")
+                res["pq_score_topk_select"] = dict(
+                    max_abs_err=0.0, ms=ms_path[True], plain_ms=plain,
+                    bound_ms=bnd, bound_by=by, library_ms=None)
+            del got, want
+        torch.cuda.empty_cache()
     return res
 
 
 def phase_pq(dev, power: str, inp: Inputs, flat_recall: float,
              ivf_recall: float):
     """The PQ path at SIFT1M scale with every FCVIConfig default but the
-    backend; returns the PQ kernels' results and the launch counts of its
-    build and serving (the kernel checks between them are not counted)."""
+    backend; returns the PQ kernels' results, the launch counts of its
+    build and serving (the kernel checks between them are not counted) and
+    the index as built (phase 3g serves it again)."""
     cfg = fcvi.FCVIConfig(backend="pq")
     _build.reset_launch_counts()
     t0 = time.perf_counter()
@@ -903,13 +1015,26 @@ def phase_pq(dev, power: str, inp: Inputs, flat_recall: float,
     _build.reset_launch_counts()
     scores, ids = serve("pq", eng, inp, power)
     fcvi.query(eng.index, qv, qf, 10)
-    ib = eng.index.backend
-    one = pq_mod.scan_luts(ib, eng.index.transform.apply(qv[:1], qf[:1]))
-    d2 = ops.pq_score(ib.ccodes, one[0])
     torch.cuda.synchronize()
-    check(d2.shape == (ib.size,) and bool(torch.isfinite(d2).all()),
+    run = _build.launch_counts()
+    check(run.get("pq_score_batch", 0) == 0 and run.get("pq_score_topk", 0),
+          f"pq serving did not go through the fused scan alone: {run}")
+    print(f"[pq] serving run: pq_score_topk {run['pq_score_topk']} "
+          f"launches, pq_score_batch {run.get('pq_score_batch', 0)} (the "
+          "(b, n) distances are never written)")
+    # B9 and B10 are off every serving path (the reference's serving path
+    # does not call B10 either): one direct call each on the index's codes
+    _build.reset_launch_counts()
+    ib = eng.index.backend
+    one = pq_mod.scan_luts(ib, eng.index.transform.apply(qv, qf))
+    d2 = ops.pq_score(ib.ccodes, one[0])
+    d2b = ops.pq_score_batch(ib.ccodes, one)
+    torch.cuda.synchronize()
+    check(d2.shape == (ib.size,) and bool(torch.isfinite(d2).all())
+          and torch.equal(d2b[0], d2),
           "pq_score on the index's codes returned non-finite distances")
-    for name, n in _build.launch_counts().items():
+    del d2b
+    for name, n in (*run.items(), *_build.launch_counts().items()):
         counts[name] = counts.get(name, 0) + n
     print(f"[pq] counts {json.dumps(counts)}")
 
@@ -932,7 +1057,7 @@ def phase_pq(dev, power: str, inp: Inputs, flat_recall: float,
     print(f"[pq] of the {int(ties.sum())} queries left out, "
           f"{int(same[ties].sum())} have the CPU engine's top-10 ids all the "
           "same anyway")
-    return res, counts
+    return res, counts, index
 
 
 def stored_bytes(be) -> str:
@@ -1078,7 +1203,7 @@ def phase_storage_ivf(dev, power: str, inp: Inputs, ivf_recall: float):
     be = index.backend
     print(f"[ivf-int8] build on the card {build_s:.2f} s; max_list "
           f"{be.max_list}; on the card: {stored_bytes(be)}; card {power}")
-    res = ivf_kernels(index, inp, dev, power)
+    res = ivf_kernels(index, inp.q_all[:B], inp.f_all[:B], dev, power)
     # bf16 slabs over the same lists, from the fp32 transformed corpus
     x_t = index.transform.apply_normalized(index.vectors_n, index.filters_n)
     half_be = ivf_mod.from_lists(x_t.to(torch.bfloat16), be.centroids,
@@ -1088,7 +1213,7 @@ def phase_storage_ivf(dev, power: str, inp: Inputs, ivf_recall: float):
         cfg, storage_dtype="bfloat16"), backend=half_be)
     print(f"[ivf-bf16] the same lists at bf16; on the card: "
           f"{stored_bytes(half_be)}")
-    res.update(ivf_kernels(half, inp, dev, power))
+    res.update(ivf_kernels(half, inp.q_all[:B], inp.f_all[:B], dev, power))
     torch.cuda.empty_cache()
 
     qv, qf = (torch.tensor(a, device=dev) for a in (inp.q_all[:B],
@@ -1159,6 +1284,9 @@ PREDICATES = {
     "P3": F.eq("f5", 1.0) & F.range("f7", 0.0, 0.1),      # selective
 }
 P4 = F.range("f7", 2.0, 3.0)                               # matches nothing
+# a single-attribute band at P3's selectivity (0.0111): the fold plan takes
+# one attribute, and at this selectivity asks for kp=4096 candidates
+P3_FOLD = F.range("f7", 0.0, 0.0111)
 K_MASK = 18                  # k + CANDIDATE_PAD: the mask/routed scan width
 K_FOLD = 128                 # the fold plan's width at P1's selectivity
 
@@ -1533,6 +1661,372 @@ def phase_predicates(dev, power: str, inp: Inputs, ix: dict):
     return res, counts
 
 
+# -- phase 3g: shapes the reference serves ----------------------------------
+
+EMB_D, GIST_D = 384, 960     # a sentence-embedding width; GIST1M's width
+KK_WIDE = 2056               # EngineConfig(k=64)'s escalated flat width
+
+
+def counted(tag: str, counts: dict, fn):
+    """Run ``fn`` with the launch counters at 0, fail unless a kernel
+    counter moved, add the counts to ``counts``; returns fn's result."""
+    _build.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    run = _build.launch_counts()
+    check(bool(run), f"{tag}: no kernel was launched")
+    for name, n in run.items():
+        counts[name] = counts.get(name, 0) + n
+    print(f"[3g] {tag}: counts {json.dumps(run)}")
+    return out
+
+
+def wide_kernels(tag, x, sq, pv, pf, mask, q_t, power) -> None:
+    """B2, B3 and B2 masked on (n, d) rows at kk=88 and 2056 against their
+    plain versions (the L2 tolerance plus ``depth_atol``), B3 bit-equal to
+    B2; each timed beside its bound and its plain version."""
+    n, d = x.shape
+    n_elig = int((mask > 0.5).sum())
+    atol = L2_ATOL + depth_atol(q_t, x, d)               # (b, 1)
+    atol_np = atol.cpu().numpy()
+    scan_in = 4 * (n * d + n + B * d)
+    scan_ops = 2 * B * n * d + 3 * B * n
+    for kk in (KP + 8, KK_WIDE):
+        p = scan_mod.plan(n, B, kk, d, torch.cuda.get_device_properties(
+            x.device).multi_processor_count)
+        vals, ids = ops.score_topk(x, sq, q_t, kk)
+        rvals, rids = ref.ref_score_topk(x, sq, q_t, kk + 1)
+        err = (vals - rvals[:, :kk]).abs().max().item()
+        ok = ((vals - rvals[:, :kk]).abs()
+              <= atol + L2_RTOL * rvals[:, :kk].abs()).all().item()
+        agree, total = ids_outside_ties(rvals, rids, ids, L2_RTOL, atol_np)
+        check(ok and agree == total, f"{tag} score_topk kk={kk}: error "
+              f"{err}, ids {agree}/{total}")
+        out = ops.score_topk_rows(x, sq, pv, pf, q_t, kk)
+        idx = ids.long()
+        check(torch.equal(out[0], vals) and torch.equal(out[1], ids)
+              and torch.equal(out[2], x[idx]) and torch.equal(out[3], pv[idx])
+              and torch.equal(out[4], pf[idx]),
+              f"{tag} score_topk_rows kk={kk} differs from B2 + gather")
+        del out, rvals, rids
+        mv, mi = ops.score_topk(x, sq, q_t, kk, mask=mask)
+        rv, ri = ref.ref_score_topk(x, sq, q_t, kk + 1, mask=mask)
+        live = ~torch.isneginf(rv[:, :kk])
+        check(torch.equal(torch.isneginf(mv), ~live),
+              f"{tag} masked kk={kk}: dead slots differ")
+        merr = (mv - rv[:, :kk])[live].abs().max().item()
+        mok = ((mv - rv[:, :kk]).abs()
+               <= atol + L2_RTOL * rv[:, :kk].abs())[live].all().item()
+        rvf = torch.where(torch.isneginf(rv), -1e30, rv)
+        magree, mtotal = ids_outside_ties(rvf, ri, mi, L2_RTOL, atol_np)
+        check(mok and magree == mtotal, f"{tag} masked kk={kk}: error "
+              f"{merr}, ids {magree}/{mtotal}")
+        del mv, mi, rv, ri, rvf
+        t = {"score_topk": (
+                lambda: ops.score_topk(x, sq, q_t, kk),
+                lambda: ref.ref_score_topk(x, sq, q_t, kk),
+                bound_ms(scan_in + 8 * B * kk, scan_ops)),
+             "score_topk_rows": (
+                lambda: ops.score_topk_rows(x, sq, pv, pf, q_t, kk),
+                lambda: ref.ref_score_topk_rows(x, sq, pv, pf, q_t, kk),
+                bound_ms(scan_in + 8 * B * kk
+                         + 4 * B * kk * (2 * pv.shape[1] + 2 * pf.shape[1]
+                                         + d), scan_ops)),
+             "score_topk_masked": (
+                lambda: ops.score_topk(x, sq, q_t, kk, mask=mask),
+                lambda: ref.ref_score_topk(x, sq, q_t, kk, mask=mask),
+                bound_ms(4 * (n_elig * (d + 1) + n + B * d) + 8 * B * kk,
+                         B * n_elig * (2 * d + 3)))}
+        for name, (kern, plain_fn, (bnd, by)) in t.items():
+            ms = time_ms(kern, 5)
+            plain = time_ms(plain_fn, 2)
+            print(f"[kernel] {name} ({tag}) b={B} n={n} d={d} kk={kk} "
+                  f"(bq {p.bq}, {'selection' if p.select else 'buffered'} "
+                  f"path): max_abs_err {max(err, merr):.3g} (depth term of "
+                  f"the tolerance up to {atol_np.max():.3g}); kernel_ms "
+                  f"{ms:.4f} plain_ms {plain:.4f} bound_ms {bnd:.4f} ({by}); "
+                  f"card {power}")
+        torch.cuda.empty_cache()
+    print(f"[3g] {tag}: B2, B3, B2 masked agree with their plain versions at "
+          f"d={d}, kk {KP + 8} and {KK_WIDE} ({n_elig} eligible rows)")
+
+
+def select_kernels(flat_ix, ivf_ix, inp: Inputs, dev, power) -> dict:
+    """The selection path forced, bit-equal to the buffered path: flat B2
+    and B3 at kk = 88, 2048 and 2056 on phase 3's rows; IVF B5, B6 and B7
+    at k = 80 and 3200 on phase 3b's slabs; each timed beside the buffered
+    path, its plain version and the bound. Returns the kernels-line entries
+    of the selection counters (flat at kk=2056, IVF at k=3200)."""
+    res = {}
+    qv, qf = (torch.tensor(a, device=dev) for a in (inp.q_all[:B],
+                                                    inp.f_all[:B]))
+    be = flat_ix.backend
+    x, sq = be.vectors, be.sq_norms
+    pv, pf = flat_ix.vectors_n, flat_ix.filters_n
+    q_t = flat_ix.transform.apply(qv, qf).contiguous()
+    scan_in = 4 * (N * D + N + B * D)
+    scan_ops = 2 * B * N * D + 3 * B * N
+    for kk in (KP + 8, 2048, KK_WIDE):
+        runs = {"score_topk": (
+                    lambda s: scan_mod.score_topk(x, sq, q_t, kk, _select=s),
+                    lambda: ref.ref_score_topk(x, sq, q_t, kk),
+                    bound_ms(scan_in + 8 * B * kk, scan_ops)),
+                "score_topk_rows": (
+                    lambda s: scan_mod.score_topk_rows(x, sq, pv, pf, q_t,
+                                                       kk, _select=s),
+                    lambda: ref.ref_score_topk_rows(x, sq, pv, pf, q_t, kk),
+                    bound_ms(scan_in + 8 * B * kk
+                             + 4 * B * kk * (2 * (D + M) + D), scan_ops))}
+        for name, (kern, plain_fn, (bnd, by)) in runs.items():
+            a, b = kern(True), kern(False)
+            check(all(torch.equal(u, v) for u, v in zip(a, b)),
+                  f"{name} kk={kk}: selection path differs from buffered")
+            rv = ref.ref_score_topk(x, sq, q_t, kk)[0]
+            err = (a[0] - rv).abs().max().item()
+            tol = (L2_ATOL + L2_RTOL * rv.abs()).max().item()
+            check(err <= tol, f"{name}_select kk={kk} error {err}")
+            del a, b, rv
+            ms_sel = time_ms(lambda: kern(True), 5)
+            ms_buf = time_ms(lambda: kern(False), 5)
+            plain = time_ms(plain_fn, 2)
+            print(f"[kernel] {name}_select (forced) b={B} n={N} d={D} "
+                  f"kk={kk}: bit-equal to the buffered path; max_abs_err "
+                  f"{err:.3g}; kernel_ms {ms_sel:.4f} (buffered {ms_buf:.4f}) "
+                  f"plain_ms {plain:.4f} bound_ms {bnd:.4f} ({by}); card "
+                  f"{power}")
+            if kk == KK_WIDE:
+                res[name + "_select"] = dict(
+                    max_abs_err=err, ms=ms_sel, plain_ms=plain, bound_ms=bnd,
+                    bound_by=by, library_ms=None)
+        torch.cuda.empty_cache()
+
+    ib = ivf_ix.backend
+    q_t = ivf_ix.transform.apply(qv, qf).contiguous()
+    c2 = torch.sum(ib.centroids * ib.centroids, dim=-1)
+    _, probes = ops.score_topk(ib.centroids, c2, q_t, NPROBE)
+    uniq, member = ops.dedup_probes(probes, NLIST)
+    gpv = ivf_mod.build_grouped_payload(ivf_ix.vectors_n, ib.lists)
+    gpf = ivf_mod.build_grouped_payload(ivf_ix.filters_n, ib.lists)
+    grp = (ib.grouped, ib.grouped_sq, ib.valid)
+    ded = (*grp, uniq, member, q_t)
+    for k in (KP, 40 * KP):
+        runs = {"ivf_score_topk_dedup": (
+                    lambda s: ivf_kern.ivf_score_topk_dedup(*ded, k,
+                                                            _select=s),
+                    lambda: ref.ref_ivf_score_topk_dedup(*ded, k), 0),
+                "ivf_score_topk_dedup_rows": (
+                    lambda s: ivf_kern.ivf_score_topk_dedup_rows(
+                        *ded, gpv, gpf, k, _select=s),
+                    lambda: ref.ref_ivf_score_topk_dedup_rows(*ded, gpv, gpf,
+                                                              k), D + M),
+                "ivf_score_topk_batch": (
+                    lambda s: ivf_kern.ivf_score_topk_batch(
+                        *grp, probes, q_t, k, _select=s),
+                    lambda: ref.ref_ivf_score_topk_batch(*grp, probes, q_t,
+                                                         k), 0)}
+        for name, (kern, plain_fn, row_floats) in runs.items():
+            a, b = kern(True), kern(False)
+            check(all(torch.equal(u, v) for u, v in zip(a, b)),
+                  f"{name} k={k}: selection path differs from buffered")
+            want = plain_fn()[0]
+            live = ~torch.isneginf(want)
+            check(torch.equal(torch.isneginf(a[0]), ~live),
+                  f"{name}_select k={k}: dead slots differ from plain")
+            err = (a[0] - want)[live].abs().max().item()
+            tol = (L2_ATOL + L2_RTOL * want[live].abs()).max().item()
+            check(err <= tol, f"{name}_select k={k} error {err}")
+            del a, b, want
+            ms_sel = time_ms(lambda: kern(True), 5)
+            ms_buf = time_ms(lambda: kern(False), 5)
+            plain = time_ms(plain_fn, 2)
+            bnd, by, _, _ = ivf_bound(ib, uniq, member, B, k, row_floats)
+            print(f"[kernel] {name}_select (forced) b={B} nlist={NLIST} "
+                  f"nprobe={NPROBE} k={k}: bit-equal to the buffered path; "
+                  f"max_abs_err {err:.3g}; kernel_ms {ms_sel:.4f} (buffered "
+                  f"{ms_buf:.4f}) plain_ms {plain:.4f} bound_ms {bnd:.4f} "
+                  f"({by}); card {power}")
+            if k == 40 * KP:
+                res[name + "_select"] = dict(
+                    max_abs_err=err, ms=ms_sel, plain_ms=plain, bound_ms=bnd,
+                    bound_by=by, library_ms=None)
+        torch.cuda.empty_cache()
+    return res
+
+
+def serve_wide(tag, eng, q, f, timed, power):
+    """A warm-up batch, then ``timed`` queries in batches of 64: prints
+    qps, p50/p99 and escalations; returns the first batch (scores, ids)."""
+    eng.search(q[-B:], f[-B:])
+    esc0 = eng.stats.escalations
+    lat, first = [], None
+    for s in range(0, timed, B):
+        t0 = time.perf_counter()
+        out = eng.search(q[s:s + B], f[s:s + B])
+        lat.append(time.perf_counter() - t0)
+        first = first or out
+    k = eng.cfg.k
+    check(first[0].shape == (B, k) and np.isfinite(first[0]).all()
+          and (first[1] >= 0).all(), f"{tag}: first batch malformed")
+    print(f"[{tag}] {timed} queries in batches of {B} at k={k}: qps "
+          f"{timed / sum(lat):.1f} batch p50 "
+          f"{1e3 * np.percentile(lat, 50):.2f} ms p99 "
+          f"{1e3 * np.percentile(lat, 99):.2f} ms; escalations "
+          f"{eng.stats.escalations - esc0} of {timed}; card {power}")
+    return first
+
+
+def phase_shapes(dev, power: str, inp: Inputs, flat_ix, ivf_ix, pq_ix):
+    """Phase 3g: shapes the reference serves, through the kernels only.
+    Returns the selection counters' kernels-line entries and the launch
+    counts of the serving steps (every step must move a counter)."""
+    counts, res = {}, {}
+    k64 = engine_mod.EngineConfig(k=64)
+    qb, fb = inp.q_all[:B], inp.f_all[:B]
+
+    # flat fp32 at EngineConfig(k=64): k' 520, escalated 2056
+    eng = engine_mod.FCVIEngine(flat_ix, k64, device=dev)
+    s, i = counted("flat k=64, 512 queries", counts, lambda: serve_wide(
+        "3g flat k=64", eng, inp.q_all, inp.f_all, 512, power))
+    cpu_flat = fcvi.index_from_state(flat_ix.config,
+                                     fcvi.index_state(flat_ix), device="cpu")
+    against_cpu_engine("3g flat k=64", flat_ix, None, s, i, qb, fb,
+                       np.zeros(B, bool), k64, cpu_flat)
+
+    # IVF fp32 at EngineConfig(k=100): k' 800, escalated 3200 (here and
+    # below, escalate_margin 10 escalates every query of a one-batch step,
+    # so the escalated width is certain to run)
+    k100 = engine_mod.EngineConfig(k=100, escalate_margin=10.0)
+    eng = engine_mod.FCVIEngine(ivf_ix, k100, device=dev)
+    s, i = counted("ivf k=100, one batch", counts, lambda: eng.search(qb, fb))
+    check(eng.stats.escalations == B, "3g ivf k=100: not every query "
+          "escalated to k'=3200")
+    qv, qf = (torch.tensor(a, device=dev) for a in (qb, fb))
+    ties = probe_ties(ivf_ix.backend.centroids,
+                      ivf_ix.transform.apply(qv, qf), NPROBE)
+    print(f"[3g ivf k=100] {eng.stats.escalations} of {B} queries escalated "
+          f"to k'=3200; {int(ties.sum())} at a probe near-tie")
+    against_cpu_engine("3g ivf k=100", ivf_ix, fcvi.index_state(ivf_ix), s,
+                       i, qb, fb, ties, k100)
+
+    # past the buffers: the selection path through the serving entry points
+    k128 = engine_mod.EngineConfig(k=128, escalate_margin=10.0)
+    eng = engine_mod.FCVIEngine(flat_ix, k128, device=dev)
+    s, i = counted("flat k=128 (escalated kk=4104), one batch", counts,
+                   lambda: eng.search(qb, fb))
+    check(eng.stats.escalations > 0, "3g flat k=128: no escalation")
+    against_cpu_engine("3g flat k=128", flat_ix, None, s, i, qb, fb,
+                       np.zeros(B, bool), k128, cpu_flat)
+    del cpu_flat
+    eng = engine_mod.FCVIEngine(ivf_ix, k128, device=dev)
+    counted("ivf k=128 (escalated k'=4096), one batch; fcvi.query and B7 "
+            "at k'=4096", counts, lambda: (
+                eng.search(qb, fb),
+                fcvi.query(ivf_ix, qv, qf, 10, k_prime=4096),
+                ops.ivf_score_topk_batch(
+                    ivf_ix.backend.grouped, ivf_ix.backend.grouped_sq,
+                    ivf_ix.backend.valid,
+                    ops.score_topk(ivf_ix.backend.centroids, torch.sum(
+                        ivf_ix.backend.centroids ** 2, dim=-1),
+                        ivf_ix.transform.apply(qv, qf).contiguous(),
+                        NPROBE)[1],
+                    ivf_ix.transform.apply(qv, qf).contiguous(), 4096)))
+    check(eng.stats.escalations > 0, "3g ivf k=128: no escalation")
+    eng = engine_mod.FCVIEngine(pq_ix, engine_mod.EngineConfig(
+        k=512, escalate_margin=10.0), device=dev)
+    s, i = counted("pq k=512 (escalated k'=16384), one batch", counts,
+                   lambda: eng.search(qb, fb))
+    check(np.isfinite(s).all() and ((i >= 0) & (i < N)).all()
+          and eng.stats.escalations > 0, "3g pq k=512: malformed or no "
+          "escalation")
+    del eng
+    torch.cuda.empty_cache()
+
+    # a forced fold at P3's selectivity: kp=4096, past the buffers, equal
+    # to plan="mask" (the fold plan takes one attribute, so P3's band alone)
+    eng = engine_mod.FCVIEngine(flat_ix, engine_mod.EngineConfig(),
+                                device=dev, attributes=inp.corpus.filters)
+    kp = eng.planner.kp_for("fold", compile_predicate(P3_FOLD,
+                                                      eng._attr_names), 10)
+    (s0, i0), (s1, i1) = counted(
+        f"flat P3-band plan=fold (kp={kp}) and plan=mask", counts,
+        lambda: [eng.search(qb, filter=P3_FOLD, plan=p)
+                 for p in ("fold", "mask")])
+    check(kp >= min(4096, N) and np.array_equal(s0, s1)
+          and np.array_equal(i0, i1),
+          f"3g P3-band: plan=fold (kp={kp}) differs from plan=mask")
+    print(f"[3g] P3-band plan=fold at kp={kp} equals plan=mask bit for bit "
+          f"over {B} queries")
+    del eng
+    res.update(select_kernels(flat_ix, ivf_ix, inp, dev, power))
+
+    # a GIST1M-shaped flat corpus: n=1M rows of d=960
+    t0 = time.perf_counter()
+    gist = make_corpus(CorpusSpec(n=N, d=GIST_D, n_categories=6,
+                                  n_numeric=2, seed=0))
+    gq, gf = sample_queries(gist, B, seed=1)
+    print(f"[3g] GIST1M-shaped corpus n={N} d={GIST_D} m={M}: "
+          f"{time.perf_counter() - t0:.1f} s (host, setup)")
+    t0 = time.perf_counter()
+    gix = counted("gist build", counts, lambda: fcvi.build(
+        gist.vectors, gist.filters, fcvi.FCVIConfig(), device=dev))
+    print(f"[3g] gist build on the card {time.perf_counter() - t0:.2f} s")
+    cpu_gist = fcvi.index_from_state(gix.config, fcvi.index_state(gix),
+                                     device="cpu")
+    for cfg in (engine_mod.EngineConfig(),
+                engine_mod.EngineConfig(k=64, escalate_margin=10.0)):
+        eng = engine_mod.FCVIEngine(gix, cfg, device=dev)
+        s, i = counted(f"gist k={cfg.k}, one batch", counts,
+                       lambda: eng.search(gq, gf))
+        against_cpu_engine(f"3g gist k={cfg.k}", gix, None, s, i, gq, gf,
+                           np.zeros(B, bool), cfg, cpu_gist)
+    del cpu_gist, eng
+    gqt = gix.transform.apply(*(torch.tensor(a, device=dev)
+                                for a in (gq, gf))).contiguous()
+    attrs = torch.tensor(gist.filters, device=dev)
+    gmask = eval_mask(attrs, *compile_predicate(
+        PREDICATES["P2"], [f"f{j}" for j in range(M)]).as_arrays(dev)).float()
+    wide_kernels("gist", gix.backend.vectors, gix.backend.sq_norms,
+                 gix.vectors_n, gix.filters_n, gmask, gqt, power)
+    del gix, gist, attrs, gmask, gqt
+    torch.cuda.empty_cache()
+
+    # an IVF corpus at d=384 (nlist=1024, nprobe=16)
+    t0 = time.perf_counter()
+    emb = make_corpus(CorpusSpec(n=N, d=EMB_D, n_categories=6, n_numeric=2,
+                                 seed=0))
+    eq, ef = sample_queries(emb, B, seed=1)
+    print(f"[3g] corpus n={N} d={EMB_D}: {time.perf_counter() - t0:.1f} s "
+          "(host, setup)")
+    t0 = time.perf_counter()
+    cfg = fcvi.FCVIConfig(backend="ivf", nlist=NLIST, nprobe=NPROBE)
+    eix = counted("ivf d=384 build", counts, lambda: fcvi.build(
+        emb.vectors, emb.filters, cfg, device=dev))
+    print(f"[3g] ivf d={EMB_D} build on the card "
+          f"{time.perf_counter() - t0:.2f} s; max_list "
+          f"{eix.backend.max_list}")
+    eng = engine_mod.FCVIEngine(eix, engine_mod.EngineConfig(), device=dev)
+    s, i = counted("ivf d=384, one batch", counts,
+                   lambda: eng.search(eq, ef))
+    ev, evf = (torch.tensor(a, device=dev) for a in (eq, ef))
+    ties = probe_ties(eix.backend.centroids, eix.transform.apply(ev, evf),
+                      NPROBE)
+    against_cpu_engine(f"3g ivf d={EMB_D}", eix, fcvi.index_state(eix), s, i,
+                       eq, ef, ties)
+    del eng
+    ivf_kernels(eix, eq, ef, dev, power, ks=(KP, 40 * KP), depth=True)
+    eqt = eix.transform.apply(ev, evf).contiguous()
+    flat = flat_mod.build(eix.backend.vectors)
+    attrs = torch.tensor(emb.filters, device=dev)
+    emask = eval_mask(attrs, *compile_predicate(
+        PREDICATES["P2"], [f"f{j}" for j in range(M)]).as_arrays(dev)).float()
+    wide_kernels(f"d={EMB_D}", flat.vectors, flat.sq_norms, eix.vectors_n,
+                 eix.filters_n, emask, eqt, power)
+    del eix, emb, flat, attrs, emask
+    torch.cuda.empty_cache()
+    print(f"[3g] counts {json.dumps(counts)}")
+    return res, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1552,7 +2046,7 @@ def main() -> int:
     ivf_res, ivf_counts, ivf_recall, ivf_ix = phase_ivf(dev, power, inp,
                                                         recall)
     torch.cuda.empty_cache()
-    pq_res, pq_counts = phase_pq(dev, power, inp, recall, ivf_recall)
+    pq_res, pq_counts, pq_ix = phase_pq(dev, power, inp, recall, ivf_recall)
     torch.cuda.empty_cache()
     sf_res, sf_counts, built = phase_storage_flat(dev, power, inp, flat_ids)
     si_res, si_counts, ivf_built = phase_storage_ivf(dev, power, inp,
@@ -1560,9 +2054,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     pf_res, pf_counts = phase_predicates(dev, power, inp, dict(
         flat=flat_ix, ivf=ivf_ix, **built, **ivf_built))
+    del built, ivf_built
+    torch.cuda.empty_cache()
+    sg_res, sg_counts = phase_shapes(dev, power, inp, flat_ix, ivf_ix, pq_ix)
     for tag, r, c in (("3b", ivf_res, ivf_counts), ("3c", pq_res, pq_counts),
                       ("3d", sf_res, sf_counts), ("3e", si_res, si_counts),
-                      ("3f", pf_res, pf_counts)):
+                      ("3f", pf_res, pf_counts), ("3g", sg_res, sg_counts)):
         phases[tag] = dict(c)
         res.update(r)
         for name, n in c.items():
@@ -1574,7 +2071,7 @@ def main() -> int:
     for name, (source, replaces) in SOURCES.items():
         launches = counts.get(name, 0)
         check(launches > 0, f"kernel {name} was not launched on the main "
-              "paths (phases 3, 3b, 3c, 3d, 3e and 3f)")
+              "paths (phases 3, 3b, 3c, 3d, 3e, 3f and 3g)")
         r = res[name]
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches,

@@ -37,14 +37,17 @@
 // parallel with no carry, so the corpus is split across blocks instead:
 //
 //   pass 1 (scan_kernel): one block per (query tile, corpus chunk). The
-//     block stages kTile corpus rows at a time in shared memory as fp32:
-//     fp32 rows with every 16-byte copy of the tile in flight at once
-//     (cp.async), bf16 and int8 rows through registers, up to eight 16-byte
-//     loads a thread in flight, each cast up once as it is stored (so the
-//     inner loop is the fp32 one, and shared memory holds no second, raw
-//     copy of the tile); rows whose width is no multiple of 16 bytes take a
-//     slower scalar path. Each
-//     thread computes a QPT x 2 register tile of dot products. A score
+//     block stages kTile corpus rows at a time in shared memory as fp32, in
+//     column chunks of kDC: fp32 rows with every 16-byte copy of the chunk
+//     in flight at once (cp.async), bf16 and int8 rows through registers, up
+//     to eight 16-byte loads a thread in flight, each cast up once as it is
+//     stored (so the inner loop is the fp32 one, and shared memory holds no
+//     second, raw copy of the tile); rows whose width is no multiple of 16
+//     bytes take a slower scalar path. Each thread computes a QPT x 2
+//     register tile of dot products, accumulating the chunks in ascending
+//     column order, so a row of any width sums in the order a single chunk
+//     would, and shared memory does not grow with d. Rows of at most kDC
+//     columns take one chunk, with the query tile staged once. A score
 //     enters its query's candidate buffer in shared memory only if it beats
 //     the query's current threshold (the kk-th best seen so far); when a
 //     buffer nears capacity all buffers are bitonic-sorted and cut back to
@@ -55,6 +58,14 @@
 //     each winner's corpus row and payload rows by id: a gather is what the
 //     TPU kernel's one-hot matmuls (pick_rows) stood in for.
 //
+// The selection path, for a kk whose buffers do not fit in shared memory or
+// would shrink the query tile to 4 (the planner's choice; a caller may
+// force either path): pass 1 writes every score to a (nq, n)
+// scratch instead (-inf for masked rows), and select_kernel, one block per
+// query, radix-selects and sorts the top-kk (select_common.cuh) with
+// -0.0 and +0.0 taken as equal, as better() takes them. Its (vals, ids) are
+// the buffered path's bits; the rows epilogue is the same function.
+//
 // The ragged corpus edge and the ragged query tile are masked inside the
 // kernels, so the caller never pads (and never copies) the corpus.
 #include <cuda_runtime.h>
@@ -63,6 +74,7 @@
 #include <cmath>
 #include <cstdint>
 
+#include "select_common.cuh"
 #include "topk_common.cuh"
 
 namespace {
@@ -80,11 +92,13 @@ scan_kernel(const typename Elem<ET>::T* __restrict__ x,
             const float* __restrict__ mask,
             const float* __restrict__ q, long long n, int nq, int d, int kk,
             int cap, long long chunk_rows, float* __restrict__ part_s,
-            int* __restrict__ part_i) {
+            int* __restrict__ part_i, float* __restrict__ sel) {
   constexpr int BQ = kQueryGroups * QPT;
   extern __shared__ __align__(16) float smem[];
   const int d4 = (d + 3) & ~3;
-  const int ds = d4 + 4;                         // padded stride: no bank conflicts
+  const int dc = staged_cols(d);
+  const bool one_chunk = d4 <= kDC;
+  const int ds = dc + 4;                         // padded stride: no bank conflicts
   const int ds4 = ds / 4;                        // 16-byte words per staged row
   float* qs = smem;                              // (BQ, ds)
   float* xs = qs + BQ * ds;                      // (kTile, ds)
@@ -96,7 +110,7 @@ scan_kernel(const typename Elem<ET>::T* __restrict__ x,
   int* thr_i = reinterpret_cast<int*>(thr_s + BQ);
   int* cnt = thr_i + BQ;
   int* flag = cnt + BQ;                          // (4,)
-  float* bs = reinterpret_cast<float*>(flag + 4);  // (BQ, cap)
+  float* bs = reinterpret_cast<float*>(flag + 4);  // (BQ, cap); none if sel
   int* bi = reinterpret_cast<int*>(bs + BQ * cap);
 
   const int tid = threadIdx.x;
@@ -106,25 +120,35 @@ scan_kernel(const typename Elem<ET>::T* __restrict__ x,
   const long long r_begin = (long long)blockIdx.y * chunk_rows;
   const long long r_end =
       r_begin + chunk_rows < n ? r_begin + chunk_rows : n;
+  const bool select = sel != nullptr;
 
-  for (int i = tid; i < BQ * ds; i += kThreads) {
-    const int qi = i / ds;
-    const int c = i - qi * ds;
-    qs[i] = (q0 + qi < nq && c < d) ? q[(long long)(q0 + qi) * d + c] : 0.f;
-  }
-  for (int i = tid; i < BQ * cap; i += kThreads) {
-    bs[i] = -INFINITY;
-    bi[i] = INT_MAX;
+  // the query tile's columns [c0, c0 + dc), zero past d and past nq
+  auto stage_q = [&](int c0) {
+    for (int i = tid; i < BQ * ds; i += kThreads) {
+      const int qi = i / ds;
+      const int c = i - qi * ds;
+      qs[i] = (q0 + qi < nq && c < dc && c0 + c < d)
+                  ? q[(long long)(q0 + qi) * d + c0 + c]
+                  : 0.f;
+    }
+  };
+  if (one_chunk) stage_q(0);
+  if (!select) {
+    for (int i = tid; i < BQ * cap; i += kThreads) {
+      bs[i] = -INFINITY;
+      bi[i] = INT_MAX;
+    }
   }
   if (tid < BQ) {
     thr_s[tid] = -INFINITY;
     thr_i[tid] = -1;
     cnt[tid] = 0;
-  }
-  __syncthreads();
-  if (tid < BQ) {
+    // ||q||^2 over the full width, in column order
     float acc = 0.f;
-    for (int c = 0; c < d; ++c) acc = fmaf(qs[tid * ds + c], qs[tid * ds + c], acc);
+    if (q0 + tid < nq) {
+      const float* qr = q + (long long)(q0 + tid) * d;
+      for (int c = 0; c < d; ++c) acc = fmaf(qr[c], qr[c], acc);
+    }
     qsq_s[tid] = acc;
   }
 
@@ -146,38 +170,21 @@ scan_kernel(const typename Elem<ET>::T* __restrict__ x,
         ok = tid < rows && mask[t0 + tid] > 0.5f;
         mk_s[tid] = ok ? 1.f : 0.f;
       }
-      if (!__syncthreads_or(ok)) continue;
-    }
-    if (vec && ET == kF32) {
-      // every 16-byte copy of the tile in flight at once; rows past the
-      // chunk and the pad columns are zero-filled by the copy itself
-      const float* xf = reinterpret_cast<const float*>(x);
-      for (int i = tid; i < kTile * ds4; i += kThreads) {
-        const int r = i / ds4;
-        const int c = (i - r * ds4) * 4;
-        const bool ok = r < rows && c < d;
-        cp_async16(xs + r * ds + c, ok ? xf + (t0 + r) * d + c : xf,
-                   ok ? 16 : 0);
-      }
-      cp_async_wait_all();
-    } else if (vec) {
-      if constexpr (ET != kF32)
-        stage_up<ET, kTile, kThreads>(xs, ds, x + t0 * d, rows, d,
-                                      [](int) { return true; });
-    } else {
-      for (int r = warp; r < kTile; r += kWarps) {
-        const bool ok = r < rows;
-        const long long row = (t0 + r) * d;
-        float* dst = xs + r * ds;
-        for (int c = lane; c < ds; c += 32)
-          dst[c] = (ok && c < d) ? Elem<ET>::at(x, row + c) : 0.f;
+      if (!__syncthreads_or(ok)) {
+        if (select) {
+          for (int i = tid; i < BQ * rows; i += kThreads) {
+            const int qi = i / rows;
+            if (q0 + qi < nq)
+              sel[(long long)(q0 + qi) * n + t0 + (i - qi * rows)] = -INFINITY;
+          }
+        }
+        continue;
       }
     }
     if (tid < kTile) {
       xsq_s[tid] = tid < rows ? xsq[t0 + tid] : 0.f;
       sc_s[tid] = tid < rows && scale != nullptr ? scale[t0 + tid] : 1.f;
     }
-    __syncthreads();
 
     float acc0[QPT], acc1[QPT];
 #pragma unroll
@@ -185,20 +192,54 @@ scan_kernel(const typename Elem<ET>::T* __restrict__ x,
       acc0[i] = 0.f;
       acc1[i] = 0.f;
     }
-    for (int c = 0; c < d4; c += 4) {
-      const float4 a = *reinterpret_cast<const float4*>(xa + c);
-      const float4 b = *reinterpret_cast<const float4*>(xb + c);
+    for (int c0 = 0; c0 < d4; c0 += kDC) {
+      if (c0 > 0) __syncthreads();  // the previous chunk's readers are done
+      if (!one_chunk) stage_q(c0);
+      if (vec && ET == kF32) {
+        // every 16-byte copy of the chunk in flight at once; rows past the
+        // corpus chunk and the pad columns are zero-filled by the copy
+        const float* xf = reinterpret_cast<const float*>(x);
+        for (int i = tid; i < kTile * ds4; i += kThreads) {
+          const int r = i / ds4;
+          const int c = (i - r * ds4) * 4;
+          const bool ok = r < rows && c < dc && c0 + c < d;
+          cp_async16(xs + r * ds + c, ok ? xf + (t0 + r) * d + c0 + c : xf,
+                     ok ? 16 : 0);
+        }
+        cp_async_wait_all();
+      } else if (vec) {
+        if constexpr (ET != kF32)
+          stage_up<ET, kTile, kThreads>(
+              xs, ds, x + t0 * d + c0, d, rows,
+              d - c0 < kDC ? d - c0 : kDC, [](int) { return true; });
+      } else {
+        for (int r = warp; r < kTile; r += kWarps) {
+          const bool ok = r < rows;
+          const long long row = (t0 + r) * d + c0;
+          float* dst = xs + r * ds;
+          for (int c = lane; c < ds; c += 32)
+            dst[c] = (ok && c < dc && c0 + c < d) ? Elem<ET>::at(x, row + c)
+                                                  : 0.f;
+        }
+      }
+      __syncthreads();
+
+      const int cw4 = d4 - c0 < kDC ? d4 - c0 : kDC;
+      for (int c = 0; c < cw4; c += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(xa + c);
+        const float4 b = *reinterpret_cast<const float4*>(xb + c);
 #pragma unroll
-      for (int i = 0; i < QPT; ++i) {
-        const float4 u = *reinterpret_cast<const float4*>(qb + i * ds + c);
-        acc0[i] = fmaf(u.x, a.x, acc0[i]);
-        acc0[i] = fmaf(u.y, a.y, acc0[i]);
-        acc0[i] = fmaf(u.z, a.z, acc0[i]);
-        acc0[i] = fmaf(u.w, a.w, acc0[i]);
-        acc1[i] = fmaf(u.x, b.x, acc1[i]);
-        acc1[i] = fmaf(u.y, b.y, acc1[i]);
-        acc1[i] = fmaf(u.z, b.z, acc1[i]);
-        acc1[i] = fmaf(u.w, b.w, acc1[i]);
+        for (int i = 0; i < QPT; ++i) {
+          const float4 u = *reinterpret_cast<const float4*>(qb + i * ds + c);
+          acc0[i] = fmaf(u.x, a.x, acc0[i]);
+          acc0[i] = fmaf(u.y, a.y, acc0[i]);
+          acc0[i] = fmaf(u.z, a.z, acc0[i]);
+          acc0[i] = fmaf(u.w, a.w, acc0[i]);
+          acc1[i] = fmaf(u.x, b.x, acc1[i]);
+          acc1[i] = fmaf(u.y, b.y, acc1[i]);
+          acc1[i] = fmaf(u.z, b.z, acc1[i]);
+          acc1[i] = fmaf(u.w, b.w, acc1[i]);
+        }
       }
     }
 
@@ -216,13 +257,16 @@ scan_kernel(const typename Elem<ET>::T* __restrict__ x,
             qsq_s[qi]);
         if (mask != nullptr && mk_s[r] == 0.f) s = -INFINITY;
         const int rid = (int)(t0 + r);
-        if (better(s, rid, thr_s[qi], thr_i[qi])) {
+        if (select) {
+          sel[(long long)(q0 + qi) * n + rid] = s;
+        } else if (better(s, rid, thr_s[qi], thr_i[qi])) {
           const int pos = atomicAdd(&cnt[qi], 1);
           bs[qi * cap + pos] = s;
           bi[qi * cap + pos] = rid;
         }
       }
     }
+    if (select) continue;
     __syncthreads();
     if (tid == 0) {
       int need = 0;
@@ -232,6 +276,7 @@ scan_kernel(const typename Elem<ET>::T* __restrict__ x,
     __syncthreads();
     if (flag[0]) trim(bs, bi, cnt, thr_s, thr_i, BQ, cap, kk);
   }
+  if (select) return;
 
   trim(bs, bi, cnt, thr_s, thr_i, BQ, cap, kk);
   const long long nchunks = gridDim.y;
@@ -242,6 +287,36 @@ scan_kernel(const typename Elem<ET>::T* __restrict__ x,
     const long long o = ((long long)(q0 + qi) * nchunks + blockIdx.y) * kk + j;
     part_s[o] = bs[qi * cap + j];
     part_i[o] = bi[qi * cap + j];
+  }
+}
+
+// The rows epilogue of query qi, after its (vals, ids) are written and the
+// block has synchronised: each winner's corpus row, dequantized (code *
+// scale), and its payload rows, gathered by id (dead slots read id 0).
+template <int ET>
+__device__ void gather_rows(long long qi, int kk, const int* __restrict__ ids,
+                            const typename Elem<ET>::T* __restrict__ x,
+                            const float* __restrict__ scale,
+                            const float* __restrict__ pv,
+                            const float* __restrict__ pf, int d, int dv,
+                            int m, float* __restrict__ rows_x,
+                            float* __restrict__ rows_v,
+                            float* __restrict__ rows_f) {
+  const int* row_ids = ids + qi * kk;
+  for (long long i = threadIdx.x; i < (long long)kk * d; i += blockDim.x) {
+    const long long j = i / d;
+    const long long c = i - j * d;
+    const long long id = row_ids[j];
+    const float v = Elem<ET>::at(x, id * d + c);
+    rows_x[qi * kk * d + i] = scale != nullptr ? __fmul_rn(v, scale[id]) : v;
+  }
+  for (long long i = threadIdx.x; i < (long long)kk * dv; i += blockDim.x) {
+    const long long j = i / dv;
+    rows_v[qi * kk * dv + i] = pv[(long long)row_ids[j] * dv + (i - j * dv)];
+  }
+  for (long long i = threadIdx.x; i < (long long)kk * m; i += blockDim.x) {
+    const long long j = i / m;
+    rows_f[qi * kk * m + i] = pf[(long long)row_ids[j] * m + (i - j * m)];
   }
 }
 
@@ -300,29 +375,58 @@ merge_kernel(const float* __restrict__ part_s, const int* __restrict__ part_i,
     ids[qi * kk + j] = bi[j] == INT_MAX ? 0 : bi[j];
   }
   if (rows_x == nullptr) return;
-  for (long long i = tid; i < (long long)kk * d; i += kThreads) {
-    const long long j = i / d;
-    const long long c = i - j * d;
-    const long long id = bi[j] == INT_MAX ? 0 : bi[j];
-    const float v = Elem<ET>::at(x, id * d + c);  // dequantized: code * scale
-    rows_x[qi * kk * d + i] = scale != nullptr ? __fmul_rn(v, scale[id]) : v;
-  }
-  for (long long i = tid; i < (long long)kk * dv; i += kThreads) {
-    const long long j = i / dv;
-    const long long c = i - j * dv;
-    const long long id = bi[j] == INT_MAX ? 0 : bi[j];
-    rows_v[qi * kk * dv + i] = pv[id * dv + c];
-  }
-  for (long long i = tid; i < (long long)kk * m; i += kThreads) {
-    const long long j = i / m;
-    const long long c = i - j * m;
-    const long long id = bi[j] == INT_MAX ? 0 : bi[j];
-    rows_f[qi * kk * m + i] = pf[id * m + c];
-  }
+  __syncthreads();
+  gather_rows<ET>(qi, kk, ids, x, scale, pv, pf, d, dv, m, rows_x, rows_v,
+                  rows_f);
 }
 
-size_t scan_smem(int bq, int cap, int d) {
-  const size_t ds = (size_t)((d + 3) & ~3) + 4;
+// A query's scores in the selection path: a -inf (masked) or NaN score does
+// not compete, as it never beats a buffer's threshold; -0.0 counts as +0.0.
+struct FlatScores {
+  const float* s;
+  long long n;
+  __device__ long long size() const { return n; }
+  __device__ bool get(long long e, u64* w) const {
+    const float v = s[e];
+    if (!(v > -INFINITY)) return false;
+    *w = pack(ord_bits_eq0(v), (int)e);
+    return true;
+  }
+};
+
+// The selection path's pass 2: one block per query over its row of the
+// (nq, n) score scratch. Sorts in shared memory, or in (nq, len) device
+// scratch sw / spos when those are given.
+template <int ET>
+__global__ void __launch_bounds__(kSelThreads)
+select_kernel(const float* __restrict__ sel, long long n, int kk, int len,
+              u64* __restrict__ sw, int* __restrict__ spos,
+              float* __restrict__ vals, int* __restrict__ ids,
+              const typename Elem<ET>::T* __restrict__ x,
+              const float* __restrict__ scale, const float* __restrict__ pv,
+              const float* __restrict__ pf, int d, int dv, int m,
+              float* __restrict__ rows_x, float* __restrict__ rows_v,
+              float* __restrict__ rows_f) {
+  extern __shared__ __align__(16) unsigned char sel_smem[];
+  __shared__ SelectState st;
+  const long long qi = blockIdx.x;
+  u64* w = sw != nullptr ? sw + qi * len : reinterpret_cast<u64*>(sel_smem);
+  int* pos = sw != nullptr ? spos + qi * len : reinterpret_cast<int*>(w + len);
+  const float* s = sel + qi * n;
+  const int count = select_sorted(FlatScores{s, n}, kk, w, pos, len, &st);
+  for (int j = threadIdx.x; j < kk; j += blockDim.x) {
+    vals[qi * kk + j] = j < count ? s[pos[j]] : -INFINITY;
+    ids[qi * kk + j] = j < count ? pos[j] : 0;
+  }
+  if (rows_x == nullptr) return;
+  __syncthreads();
+  gather_rows<ET>(qi, kk, ids, x, scale, pv, pf, d, dv, m, rows_x, rows_v,
+                  rows_f);
+}
+
+// Pass 1's dynamic shared memory for dc staged columns (staged_cols(d)).
+size_t scan_smem(int bq, int cap, int dc) {
+  const size_t ds = (size_t)dc + 4;
   const size_t words = bq * ds + kTile * ds + 3 * kTile + 4 * (size_t)bq +
                        4 + 2 * (size_t)bq * cap;
   return words * sizeof(float);
@@ -333,16 +437,19 @@ cudaError_t launch_scan(const typename Elem<ET>::T* x, const float* xsq,
                         const float* scale, const float* mask,
                         const float* q, long long n, int nq, int d, int kk,
                         int cap, int nchunks, long long chunk_rows,
-                        float* part_s, int* part_i, cudaStream_t stream) {
+                        float* part_s, int* part_i, float* sel,
+                        cudaStream_t stream) {
   constexpr int BQ = kQueryGroups * QPT;
-  const size_t smem = scan_smem(BQ, cap, d);
+  const size_t smem =
+      scan_smem(BQ, sel != nullptr ? 0 : cap, staged_cols(d));
   cudaError_t err = cudaFuncSetAttribute(
       scan_kernel<ET, QPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((nq + BQ - 1) / BQ, nchunks);
   scan_kernel<ET, QPT><<<grid, kThreads, smem, stream>>>(
-      x, xsq, scale, mask, q, n, nq, d, kk, cap, chunk_rows, part_s, part_i);
+      x, xsq, scale, mask, q, n, nq, d, kk, sel != nullptr ? 0 : cap,
+      chunk_rows, part_s, part_i, sel);
   return cudaGetLastError();
 }
 
@@ -350,28 +457,40 @@ template <int ET>
 int score_topk(const void* xv, const float* xsq, const float* scale,
                const float* mask, const float* q, long long n, int nq, int d,
                int kk, int bq, int cap, int nchunks, long long chunk_rows,
-               int merge_cap, float* part_s, int* part_i, float* vals, int* ids,
-               const float* pv, const float* pf, int dv, int m, float* rows_x,
-               float* rows_v, float* rows_f, cudaStream_t st) {
+               int merge_cap, float* part_s, int* part_i, float* sel,
+               int sort_len, u64* sort_w, int* sort_pos, float* vals,
+               int* ids, const float* pv, const float* pf, int dv, int m,
+               float* rows_x, float* rows_v, float* rows_f, cudaStream_t st) {
   const auto* x = static_cast<const typename Elem<ET>::T*>(xv);
   cudaError_t err;
   switch (bq) {
     case 16:
       err = launch_scan<ET, 4>(x, xsq, scale, mask, q, n, nq, d, kk, cap,
-                               nchunks, chunk_rows, part_s, part_i, st);
+                               nchunks, chunk_rows, part_s, part_i, sel, st);
       break;
     case 8:
       err = launch_scan<ET, 2>(x, xsq, scale, mask, q, n, nq, d, kk, cap,
-                               nchunks, chunk_rows, part_s, part_i, st);
+                               nchunks, chunk_rows, part_s, part_i, sel, st);
       break;
     case 4:
       err = launch_scan<ET, 1>(x, xsq, scale, mask, q, n, nq, d, kk, cap,
-                               nchunks, chunk_rows, part_s, part_i, st);
+                               nchunks, chunk_rows, part_s, part_i, sel, st);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
+  if (sel != nullptr) {
+    const size_t smem = select_smem(sort_len, sort_w == nullptr);
+    err = cudaFuncSetAttribute(select_kernel<ET>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    select_kernel<ET><<<nq, kSelThreads, smem, st>>>(
+        sel, n, kk, sort_len, sort_w, sort_pos, vals, ids, x, scale, pv, pf,
+        d, dv, m, rows_x, rows_v, rows_f);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = sizeof(float) * (2 * (size_t)merge_cap + 4);
   err = cudaFuncSetAttribute(merge_kernel<ET>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -388,35 +507,41 @@ int score_topk(const void* xv, const float* xsq, const float* scale,
 // et selects the stored element type of x (0 fp32, 1 bf16, 2 int8); scale
 // (n,) is the per-row dequantization scale, null for 1.0; mask (n,) is the
 // per-row 0/1 eligibility of the filtered variants, null for every row.
-// Scratch part_s / part_i hold (nq, nchunks, kk) entries. The rows pointers
-// (pv, pf, rows_x, rows_v, rows_f) are all null for the ids-only variant.
+// Buffered path (sel null): scratch part_s / part_i hold (nq, nchunks, kk)
+// entries. Selection path (sel, an (nq, n) fp32 scratch, not null): cap and
+// merge_cap are unused; the selection sorts sort_len (a power of two >= kk)
+// words a query in shared memory, or in the (nq, sort_len) scratch sort_w /
+// sort_pos when those are not null. The rows pointers (pv, pf, rows_x,
+// rows_v, rows_f) are all null for the ids-only variant.
 extern "C" int fcvi_score_topk(const void* x, int et, const float* xsq,
                                const float* scale, const float* mask,
                                const float* q, long long n, int nq, int d,
                                int kk, int bq, int cap, int nchunks,
                                long long chunk_rows, int merge_cap,
-                               float* part_s, int* part_i, float* vals,
-                               int* ids, const float* pv, const float* pf,
-                               int dv, int m, float* rows_x, float* rows_v,
-                               float* rows_f, void* stream) {
+                               float* part_s, int* part_i, float* sel,
+                               int sort_len, void* sort_w, int* sort_pos,
+                               float* vals, int* ids, const float* pv,
+                               const float* pf, int dv, int m, float* rows_x,
+                               float* rows_v, float* rows_f, void* stream) {
   if (nq <= 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
+  u64* sw = static_cast<u64*>(sort_w);
   switch (et) {
     case kF32:
       return score_topk<kF32>(x, xsq, scale, mask, q, n, nq, d, kk, bq, cap,
                               nchunks, chunk_rows, merge_cap, part_s, part_i,
-                              vals, ids, pv, pf, dv, m, rows_x, rows_v,
-                              rows_f, st);
+                              sel, sort_len, sw, sort_pos, vals, ids, pv, pf,
+                              dv, m, rows_x, rows_v, rows_f, st);
     case kBF16:
       return score_topk<kBF16>(x, xsq, scale, mask, q, n, nq, d, kk, bq, cap,
                                nchunks, chunk_rows, merge_cap, part_s, part_i,
-                               vals, ids, pv, pf, dv, m, rows_x, rows_v,
-                               rows_f, st);
+                               sel, sort_len, sw, sort_pos, vals, ids, pv, pf,
+                               dv, m, rows_x, rows_v, rows_f, st);
     case kI8:
       return score_topk<kI8>(x, xsq, scale, mask, q, n, nq, d, kk, bq, cap,
                              nchunks, chunk_rows, merge_cap, part_s, part_i,
-                             vals, ids, pv, pf, dv, m, rows_x, rows_v, rows_f,
-                             st);
+                             sel, sort_len, sw, sort_pos, vals, ids, pv, pf,
+                             dv, m, rows_x, rows_v, rows_f, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -54,8 +54,11 @@
 //     probe for batch) and up to kBQ member queries (gathered by a ballot
 //     over the member column). The block streams the list kTile rows at a
 //     time through shared memory as fp32 (fp32 rows with cp.async, bf16 and
-//     int8 rows through registers, cast up once as they are stored),
-//     reading only the rows that are valid and skipping tiles with none. Only member queries are
+//     int8 rows through registers, cast up once as they are stored), in
+//     column chunks of kDC accumulated in ascending column order (so shared
+//     memory does not grow with d, and a row sums in the order one chunk
+//     would; the member queries' chunks are restaged with each), reading
+//     only the rows that are valid and skipping tiles with none. Only member queries are
 //     scored, so no work goes to the masked (query, list) pairs that
 //     dominate the TPU's grid at b=64, nprobe=16, nlist=1024. Each member
 //     query keeps a thresholded candidate buffer trimmed by a bitonic sort,
@@ -67,12 +70,22 @@
 //     once), or its nprobe probe pairs. The rows
 //     variant then gathers each winner's payload rows by flat id, the work
 //     the TPU kernel's one-hot copy-through (pick_rows) did.
+//
+// The selection path, for a kk whose buffers do not fit in shared memory
+// (or when the caller asks for it): pass 1 writes each (member query, list)
+// pair's scores to a (b, nseg, max_list) scratch instead (nseg = s for
+// dedup, nprobe for batch; -inf for invalid slots), and list_select_kernel,
+// one block per query, radix-selects and sorts the top-kk over its member
+// lists' slots by (score, ordering key), -0.0 taken as +0.0 as better()
+// takes it (select_common.cuh). Its (vals, ids) are the buffered path's
+// bits; the rows epilogue is the same function.
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cmath>
 #include <cstdint>
 
+#include "select_common.cuh"
 #include "topk_common.cuh"
 
 namespace {
@@ -139,7 +152,11 @@ offsets_kernel(const int* __restrict__ groups, int nsrc,
 // the partial of (slot s, query j) is s * b + j. Batch (member == nullptr):
 // item i is source i, query i / nprobe's (i % nprobe)-th probe, and its own
 // partial. Items of one list are adjacent, so a list with many member
-// groups is read from device memory about once and from L2 after.
+// groups is read from device memory about once and from L2 after. With sel
+// (the selection path) the block writes its member queries' scores of the
+// list to sel instead of keeping buffers: query j's scores of source s at
+// (j * nsrc + s) * L for dedup, of its p-th probe at (j * nprobe + p) * L
+// for batch, -inf for invalid slots.
 template <int ET>
 __global__ void __launch_bounds__(kThreads)
 list_scan_kernel(const typename Elem<ET>::T* __restrict__ grouped,
@@ -151,10 +168,12 @@ list_scan_kernel(const typename Elem<ET>::T* __restrict__ grouped,
                  const int* __restrict__ offsets, int* __restrict__ next,
                  const float* __restrict__ q, int nsrc, int b, int nprobe,
                  int L, int d, int kk, int cap, float* __restrict__ part_s,
-                 int* __restrict__ part_i) {
+                 int* __restrict__ part_i, float* __restrict__ sel) {
   extern __shared__ __align__(16) float smem[];
   const int d4 = (d + 3) & ~3;
-  const int ds = d4 + 4;                         // padded stride: no conflicts
+  const int dc = staged_cols(d);
+  const bool one_chunk = d4 <= kDC;
+  const int ds = dc + 4;                         // padded stride: no conflicts
   const int ds4 = ds / 4;                        // 16-byte words per staged row
   float* qs = smem;                              // (kBQ, ds)
   float* xs = qs + kBQ * ds;                     // (kTile, ds)
@@ -166,13 +185,14 @@ list_scan_kernel(const typename Elem<ET>::T* __restrict__ grouped,
   int* thr_i = reinterpret_cast<int*>(thr_s + kBQ);
   int* cnt = thr_i + kBQ;
   int* flag = cnt + kBQ;  // (8,): trim, members, source, group, live item
-  float* bs = reinterpret_cast<float*>(flag + 8);  // (kBQ, cap)
+  float* bs = reinterpret_cast<float*>(flag + 8);  // (kBQ, cap); none if sel
   int* bi = reinterpret_cast<int*>(bs + kBQ * cap);
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid & 31;
   const bool dedup = member != nullptr;
+  const bool select = sel != nullptr;
   const int items = dedup ? offsets[nsrc] : nsrc;
   const bool vec = (d * sizeof(*grouped)) % 16 == 0 &&
                    (reinterpret_cast<uintptr_t>(grouped) & 15) == 0;
@@ -235,15 +255,27 @@ list_scan_kernel(const typename Elem<ET>::T* __restrict__ grouped,
     }
     __syncthreads();
     const int nact = flag[1];                    // >= 1 by the plan
+    // where member query qi's scores of this list go in sel
+    auto sel_row = [&](int qi) -> float* {
+      return sel + (dedup ? ((long long)qidx[qi] * nsrc + src) * L : src * L);
+    };
 
-    for (int i = tid; i < kBQ * ds; i += kThreads) {
-      const int qi = i / ds;
-      const int c = i - qi * ds;
-      qs[i] = (qi < nact && c < d) ? q[(long long)qidx[qi] * d + c] : 0.f;
-    }
-    for (int i = tid; i < kBQ * cap; i += kThreads) {
-      bs[i] = -INFINITY;
-      bi[i] = INT_MAX;
+    // the member queries' columns [c0, c0 + dc), zero past d
+    auto stage_q = [&](int c0) {
+      for (int i = tid; i < kBQ * ds; i += kThreads) {
+        const int qi = i / ds;
+        const int c = i - qi * ds;
+        qs[i] = (qi < nact && c < dc && c0 + c < d)
+                    ? q[(long long)qidx[qi] * d + c0 + c]
+                    : 0.f;
+      }
+    };
+    if (one_chunk) stage_q(0);
+    if (!select) {
+      for (int i = tid; i < kBQ * cap; i += kThreads) {
+        bs[i] = -INFINITY;
+        bi[i] = INT_MAX;
+      }
     }
     if (tid < kBQ) {
       thr_s[tid] = -INFINITY;
@@ -261,52 +293,80 @@ list_scan_kernel(const typename Elem<ET>::T* __restrict__ grouped,
         xsq_s[tid] = ok ? sqg[t0 + tid] : 0.f;
         sc_s[tid] = ok && scg != nullptr ? scg[t0 + tid] : 1.f;
       }
-      if (!__syncthreads_or(ok)) continue;       // no valid row in the tile
-      if (vec && ET == kF32) {
-        // every 16-byte copy of the tile in flight at once; invalid rows and
-        // the pad columns are zero-filled without a read
-        const float* xf = reinterpret_cast<const float*>(xg);
-        for (int i = tid; i < kTile * ds4; i += kThreads) {
-          const int r = i / ds4;
-          const int c = (i - r * ds4) * 4;
-          const bool live = ok_s[r] && c < d;
-          const float* from = live ? xf + (long long)(t0 + r) * d + c : xf;
-          cp_async16(xs + r * ds + c, from, live ? 16 : 0);
+      if (!__syncthreads_or(ok)) {               // no valid row in the tile
+        if (select) {
+          for (int i = tid; i < nact * rows; i += kThreads) {
+            const int qi = i / rows;
+            sel_row(qi)[t0 + (i - qi * rows)] = -INFINITY;
+          }
         }
-        cp_async_wait_all();
-      } else if (vec) {
-        if constexpr (ET != kF32)
-          stage_up<ET, kTile, kThreads>(xs, ds, xg + (long long)t0 * d, rows,
-                                        d, [&](int r) { return ok_s[r] != 0; });
-      } else {
-        for (int r = warp; r < kTile; r += kWarps) {
-          const bool live = ok_s[r];
-          const long long row = (long long)(t0 + r) * d;
-          float* dst = xs + r * ds;
-          for (int c = lane; c < ds; c += 32)
-            dst[c] = (live && c < d) ? Elem<ET>::at(xg, row + c) : 0.f;
-        }
+        continue;
       }
-      __syncthreads();
-
       float acc0 = 0.f, acc1 = 0.f;
-      for (int c = 0; c < d4; c += 4) {
-        const float4 a = *reinterpret_cast<const float4*>(xa + c);
-        const float4 e = *reinterpret_cast<const float4*>(xb + c);
-        const float4 u = *reinterpret_cast<const float4*>(qb + c);
-        acc0 = fmaf(u.x, a.x, acc0);
-        acc0 = fmaf(u.y, a.y, acc0);
-        acc0 = fmaf(u.z, a.z, acc0);
-        acc0 = fmaf(u.w, a.w, acc0);
-        acc1 = fmaf(u.x, e.x, acc1);
-        acc1 = fmaf(u.y, e.y, acc1);
-        acc1 = fmaf(u.z, e.z, acc1);
-        acc1 = fmaf(u.w, e.w, acc1);
+      for (int c0 = 0; c0 < d4; c0 += kDC) {
+        if (c0 > 0) __syncthreads();  // the previous chunk's readers are done
+        if (!one_chunk) stage_q(c0);
+        if (vec && ET == kF32) {
+          // every 16-byte copy of the chunk in flight at once; invalid rows
+          // and the pad columns are zero-filled without a read
+          const float* xf = reinterpret_cast<const float*>(xg);
+          for (int i = tid; i < kTile * ds4; i += kThreads) {
+            const int r = i / ds4;
+            const int c = (i - r * ds4) * 4;
+            const bool live = ok_s[r] && c < dc && c0 + c < d;
+            const float* from =
+                live ? xf + (long long)(t0 + r) * d + c0 + c : xf;
+            cp_async16(xs + r * ds + c, from, live ? 16 : 0);
+          }
+          cp_async_wait_all();
+        } else if (vec) {
+          if constexpr (ET != kF32)
+            stage_up<ET, kTile, kThreads>(
+                xs, ds, xg + (long long)t0 * d + c0, d, rows,
+                d - c0 < kDC ? d - c0 : kDC,
+                [&](int r) { return ok_s[r] != 0; });
+        } else {
+          for (int r = warp; r < kTile; r += kWarps) {
+            const bool live = ok_s[r];
+            const long long row = (long long)(t0 + r) * d + c0;
+            float* dst = xs + r * ds;
+            for (int c = lane; c < ds; c += 32)
+              dst[c] = (live && c < dc && c0 + c < d)
+                           ? Elem<ET>::at(xg, row + c)
+                           : 0.f;
+          }
+        }
+        __syncthreads();
+
+        const int cw4 = d4 - c0 < kDC ? d4 - c0 : kDC;
+        for (int c = 0; c < cw4; c += 4) {
+          const float4 a = *reinterpret_cast<const float4*>(xa + c);
+          const float4 e = *reinterpret_cast<const float4*>(xb + c);
+          const float4 u = *reinterpret_cast<const float4*>(qb + c);
+          acc0 = fmaf(u.x, a.x, acc0);
+          acc0 = fmaf(u.y, a.y, acc0);
+          acc0 = fmaf(u.z, a.z, acc0);
+          acc0 = fmaf(u.w, a.w, acc0);
+          acc1 = fmaf(u.x, e.x, acc1);
+          acc1 = fmaf(u.y, e.y, acc1);
+          acc1 = fmaf(u.z, e.z, acc1);
+          acc1 = fmaf(u.w, e.w, acc1);
+        }
       }
       if (qg < nact) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int r = rg + h * kRowGroups;
+          if (select) {
+            if (r < rows)
+              sel_row(qg)[t0 + r] =
+                  ok_s[r] ? __fsub_rn(__fmul_rn(__fmul_rn(2.f, h == 0 ? acc0
+                                                                      : acc1),
+                                                sc_s[r]),
+                                      xsq_s[r])
+                          : -INFINITY;
+            continue;
+          }
           if (!ok_s[r]) continue;
           const float s = __fsub_rn(
               __fmul_rn(__fmul_rn(2.f, h == 0 ? acc0 : acc1), sc_s[r]),
@@ -319,6 +379,7 @@ list_scan_kernel(const typename Elem<ET>::T* __restrict__ grouped,
           }
         }
       }
+      if (select) continue;
       __syncthreads();
       if (tid == 0) {
         int need = 0;
@@ -329,15 +390,41 @@ list_scan_kernel(const typename Elem<ET>::T* __restrict__ grouped,
       if (flag[0]) trim(bs, bi, cnt, thr_s, thr_i, nact, cap, kk);
     }
 
-    trim(bs, bi, cnt, thr_s, thr_i, nact, cap, kk);
-    for (int i = tid; i < nact * kk; i += kThreads) {
-      const int qi = i / kk;
-      const int e = i - qi * kk;
-      const long long p = dedup ? src * b + qidx[qi] : src;
-      part_s[p * kk + e] = bs[qi * cap + e];
-      part_i[p * kk + e] = bi[qi * cap + e];
+    if (!select) {
+      trim(bs, bi, cnt, thr_s, thr_i, nact, cap, kk);
+      for (int i = tid; i < nact * kk; i += kThreads) {
+        const int qi = i / kk;
+        const int e = i - qi * kk;
+        const long long p = dedup ? src * b + qidx[qi] : src;
+        part_s[p * kk + e] = bs[qi * cap + e];
+        part_i[p * kk + e] = bi[qi * cap + e];
+      }
     }
     __syncthreads();             // the next item reuses flag, qidx, qs and bs
+  }
+}
+
+// The rows epilogue of query j, after its (vals, ids) are written and the
+// block has synchronised: each winner's grouped payload rows by flat id,
+// zero rows for dead (-inf) slots.
+__device__ void gather_payload(long long j, int kk,
+                               const float* __restrict__ vals,
+                               const int* __restrict__ ids,
+                               const float* __restrict__ pv,
+                               const float* __restrict__ pf, int dv, int m,
+                               float* __restrict__ rows_v,
+                               float* __restrict__ rows_f) {
+  const float* v = vals + j * kk;
+  const int* id = ids + j * kk;
+  for (long long i = threadIdx.x; i < (long long)kk * dv; i += blockDim.x) {
+    const long long e = i / dv;
+    rows_v[j * kk * dv + i] =
+        v[e] == -INFINITY ? 0.f : pv[(long long)id[e] * dv + (i - e * dv)];
+  }
+  for (long long i = threadIdx.x; i < (long long)kk * m; i += blockDim.x) {
+    const long long e = i / m;
+    rows_f[j * kk * m + i] =
+        v[e] == -INFINITY ? 0.f : pf[(long long)id[e] * m + (i - e * m)];
   }
 }
 
@@ -410,8 +497,7 @@ list_merge_kernel(const float* __restrict__ part_s,
   }
   trim(bs, bi, cnt, thr_s, thr_i, 1, cap, kk);
 
-  // keys -> flat ids; unfilled slots read as (-inf, id 0) and carry zero
-  // rows (bi keeps -1 for them, for the gather below)
+  // keys -> flat ids; unfilled slots read as (-inf, id 0)
   for (int e = tid; e < kk; e += kThreads) {
     const int key = bi[e];
     int id = 0;
@@ -425,26 +511,80 @@ list_merge_kernel(const float* __restrict__ part_s,
     }
     vals[j * kk + e] = bs[e];
     ids[j * kk + e] = id;
-    bi[e] = key == INT_MAX ? -1 : id;
   }
-  __syncthreads();
   if (rows_v == nullptr) return;
-  for (long long i = tid; i < (long long)kk * dv; i += kThreads) {
-    const long long e = i / dv;
-    const long long c = i - e * dv;
-    const int id = bi[e];
-    rows_v[j * kk * dv + i] = id < 0 ? 0.f : pv[(long long)id * dv + c];
-  }
-  for (long long i = tid; i < (long long)kk * m; i += kThreads) {
-    const long long e = i / m;
-    const long long c = i - e * m;
-    const int id = bi[e];
-    rows_f[j * kk * m + i] = id < 0 ? 0.f : pf[(long long)id * m + c];
-  }
+  __syncthreads();
+  gather_payload(j, kk, vals, ids, pv, pf, dv, m, rows_v, rows_f);
 }
 
-size_t list_scan_smem(int cap, int d) {
-  const size_t ds = (size_t)((d + 3) & ~3) + 4;
+// One query's scores in the selection path: the slots of its member lists
+// (dedup) or of its probes (batch), nseg segments of L in its row of the
+// scratch. A -inf (invalid) or NaN score does not compete, as it never
+// beats a buffer's threshold; -0.0 counts as +0.0. The key is the flat id
+// (dedup) or the probe position * L + slot (batch), as in pass 1.
+struct ListScores {
+  const float* s;
+  const float* member;   // (nseg, b) for dedup, null for batch
+  const int* uniq;
+  int nseg, L, b, j;
+  __device__ long long size() const { return (long long)nseg * L; }
+  __device__ bool get(long long e, u64* w) const {
+    const int seg = (int)(e / L);
+    if (member != nullptr && !(member[(long long)seg * b + j] > 0.5f))
+      return false;
+    const float v = s[e];
+    if (!(v > -INFINITY)) return false;
+    const int slot = (int)(e - (long long)seg * L);
+    *w = pack(ord_bits_eq0(v), member != nullptr ? uniq[seg] * L + slot
+                                                 : (int)e);
+    return true;
+  }
+};
+
+// The selection path's pass 2: one block per query. Sorts in shared memory,
+// or in (b, len) device scratch sw / spos when those are given.
+__global__ void __launch_bounds__(kSelThreads)
+list_select_kernel(const float* __restrict__ sel,
+                   const float* __restrict__ member,
+                   const int* __restrict__ src_list, int nsrc, int b,
+                   int nprobe, int L, int kk, int len, u64* __restrict__ sw,
+                   int* __restrict__ spos, float* __restrict__ vals,
+                   int* __restrict__ ids, const float* __restrict__ pv,
+                   const float* __restrict__ pf, int dv, int m,
+                   float* __restrict__ rows_v, float* __restrict__ rows_f) {
+  extern __shared__ __align__(16) unsigned char sel_smem[];
+  __shared__ SelectState st;
+  const long long j = blockIdx.x;
+  const bool dedup = member != nullptr;
+  const int nseg = dedup ? nsrc : nprobe;
+  u64* w = sw != nullptr ? sw + j * len : reinterpret_cast<u64*>(sel_smem);
+  int* pos = sw != nullptr ? spos + j * len : reinterpret_cast<int*>(w + len);
+  const float* s = sel + j * nseg * (long long)L;
+  const int count = select_sorted(
+      ListScores{s, member, src_list, nseg, L, b, (int)j}, kk, w, pos, len,
+      &st);
+  for (int e = threadIdx.x; e < kk; e += blockDim.x) {
+    int id = 0;
+    if (e < count) {
+      const int key = key_of(w[e]);
+      if (dedup) {
+        id = key;
+      } else {
+        const int p = key / L;
+        id = src_list[j * nprobe + p] * L + (key - p * L);
+      }
+    }
+    vals[j * kk + e] = e < count ? s[pos[e]] : -INFINITY;
+    ids[j * kk + e] = id;
+  }
+  if (rows_v == nullptr) return;
+  __syncthreads();
+  gather_payload(j, kk, vals, ids, pv, pf, dv, m, rows_v, rows_f);
+}
+
+// Pass 1's dynamic shared memory for dc staged columns (staged_cols(d)).
+size_t list_scan_smem(int cap, int dc) {
+  const size_t ds = (size_t)dc + 4;
   const size_t words = kBQ * ds + kTile * ds + 3 * kTile + 4 * kBQ + 8 +
                        2 * (size_t)kBQ * cap;
   return words * sizeof(float);
@@ -456,9 +596,10 @@ cudaError_t launch_list_scan(const void* grouped, const float* gsq,
                              const int* src_list, const float* member,
                              const int* offsets, int* next, const float* q,
                              int nsrc, int b, int nprobe, int L, int d, int kk,
-                             int cap, float* part_s, int* part_i,
+                             int cap, float* part_s, int* part_i, float* sel,
                              cudaStream_t st) {
-  const size_t smem = list_scan_smem(cap, d);
+  if (sel != nullptr) cap = 0;
+  const size_t smem = list_scan_smem(cap, staged_cols(d));
   cudaError_t err = cudaFuncSetAttribute(
       list_scan_kernel<ET>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -480,7 +621,7 @@ cudaError_t launch_list_scan(const void* grouped, const float* gsq,
   list_scan_kernel<ET><<<blocks, kThreads, smem, st>>>(
       static_cast<const typename Elem<ET>::T*>(grouped), gsq, gsc, valid,
       src_list, member, offsets, next, q, nsrc, b, nprobe, L, d, kk, cap,
-      part_s, part_i);
+      part_s, part_i, sel);
   return cudaGetLastError();
 }
 
@@ -490,17 +631,23 @@ cudaError_t launch_list_scan(const void* grouped, const float* gsq,
 // element type (0 fp32, 1 bf16, 2 int8) and gsc (nlist, max_list) its
 // per-slot scale, null for 1.0. member != nullptr selects the dedup
 // scan (src_list = uniq, nsrc = s slots, member (s, b)); member == nullptr
-// the batch scan (src_list = probes (b, nprobe), nsrc = b * nprobe). Scratch
-// part_s / part_i hold (nsrc * b, kk) entries for dedup and (b * nprobe, kk)
-// for batch; work holds 2 * nsrc + 2 ints (the plan's offsets, the work
-// counter, and each source's item count). The rows pointers (pv, pf, rows_v,
-// rows_f) are all null for the ids-only variants.
+// the batch scan (src_list = probes (b, nprobe), nsrc = b * nprobe).
+// Buffered path (sel null): scratch part_s / part_i hold (nsrc * b, kk)
+// entries for dedup and (b * nprobe, kk) for batch. Selection path (sel,
+// a (b, nseg, max_list) fp32 scratch with nseg = nsrc for dedup and nprobe
+// for batch, not null): cap, merge_cap and part_* are unused; the selection
+// sorts sort_len (a power of two >= kk) words a query in shared memory, or
+// in the (b, sort_len) scratch sort_w / sort_pos when those are not null.
+// work holds 2 * nsrc + 2 ints (the plan's offsets, the work counter, and
+// each source's item count). The rows pointers (pv, pf, rows_v, rows_f) are
+// all null for the ids-only variants.
 extern "C" int fcvi_ivf_score_topk(
     const void* grouped, int et, const float* gsq, const float* gsc,
     const float* valid, const int* src_list, int nsrc, const float* member,
     const float* q, int b, int nprobe, int L, int d, int kk, int cap,
-    int merge_cap, float* part_s, int* part_i, int* work, float* vals,
-    int* ids, const float* pv, const float* pf, int dv, int m, float* rows_v,
+    int merge_cap, float* part_s, int* part_i, float* sel, int sort_len,
+    void* sort_w, int* sort_pos, int* work, float* vals, int* ids,
+    const float* pv, const float* pf, int dv, int m, float* rows_v,
     float* rows_f, void* stream) {
   if (b <= 0) return (int)cudaSuccess;
   if (et != kF32 && et != kBF16 && et != kI8)
@@ -526,20 +673,32 @@ extern "C" int fcvi_ivf_score_topk(
         err = launch_list_scan<kF32>(grouped, gsq, gsc, valid, src_list,
                                      member, offsets, next, q, nsrc, b,
                                      nprobe, L, d, kk, cap, part_s, part_i,
-                                     st);
+                                     sel, st);
         break;
       case kBF16:
         err = launch_list_scan<kBF16>(grouped, gsq, gsc, valid, src_list,
                                       member, offsets, next, q, nsrc, b,
                                       nprobe, L, d, kk, cap, part_s, part_i,
-                                      st);
+                                      sel, st);
         break;
       default:
         err = launch_list_scan<kI8>(grouped, gsq, gsc, valid, src_list,
                                     member, offsets, next, q, nsrc, b, nprobe,
-                                    L, d, kk, cap, part_s, part_i, st);
+                                    L, d, kk, cap, part_s, part_i, sel, st);
     }
     if (err != cudaSuccess) return (int)err;
+  }
+  if (sel != nullptr) {
+    u64* sw = static_cast<u64*>(sort_w);
+    const size_t smem = select_smem(sort_len, sw == nullptr);
+    err = cudaFuncSetAttribute(list_select_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    list_select_kernel<<<b, kSelThreads, smem, st>>>(
+        sel, member, src_list, nsrc, b, nprobe, L, kk, sort_len, sw, sort_pos,
+        vals, ids, pv, pf, dv, m, rows_v, rows_f);
+    return (int)cudaGetLastError();
   }
   const size_t smem = sizeof(float) * (2 * (size_t)merge_cap + 4);
   err = cudaFuncSetAttribute(list_merge_kernel,

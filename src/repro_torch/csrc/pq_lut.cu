@@ -1,5 +1,6 @@
-// PQ asymmetric-distance (ADC) kernels: the LUT cross term and the
-// gather-accumulate scans.
+// PQ asymmetric-distance (ADC) kernels: the LUT cross term, the
+// gather-accumulate scans, and the fused ADC scan + top-k of the serving
+// path.
 //
 // Replaces three Pallas kernels for the TPU, all in
 // src/repro/kernels/pq_lut.py:
@@ -7,7 +8,7 @@
 //     q . codebook cross term of compute_luts, (b, M, dsub) x
 //     (M, ksub, dsub) -> (b, M, ksub);
 //   * pq_score_batch: d2[i, r] = sum_m luts[i, m, codes[r, m]], codes
-//     (n, M), luts (b, M, K) -> (b, n). The serving path passes the combined
+//     (n, M), luts (b, M, K) -> (b, n). Callers pass the combined
 //     (coarse id * ksub + code) index, so K = ncoarse * ksub;
 //   * pq_score: the same at one LUT, (n, M) x (M, K) -> (n,). Launched as
 //     pq_score_batch at b = 1 (the wrapper counts it apart).
@@ -39,9 +40,42 @@
 // each into its query's accumulator: every sum is the left-to-right fp32
 // sum over m = 0..M-1 that the TPU kernel's one-hot matmuls give. Output
 // offsets are 64-bit (b * n passes 2^31 at n >= 34M for b = 64); writes
-// are coalesced along the rows.
+// are coalesced along the rows. No serving path launches it: pq.search
+// takes the fused scan below; the tests and pq_score (B10) keep it.
+//
+// pq_score_topk: the serving path's redesign of pq_score_batch and the
+// first-occurrence top-k of its negated distances (the reference's
+// pq.search runs lax.top_k(-pq_score_batch(...))), as one kernel that never
+// writes the (b, n) distance matrix. Bound on the H100: bytes in principle
+// (the grouped uint8 codes, row ids and the batch's LUTs, about 29 MB at
+// b = 64, n = 1M, M = 8, against b * n * M adds), in practice its
+// shared-memory LUT reads and its candidate buffers. The rows are laid out
+// once, at build, stably grouped by coarse id (codes, original row ids,
+// group offsets), so a run of rows reads one coarse id's (M, ksub) slice
+// of the scan LUT, luts[q, m, c * ksub:(c + 1) * ksub]: 8 KB a query at
+// M = 8, ksub = 256. Pass 1 (pq_topk_kernel): one block per (query tile of
+// bq, chunk of grouped rows), about two blocks per SM per query tile; for
+// each coarse group the chunk touches, the block stages the tile's slices
+// in shared memory (or reads them from L2 when one query's slice does not
+// fit), then scores one row per thread as the left-to-right fp32 sum over
+// m of the staged entries, started from the first (the plain version's
+// value, bit for bit), and negates it. A score enters its query's
+// thresholded candidate buffer as one 64-bit word, (order-preserving bits
+// of -d2) << 32 | ~(original row id): topk_first_packed's key, so -0.0
+// ranks below +0.0 and equal scores go to the smaller row, as lax.top_k
+// orders them. When a buffer nears capacity, every buffer of the tile is
+// bitonic-sorted and cut to kk; the block writes its chunk's top-kk words.
+// These cuts, not the LUT reads, take most of its time (measured by
+// scripts/profile_topk.py: the scan without buffers is a third of it). Pass 2
+// (pq_merge_kernel): one block per query merges the chunks' words and
+// decodes the final (vals, ids). The selection path (the buffers do not
+// fit, or would shrink the tile to 4; or the caller asks): pass 1 writes
+// every -d2 to a (b, n) scratch in grouped order, and pq_select_kernel
+// radix-selects the top-kk words by the same key (select_common.cuh).
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "select_common.cuh"
 
 namespace {
 
@@ -49,6 +83,7 @@ constexpr int kThreads = 256;
 constexpr int kQTile = 8;      // queries per pq_lut_qdot block
 constexpr int kRowTile = kThreads;  // rows per pq_score block
 constexpr int kQGroup = 8;     // queries per pq_score block
+constexpr int kMaxBQ = 16;     // queries per pq_topk block, at most
 
 __global__ void __launch_bounds__(kThreads)
 pq_lut_qdot_kernel(const float* __restrict__ q_sub,
@@ -117,6 +152,221 @@ pq_score_kernel(const CodeT* __restrict__ codes,
   }
 }
 
+// Pass 1 of pq_score_topk: one block per (query tile of bq, chunk of
+// grouped rows). codes (n, M) and gid (n,) are in grouped order, goff
+// (ncoarse + 1,) the groups' offsets, luts (b, M, ncoarse * ksub). staged: the
+// tile's LUT slices live in shared memory, else they are read from L2.
+// Buffered: writes the chunk's top-kk words per query to part (b, nchunks,
+// kk), 0 past the chunk's rows. Selection (sel not null): writes -d2 to sel
+// (b, n) in grouped order.
+template <typename CodeT>
+__global__ void __launch_bounds__(kThreads)
+pq_topk_kernel(const CodeT* __restrict__ codes, const int* __restrict__ gid,
+               const int* __restrict__ goff, int ncoarse,
+               const float* __restrict__ luts, long long n, int b, int M,
+               int ksub, int bq, int staged, int kk, int cap,
+               long long chunk_rows, u64* __restrict__ part,
+               float* __restrict__ sel) {
+  extern __shared__ __align__(16) unsigned char pq_smem[];
+  __shared__ u64 thr[kMaxBQ];
+  __shared__ int cnt[kMaxBQ];
+  __shared__ int flag;
+  const long long K = (long long)ncoarse * ksub;
+  const int slice = M * ksub;                     // one query's LUT slice
+  float* lut_s = reinterpret_cast<float*>(pq_smem);
+  u64* buf = reinterpret_cast<u64*>(
+      pq_smem + (staged ? ((size_t)bq * slice * sizeof(float) + 15) & ~(size_t)15
+                        : 0));                    // (bq, cap)
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * bq;
+  const int nq = b - q0 < bq ? b - q0 : bq;
+  const long long r_begin = (long long)blockIdx.y * chunk_rows;
+  const long long r_end = r_begin + chunk_rows < n ? r_begin + chunk_rows : n;
+  const bool select = sel != nullptr;
+  if (!select)
+    for (int i = tid; i < bq * cap; i += kThreads) buf[i] = 0;
+  if (tid < kMaxBQ) {
+    thr[tid] = 0;                 // every real word is > 0
+    cnt[tid] = 0;
+  }
+  int c = 0;                      // the group holding r_begin
+  for (int lo = 0, hi = ncoarse - 1; lo < hi;) {
+    const int mid = (lo + hi + 1) / 2;
+    if (goff[mid] <= r_begin) lo = mid; else hi = mid - 1;
+    c = lo;
+  }
+  for (; c < ncoarse && goff[c] < r_end; ++c) {
+    const long long g0 = goff[c] > r_begin ? goff[c] : r_begin;
+    const long long g1 = goff[c + 1] < r_end ? goff[c + 1] : r_end;
+    if (g0 >= g1) continue;       // an empty group (uniform in the block)
+    const float* lbase;
+    long long qstride;
+    int ldm;
+    if (staged) {
+      __syncthreads();            // the previous group's readers are done
+      for (int i = tid; i < nq * slice; i += kThreads) {
+        const int qi = i / slice;
+        const int r = i - qi * slice;
+        const int m = r / ksub;
+        lut_s[i] = luts[((long long)(q0 + qi) * M + m) * K +
+                        (long long)c * ksub + (r - m * ksub)];
+      }
+      lbase = lut_s;
+      qstride = slice;
+      ldm = ksub;
+    } else {
+      lbase = luts + (long long)q0 * M * K + (long long)c * ksub;
+      qstride = (long long)M * K;
+      ldm = (int)K;
+    }
+    __syncthreads();
+    for (long long t0 = g0; t0 < g1; t0 += kThreads) {
+      const long long r = t0 + tid;
+      if (r < g1) {
+        float acc[kMaxBQ];
+        const CodeT* cr = codes + r * M;
+        for (int m = 0; m < M; ++m) {
+          const float* lm = lbase + (long long)m * ldm + (int)cr[m];
+#pragma unroll
+          for (int qi = 0; qi < kMaxBQ; ++qi) {
+            if (qi < nq) {
+              const float v = lm[qi * qstride];
+              acc[qi] = m == 0 ? v : acc[qi] + v;
+            }
+          }
+        }
+        const int id = gid[r];
+#pragma unroll
+        for (int qi = 0; qi < kMaxBQ; ++qi) {
+          if (qi >= nq) continue;
+          const float x = -acc[qi];
+          if (select) {
+            sel[(long long)(q0 + qi) * n + r] = x;
+          } else {
+            const u64 w = pack(ord_bits(x), id);
+            if (w > thr[qi]) {
+              const int pos = atomicAdd(&cnt[qi], 1);
+              buf[qi * cap + pos] = w;
+            }
+          }
+        }
+      }
+      if (select) continue;
+      __syncthreads();
+      if (tid == 0) {       // a buffer another step could overflow
+        int need = 0;
+        for (int qi = 0; qi < nq; ++qi) need |= cnt[qi] > cap - kThreads;
+        flag = need;
+      }
+      __syncthreads();
+      if (flag) trim_words(buf, cnt, thr, nq, cap, kk);
+    }
+  }
+  if (select) return;
+  __syncthreads();
+  trim_words(buf, cnt, thr, nq, cap, kk);
+  const long long nchunks = gridDim.y;
+  for (int i = tid; i < nq * kk; i += kThreads) {
+    const int qi = i / kk;
+    const int j = i - qi * kk;
+    part[((long long)(q0 + qi) * nchunks + blockIdx.y) * kk + j] =
+        buf[qi * cap + j];
+  }
+}
+
+// Pass 2 of pq_score_topk: one block per query merges its chunks' words
+// (len = nchunks * kk, 0 for an empty slot) and decodes the top-kk.
+__global__ void __launch_bounds__(kThreads)
+pq_merge_kernel(const u64* __restrict__ part, long long len, int kk, int cap,
+                float* __restrict__ vals, int* __restrict__ ids) {
+  extern __shared__ __align__(16) u64 mbuf[];     // (cap,)
+  __shared__ u64 thr;
+  __shared__ int cnt;
+  const int tid = threadIdx.x;
+  const long long qi = blockIdx.x;
+  for (int i = tid; i < cap; i += kThreads) mbuf[i] = 0;
+  if (tid == 0) {
+    thr = 0;
+    cnt = 0;
+  }
+  __syncthreads();
+  const u64* src = part + qi * len;
+  for (long long t0 = 0; t0 < len; t0 += kThreads) {
+    const long long t = t0 + tid;
+    if (t < len) {
+      const u64 w = src[t];
+      if (w > thr) mbuf[atomicAdd(&cnt, 1)] = w;
+    }
+    __syncthreads();
+    const bool full = cnt > cap - kThreads;
+    __syncthreads();
+    if (full) trim_words(mbuf, &cnt, &thr, 1, cap, kk);
+  }
+  trim_words(mbuf, &cnt, &thr, 1, cap, kk);
+  for (int j = tid; j < kk; j += kThreads) {
+    vals[qi * kk + j] = from_ord((unsigned)(mbuf[j] >> 32));
+    ids[qi * kk + j] = key_of(mbuf[j]);
+  }
+}
+
+// One query's -d2 in grouped order, keyed by the original row id.
+struct PqScores {
+  const float* s;
+  const int* gid;
+  long long n;
+  __device__ long long size() const { return n; }
+  __device__ bool get(long long e, u64* w) const {
+    *w = pack(ord_bits(s[e]), gid[e]);
+    return true;
+  }
+};
+
+// The selection path's pass 2: one block per query. Sorts in shared memory,
+// or in (b, len) device scratch sw / spos when those are given.
+__global__ void __launch_bounds__(kSelThreads)
+pq_select_kernel(const float* __restrict__ sel, const int* __restrict__ gid,
+                 long long n, int kk, int len, u64* __restrict__ sw,
+                 int* __restrict__ spos, float* __restrict__ vals,
+                 int* __restrict__ ids) {
+  extern __shared__ __align__(16) unsigned char sel_smem[];
+  __shared__ SelectState st;
+  const long long qi = blockIdx.x;
+  u64* w = sw != nullptr ? sw + qi * len : reinterpret_cast<u64*>(sel_smem);
+  int* pos = sw != nullptr ? spos + qi * len : reinterpret_cast<int*>(w + len);
+  const float* s = sel + qi * n;
+  select_sorted(PqScores{s, gid, n}, kk, w, pos, len, &st);
+  for (int j = threadIdx.x; j < kk; j += blockDim.x) {
+    vals[qi * kk + j] = s[pos[j]];
+    ids[qi * kk + j] = key_of(w[j]);
+  }
+}
+
+size_t pq_topk_smem(int bq, int staged, int cap, int M, int ksub) {
+  const size_t lut = staged ? ((size_t)bq * M * ksub * sizeof(float) + 15) &
+                                  ~(size_t)15
+                            : 0;
+  return lut + (size_t)bq * cap * sizeof(u64);
+}
+
+template <typename CodeT>
+int launch_pq_topk(const CodeT* codes, const int* gid, const int* goff,
+                   int ncoarse, const float* luts, long long n, int b, int M,
+                   int ksub, int bq, int staged, int kk, int cap, int nchunks,
+                   long long chunk_rows, u64* part, float* sel,
+                   cudaStream_t st) {
+  if (sel != nullptr) cap = 0;
+  const size_t smem = pq_topk_smem(bq, staged, cap, M, ksub);
+  cudaError_t err = cudaFuncSetAttribute(
+      pq_topk_kernel<CodeT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((b + bq - 1) / bq), (unsigned)nchunks);
+  pq_topk_kernel<CodeT><<<grid, kThreads, smem, st>>>(
+      codes, gid, goff, ncoarse, luts, n, b, M, ksub, bq, staged, kk, cap,
+      chunk_rows, part, sel);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int fcvi_pq_lut_qdot(const float* q_sub, const float* cb,
@@ -163,4 +413,59 @@ extern "C" int fcvi_pq_score(const void* codes, int code_bytes,
   if (code_bytes == 4)
     return launch_pq_score((const int32_t*)codes, luts, out, n, b, M, K, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The fused ADC scan + top-k over the grouped layout: codes (n, M) of
+// code_bytes bytes each (1: uint8, 4: int32) and gid (n,) in grouped order,
+// goff (ncoarse + 1,) int32, luts (b, M, ncoarse * ksub) fp32 -> vals (b, kk)
+// = -d2 and ids (b, kk) original row ids, ranked by the packed key. bq <=
+// 16 queries a block. Buffered path (sel null): part is a (b, nchunks, kk)
+// u64 scratch and merge_cap the merge's buffer. Selection path (sel, a
+// (b, n) fp32 scratch, not null): cap, merge_cap and part are unused; the
+// selection sorts sort_len (a power of two >= kk) words a query in shared
+// memory, or in the (b, sort_len) scratch sort_w / sort_pos when those are
+// not null.
+extern "C" int fcvi_pq_score_topk(const void* codes, int code_bytes,
+                                  const int* gid, const int* goff,
+                                  int ncoarse, const float* luts, long long n,
+                                  int b, int M, int ksub, int bq, int staged,
+                                  int kk, int cap, int nchunks,
+                                  long long chunk_rows, int merge_cap,
+                                  void* part, float* sel, int sort_len,
+                                  void* sort_w, int* sort_pos, float* vals,
+                                  int* ids, void* stream) {
+  if (n <= 0 || b <= 0) return (int)cudaSuccess;
+  if (bq < 1 || bq > kMaxBQ) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  u64* pw = static_cast<u64*>(part);
+  int err;
+  if (code_bytes == 1)
+    err = launch_pq_topk((const uint8_t*)codes, gid, goff, ncoarse, luts, n,
+                         b, M, ksub, bq, staged, kk, cap, nchunks, chunk_rows,
+                         pw, sel, st);
+  else if (code_bytes == 4)
+    err = launch_pq_topk((const int32_t*)codes, gid, goff, ncoarse, luts, n,
+                         b, M, ksub, bq, staged, kk, cap, nchunks, chunk_rows,
+                         pw, sel, st);
+  else
+    return (int)cudaErrorInvalidValue;
+  if (err != (int)cudaSuccess) return err;
+  if (sel != nullptr) {
+    u64* sw = static_cast<u64*>(sort_w);
+    const size_t smem = select_smem(sort_len, sw == nullptr);
+    cudaError_t e = cudaFuncSetAttribute(
+        pq_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    pq_select_kernel<<<b, kSelThreads, smem, st>>>(sel, gid, n, kk, sort_len,
+                                                   sw, sort_pos, vals, ids);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = sizeof(u64) * (size_t)merge_cap;
+  cudaError_t e = cudaFuncSetAttribute(
+      pq_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  pq_merge_kernel<<<b, kThreads, smem, st>>>(pw, (long long)nchunks * kk, kk,
+                                             merge_cap, vals, ids);
+  return (int)cudaGetLastError();
 }

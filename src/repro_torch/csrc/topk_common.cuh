@@ -1,7 +1,8 @@
 // Device helpers shared by the top-k scans (fused_score_topk.cu and
 // ivf_score.cu): the (score desc, key asc) total order, 16-byte cp.async
-// staging, the stored element types (fp32, bf16, int8) and their staging
-// cast up to fp32, and the thresholded candidate buffers' bitonic trim.
+// staging, the column chunk width, the stored element types (fp32, bf16,
+// int8) and their staging cast up to fp32, and the thresholded candidate
+// buffers' bitonic trim.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -28,6 +29,16 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// Columns of a row staged per chunk by the scans: rows of any width are
+// staged kDC columns at a time (d rounded up to 4, at most kDC), so shared
+// memory does not grow with d.
+constexpr int kDC = 128;
+
+__host__ __device__ __forceinline__ int staged_cols(int d) {
+  const int d4 = (d + 3) & ~3;
+  return d4 < kDC ? d4 : kDC;
 }
 
 // Stored element types of the scanned rows (the storage ladder), passed to
@@ -76,31 +87,34 @@ __device__ __forceinline__ void store_up(float* dst, uint4 w, Elem<kI8>) {
   }
 }
 
-// Stage rows of a tile of bf16 or int8 rows, cast up to fp32, into the
-// shared-memory layout the inner loop reads (row r at dst + r * ds). The
-// tile's `rows` rows are contiguous at src, each d elements wide, with
-// d * sizeof(T) a multiple of 16 and src 16-byte aligned; rows r with
-// live(r) false, and rows from `rows` up to kTileRows, are zero-filled
-// without a read. Each thread loads up to kLoads 16-byte words into
-// registers before it converts any, so those loads are in flight together.
-// The caller synchronises before the rows are read.
+// Stage a tile of bf16 or int8 rows, cast up to fp32, into the shared-memory
+// layout the inner loop reads (row r at dst + r * ds): `cw` columns of each
+// row, row r starting at src + r * ld (src is the first staged column of the
+// tile's first row). cw * sizeof(T), ld * sizeof(T) and the address of src
+// are multiples of 16 bytes. Rows r with live(r) false, and rows from `rows`
+// up to kTileRows, are zero-filled without a read. Each thread loads up to
+// kLoads 16-byte words into registers before it converts any, so those loads
+// are in flight together. The caller synchronises before the rows are read.
 template <int ET, int kTileRows, int kThreadsPerBlock, typename Live>
 __device__ __forceinline__ void stage_up(float* dst, int ds,
                                          const typename Elem<ET>::T* src,
-                                         int rows, int d, Live live) {
-  constexpr int kPer = 16 / sizeof(typename Elem<ET>::T);  // values a word
+                                         long long ld, int rows, int cw,
+                                         Live live) {
+  using T = typename Elem<ET>::T;
+  constexpr int kPer = 16 / sizeof(T);                     // values a word
   constexpr int kLoads = 8;
-  const int cpr = d / kPer;                                // words a row
+  const int cpr = cw / kPer;                               // words a row
   const int total = kTileRows * cpr;
-  const uint4* s4 = reinterpret_cast<const uint4*>(src);
   for (int base = 0; base < total; base += kLoads * kThreadsPerBlock) {
     uint4 w[kLoads];
 #pragma unroll
     for (int j = 0; j < kLoads; ++j) {
       const int i = base + j * kThreadsPerBlock + (int)threadIdx.x;
       const int r = i / cpr;
-      w[j] = (i < total && r < rows && live(r)) ? __ldg(s4 + i)
-                                                : make_uint4(0u, 0u, 0u, 0u);
+      w[j] = (i < total && r < rows && live(r))
+                 ? __ldg(reinterpret_cast<const uint4*>(
+                       src + r * ld + (i - r * cpr) * kPer))
+                 : make_uint4(0u, 0u, 0u, 0u);
     }
 #pragma unroll
     for (int j = 0; j < kLoads; ++j) {

@@ -9,11 +9,16 @@ d floats.
 
 Search mirrors the JAX package's kernel path (``use_pallas=True``): the
 LUT's cross term is ``ops.pq_lut_qdot``, the per-row coarse indirection is
-folded into a combined (coarse, code) index so that ``ops.pq_score_batch``
-scans the flattened (M, ncoarse * ksub) LUT, and a first-occurrence top-k
-of the negative distances picks the candidates. The combined codes,
-``coarse_id * ksub + code`` as (n, M) int32, are built once with the index
-(the reference rebuilds them on every search). Mirrors ``repro.index.pq``;
+folded into a combined (coarse, code) index over the flattened (M, ncoarse *
+ksub) LUT, and a first-occurrence top-k of the negative distances picks the
+candidates. The reference runs that as ``lax.top_k(-pq_score_batch(...))``;
+here it is one call, ``ops.pq_score_topk``: on the card a fused scan over
+the rows grouped by coarse id, each group reading its own (M, ksub) slice
+of the LUT, with no (q, n) distance matrix; on the CPU the plain
+``pq_score_batch`` + packed-key top-k over the combined codes. Both layouts
+are built once with the index: the combined codes, ``coarse_id * ksub +
+code`` as (n, M) int32 (the reference rebuilds them on every search), and
+the grouped layout (``PQIndex.grouped``). Mirrors ``repro.index.pq``;
 ``PQIndex.slab`` (the sharded layout) is ROADMAP A12.
 """
 from __future__ import annotations
@@ -24,7 +29,6 @@ import torch
 
 from repro_torch.core.clustering import Seed, kmeans, make_generator
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import topk_first_packed
 
 Tensor = torch.Tensor
 
@@ -38,6 +42,10 @@ class PQIndex:
     cb_sq: Tensor           # (M, ksub) ||codebook||^2
     coarse_dot: Tensor      # (ncoarse, M, ksub) center_m . codebook
     ccodes: Tensor          # (n, M) int32 combined coarse_id * ksub + code
+    # the rows stably grouped by coarse id, as the fused scan reads them:
+    # (codes (n, M) in that order, uint8 or int32; their row ids (n,) int32;
+    # the group offsets (ncoarse + 1,) int32; the offsets on the host)
+    grouped: tuple
 
     @property
     def size(self) -> int:
@@ -77,7 +85,26 @@ def from_arrays(codebooks: Tensor, codes: Tensor, coarse_centers: Tensor,
         coarse_ids=coarse_ids,
         cb_sq=torch.sum(codebooks * codebooks, dim=-1),
         coarse_dot=torch.einsum("cmd,mkd->cmk", centers_sub, codebooks),
-        ccodes=ccodes.contiguous())
+        ccodes=ccodes.contiguous(),
+        grouped=grouped_layout(codes, coarse_ids, coarse_centers.shape[0]))
+
+
+def grouped_layout(codes: Tensor, coarse_ids: Tensor, ncoarse: int) -> tuple:
+    """The rows in a stable order by coarse id: (codes (n, M) in that order,
+    uint8 kept, any other dtype as int32; the original row ids (n,) int32;
+    the group offsets (ncoarse + 1,) int32, group c holding rows
+    offsets[c]:offsets[c + 1]; the offsets as a host tuple, so planning a
+    scan needs no device sync)."""
+    order = torch.argsort(coarse_ids, stable=True)
+    gcodes = codes[order]
+    if gcodes.dtype not in (torch.uint8, torch.int32):
+        gcodes = gcodes.to(torch.int32)
+    counts = torch.bincount(coarse_ids.long(), minlength=ncoarse)
+    offsets = torch.zeros((ncoarse + 1,), dtype=torch.int32,
+                          device=codes.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    return (gcodes.contiguous(), order.to(torch.int32).contiguous(), offsets,
+            tuple(offsets.cpu().tolist()))
 
 
 def build(vectors: Tensor, m_subspaces: int = 8, ksub: int = 256,
@@ -150,9 +177,8 @@ def search(index: PQIndex, queries: Tensor, k: int):
     """ADC scan of every row through its coarse LUT. queries (q, d).
     Returns (scores (q, k) f32 = -squared ADC distance, ids (q, k) int32),
     ties to the smaller row id, as ``lax.top_k`` orders them."""
-    d2 = ops.pq_score_batch(index.ccodes, scan_luts(index, queries))
-    vals, pos = topk_first_packed(-d2, min(k, index.size))
-    return vals, pos.to(torch.int32)
+    return ops.pq_score_topk(index.ccodes, scan_luts(index, queries),
+                             min(k, index.size), index.grouped)
 
 
 def reconstruct(index: PQIndex, ids: Tensor) -> Tensor:

@@ -41,14 +41,17 @@ SIGNATURES = {
     "fcvi_fused_transform": [_P, _P, _P, _F, _P, _P, _P, _P, _P, _L, _I, _I,
                              _P],
     "fcvi_score_topk": [_P, _I, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I,
-                        _L, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
-                        _P],
+                        _L, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I,
+                        _I, _P, _P, _P, _P],
     "fcvi_rescore": [_P, _P, _P, _P, _F, _F, _P, _I, _I, _I, _I, _P],
     "fcvi_ivf_score_topk": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
-                            _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
-                            _I, _P, _P, _P],
+                            _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P,
+                            _P, _P, _P, _I, _I, _P, _P, _P],
     "fcvi_pq_lut_qdot": [_P, _P, _P, _I, _I, _I, _I, _P],
     "fcvi_pq_score": [_P, _I, _P, _P, _L, _I, _I, _I, _P],
+    "fcvi_pq_score_topk": [_P, _I, _P, _P, _I, _P, _L, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _L, _I, _P, _P, _I, _P, _P, _P, _P,
+                           _P],
 }
 
 _lock = threading.Lock()
@@ -184,6 +187,34 @@ def element_type(t: torch.Tensor, name: str):
         raise ValueError(f"{name} must be float32, bfloat16 or int8, got "
                          f"{t.dtype}")
     return ELEMENT_TYPES[t.dtype]
+
+
+DC = 128  # columns the scans stage per chunk (kDC in csrc/topk_common.cuh)
+
+
+def staged_cols(d: int) -> int:
+    """Columns of a row the scans stage per chunk: d rounded up to 4, at
+    most DC."""
+    return min((d + 3) & ~3, DC)
+
+
+# The selection path of the scans (csrc/select_common.cuh): one block per
+# query sorts a power of two >= kk packed words (8 bytes, plus a 4-byte
+# entry index) in shared memory up to this many bytes, else in device
+# scratch.
+SORT_SMEM_LIMIT = 196_608
+
+
+def select_scratch(rows: int, kk: int, device: torch.device):
+    """(sort_len, words, positions) for a selection over ``rows`` queries:
+    the power of two >= kk a block sorts, and the device scratch the sort
+    takes past shared memory (None each when it sorts in shared memory)."""
+    length = 1 << (kk - 1).bit_length()
+    if 12 * length <= SORT_SMEM_LIMIT:
+        return length, None, None
+    return (length,
+            torch.empty((rows, length), dtype=torch.int64, device=device),
+            torch.empty((rows, length), dtype=torch.int32, device=device))
 
 
 def count(name: str) -> None:

@@ -24,8 +24,14 @@ TPU kernels' running top-k orders them; dead slots read (-inf, id 0).
 
 Pass 1 is a persistent kernel whose blocks take work items, one list and
 up to four of its member queries each, and scan the list for those queries
-only; pass 2 merges each query's partials (see the source's header).
-``plan`` sizes the buffers; it is plain Python so the CPU tests reach it.
+only, staging rows of any width in column chunks of ``_build.DC``; pass 2 merges
+each query's partials (see the source's header). A k whose candidate
+buffers do not fit in shared memory takes the selection path (each member
+query's scores of each list to a scratch, then a radix select per query),
+with the same (vals, ids) bits and its own counters (``_select`` before the
+dtype suffix: ``ivf_score_topk_dedup_select``,
+``ivf_score_topk_dedup_rows_select_int8``, ...). ``plan`` sizes the
+buffers; it is plain Python so the CPU tests reach it.
 The plain versions are ``ref.ref_ivf_score_topk_*`` (``ops.ivf_score_topk``
 is the batch scan at batch 1 on either device, so it needs none of its
 own).
@@ -38,6 +44,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import staged_cols
 
 NAME_DEDUP = "ivf_score_topk_dedup"
 NAME_ROWS = "ivf_score_topk_dedup_rows"
@@ -46,7 +53,6 @@ NAME_BATCH = "ivf_score_topk_batch"
 TILE = 128            # list rows staged per step (kTile in the source)
 THREADS = 256         # threads per block (kThreads)
 BQ = 4                # member queries per pass-1 block (kBQ)
-MAX_K = 2048          # largest k the kernels take
 SMEM_LIMIT = 232_448  # shared memory one block may use on Hopper (bytes)
 
 
@@ -54,39 +60,54 @@ SMEM_LIMIT = 232_448  # shared memory one block may use on Hopper (bytes)
 class ListPlan:
     cap: int          # pass-1 candidate buffer per member query (power of 2)
     merge_cap: int    # pass-2 candidate buffer (power of two)
+    select: bool      # the selection path: no buffers (cap, merge_cap 0)
 
 
 def _pow2(x: int) -> int:
     return 1 << (x - 1).bit_length()
 
 
-def scan_smem(cap: int, d: int) -> int:
-    """Pass-1 dynamic shared memory in bytes (mirrors ``list_scan_smem`` in
-    the source). The same at every stored dtype: bf16 and int8 tiles are
-    cast up to fp32 as they are stored."""
-    ds = ((d + 3) & ~3) + 4
+def scan_smem(cap: int, dc: int) -> int:
+    """Pass-1 dynamic shared memory in bytes for ``dc`` staged columns
+    (``staged_cols``; mirrors ``list_scan_smem`` in the source). The same
+    at every stored dtype: bf16 and int8 tiles are cast up to fp32 as they
+    are stored."""
+    ds = dc + 4
     return 4 * (BQ * ds + TILE * ds + 3 * TILE + 4 * BQ + 8 + 2 * BQ * cap)
 
 
-def plan(k: int, d: int) -> ListPlan:
-    """Buffer sizes for top-``k`` over rows of width ``d``: each buffer
-    holds k plus two tiles, so a trim is needed at most every few tiles.
-    Raises for a k beyond the kernels' buffers or a width that does not fit
-    in shared memory."""
-    if not 0 < k <= MAX_K:
-        raise ValueError(f"k={k} outside the kernels' range 1..{MAX_K}")
-    cap = _pow2(k + 2 * TILE)
-    if scan_smem(cap, d) > SMEM_LIMIT:
-        raise ValueError(f"d={d} with k={k} does not fit in shared memory")
-    return ListPlan(cap=cap, merge_cap=_pow2(k + 2 * THREADS))
+def merge_smem(merge_cap: int) -> int:
+    """Pass-2 dynamic shared memory in bytes (the source's), beside the
+    merge kernel's 1 KB of static shared memory."""
+    return 4 * (2 * merge_cap + 4)
+
+
+def plan(k: int, d: int, select: Optional[bool] = None) -> ListPlan:
+    """Buffer sizes for top-``k`` over rows of width ``d``, for any k >= 1
+    (slots past the live candidates read (-inf, 0)): each buffer holds k
+    plus two tiles, so a trim is needed at most every few tiles; a k whose
+    buffers do not fit in shared memory takes the selection path
+    (``select`` forces either path)."""
+    if k <= 0:
+        raise ValueError(f"k={k} must be at least 1")
+    cap, merge_cap = _pow2(k + 2 * TILE), _pow2(k + 2 * THREADS)
+    fits = (scan_smem(cap, staged_cols(d)) <= SMEM_LIMIT
+            and merge_smem(merge_cap) <= SMEM_LIMIT - 1024)
+    if select is None:
+        select = not fits
+    elif not select and not fits:
+        raise ValueError(f"k={k}: the buffers do not fit")
+    if select:
+        cap = merge_cap = 0
+    return ListPlan(cap=cap, merge_cap=merge_cap, select=select)
 
 
 def _launch(grouped, grouped_sq, valid, src_list, member, queries, k,
-            payload_v=None, payload_f=None, scales=None):
+            payload_v=None, payload_f=None, scales=None, select=None):
     """Check the operands, allocate outputs and scratch, launch. ``member``
     None selects the batch scan (``src_list`` is the (b, nprobe) probe
     matrix), otherwise the dedup scan (``src_list`` is ``uniq``). Returns
-    (error code, counter suffix of the slab dtype, vals, ids, rows)."""
+    (error code, counter name infix and suffix, vals, ids, rows)."""
     if grouped.dim() != 3 or queries.dim() != 2:
         raise ValueError("grouped must be 3-D and queries 2-D")
     nlist, max_list, d = grouped.shape
@@ -117,9 +138,17 @@ def _launch(grouped, grouped_sq, valid, src_list, member, queries, k,
         _build.require(src_list, "uniq", (nsrc,), dev, torch.int32)
         _build.require(member, "member", (nsrc, b), dev)
         nparts = nsrc * b
-    p = plan(k, d)
-    part_s = torch.empty((nparts, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((nparts, k), dtype=torch.int32, device=dev)
+    p = plan(k, d, select)
+    part_s = part_i = sel = sort_w = sort_pos = None
+    sort_len = 0
+    if p.select:
+        nseg = nsrc if member is not None else nprobe
+        sel = torch.empty((max(1, b * nseg * max_list),), dtype=torch.float32,
+                          device=dev)
+        sort_len, sort_w, sort_pos = _build.select_scratch(b, k, dev)
+    else:
+        part_s = torch.empty((nparts, k), dtype=torch.float32, device=dev)
+        part_i = torch.empty((nparts, k), dtype=torch.int32, device=dev)
     work = torch.empty((2 * nsrc + 2,), dtype=torch.int32, device=dev)
     vals = torch.empty((b, k), dtype=torch.float32, device=dev)
     ids = torch.empty((b, k), dtype=torch.int32, device=dev)
@@ -138,17 +167,19 @@ def _launch(grouped, grouped_sq, valid, src_list, member, queries, k,
             grouped.data_ptr(), et, grouped_sq.data_ptr(), ptr(scales),
             valid.data_ptr(), src_list.data_ptr(), nsrc, ptr(member),
             queries.data_ptr(), b, nprobe, max_list, d, k, p.cap,
-            p.merge_cap, part_s.data_ptr(), part_i.data_ptr(),
-            work.data_ptr(), vals.data_ptr(), ids.data_ptr(), ptr(payload_v),
-            ptr(payload_f), dv, m, *map(ptr, rows), _build.stream(dev))
-    return code, suffix, vals, ids, rows
+            p.merge_cap, ptr(part_s), ptr(part_i), ptr(sel), sort_len,
+            ptr(sort_w), ptr(sort_pos), work.data_ptr(), vals.data_ptr(),
+            ids.data_ptr(), ptr(payload_v), ptr(payload_f), dv, m,
+            *map(ptr, rows), _build.stream(dev))
+    return code, ("_select" if p.select else "") + suffix, vals, ids, rows
 
 
 def ivf_score_topk_dedup(grouped: torch.Tensor, grouped_sq: torch.Tensor,
                          valid: torch.Tensor, uniq: torch.Tensor,
                          member: torch.Tensor, queries: torch.Tensor, k: int,
                          scales: Optional[torch.Tensor] = None,
-                         mask: Optional[torch.Tensor] = None):
+                         mask: Optional[torch.Tensor] = None, *,
+                         _select: Optional[bool] = None):
     """grouped (nlist, max_list, d) float32, bfloat16 or int8 codes,
     grouped_sq / valid (nlist, max_list) float32, uniq (s,) int32, member
     (s, b) float 0/1, queries (b, d), the optional scales (nlist, max_list)
@@ -160,16 +191,19 @@ def ivf_score_topk_dedup(grouped: torch.Tensor, grouped_sq: torch.Tensor,
     outside its kernel) is multiplied into ``valid`` here, and the same
     kernel runs: it keeps only rows whose valid flag is > 0.5 and skips
     tiles with none. Masked launches count apart
-    (``ivf_score_topk_dedup_masked`` and its ``_bf16``/``_int8``)."""
+    (``ivf_score_topk_dedup_masked`` and its ``_bf16``/``_int8``).
+    ``_select`` forces the selection path (True) or the buffered one
+    (False), for holding one against the other."""
     name = NAME_DEDUP
     if mask is not None:
         _build.require(mask, "mask", tuple(valid.shape), grouped.device)
         valid = valid * mask
         name += "_masked"
-    code, suffix, vals, ids, _ = _launch(grouped, grouped_sq, valid, uniq,
-                                         member, queries, k, scales=scales)
-    _build.check(code, name + suffix)
-    _build.count(name + suffix)
+    code, tag, vals, ids, _ = _launch(grouped, grouped_sq, valid, uniq,
+                                      member, queries, k, scales=scales,
+                                      select=_select)
+    _build.check(code, name + tag)
+    _build.count(name + tag)
     return vals, ids
 
 
@@ -178,29 +212,32 @@ def ivf_score_topk_dedup_rows(grouped: torch.Tensor, grouped_sq: torch.Tensor,
                               member: torch.Tensor, queries: torch.Tensor,
                               payload_v: torch.Tensor,
                               payload_f: torch.Tensor, k: int,
-                              scales: Optional[torch.Tensor] = None):
+                              scales: Optional[torch.Tensor] = None, *,
+                              _select: Optional[bool] = None):
     """``ivf_score_topk_dedup``'s (vals, ids) plus the winners' rows of the
     grouped fp32 payloads payload_v (nlist, max_list, dv) and payload_f
     (nlist, max_list, m): (b, k, dv) and (b, k, m), zero rows for dead
     slots."""
-    code, suffix, vals, ids, rows = _launch(grouped, grouped_sq, valid, uniq,
-                                            member, queries, k, payload_v,
-                                            payload_f, scales)
-    _build.check(code, NAME_ROWS + suffix)
-    _build.count(NAME_ROWS + suffix)
+    code, tag, vals, ids, rows = _launch(grouped, grouped_sq, valid, uniq,
+                                         member, queries, k, payload_v,
+                                         payload_f, scales, _select)
+    _build.check(code, NAME_ROWS + tag)
+    _build.count(NAME_ROWS + tag)
     return (vals, ids, *rows)
 
 
 def ivf_score_topk_batch(grouped: torch.Tensor, grouped_sq: torch.Tensor,
                          valid: torch.Tensor, probes: torch.Tensor,
                          queries: torch.Tensor, k: int,
-                         scales: Optional[torch.Tensor] = None):
+                         scales: Optional[torch.Tensor] = None, *,
+                         _select: Optional[bool] = None):
     """Query-major probed scan: probes (b, nprobe) int32 list ids, queries
     (b, d); the slab operands as in ``ivf_score_topk_dedup``. Returns (vals
     (b, k) f32, flat ids (b, k) int32); ties go to the earlier probe
     position, then the earlier slot."""
-    code, suffix, vals, ids, _ = _launch(grouped, grouped_sq, valid, probes,
-                                         None, queries, k, scales=scales)
-    _build.check(code, NAME_BATCH + suffix)
-    _build.count(NAME_BATCH + suffix)
+    code, tag, vals, ids, _ = _launch(grouped, grouped_sq, valid, probes,
+                                      None, queries, k, scales=scales,
+                                      select=_select)
+    _build.check(code, NAME_BATCH + tag)
+    _build.count(NAME_BATCH + tag)
     return vals, ids

@@ -159,6 +159,18 @@ def pq_score_batch(codes: Tensor, luts: Tensor) -> Tensor:
     return ref.ref_pq_score_batch(codes, luts)
 
 
+def pq_score_topk(codes: Tensor, luts: Tensor, k: int, grouped):
+    """The PQ serving path's fused ADC scan + first-occurrence top-k of the
+    negated distances: (vals (q, k) f32 = -d2, ids (q, k) int32 rows),
+    ranked as ``lax.top_k`` ranks them. codes (n, M) are the combined codes
+    in row order, which the plain version reads; ``grouped`` is the index's
+    coarse-grouped layout (codes, row ids, offsets, offsets on the host;
+    ``index.pq.PQIndex.grouped``), which the kernel reads."""
+    if codes.is_cuda:
+        return _pq.pq_score_topk(*grouped, luts, k)
+    return ref.ref_pq_score_topk(codes, luts, k)
+
+
 def pq_score(codes: Tensor, lut: Tensor) -> Tensor:
     """Single-LUT ADC: codes (n, M), lut (M, K) -> squared distances (n,)."""
     if codes.is_cuda:

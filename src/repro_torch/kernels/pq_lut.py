@@ -10,6 +10,14 @@ One CUDA source (``csrc/pq_lut.cu``) replaces the three Pallas kernels of
 * ``pq_score`` (B10): the same at one LUT, (M, K) -> (n,); B9's kernel
   launched at b = 1, counted under its own name.
 
+and, for the serving path, ``pq_score_topk``: B9 and the first-occurrence
+top-k of its negated distances as one fused scan over the rows grouped by
+coarse id (``index.pq.PQIndex``'s grouped layout), staging each group's
+LUT slice in shared memory and never writing the (b, n) distances; its
+(vals, ids) are ``ref.ref_pq_score_topk``'s bits. Past the candidate
+buffers' kk it takes the selection path (counted
+``pq_score_topk_select``). No serving path launches B9 any more.
+
 The wrappers take unpadded shapes (the JAX ``pq_score`` needs n to divide
 its row block; these do not), check operands, launch on the current stream
 and count launches in ``_build``. Codes must lie in [0, K): the kernel
@@ -18,6 +26,10 @@ either. The plain versions are ``ref.ref_pq_*``.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
+from typing import Optional, Sequence
+
 import torch
 
 from repro_torch.kernels import _build
@@ -25,10 +37,15 @@ from repro_torch.kernels import _build
 NAME_QDOT = "pq_lut_qdot"
 NAME_BATCH = "pq_score_batch"
 NAME_SCORE = "pq_score"
+NAME_TOPK = "pq_score_topk"
 
 Q_TILE = 8            # queries per pq_lut_qdot block (kQTile in the source)
 SMEM_LIMIT = 232_448  # shared memory one block may use on Hopper (bytes)
 ROW_TILE = 256        # rows per pq_score block (kRowTile)
+THREADS = 256         # threads per pq_score_topk block (kThreads)
+MAX_BQ = 16           # queries per pq_score_topk block, at most (kMaxBQ)
+# pq_score_topk's dynamic shared memory, beside its static thresholds
+TOPK_SMEM_LIMIT = SMEM_LIMIT - 1024
 CODE_BYTES = {torch.uint8: 1, torch.int32: 4}
 
 
@@ -97,3 +114,131 @@ def pq_score(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     if lut.dim() != 2:
         raise ValueError("lut must be 2-D (M, K)")
     return _score(codes, lut[None], NAME_SCORE)[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class TopkPlan:
+    bq: int           # queries per pass-1 block (1..MAX_BQ)
+    staged: bool      # the query tile's LUT slices live in shared memory
+    cap: int          # pass-1 candidate buffer per query (power of two)
+    nchunks: int      # chunks of grouped rows, one pass-1 block column each
+    chunk_rows: int   # grouped rows per chunk (multiple of THREADS)
+    merge_cap: int    # pass-2 candidate buffer (power of two)
+    select: bool      # the selection path: no buffers (cap, merge_cap 0)
+
+
+def _pow2(x: int) -> int:
+    return 1 << (x - 1).bit_length()
+
+
+def topk_smem(bq: int, staged: bool, cap: int, m: int, ksub: int) -> int:
+    """pq_score_topk's pass-1 dynamic shared memory in bytes (the source's
+    ``pq_topk_smem``): the tile's (M, ksub) LUT slices when staged, padded
+    to 16 bytes, and its 8-byte candidate words."""
+    lut = (bq * m * ksub * 4 + 15) & ~15 if staged else 0
+    return lut + 8 * bq * cap
+
+
+def topk_plan(n: int, b: int, kk: int, m: int, ksub: int, num_sms: int,
+              select: Optional[bool] = None) -> TopkPlan:
+    """Launch shape of ``pq_score_topk`` for any 1 <= kk <= n: the widest
+    query tile (16, 8, 4, 2, 1) whose LUT slices (4 * M * ksub bytes a
+    query) and candidate buffers (kk plus one step of rows: a step adds at
+    most THREADS candidates a query, and a full buffer is cut back to kk)
+    fit in shared memory; the slices are read from L2 when one query's do
+    not fit. A kk whose buffers do not fit, or shrink the query tile to 4
+    or fewer below what the slices alone allow, takes the selection path
+    (``select`` forces either path). The chunk count gives about two
+    blocks per SM."""
+    if not 0 < kk <= n:
+        raise ValueError(f"k={kk} outside 1..{n} (the corpus size)")
+    cap = merge_cap = _pow2(kk + THREADS)
+    widest = max(1, min(MAX_BQ, _pow2(b)))
+
+    def pick(cap):
+        for staged in (True, False):
+            bq = widest
+            while bq > 1 and topk_smem(bq, staged, cap, m, ksub) > \
+                    TOPK_SMEM_LIMIT:
+                bq //= 2
+            if topk_smem(bq, staged, cap, m, ksub) <= TOPK_SMEM_LIMIT:
+                return bq, staged
+        return None
+
+    fit, bare = pick(cap), pick(0)
+    fits = fit is not None and 8 * merge_cap <= SMEM_LIMIT
+    if select is None:
+        # the buffers shrinking the tile to 4 or fewer: measured on the H100
+        # at kk=2048, b=64, the buffered path's trims took 9.8 ms of a
+        # 10.4 ms call, the selection path 3.7 ms in all
+        select = not fits or fit[0] <= 4 < bare[0]
+    elif not select and not fits:
+        raise ValueError(f"kk={kk}: the buffers do not fit")
+    if select:
+        cap = merge_cap = 0
+        fit = bare
+    bq, staged = fit
+    qtiles = math.ceil(b / bq)
+    nchunks = max(1, min(math.ceil(n / THREADS),
+                         math.ceil(2 * num_sms / qtiles)))
+    chunk_rows = math.ceil(math.ceil(n / nchunks) / THREADS) * THREADS
+    nchunks = math.ceil(n / chunk_rows)
+    return TopkPlan(bq=bq, staged=staged, cap=cap, nchunks=nchunks,
+                    chunk_rows=chunk_rows, merge_cap=merge_cap,
+                    select=select)
+
+
+def pq_score_topk(codes: torch.Tensor, ids: torch.Tensor,
+                  offsets: torch.Tensor, offsets_host: Sequence[int],
+                  luts: torch.Tensor, k: int, *,
+                  _select: Optional[bool] = None):
+    """The fused ADC scan + first-occurrence top-k over the grouped layout:
+    codes (n, M) uint8 or int32 and ids (n,) int32 (original row ids) in
+    coarse-grouped order, offsets (ncoarse + 1,) int32 the groups' offsets
+    on the card and ``offsets_host`` the same on the host, luts (b, M,
+    ncoarse * ksub) float32. Returns (vals (b, k) f32 = -d2, ids (b, k)
+    int32 original row ids), ranked by the order-preserving bits of -d2,
+    then the smaller id. ``_select`` forces the selection path (True) or
+    the buffered one (False), for holding one against the other."""
+    if codes.dim() != 2 or luts.dim() != 3:
+        raise ValueError("codes must be 2-D and luts 3-D")
+    n, m = codes.shape
+    b, _, width = luts.shape
+    ncoarse = len(offsets_host) - 1
+    dev = codes.device
+    if codes.dtype not in CODE_BYTES:
+        raise ValueError(f"codes must be uint8 or int32, got {codes.dtype}")
+    if ncoarse < 1 or width % ncoarse or offsets_host[-1] != n:
+        raise ValueError("offsets must hold ncoarse + 1 group offsets ending "
+                         f"at n={n}, with luts {ncoarse} groups wide")
+    ksub = width // ncoarse
+    _build.require(codes, "codes", (n, m), dev, codes.dtype)
+    _build.require(ids, "ids", (n,), dev, torch.int32)
+    _build.require(offsets, "offsets", (ncoarse + 1,), dev, torch.int32)
+    _build.require(luts, "luts", (b, m, width), dev)
+    p = topk_plan(n, b, k, m, ksub,
+                  torch.cuda.get_device_properties(dev).multi_processor_count,
+                  _select)
+    part = sel = sort_w = sort_pos = None
+    sort_len = 0
+    if p.select:
+        sel = torch.empty((b, n), dtype=torch.float32, device=dev)
+        sort_len, sort_w, sort_pos = _build.select_scratch(b, k, dev)
+    else:
+        part = torch.empty((b, p.nchunks, k), dtype=torch.int64, device=dev)
+    vals = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_ids = torch.empty((b, k), dtype=torch.int32, device=dev)
+    ptr = _build.ptr
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        code = lib.fcvi_pq_score_topk(
+            codes.data_ptr(), CODE_BYTES[codes.dtype], ids.data_ptr(),
+            offsets.data_ptr(), ncoarse, luts.data_ptr(), n, b, m, ksub,
+            p.bq, int(p.staged), k, p.cap, p.nchunks, p.chunk_rows,
+            p.merge_cap, ptr(part), ptr(sel), sort_len, ptr(sort_w),
+            ptr(sort_pos), vals.data_ptr(), out_ids.data_ptr(),
+            _build.stream(dev))
+    name = NAME_TOPK + ("_select" if p.select else "")
+    _build.check(code, name)
+    _build.count(name)
+    return vals, out_ids

@@ -273,3 +273,14 @@ def topk_first_packed(x: Tensor, k: int):
     top = torch.topk(keys, k, dim=-1).values
     pos = (1 << 32) - 1 - (top & 0xFFFFFFFF)
     return torch.gather(x, -1, pos), pos
+
+
+def ref_pq_score_topk(codes: Tensor, luts: Tensor, k: int):
+    """The PQ serving path's scan + selection: the first-occurrence top-k of
+    the negated ADC distances, ``topk_first_packed(-ref_pq_score_batch(codes,
+    luts), k)``, as ``lax.top_k(-pq_score_batch(...))`` in the reference:
+    -0.0 ranks below +0.0, equal scores go to the smaller row. codes (n, M)
+    combined codes in row order. Returns (vals (q, k) f32, ids (q, k)
+    int32)."""
+    vals, pos = topk_first_packed(-ref_pq_score_batch(codes, luts), k)
+    return vals, pos.to(torch.int32)

@@ -55,7 +55,6 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.index import flat as flat_mod
 from repro_torch.index import ivf as ivf_mod
 from repro_torch.kernels import ops
-from repro_torch.kernels.fused_score_topk import MAX_K
 from repro_torch.kernels.ref import topk_first
 from repro_torch.serve.health import BackpressureError, TransientShardError
 from repro_torch.serve.planner import (CANDIDATE_PAD, PLAN_FOLD, PLAN_MASK,
@@ -580,11 +579,6 @@ class FCVIEngine:
         kp = self.planner.kp_for(chosen, cp, k)
         if self.index.config.backend == "flat":
             kp = min(kp, self.index.size)  # the scan's width <= the corpus
-        if chosen == PLAN_FOLD and self.device.type == "cuda" and kp > MAX_K:
-            # the reference computes it; the card's scan holds kk <= MAX_K
-            raise ValueError(
-                f"plan='fold' at this selectivity needs kp={kp} candidates, "
-                f"beyond the scan kernel's MAX_K={MAX_K}; use plan='mask'")
         self.stats.queries += n
         self.stats.filtered_queries += n
         setattr(self.stats, f"plan_{chosen}",

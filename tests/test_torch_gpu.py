@@ -24,6 +24,8 @@ from repro_torch.core import fcvi
 from repro_torch.data.synthetic import CorpusSpec, make_corpus, sample_queries
 from repro_torch.index import pq
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import fused_score_topk as scan
+from repro_torch.kernels import ivf_score, pq_lut
 from repro_torch.serve.engine import EngineConfig, FCVIEngine
 from test_torch_support import (assert_topk_match,  # noqa: F401
                                 candidate_ties, cuda, ivf_inputs, normal,
@@ -188,7 +190,7 @@ def test_ivf_wrappers_count_launches_and_check_inputs(cuda):
                 lambda: ops.ivf_score_topk_dedup(g, gsq, valid, uniq,
                                                  member.T.contiguous(), q, 5),
                 lambda: ops.ivf_score_topk_batch(g, gsq, valid, probes, q,
-                                                 2049)):
+                                                 0)):
         with pytest.raises(ValueError):
             bad()
     assert _build.launch_counts() == want
@@ -312,9 +314,10 @@ def test_pq_wrappers_count_launches_and_check_inputs(cuda):
 
 
 def test_pq_engine_on_card_matches_cpu_engine(cuda):
-    """The PQ serving path through B1, B8, B9, B4 and (delta tier) B2, with
-    escalation and compaction, against the plain path on the same state;
-    queries at a candidate near-tie are left out."""
+    """The PQ serving path through B1, B8, the fused ADC scan + top-k, B4
+    and (delta tier) B2, with escalation and compaction, against the plain
+    path on the same state; queries at a candidate near-tie are left out.
+    B9 (pq_score_batch) is off the serving path."""
     corpus = make_corpus(CorpusSpec(n=4000, d=64, n_categories=5,
                                     n_numeric=3, seed=2))
     q, fq = sample_queries(corpus, 100, seed=3)
@@ -340,9 +343,10 @@ def test_pq_engine_on_card_matches_cpu_engine(cuda):
                       atol=1e-5)
     assert engines[0].stats.escalations == engines[1].stats.escalations > 0
     counts = _build.launch_counts()
-    for name in ("fused_transform", "pq_lut_qdot", "pq_score_batch",
+    for name in ("fused_transform", "pq_lut_qdot", "pq_score_topk",
                  "rescore", "score_topk"):
         assert counts.get(name, 0) > 0, counts
+    assert counts.get("pq_score_batch", 0) == 0, counts
     engines[0].compact()
     assert engines[0].index.size == 4300
     s, i = engines[0].search(q, fq)
@@ -766,16 +770,300 @@ def test_predicate_engine_on_card_matches_cpu_engine(cuda, backend, storage):
     assert counts.get(scan, 0) > 0, counts
 
 
-def test_forced_fold_beyond_max_k_raises_on_card(cuda):
-    """A forced fold plan on a selective predicate asks for more candidates
-    than the scan kernel holds; the card engine names the limit instead of
-    running anything else."""
-    from repro_torch.core.filters import F
+def test_forced_fold_at_kp_4096_equals_mask_on_card(cuda):
+    """A forced fold plan on a selective predicate asks for kp=4096
+    candidates, past what the scan's buffers hold: the scan takes its
+    selection path, and the result equals the mask plan's bit for bit."""
+    from repro_torch.core.filters import F, compile_predicate
 
     corpus, q = _predicate_case(n=9000)
     ix = fcvi.build(corpus.vectors, corpus.filters, fcvi.FCVIConfig(),
                     device=cuda)
     eng = FCVIEngine(ix, EngineConfig(k=10), device=cuda,
                      attributes=corpus.filters)
-    with pytest.raises(ValueError, match="MAX_K"):
-        eng.search(q, filter=F.range("f7", 0.0, 0.01), plan="fold")
+    pred = F.range("f7", 0.0, 0.01)
+    kp = eng.planner.kp_for("fold", compile_predicate(pred, eng._attr_names),
+                            10)
+    assert kp >= 4096 and scan.plan(9000, 40, kp, 64, 132).select
+    _build.reset_launch_counts()
+    fs, fi = eng.search(q, filter=pred, plan="fold")
+    assert _build.launch_counts().get("score_topk_select", 0) > 0
+    ms, mi = eng.search(q, filter=pred, plan="mask")
+    assert np.array_equal(fs, ms) and np.array_equal(fi, mi)
+
+
+# -- shapes past the buffers and wide rows: the selection path, d-chunks ----
+
+def _equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("d", [384, 960])
+@pytest.mark.parametrize("kk", [88, 2056])
+def test_wide_rows_and_large_kk_match_plain(cuda, d, kk):
+    """B2, B3 and B2 masked at sentence-embedding and GIST widths (several
+    column chunks), at the default kk and at EngineConfig(k=64)'s escalated
+    kk=2056, against their plain versions; B3 bit-equal to B2."""
+    x, sq, q, pv, pf = (tensor(a, cuda) for a in scan_inputs(3000, 9, d=d))
+    vals, ids = ops.score_topk(x, sq, q, kk)
+    rv, ri = ref.ref_score_topk(x, sq, q, kk + 1)
+    assert_topk_match(rv[:, :kk].cpu(), ri[:, :kk].cpu(), vals.cpu(),
+                      ids.cpu(), rtol=L2_RTOL, atol=L2_ATOL,
+                      next_vals=rv[:, -1].cpu())
+    out = ops.score_topk_rows(x, sq, pv, pf, q, kk)
+    assert _equal(out[:2], (vals, ids))
+    idx = ids.long()
+    assert _equal(out[2:], (x[idx], pv[idx], pf[idx]))
+    mask = _row_mask(3000, "sparse", cuda)
+    mv, mi = ops.score_topk(x, sq, q, kk, mask=mask)
+    rv, ri = ref.ref_score_topk(x, sq, q, kk, mask=mask)
+    live = ~torch.isneginf(rv)
+    assert torch.equal(torch.isneginf(mv), ~live)
+    assert_topk_match(torch.where(live, rv, -1e30).cpu(), ri.cpu(),
+                      torch.where(live, mv, -1e30).cpu(), mi.cpu(),
+                      rtol=L2_RTOL, atol=L2_ATOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("n,b,kk,d", [(3000, 9, 88, 64), (3000, 64, 2048, 128),
+                                      (700, 1, 700, 960), (500, 3, 1, 30),
+                                      (6000, 17, 5000, 384)])
+def test_select_path_bit_equal_to_buffered(cuda, dtype, n, b, kk, d):
+    """The selection path against the buffered path, bit for bit: every
+    stored dtype, the rows variant and the mask, one query with kk = n, a
+    width that is no multiple of 4, and a kk past the buffers (where only
+    the selection path runs, held against the plain version)."""
+    x, sq, q, pv, pf = (tensor(a, cuda) for a in scan_inputs(n, b, d=d))
+    if dtype == "float32":
+        rows, scales, rsq = x, None, sq
+    else:
+        rows, scales, rsq = _stored(x, dtype)
+    mask = _row_mask(n, "sparse", cuda)
+    big = scan.scan_smem(4, scan._pow2(kk + 2 * scan.TILE),
+                         scan.staged_cols(d)) > scan.SMEM_LIMIT
+    for kw in (dict(scales=scales), dict(scales=scales, mask=mask)):
+        sel = scan.score_topk(rows, rsq, q, kk, **kw, _select=True)
+        if big:
+            rv, ri = ref.ref_score_topk(rows, rsq, q, kk, **kw)
+            live = ~torch.isneginf(rv)
+            assert torch.equal(torch.isneginf(sel[0]), ~live)
+            assert_topk_match(torch.where(live, rv, -1e30).cpu(), ri.cpu(),
+                              torch.where(live, sel[0], -1e30).cpu(),
+                              sel[1].cpu(), rtol=L2_RTOL, atol=L2_ATOL)
+        else:
+            assert _equal(sel, scan.score_topk(rows, rsq, q, kk, **kw,
+                                               _select=False))
+    out = scan.score_topk_rows(rows, rsq, pv, pf, q, kk, scales,
+                               _select=True)
+    assert _equal(out[:2], scan.score_topk(rows, rsq, q, kk, scales,
+                                           _select=True))
+    if not big:
+        assert _equal(out, scan.score_topk_rows(rows, rsq, pv, pf, q, kk,
+                                                scales, _select=False))
+
+
+def test_select_path_ties_and_signed_zeros(cuda):
+    """Exact ties go to the smaller id on both paths; -0.0 and +0.0 scores
+    (zero query, zero int8 rows with scales of either sign) count equal, as
+    better() counts them, and keep their bits."""
+    x, sq, q = (tensor(a, cuda) for a in tie_inputs())
+    for kk in (40, 600):
+        a = scan.score_topk(x, sq, q, kk, _select=True)
+        assert _equal(a, scan.score_topk(x, sq, q, kk, _select=False))
+        assert _equal(a, ref.ref_score_topk(x, sq, q, kk))
+    codes = torch.zeros((300, 16), dtype=torch.int8, device=cuda)
+    scales = torch.where(torch.arange(300, device=cuda) % 3 == 0, -1.0, 1.0)
+    zsq = torch.zeros(300, device=cuda)
+    zq = torch.zeros((2, 16), device=cuda)
+    a = scan.score_topk(codes, zsq, zq, 100, scales, _select=True)
+    b = scan.score_topk(codes, zsq, zq, 100, scales, _select=False)
+    assert _equal(a, b) and (a[1] == torch.arange(100, device=cuda)).all()
+    assert torch.signbit(a[0][:, 0]).all()       # row 0 scores -0.0
+
+
+@pytest.mark.parametrize("d", [128, 384, 960])
+@pytest.mark.parametrize("k", [18, 300, 3200])
+def test_ivf_select_and_wide_rows(cuda, d, k):
+    """B5, B6 and B7 at several column chunks and at k'=3200 (IVF at
+    EngineConfig(k=100)) against their plain versions; the selection path
+    bit-equal to the buffered one, the mask and the int8 rung included."""
+    g, gsq, valid, probes, q, pv, pf = (
+        tensor(a, cuda) for a in ivf_inputs(24, 200, 7, 6, d=d))
+    uniq, member = ops.dedup_probes(probes, 24)
+    ded = (g, gsq, valid, uniq, member, q)
+    got = ops.ivf_score_topk_dedup(*ded, k)
+    _ivf_check(got, ref.ref_ivf_score_topk_dedup(*ded, k),
+               ref.ref_ivf_score_topk_dedup(*ded, k + 1))
+    sel = ivf_score.ivf_score_topk_dedup(*ded, k, _select=True)
+    assert _equal(sel, got)
+    rows = ivf_score.ivf_score_topk_dedup_rows(*ded, pv, pf, k)
+    assert _equal(rows, ivf_score.ivf_score_topk_dedup_rows(
+        *ded, pv, pf, k, _select=True))
+    bat = (g, gsq, valid, probes, q)
+    got = ops.ivf_score_topk_batch(*bat, k)
+    _ivf_check(got, ref.ref_ivf_score_topk_batch(*bat, k),
+               ref.ref_ivf_score_topk_batch(*bat, k + 1))
+    assert _equal(got, ivf_score.ivf_score_topk_batch(*bat, k, _select=True))
+    gmask = (torch.rand(valid.shape, generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda) < 0.3).float()
+    assert _equal(
+        ivf_score.ivf_score_topk_dedup(*ded, k, mask=gmask),
+        ivf_score.ivf_score_topk_dedup(*ded, k, mask=gmask, _select=True))
+    flat, gs, fsq = _stored(g.reshape(-1, d), "int8")
+    i8 = (flat.reshape(g.shape), fsq.reshape(gsq.shape), valid, uniq, member,
+          q)
+    gsc = gs.reshape(gsq.shape)
+    assert _equal(ivf_score.ivf_score_topk_dedup(*i8, k, gsc),
+                  ivf_score.ivf_score_topk_dedup(*i8, k, gsc, _select=True))
+
+
+def test_ivf_select_ties_dense_member_and_routed_tail(cuda):
+    """Exact ties on integer data: the selection path keeps the smaller
+    flat id (dedup) and the earlier probe position (batch), as the buffered
+    path does; a dense member matrix; a uniq whose tail repeats a live list
+    with an empty member column (the routed plan's layout); a k past the
+    buffers against the plain version."""
+    g, gsq, valid, probes, q, _, _ = (
+        tensor(a, cuda) for a in ivf_inputs(12, 48, 6, 5, d=16, ints=True))
+    probes[0, 4] = probes[0, 1]
+    uniq, member = ops.dedup_probes(probes, 12)
+    for k in (30, 150):
+        args = (g, gsq, valid, uniq, member, q)
+        assert _equal(ivf_score.ivf_score_topk_dedup(*args, k, _select=True),
+                      ref.ref_ivf_score_topk_dedup(*args, k))
+        bat = (g, gsq, valid, probes, q)
+        assert _equal(ivf_score.ivf_score_topk_batch(*bat, k, _select=True),
+                      ref.ref_ivf_score_topk_batch(*bat, k))
+    tail = torch.tensor([3, 7, 3, 3], dtype=torch.int32, device=cuda)
+    mem = torch.zeros((4, 6), device=cuda)
+    mem[:2] = 1.0
+    args = (g, gsq, valid, tail, mem, q)
+    for k in (20, 5000):
+        want = ref.ref_ivf_score_topk_dedup(*args, k)
+        assert _equal(ivf_score.ivf_score_topk_dedup(*args, k, _select=True),
+                      want)
+        assert _equal(ops.ivf_score_topk_dedup(*args, k), want)
+
+
+def _pq_case(n, m, ksub, ncoarse, b, dtype, dev, seed=0,
+             signed_zeros=False):
+    """(combined codes, grouped layout, luts) of a random PQ corpus on
+    ``dev``: quarter-integer LUTs (equal sums are common), or with
+    ``signed_zeros`` LUT entries of +0.0 and -0.0 and a few 0.5s, so sums
+    tie and -0.0 sums occur."""
+    rng = np.random.default_rng(seed)
+    codes = tensor(rng.integers(0, ksub, (n, m)), dev).to(dtype)
+    coarse = tensor(rng.integers(0, ncoarse, n), dev).to(torch.int32)
+    if signed_zeros:
+        luts = np.where(rng.random((b, m, ncoarse * ksub)) < 0.5, -0.0,
+                        0.0).astype(np.float32)
+        luts[:, :, ::7] = 0.5
+    else:
+        luts = rng.integers(0, 40, (b, m, ncoarse * ksub)).astype(
+            np.float32) * 0.25
+    layout = pq.grouped_layout(codes, coarse, ncoarse)
+    ccodes = coarse[:, None] * ksub + codes.to(torch.int32)
+    return ccodes, layout, tensor(luts, dev)
+
+
+@pytest.mark.parametrize("m", [8, 16, 64, 128])
+@pytest.mark.parametrize("kk", [80, 320, 2048])
+def test_pq_score_topk_bit_equal_to_plain(cuda, m, kk):
+    """The fused ADC scan + top-k bit for bit against ``ref_pq_score_topk``
+    at M in {8, 16, 64, 128} (query tiles 16 down to 1) and the serving
+    kk's, on quarter-integer LUTs (many equal scores), b of one tile and of
+    several, uint8 codes; B9 stays off this path."""
+    for b in (1, 16, 64):
+        ccodes, layout, luts = _pq_case(5000, m, 256, 32, b, torch.uint8,
+                                        cuda, seed=m + b)
+        _build.reset_launch_counts()
+        got = ops.pq_score_topk(ccodes, luts, kk, layout)
+        sel = pq_lut.topk_plan(5000, b, kk, m, 256, 132).select
+        assert _build.launch_counts() == {
+            "pq_score_topk" + ("_select" if sel else ""): 1}
+        assert _equal(got, ref.ref_pq_score_topk(ccodes, luts, kk))
+        if b == 16:
+            for forced in (True, False):
+                assert _equal(got, pq_lut.pq_score_topk(*layout, luts, kk,
+                                                        _select=forced))
+
+
+def test_pq_score_topk_signed_zeros_ties_and_layouts(cuda):
+    """-0.0 ranks below +0.0 and equal scores go to the smaller row, as
+    ``lax.top_k`` ranks them; int32 codes, ragged groups with an empty one,
+    kk = n, a (M, ksub) slice too wide for shared memory (read from L2),
+    and a kk past the buffers (the selection path)."""
+    ccodes, layout, luts = _pq_case(3000, 8, 64, 8, 5, torch.int32, cuda,
+                                    signed_zeros=True)
+    for kk in (1, 300, 3000):
+        want = ref.ref_pq_score_topk(ccodes, luts, kk)
+        assert _equal(ops.pq_score_topk(ccodes, luts, kk, layout), want)
+        assert _equal(pq_lut.pq_score_topk(*layout, luts, kk, _select=True),
+                      want)
+        if kk == 300:   # +0.0 (d2 = -0.0) above -0.0, the data really ties
+            assert (want[0] == 0).all() and torch.signbit(want[0]).any()
+            assert not torch.signbit(want[0][:, 0]).all()
+    rng = np.random.default_rng(3)
+    codes = tensor(rng.integers(0, 16, (2000, 4)), cuda).to(torch.uint8)
+    coarse = tensor(rng.permutation(np.repeat([0, 2, 3], [700, 1000, 300])),
+                    cuda).to(torch.int32)
+    layout = pq.grouped_layout(codes, coarse, 4)
+    assert layout[3] == (0, 700, 700, 1700, 2000)
+    luts = tensor(rng.random((3, 4, 64)).astype(np.float32), cuda)
+    ccodes = coarse[:, None] * 16 + codes.to(torch.int32)
+    for kk in (50, 2000):
+        assert _equal(ops.pq_score_topk(ccodes, luts, kk, layout),
+                      ref.ref_pq_score_topk(ccodes, luts, kk))
+    ccodes, layout, luts = _pq_case(4000, 256, 256, 2, 3, torch.uint8, cuda)
+    assert not pq_lut.topk_plan(4000, 3, 100, 256, 256, 132).staged
+    assert _equal(ops.pq_score_topk(ccodes, luts, 100, layout),
+                  ref.ref_pq_score_topk(ccodes, luts, 100))
+    ccodes, layout, luts = _pq_case(30000, 8, 256, 4, 2, torch.uint8, cuda)
+    assert pq_lut.topk_plan(30000, 2, 20000, 8, 256, 132).select
+    _build.reset_launch_counts()
+    assert _equal(ops.pq_score_topk(ccodes, luts, 20000, layout),
+                  ref.ref_pq_score_topk(ccodes, luts, 20000))
+    assert _build.launch_counts() == {"pq_score_topk_select": 1}
+
+
+def test_fused_transform_fold_matrix_past_shared_memory(cuda):
+    """B1 with an (m, d) fold matrix too large for shared memory (read
+    through L2): the same results as the plain version."""
+    v, f, proj, norms = transform_inputs(500, 960, 64, True)
+    args = [tensor(a, cuda) for a in (v, f, proj)]
+    nargs = [tensor(a, cuda) for a in norms]
+    torch.testing.assert_close(ops.fused_transform(*args, 1.5, *nargs),
+                               ref.ref_fused_transform(*args, 1.5, *nargs),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("backend", ["flat", "ivf", "pq"])
+def test_k64_and_wide_rows_engine_on_card_matches_cpu_engine(cuda, backend):
+    """EngineConfig(k=64) (every query escalated to k'=2048, 2056 on flat)
+    at d=384, served on the card through the kernels, against the plain
+    path on the same state."""
+    corpus = make_corpus(CorpusSpec(n=5000, d=384, n_categories=5,
+                                    n_numeric=3, seed=7))
+    q, fq = sample_queries(corpus, 64, seed=8)
+    extra = dict(ivf=dict(nlist=16, nprobe=4), pq=dict(pq_ksub=64,
+                                                       pq_coarse=8))
+    fcfg = fcvi.FCVIConfig(backend=backend, **extra.get(backend, {}))
+    gpu_ix = fcvi.build(corpus.vectors, corpus.filters, fcfg, device=cuda)
+    cpu_ix = fcvi.index_from_state(fcfg, fcvi.index_state(gpu_ix),
+                                   device="cpu")
+    keep = np.ones(len(q), bool)
+    if backend == "pq":   # candidate near-ties may differ by one row
+        qn, fqn = cpu_ix.transform.normalize(tensor(q), tensor(fq))
+        q_t = cpu_ix.transform.apply_normalized(qn, fqn)
+        for kp in (512, 2048):
+            vals = pq.search(cpu_ix.backend, q_t, kp + 1)[0]
+            keep &= ~candidate_ties(vals, kp)
+    cfg = EngineConfig(k=64, escalate_margin=10.0)   # every query escalates
+    engines = [FCVIEngine(gpu_ix, cfg, device=cuda),
+               FCVIEngine(cpu_ix, EngineConfig(**vars(cfg)), device="cpu")]
+    _build.reset_launch_counts()
+    (gs, gi), (cs, ci) = (e.search(q, fq) for e in engines)
+    assert engines[0].stats.escalations == engines[1].stats.escalations == 64
+    assert _build.launch_counts()
+    assert_topk_match(cs[keep], ci[keep], gs[keep], gi[keep], rtol=0,
+                      atol=1e-5)

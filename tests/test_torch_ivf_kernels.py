@@ -12,6 +12,8 @@ exactly everywhere on integer data, where the tie rules alone order equal
 scores. Each CUDA kernel is held against its plain version in
 ``tests/test_torch_gpu.py``.
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -167,14 +169,30 @@ def test_dedup_probes_matches_jax(b, nlist, nprobe):
 
 
 def test_ivf_plan_sizes_fit_and_refuse():
-    for k, d in [(80, 128), (320, 128), (2048, 128), (1, 30), (16, 64)]:
+    """Every k >= 1 and every width plans (slots past the live candidates
+    read (-inf, 0), as in the reference): buffered where the buffers fit in
+    shared memory, the selection path past them; only k <= 0 raises."""
+    for k, d in itertools.product([80, 320, 2048, 3200, 4096, 50_000, 1, 16],
+                                  [128, 384, 960, 1536, 30, 64]):
         p = ivf_score.plan(k, d)
-        assert ivf_score.scan_smem(p.cap, d) <= ivf_score.SMEM_LIMIT
-        assert p.cap >= k + 2 * ivf_score.TILE and p.merge_cap >= k
-    for k, d in [(0, 128), (ivf_score.MAX_K + 1, 128), (2048, 1024)]:
+        dc = ivf_score.staged_cols(d)
+        assert ivf_score.scan_smem(p.cap, dc) <= ivf_score.SMEM_LIMIT
+        fits = (ivf_score.scan_smem(ivf_score._pow2(k + 2 * ivf_score.TILE),
+                                    dc) <= ivf_score.SMEM_LIMIT)
+        assert p.select == (not fits), (k, d)
+        if p.select:
+            assert p.cap == p.merge_cap == 0
+        else:
+            assert p.cap >= k + 2 * ivf_score.TILE and p.merge_cap >= k
+        assert ivf_score.plan(k, d, select=True).select
+        if not fits:
+            with pytest.raises(ValueError, match="do not fit"):
+                ivf_score.plan(k, d, select=False)
+    # IVF at EngineConfig(k=100) escalates to k'=3200: buffered at d=384
+    assert not ivf_score.plan(3200, 384).select
+    for k in (0, -3):
         with pytest.raises(ValueError):
-            ivf_score.plan(k, d)
-
+            ivf_score.plan(k, 128)
 
 def test_ivf_cpu_dispatch_launches_no_kernel():
     g, gsq, valid, probes, q, pv, pf = map(tensor, ivf_inputs(8, 16, 3, 2))

@@ -12,6 +12,8 @@ outside near-ties; rescore atol 1e-5.
 Each CUDA kernel is held against its plain version in
 ``tests/test_torch_gpu.py``.
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -130,21 +132,55 @@ def test_topk_first_breaks_ties_by_position():
 
 
 def test_scan_plan_sizes_fit_and_cover():
+    """Every 1 <= kk <= n and every width plans: the buffered path where its
+    buffers fit in shared memory, the selection path past them (or when
+    forced); shared memory never grows with d."""
     from repro_torch.kernels import fused_score_topk as scan
 
-    for n, nq, kk in [(1_000_000, 64, 88), (1_000_000, 64, 328),
-                      (1_000_000, 64, 2048), (1000, 5, 88), (256, 3, 256),
-                      (1, 1, 1)]:
-        p = scan.plan(n, nq, kk, 128, 132)
-        assert scan.scan_smem(p.bq, p.cap, 128) <= scan.SMEM_LIMIT
-        assert p.cap >= kk + 2 * scan.TILE and p.merge_cap >= kk
+    for (n, nq, kk), d in itertools.product(
+            [(1_000_000, 64, 88), (1_000_000, 64, 328),
+             (1_000_000, 64, 2048), (1_000_000, 64, 2056),
+             (1_000_000, 64, 3200), (1_000_000, 16, 4104),
+             (50_000, 64, 50_000), (1000, 5, 88), (256, 3, 256), (1, 1, 1)],
+            [128, 384, 960, 1536, 30]):
+        p = scan.plan(n, nq, kk, d, 132)
+        dc = scan.staged_cols(d)
+        assert dc == min((d + 3) & ~3, _build.DC)
+        assert scan.scan_smem(p.bq, p.cap, dc) <= scan.SMEM_LIMIT
+        widest = 16 if nq > 8 else 8 if nq > 4 else 4
+        cap = scan._pow2(kk + 2 * scan.TILE)
+        tiles = [bq for bq in (16, 8, 4) if bq <= widest
+                 and scan.scan_smem(bq, cap, dc) <= scan.SMEM_LIMIT]
+        buffered_fits = bool(tiles)
+        # the selection path where the buffers do not fit, or fit only at a
+        # 4-query tile when the batch holds more
+        assert p.select == (not tiles or tiles[0] == 4 < widest), \
+            (n, nq, kk, d)
+        if p.select:
+            assert p.cap == p.merge_cap == 0 and p.bq == widest
+        else:
+            assert p.bq == tiles[0]
+            assert p.cap >= kk + 2 * scan.TILE and p.merge_cap >= kk
+            assert scan.merge_smem(p.merge_cap) <= scan.SMEM_LIMIT
         assert p.chunk_rows % scan.TILE == 0
         assert (p.nchunks - 1) * p.chunk_rows < n <= p.nchunks * p.chunk_rows
-    with pytest.raises(ValueError):
-        scan.plan(10_000, 64, scan.MAX_K + 1, 128, 132)
-    with pytest.raises(ValueError):
-        scan.plan(100, 64, 101, 128, 132)
-
+        forced = scan.plan(n, nq, kk, d, 132, select=True)
+        assert forced.select and forced.nchunks >= 1
+        if buffered_fits:
+            assert not scan.plan(n, nq, kk, d, 132, select=False).select
+        else:
+            with pytest.raises(ValueError, match="do not fit"):
+                scan.plan(n, nq, kk, d, 132, select=False)
+    # kk=2056 (EngineConfig(k=64) escalated on flat): a batch of 64 takes
+    # the selection path, a sub-batch of 4 the buffers, at any d
+    for d in (128, 960):
+        assert scan.plan(1_000_000, 64, 2056, d, 132).select
+        assert not scan.plan(1_000_000, 4, 2056, d, 132).select
+    assert not scan.plan(1_000_000, 64, 1032, 128, 132).select
+    assert scan.plan(1_000_000, 4, 4104, 128, 132).select
+    for kk in (0, -1, 101):
+        with pytest.raises(ValueError):
+            scan.plan(100, 64, kk, 128, 132)
 
 def test_cpu_dispatch_launches_no_kernel():
     _build.reset_launch_counts()

@@ -20,6 +20,7 @@ jnp = pytest.importorskip("jax.numpy")  # the card's machine has no JAX
 
 from jax import lax
 from repro.kernels import ops as jops
+from repro_torch.index import pq
 from repro_torch.kernels import _build, ops, pq_lut, ref
 from test_torch_support import normal, tensor
 
@@ -142,3 +143,129 @@ def test_pq_wrapper_shape_checks_and_cpu_dispatch():
         pq_lut.pq_lut_qdot(tensor(luts[0]), tensor(luts))
     with pytest.raises(ValueError, match="shared memory"):
         pq_lut.pq_lut_qdot(torch.zeros(2, 1, 64), torch.zeros(1, 4096, 64))
+
+
+# -- the serving path's fused ADC scan + top-k (its plain version here; the
+# -- kernel is held to it bit for bit in tests/test_torch_gpu.py) ----------
+
+def test_grouped_layout_is_stable_with_count_offsets():
+    """The fused scan's layout: rows in a stable order by coarse id (row
+    ids ascend inside each group), offsets = the groups' counts summed (an
+    empty group included), the ids a permutation, uint8 codes kept and
+    int64 codes narrowed to int32, the offsets on the host too."""
+    rng = np.random.default_rng(5)
+    coarse = rng.choice([0, 1, 3, 4], 1000, p=[0.1, 0.4, 0.3, 0.2])
+    codes = rng.integers(0, 256, (1000, 8))
+    for dtype, want in ((torch.uint8, torch.uint8), (torch.int64, torch.int32)):
+        gcodes, ids, offsets, host = pq.grouped_layout(
+            tensor(codes).to(dtype), tensor(coarse).to(torch.int32), 5)
+        assert gcodes.dtype == want and ids.dtype == offsets.dtype == \
+            torch.int32
+        idn = ids.numpy()
+        np.testing.assert_array_equal(np.sort(idn), np.arange(1000))
+        np.testing.assert_array_equal(idn, np.argsort(coarse, kind="stable"))
+        np.testing.assert_array_equal(
+            np.diff(offsets.numpy()), np.bincount(coarse, minlength=5))
+        assert host == tuple(offsets.tolist())
+        assert host[0] == 0 and host[-1] == 1000 and host[2] == host[3]
+        for c in range(5):
+            rows = idn[host[c]:host[c + 1]]
+            assert (coarse[rows] == c).all() and (np.diff(rows) > 0).all()
+        np.testing.assert_array_equal(gcodes.numpy(), codes[idn])
+
+
+@pytest.mark.parametrize("m", [8, 16, 64, 128])
+def test_pq_topk_plan_sizes_fit(m):
+    """The fused scan's planner sizes the query tile from M * ksub: the
+    tile's LUT slices and buffers fit in shared memory; the selection path
+    where the buffers cannot; every 1 <= kk <= n plans, kk <= 0 and kk > n
+    raise."""
+    for kk, n, b in ((80, 1_000_000, 64), (320, 1_000_000, 64),
+                     (2048, 1_000_000, 16), (50_000, 50_000, 64),
+                     (1, 1, 1), (4096, 200_000, 3)):
+        p = pq_lut.topk_plan(n, b, kk, m, 256, 132)
+        assert 1 <= p.bq <= pq_lut.MAX_BQ and p.staged
+        assert pq_lut.topk_smem(p.bq, p.staged, p.cap, m, 256) <= \
+            pq_lut.TOPK_SMEM_LIMIT
+        cap = pq_lut._pow2(kk + 256)
+        widest = min(16, pq_lut._pow2(b))
+
+        def tile(c):   # the widest staged tile that fits with buffers c
+            return max([q for q in (16, 8, 4, 2, 1) if q <= widest and
+                        pq_lut.topk_smem(q, True, c, m, 256)
+                        <= pq_lut.TOPK_SMEM_LIMIT], default=0)
+        buffered = tile(cap) > 0
+        # the selection path where the buffers do not fit, or shrink the
+        # tile to 4 or fewer below what the LUT slices alone allow
+        assert p.select == (not buffered or tile(cap) <= 4 < tile(0))
+        if not p.select:
+            assert p.cap >= kk + pq_lut.THREADS and p.merge_cap >= kk
+            if p.bq < min(16, pq_lut._pow2(b)):   # the next tile does not fit
+                assert pq_lut.topk_smem(2 * p.bq, True, p.cap, m, 256) > \
+                    pq_lut.TOPK_SMEM_LIMIT
+        assert p.chunk_rows % pq_lut.THREADS == 0
+        assert (p.nchunks - 1) * p.chunk_rows < n <= p.nchunks * p.chunk_rows
+        assert pq_lut.topk_plan(n, b, kk, m, 256, 132, select=True).select
+    assert pq_lut.topk_plan(1_000_000, 64, 80, 8, 256, 132).bq == 16
+    # the serving widths at EngineConfig() stay on the buffers (no (b, n)
+    # scratch); EngineConfig(k=64)'s escalated 2048 takes the selection path
+    for kk, sel in ((80, False), (320, False), (2048, True)):
+        assert pq_lut.topk_plan(1_000_000, 64, kk, 8, 256, 132).select == sel
+    # one query's slice past shared memory is read from L2
+    assert not pq_lut.topk_plan(1000, 4, 10, 256, 256, 132).staged
+    for kk in (0, 1001):
+        with pytest.raises(ValueError):
+            pq_lut.topk_plan(1000, 4, kk, 8, 256, 132)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_ref_pq_score_topk_matches_lax_top_k(use_pallas):
+    """The plain version of the fused scan is ``lax.top_k(-pq_score_batch)``
+    of the reference: quarter-integer LUTs (many equal scores: the smaller
+    row first) with -0.0 entries. A row whose M entries are all -0.0 sums
+    to -0.0 in the port (its sums start from the first entry, as the fused
+    kernel's do) and to +0.0 in the reference (its reductions start from
+    +0.0), so every row here holds a +0.0 entry or a non-zero one; the
+    ranking of -0.0 against +0.0 is held on the port's own sums."""
+    rng = np.random.default_rng(9)
+    n, m, k, b = 1500, 4, 32, 3
+    codes = rng.integers(0, k, (n, m)).astype(np.int32)
+    luts = (rng.integers(0, 6, (b, m, k)) * 0.25).astype(np.float32)
+    luts[(luts == 0.0) & (rng.random(luts.shape) < 0.5)] = -0.0
+    luts[:, 0, 0] = 0.0
+    picked = luts[:, np.arange(m)[None, :], codes]            # (b, n, m)
+    all_neg_zero = ((picked == 0) & np.signbit(picked)).all(axis=2)
+    codes[all_neg_zero.any(axis=0), 0] = 0                    # a +0.0 entry
+    d2 = jops.pq_score_batch(jnp.asarray(codes), jnp.asarray(luts),
+                             use_pallas=use_pallas, block_rows=500)
+    for kk in (1, 40, n):
+        jv, ji = lax.top_k(-d2, kk)
+        vals, ids = ref.ref_pq_score_topk(tensor(codes), tensor(luts), kk)
+        assert ids.dtype == torch.int32
+        np.testing.assert_array_equal(vals.numpy(), np.asarray(jv))
+        np.testing.assert_array_equal(ids.numpy(), np.asarray(ji))
+    assert (np.asarray(d2) == 0).any() and np.signbit(luts).any()
+    # the ranking alone on the port's sums, -0.0 and +0.0 both present
+    zl = np.where(rng.random((b, m, k)) < 0.5, -0.0, 0.0).astype(np.float32)
+    x = -ref.ref_pq_score_batch(tensor(codes), tensor(zl))
+    assert torch.signbit(x).any() and (~torch.signbit(x)).any()
+    jv, ji = lax.top_k(jnp.asarray(x.numpy()), 200)
+    vals, ids = ref.ref_pq_score_topk(tensor(codes), tensor(zl), 200)
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(ji))
+
+
+def test_pq_search_takes_the_fused_op():
+    """``pq.search`` goes through ``ops.pq_score_topk`` (the plain version
+    on the CPU), equal to the B9 distances' packed-key top-k it replaced."""
+    rng = np.random.default_rng(2)
+    x = tensor(normal(rng, 3000, 32))
+    index = pq.build(x, m_subspaces=8, ksub=32, generator=0, ncoarse=8)
+    q = tensor(normal(rng, 7, 32))
+    vals, ids = pq.search(index, q, 50)
+    luts = pq.scan_luts(index, q)
+    want = ref.topk_first_packed(
+        -ops.pq_score_batch(index.ccodes, luts), 50)
+    assert torch.equal(vals, want[0]) and torch.equal(ids, want[1].int())
+    gcodes, gids, offsets, host = index.grouped
+    assert torch.equal(gcodes, index.codes[gids.long()])
