@@ -10,13 +10,20 @@ Phases, each of which raises (and exits non-zero) on a failure:
 
 1. build: nvcc compiles the kernels of ``src/repro_torch/csrc`` for sm_90a
    (one compiler per source, all at once) and prints what ``-Xptxas -v``
-   reports: registers, shared memory, spills.
+   reports: registers, shared memory, spills; then the tensor-core
+   instructions (HGMMA, HMMA) ``cuobjdump -sass`` finds in the flat scan's
+   kernels (none fails the run).
 2. kernels: each kernel against its plain version on the same CUDA tensors,
    at the main path's shapes (SIFT1M scale: n=1,000,000 rows of d=128, m=8
    filter columns, batches of 64). Prints the largest error, the id
    agreement outside near-ties, and the kernel's time beside its bound, the
    plain version's time and, where one PyTorch call computes the same
-   function, that call's time (CUDA events, after a warm-up).
+   function, that call's time (CUDA events, after a warm-up). The flat
+   scan's bound is the larger of its bytes at the memory rate and its
+   split products at the tensor cores' peak (TF32 for fp32 rows, bf16
+   otherwise), with the fp32 SIMT bound beside it; its yardstick is the
+   library pair ``torch.addmm`` at "highest" fp32 precision plus
+   ``torch.topk`` (``pair_ms``), timed only.
 3. end to end, flat: a synthetic SIFT1M-shaped corpus, ``fcvi.build`` on
    the card with every ``FCVIConfig`` default, ``FCVIEngine`` with every
    ``EngineConfig`` default, then 512 queries, the first 64 again (cache
@@ -24,7 +31,8 @@ Phases, each of which raises (and exits non-zero) on a failure:
    kernel), 64 queries, ``compact()``, 64 queries, and one ``fcvi.query``
    call (the ids-only scan). The first batch is checked against a CPU
    engine (the plain path) on the same state; recall@10 is measured
-   against ``ground_truth_combined`` on the card.
+   against ``ground_truth_combined`` on the card, held to >= 0.9 and to
+   within 0.001 of its value before the tensor-core scan.
 3b. end to end, IVF: the same corpus and queries with
    ``FCVIConfig(backend="ivf", nlist=1024, nprobe=16)`` (every other field
    and all of ``EngineConfig`` at their defaults). The build prints the
@@ -86,8 +94,8 @@ Phases, each of which raises (and exits non-zero) on a failure:
    mask (dead slots exactly (-inf, 0)), and B5 ``mask=`` at k=18 on the
    IVF fp32, bf16 and int8 slabs, over every list under P2 and P3 and over
    the lists P3 routes to, against their plain versions. The bound of a
-   masked scan counts the eligible rows; the B2 lines also print the floor
-   of the rows in the tiles the kernel reads. Then flat fp32, flat int8
+   masked scan counts the eligible rows (the B2 variants read those rows
+   only). Then flat fp32, flat int8
    and IVF fp32 (nlist=1024, nprobe=16) engines serve a warm-up batch and
    512 queries in batches of 64 per predicate (qps, p50/p99, plan
    counters); each first batch against an fp64 brute force over the
@@ -97,8 +105,17 @@ Phases, each of which raises (and exits non-zero) on a failure:
    inserts against the oracle over both tiers; flat bf16, IVF bf16 and IVF
    int8 engines serve one batch of P2 and P3 each, checked against the
    oracle.
+3g. shapes past the candidate buffers and wide rows: flat at
+   ``EngineConfig(k=64)`` (512 timed queries), IVF at k'=3200, k=128/512
+   steps through the selection path, a forced fold at kp=4096, a
+   GIST1M-shaped flat corpus (n=1M, d=960) and an IVF corpus at d=384,
+   each first batch against a CPU engine; B2, B3 and B2 masked at d=384
+   and 960 and kk 88, 328 and 2056 against their plain versions (the L2
+   tolerance plus a sqrt(d) depth term); the flat selection path bit-equal
+   to the buffered one at kk 88, 328 and 1032, and against the plain
+   version at kk 2048 and 2056; B5-B7 likewise at k 80 and 3200.
 4. a ``kernels`` JSON line with each kernel variant's launches over phases
-   3, 3b, 3c, 3d, 3e and 3f (each must be > 0), errors, times and bound.
+   3 to 3g (each must be > 0), errors, times and bound.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
 the script prints no result and exits 1.
@@ -135,6 +152,10 @@ from repro_torch.serve import engine as engine_mod  # noqa: E402
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
+PEAK_TF32_S = 495e12          # dense TF32 on the tensor cores
+PEAK_BF16_S = 989e12          # dense bf16 on the tensor cores
+FLAT_RECALL_BEFORE = 0.9992   # phase 3's flat recall@10 before the
+                              # tensor-core scan (PERF.md)
 
 N, D, M, B = 1_000_000, 128, 8, 64
 KP = 80                      # k' of the defaults: k=10, lam=0.5, c=4
@@ -249,6 +270,43 @@ def bound_ms(nbytes: float, flops: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def scan_bound_ms(nbytes: float, pairs: float, d: int, dtype):
+    """(least time in ms, what bounds it, the unit) of the flat scan B2/B3:
+    its bytes at the memory rate, or its split products at the published
+    peak of the tensor-core unit they run on: three TF32 products a (query,
+    row, column) for fp32 rows, three bf16 products for bf16 and int8 rows,
+    two flops each."""
+    tf32 = dtype == torch.float32
+    t_ops = 6 * pairs * d / (PEAK_TF32_S if tf32 else PEAK_BF16_S)
+    t_bytes = nbytes / PEAK_BYTES_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations",
+            "tf32" if tf32 else "bf16")
+
+
+def pair_ms(x, sq, q, kk, scales=None, mask=None, iters=3) -> float:
+    """The library pair that computes the flat scan's function: torch.addmm
+    at "highest" fp32 precision (2 q x - ||x||^2, on the dequantized rows)
+    then torch.topk, timed as a yardstick; the port never calls it."""
+    rows = x.float() if scales is None else x.float() * scales[:, None]
+    q2 = torch.sum(q * q, dim=-1, keepdim=True)
+    neg = -sq[None, :]
+    keep = None if mask is None else mask[None, :] > 0.5
+    prec = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+
+    def pair():
+        s = torch.addmm(neg, q, rows.T, alpha=2.0) - q2
+        if keep is not None:
+            s = torch.where(keep, s, float("-inf"))
+        return torch.topk(s, kk)
+    try:
+        return time_ms(pair, iters)
+    finally:
+        torch.set_float32_matmul_precision(prec)
+        del rows
+
+
 def ids_outside_ties(ref_vals, ref_ids, ids, rtol, atol):
     """(agreeing, compared) id slots outside the reference's near-ties: a
     slot is a near-tie when its reference score lies within atol + rtol *
@@ -273,12 +331,30 @@ def check(cond: bool, what: str) -> None:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    _build.build()
+    lib = _build.build()
     print(f"[build] nvcc, sm_90a, {time.perf_counter() - t0:.1f} s")
     print(_build.build_log().rstrip())
+    # the flat scan's dot products come off the tensor cores: count the
+    # warpgroup (HGMMA) and warp (HMMA) MMA instructions of its kernels
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, func = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            func = line.split("Function :")[1].strip()
+        elif func and "scan_kernel" in func and "fused_score" in func:
+            for op in ("HGMMA", "HMMA"):
+                if op in line:
+                    counts[op] = counts.get(op, 0) + 1
+    print(f"[build] flat scan kernels (fused_score_topk.cu scan_kernel, every "
+          f"instantiation): {counts.get('HGMMA', 0)} HGMMA and "
+          f"{counts.get('HMMA', 0)} HMMA instructions in the SASS")
+    check(counts.get("HGMMA", 0) + counts.get("HMMA", 0) > 0,
+          "the flat scan has no tensor-core instruction")
 
 
-def phase_kernels(dev, gen) -> dict:
+def phase_kernels(dev, gen, power: str) -> dict:
     """Each kernel against its plain version at the main path's shapes."""
     res = {}
 
@@ -303,7 +379,8 @@ def phase_kernels(dev, gen) -> dict:
                            rows * D * (2 * M + 2))
         print(f"[kernel] fused_transform ({rows},{D})x({rows},{M}): max_abs_err "
               f"{err:.3g} kernel_ms {ms:.4f} plain_ms {plain:.4f} "
-              f"library_ms(addmm) {lib:.4f} bound_ms {bnd:.4f} ({by})")
+              f"library_ms(addmm) {lib:.4f} bound_ms {bnd:.4f} ({by}); card "
+              f"{power}")
         res["fused_transform"] = dict(
             max_abs_err=max(err, res.get("fused_transform", {}).get(
                 "max_abs_err", 0.0)),
@@ -317,7 +394,7 @@ def phase_kernels(dev, gen) -> dict:
     q = randn(B, D)
     pv, pf = randn(N, D), randn(N, M)
     scan_in = 4 * (N * D + N + B * D)
-    scan_ops = 2 * B * N * D + 3 * B * N
+    simt_ops = 2 * B * N * D + 3 * B * N
     for kk in (88, 328):
         vals, ids = ops.score_topk(x, sq, q, kk)
         rvals, rids = ref.ref_score_topk(x, sq, q, kk + 1)
@@ -339,16 +416,21 @@ def phase_kernels(dev, gen) -> dict:
         plain = time_ms(lambda: ref.ref_score_topk(x, sq, q, kk), 5)
         plain_rows = time_ms(
             lambda: ref.ref_score_topk_rows(x, sq, pv, pf, q, kk), 5)
-        bnd, by = bound_ms(scan_in + 8 * B * kk, scan_ops)
+        pair = pair_ms(x, sq, q, kk)
+        bnd, by, unit = scan_bound_ms(scan_in + 8 * B * kk, B * N, D,
+                                      x.dtype)
         rows_bytes = 4 * B * kk * (2 * (D + M) + D)
-        bnd_rows, by_rows = bound_ms(scan_in + 8 * B * kk + rows_bytes,
-                                     scan_ops)
+        bnd_rows, by_rows, _ = scan_bound_ms(
+            scan_in + 8 * B * kk + rows_bytes, B * N, D, x.dtype)
+        simt, _ = bound_ms(scan_in + 8 * B * kk, simt_ops)
         print(f"[kernel] score_topk b={B} n={N} d={D} kk={kk}: max_abs_err "
               f"{err:.3g} ids {agree}/{total} outside near-ties; kernel_ms "
-              f"{ms:.4f} plain_ms {plain:.4f} bound_ms {bnd:.4f} ({by})")
+              f"{ms:.4f} plain_ms {plain:.4f} pair_ms {pair:.4f} bound_ms "
+              f"{bnd:.4f} ({by}, {unit} tensor cores; fp32 SIMT bound "
+              f"{simt:.4f}); card {power}")
         print(f"[kernel] score_topk_rows kk={kk}: rows exact; kernel_ms "
-              f"{ms_rows:.4f} plain_ms {plain_rows:.4f} bound_ms "
-              f"{bnd_rows:.4f} ({by_rows})")
+              f"{ms_rows:.4f} plain_ms {plain_rows:.4f} pair_ms {pair:.4f} "
+              f"bound_ms {bnd_rows:.4f} ({by_rows}); card {power}")
         if kk == 88:  # the main path's default width goes in the JSON line
             res["score_topk"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
                                      bound_by=by, library_ms=None)
@@ -372,7 +454,7 @@ def phase_kernels(dev, gen) -> dict:
                        B * KP * (6 * (D + M) + 12))
     print(f"[kernel] rescore ({B},{KP},{D})/({B},{KP},{M}): max_abs_err "
           f"{err:.3g} kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms "
-          f"{bnd:.5f} ({by})")
+          f"{bnd:.5f} ({by}); card {power}")
     res["rescore"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                           bound_ms=bnd, bound_by=by, library_ms=None)
     torch.cuda.empty_cache()
@@ -540,8 +622,11 @@ def phase_end_to_end(dev, power: str, inp: Inputs):
     counts = _build.launch_counts()
     print(f"[e2e] counts {json.dumps(counts)}")
     recall = recall_vs_truth(index, state0, inp, ids, dev)
-    print(f"[e2e] recall@10 {recall:.4f} over 512 queries; card {power}")
+    print(f"[e2e] recall@10 {recall:.4f} over 512 queries (before the "
+          f"tensor-core scan: {FLAT_RECALL_BEFORE}); card {power}")
     check(recall >= 0.9, f"recall@10 {recall} below 0.9")
+    check(abs(recall - FLAT_RECALL_BEFORE) <= 0.001, f"recall@10 {recall} "
+          f"moved from {FLAT_RECALL_BEFORE}")
     against_cpu_engine("e2e", index, state0, scores[:B], ids[:B],
                        inp.q_all[:B], inp.f_all[:B], np.zeros(B, bool))
     return counts, recall, ids, index
@@ -1072,7 +1157,7 @@ def stored_bytes(be) -> str:
                      if t is not None)
 
 
-def flat_variant_kernels(index, q_t) -> dict:
+def flat_variant_kernels(index, q_t, power: str) -> dict:
     """The index's variants of B2 and B3 (its storage dtype, its scales)
     against their plain versions on its stored rows, with the payloads the
     engine carries and the first timed batch's transformed queries, at
@@ -1083,7 +1168,6 @@ def flat_variant_kernels(index, q_t) -> dict:
     pv, pf = index.vectors_n, index.filters_n
     scan_in = (x.nbytes + sq.nbytes + (0 if sc is None else sc.nbytes)
                + q_t.nbytes)
-    scan_ops = 2 * B * N * D + (4 if sc is not None else 3) * B * N
     res = {}
     for kk in (88, 328):
         vals, ids = ops.score_topk(x, sq, q_t, kk, scales=sc)
@@ -1111,17 +1195,20 @@ def flat_variant_kernels(index, q_t) -> dict:
         plain = time_ms(lambda: ref.ref_score_topk(x, sq, q_t, kk, sc), 5)
         plain_rows = time_ms(
             lambda: ref.ref_score_topk_rows(x, sq, pv, pf, q_t, kk, sc), 5)
-        bnd, by = bound_ms(scan_in + 8 * B * kk, scan_ops)
+        pair = pair_ms(x, sq, q_t, kk, sc)
+        bnd, by, unit = scan_bound_ms(scan_in + 8 * B * kk, B * N, D,
+                                      x.dtype)
         rows_bytes = 4 * B * kk * (2 * (D + M) + D)
-        bnd_rows, by_rows = bound_ms(scan_in + 8 * B * kk + rows_bytes,
-                                     scan_ops)
+        bnd_rows, by_rows, _ = scan_bound_ms(
+            scan_in + 8 * B * kk + rows_bytes, B * N, D, x.dtype)
         print(f"[kernel] {name} b={B} n={N} d={D} {x.dtype} kk={kk}: "
               f"max_abs_err {err:.3g} ids {agree}/{total} outside near-ties; "
-              f"kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms {bnd:.4f} "
-              f"({by})")
+              f"kernel_ms {ms:.4f} plain_ms {plain:.4f} pair_ms {pair:.4f} "
+              f"bound_ms {bnd:.4f} ({by}, {unit} tensor cores); card {power}")
         print(f"[kernel] {name_rows} kk={kk}: (vals, ids) = {name}'s, rows "
               f"exact; kernel_ms {ms_rows:.4f} plain_ms {plain_rows:.4f} "
-              f"bound_ms {bnd_rows:.4f} ({by_rows})")
+              f"pair_ms {pair:.4f} bound_ms {bnd_rows:.4f} ({by_rows}); card "
+              f"{power}")
         if kk == 88:  # the main path's default width goes in the JSON line
             res[name] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                              library_ms=None)
@@ -1154,7 +1241,7 @@ def phase_storage_flat(dev, power: str, inp: Inputs, flat_ids):
               f"{stored_bytes(index.backend)} (fp32 rows: "
               f"{4 * N * D / 1e6:.1f} MB); card {power}")
         res.update(flat_variant_kernels(
-            index, index.transform.apply(qv, qf).contiguous()))
+            index, index.transform.apply(qv, qf).contiguous(), power))
         torch.cuda.empty_cache()
 
         state0 = fcvi.index_state(index)
@@ -1356,11 +1443,8 @@ def masked_kernels(ix: dict, masks, q_t, power) -> dict:
         be = ix["flat" + suffix.replace("_", "-")].backend
         x, sq, sc = be.vectors, be.sq_norms, be.scales
         row_bytes = x.element_size() * D + 4 + (0 if sc is None else 4)
-        per_op = 2 * D + (4 if sc is not None else 3)
         for pname, mask in cases:
             elig = int(mask.sum())
-            tiles = int(mask[: N - N % 128].reshape(-1, 128).any(1).sum()
-                        + (mask[N - N % 128:].any() if N % 128 else 0))
             for kk in (K_MASK, K_FOLD):
                 vals, ids = ops.score_topk(x, sq, q_t, kk, scales=sc,
                                            mask=mask)
@@ -1386,22 +1470,21 @@ def masked_kernels(ix: dict, masks, q_t, power) -> dict:
                                                     scales=sc, mask=mask))
                 plain = time_ms(lambda: ref.ref_score_topk(x, sq, q_t, kk,
                                                            sc, mask), 3)
+                pair = pair_ms(x, sq, q_t, kk, sc, mask)
                 # the function's work: the eligible rows read once and
-                # scored against every query, the whole mask read, queries
-                # read and (vals, ids) written. The kernel reads every row
-                # of each tile that holds an eligible row: its own floor
-                # is printed beside, as tile_bound_ms.
+                # scored against every query (the kernel gathers them by
+                # id), the whole mask read, queries read and (vals, ids)
+                # written
                 io = 4 * N + q_t.nbytes + 8 * B * kk
-                bnd, by = bound_ms(io + elig * row_bytes, B * elig * per_op)
-                tile_bnd, _ = bound_ms(io + tiles * 128 * row_bytes,
-                                       B * tiles * 128 * per_op)
+                bnd, by, unit = scan_bound_ms(io + elig * row_bytes,
+                                              B * elig, D, x.dtype)
                 print(f"[kernel] {name} mask {pname} ({elig} eligible "
-                      f"rows, {tiles} of {-(-N // 128)} tiles) b={B} "
-                      f"kk={kk}: max_abs_err {err:.3g} ids {agree}/{total} "
-                      f"outside near-ties, {int(dead.sum())} dead slots "
-                      f"(-inf, 0); kernel_ms {ms:.4f} plain_ms {plain:.4f} "
-                      f"bound_ms {bnd:.4f} ({by}) tile_bound_ms "
-                      f"{tile_bnd:.4f}")
+                      f"rows) b={B} kk={kk}: max_abs_err {err:.3g} ids "
+                      f"{agree}/{total} outside near-ties, "
+                      f"{int(dead.sum())} dead slots (-inf, 0); kernel_ms "
+                      f"{ms:.4f} plain_ms {plain:.4f} pair_ms {pair:.4f} "
+                      f"bound_ms {bnd:.4f} ({by}, {unit} tensor cores); "
+                      f"card {power}")
                 if pname == "P2" and kk == K_MASK:
                     res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                      bound_ms=bnd, bound_by=by,
@@ -1682,16 +1765,16 @@ def counted(tag: str, counts: dict, fn):
 
 
 def wide_kernels(tag, x, sq, pv, pf, mask, q_t, power) -> None:
-    """B2, B3 and B2 masked on (n, d) rows at kk=88 and 2056 against their
-    plain versions (the L2 tolerance plus ``depth_atol``), B3 bit-equal to
-    B2; each timed beside its bound and its plain version."""
+    """B2, B3 and B2 masked on (n, d) rows at kk=88, 328 and 2056 against
+    their plain versions (the L2 tolerance plus ``depth_atol``), B3
+    bit-equal to B2; each timed beside its bound, its plain version and the
+    library pair."""
     n, d = x.shape
     n_elig = int((mask > 0.5).sum())
     atol = L2_ATOL + depth_atol(q_t, x, d)               # (b, 1)
     atol_np = atol.cpu().numpy()
     scan_in = 4 * (n * d + n + B * d)
-    scan_ops = 2 * B * n * d + 3 * B * n
-    for kk in (KP + 8, KK_WIDE):
+    for kk in (KP + 8, 4 * KP + 8, KK_WIDE):
         p = scan_mod.plan(n, B, kk, d, torch.cuda.get_device_properties(
             x.device).multi_processor_count)
         vals, ids = ops.score_topk(x, sq, q_t, kk)
@@ -1722,38 +1805,43 @@ def wide_kernels(tag, x, sq, pv, pf, mask, q_t, power) -> None:
         check(mok and magree == mtotal, f"{tag} masked kk={kk}: error "
               f"{merr}, ids {magree}/{mtotal}")
         del mv, mi, rv, ri, rvf
+        rows_bytes = 4 * B * kk * (2 * pv.shape[1] + 2 * pf.shape[1] + d)
+        pair = pair_ms(x, sq, q_t, kk, iters=2)
         t = {"score_topk": (
                 lambda: ops.score_topk(x, sq, q_t, kk),
-                lambda: ref.ref_score_topk(x, sq, q_t, kk),
-                bound_ms(scan_in + 8 * B * kk, scan_ops)),
+                lambda: ref.ref_score_topk(x, sq, q_t, kk), pair,
+                scan_bound_ms(scan_in + 8 * B * kk, B * n, d, x.dtype)),
              "score_topk_rows": (
                 lambda: ops.score_topk_rows(x, sq, pv, pf, q_t, kk),
                 lambda: ref.ref_score_topk_rows(x, sq, pv, pf, q_t, kk),
-                bound_ms(scan_in + 8 * B * kk
-                         + 4 * B * kk * (2 * pv.shape[1] + 2 * pf.shape[1]
-                                         + d), scan_ops)),
+                pair, scan_bound_ms(scan_in + 8 * B * kk + rows_bytes,
+                                    B * n, d, x.dtype)),
              "score_topk_masked": (
                 lambda: ops.score_topk(x, sq, q_t, kk, mask=mask),
                 lambda: ref.ref_score_topk(x, sq, q_t, kk, mask=mask),
-                bound_ms(4 * (n_elig * (d + 1) + n + B * d) + 8 * B * kk,
-                         B * n_elig * (2 * d + 3)))}
-        for name, (kern, plain_fn, (bnd, by)) in t.items():
+                pair_ms(x, sq, q_t, kk, mask=mask, iters=2),
+                scan_bound_ms(4 * (n_elig * (d + 1) + n + B * d)
+                              + 8 * B * kk, B * n_elig, d, x.dtype))}
+        for name, (kern, plain_fn, pms, (bnd, by, unit)) in t.items():
             ms = time_ms(kern, 5)
             plain = time_ms(plain_fn, 2)
             print(f"[kernel] {name} ({tag}) b={B} n={n} d={d} kk={kk} "
                   f"(bq {p.bq}, {'selection' if p.select else 'buffered'} "
                   f"path): max_abs_err {max(err, merr):.3g} (depth term of "
                   f"the tolerance up to {atol_np.max():.3g}); kernel_ms "
-                  f"{ms:.4f} plain_ms {plain:.4f} bound_ms {bnd:.4f} ({by}); "
-                  f"card {power}")
+                  f"{ms:.4f} plain_ms {plain:.4f} pair_ms {pms:.4f} "
+                  f"bound_ms {bnd:.4f} ({by}, {unit} tensor cores); card "
+                  f"{power}")
         torch.cuda.empty_cache()
     print(f"[3g] {tag}: B2, B3, B2 masked agree with their plain versions at "
-          f"d={d}, kk {KP + 8} and {KK_WIDE} ({n_elig} eligible rows)")
+          f"d={d}, kk {KP + 8}, {4 * KP + 8} and {KK_WIDE} ({n_elig} "
+          f"eligible rows)")
 
 
 def select_kernels(flat_ix, ivf_ix, inp: Inputs, dev, power) -> dict:
     """The selection path forced, bit-equal to the buffered path: flat B2
-    and B3 at kk = 88, 2048 and 2056 on phase 3's rows; IVF B5, B6 and B7
+    and B3 at kk = 88, 328 and 1032 on phase 3's rows, and at kk = 2048 and
+    2056 (past the buffers) against the plain version; IVF B5, B6 and B7
     at k = 80 and 3200 on phase 3b's slabs; each timed beside the buffered
     path, its plain version and the bound. Returns the kernels-line entries
     of the selection counters (flat at kk=2056, IVF at k=3200)."""
@@ -1765,34 +1853,48 @@ def select_kernels(flat_ix, ivf_ix, inp: Inputs, dev, power) -> dict:
     pv, pf = flat_ix.vectors_n, flat_ix.filters_n
     q_t = flat_ix.transform.apply(qv, qf).contiguous()
     scan_in = 4 * (N * D + N + B * D)
-    scan_ops = 2 * B * N * D + 3 * B * N
-    for kk in (KP + 8, 2048, KK_WIDE):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for kk in (KP + 8, 4 * KP + 8, 1032, 2048, KK_WIDE):
+        try:
+            scan_mod.plan(N, B, kk, D, sms, select=False)
+            buffered = True
+        except ValueError:   # past the buffers: the selection path only
+            buffered = False
+        pair = pair_ms(x, sq, q_t, kk, iters=2)
         runs = {"score_topk": (
                     lambda s: scan_mod.score_topk(x, sq, q_t, kk, _select=s),
                     lambda: ref.ref_score_topk(x, sq, q_t, kk),
-                    bound_ms(scan_in + 8 * B * kk, scan_ops)),
+                    scan_bound_ms(scan_in + 8 * B * kk, B * N, D, x.dtype)),
                 "score_topk_rows": (
                     lambda s: scan_mod.score_topk_rows(x, sq, pv, pf, q_t,
                                                        kk, _select=s),
                     lambda: ref.ref_score_topk_rows(x, sq, pv, pf, q_t, kk),
-                    bound_ms(scan_in + 8 * B * kk
-                             + 4 * B * kk * (2 * (D + M) + D), scan_ops))}
-        for name, (kern, plain_fn, (bnd, by)) in runs.items():
-            a, b = kern(True), kern(False)
-            check(all(torch.equal(u, v) for u, v in zip(a, b)),
-                  f"{name} kk={kk}: selection path differs from buffered")
-            rv = ref.ref_score_topk(x, sq, q_t, kk)[0]
-            err = (a[0] - rv).abs().max().item()
+                    scan_bound_ms(scan_in + 8 * B * kk
+                                  + 4 * B * kk * (2 * (D + M) + D), B * N, D,
+                                  x.dtype))}
+        for name, (kern, plain_fn, (bnd, by, unit)) in runs.items():
+            a = kern(True)
+            if buffered:
+                check(all(torch.equal(u, v) for u, v in zip(a, kern(False))),
+                      f"{name} kk={kk}: selection path differs from "
+                      "buffered")
+            rv, ri = ref.ref_score_topk(x, sq, q_t, kk + 1)
+            err = (a[0] - rv[:, :kk]).abs().max().item()
             tol = (L2_ATOL + L2_RTOL * rv.abs()).max().item()
-            check(err <= tol, f"{name}_select kk={kk} error {err}")
-            del a, b, rv
+            agree, total = ids_outside_ties(rv, ri, a[1], L2_RTOL, L2_ATOL)
+            check(err <= tol and agree == total, f"{name}_select kk={kk} "
+                  f"error {err}, ids {agree}/{total}")
+            del a, rv, ri
             ms_sel = time_ms(lambda: kern(True), 5)
-            ms_buf = time_ms(lambda: kern(False), 5)
+            ms_buf = time_ms(lambda: kern(False), 5) if buffered else None
             plain = time_ms(plain_fn, 2)
+            versus = (f"bit-equal to the buffered path (buffered "
+                      f"{ms_buf:.4f} ms)" if buffered else
+                      "past the buffers: against the plain version")
             print(f"[kernel] {name}_select (forced) b={B} n={N} d={D} "
-                  f"kk={kk}: bit-equal to the buffered path; max_abs_err "
-                  f"{err:.3g}; kernel_ms {ms_sel:.4f} (buffered {ms_buf:.4f}) "
-                  f"plain_ms {plain:.4f} bound_ms {bnd:.4f} ({by}); card "
+                  f"kk={kk}: {versus}; max_abs_err {err:.3g}; kernel_ms "
+                  f"{ms_sel:.4f} plain_ms {plain:.4f} pair_ms {pair:.4f} "
+                  f"bound_ms {bnd:.4f} ({by}, {unit} tensor cores); card "
                   f"{power}")
             if kk == KK_WIDE:
                 res[name + "_select"] = dict(
@@ -2038,7 +2140,8 @@ def main() -> int:
     print(f"[card] {power}; torch {torch.__version__} CUDA "
           f"{torch.version.cuda}")
     phase_build()
-    res = phase_kernels(dev, torch.Generator(device=dev).manual_seed(0))
+    res = phase_kernels(dev, torch.Generator(device=dev).manual_seed(0),
+                        power)
     inp = make_inputs()
     counts, recall, flat_ids, flat_ix = phase_end_to_end(dev, power, inp)
     phases = {"3": dict(counts)}

@@ -2,14 +2,18 @@
 """Where the time of a top-k scan goes, kernel by kernel, on one card.
 
 Runs the fused PQ scan + top-k (``pq_score_topk``) and the flat L2 scan
-(``score_topk``) on random operands at the serving shapes (n=1M rows, b=64
-queries; PQ: M=8, ksub=256, 32 coarse groups; flat: d=128), on both of
-their paths, forced: the buffered path (candidate buffers in shared memory,
-then a merge) and the selection path (every score to scratch, then a radix
-select per query). Prints each kernel's device time per call from
-``torch.profiler`` (CUDA activity), so a call's time splits into its scan
-and its selection or merge. The scan's time on the selection path is the
-scan without any candidate buffer.
+(``score_topk``, at fp32, bf16 and int8 rows) on random operands at the
+serving shapes (n=1M rows, b=64 queries; PQ: M=8, ksub=256, 32 coarse
+groups; flat: d=128), on both of their paths, forced where the shape
+allows it: the buffered path (candidate buffers in shared memory, then a
+merge) and the selection path (every score to scratch, then a radix select
+per query). Prints each kernel's device time per call from
+``torch.profiler`` (CUDA activity), so a call's time splits into its
+kernels: for the flat buffered path the sample pass's scan, the threshold,
+the scan and the merge. The flat scan's own profile (its ``_stats``: block
+thread 0's clock cycles by phase) splits the scan into its cuts and the
+rest, and counts the cuts and admitted candidates a chunk took. Every line
+carries the card's name and power limit.
 
     python3 scripts/profile_topk.py [--kk 80 320 2048] [--iters 5]
 
@@ -19,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import re
 import subprocess
 import sys
 
@@ -29,6 +34,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", "src"))
 
 from repro_torch.index import pq  # noqa: E402
+from repro_torch.index import quant  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import fused_score_topk as scan  # noqa: E402
 from repro_torch.kernels import pq_lut  # noqa: E402
@@ -48,8 +54,32 @@ def kernel_times(fn, iters: int) -> list:
         t = getattr(e, "self_device_time_total",
                     getattr(e, "self_cuda_time_total", 0))
         if t > 0 and e.device_type.name == "CUDA":
-            out.append((e.key.split("(")[0].split("::")[-1], t / iters / 1e3))
+            names = re.findall(r"(\w+_kernel)\b", e.key)
+            out.append((names[-1] if names else e.key[:40],
+                        t / iters / 1e3))
     return out
+
+
+def flat_profile(x, sq, q, kk, scales=None) -> str:
+    """The flat buffered scan's split from its own profile: the share of
+    block thread 0's cycles spent cutting buffers, and the cuts and
+    admitted candidates a chunk (a block) took."""
+    stats = torch.zeros(scan.STATS, dtype=torch.int64, device=x.device)
+    scan.score_topk(x, sq, q, kk, scales, _select=False, _stats=stats)
+    torch.cuda.synchronize()
+    et = _build.ELEMENT_TYPES[x.dtype][0]
+    p = scan.plan(x.shape[0], q.shape[0], kk, x.shape[1],
+                  torch.cuda.get_device_properties(
+                      x.device).multi_processor_count, False, et)
+    blocks = p.nchunks * -(-q.shape[0] // p.bq)
+    v = dict(zip(scan.STAT_NAMES, stats.tolist()))
+    cycles = sum(v[k] for k in scan.STAT_NAMES[:6])
+    return (f"scan phases (thread 0's cycles): " + ", ".join(
+        f"{k} {v[k] / max(cycles, 1):.3f}" for k in scan.STAT_NAMES[:6])
+        + f"; a chunk's cuts {v['cuts'] / blocks:.2f}, candidates admitted "
+        f"a query a chunk {v['admitted'] / blocks / p.bq:.1f} ({blocks} "
+        f"chunks x query tiles, bq {p.bq}, cap {p.cap}, {p.stages} ring "
+        f"slots)")
 
 
 def main() -> int:
@@ -77,23 +107,38 @@ def main() -> int:
     x = torch.randn((n, d), generator=g, device=dev)
     sq = torch.sum(x * x, dim=-1)
     q = torch.randn((b, d), generator=g, device=dev)
+    xb = x.to(torch.bfloat16)
+    xi, si = quant.quantize_rows(x)
+    rows = {"fp32": (x, sq, None),
+            "bf16": (xb, torch.sum(xb.float() ** 2, dim=-1), None),
+            "int8": (xi, quant.sq_norms_of(xi, si), si)}
     _build.build()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     runs = []
     for kk in args.kk:
         runs += [(f"pq_score_topk kk={kk} {path}",
                   lambda kk=kk, s=s: pq_lut.pq_score_topk(
-                      *layout, luts, kk, _select=s))
+                      *layout, luts, kk, _select=s), None)
                  for path, s in (("buffered", False), ("selection", True))]
         kf = kk + 8          # the flat scan's width: k' + the refine's pad
-        runs += [(f"score_topk kk={kf} {path}",
-                  lambda kf=kf, s=s: scan.score_topk(x, sq, q, kf,
-                                                     _select=s))
-                 for path, s in (("buffered", False), ("selection", True))]
-    for tag, fn in runs:
+        for tag, (xr, sqr, sc) in rows.items():
+            et = _build.ELEMENT_TYPES[xr.dtype][0]
+            paths = [("selection", True)]
+            if not scan.plan(n, b, kf, d, sms, et=et).select:
+                paths.insert(0, ("buffered", False))
+            runs += [(f"score_topk {tag} kk={kf} {path}",
+                      lambda kf=kf, s=s, xr=xr, sqr=sqr, sc=sc:
+                      scan.score_topk(xr, sqr, q, kf, sc, _select=s),
+                      (xr, sqr, kf, sc) if not s else None)
+                     for path, s in paths]
+    for tag, fn, flat in runs:
         parts = kernel_times(fn, args.iters)
         total = sum(t for _, t in parts)
         print(f"{tag}: {total:.4f} ms = " + " + ".join(
-            f"{name} {t:.4f}" for name, t in parts))
+            f"{name} {t:.4f}" for name, t in parts) + f"; card {power}")
+        if flat is not None:
+            xr, sqr, kf, sc = flat
+            print(f"    {flat_profile(xr, sqr, q, kf, sc)}; card {power}")
     return 0
 
 

@@ -1,8 +1,9 @@
-// Device helpers shared by the top-k scans (fused_score_topk.cu and
-// ivf_score.cu): the (score desc, key asc) total order, 16-byte cp.async
-// staging, the column chunk width, the stored element types (fp32, bf16,
-// int8) and their staging cast up to fp32, and the thresholded candidate
-// buffers' bitonic trim.
+// Device helpers of the top-k scans: the (score desc, key asc) total
+// order, the stored element types (fp32, bf16, int8) and the bitonic sort
+// of candidate segments, which fused_score_topk.cu and ivf_score.cu share;
+// 16-byte cp.async staging, the column chunk width, the staging cast up to
+// fp32 and the thresholded candidate buffers' trim, which ivf_score.cu
+// uses.
 #pragma once
 
 #include <cuda_runtime.h>

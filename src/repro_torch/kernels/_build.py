@@ -40,9 +40,10 @@ _F = ctypes.c_float
 SIGNATURES = {
     "fcvi_fused_transform": [_P, _P, _P, _F, _P, _P, _P, _P, _P, _L, _I, _I,
                              _P],
-    "fcvi_score_topk": [_P, _I, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I,
-                        _L, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I,
-                        _I, _P, _P, _P, _P],
+    "fcvi_score_topk": [_P, _I, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _L, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P,
+                        _I,
+                        _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
     "fcvi_rescore": [_P, _P, _P, _P, _F, _F, _P, _I, _I, _I, _I, _P],
     "fcvi_ivf_score_topk": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
                             _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P,

@@ -83,6 +83,75 @@ def ref_score_topk_rows(corpus: Tensor, sq_norms: Tensor, payload_v: Tensor,
     return vals, ids, rows, payload_v[idx], payload_f[idx]
 
 
+# ---------------------------------------------------------------------------
+# The flat scan's split products (csrc/fused_score_topk.cu), emulated for the
+# tests only: the kernel runs its dot products on the tensor cores, fp32 rows
+# as three TF32 products (3xTF32), bf16 and int8 rows (exact in bf16) against
+# the query split into three bf16 terms. No serving path calls these.
+# ---------------------------------------------------------------------------
+
+def tf32_round(x: Tensor) -> Tensor:
+    """fp32 to the nearest tf32 (10 mantissa bits), ties away from zero: the
+    kernel's ``tf32_rna``, (bits + 0x1000) & ~0x1fff, by masking the low 13
+    mantissa bits."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def bf16_round(x: Tensor) -> Tensor:
+    """fp32 to the nearest-even bf16 (8 mantissa bits), back in fp32."""
+    return x.to(torch.float32).to(torch.bfloat16).to(torch.float32)
+
+
+def split_terms(x: Tensor, kind: str) -> list:
+    """The kernel's split of fp32 values: ``"tf32x2"`` (hi = tf32(x), lo =
+    tf32(x - hi)), ``"bf16x3"`` (three bf16 terms, each of the remainder
+    left by the ones before), ``"tf32"`` (one term: a single TF32 product,
+    what the split exists to avoid) or ``"bf16"`` (one bf16 term)."""
+    if kind in ("tf32", "bf16"):
+        return [(tf32_round if kind == "tf32" else bf16_round)(x)]
+    rnd, count = ((tf32_round, 2) if kind == "tf32x2" else (bf16_round, 3))
+    terms, rest = [], x.to(torch.float32)
+    for _ in range(count):
+        terms.append(rnd(rest))
+        rest = rest - terms[-1]
+    return terms
+
+
+def split_dot(rows: Tensor, queries: Tensor, kind: str) -> Tensor:
+    """(b, n) dot products as the kernel's products form them, summed
+    exactly (fp64): ``kind`` ``"3xtf32"`` for fp32 rows (x_lo q_hi + x_hi
+    q_lo + x_hi q_hi; x_lo q_lo dropped), ``"tf32"`` for one TF32 product,
+    ``"bf16x3"`` for rows exact in bf16 (bf16 values, int8 codes) against
+    three bf16 query terms, ``"bf16"`` for one bf16 query term. Every
+    product of two tf32 or two bf16 values is exact in fp64, so the result
+    carries the split's error and not the sum's."""
+    q = queries.to(torch.float32)
+    x = rows.to(torch.float32)
+    if kind == "3xtf32":
+        xh, xl = split_terms(x, "tf32x2")
+        qh, ql = split_terms(q, "tf32x2")
+        pairs = [(ql, xh), (qh, xl), (qh, xh)]
+    elif kind == "tf32":
+        pairs = [(split_terms(q, "tf32")[0], split_terms(x, "tf32")[0])]
+    else:
+        pairs = [(t, x) for t in split_terms(q, "bf16x3" if kind == "bf16x3"
+                                            else "bf16")]
+    return sum(a.double() @ b.double().T for a, b in pairs)
+
+
+def split_scores(rows: Tensor, sq_norms: Tensor, queries: Tensor, kind: str,
+                 scales: Optional[Tensor] = None) -> Tensor:
+    """(b, n) scores ``((2 dot) scale - ||x||^2) - ||q||^2`` in fp32 from the
+    emulated split dot products (``split_dot``), in the kernel's order."""
+    dot = split_dot(rows, queries, kind).to(torch.float32)
+    q2 = torch.sum(queries * queries, dim=-1, keepdim=True)
+    s = 2.0 * dot
+    if scales is not None:
+        s = s * scales
+    return (s - sq_norms[None, :]) - q2
+
+
 def ref_rescore(cand_v: Tensor, cand_f: Tensor, qn: Tensor, fqn: Tensor,
                 lam: float) -> Tensor:
     """Combined cosine score per candidate (Alg. 1 line 13).

@@ -839,8 +839,12 @@ def test_select_path_bit_equal_to_buffered(cuda, dtype, n, b, kk, d):
     else:
         rows, scales, rsq = _stored(x, dtype)
     mask = _row_mask(n, "sparse", cuda)
-    big = scan.scan_smem(4, scan._pow2(kk + 2 * scan.TILE),
-                         scan.staged_cols(d)) > scan.SMEM_LIMIT
+    et = _build.ELEMENT_TYPES[rows.dtype][0]
+    try:   # a kk past the buffers takes the selection path only
+        scan.plan(n, b, kk, d, 132, select=False, et=et)
+        big = False
+    except ValueError:
+        big = True
     for kw in (dict(scales=scales), dict(scales=scales, mask=mask)):
         sel = scan.score_topk(rows, rsq, q, kk, **kw, _select=True)
         if big:
@@ -1067,3 +1071,175 @@ def test_k64_and_wide_rows_engine_on_card_matches_cpu_engine(cuda, backend):
     assert _build.launch_counts()
     assert_topk_match(cs[keep], ci[keep], gs[keep], gi[keep], rtol=0,
                       atol=1e-5)
+
+
+# -- the flat scan on the tensor cores: cuts, chunk edges, masks, alignment --
+
+def _largest_buffered_kk(n, b, d, et):
+    """The largest kk the buffered path takes for this batch (bisection)."""
+    lo, hi = 1, n
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if scan.plan(n, b, mid, d, 132, et=et).select:
+            hi = mid - 1
+        else:
+            lo = mid
+    return lo
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("which", ["88", "328", "largest"])
+def test_flat_scan_every_dtype_and_width(cuda, dtype, which):
+    """Every stored type at kk 88, 328 and the largest kk the buffers take,
+    a ragged corpus (n no multiple of a 128-row tile or a chunk) and a
+    ragged query batch (70: a full 64-query tile and 6): against the plain
+    version; B3's (vals, ids) equal B2's and the selection path's equal the
+    buffered path's, bit for bit."""
+    n, b, d = 20011, 70, 128
+    x, _, q, pv, pf = (tensor(a, cuda) for a in scan_inputs(n, b, d=d))
+    rows, scales, sq = (x, None, torch.sum(x * x, dim=-1)) \
+        if dtype == "float32" else _stored(x, dtype)
+    et = _build.ELEMENT_TYPES[rows.dtype][0]
+    kk = {"88": 88, "328": 328}.get(which) or _largest_buffered_kk(
+        n, b, d, et)
+    assert not scan.plan(n, b, kk, d, 132, et=et).select
+    buf = scan.score_topk(rows, sq, q, kk, scales, _select=False)
+    rv, ri = ref.ref_score_topk(rows, sq, q, kk + 1, scales)
+    assert_topk_match(rv[:, :kk].cpu(), ri[:, :kk].cpu(), buf[0].cpu(),
+                      buf[1].cpu(), rtol=L2_RTOL, atol=L2_ATOL,
+                      next_vals=rv[:, -1].cpu())
+    assert _equal(buf, scan.score_topk(rows, sq, q, kk, scales,
+                                       _select=True))
+    out = scan.score_topk_rows(rows, sq, pv, pf, q, kk, scales,
+                               _select=False)
+    assert _equal(out[:2], buf)
+    idx = buf[1].long()
+    assert _equal(out[2:], (_dequant(rows, scales)[idx], pv[idx], pf[idx]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_flat_scan_ties_across_cuts_and_chunks(cuda, dtype):
+    """Duplicate integer rows (exact scores, every score tied several
+    times), ordered so that the best rows come last: the sample's threshold
+    lets many through in the last chunks, whose buffers fill, spill and are
+    cut (the profile counts the cuts). Ties go to the smaller id across
+    cuts and chunk edges: bit for bit the plain version's, on both paths."""
+    rng = np.random.default_rng(11)
+    base = rng.integers(-2, 3, (5000, 16)).astype(np.float32)
+    x = np.concatenate([base] * 40)           # 200,000 rows, 40 copies each
+    q = rng.integers(-2, 3, (6, 16)).astype(np.float32)
+    order = np.argsort((x @ q[0]) - 0.5 * (x * x).sum(-1), kind="stable")
+    x = tensor(x[order], cuda)
+    q = tensor(q, cuda)
+    rows = x if dtype == "float32" else x.to(
+        torch.bfloat16 if dtype == "bfloat16" else torch.int8)
+    sq = torch.sum(x * x, dim=-1)
+    stats = torch.zeros(scan.STATS, dtype=torch.int64, device=cuda)
+    for kk in (300, 1000):
+        buf = scan.score_topk(rows, sq, q, kk, _select=False, _stats=stats)
+        want = ref.ref_score_topk(rows, sq, q, kk)
+        assert _equal(buf, want)
+        assert _equal(buf, scan.score_topk(rows, sq, q, kk, _select=True))
+    assert stats[scan.STAT_NAMES.index("cuts")].item() > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("kind", ["none", "ten", "p3"])
+def test_flat_scan_masks_read_eligible_rows(cuda, dtype, kind):
+    """Masks with no eligible row, 10 eligible rows and a P3-like density
+    (1.1%), at kk below and above the eligible count: dead slots exactly
+    (-inf, 0), live slots against the plain version, the selection path
+    bit-equal to the buffered one."""
+    n, b, d = 30011, 64, 128
+    x, _, q, _, _ = (tensor(a, cuda) for a in scan_inputs(n, b, d=d))
+    rows, scales, sq = (x, None, torch.sum(x * x, dim=-1)) \
+        if dtype == "float32" else _stored(x, dtype)
+    rng = np.random.default_rng(12)
+    m = np.zeros(n, np.float32)
+    if kind == "ten":
+        m[rng.choice(n, 10, replace=False)] = 1.0
+    elif kind == "p3":
+        m[rng.random(n) < 0.011] = 1.0
+    mask = tensor(m, cuda)
+    for kk in (18, 128):
+        got = scan.score_topk(rows, sq, q, kk, scales, mask, _select=False)
+        want = ref.ref_score_topk(rows, sq, q, kk, scales, mask)
+        nxt = ref.ref_score_topk(rows, sq, q, kk + 1, scales, mask)
+        _masked_check(got, want, nxt)
+        assert _equal(got, scan.score_topk(rows, sq, q, kk, scales, mask,
+                                           _select=True))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_flat_scan_misaligned_rows_keep_their_bits(cuda, dtype):
+    """Rows 8 bytes past a 16-byte boundary take the threads' staging path
+    in place of the copy engine's; a score depends on its row and query
+    alone, so the results equal the aligned copy's bit for bit."""
+    n, b, d = 5000, 17, 128
+    x, _, q, _, _ = (tensor(a, cuda) for a in scan_inputs(n, b, d=d))
+    if dtype == "float32":
+        rows, scales, sq = x, None, torch.sum(x * x, dim=-1)
+        buf = torch.empty(rows.numel() + 2, device=cuda)
+        moved = buf[2:].view(rows.shape).copy_(rows)
+    else:
+        rows, scales, sq = _stored(x, dtype)
+        moved, _, _ = _stored(x, dtype, misalign=True)
+    assert moved.data_ptr() % 16 == 8
+    for kk in (88, 328):
+        assert _equal(scan.score_topk(moved, sq, q, kk, scales),
+                      scan.score_topk(rows, sq, q, kk, scales))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flat_scan_rising_scores_cut_every_tile(cuda, dtype):
+    """Rows that come nearer every query row by row: the sample's threshold
+    lets every row of the last chunks through, so each of their tiles
+    appends 128 candidates a query, spills past the buffer and is cut
+    before the next tile appends; against the plain version, and the
+    selection path bit for bit."""
+    n, kk = 200_000, 300
+    x = np.zeros((n, 16), np.float32)
+    x[:, 0] = (n - np.arange(n, dtype=np.float32)) * 0.01
+    q = np.zeros((6, 16), np.float32)
+    q[:, 1] = np.arange(6) * 0.1
+    x, q = tensor(x, cuda), tensor(q, cuda)
+    rows = x if dtype == "float32" else x.to(torch.bfloat16)
+    sq = torch.sum(rows.float() ** 2, dim=-1)
+    p = scan.plan(n, 6, kk, 16, 132)
+    assert p.sample and p.chunk_rows > p.cap
+    stats = torch.zeros(scan.STATS, dtype=torch.int64, device=cuda)
+    got = scan.score_topk(rows, sq, q, kk, _select=False, _stats=stats)
+    assert stats[scan.STAT_NAMES.index("cuts")].item() > 0
+    rv, ri = ref.ref_score_topk(rows, sq, q, kk + 1)
+    assert_topk_match(rv[:, :kk].cpu(), ri[:, :kk].cpu(), got[0].cpu(),
+                      got[1].cpu(), rtol=L2_RTOL, atol=L2_ATOL,
+                      next_vals=rv[:, -1].cpu())
+    assert _equal(got, scan.score_topk(rows, sq, q, kk, _select=True))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("d", [1536, 4096])
+def test_flat_scan_streamed_query_operand(cuda, dtype, d):
+    """Rows wide enough that the planner stages the query operand a column
+    chunk at a time (a 64-query tile in place of a narrower one, or the
+    only way to fit): against the plain version at kk 88 and 328, B3's
+    (vals, ids) equal to B2's and the selection path to the buffered one,
+    bit for bit."""
+    n, b = 4011, 70
+    x, _, q, pv, pf = (tensor(a, cuda) for a in scan_inputs(n, b, d=d))
+    rows, scales, sq = (x, None, torch.sum(x * x, dim=-1)) \
+        if dtype == "float32" else _stored(x, dtype)
+    et = _build.ELEMENT_TYPES[rows.dtype][0]
+    for kk in (88, 328):
+        p = scan.plan(n, b, kk, d, 132, et=et)
+        assert p.qstream and not p.select
+        buf = scan.score_topk(rows, sq, q, kk, scales, _select=False)
+        rv, ri = ref.ref_score_topk(rows, sq, q, kk + 1, scales)
+        assert_topk_match(rv[:, :kk].cpu(), ri[:, :kk].cpu(), buf[0].cpu(),
+                          buf[1].cpu(), rtol=L2_RTOL, atol=L2_ATOL,
+                          next_vals=rv[:, -1].cpu())
+        assert _equal(buf, scan.score_topk(rows, sq, q, kk, scales,
+                                           _select=True))
+        out = scan.score_topk_rows(rows, sq, pv, pf, q, kk, scales,
+                                   _select=False)
+        assert _equal(out[:2], buf)

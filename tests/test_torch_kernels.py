@@ -131,56 +131,117 @@ def test_topk_first_breaks_ties_by_position():
     assert pos.tolist() == [[1, 2, 4, 3]]
 
 
-def test_scan_plan_sizes_fit_and_cover():
-    """Every 1 <= kk <= n and every width plans: the buffered path where its
-    buffers fit in shared memory, the selection path past them (or when
-    forced); shared memory never grows with d."""
+SCAN_SHAPES = [(1_000_000, 64, 88), (1_000_000, 64, 328),
+               (1_000_000, 64, 2048), (1_000_000, 64, 2056),
+               (1_000_000, 64, 3200), (1_000_000, 16, 4104),
+               (50_000, 64, 50_000), (1000, 5, 88), (256, 3, 256), (1, 1, 1)]
+
+
+@pytest.mark.parametrize("et", [0, 1, 2])
+@pytest.mark.parametrize("d", [128, 384, 960, 1536, 30, 4096])
+def test_scan_plan_sizes_fit_and_cover(d, et):
+    """Every 1 <= kk <= n, every width and every stored type plans: the
+    buffered path at the widest query tile whose candidate buffers (kk +
+    MIN_SLACK slots a query or more) fit beside the query operand (resident
+    for every column chunk, or staged a chunk at a time where that fits a
+    wider tile) and a ring of at least MIN_STAGES slots, the selection path
+    past them (or below a 16-query tile for a larger batch, or when
+    forced); the chunks cover the rows, fill the SMs, and stop where the
+    merge's nchunks * kk entries would cost more than the scan gains."""
     from repro_torch.kernels import fused_score_topk as scan
 
-    for (n, nq, kk), d in itertools.product(
-            [(1_000_000, 64, 88), (1_000_000, 64, 328),
-             (1_000_000, 64, 2048), (1_000_000, 64, 2056),
-             (1_000_000, 64, 3200), (1_000_000, 16, 4104),
-             (50_000, 64, 50_000), (1000, 5, 88), (256, 3, 256), (1, 1, 1)],
-            [128, 384, 960, 1536, 30]):
-        p = scan.plan(n, nq, kk, d, 132)
-        dc = scan.staged_cols(d)
-        assert dc == min((d + 3) & ~3, _build.DC)
-        assert scan.scan_smem(p.bq, p.cap, dc) <= scan.SMEM_LIMIT
-        widest = 16 if nq > 8 else 8 if nq > 4 else 4
-        cap = scan._pow2(kk + 2 * scan.TILE)
-        tiles = [bq for bq in (16, 8, 4) if bq <= widest
-                 and scan.scan_smem(bq, cap, dc) <= scan.SMEM_LIMIT]
-        buffered_fits = bool(tiles)
-        # the selection path where the buffers do not fit, or fit only at a
-        # 4-query tile when the batch holds more
-        assert p.select == (not tiles or tiles[0] == 4 < widest), \
-            (n, nq, kk, d)
+    for n, nq, kk in SCAN_SHAPES:
+        p = scan.plan(n, nq, kk, d, 132, et=et)
+        widest = next(b for b in (8, 16, 32, 64) if b >= nq or b == 64)
+        tiles = [b for b in (64, 32, 16, 8) if b <= widest]
+        fit = {qs: [b for b in tiles
+                    if scan.buffered_cap(b, kk, d, et, qs)[0]]
+               for qs in (False, True)}
+        best = max([f[0] for f in fit.values() if f], default=0)
+        fits = best > 0 and scan.merge_smem(kk) <= scan.SMEM_LIMIT
+        assert p.select == (not fits or best < min(16, widest)), \
+            (n, nq, kk, d, et)
+        assert scan.MIN_STAGES <= p.stages <= scan.MAX_STAGES
+        assert scan.scan_smem(p.bq, p.cap, d, et, p.stages, p.qstream) <= \
+            scan.SMEM_LIMIT
         if p.select:
-            assert p.cap == p.merge_cap == 0 and p.bq == widest
+            assert p.cap == 0 and p.sample == 0
+            room = [b for b in tiles if scan.stages_for(
+                b, 0, d, et, p.qstream) >= scan.MIN_STAGES]
+            assert p.bq == room[0]
         else:
-            assert p.bq == tiles[0]
-            assert p.cap >= kk + 2 * scan.TILE and p.merge_cap >= kk
-            assert scan.merge_smem(p.merge_cap) <= scan.SMEM_LIMIT
-        assert p.chunk_rows % scan.TILE == 0
+            assert p.bq == best
+            # the operand is staged a chunk at a time only to fit a
+            # wider tile than the resident operand allows
+            assert p.qstream == (not fit[False] or fit[False][0] < best)
+            assert kk + scan.MIN_SLACK <= p.cap <= kk + scan.MAX_SLACK
+            assert p.cap % 32 == 0
+            assert p.sample == (scan.SAMPLE if n // 8 >= kk else 0)
+            assert p.nchunks <= max(1, int((n * scan.SCAN_TO_MERGE / kk)
+                                           ** 0.5))
+        assert p.chunk_rows % scan.ROWS == 0
         assert (p.nchunks - 1) * p.chunk_rows < n <= p.nchunks * p.chunk_rows
-        forced = scan.plan(n, nq, kk, d, 132, select=True)
+        qtiles = -(-nq // p.bq)
+        assert p.nchunks <= max(1, -(-132 // qtiles))
+        forced = scan.plan(n, nq, kk, d, 132, select=True, et=et)
         assert forced.select and forced.nchunks >= 1
-        if buffered_fits:
-            assert not scan.plan(n, nq, kk, d, 132, select=False).select
+        if fits:
+            assert not scan.plan(n, nq, kk, d, 132, select=False,
+                                 et=et).select
         else:
             with pytest.raises(ValueError, match="do not fit"):
-                scan.plan(n, nq, kk, d, 132, select=False)
-    # kk=2056 (EngineConfig(k=64) escalated on flat): a batch of 64 takes
-    # the selection path, a sub-batch of 4 the buffers, at any d
-    for d in (128, 960):
-        assert scan.plan(1_000_000, 64, 2056, d, 132).select
-        assert not scan.plan(1_000_000, 4, 2056, d, 132).select
+                scan.plan(n, nq, kk, d, 132, select=False, et=et)
+    # rows too wide for the resident operand at any tile stream it
+    assert scan.plan(1_000_000, 64, 88, 4096, 132, et=et).qstream
+    assert not scan.plan(1_000_000, 64, 88, 128, 132, et=et).qstream
+
+
+def test_scan_plan_query_tile_and_chunks():
+    """A batch of 64 reads the corpus once at the serving widths (one
+    64-query tile, a chunk per SM); kk=328 halves the tile, kk=2056 takes
+    the selection path for a batch and the buffers for a sub-batch of 4,
+    at d=128; the chunk count falls as kk grows (the merge's length)."""
+    from repro_torch.kernels import fused_score_topk as scan
+
+    for et in (0, 1, 2):
+        p = scan.plan(1_000_000, 64, 88, 128, 132, et=et)
+        assert (p.bq, p.select, p.nchunks) == (64, False, 131)
+        assert scan.plan(1_000_000, 64, 18, 128, 132, et=et).bq == 64
+        p = scan.plan(1_000_000, 64, 328, 128, 132, et=et)
+        assert (p.bq, p.select) == (32, False)
+        assert scan.plan(1_000_000, 64, 2056, 128, 132, et=et).select
     assert not scan.plan(1_000_000, 64, 1032, 128, 132).select
     assert scan.plan(1_000_000, 4, 4104, 128, 132).select
+    chunks = [scan.plan(1_000_000, 8, kk, 128, 132).nchunks
+              for kk in (88, 328, 1032)]
+    assert chunks == sorted(chunks, reverse=True) and chunks[-1] < 132
     for kk in (0, -1, 101):
         with pytest.raises(ValueError):
             scan.plan(100, 64, kk, 128, 132)
+
+
+@pytest.mark.parametrize("kind", ["random", "none", "ten", "all"])
+def test_eligible_ids_match_nonzero(kind):
+    """The masked scan's eligible ids, built without a host synchronisation,
+    equal mask.nonzero() in ascending order, with their count."""
+    from repro_torch.kernels import fused_score_topk as scan
+
+    n = 5000
+    rng = np.random.default_rng(4)
+    mask = np.zeros(n, np.float32)
+    if kind == "random":
+        mask[rng.random(n) < 0.2] = 1.0
+    elif kind == "ten":
+        mask[rng.choice(n, 10, replace=False)] = 1.0
+    elif kind == "all":
+        mask[:] = 1.0
+    m = torch.from_numpy(mask)
+    ids, count = scan.eligible_ids(m)
+    want = torch.nonzero(m > 0.5).flatten()
+    assert ids.shape == (n + 1,) and ids.dtype == torch.int32
+    assert count.tolist() == [want.numel()]
+    assert torch.equal(ids[: want.numel()].long(), want)
+
 
 def test_cpu_dispatch_launches_no_kernel():
     _build.reset_launch_counts()

@@ -79,12 +79,16 @@ def test_wide_and_large_k_engine_matches_jax(backend, n, d, k):
 @pytest.mark.parametrize("d", [384, 960])
 def test_card_plans_take_these_shapes(d):
     """The card's planners take the widths and k' these engines ask for
-    (what used to raise): the stage-2 flat scan at kk=2056 (the selection
-    path for a batch of 40, the buffers for 4), the IVF scan at k'=2048
-    and 3200 on the buffered path at any d, a forced fold at kp=4096 on
-    the selection path."""
-    assert fused_score_topk.plan(4096, 40, 2056, d, 132).select
-    assert not fused_score_topk.plan(4096, 4, 2056, d, 132).select
+    (what used to raise): the stage-2 flat scan at kk=2056 on the
+    selection path (its merge's buffers do not fit) for a batch of 40 and
+    a sub-batch of 4, at every stored type; kk=1032 on the buffers for a
+    sub-batch of 4; the IVF scan at k'=2048 and 3200 on the buffered path
+    at any d, a forced fold at kp=4096 on the selection path."""
+    for et in (0, 1, 2):
+        assert fused_score_topk.plan(4096, 40, 2056, d, 132, et=et).select
+        assert fused_score_topk.plan(4096, 4, 2056, d, 132, et=et).select
+        assert not fused_score_topk.plan(4096, 4, 1032, d, 132,
+                                         et=et).select
     assert not ivf_score.plan(2048, d).select
     assert not ivf_score.plan(3200, d).select
     assert fused_score_topk.plan(1_000_000, 64, 4096, d, 132).select
