@@ -20,8 +20,9 @@ Phases, each of which raises (and exits non-zero) on a failure:
    plain version's time and, where one PyTorch call computes the same
    function, that call's time (CUDA events, after a warm-up). The flat
    scan's bound is the larger of its bytes at the memory rate and its
-   split products at the tensor cores' peak (TF32 for fp32 rows, bf16
-   otherwise), with the fp32 SIMT bound beside it; its yardstick is the
+   multiply-adds (2 b n d flops) at the tensor cores' peak (TF32 for fp32
+   rows, bf16 otherwise), with the split's three products a multiply-add
+   and the fp32 SIMT bound beside it as information; its yardstick is the
    library pair ``torch.addmm`` at "highest" fp32 precision plus
    ``torch.topk`` (``pair_ms``), timed only.
 3. end to end, flat: a synthetic SIFT1M-shaped corpus, ``fcvi.build`` on
@@ -272,16 +273,20 @@ def bound_ms(nbytes: float, flops: float):
 
 def scan_bound_ms(nbytes: float, pairs: float, d: int, dtype):
     """(least time in ms, what bounds it, the unit) of the flat scan B2/B3:
-    its bytes at the memory rate, or its split products at the published
-    peak of the tensor-core unit they run on: three TF32 products a (query,
-    row, column) for fp32 rows, three bf16 products for bf16 and int8 rows,
-    two flops each."""
+    its bytes at the memory rate, or the function's own operations (a
+    multiply-add a (query, row, column), two flops) at the published peak
+    of the tensor-core unit it runs on (TF32 for fp32 rows, bf16 for bf16
+    and int8 rows), the larger. The split's three products per multiply-add
+    are the kernel's cost, not the function's: the unit's description
+    gives their time beside it, as information."""
     tf32 = dtype == torch.float32
-    t_ops = 6 * pairs * d / (PEAK_TF32_S if tf32 else PEAK_BF16_S)
+    peak = PEAK_TF32_S if tf32 else PEAK_BF16_S
+    t_ops = 2 * pairs * d / peak
     t_bytes = nbytes / PEAK_BYTES_S
+    unit = (f"{'TF32' if tf32 else 'bf16'} tensor cores; the split's three "
+            f"products {1e3 * 3 * t_ops:.4f} ms")
     return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations",
-            "tf32" if tf32 else "bf16")
+            "bytes" if t_bytes >= t_ops else "operations", unit)
 
 
 def pair_ms(x, sq, q, kk, scales=None, mask=None, iters=3) -> float:
@@ -426,7 +431,7 @@ def phase_kernels(dev, gen, power: str) -> dict:
         print(f"[kernel] score_topk b={B} n={N} d={D} kk={kk}: max_abs_err "
               f"{err:.3g} ids {agree}/{total} outside near-ties; kernel_ms "
               f"{ms:.4f} plain_ms {plain:.4f} pair_ms {pair:.4f} bound_ms "
-              f"{bnd:.4f} ({by}, {unit} tensor cores; fp32 SIMT bound "
+              f"{bnd:.4f} ({by}, {unit}; fp32 SIMT bound "
               f"{simt:.4f}); card {power}")
         print(f"[kernel] score_topk_rows kk={kk}: rows exact; kernel_ms "
               f"{ms_rows:.4f} plain_ms {plain_rows:.4f} pair_ms {pair:.4f} "
@@ -1204,7 +1209,7 @@ def flat_variant_kernels(index, q_t, power: str) -> dict:
         print(f"[kernel] {name} b={B} n={N} d={D} {x.dtype} kk={kk}: "
               f"max_abs_err {err:.3g} ids {agree}/{total} outside near-ties; "
               f"kernel_ms {ms:.4f} plain_ms {plain:.4f} pair_ms {pair:.4f} "
-              f"bound_ms {bnd:.4f} ({by}, {unit} tensor cores); card {power}")
+              f"bound_ms {bnd:.4f} ({by}, {unit}); card {power}")
         print(f"[kernel] {name_rows} kk={kk}: (vals, ids) = {name}'s, rows "
               f"exact; kernel_ms {ms_rows:.4f} plain_ms {plain_rows:.4f} "
               f"pair_ms {pair:.4f} bound_ms {bnd_rows:.4f} ({by_rows}); card "
@@ -1483,7 +1488,7 @@ def masked_kernels(ix: dict, masks, q_t, power) -> dict:
                       f"{agree}/{total} outside near-ties, "
                       f"{int(dead.sum())} dead slots (-inf, 0); kernel_ms "
                       f"{ms:.4f} plain_ms {plain:.4f} pair_ms {pair:.4f} "
-                      f"bound_ms {bnd:.4f} ({by}, {unit} tensor cores); "
+                      f"bound_ms {bnd:.4f} ({by}, {unit}); "
                       f"card {power}")
                 if pname == "P2" and kk == K_MASK:
                     res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
@@ -1830,7 +1835,7 @@ def wide_kernels(tag, x, sq, pv, pf, mask, q_t, power) -> None:
                   f"path): max_abs_err {max(err, merr):.3g} (depth term of "
                   f"the tolerance up to {atol_np.max():.3g}); kernel_ms "
                   f"{ms:.4f} plain_ms {plain:.4f} pair_ms {pms:.4f} "
-                  f"bound_ms {bnd:.4f} ({by}, {unit} tensor cores); card "
+                  f"bound_ms {bnd:.4f} ({by}, {unit}); card "
                   f"{power}")
         torch.cuda.empty_cache()
     print(f"[3g] {tag}: B2, B3, B2 masked agree with their plain versions at "
@@ -1894,7 +1899,7 @@ def select_kernels(flat_ix, ivf_ix, inp: Inputs, dev, power) -> dict:
             print(f"[kernel] {name}_select (forced) b={B} n={N} d={D} "
                   f"kk={kk}: {versus}; max_abs_err {err:.3g}; kernel_ms "
                   f"{ms_sel:.4f} plain_ms {plain:.4f} pair_ms {pair:.4f} "
-                  f"bound_ms {bnd:.4f} ({by}, {unit} tensor cores); card "
+                  f"bound_ms {bnd:.4f} ({by}, {unit}); card "
                   f"{power}")
             if kk == KK_WIDE:
                 res[name + "_select"] = dict(

@@ -15,13 +15,22 @@ thread 0's clock cycles by phase) splits the scan into its cuts and the
 rest, and counts the cuts and admitted candidates a chunk took. Every line
 carries the card's name and power limit.
 
-    python3 scripts/profile_topk.py [--kk 80 320 2048] [--iters 5]
+With ``--plans`` it instead times two planner choices of the flat scan
+against the forced alternative, on the same operands (CUDA events, per
+call), and checks that both give the same (vals, ids) bits: the query
+operand resident for every column chunk against staged a chunk at a time
+(``qstream``) at d=128, and the chunk count capped by the merge's length
+(``SCAN_TO_MERGE``) against one chunk per SM where the cap binds (a
+sub-batch at kk=1032, small corpora).
+
+    python3 scripts/profile_topk.py [--kk 80 320 2048] [--iters 5] [--plans]
 
 Needs one CUDA device; exits 1 without one.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import re
 import subprocess
@@ -82,10 +91,92 @@ def flat_profile(x, sq, q, kk, scales=None) -> str:
         f"slots)")
 
 
+def time_ms(fn, iters: int) -> float:
+    """Mean ms per call of ``fn`` on the card (CUDA events, one warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def compare_plans(dev, g, iters: int, power: str) -> None:
+    """The planner's choice against a forced alternative, each pair timed
+    in turn (choice, forced, forced, choice) and checked bit for bit."""
+    plan0, cap0 = scan.plan, scan.SCAN_TO_MERGE
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def streamed(n, nq, kk, d, num_sms, select=None, et=0):
+        p = plan0(n, nq, kk, d, num_sms, select, et)
+        cap, stages = scan.buffered_cap(p.bq, kk, d, et, True)
+        return dataclasses.replace(p, qstream=True, cap=cap, stages=stages)
+
+    def uncapped():
+        scan.SCAN_TO_MERGE = 1e30
+
+    def use_streamed():
+        scan.plan = streamed
+
+    cases = []
+    for tag, kk in (("fp32", 88), ("fp32", 328), ("bf16", 88),
+                    ("bf16", 328), ("int8", 328)):
+        cases.append(("qstream", tag, 1_000_000, 64, 128, kk, use_streamed))
+    for n, b, kk in ((1_000_000, 4, 1032), (50_000, 64, 88),
+                     (20_000, 64, 328), (100_000, 64, 328)):
+        cases.append(("uncapped", "fp32", n, b, 128, kk, uncapped))
+    for what, tag, n, b, d, kk, force in cases:
+        x = torch.randn((n, d), generator=g, device=dev)
+        q = torch.randn((b, d), generator=g, device=dev)
+        sc = None
+        if tag == "bf16":
+            x = x.to(torch.bfloat16)
+        elif tag == "int8":
+            x, sc = quant.quantize_rows(x)
+        sq = (quant.sq_norms_of(x, sc) if sc is not None
+              else torch.sum(x.float() ** 2, dim=-1))
+        et = _build.ELEMENT_TYPES[x.dtype][0]
+
+        def call():
+            return scan.score_topk(x, sq, q, kk, sc, _select=False)
+        chosen = scan.plan(n, b, kk, d, sms, False, et)
+        want = call()
+        force()
+        try:
+            other = scan.plan(n, b, kk, d, sms, False, et)
+            got = call()
+            t_other = [time_ms(call, iters)]
+        finally:
+            scan.plan, scan.SCAN_TO_MERGE = plan0, cap0
+        t_chosen = [time_ms(call, iters)]
+        force()
+        try:
+            t_other.append(time_ms(call, iters))
+        finally:
+            scan.plan, scan.SCAN_TO_MERGE = plan0, cap0
+        t_chosen.append(time_ms(call, iters))
+        same = all(torch.equal(a, c) for a, c in zip(want, got))
+        print(f"plans {what} {tag} n={n} b={b} d={d} kk={kk}: planned "
+              f"(bq {chosen.bq}, cap {chosen.cap}, stages {chosen.stages}, "
+              f"qstream {chosen.qstream}, {chosen.nchunks} chunks) "
+              f"{min(t_chosen):.4f} ms {t_chosen}; forced (bq {other.bq}, "
+              f"cap {other.cap}, stages {other.stages}, qstream "
+              f"{other.qstream}, {other.nchunks} chunks) {min(t_other):.4f} "
+              f"ms {t_other}; bit-equal {same}; card {power}")
+        if not same:
+            raise AssertionError(f"plans {what} {tag} kk={kk}: results differ")
+        del x, q, sq, want, got
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kk", type=int, nargs="+", default=[80, 320, 2048])
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--plans", action="store_true",
+                    help="time the flat planner's choices (see above)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_topk: no CUDA device", file=sys.stderr)
@@ -97,6 +188,10 @@ def main() -> int:
     print(f"card {power}; torch {torch.__version__}")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
+    if args.plans:
+        _build.build()
+        compare_plans(dev, g, max(args.iters, 20), power)
+        return 0
     n, m, ksub, ncoarse, b, d = 1_000_000, 8, 256, 32, 64, 128
     codes = torch.randint(0, ksub, (n, m), generator=g,
                           device=dev).to(torch.uint8)

@@ -50,10 +50,13 @@
 // B2's and the selection path's equal the buffered path's, bit for bit.
 //
 // Bound on the H100 at the main path's shapes (64 queries, 1,000,000 x 128
-// rows): bytes for fp32 rows (516 MB, 0.154 ms at 3.35 TB/s, against 49
-// GFLOP of TF32 products, 0.099 ms at 495 TFLOP/s) and bf16 rows (258 MB,
-// 0.077 ms, against 0.050 ms of bf16 products at 989 TFLOP/s); operations
-// for int8 rows (130 MB, 0.039 ms, under the 0.050 ms of bf16 products).
+// rows): bytes at every stored type, fp32 rows 516 MB (0.154 ms at 3.35
+// TB/s), bf16 rows 258 MB (0.077 ms), int8 codes with their scales and
+// norms 136 MB (0.041 ms), against the function's 16.4 GFLOP of
+// multiply-adds (0.033 ms at 495 TFLOP/s of TF32, 0.017 ms at 989 of
+// bf16). The split costs three products a multiply-add (0.099 ms of TF32,
+// 0.050 ms of bf16): the kernel's own work, past int8's bytes bound, so
+// int8 rows cannot reach their bound through this split.
 // The design reads the corpus once per batch of up to 64 queries (the
 // planner halves the tile only where kk's buffers need the room). Tiles
 // come through a ring of 3-4 slots of 128 rows x 128 bytes, their 16-byte

@@ -87,7 +87,9 @@ def ref_score_topk_rows(corpus: Tensor, sq_norms: Tensor, payload_v: Tensor,
 # The flat scan's split products (csrc/fused_score_topk.cu), emulated for the
 # tests only: the kernel runs its dot products on the tensor cores, fp32 rows
 # as three TF32 products (3xTF32), bf16 and int8 rows (exact in bf16) against
-# the query split into three bf16 terms. No serving path calls these.
+# the query split into three bf16 terms. The products are summed exactly: the
+# tensor cores' own accumulation is not emulated. No serving path calls
+# these.
 # ---------------------------------------------------------------------------
 
 def tf32_round(x: Tensor) -> Tensor:

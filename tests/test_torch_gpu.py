@@ -1243,3 +1243,38 @@ def test_flat_scan_streamed_query_operand(cuda, dtype, d):
         out = scan.score_topk_rows(rows, sq, pv, pf, q, kk, scales,
                                    _select=False)
         assert _equal(out[:2], buf)
+
+
+# the scan's error on near-cancelling scores, as a share of the L2
+# tolerance: the most this design reached (PERF.md), with room for the
+# card's run to run spread; a longer MMA sum (kGroup) goes past it
+NEAR_CANCEL_SHARE = 1.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_flat_scan_near_cancelling_scores(cuda, dtype):
+    """Rows and queries around shared centres (||x||^2 about 64, scores
+    about -8): 2 <q, x> and the norms cancel, so the dot product's own
+    error shows whole in the score. The tensor cores' accumulation is the
+    larger part of it (the CPU emulation of the split does not cover it):
+    each score stays within NEAR_CANCEL_SHARE of the scan's L2 tolerance
+    against the plain version's score of the same row."""
+    n, b, d, kk = 50_000, 64, 128, 88
+    rng = np.random.default_rng(13)
+    centre = rng.standard_normal((b, d)) * np.sqrt(64.0 / d)
+    x = centre[np.arange(n) % b] + 0.2 * rng.standard_normal((n, d))
+    q = centre + 0.2 * rng.standard_normal((b, d))
+    x, q = tensor(x.astype(np.float32), cuda), tensor(q.astype(np.float32),
+                                                      cuda)
+    rows, scales, sq = (x, None, torch.sum(x * x, dim=-1)) \
+        if dtype == "float32" else _stored(x, dtype)
+    vals, ids = scan.score_topk(rows, sq, q, kk, scales)
+    full = 2.0 * (q @ rows.float().T)
+    if scales is not None:
+        full = full * scales
+    full = (full - sq[None, :]) - torch.sum(q * q, dim=-1, keepdim=True)
+    plain = torch.gather(full, 1, ids.long())
+    share = ((vals - plain).abs() / (L2_ATOL + L2_RTOL * plain.abs())).max()
+    print(f"near-cancelling {dtype}: error {share.item():.3f} of the "
+          f"tolerance (scores about {vals.mean().item():.2f})")
+    assert share.item() <= NEAR_CANCEL_SHARE
