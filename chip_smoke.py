@@ -329,6 +329,15 @@ def ids_outside_ties(ref_vals, ref_ids, ids, rtol, atol):
     return int((same & keep).sum()), int(keep.sum())
 
 
+def tol_share(got, want, atol=L2_ATOL) -> float:
+    """The largest |got - want| as a share of the L2 tolerance, atol + rtol
+    |want| (atol a number or a (b, 1) tensor), over the slots where want is
+    finite."""
+    live = torch.isfinite(want)
+    share = (got - want).abs() / (atol + L2_RTOL * want.abs())
+    return share[live].max().item() if bool(live.any()) else 0.0
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -406,6 +415,7 @@ def phase_kernels(dev, gen, power: str) -> dict:
         err = (vals - rvals[:, :kk]).abs().max().item()
         tol = (L2_ATOL + L2_RTOL * rvals[:, :kk].abs()).max().item()
         agree, total = ids_outside_ties(rvals, rids, ids, L2_RTOL, L2_ATOL)
+        share = tol_share(vals, rvals[:, :kk])
         check(err <= tol, f"score_topk kk={kk} error {err} > {tol}")
         check(agree == total, f"score_topk kk={kk}: {total - agree} ids "
               "differ outside near-ties")
@@ -429,7 +439,8 @@ def phase_kernels(dev, gen, power: str) -> dict:
             scan_in + 8 * B * kk + rows_bytes, B * N, D, x.dtype)
         simt, _ = bound_ms(scan_in + 8 * B * kk, simt_ops)
         print(f"[kernel] score_topk b={B} n={N} d={D} kk={kk}: max_abs_err "
-              f"{err:.3g} ids {agree}/{total} outside near-ties; kernel_ms "
+              f"{err:.3g} ({share:.3f} of the tolerance) ids {agree}/{total} "
+              f"outside near-ties; kernel_ms "
               f"{ms:.4f} plain_ms {plain:.4f} pair_ms {pair:.4f} bound_ms "
               f"{bnd:.4f} ({by}, {unit}; fp32 SIMT bound "
               f"{simt:.4f}); card {power}")
@@ -1181,6 +1192,7 @@ def flat_variant_kernels(index, q_t, power: str) -> dict:
         tol = (L2_ATOL + L2_RTOL * rvals[:, :kk].abs()).max().item()
         agree, total = ids_outside_ties(rvals, rids, ids, L2_RTOL, L2_ATOL)
         name, name_rows = "score_topk" + suffix, "score_topk_rows" + suffix
+        share = tol_share(vals, rvals[:, :kk])
         check(err <= tol, f"{name} kk={kk} error {err} > {tol}")
         check(agree == total, f"{name} kk={kk}: {total - agree} ids differ "
               "outside near-ties")
@@ -1207,7 +1219,8 @@ def flat_variant_kernels(index, q_t, power: str) -> dict:
         bnd_rows, by_rows, _ = scan_bound_ms(
             scan_in + 8 * B * kk + rows_bytes, B * N, D, x.dtype)
         print(f"[kernel] {name} b={B} n={N} d={D} {x.dtype} kk={kk}: "
-              f"max_abs_err {err:.3g} ids {agree}/{total} outside near-ties; "
+              f"max_abs_err {err:.3g} ({share:.3f} of the tolerance) ids "
+              f"{agree}/{total} outside near-ties; "
               f"kernel_ms {ms:.4f} plain_ms {plain:.4f} pair_ms {pair:.4f} "
               f"bound_ms {bnd:.4f} ({by}, {unit}); card {power}")
         print(f"[kernel] {name_rows} kk={kk}: (vals, ids) = {name}'s, rows "
@@ -1461,6 +1474,7 @@ def masked_kernels(ix: dict, masks, q_t, power) -> dict:
                       "(-inf, 0)")
                 live = ~dead
                 err = (vals - rv[:, :kk])[live].abs().max().item()
+                share = tol_share(vals, rv[:, :kk])
                 tol = (L2_ATOL + L2_RTOL * rv[:, :kk][live].abs()).max()
                 check(err <= tol.item(), f"{name} {pname} kk={kk} error "
                       f"{err} > {tol.item()}")
@@ -1484,7 +1498,8 @@ def masked_kernels(ix: dict, masks, q_t, power) -> dict:
                 bnd, by, unit = scan_bound_ms(io + elig * row_bytes,
                                               B * elig, D, x.dtype)
                 print(f"[kernel] {name} mask {pname} ({elig} eligible "
-                      f"rows) b={B} kk={kk}: max_abs_err {err:.3g} ids "
+                      f"rows) b={B} kk={kk}: max_abs_err {err:.3g} "
+                      f"({share:.3f} of the tolerance) ids "
                       f"{agree}/{total} outside near-ties, "
                       f"{int(dead.sum())} dead slots (-inf, 0); kernel_ms "
                       f"{ms:.4f} plain_ms {plain:.4f} pair_ms {pair:.4f} "
@@ -1785,6 +1800,7 @@ def wide_kernels(tag, x, sq, pv, pf, mask, q_t, power) -> None:
         vals, ids = ops.score_topk(x, sq, q_t, kk)
         rvals, rids = ref.ref_score_topk(x, sq, q_t, kk + 1)
         err = (vals - rvals[:, :kk]).abs().max().item()
+        share = tol_share(vals, rvals[:, :kk], atol)
         ok = ((vals - rvals[:, :kk]).abs()
               <= atol + L2_RTOL * rvals[:, :kk].abs()).all().item()
         agree, total = ids_outside_ties(rvals, rids, ids, L2_RTOL, atol_np)
@@ -1803,6 +1819,7 @@ def wide_kernels(tag, x, sq, pv, pf, mask, q_t, power) -> None:
         check(torch.equal(torch.isneginf(mv), ~live),
               f"{tag} masked kk={kk}: dead slots differ")
         merr = (mv - rv[:, :kk])[live].abs().max().item()
+        share = max(share, tol_share(mv, rv[:, :kk], atol))
         mok = ((mv - rv[:, :kk]).abs()
                <= atol + L2_RTOL * rv[:, :kk].abs())[live].all().item()
         rvf = torch.where(torch.isneginf(rv), -1e30, rv)
@@ -1832,7 +1849,8 @@ def wide_kernels(tag, x, sq, pv, pf, mask, q_t, power) -> None:
             plain = time_ms(plain_fn, 2)
             print(f"[kernel] {name} ({tag}) b={B} n={n} d={d} kk={kk} "
                   f"(bq {p.bq}, {'selection' if p.select else 'buffered'} "
-                  f"path): max_abs_err {max(err, merr):.3g} (depth term of "
+                  f"path): max_abs_err {max(err, merr):.3g} ({share:.3f} of "
+                  f"the tolerance; depth term of "
                   f"the tolerance up to {atol_np.max():.3g}); kernel_ms "
                   f"{ms:.4f} plain_ms {plain:.4f} pair_ms {pms:.4f} "
                   f"bound_ms {bnd:.4f} ({by}, {unit}); card "

@@ -15,13 +15,10 @@ thread 0's clock cycles by phase) splits the scan into its cuts and the
 rest, and counts the cuts and admitted candidates a chunk took. Every line
 carries the card's name and power limit.
 
-With ``--plans`` it instead times two planner choices of the flat scan
-against the forced alternative, on the same operands (CUDA events, per
-call), and checks that both give the same (vals, ids) bits: the query
-operand resident for every column chunk against staged a chunk at a time
-(``qstream``) at d=128, and the chunk count capped by the merge's length
-(``SCAN_TO_MERGE``) against one chunk per SM where the cap binds (a
-sub-batch at kk=1032, small corpora).
+With ``--plans`` it instead times the flat planner's choice of a query
+operand resident for every column chunk against the operand staged a chunk
+at a time (``qstream``, forced) at d=128, on the same operands (CUDA
+events, per call), and checks that both give the same (vals, ids) bits.
 
     python3 scripts/profile_topk.py [--kk 80 320 2048] [--iters 5] [--plans]
 
@@ -105,9 +102,10 @@ def time_ms(fn, iters: int) -> float:
 
 
 def compare_plans(dev, g, iters: int, power: str) -> None:
-    """The planner's choice against a forced alternative, each pair timed
-    in turn (choice, forced, forced, choice) and checked bit for bit."""
-    plan0, cap0 = scan.plan, scan.SCAN_TO_MERGE
+    """The planner's resident query operand against the streamed one, each
+    pair timed in turn (choice, forced, forced, choice) and checked bit for
+    bit."""
+    plan0 = scan.plan
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def streamed(n, nq, kk, d, num_sms, select=None, et=0):
@@ -115,20 +113,12 @@ def compare_plans(dev, g, iters: int, power: str) -> None:
         cap, stages = scan.buffered_cap(p.bq, kk, d, et, True)
         return dataclasses.replace(p, qstream=True, cap=cap, stages=stages)
 
-    def uncapped():
-        scan.SCAN_TO_MERGE = 1e30
-
-    def use_streamed():
+    def force():
         scan.plan = streamed
 
-    cases = []
+    n, b, d = 1_000_000, 64, 128
     for tag, kk in (("fp32", 88), ("fp32", 328), ("bf16", 88),
                     ("bf16", 328), ("int8", 328)):
-        cases.append(("qstream", tag, 1_000_000, 64, 128, kk, use_streamed))
-    for n, b, kk in ((1_000_000, 4, 1032), (50_000, 64, 88),
-                     (20_000, 64, 328), (100_000, 64, 328)):
-        cases.append(("uncapped", "fp32", n, b, 128, kk, uncapped))
-    for what, tag, n, b, d, kk, force in cases:
         x = torch.randn((n, d), generator=g, device=dev)
         q = torch.randn((b, d), generator=g, device=dev)
         sc = None
@@ -150,16 +140,16 @@ def compare_plans(dev, g, iters: int, power: str) -> None:
             got = call()
             t_other = [time_ms(call, iters)]
         finally:
-            scan.plan, scan.SCAN_TO_MERGE = plan0, cap0
+            scan.plan = plan0
         t_chosen = [time_ms(call, iters)]
         force()
         try:
             t_other.append(time_ms(call, iters))
         finally:
-            scan.plan, scan.SCAN_TO_MERGE = plan0, cap0
+            scan.plan = plan0
         t_chosen.append(time_ms(call, iters))
         same = all(torch.equal(a, c) for a, c in zip(want, got))
-        print(f"plans {what} {tag} n={n} b={b} d={d} kk={kk}: planned "
+        print(f"plans qstream {tag} n={n} b={b} d={d} kk={kk}: planned "
               f"(bq {chosen.bq}, cap {chosen.cap}, stages {chosen.stages}, "
               f"qstream {chosen.qstream}, {chosen.nchunks} chunks) "
               f"{min(t_chosen):.4f} ms {t_chosen}; forced (bq {other.bq}, "
@@ -167,7 +157,7 @@ def compare_plans(dev, g, iters: int, power: str) -> None:
               f"{other.qstream}, {other.nchunks} chunks) {min(t_other):.4f} "
               f"ms {t_other}; bit-equal {same}; card {power}")
         if not same:
-            raise AssertionError(f"plans {what} {tag} kk={kk}: results differ")
+            raise AssertionError(f"plans {tag} kk={kk}: results differ")
         del x, q, sq, want, got
 
 

@@ -60,11 +60,6 @@ SMEM_LIMIT = 232_448  # shared memory one block may use on Hopper (bytes)
 QUERY_TILES = (64, 32, 16, 8)   # the MMA's N
 MIN_SLACK = 64        # slots past kk the buffers need (> kMargin, 16)
 MAX_SLACK = 1024      # and the most it takes
-# A planning estimate (not a measurement) of one block's scan time per
-# corpus row over one merge block's time per entry: the chunk count that
-# balances the scan's share of rows against the merge's nchunks * kk
-# entries is about sqrt(n * SCAN_TO_MERGE / kk).
-SCAN_TO_MERGE = 13.0
 # The buffered path first scores up to SAMPLE evenly spaced rows (at most an
 # eighth of them) and starts each query's threshold at their kk-th best: a
 # chunk then admits about kk * n / (SAMPLE * nchunks) candidates a query in
@@ -157,8 +152,7 @@ def plan(n: int, nq: int, kk: int, d: int, num_sms: int,
     wider tile fit (wide rows). Where the buffers fit only at a tile below
     16 while the batch holds more, or not at all, the scan takes the
     selection path (``select`` forces either path). One block per SM: the
-    chunk count fills the card's SMs, and is cut where the merge's
-    nchunks * kk entries a query would cost more than the scan gains."""
+    chunk count fills the card's SMs."""
     if not 0 < kk <= n:
         raise ValueError(f"k={kk} outside 1..{n} (the corpus size)")
     widest = next((b for b in reversed(QUERY_TILES) if b >= nq), 64)
@@ -188,9 +182,6 @@ def plan(n: int, nq: int, kk: int, d: int, num_sms: int,
         stages = stages_for(bq, 0, d, et, qstream)
     qtiles = math.ceil(nq / bq)
     nchunks = max(1, min(math.ceil(n / ROWS), math.ceil(num_sms / qtiles)))
-    if not select:
-        nchunks = min(nchunks,
-                      max(1, int(math.sqrt(n * SCAN_TO_MERGE / kk))))
     chunk_rows = math.ceil(math.ceil(n / nchunks) / ROWS) * ROWS
     nchunks = math.ceil(n / chunk_rows)
     sample = SAMPLE if not select and n // 8 >= kk else 0
