@@ -338,6 +338,30 @@ def tol_share(got, want, atol=L2_ATOL) -> float:
     return share[live].max().item() if bool(live.any()) else 0.0
 
 
+def fp64_errs(x, sq, q, vals, ids, scales=None):
+    """(the scan's, the plain fp32 version's) largest distance from the
+    fp64 scores of the same rows, over the live (finite) slots: the
+    function's exact value on the same stored rows, scales and norms. The
+    plain scores are ``ref.ref_score_topk``'s, in its order."""
+    live = torch.isfinite(vals)
+    if not bool(live.any()):
+        return 0.0, 0.0
+    idx = ids.long()
+    s = 2.0 * (q @ x.float().T)
+    if scales is not None:
+        s = s * scales
+    s = (s - sq[None, :]) - torch.sum(q * q, dim=-1, keepdim=True)
+    plain = torch.gather(s, 1, idx)
+    del s
+    xd = x[idx].double()
+    if scales is not None:
+        xd = xd * scales.double()[idx][..., None]
+    qd = q.double()[:, None, :]
+    exact = 2.0 * (xd * qd).sum(-1) - sq.double()[idx] - (qd * qd).sum(-1)
+    return tuple((t.double() - exact)[live].abs().max().item()
+                 for t in (vals, plain))
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -416,6 +440,7 @@ def phase_kernels(dev, gen, power: str) -> dict:
         tol = (L2_ATOL + L2_RTOL * rvals[:, :kk].abs()).max().item()
         agree, total = ids_outside_ties(rvals, rids, ids, L2_RTOL, L2_ATOL)
         share = tol_share(vals, rvals[:, :kk])
+        e64, p64 = fp64_errs(x, sq, q, vals, ids)
         check(err <= tol, f"score_topk kk={kk} error {err} > {tol}")
         check(agree == total, f"score_topk kk={kk}: {total - agree} ids "
               "differ outside near-ties")
@@ -439,8 +464,9 @@ def phase_kernels(dev, gen, power: str) -> dict:
             scan_in + 8 * B * kk + rows_bytes, B * N, D, x.dtype)
         simt, _ = bound_ms(scan_in + 8 * B * kk, simt_ops)
         print(f"[kernel] score_topk b={B} n={N} d={D} kk={kk}: max_abs_err "
-              f"{err:.3g} ({share:.3f} of the tolerance) ids {agree}/{total} "
-              f"outside near-ties; kernel_ms "
+              f"{err:.3g} ({share:.3f} of the tolerance; against fp64 the "
+              f"scan {e64:.3g}, the plain version {p64:.3g}) ids "
+              f"{agree}/{total} outside near-ties; kernel_ms "
               f"{ms:.4f} plain_ms {plain:.4f} pair_ms {pair:.4f} bound_ms "
               f"{bnd:.4f} ({by}, {unit}; fp32 SIMT bound "
               f"{simt:.4f}); card {power}")
@@ -1193,6 +1219,7 @@ def flat_variant_kernels(index, q_t, power: str) -> dict:
         agree, total = ids_outside_ties(rvals, rids, ids, L2_RTOL, L2_ATOL)
         name, name_rows = "score_topk" + suffix, "score_topk_rows" + suffix
         share = tol_share(vals, rvals[:, :kk])
+        e64, p64 = fp64_errs(x, sq, q_t, vals, ids, sc)
         check(err <= tol, f"{name} kk={kk} error {err} > {tol}")
         check(agree == total, f"{name} kk={kk}: {total - agree} ids differ "
               "outside near-ties")
@@ -1219,7 +1246,8 @@ def flat_variant_kernels(index, q_t, power: str) -> dict:
         bnd_rows, by_rows, _ = scan_bound_ms(
             scan_in + 8 * B * kk + rows_bytes, B * N, D, x.dtype)
         print(f"[kernel] {name} b={B} n={N} d={D} {x.dtype} kk={kk}: "
-              f"max_abs_err {err:.3g} ({share:.3f} of the tolerance) ids "
+              f"max_abs_err {err:.3g} ({share:.3f} of the tolerance; against "
+              f"fp64 the scan {e64:.3g}, the plain version {p64:.3g}) ids "
               f"{agree}/{total} outside near-ties; "
               f"kernel_ms {ms:.4f} plain_ms {plain:.4f} pair_ms {pair:.4f} "
               f"bound_ms {bnd:.4f} ({by}, {unit}); card {power}")
@@ -1475,6 +1503,7 @@ def masked_kernels(ix: dict, masks, q_t, power) -> dict:
                 live = ~dead
                 err = (vals - rv[:, :kk])[live].abs().max().item()
                 share = tol_share(vals, rv[:, :kk])
+                e64, p64 = fp64_errs(x, sq, q_t, vals, ids, sc)
                 tol = (L2_ATOL + L2_RTOL * rv[:, :kk][live].abs()).max()
                 check(err <= tol.item(), f"{name} {pname} kk={kk} error "
                       f"{err} > {tol.item()}")
@@ -1499,7 +1528,8 @@ def masked_kernels(ix: dict, masks, q_t, power) -> dict:
                                               B * elig, D, x.dtype)
                 print(f"[kernel] {name} mask {pname} ({elig} eligible "
                       f"rows) b={B} kk={kk}: max_abs_err {err:.3g} "
-                      f"({share:.3f} of the tolerance) ids "
+                      f"({share:.3f} of the tolerance; against fp64 the scan "
+                      f"{e64:.3g}, the plain version {p64:.3g}) ids "
                       f"{agree}/{total} outside near-ties, "
                       f"{int(dead.sum())} dead slots (-inf, 0); kernel_ms "
                       f"{ms:.4f} plain_ms {plain:.4f} pair_ms {pair:.4f} "
