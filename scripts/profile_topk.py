@@ -20,7 +20,18 @@ operand resident for every column chunk against the operand staged a chunk
 at a time (``qstream``, forced) at d=128, on the same operands (CUDA
 events, per call), and checks that both give the same (vals, ids) bits.
 
+With ``--select`` it times the selection path's select: the flat scan at
+kk=88 (forced) and kk=2056, the IVF dedup and batch scans at k=3200 (nlist
+1024, 16 random probes a query, about 977 rows a list) and the fused PQ
+scan at kk=2048, each call split into its kernels (``torch.profiler``) and
+timed whole (CUDA events), beside ``torch.topk(scores, kk, dim=1,
+sorted=True)`` on a (b, n) score scratch of the same shape and the same
+live entries (CUDA events; the scratch is larger than L2, as the scan
+leaves it) and the select's bytes bound: one read of each query's live
+entries at 3.35 TB/s.
+
     python3 scripts/profile_topk.py [--kk 80 320 2048] [--iters 5] [--plans]
+    python3 scripts/profile_topk.py --select [--iters 5]
 
 Needs one CUDA device; exits 1 without one.
 """
@@ -41,9 +52,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 from repro_torch.index import pq  # noqa: E402
 from repro_torch.index import quant  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import fused_score_topk as scan  # noqa: E402
+from repro_torch.kernels import ivf_score  # noqa: E402
 from repro_torch.kernels import pq_lut  # noqa: E402
+
+PEAK_BYTES_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 
 
 def kernel_times(fn, iters: int) -> list:
@@ -161,12 +175,86 @@ def compare_plans(dev, g, iters: int, power: str) -> None:
         del x, q, sq, want, got
 
 
+def split(tag: str, fn, iters: int, power: str) -> float:
+    """Print ``fn``'s kernels (profiler) and its time per call (events)."""
+    parts = kernel_times(fn, iters)
+    ms = time_ms(fn, iters)
+    print(f"select {tag}: call {ms:.4f} ms (events); kernels "
+          + " + ".join(f"{name} {t:.4f}" for name, t in parts)
+          + f"; card {power}")
+    return ms
+
+
+def library_topk(tag: str, scores, kk: int, live: int, iters: int,
+                 power: str) -> None:
+    """torch.topk on a (b, n) score scratch, beside the select's bound."""
+    ms = time_ms(lambda: torch.topk(scores, kk, dim=1, sorted=True), iters)
+    bound = 1e3 * (4 * live + 12 * scores.shape[0] * kk) / PEAK_BYTES_S
+    print(f"select {tag}: torch.topk on the ({scores.shape[0]}, "
+          f"{scores.shape[1]}) scratch {ms:.4f} ms; select bound "
+          f"{bound:.4f} ms (bytes: {live} live entries read once, "
+          f"(vals, ids) written); card {power}")
+
+
+def select_profile(dev, g, iters: int, power: str) -> None:
+    """The selection path's select at the serving shapes (see above)."""
+    n, b, d = 1_000_000, 64, 128
+    x = torch.randn((n, d), generator=g, device=dev)
+    sq = torch.sum(x * x, dim=-1)
+    q = torch.randn((b, d), generator=g, device=dev)
+    scores = (2.0 * (q @ x.T) - sq[None, :]) - torch.sum(q * q, -1,
+                                                        keepdim=True)
+    for kk in (88, 2056):
+        split(f"flat kk={kk}", lambda kk=kk: scan.score_topk(
+            x, sq, q, kk, _select=True), iters, power)
+        library_topk(f"flat kk={kk}", scores, kk, b * n, iters, power)
+    del scores
+    # IVF: 1024 lists of about 977 rows (max_list 984), 16 random probes a
+    # query; the library's scratch is the plain dedup scores (b, s * L),
+    # -inf off each query's member lists
+    nlist, nprobe, k = 1024, 16, 3200
+    sizes = torch.full((nlist,), n // nlist, device=dev)
+    sizes[: n % nlist] += 1
+    L = -(-int(sizes.max()) // 8) * 8
+    grouped = x[: nlist * 0].new_zeros((nlist, L, d))
+    valid = (torch.arange(L, device=dev)[None, :] < sizes[:, None]).float()
+    grouped[valid > 0.5] = x
+    gsq = torch.sum(grouped * grouped, dim=-1)
+    probes = torch.argsort(torch.rand((b, nlist), generator=g, device=dev),
+                           dim=1)[:, :nprobe].to(torch.int32).contiguous()
+    uniq, member = ref.dedup_probes(probes, nlist)
+    ded = (grouped, gsq, valid, uniq, member, q)
+    split(f"ivf dedup k={k} ({uniq.numel()} unique lists)",
+          lambda: ivf_score.ivf_score_topk_dedup(*ded, k, _select=True),
+          iters, power)
+    split(f"ivf batch k={k}", lambda: ivf_score.ivf_score_topk_batch(
+        grouped, gsq, valid, probes, q, k, _select=True), iters, power)
+    s, _ = ref._dedup_scores(*ded)
+    live = int(torch.isfinite(s).sum())
+    library_topk(f"ivf dedup k={k}", s, k, live, iters, power)
+    del s, grouped, gsq, valid, x
+    m, ksub, ncoarse, kk = 8, 256, 32, 2048
+    codes = torch.randint(0, ksub, (n, m), generator=g,
+                          device=dev).to(torch.uint8)
+    coarse = torch.randint(0, ncoarse, (n,), generator=g,
+                           device=dev).to(torch.int32)
+    layout = pq.grouped_layout(codes, coarse, ncoarse)
+    luts = torch.rand((b, m, ncoarse * ksub), generator=g, device=dev) * 10
+    split(f"pq kk={kk}", lambda: pq_lut.pq_score_topk(
+        *layout, luts, kk, _select=True), iters, power)
+    ccodes = (coarse[:, None] * ksub + codes.to(torch.int32)).contiguous()
+    neg = -ref.ref_pq_score_batch(ccodes, luts)
+    library_topk(f"pq kk={kk}", neg, kk, b * n, iters, power)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kk", type=int, nargs="+", default=[80, 320, 2048])
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--plans", action="store_true",
                     help="time the flat planner's choices (see above)")
+    ap.add_argument("--select", action="store_true",
+                    help="time the selection path's select (see above)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_topk: no CUDA device", file=sys.stderr)
@@ -181,6 +269,10 @@ def main() -> int:
     if args.plans:
         _build.build()
         compare_plans(dev, g, max(args.iters, 20), power)
+        return 0
+    if args.select:
+        _build.build()
+        select_profile(dev, g, args.iters, power)
         return 0
     n, m, ksub, ncoarse, b, d = 1_000_000, 8, 256, 32, 64, 128
     codes = torch.randint(0, ksub, (n, m), generator=g,
