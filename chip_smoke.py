@@ -148,6 +148,7 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import fused_score_topk as scan_mod  # noqa: E402
 from repro_torch.kernels import ivf_score as ivf_kern  # noqa: E402
 from repro_torch.kernels import pq_lut  # noqa: E402
+from repro_torch.kernels import topk_select  # noqa: E402
 from repro_torch.serve import engine as engine_mod  # noqa: E402
 
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
@@ -215,12 +216,15 @@ SOURCES = {
                                "src/repro/kernels/fused_score_topk.py:128"),
     "score_topk_masked_int8": ("src/repro_torch/csrc/fused_score_topk.cu",
                                "src/repro/kernels/fused_score_topk.py:154"),
-    "ivf_score_topk_dedup_masked": ("src/repro_torch/csrc/ivf_score.cu",
+    # B5 mask= runs the flat tensor-core scan over the eligible slots
+    "ivf_score_topk_dedup_masked": ("src/repro_torch/csrc/fused_score_topk.cu",
                                     "src/repro/kernels/ivf_score.py:229"),
-    "ivf_score_topk_dedup_masked_bf16": ("src/repro_torch/csrc/ivf_score.cu",
-                                         "src/repro/kernels/ivf_score.py:229"),
-    "ivf_score_topk_dedup_masked_int8": ("src/repro_torch/csrc/ivf_score.cu",
-                                         "src/repro/kernels/ivf_score.py:229"),
+    "ivf_score_topk_dedup_masked_bf16": (
+        "src/repro_torch/csrc/fused_score_topk.cu",
+        "src/repro/kernels/ivf_score.py:229"),
+    "ivf_score_topk_dedup_masked_int8": (
+        "src/repro_torch/csrc/fused_score_topk.cu",
+        "src/repro/kernels/ivf_score.py:229"),
     # the serving path's fused PQ scan + top-k (B9 and lax.top_k as one)
     "pq_score_topk": ("src/repro_torch/csrc/pq_lut.cu",
                       "src/repro/kernels/pq_lut.py:120"),
@@ -237,6 +241,11 @@ SOURCES = {
                                          "src/repro/kernels/ivf_score.py:315"),
     "ivf_score_topk_batch_select": ("src/repro_torch/csrc/ivf_score.cu",
                                     "src/repro/kernels/ivf_score.py:94"),
+    # the selection path's select itself, counted wherever its kernels run
+    # (every *_select launch above); it stands in for the TPU kernels'
+    # running top-k
+    "select": ("src/repro_torch/csrc/select_common.cuh",
+               "src/repro/kernels/fused_score_topk.py:191"),
 }
 SUFFIX = {"float32": "", "bfloat16": "_bf16", "int8": "_int8"}
 
@@ -1581,19 +1590,24 @@ def masked_kernels(ix: dict, masks, q_t, power) -> dict:
                                   device=q_t.device)
             scanned[uniq[:n_scan].long()] = True
             live = int(((ib.valid * gmask) > 0.5)[scanned].sum())
-            # the live eligible rows of the scanned lists read once, their
-            # valid and mask flags, the queries and member matrix; each
-            # (query, eligible row) pair
-            bnd, by = bound_ms(live * row_bytes + 8 * n_scan * ib.max_list
-                               + q_t.nbytes + member.nbytes
-                               + 8 * B * K_MASK,
-                               B * live * (2 * D + (3 if gsc is not None
-                                                    else 2)))
+            # PR 17's rule: the larger of the bytes (the eligible rows read
+            # once, the scanned lists' valid and mask flags, the queries and
+            # member matrix, (vals, ids) written) and the function's 2 b
+            # n_elig d flops at the tensor cores' peak (TF32 for fp32 rows,
+            # bf16 otherwise)
+            bnd, by, unit = scan_bound_ms(
+                live * row_bytes + 8 * n_scan * ib.max_list + q_t.nbytes
+                + member.nbytes + 8 * B * K_MASK, B * live, D,
+                ib.grouped.dtype)
+            sel_ms = time_ms(lambda: ivf_kern.ivf_score_topk_dedup(
+                *ded, K_MASK, gsc, gmask, _select=True), 5)
             print(f"[kernel] {name} {scan} ({n_scan} of {NLIST} lists in "
                   f"{uniq.numel()} slots), mask {pname} ({live} eligible "
                   f"rows) b={B} k={K_MASK}: max_abs_err {err:.3g} ids "
                   f"{agree}/{total} outside near-ties; kernel_ms {ms:.4f} "
-                  f"plain_ms {plain:.4f} bound_ms {bnd:.4f} ({by})")
+                  f"(selection path forced {sel_ms:.4f}) plain_ms "
+                  f"{plain:.4f} bound_ms {bnd:.4f} ({by}, {unit}); card "
+                  f"{power}")
             if scan == "all" and pname == "P2":
                 res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                  bound_ms=bnd, bound_by=by, library_ms=None)
@@ -2008,6 +2022,64 @@ def select_kernels(flat_ix, ivf_ix, inp: Inputs, dev, power) -> dict:
     return res
 
 
+def select_alone(flat_ix, inp: Inputs, dev, power) -> dict:
+    """The selection path's select on its own (``topk_select.select_topk``,
+    the kernels every *_select launch runs) over the (64, 1M) fp32 scores of
+    phase 3's rows and first batch, at kk = 88 and 2056, bit-equal to its
+    plain version; timed beside ``torch.topk(scores, kk, dim=1,
+    sorted=True)`` on the same scratch (its one-call library counterpart)
+    and its bytes bound (each query's live entries read once, (vals, ids)
+    written), with each launch's span from the select's own profile. Then
+    every score equal on a (4, 1M) scratch: the full-row passes under the
+    prefix, bit-equal too. Returns the kernels-line entry (kk=2056)."""
+    res = {}
+    qv, qf = (torch.tensor(a, device=dev) for a in (inp.q_all[:B],
+                                                    inp.f_all[:B]))
+    be = flat_ix.backend
+    q_t = flat_ix.transform.apply(qv, qf).contiguous()
+    scores = (2.0 * (q_t @ be.vectors.T) - be.sq_norms[None, :]) \
+        - torch.sum(q_t * q_t, dim=-1, keepdim=True)
+    ties = torch.full((4, N), -1.25, device=dev)
+    for tag, s, kks in (("flat scores", scores, (KP + 8, KK_WIDE)),
+                        ("every score equal", ties, (KP + 8,))):
+        for kk in kks:
+            stats = _build.select_stats(dev)
+            got = topk_select.select_topk(s, kk, _stats=stats)
+            want = ref.ref_select_topk(s, kk)
+            check(torch.equal(got[0].view(torch.int32),
+                              want[0].view(torch.int32))
+                  and torch.equal(got[1], want[1]),
+                  f"select {tag} kk={kk} differs from its plain version")
+            st = stats.tolist()
+            spans = [(st[3 * p + 1] - st[3 * p]) / 1e6 if st[3 * p + 2]
+                     else 0.0 for p in range(_build.SELECT_PASSES + 1)]
+            modes = ["".join(m for bit, m in ((1, "h"), (2, "c"))
+                             if st[3 * p + 2] & bit) or "-"
+                     for p in range(_build.SELECT_PASSES)]
+            hists = sum(st[3 * p + 2] & 1 for p in range(_build.SELECT_PASSES))
+            if tag == "every score equal":
+                check(hists == 4, f"select {tag}: {hists} histogram passes, "
+                      "not the four full-row passes")
+            ms = time_ms(lambda: topk_select.select_topk(s, kk))
+            lib = time_ms(lambda: torch.topk(s, kk, dim=1, sorted=True))
+            plain = time_ms(lambda: ref.ref_select_topk(s, kk), 2)
+            live = int(torch.isfinite(s).sum())
+            bnd, by = bound_ms(4 * live + 8 * s.shape[0] * kk, 0)
+            print(f"[kernel] select ({tag}) b={s.shape[0]} n={N} kk={kk}: "
+                  f"bit-equal to its plain version; launches (h histogram, "
+                  f"c compaction) {modes}, spans ms "
+                  f"{[round(t, 4) for t in spans]} (the last: the finish); "
+                  f"kernel_ms {ms:.4f} plain_ms {plain:.4f} torch.topk "
+                  f"{lib:.4f} bound_ms {bnd:.4f} ({by}); card {power}")
+            if tag == "flat scores" and kk == KK_WIDE:
+                res["select"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
+                                     bound_ms=bnd, bound_by=by,
+                                     library_ms=lib)
+    del scores, ties
+    torch.cuda.empty_cache()
+    return res
+
+
 def serve_wide(tag, eng, q, f, timed, power):
     """A warm-up batch, then ``timed`` queries in batches of 64: prints
     qps, p50/p99 and escalations; returns the first batch (scores, ids)."""
@@ -2113,6 +2185,7 @@ def phase_shapes(dev, power: str, inp: Inputs, flat_ix, ivf_ix, pq_ix):
           f"over {B} queries")
     del eng
     res.update(select_kernels(flat_ix, ivf_ix, inp, dev, power))
+    res.update(select_alone(flat_ix, inp, dev, power))
 
     # a GIST1M-shaped flat corpus: n=1M rows of d=960
     t0 = time.perf_counter()

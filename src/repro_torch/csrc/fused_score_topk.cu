@@ -116,9 +116,10 @@
 // would shrink the query tile below 16 for a larger batch (the planner's
 // choice; a caller may force either path): pass 1 writes every score to a
 // (nq, n) scratch instead (the masked scan: its eligible rows, in order),
-// and select_kernel, one block per query, radix-selects and sorts the
-// top-kk (select_common.cuh) with -0.0 and +0.0 taken as equal, as better()
-// takes them.
+// and the multi-block radix select of select_common.cuh (its passes over
+// (query, chunk), then select_kernel, one block per query) selects and
+// sorts the top-kk with -0.0 and +0.0 taken as equal, as better() takes
+// them.
 //
 // The ragged corpus edge and the ragged query tile are masked inside the
 // kernels, so the caller never pads (and never copies) the corpus.
@@ -475,6 +476,9 @@ struct ScanArgs {
   const float* scale;     // null: 1.0
   const int* elig;        // null: every row
   const int* n_elig;
+  const int* esrc;        // B5: the source (uniq slot) of each eligible row
+  const u64* mbits;       // B5: (sources, mwords) member bits; null: not B5
+  int mwords;
   const float* q;
   long long n;
   int nq, d, kk, cap;     // cap 0 on the selection path
@@ -496,8 +500,11 @@ struct ScanArgs {
 };
 
 // Pass 1 (see the header). BQ queries a block (the MMA's N); SEL: the
-// selection path (scores to a.sel), else the buffered one.
-template <int ET, int BQ, bool SEL>
+// selection path (scores to a.sel), else the buffered one; B5: the IVF
+// masked scan's epilogue (no -||q||^2 term; -inf where the row's source has
+// the query's member bit clear), over the eligible slots of a flattened
+// grouped slab.
+template <int ET, int BQ, bool SEL, bool B5>
 __global__ void __launch_bounds__(kThreads, 1)
 scan_kernel(const ScanArgs a, const __grid_constant__ CUtensorMap map) {
   using T = typename Elem<ET>::T;
@@ -556,9 +563,13 @@ scan_kernel(const ScanArgs a, const __grid_constant__ CUtensorMap map) {
     per = (count + gridDim.y - 1) / gridDim.y;
     per = (per + kRows - 1) / kRows * kRows;
   }
-  // the corpus row of virtual index v
+  // the position among the rows (or eligible rows) of virtual index v,
+  // and its corpus row
+  auto pos_of = [&](long long v) -> long long {
+    return sampled ? v * total / count : v;
+  };
   auto row_of = [&](long long v) -> long long {
-    const long long p = sampled ? v * total / count : v;
+    const long long p = pos_of(v);
     return masked ? (long long)elig[p] : p;
   };
   const long long r_begin = (long long)blockIdx.y * per;
@@ -703,6 +714,7 @@ scan_kernel(const ScanArgs a, const __grid_constant__ CUtensorMap map) {
   // and + 8 (corpus id, virtual index, ||x||^2, scale)
   long long rid_r[2] = {0, 0}, col_r[2] = {0, 0};
   float xsq_r[2] = {0.f, 0.f}, sc_r[2] = {1.f, 1.f};
+  u64 mw_r[2] = {0, 0};   // B5: the member bits of the row's source
   const unsigned lbo = BQ * 16, sbo = 128;
   auto tile_rows = [&](int t) {
     const long long t0 = r_begin + (long long)t * kRows;
@@ -719,6 +731,9 @@ scan_kernel(const ScanArgs a, const __grid_constant__ CUtensorMap map) {
         rid_r[h] = row_of(t0 + r);
         xsq_r[h] = xsq[rid_r[h]];
         sc_r[h] = scale != nullptr ? scale[rid_r[h]] : 1.f;
+        if constexpr (B5)
+          mw_r[h] = a.mbits[(long long)a.esrc[pos_of(t0 + r)] * a.mwords +
+                            (q0 >> 6)];
       }
     }
   };
@@ -749,9 +764,15 @@ scan_kernel(const ScanArgs a, const __grid_constant__ CUtensorMap map) {
     for (int k = 0; k < R; ++k) {
       const int h = (k >> 1) & 1;
       const int qi = 8 * (k >> 2) + 2 * tq + (k & 1);
-      sc[k] = __fsub_rn(
-          __fsub_rn(__fmul_rn(__fmul_rn(2.f, ac[k]), sc_r[h]), xsq_r[h]),
-          qsq_s[qi]);
+      if constexpr (B5) {   // B5's (2 <x, q>) scale - ||x||^2, members only
+        sc[k] = __fsub_rn(__fmul_rn(__fmul_rn(2.f, ac[k]), sc_r[h]),
+                          xsq_r[h]);
+        if (!((mw_r[h] >> ((q0 & 63) + qi)) & 1ull)) sc[k] = -INFINITY;
+      } else {
+        sc[k] = __fsub_rn(
+            __fsub_rn(__fmul_rn(__fmul_rn(2.f, ac[k]), sc_r[h]), xsq_r[h]),
+            qsq_s[qi]);
+      }
     }
     if constexpr (SEL) {
 #pragma unroll
@@ -1155,33 +1176,36 @@ merge_kernel(const float* __restrict__ part_s, const int* __restrict__ part_i,
                   rows_f);
 }
 
-// A query's scores in the selection path: a -inf or NaN score does not
-// compete, as it never beats a buffer's threshold; -0.0 counts as +0.0. The
-// count is n, or *n_elig (the masked scan's eligible rows, on the card).
+// The queries' scores in the selection path (query q's row at q * ld): a
+// -inf or NaN score does not compete, as it never beats a buffer's
+// threshold; -0.0 counts as +0.0. The count is n, or *n_elig (the masked
+// scan's eligible rows, on the card). One segment: no entry is skipped
+// unread.
 struct FlatScores {
   const float* s;
+  long long ld;
   long long n;
   const int* n_elig;
-  __device__ long long size() const {
+  __device__ long long size(int) const {
     return n_elig != nullptr ? (long long)*n_elig : n;
   }
-  __device__ bool get(long long e, u64* w) const {
-    const float v = s[e];
+  __device__ long long seg_len() const { return kWholeRow; }
+  __device__ bool seg_live(int, long long) const { return true; }
+  __device__ bool get(int q, long long, long long e, u64* w) const {
+    const float v = s[(long long)q * ld + e];
     if (!(v > -INFINITY)) return false;
     *w = pack(ord_bits_eq0(v), (int)e);
     return true;
   }
 };
 
-// The selection path's pass 2: one block per query over its row of the
+// The selection path's finish: one block per query over its row of the
 // (nq, n) score scratch (the masked scan's: its eligible rows, in order;
-// elig maps their positions to row ids). Sorts in shared memory, or in
-// (nq, len) device scratch sw / spos when those are given.
+// elig maps their positions to row ids), after select_passes.
 template <int ET>
 __global__ void __launch_bounds__(kSelThreads)
-select_kernel(const float* __restrict__ sel, long long n,
-              const int* __restrict__ elig, const int* __restrict__ n_elig,
-              int kk, int len, u64* __restrict__ sw, int* __restrict__ spos,
+select_kernel(const SelectArgs sa, const float* __restrict__ sel,
+              long long n, const int* __restrict__ elig,
               float* __restrict__ vals, int* __restrict__ ids,
               const typename Elem<ET>::T* __restrict__ x,
               const float* __restrict__ scale, const float* __restrict__ pv,
@@ -1189,13 +1213,14 @@ select_kernel(const float* __restrict__ sel, long long n,
               float* __restrict__ rows_x, float* __restrict__ rows_v,
               float* __restrict__ rows_f) {
   extern __shared__ __align__(16) unsigned char sel_smem[];
-  __shared__ SelectState st;
+  __shared__ FinishState fs;
   const long long qi = blockIdx.x;
-  u64* w = sw != nullptr ? sw + qi * len : reinterpret_cast<u64*>(sel_smem);
-  int* pos = sw != nullptr ? spos + qi * len : reinterpret_cast<int*>(w + len);
+  const int kk = sa.kk;
+  u64* w;
+  int* pos;
+  sort_area(sa, (int)qi, sel_smem, &w, &pos);
   const float* s = sel + qi * n;
-  const int count =
-      select_sorted(FlatScores{s, n, n_elig}, kk, w, pos, len, &st);
+  const int count = select_finish(sa, (int)qi, w, pos, &fs);
   for (int j = threadIdx.x; j < kk; j += blockDim.x) {
     vals[qi * kk + j] = j < count ? s[pos[j]] : -INFINITY;
     ids[qi * kk + j] =
@@ -1205,6 +1230,27 @@ select_kernel(const float* __restrict__ sel, long long n,
   __syncthreads();
   gather_rows<ET>(qi, kk, ids, x, scale, pv, pf, d, dv, m, rows_x, rows_v,
                   rows_f);
+}
+
+// The selection path past pass 1: the passes, then the finish.
+template <int ET>
+cudaError_t select_topk(const SelectArgs& sa, const float* sel, long long n,
+                        const int* elig, const int* n_elig, float* vals,
+                        int* ids, const typename Elem<ET>::T* x,
+                        const float* scale, const float* pv, const float* pf,
+                        int d, int dv, int m, float* rows_x, float* rows_v,
+                        float* rows_f, cudaStream_t st) {
+  cudaError_t err = select_passes(FlatScores{sel, n, n, n_elig}, sa, st);
+  if (err != cudaSuccess) return err;
+  const size_t smem = select_smem(sa);
+  err = cudaFuncSetAttribute(select_kernel<ET>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  select_kernel<ET><<<sa.nq, kSelThreads, smem, st>>>(
+      sa, sel, n, elig, vals, ids, x, scale, pv, pf, d, dv, m, rows_x, rows_v,
+      rows_f);
+  return cudaGetLastError();
 }
 
 // the sample pass's scores of one query (ld apart), keyed by position
@@ -1251,17 +1297,25 @@ threshold_kernel(const float* __restrict__ sel, long long ld,
   }
 }
 
-template <int ET, int BQ, bool SEL>
+template <int ET, int BQ, bool SEL, bool B5>
 cudaError_t launch_scan(const ScanArgs& a, const CUtensorMap& map,
                         int nchunks, cudaStream_t st) {
   const size_t smem = scan_smem(BQ, a.cap, a.d, ET, a.stages, a.qstream);
   cudaError_t err = cudaFuncSetAttribute(
-      scan_kernel<ET, BQ, SEL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      scan_kernel<ET, BQ, SEL, B5>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.nq + BQ - 1) / BQ, nchunks);
-  scan_kernel<ET, BQ, SEL><<<grid, kThreads, smem, st>>>(a, map);
+  scan_kernel<ET, BQ, SEL, B5><<<grid, kThreads, smem, st>>>(a, map);
   return cudaGetLastError();
+}
+
+template <int ET, int BQ, bool SEL>
+cudaError_t launch_scan(const ScanArgs& a, const CUtensorMap& map,
+                        int nchunks, cudaStream_t st) {
+  return a.mbits != nullptr
+             ? launch_scan<ET, BQ, SEL, true>(a, map, nchunks, st)
+             : launch_scan<ET, BQ, SEL, false>(a, map, nchunks, st);
 }
 
 template <int ET, int BQ>
@@ -1329,8 +1383,8 @@ cudaError_t row_map(CUtensorMap* map, const void* x, int et, long long n,
 
 template <int ET>
 int score_topk(ScanArgs a, int bq, int nchunks,
-               float* sample_sel, float* thr0_s, int* thr0_i, int sort_len,
-               u64* sort_w, int* sort_pos, float* vals, int* ids,
+               float* sample_sel, float* thr0_s, int* thr0_i,
+               const SelectArgs* sel_args, float* vals, int* ids,
                const float* pv, const float* pf, int dv, int m,
                float* rows_x, float* rows_v, float* rows_f, cudaStream_t st) {
   const auto* x = static_cast<const typename Elem<ET>::T*>(a.x);
@@ -1369,17 +1423,11 @@ int score_topk(ScanArgs a, int bq, int nchunks,
   if (a.sel != nullptr) a.cap = 0;
   err = scan<ET>(a, map, bq, nchunks, st);
   if (err != cudaSuccess) return (int)err;
-  if (a.sel != nullptr) {
-    const size_t smem = select_smem(sort_len, sort_w == nullptr);
-    err = cudaFuncSetAttribute(select_kernel<ET>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    select_kernel<ET><<<a.nq, kSelThreads, smem, st>>>(
-        a.sel, a.n, a.elig, a.n_elig, a.kk, sort_len, sort_w, sort_pos, vals,
-        ids, x, a.scale, pv, pf, a.d, dv, m, rows_x, rows_v, rows_f);
-    return (int)cudaGetLastError();
-  }
+  if (a.sel != nullptr)
+    return (int)select_topk<ET>(*sel_args, a.sel, a.n, a.elig, a.n_elig,
+                                vals, ids,
+                                x, a.scale, pv, pf, a.d, dv, m, rows_x,
+                                rows_v, rows_f, st);
   const size_t smem = stream_smem(a.kk);
   err = cudaFuncSetAttribute(merge_kernel<ET>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1397,7 +1445,12 @@ int score_topk(ScanArgs a, int bq, int nchunks,
 // et selects the stored element type of x (0 fp32, 1 bf16, 2 int8); scale
 // (n,) is the per-row dequantization scale, null for 1.0. The masked
 // variants pass elig, the ascending ids of the eligible rows, and n_elig,
-// their count, both on the card (null for every row). bq is the query tile
+// their count, both on the card (null for every row). B5 mask= (the IVF
+// masked scan, x the grouped slab viewed as (nlist * max_list, d) rows)
+// also passes esrc, each eligible row's source, and mbits (sources,
+// mwords), the sources' member bits (query j at bit j % 64 of word j / 64):
+// scores lose the -||q||^2 term and read -inf for a query whose bit is
+// clear; null mbits for the flat scans. bq is the query tile
 // (64, 32, 16 or 8), stages the ring's slots (3..kMaxStages); qstream
 // stages the query operand a column chunk at a time (rows too wide for all
 // of it in shared memory).
@@ -1409,32 +1462,36 @@ int score_topk(ScanArgs a, int bq, int nchunks,
 // sample) and sets each query's starting threshold in thr0_s / thr0_i
 // (nq,); sample 0 leaves those three unused.
 // Selection path (sel, an (nq, n) fp32 scratch, not null): cap,
-// the spill and the sample are unused; the selection sorts sort_len (a
-// power of two >= kk) words a query in shared memory, or in the (nq,
-// sort_len) scratch sort_w / sort_pos when those are not null.
+// the spill and the sample are unused; sa holds the select's plan and
+// scratch (select_common.cuh), null on the buffered path.
 // The rows pointers (pv, pf, rows_x, rows_v, rows_f) are all null for the
 // ids-only variant. stats, null but for profiling, takes kStatSlots sums.
 extern "C" int fcvi_score_topk(
     const void* x, int et, const float* xsq, const float* scale,
-    const int* elig, const int* n_elig, const float* q, long long n, int nq,
+    const int* elig, const int* n_elig, const int* esrc, const void* mbits,
+    int mwords, const float* q, long long n, int nq,
     int d, int kk, int bq, int cap, int stages, int qstream, int nchunks,
     long long chunk_rows, float* part_s, int* part_i, int* part_n,
     float* spill_s,
     int* spill_i,
     long long sample, float* sample_sel, float* thr0_s, int* thr0_i,
-    float* sel, int sort_len, void* sort_w, int* sort_pos, float* vals,
+    float* sel, const void* sel_args, float* vals,
     int* ids, const float* pv, const float* pf, int dv, int m, float* rows_x,
     float* rows_v, float* rows_f, u64* stats, void* stream) {
   if (nq <= 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  ScanArgs a{x, xsq, scale, elig, n_elig, q, n, nq, d, kk, cap, chunk_rows,
+  if (mbits != nullptr && (elig == nullptr || esrc == nullptr))
+    return (int)cudaErrorInvalidValue;
+  ScanArgs a{x, xsq, scale, elig, n_elig, esrc,
+             static_cast<const u64*>(mbits), mwords, q, n, nq, d, kk, cap,
+             chunk_rows,
              part_s, part_i, part_n, spill_s, spill_i, sel, n, sample,
              nullptr, nullptr, stats, 0, qstream, stages};
-  u64* sw = static_cast<u64*>(sort_w);
+  const SelectArgs* sa = static_cast<const SelectArgs*>(sel_args);
+  if (sel != nullptr && sa == nullptr) return (int)cudaErrorInvalidValue;
 #define FCVI_TOPK(ET)                                                       \
-  score_topk<ET>(a, bq, nchunks, sample_sel, thr0_s, thr0_i,                \
-                 sort_len, sw, sort_pos, vals, ids, pv, pf, dv, m, rows_x,  \
-                 rows_v, rows_f, st)
+  score_topk<ET>(a, bq, nchunks, sample_sel, thr0_s, thr0_i, sa, vals,      \
+                 ids, pv, pf, dv, m, rows_x, rows_v, rows_f, st)
   switch (et) {
     case kF32: return FCVI_TOPK(kF32);
     case kBF16: return FCVI_TOPK(kBF16);
@@ -1442,4 +1499,21 @@ extern "C" int fcvi_score_topk(
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FCVI_TOPK
+}
+
+// The selection path's select alone over an (nq, n) fp32 score matrix:
+// (vals, ids) (nq, kk) of each row's kk best scores, ranked as the scans
+// rank them (score desc, column asc; -inf and NaN do not compete, unfilled
+// slots read (-inf, 0); -0.0 counts as +0.0 and keeps its bits). The same
+// kernels as the scans' selection path; sa as in fcvi_score_topk.
+extern "C" int fcvi_select_topk(const float* scores, long long n,
+                                const void* sel_args, float* vals, int* ids,
+                                void* stream) {
+  const SelectArgs* sa = static_cast<const SelectArgs*>(sel_args);
+  if (sa == nullptr) return (int)cudaErrorInvalidValue;
+  if (sa->nq <= 0) return (int)cudaSuccess;
+  return (int)select_topk<kF32>(*sa, scores, n, nullptr, nullptr, vals, ids,
+                                nullptr, nullptr, nullptr, nullptr, 0, 0, 0,
+                                nullptr, nullptr, nullptr,
+                                (cudaStream_t)stream);
 }

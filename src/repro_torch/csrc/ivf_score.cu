@@ -74,10 +74,11 @@
 // The selection path, for a kk whose buffers do not fit in shared memory
 // (or when the caller asks for it): pass 1 writes each (member query, list)
 // pair's scores to a (b, nseg, max_list) scratch instead (nseg = s for
-// dedup, nprobe for batch; -inf for invalid slots), and list_select_kernel,
-// one block per query, radix-selects and sorts the top-kk over its member
-// lists' slots by (score, ordering key), -0.0 taken as +0.0 as better()
-// takes it (select_common.cuh). Its (vals, ids) are the buffered path's
+// dedup, nprobe for batch; -inf for invalid slots), and the multi-block
+// radix select of select_common.cuh (its passes skip a query's non-member
+// lists unread; then list_select_kernel, one block per query) selects and
+// sorts the top-kk over its member lists' slots by (score, ordering key),
+// -0.0 taken as +0.0 as better() takes it. Its (vals, ids) are the buffered path's
 // bits; the rows epilogue is the same function.
 #include <cuda_runtime.h>
 
@@ -517,52 +518,53 @@ list_merge_kernel(const float* __restrict__ part_s,
   gather_payload(j, kk, vals, ids, pv, pf, dv, m, rows_v, rows_f);
 }
 
-// One query's scores in the selection path: the slots of its member lists
-// (dedup) or of its probes (batch), nseg segments of L in its row of the
-// scratch. A -inf (invalid) or NaN score does not compete, as it never
-// beats a buffer's threshold; -0.0 counts as +0.0. The key is the flat id
-// (dedup) or the probe position * L + slot (batch), as in pass 1.
+// The queries' scores in the selection path: query j's member lists
+// (dedup) or probes (batch), nseg segments of L slots in its row of the
+// scratch. A non-member segment is skipped unread (its member entry is
+// tested once a pass block); a -inf (invalid) or NaN score does not
+// compete, as it never beats a buffer's threshold; -0.0 counts as +0.0.
+// The key is the flat id (dedup) or the probe position * L + slot (batch),
+// as in pass 1.
 struct ListScores {
   const float* s;
   const float* member;   // (nseg, b) for dedup, null for batch
   const int* uniq;
-  int nseg, L, b, j;
-  __device__ long long size() const { return (long long)nseg * L; }
-  __device__ bool get(long long e, u64* w) const {
-    const int seg = (int)(e / L);
-    if (member != nullptr && !(member[(long long)seg * b + j] > 0.5f))
-      return false;
-    const float v = s[e];
+  int nseg, L, b;
+  __device__ long long size(int) const { return (long long)nseg * L; }
+  __device__ long long seg_len() const { return L; }
+  __device__ bool seg_live(int j, long long seg) const {
+    return member == nullptr || member[seg * b + j] > 0.5f;
+  }
+  __device__ bool get(int j, long long seg, long long e, u64* w) const {
+    const float v = s[(long long)j * nseg * L + e];
     if (!(v > -INFINITY)) return false;
-    const int slot = (int)(e - (long long)seg * L);
+    const int slot = (int)(e - seg * L);
     *w = pack(ord_bits_eq0(v), member != nullptr ? uniq[seg] * L + slot
                                                  : (int)e);
     return true;
   }
 };
 
-// The selection path's pass 2: one block per query. Sorts in shared memory,
-// or in (b, len) device scratch sw / spos when those are given.
+// The selection path's finish: one block per query, after select_passes.
 __global__ void __launch_bounds__(kSelThreads)
-list_select_kernel(const float* __restrict__ sel,
+list_select_kernel(const SelectArgs sa, const float* __restrict__ sel,
                    const float* __restrict__ member,
-                   const int* __restrict__ src_list, int nsrc, int b,
-                   int nprobe, int L, int kk, int len, u64* __restrict__ sw,
-                   int* __restrict__ spos, float* __restrict__ vals,
-                   int* __restrict__ ids, const float* __restrict__ pv,
-                   const float* __restrict__ pf, int dv, int m,
-                   float* __restrict__ rows_v, float* __restrict__ rows_f) {
+                   const int* __restrict__ src_list, int nsrc, int nprobe,
+                   int L, float* __restrict__ vals, int* __restrict__ ids,
+                   const float* __restrict__ pv, const float* __restrict__ pf,
+                   int dv, int m, float* __restrict__ rows_v,
+                   float* __restrict__ rows_f) {
   extern __shared__ __align__(16) unsigned char sel_smem[];
-  __shared__ SelectState st;
+  __shared__ FinishState fs;
   const long long j = blockIdx.x;
+  const int kk = sa.kk;
   const bool dedup = member != nullptr;
   const int nseg = dedup ? nsrc : nprobe;
-  u64* w = sw != nullptr ? sw + j * len : reinterpret_cast<u64*>(sel_smem);
-  int* pos = sw != nullptr ? spos + j * len : reinterpret_cast<int*>(w + len);
+  u64* w;
+  int* pos;
+  sort_area(sa, (int)j, sel_smem, &w, &pos);
   const float* s = sel + j * nseg * (long long)L;
-  const int count = select_sorted(
-      ListScores{s, member, src_list, nseg, L, b, (int)j}, kk, w, pos, len,
-      &st);
+  const int count = select_finish(sa, (int)j, w, pos, &fs);
   for (int e = threadIdx.x; e < kk; e += blockDim.x) {
     int id = 0;
     if (e < count) {
@@ -635,9 +637,9 @@ cudaError_t launch_list_scan(const void* grouped, const float* gsq,
 // Buffered path (sel null): scratch part_s / part_i hold (nsrc * b, kk)
 // entries for dedup and (b * nprobe, kk) for batch. Selection path (sel,
 // a (b, nseg, max_list) fp32 scratch with nseg = nsrc for dedup and nprobe
-// for batch, not null): cap, merge_cap and part_* are unused; the selection
-// sorts sort_len (a power of two >= kk) words a query in shared memory, or
-// in the (b, sort_len) scratch sort_w / sort_pos when those are not null.
+// for batch, not null): cap, merge_cap and part_* are unused; sa holds the
+// select's plan and scratch (select_common.cuh), null on the buffered
+// path.
 // work holds 2 * nsrc + 2 ints (the plan's offsets, the work counter, and
 // each source's item count). The rows pointers (pv, pf, rows_v, rows_f) are
 // all null for the ids-only variants.
@@ -645,13 +647,15 @@ extern "C" int fcvi_ivf_score_topk(
     const void* grouped, int et, const float* gsq, const float* gsc,
     const float* valid, const int* src_list, int nsrc, const float* member,
     const float* q, int b, int nprobe, int L, int d, int kk, int cap,
-    int merge_cap, float* part_s, int* part_i, float* sel, int sort_len,
-    void* sort_w, int* sort_pos, int* work, float* vals, int* ids,
+    int merge_cap, float* part_s, int* part_i, float* sel,
+    const void* sel_args, int* work, float* vals, int* ids,
     const float* pv, const float* pf, int dv, int m, float* rows_v,
     float* rows_f, void* stream) {
   if (b <= 0) return (int)cudaSuccess;
   if (et != kF32 && et != kBF16 && et != kI8)
     return (int)cudaErrorInvalidValue;
+  const SelectArgs* sa = static_cast<const SelectArgs*>(sel_args);
+  if (sel != nullptr && sa == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   if (nsrc > 0) {
@@ -689,15 +693,18 @@ extern "C" int fcvi_ivf_score_topk(
     if (err != cudaSuccess) return (int)err;
   }
   if (sel != nullptr) {
-    u64* sw = static_cast<u64*>(sort_w);
-    const size_t smem = select_smem(sort_len, sw == nullptr);
+    const int nseg = member != nullptr ? nsrc : nprobe;
+    err = select_passes(ListScores{sel, member, src_list, nseg, L, b}, *sa,
+                        st);
+    if (err != cudaSuccess) return (int)err;
+    const size_t smem = select_smem(*sa);
     err = cudaFuncSetAttribute(list_select_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
     list_select_kernel<<<b, kSelThreads, smem, st>>>(
-        sel, member, src_list, nsrc, b, nprobe, L, kk, sort_len, sw, sort_pos,
-        vals, ids, pv, pf, dv, m, rows_v, rows_f);
+        *sa, sel, member, src_list, nsrc, nprobe, L, vals, ids, pv, pf, dv, m,
+        rows_v, rows_f);
     return (int)cudaGetLastError();
   }
   const size_t smem = sizeof(float) * (2 * (size_t)merge_cap + 4);

@@ -70,8 +70,9 @@
 // (pq_merge_kernel): one block per query merges the chunks' words and
 // decodes the final (vals, ids). The selection path (the buffers do not
 // fit, or would shrink the tile to 4; or the caller asks): pass 1 writes
-// every -d2 to a (b, n) scratch in grouped order, and pq_select_kernel
-// radix-selects the top-kk words by the same key (select_common.cuh).
+// every -d2 to a (b, n) scratch in grouped order, then the multi-block
+// radix select of select_common.cuh (its passes, then pq_select_kernel,
+// one block per query) takes the top-kk words by the same key.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -309,32 +310,35 @@ pq_merge_kernel(const u64* __restrict__ part, long long len, int kk, int cap,
   }
 }
 
-// One query's -d2 in grouped order, keyed by the original row id.
+// The queries' -d2 in grouped order (query q's row at q * n), keyed by the
+// original row id; every entry competes. One segment.
 struct PqScores {
   const float* s;
   const int* gid;
   long long n;
-  __device__ long long size() const { return n; }
-  __device__ bool get(long long e, u64* w) const {
-    *w = pack(ord_bits(s[e]), gid[e]);
+  __device__ long long size(int) const { return n; }
+  __device__ long long seg_len() const { return kWholeRow; }
+  __device__ bool seg_live(int, long long) const { return true; }
+  __device__ bool get(int q, long long, long long e, u64* w) const {
+    *w = pack(ord_bits(s[(long long)q * n + e]), gid[e]);
     return true;
   }
 };
 
-// The selection path's pass 2: one block per query. Sorts in shared memory,
-// or in (b, len) device scratch sw / spos when those are given.
+// The selection path's finish: one block per query, after select_passes.
 __global__ void __launch_bounds__(kSelThreads)
-pq_select_kernel(const float* __restrict__ sel, const int* __restrict__ gid,
-                 long long n, int kk, int len, u64* __restrict__ sw,
-                 int* __restrict__ spos, float* __restrict__ vals,
+pq_select_kernel(const SelectArgs sa, const float* __restrict__ sel,
+                 long long n, float* __restrict__ vals,
                  int* __restrict__ ids) {
   extern __shared__ __align__(16) unsigned char sel_smem[];
-  __shared__ SelectState st;
+  __shared__ FinishState fs;
   const long long qi = blockIdx.x;
-  u64* w = sw != nullptr ? sw + qi * len : reinterpret_cast<u64*>(sel_smem);
-  int* pos = sw != nullptr ? spos + qi * len : reinterpret_cast<int*>(w + len);
+  const int kk = sa.kk;
+  u64* w;
+  int* pos;
+  sort_area(sa, (int)qi, sel_smem, &w, &pos);
   const float* s = sel + qi * n;
-  select_sorted(PqScores{s, gid, n}, kk, w, pos, len, &st);
+  select_finish(sa, (int)qi, w, pos, &fs);
   for (int j = threadIdx.x; j < kk; j += blockDim.x) {
     vals[qi * kk + j] = s[pos[j]];
     ids[qi * kk + j] = key_of(w[j]);
@@ -421,21 +425,22 @@ extern "C" int fcvi_pq_score(const void* codes, int code_bytes,
 // = -d2 and ids (b, kk) original row ids, ranked by the packed key. bq <=
 // 16 queries a block. Buffered path (sel null): part is a (b, nchunks, kk)
 // u64 scratch and merge_cap the merge's buffer. Selection path (sel, a
-// (b, n) fp32 scratch, not null): cap, merge_cap and part are unused; the
-// selection sorts sort_len (a power of two >= kk) words a query in shared
-// memory, or in the (b, sort_len) scratch sort_w / sort_pos when those are
-// not null.
+// (b, n) fp32 scratch, not null): cap, merge_cap and part are unused; sa
+// holds the select's plan and scratch (select_common.cuh), null on the
+// buffered path.
 extern "C" int fcvi_pq_score_topk(const void* codes, int code_bytes,
                                   const int* gid, const int* goff,
                                   int ncoarse, const float* luts, long long n,
                                   int b, int M, int ksub, int bq, int staged,
                                   int kk, int cap, int nchunks,
                                   long long chunk_rows, int merge_cap,
-                                  void* part, float* sel, int sort_len,
-                                  void* sort_w, int* sort_pos, float* vals,
+                                  void* part, float* sel,
+                                  const void* sel_args, float* vals,
                                   int* ids, void* stream) {
   if (n <= 0 || b <= 0) return (int)cudaSuccess;
   if (bq < 1 || bq > kMaxBQ) return (int)cudaErrorInvalidValue;
+  const SelectArgs* sa = static_cast<const SelectArgs*>(sel_args);
+  if (sel != nullptr && sa == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   u64* pw = static_cast<u64*>(part);
   int err;
@@ -451,14 +456,14 @@ extern "C" int fcvi_pq_score_topk(const void* codes, int code_bytes,
     return (int)cudaErrorInvalidValue;
   if (err != (int)cudaSuccess) return err;
   if (sel != nullptr) {
-    u64* sw = static_cast<u64*>(sort_w);
-    const size_t smem = select_smem(sort_len, sw == nullptr);
-    cudaError_t e = cudaFuncSetAttribute(
-        pq_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    cudaError_t e = select_passes(PqScores{sel, gid, n}, *sa, st);
     if (e != cudaSuccess) return (int)e;
-    pq_select_kernel<<<b, kSelThreads, smem, st>>>(sel, gid, n, kk, sort_len,
-                                                   sw, sort_pos, vals, ids);
+    const size_t smem = select_smem(*sa);
+    e = cudaFuncSetAttribute(pq_select_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    pq_select_kernel<<<b, kSelThreads, smem, st>>>(*sa, sel, n, vals, ids);
     return (int)cudaGetLastError();
   }
   const size_t smem = sizeof(u64) * (size_t)merge_cap;

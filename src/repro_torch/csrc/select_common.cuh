@@ -1,26 +1,49 @@
 // Device helpers for the top-k selections that do not fit the thresholded
 // candidate buffers of topk_common.cuh: (score, key) pairs packed into one
-// 64-bit word, a block-wide bitonic sort of such words, and a block-wide
-// radix select of the kk best words among a query's entries.
+// 64-bit word, a block-wide bitonic sort of such words, and a multi-block
+// radix select of each query's kk best words.
 //
 // The selection path (used by fused_score_topk.cu, ivf_score.cu and
 // pq_lut.cu when kk is past what the buffers hold in shared memory, or when
-// a caller forces it): the scan writes every score to scratch, then one
-// block per query
-//   1. finds the kk-th best packed word by a most-significant-digit-first
-//      radix select, 8 bits a pass, over the query's entries (each pass
-//      reads the entries once and builds a 256-bin histogram of the digit
-//      under the prefix fixed so far; it stops as soon as the chosen bin
-//      holds exactly the entries still wanted);
-//   2. gathers the entries at or above it (exactly min(kk, live) of them:
-//      the words are unique, since each carries its key);
-//   3. bitonic-sorts them, best first, in shared memory (in device memory
-//      past 16,384 entries).
+// a caller forces it): the scan writes every score to scratch, then
+//   1. pass blocks over (query, chunk) (sel_pass_kernel, kPassThreads
+//      threads each, enough chunks that the grid covers the SMs twice)
+//      build a histogram of one 16-bit digit of the query's packed words
+//      under the digits fixed so far, in 16-bit counters in shared memory
+//      (a chunk holds at most 65,535 entries; each thread adds runs of
+//      equal digits, so a hot bin takes one atomic a run), and add their
+//      non-zero bins to the query's histogram in device memory. The last
+//      block of each query (a completion counter) picks the bin that holds
+//      the kk-th word. A float's top 16 bits are its sign, exponent and 7
+//      mantissa bits, so where the scores spread, that bin is small: the
+//      words above it and in it (their count is known exactly from the
+//      histogram) fit the query's candidate buffer in device memory, and
+//   2. the next launch of the same kernel compacts them into it (one read
+//      of the scratch; warp-aggregated appends). Where the bin does not
+//      fit (mass ties), the next launch histograms the next digit over the
+//      full row under the prefix instead: the same kernel, launched
+//      kSelPasses times, does a histogram, a compaction or nothing per
+//      query as the query's state says, so the pass count follows the
+//      data (one histogram and one compaction where the scores spread, at
+//      most four histograms). An entry set no larger than the buffer is
+//      compacted at once, with no histogram.
+//   3. one block per query (select_finish, in each caller's finish kernel)
+//      radix-selects the kk-th word among the buffer's words by 11-bit
+//      digits below the fixed ones (2048 bins in shared memory), gathers
+//      the words at or above it (exactly min(kk, live): the words are
+//      unique, since each carries its key) and bitonic-sorts them, best
+//      first, in shared memory (in device memory past 16,384 words); the
+//      caller's epilogue follows.
 // A packed word is (order-preserving score bits << 32) | ~key, so a larger
 // word is a higher score, then a smaller key: the first-occurrence rule.
+// Bound: bytes. Each query's live entries are read once by the histogram
+// and once by the compaction (the bound counts one read); the buffer
+// passes and the sort touch some thousands of words a query.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <climits>
 
 namespace {
 
@@ -102,133 +125,441 @@ __device__ void trim_words(u64* w, int* cnt, u64* thr, int segs, int cap,
   __syncthreads();
 }
 
-constexpr int kSelThreads = 512;   // threads of a selection block
-// entries a thread reads before using any: one block per query streams its
-// entries from device memory, so its loads in flight set its rate
-constexpr int kSelUnroll = 16;
+// The selection path's launch shapes. kSelThreads: a finish block (one a
+// query); kPassThreads: a pass block; kPassUnroll: entries a pass thread
+// loads before testing any (its loads in flight).
+constexpr int kSelThreads = 512;
+constexpr int kPassThreads = 1024;
+constexpr int kPassUnroll = 8;
+constexpr int kDigit = 16;                 // bits of a full-row pass's digit
+constexpr int kBins = 1 << kDigit;
+constexpr long long kMaxChunk = 65535;     // a pass block's entries: 16-bit bins
+constexpr int kSelPasses = 64 / kDigit + 1;  // launches: four digits + a compaction
+constexpr int kFinDigit = 11;              // the buffer's digits (select_finish)
+constexpr int kFinBins = 1 << kFinDigit;
+// a query's state between the passes (mode)
+enum : int { kModeHist = 0, kModeCompact = 1, kModeDone = 2 };
+// the optional profile: for each launch (the passes, then the finish) the
+// first block's start and the last block's end (globaltimer ns) and the
+// modes its blocks ran (bit 1 << mode)
+constexpr int kSelStatSlots = 3 * (kSelPasses + 1);
+// a source with no segments: one segment longer than any row
+constexpr long long kWholeRow = 1LL << 62;
 
-struct SelectState {
-  unsigned hist[256];
-  u64 prefix;        // the digits of the kk-th word fixed so far
-  u64 fixed;         // the bits they occupy
-  long long want;    // rank of the kk-th word among the entries under prefix
+// One query's state, 64 bytes. The words at or above `prefix` in the bits
+// `fixed` are the candidates; `want` is the kk-th word's rank among those
+// equal to prefix in those bits (the words above them are all in the top
+// kk). `shift` is the next full-row digit's lowest bit.
+struct SelQuery {
+  u64 prefix;
+  u64 fixed;
+  unsigned want;
+  unsigned nbuf;       // words compacted into the candidate buffer
+  unsigned arrived;    // blocks of the current launch that are done
+  unsigned total;      // competing entries (the first histogram's sum)
+  int shift;
+  int mode;
+  unsigned pad[6];
+};
+
+// The selection path's plan and device scratch (kernels/_build.py's
+// SelectArgs fills it: the same fields in the same order).
+struct SelectArgs {
+  SelQuery* st;        // (nq,)
+  unsigned* hist;      // (nq, kBins) zeros; null when no histogram runs
+  u64* bufw;           // (nq, cap) candidate words
+  int* bufp;           // (nq, cap) their entry indices
+  u64* sort_w;         // (nq, len) and (nq, len): the sort's scratch, or
+  int* sort_pos;       //   null to sort in shared memory
+  u64* stats;          // null, or kSelStatSlots (see above)
+  long long chunk;     // entries a pass block reads
+  int nchunks;         // pass blocks a query
+  int cap;             // candidate-buffer words a query (>= kk where a
+                       //   histogram runs)
+  int len;             // the sort's words: a power of two >= kk
+  int passes;          // pass launches: kSelPasses, or 1 (no histogram)
+  int kk;
+  int nq;
+};
+
+__device__ __forceinline__ u64 now_ns() {
+  u64 t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ void stat_span(u64* stats, int slot, u64 t0,
+                                          int mode) {
+  if (stats == nullptr) return;
+  atomicMin(stats + 3 * slot, t0);
+  atomicMax(stats + 3 * slot + 1, now_ns());
+  atomicOr(stats + 3 * slot + 2, 1ull << mode);
+}
+
+// Calls f(in, word, entry) for the entries [e0, e1) of query q, every
+// thread of the block alike (in false past the range or for an entry that
+// does not compete), kPassUnroll loads in flight a thread. A segment whose
+// src.seg_live is false is skipped unread: its live test runs once a
+// block.
+template <class Src, class F>
+__device__ __forceinline__ void for_entries(const Src& src, int q,
+                                            long long e0, long long e1,
+                                            F f) {
+  const long long L = src.seg_len();
+  const long long step = (long long)blockDim.x * kPassUnroll;
+  for (long long seg = e0 / L; seg * L < e1; ++seg) {
+    if (!src.seg_live(q, seg)) continue;
+    const long long lo = seg * L > e0 ? seg * L : e0;
+    const long long hi = (seg + 1) * L < e1 ? (seg + 1) * L : e1;
+    for (long long base = lo; base < hi; base += step) {
+      u64 v[kPassUnroll];
+      bool in[kPassUnroll];
+#pragma unroll
+      for (int u = 0; u < kPassUnroll; ++u) {
+        const long long e = base + (long long)u * blockDim.x + threadIdx.x;
+        in[u] = e < hi && src.get(q, seg, e, &v[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kPassUnroll; ++u)
+        f(in[u], v[u], base + (long long)u * blockDim.x + threadIdx.x);
+    }
+  }
+}
+
+// Exclusive prefix sum of v over the block's threads in order; *total gets
+// the sum. Every thread must call it.
+__device__ __forceinline__ unsigned block_scan(unsigned v, unsigned* total) {
+  __shared__ unsigned warp_sum[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned t = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += t;
+  }
+  if (lane == 31) warp_sum[warp] = incl;
+  __syncthreads();
+  unsigned before = 0, all = 0;
+  const int warps = (blockDim.x + 31) >> 5;
+  for (int w = 0; w < warps; ++w) {
+    if (w < warp) before += warp_sum[w];
+    all += warp_sum[w];
+  }
+  __syncthreads();
+  *total = all;
+  return before + incl - v;
+}
+
+// The last block of query q's histogram pass: picks the bin of the query's
+// histogram (kBins bins, best first from the top) that holds its kk-th
+// word, zeroes the histogram for the next pass, and sets the state: a
+// compaction where the candidates fit the buffer (or every competing entry
+// is kept), else the next digit.
+__device__ void choose_bin(const SelectArgs& a, int q) {
+  __shared__ int s_dsel;
+  __shared__ unsigned s_above, s_bin;
+  SelQuery* sq = a.st + q;
+  unsigned* gh = a.hist + (long long)q * kBins;
+  const int per = kBins / kPassThreads;
+  const int top = kBins - per * (int)threadIdx.x;   // this thread's bins,
+  unsigned sum = 0;                                  // top - 1 down to
+  for (int i = 1; i <= per; ++i) sum += __ldcg(gh + top - i);   // top - per
+  unsigned total;
+  const unsigned before = block_scan(sum, &total);
+  const unsigned want = sq->want;
+  const bool first = sq->fixed == 0;
+  if (!(first && total <= (unsigned)a.kk) && before < want &&
+      before + sum >= want) {
+    unsigned acc = before;
+    for (int i = 1; i <= per; ++i) {
+      const unsigned c = __ldcg(gh + top - i);
+      if (acc + c >= want) {
+        s_dsel = top - i;
+        s_above = acc;
+        s_bin = c;
+        break;
+      }
+      acc += c;
+    }
+  }
+  __syncthreads();
+  for (int i = 1; i <= per; ++i) gh[top - i] = 0;
+  if (threadIdx.x == 0) {
+    if (first) sq->total = total;
+    if (first && total <= (unsigned)a.kk) {   // every competing entry
+      sq->mode = kModeCompact;
+    } else {
+      sq->prefix |= (u64)s_dsel << sq->shift;
+      sq->fixed |= (u64)(kBins - 1) << sq->shift;
+      const unsigned w = want - s_above;
+      sq->want = w;
+      // the words at or above the new prefix: the kk - w above its bin
+      // and the bin's s_bin
+      const unsigned long long cand = (unsigned long long)(a.kk - w) + s_bin;
+      if (cand <= (unsigned long long)a.cap || sq->shift == 0)
+        sq->mode = kModeCompact;
+      else
+        sq->shift -= kDigit;
+    }
+    sq->arrived = 0;
+  }
+}
+
+// One launch of the passes (see the header): block (q, c) reads query q's
+// entries [c * chunk, (c + 1) * chunk) and histograms them, compacts them
+// or returns at once, as the query's state says.
+template <class Src>
+__global__ void __launch_bounds__(kPassThreads, 1)
+sel_pass_kernel(const Src src, const SelectArgs a, int launch) {
+  extern __shared__ unsigned h2[];   // kBins 16-bit counters, two a word
+  __shared__ int last;
+  const int q = blockIdx.x;
+  SelQuery* sq = a.st + q;
+  const int mode = sq->mode;
+  if (mode == kModeDone) return;     // the same for the whole block
+  const u64 t0 = a.stats != nullptr ? now_ns() : 0;
+  const int tid = threadIdx.x;
+  const long long n = src.size(q);
+  const long long e0 = (long long)blockIdx.y * a.chunk;
+  const long long e1 = e0 + a.chunk < n ? e0 + a.chunk : n;
+  const u64 prefix = sq->prefix, fixed = sq->fixed;
+  if (e0 >= e1) {
+    // past the query's entries (a masked count below the bound): nothing
+  } else if (mode == kModeHist) {
+    for (int i = tid; i < kBins / 2; i += blockDim.x) h2[i] = 0;
+    __syncthreads();
+    const int shift = sq->shift;
+    int run_dig = 0;
+    unsigned run = 0;
+    auto add = [&](int dig, unsigned c) {
+      atomicAdd(&h2[dig >> 1], c << ((dig & 1) * 16));
+    };
+    for_entries(src, q, e0, e1, [&](bool in, u64 w, long long) {
+      if (!in || (w & fixed) != prefix) return;
+      const int dig = (int)((w >> shift) & (kBins - 1));
+      if (dig != run_dig) {
+        if (run) add(run_dig, run);
+        run_dig = dig;
+        run = 0;
+      }
+      ++run;
+    });
+    if (run) add(run_dig, run);
+    __syncthreads();
+    unsigned* gh = a.hist + (long long)q * kBins;
+    for (int i = tid; i < kBins / 2; i += blockDim.x) {
+      const unsigned v = h2[i];
+      if (v & 0xffffu) atomicAdd(gh + 2 * i, v & 0xffffu);
+      if (v >> 16) atomicAdd(gh + 2 * i + 1, v >> 16);
+    }
+  } else {
+    // the words at or above the prefix, appended at a warp's atomic offset
+    u64* bw = a.bufw + (long long)q * a.cap;
+    int* bp = a.bufp + (long long)q * a.cap;
+    const int lane = tid & 31;
+    for_entries(src, q, e0, e1, [&](bool in, u64 w, long long e) {
+      const bool keep = in && (w & fixed) >= prefix;
+      const unsigned m = __ballot_sync(0xffffffffu, keep);
+      if (m == 0) return;
+      const int leader = __ffs(m) - 1;
+      unsigned at = 0;
+      if (lane == leader) at = atomicAdd(&sq->nbuf, (unsigned)__popc(m));
+      at = __shfl_sync(0xffffffffu, at, leader) +
+           __popc(m & ((1u << lane) - 1u));
+      if (keep && at < (unsigned)a.cap) {
+        bw[at] = w;
+        bp[at] = (int)e;
+      }
+    });
+  }
+  // the last block of the query (a completion counter) moves its state on
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(&sq->arrived, 1u) == gridDim.y - 1;
+  __syncthreads();
+  if (last) {
+    __threadfence();
+    if (mode == kModeHist) {
+      choose_bin(a, q);
+    } else if (tid == 0) {
+      sq->mode = kModeDone;
+      sq->arrived = 0;
+    }
+  }
+  if (tid == 0) stat_span(a.stats, launch, t0, mode);
+}
+
+__global__ void sel_init_kernel(const SelectArgs a) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= a.nq) return;
+  SelQuery s = {};
+  s.want = (unsigned)a.kk;
+  s.shift = 64 - kDigit;
+  s.mode = a.hist != nullptr ? kModeHist : kModeCompact;
+  a.st[q] = s;
+}
+
+// Steps 1 and 2 for every query of src: a.nq queries, each with
+// src.size(q) entries (at most a.nchunks * a.chunk).
+template <class Src>
+cudaError_t select_passes(const Src& src, const SelectArgs& a,
+                          cudaStream_t st) {
+  sel_init_kernel<<<(a.nq + 255) / 256, 256, 0, st>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  int smem = 0;
+  if (a.hist != nullptr) {
+    err = cudaMemsetAsync(a.hist, 0, sizeof(unsigned) * kBins * (size_t)a.nq,
+                          st);
+    if (err != cudaSuccess) return err;
+    smem = sizeof(unsigned) * kBins / 2;
+  }
+  err = cudaFuncSetAttribute(sel_pass_kernel<Src>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)a.nq, (unsigned)a.nchunks);
+  for (int p = 0; p < a.passes; ++p) {
+    sel_pass_kernel<Src><<<grid, kPassThreads, smem, st>>>(src, a, p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+struct FinishState {
+  unsigned hist[kFinBins];
+  u64 prefix;
+  u64 fixed;
+  unsigned want;
   int done;
   int count;
 };
 
-// Select and sort, best first, the kk largest packed words among src's
-// entries: src.size() entries, src.get(e, &w) false for an entry that does
-// not compete. Leaves min(kk, competing) words in w[0..) with their entry
-// index in pos[], and 0 / -1 in the rest of the `len` (a power of two >= kk)
-// slots; returns that count. w and pos are shared or device memory of this
-// block alone. Every thread of the block must call it.
-template <class Src>
-__device__ int select_sorted(const Src& src, int kk, u64* w, int* pos,
-                             int len, SelectState* st) {
+// Step 3 for query q: leaves its min(kk, live) best words, best first, in
+// w[0..) with their entry indices in pos[], and 0 / -1 in the rest of the
+// a.len slots (shared memory, or a.sort_w / a.sort_pos); returns that
+// count. Every thread of the block must call it.
+__device__ int select_finish(const SelectArgs& a, int q, u64* w, int* pos,
+                             FinishState* fs) {
+  const u64 t0 = a.stats != nullptr ? now_ns() : 0;
   const int tid = threadIdx.x;
-  const long long n = src.size();
-  const long long step = (long long)blockDim.x * kSelUnroll;
+  const SelQuery* sq = a.st + q;
+  const unsigned nb = sq->nbuf < (unsigned)a.cap ? sq->nbuf : a.cap;
+  const u64* bw = a.bufw + (long long)q * a.cap;
+  const int* bp = a.bufp + (long long)q * a.cap;
   if (tid == 0) {
-    st->prefix = 0;
-    st->fixed = 0;
-    st->want = kk;
-    st->done = 0;
-    st->count = 0;
+    fs->prefix = sq->prefix;
+    fs->fixed = sq->fixed;
+    fs->want = sq->want;
+    fs->done = nb <= (unsigned)a.kk;   // every candidate is kept
+    fs->count = 0;
+    if (fs->done) fs->prefix = 0;
   }
-  for (int shift = 56; shift >= 0; shift -= 8) {
-    for (int i = tid; i < 256; i += blockDim.x) st->hist[i] = 0;
+  __syncthreads();
+  // below the fixed bits, 11-bit digits over the buffer until the chosen
+  // bin holds exactly the words still wanted
+  int low = fs->fixed == 0 ? 64 : __ffsll((long long)fs->fixed) - 1;
+  while (!fs->done && low > 0) {
+    const int width = low < kFinDigit ? low : kFinDigit;
+    const int shift = low - width;
+    const int bins = 1 << width;
+    for (int i = tid; i < bins; i += blockDim.x) fs->hist[i] = 0;
     __syncthreads();
-    const u64 prefix = st->prefix, fixed = st->fixed;
-    // each thread counts runs of equal digits in a register and adds a run
-    // to the histogram when its digit changes: the first passes put nearly
-    // every entry in one or two bins, where an atomic per entry would queue
-    // on one address, and the later ones skip the entries off the prefix
+    const u64 prefix = fs->prefix, fixed = fs->fixed;
     int run_dig = 0;
     unsigned run = 0;
-    for (long long base = 0; base < n; base += step) {
-      u64 v[kSelUnroll];
-      bool in[kSelUnroll];
-#pragma unroll
-      for (int u = 0; u < kSelUnroll; ++u) {
-        const long long e = base + (long long)u * blockDim.x + tid;
-        in[u] = e < n && src.get(e, &v[u]);
+    for (unsigned i = tid; i < nb; i += blockDim.x) {
+      const u64 v = bw[i];
+      if ((v & fixed) != prefix) continue;
+      const int dig = (int)((v >> shift) & (u64)(bins - 1));
+      if (dig != run_dig) {
+        if (run) atomicAdd(&fs->hist[run_dig], run);
+        run_dig = dig;
+        run = 0;
       }
-#pragma unroll
-      for (int u = 0; u < kSelUnroll; ++u) {
-        if (!in[u] || (v[u] & fixed) != prefix) continue;
-        const int dig = (int)((v[u] >> shift) & 255u);
-        if (dig != run_dig) {
-          if (run) atomicAdd(&st->hist[run_dig], run);
-          run_dig = dig;
-          run = 0;
-        }
-        ++run;
-      }
+      ++run;
     }
-    if (run) atomicAdd(&st->hist[run_dig], run);
+    if (run) atomicAdd(&fs->hist[run_dig], run);
     __syncthreads();
-    if (tid == 0) {
-      long long above = 0;
-      if (shift == 56) {
-        long long total = 0;
-        for (int d = 0; d < 256; ++d) total += st->hist[d];
-        if (total <= kk) st->done = 1;   // every competing entry is kept
+    if (tid < 32) {
+      // lane l holds the bins top - 1 down to top - per, best first
+      const int per = (bins + 31) / 32;
+      const int top = bins - per * tid;
+      unsigned sum = 0;
+      for (int i = 1; i <= per; ++i)
+        if (top - i >= 0) sum += fs->hist[top - i];
+      unsigned incl = sum;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned t = __shfl_up_sync(0xffffffffu, incl, o);
+        if (tid >= o) incl += t;
       }
-      if (!st->done) {
-        int dsel = 0;
-        for (int d = 255; d >= 0; --d) {
-          if (above + st->hist[d] >= st->want) {
-            dsel = d;
+      const unsigned want = fs->want;
+      const unsigned hit = __ballot_sync(0xffffffffu, incl >= want);
+      const int leader = __ffs(hit) - 1;
+      if (tid == leader) {
+        unsigned acc = incl - sum;
+        for (int i = 1; i <= per && top - i >= 0; ++i) {
+          const unsigned c = fs->hist[top - i];
+          if (acc + c >= want) {
+            fs->prefix = prefix | ((u64)(top - i) << shift);
+            fs->fixed = fixed | ((u64)(bins - 1) << shift);
+            fs->want = want - acc;
+            fs->done = c == want - acc;
             break;
           }
-          above += st->hist[d];
+          acc += c;
         }
-        st->prefix |= (u64)dsel << shift;
-        st->fixed |= (u64)255 << shift;
-        st->want -= above;
-        // the chosen bin holds exactly the entries still wanted: every
-        // word at or above prefix (its lower bits 0) is in the top kk
-        if (st->hist[dsel] == st->want) st->done = 1;
       }
     }
     __syncthreads();
-    if (st->done) break;
+    low = shift;
   }
-  const u64 thr = st->prefix;   // 0 when every competing entry is kept
-  for (long long base = 0; base < n; base += step) {
-    u64 v[kSelUnroll];
-    bool in[kSelUnroll];
-#pragma unroll
-    for (int u = 0; u < kSelUnroll; ++u) {
-      const long long e = base + (long long)u * blockDim.x + tid;
-      in[u] = e < n && src.get(e, &v[u]);
-    }
-#pragma unroll
-    for (int u = 0; u < kSelUnroll; ++u) {
-      if (in[u] && v[u] >= thr) {
-        const int at = atomicAdd(&st->count, 1);
-        if (at < len) {
-          w[at] = v[u];
-          pos[at] = (int)(base + (long long)u * blockDim.x + tid);
-        }
+  // every word at or above the prefix (its lower bits 0): exactly
+  // min(kk, nb) of them
+  const u64 thr = fs->prefix;
+  for (unsigned i = tid; i < nb; i += blockDim.x) {
+    const u64 v = bw[i];
+    if (v >= thr) {
+      const int at = atomicAdd(&fs->count, 1);
+      if (at < a.len) {
+        w[at] = v;
+        pos[at] = bp[i];
       }
     }
   }
   __syncthreads();
-  const int count = st->count < len ? st->count : len;
-  for (int i = count + tid; i < len; i += blockDim.x) {
+  const int count = fs->count < a.len ? fs->count : a.len;
+  for (int i = count + tid; i < a.len; i += blockDim.x) {
     w[i] = 0;
     pos[i] = -1;
   }
   __syncthreads();
-  sort_desc(w, pos, 1, len);
+  sort_desc(w, pos, 1, a.len);
+  if (tid == 0) stat_span(a.stats, kSelPasses, t0, kModeDone);
   return count;
 }
 
-// Dynamic shared memory of a selection block that sorts `len` words there
-// (0 when it sorts in device memory).
-inline size_t select_smem(int len, bool in_smem) {
-  return in_smem ? (size_t)len * (sizeof(u64) + sizeof(int)) : 0;
+// The finish block's sort area for query q: the caller's shared memory, or
+// the device scratch.
+__device__ __forceinline__ void sort_area(const SelectArgs& a, int q,
+                                          unsigned char* smem, u64** w,
+                                          int** pos) {
+  if (a.sort_w != nullptr) {
+    *w = a.sort_w + (long long)q * a.len;
+    *pos = a.sort_pos + (long long)q * a.len;
+  } else {
+    *w = reinterpret_cast<u64*>(smem);
+    *pos = reinterpret_cast<int*>(*w + a.len);
+  }
+}
+
+// Dynamic shared memory of a finish block (0 when it sorts in device
+// memory).
+inline size_t select_smem(const SelectArgs& a) {
+  return a.sort_w == nullptr ? (size_t)a.len * (sizeof(u64) + sizeof(int))
+                             : 0;
 }
 
 }  // namespace

@@ -16,13 +16,16 @@ counter that shows a run went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import fcntl
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -40,19 +43,19 @@ _F = ctypes.c_float
 SIGNATURES = {
     "fcvi_fused_transform": [_P, _P, _P, _F, _P, _P, _P, _P, _P, _L, _I, _I,
                              _P],
-    "fcvi_score_topk": [_P, _I, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
-                        _I, _I, _I, _L, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P,
-                        _I,
-                        _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+    "fcvi_score_topk": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _L, _I, _I,
+                        _I, _I, _I, _I, _I, _I, _L, _P, _P, _P, _P, _P, _L,
+                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
+                        _P, _P, _P],
+    "fcvi_select_topk": [_P, _L, _P, _P, _P, _P],
     "fcvi_rescore": [_P, _P, _P, _P, _F, _F, _P, _I, _I, _I, _I, _P],
     "fcvi_ivf_score_topk": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
-                            _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P,
-                            _P, _P, _P, _I, _I, _P, _P, _P],
+                            _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                            _P, _P, _I, _I, _P, _P, _P],
     "fcvi_pq_lut_qdot": [_P, _P, _P, _I, _I, _I, _I, _P],
     "fcvi_pq_score": [_P, _I, _P, _P, _L, _I, _I, _I, _P],
     "fcvi_pq_score_topk": [_P, _I, _P, _P, _I, _P, _L, _I, _I, _I, _I, _I,
-                           _I, _I, _I, _L, _I, _P, _P, _I, _P, _P, _P, _P,
-                           _P],
+                           _I, _I, _I, _L, _I, _P, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -159,6 +162,11 @@ def ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def addr(args):
+    """Host address of a ctypes structure (``SelectArgs``), or None."""
+    return None if args is None else ctypes.addressof(args)
+
+
 def require(t: torch.Tensor, name: str, shape: tuple,
             device: torch.device, dtype=torch.float32) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
@@ -199,23 +207,129 @@ def staged_cols(d: int) -> int:
     return min((d + 3) & ~3, DC)
 
 
-# The selection path of the scans (csrc/select_common.cuh): one block per
-# query sorts a power of two >= kk packed words (8 bytes, plus a 4-byte
-# entry index) in shared memory up to this many bytes, else in device
-# scratch.
+# The selection path of the scans (csrc/select_common.cuh): pass blocks over
+# (query, chunk) histogram 16-bit digits of the packed words (16-bit
+# counters: a chunk holds at most SELECT_MAX_CHUNK entries) and compact the
+# candidates into a buffer of `cap` words a query; one block per query then
+# selects among them and sorts a power of two >= kk words (8 bytes, plus a
+# 4-byte entry index) in shared memory up to SORT_SMEM_LIMIT bytes, else in
+# device scratch.
+SELECT_BINS = 1 << 16          # kBins
+SELECT_MAX_CHUNK = 65535       # kMaxChunk
+SELECT_MIN_CHUNK = 16384       # the fewest entries a pass block is given
+SELECT_MIN_CAP = 16384         # the smallest candidate buffer (words)
+SELECT_PASSES = 5              # kSelPasses: four digits and a compaction
+SELECT_STATS = 3 * (SELECT_PASSES + 1)   # kSelStatSlots
+SELECT_STATE = 64              # sizeof(SelQuery)
 SORT_SMEM_LIMIT = 196_608
 
 
-def select_scratch(rows: int, kk: int, device: torch.device):
-    """(sort_len, words, positions) for a selection over ``rows`` queries:
-    the power of two >= kk a block sorts, and the device scratch the sort
-    takes past shared memory (None each when it sorts in shared memory)."""
-    length = 1 << (kk - 1).bit_length()
-    if 12 * length <= SORT_SMEM_LIMIT:
-        return length, None, None
-    return (length,
-            torch.empty((rows, length), dtype=torch.int64, device=device),
-            torch.empty((rows, length), dtype=torch.int32, device=device))
+@dataclasses.dataclass(frozen=True)
+class SelectPlan:
+    chunk: int        # entries a pass block reads (whole segments if it can)
+    nchunks: int      # pass blocks a query
+    cap: int          # candidate-buffer words a query
+    sort_len: int     # the finish's sort: a power of two >= kk
+    sort_in_smem: bool
+    hist: bool        # histogram passes run (more entries than the buffer)
+    passes: int       # pass launches
+
+
+def select_plan(nq: int, n: int, kk: int, num_sms: int,
+                seg_len: Optional[int] = None,
+                cap: Optional[int] = None) -> SelectPlan:
+    """The select's launch shape for ``nq`` queries of at most ``n``
+    entries each (the flat scan's rows, the IVF scans' ``nseg * seg_len``
+    slots, the PQ rows) and any kk >= 1. The buffer holds twice kk and at
+    least SELECT_MIN_CAP words (a power of two), or every entry where there
+    are fewer: then no histogram runs. A chunk is at most SELECT_MAX_CHUNK
+    entries, a run of whole segments where a segment fits (IVF), and small
+    enough that the (query, chunk) grid covers the SMs twice, down to
+    SELECT_MIN_CHUNK entries (or one segment) a chunk. ``cap`` (at least
+    min(kk, n)) sets the buffer instead, so a test or a profile can force
+    the histogram passes over the full row."""
+    if kk <= 0 or n < 0 or nq <= 0:
+        raise ValueError(f"select of k={kk} over {nq} x {n} entries")
+    if n >= 2 ** 31:
+        raise ValueError("entry indices must fit in int32")
+    if cap is None:
+        cap = 1 << max(2 * kk - 1, SELECT_MIN_CAP - 1).bit_length()
+    elif cap < min(kk, n):
+        raise ValueError(f"a buffer of {cap} words cannot hold k={kk}")
+    cap = max(1, min(n, cap))
+    hist = n > cap
+    want = math.ceil(2 * num_sms / nq)        # chunks that fill the card twice
+    if seg_len is not None and seg_len <= SELECT_MAX_CHUNK:
+        segs = max(1, min(SELECT_MAX_CHUNK // seg_len,
+                          n // seg_len // want))
+        chunk = segs * seg_len
+    else:
+        chunk = min(SELECT_MAX_CHUNK, max(SELECT_MIN_CHUNK, n // want))
+    nchunks = max(1, math.ceil(n / chunk))
+    if nchunks > 65535:
+        raise ValueError(f"{nchunks} chunks past the grid's 65535")
+    sort_len = 1 << (kk - 1).bit_length()
+    return SelectPlan(chunk=chunk, nchunks=nchunks, cap=cap,
+                      sort_len=sort_len,
+                      sort_in_smem=12 * sort_len <= SORT_SMEM_LIMIT,
+                      hist=hist, passes=SELECT_PASSES if hist else 1)
+
+
+def _aligned(nbytes: int) -> int:
+    return -(-nbytes // 256) * 256
+
+
+def select_scratch_bytes(p: SelectPlan, nq: int) -> dict:
+    """Bytes of each part of the select's device scratch: the queries'
+    states, the histograms (when they run), the candidate buffer (words and
+    entry indices) and the sort's scratch past shared memory."""
+    return {"state": _aligned(SELECT_STATE * nq),
+            "hist": _aligned(4 * SELECT_BINS * nq) if p.hist else 0,
+            "bufw": _aligned(8 * p.cap * nq),
+            "bufp": _aligned(4 * p.cap * nq),
+            "sort_w": 0 if p.sort_in_smem else _aligned(8 * p.sort_len * nq),
+            "sort_pos": (0 if p.sort_in_smem
+                         else _aligned(4 * p.sort_len * nq))}
+
+
+class SelectArgs(ctypes.Structure):
+    """csrc/select_common.cuh's SelectArgs: the same fields in order."""
+    _fields_ = [("st", _P), ("hist", _P), ("bufw", _P), ("bufp", _P),
+                ("sort_w", _P), ("sort_pos", _P), ("stats", _P),
+                ("chunk", _L), ("nchunks", _I), ("cap", _I), ("len", _I),
+                ("passes", _I), ("kk", _I), ("nq", _I)]
+
+
+def select_args(p: SelectPlan, nq: int, kk: int, device: torch.device,
+                stats: Optional[torch.Tensor] = None):
+    """(SelectArgs for the C entry points, passed by ``ctypes.addressof``,
+    and the scratch tensor that backs it; keep both alive until the launch
+    is enqueued). ``stats``, an int64
+    tensor of SELECT_STATS entries on the card (the first of each three
+    at -1, the rest 0), takes the passes' and the finish's spans."""
+    parts = select_scratch_bytes(p, nq)
+    scratch = torch.empty(sum(parts.values()), dtype=torch.uint8,
+                          device=device)
+    base, at, ptrs = scratch.data_ptr(), 0, {}
+    for name, nbytes in parts.items():
+        ptrs[name] = base + at if nbytes else None
+        at += nbytes
+    args = SelectArgs(ptrs["state"], ptrs["hist"], ptrs["bufw"],
+                      ptrs["bufp"], ptrs["sort_w"], ptrs["sort_pos"],
+                      ptr(stats), p.chunk, p.nchunks, p.cap, p.sort_len,
+                      p.passes, kk, nq)
+    return args, scratch
+
+
+def select_stats(device: torch.device) -> torch.Tensor:
+    """A zeroed profile for ``select_args``: each launch's first start at
+    the largest value, so the kernels' atomic minimum takes the first."""
+    stats = torch.zeros(SELECT_STATS, dtype=torch.int64, device=device)
+    stats[0::3] = -1
+    return stats
+
+
+SELECT_NAME = "select"   # the select's counter, wherever its kernels run
 
 
 def count(name: str) -> None:

@@ -207,10 +207,14 @@ def eligible_ids(mask: torch.Tensor):
 
 
 def _launch(corpus, sq_norms, queries, k, payload_v=None, payload_f=None,
-            scales=None, mask=None, select=None, stats=None):
+            scales=None, mask=None, select=None, stats=None, b5=None,
+            sel_stats=None):
     """Check the operands, allocate outputs and scratch, launch. Returns
     (error code, counter name infix and suffix, vals, ids, rows). ``stats``,
-    an (STATS,) int64 tensor or None, takes the scan's optional profile."""
+    an (STATS,) int64 tensor or None, takes the scan's optional profile;
+    ``sel_stats`` (``_build.select_stats``) the select's. ``b5`` (the IVF
+    masked scan, ``ivf_score``'s ``mask=``): (elig, n_elig, esrc, member
+    bits) in place of ``mask``, over the grouped slab's flattened rows."""
     if corpus.dim() != 2 or queries.dim() != 2:
         raise ValueError("corpus and queries must be 2-D")
     n, d = corpus.shape
@@ -229,16 +233,19 @@ def _launch(corpus, sq_norms, queries, k, payload_v=None, payload_f=None,
     p = plan(n, nq, k, d,
              torch.cuda.get_device_properties(dev).multi_processor_count,
              select, et)
-    elig = n_elig = None
+    elig = n_elig = esrc = mbits = None
     if mask is not None:
         elig, n_elig = eligible_ids(mask)
+    if b5 is not None:
+        elig, n_elig, esrc, mbits = b5
     part_s = part_i = part_n = spill_s = spill_i = None
-    sel = sort_w = sort_pos = None
+    sel = sel_args = sel_scratch = None
     sample_sel = thr0_s = thr0_i = None
-    sort_len = 0
     if p.select:
         sel = torch.empty((nq, n), dtype=torch.float32, device=dev)
-        sort_len, sort_w, sort_pos = _build.select_scratch(nq, k, dev)
+        sp = _build.select_plan(nq, n, k, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        sel_args, sel_scratch = _build.select_args(sp, nq, k, dev, sel_stats)
     else:
         part_s = torch.empty((nq, p.nchunks * k), dtype=torch.float32,
                              device=dev)
@@ -268,15 +275,19 @@ def _launch(corpus, sq_norms, queries, k, payload_v=None, payload_f=None,
     with torch.cuda.device(dev):
         code = lib.fcvi_score_topk(
             corpus.data_ptr(), et, sq_norms.data_ptr(), ptr(scales),
-            ptr(elig), ptr(n_elig), queries.data_ptr(), n, nq, d, k, p.bq,
+            ptr(elig), ptr(n_elig), ptr(esrc), ptr(mbits),
+            0 if mbits is None else mbits.shape[1], queries.data_ptr(), n,
+            nq, d, k, p.bq,
             p.cap, p.stages, int(p.qstream), p.nchunks, p.chunk_rows,
             ptr(part_s),
             ptr(part_i), ptr(part_n), ptr(spill_s), ptr(spill_i), p.sample,
-            ptr(sample_sel), ptr(thr0_s), ptr(thr0_i), ptr(sel), sort_len,
-            ptr(sort_w), ptr(sort_pos), vals.data_ptr(), ids.data_ptr(),
+            ptr(sample_sel), ptr(thr0_s), ptr(thr0_i), ptr(sel),
+            _build.addr(sel_args), vals.data_ptr(), ids.data_ptr(),
             ptr(payload_v), ptr(payload_f), dv, m, *map(ptr, rows),
             ptr(stats), _build.stream(dev))
     tag = ("_select" if p.select else "") + suffix
+    if p.select and not code:
+        _build.count(_build.SELECT_NAME)
     return code, tag, vals, ids, rows
 
 
@@ -285,7 +296,8 @@ def score_topk(corpus: torch.Tensor, sq_norms: torch.Tensor,
                scales: Optional[torch.Tensor] = None,
                mask: Optional[torch.Tensor] = None, *,
                _select: Optional[bool] = None,
-               _stats: Optional[torch.Tensor] = None):
+               _stats: Optional[torch.Tensor] = None,
+               _sel_stats: Optional[torch.Tensor] = None):
     """corpus (n, d) float32, bfloat16 or int8 codes, sq_norms (n,),
     queries (q, d), the optional per-row scales (n,) float32 and the
     optional row mask (n,) float32 0/1, on one CUDA device. Returns (scores
@@ -294,10 +306,12 @@ def score_topk(corpus: torch.Tensor, sq_norms: torch.Tensor,
     slots read (-inf, 0). ``_select`` forces the selection path (True) or
     the buffered one (False), for holding one against the other;
     ``_stats`` (an int64 tensor of STATS zeros on the card) takes pass 1's
-    profile (``STAT_NAMES``), for ``scripts/profile_topk.py``."""
+    profile (``STAT_NAMES``), ``_sel_stats`` (``_build.select_stats``) the
+    select's, for ``scripts/profile_topk.py``."""
     code, tag, vals, ids, _ = _launch(corpus, sq_norms, queries, k,
                                       scales=scales, mask=mask,
-                                      select=_select, stats=_stats)
+                                      select=_select, stats=_stats,
+                                      sel_stats=_sel_stats)
     name = NAME + ("_masked" if mask is not None else "") + tag
     _build.check(code, name)
     _build.count(name)

@@ -44,6 +44,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import fused_score_topk as _scan
 from repro_torch.kernels._build import staged_cols
 
 NAME_DEDUP = "ivf_score_topk_dedup"
@@ -103,11 +104,13 @@ def plan(k: int, d: int, select: Optional[bool] = None) -> ListPlan:
 
 
 def _launch(grouped, grouped_sq, valid, src_list, member, queries, k,
-            payload_v=None, payload_f=None, scales=None, select=None):
+            payload_v=None, payload_f=None, scales=None, select=None,
+            sel_stats=None):
     """Check the operands, allocate outputs and scratch, launch. ``member``
     None selects the batch scan (``src_list`` is the (b, nprobe) probe
     matrix), otherwise the dedup scan (``src_list`` is ``uniq``). Returns
-    (error code, counter name infix and suffix, vals, ids, rows)."""
+    (error code, counter name infix and suffix, vals, ids, rows).
+    ``sel_stats`` (``_build.select_stats``) takes the select's profile."""
     if grouped.dim() != 3 or queries.dim() != 2:
         raise ValueError("grouped must be 3-D and queries 2-D")
     nlist, max_list, d = grouped.shape
@@ -139,13 +142,16 @@ def _launch(grouped, grouped_sq, valid, src_list, member, queries, k,
         _build.require(member, "member", (nsrc, b), dev)
         nparts = nsrc * b
     p = plan(k, d, select)
-    part_s = part_i = sel = sort_w = sort_pos = None
-    sort_len = 0
+    part_s = part_i = sel = sel_args = sel_scratch = None
     if p.select:
         nseg = nsrc if member is not None else nprobe
         sel = torch.empty((max(1, b * nseg * max_list),), dtype=torch.float32,
                           device=dev)
-        sort_len, sort_w, sort_pos = _build.select_scratch(b, k, dev)
+        sp = _build.select_plan(b, nseg * max_list, k,
+                                torch.cuda.get_device_properties(
+                                    dev).multi_processor_count,
+                                seg_len=max_list)
+        sel_args, sel_scratch = _build.select_args(sp, b, k, dev, sel_stats)
     else:
         part_s = torch.empty((nparts, k), dtype=torch.float32, device=dev)
         part_i = torch.empty((nparts, k), dtype=torch.int32, device=dev)
@@ -167,11 +173,96 @@ def _launch(grouped, grouped_sq, valid, src_list, member, queries, k,
             grouped.data_ptr(), et, grouped_sq.data_ptr(), ptr(scales),
             valid.data_ptr(), src_list.data_ptr(), nsrc, ptr(member),
             queries.data_ptr(), b, nprobe, max_list, d, k, p.cap,
-            p.merge_cap, ptr(part_s), ptr(part_i), ptr(sel), sort_len,
-            ptr(sort_w), ptr(sort_pos), work.data_ptr(), vals.data_ptr(),
+            p.merge_cap, ptr(part_s), ptr(part_i), ptr(sel),
+            _build.addr(sel_args), work.data_ptr(), vals.data_ptr(),
             ids.data_ptr(), ptr(payload_v), ptr(payload_f), dv, m,
             *map(ptr, rows), _build.stream(dev))
+    if p.select and not code:
+        _build.count(_build.SELECT_NAME)
     return code, ("_select" if p.select else "") + suffix, vals, ids, rows
+
+
+def member_bits(member: torch.Tensor) -> torch.Tensor:
+    """member (s, b) float 0/1 -> (s, ceil(b / 64)) int64: query j's entry
+    > 0.5 as bit j % 64 of word j // 64 (the B5 masked scan's member
+    test)."""
+    s, b = member.shape
+    words = -(-b // 64)
+    bits = torch.zeros((s, words * 64), dtype=torch.int64,
+                       device=member.device)
+    bits[:, :b] = (member > 0.5).to(torch.int64)
+    weight = torch.ones(64, dtype=torch.int64, device=member.device) << \
+        torch.arange(64, device=member.device)
+    # distinct powers of two: the sum is their OR (bit 63 is -2**63)
+    return (bits.view(s, words, 64) * weight).sum(dim=-1)
+
+
+def masked_slots(valid: torch.Tensor, mask: torch.Tensor, uniq: torch.Tensor,
+                 member: torch.Tensor):
+    """The eligible slots of B5 ``mask=``, built on the operands' device by
+    a prefix sum and scatters, with no host synchronisation (the kernel
+    reads the count): (elig (s * L + 1,) int32 whose first ``count``
+    entries are the flat slot ids ``uniq[i] * L + slot`` of the slots with
+    valid * mask > 0.5 of the sources i whose member row has any query set,
+    in source then slot order; count (1,) int32; esrc (s * L + 1,) int32,
+    each one's source i). Over an ascending ``uniq`` (both callers in
+    ``index/ivf.py``; the routed plan's tail repeats a live id under an
+    empty member row and is skipped) the ids ascend. Slot s * L takes the
+    other slots' writes and is never read."""
+    s, L = uniq.shape[0], valid.shape[1]
+    dev = valid.device
+    u = uniq.long()
+    live = (member > 0.5).any(dim=1)
+    keep = (((valid * mask)[u] > 0.5) & live[:, None]).reshape(-1)
+    pos = torch.cumsum(keep, 0, dtype=torch.int32)
+    at = torch.where(keep, pos - 1, s * L).long()
+    flat = (u[:, None] * L + torch.arange(L, device=dev)).reshape(-1)
+    elig = torch.empty(s * L + 1, dtype=torch.int32, device=dev)
+    elig.scatter_(0, at, flat.to(torch.int32))
+    esrc = torch.empty(s * L + 1, dtype=torch.int32, device=dev)
+    esrc.scatter_(0, at, torch.arange(s, dtype=torch.int32, device=dev)
+                  .repeat_interleave(L))
+    count = (pos[-1:] if s * L else
+             torch.zeros(1, dtype=torch.int32, device=dev))
+    return elig, count, esrc
+
+
+def _dedup_masked(grouped, grouped_sq, valid, uniq, member, queries, k,
+                  scales, mask, select, sel_stats=None):
+    """B5 ``mask=`` on the card: the flat tensor-core scan
+    (``fused_score_topk``) over the eligible slots of the grouped slab
+    viewed as (nlist * max_list, d) rows, with B5's epilogue (no -||q||^2
+    term, the member test per query). Returns (error code, counter infix
+    and suffix, vals, flat ids)."""
+    if grouped.dim() != 3 or queries.dim() != 2:
+        raise ValueError("grouped must be 3-D and queries 2-D")
+    nlist, max_list, d = grouped.shape
+    b, dev = queries.shape[0], grouped.device
+    n = nlist * max_list
+    _build.require(grouped, "grouped", (nlist, max_list, d), dev,
+                   grouped.dtype)
+    _build.require(grouped_sq, "grouped_sq", (nlist, max_list), dev)
+    _build.require(valid, "valid", (nlist, max_list), dev)
+    _build.require(mask, "mask", (nlist, max_list), dev)
+    if uniq.dim() != 1:
+        raise ValueError("uniq must be 1-D")
+    _build.require(uniq, "uniq", (uniq.shape[0],), dev, torch.int32)
+    _build.require(member, "member", (uniq.shape[0], b), dev)
+    if scales is not None:
+        _build.require(scales, "scales", (nlist, max_list), dev)
+    if n == 0:
+        raise ValueError("an empty slab")
+    elig, count, esrc = masked_slots(valid, mask, uniq, member)
+    kk = min(k, n)
+    code, tag, vals, ids, _ = _scan._launch(
+        grouped.view(n, d), grouped_sq.view(n), queries, kk,
+        scales=None if scales is None else scales.view(n), select=select,
+        b5=(elig, count, esrc, member_bits(member)), sel_stats=sel_stats)
+    if kk < k:   # past every slot: dead slots read (-inf, 0)
+        vals = torch.cat([vals, vals.new_full((b, k - kk), float("-inf"))],
+                         dim=1)
+        ids = torch.cat([ids, ids.new_zeros((b, k - kk))], dim=1)
+    return code, tag, vals, ids
 
 
 def ivf_score_topk_dedup(grouped: torch.Tensor, grouped_sq: torch.Tensor,
@@ -179,7 +270,8 @@ def ivf_score_topk_dedup(grouped: torch.Tensor, grouped_sq: torch.Tensor,
                          member: torch.Tensor, queries: torch.Tensor, k: int,
                          scales: Optional[torch.Tensor] = None,
                          mask: Optional[torch.Tensor] = None, *,
-                         _select: Optional[bool] = None):
+                         _select: Optional[bool] = None,
+                         _sel_stats: Optional[torch.Tensor] = None):
     """grouped (nlist, max_list, d) float32, bfloat16 or int8 codes,
     grouped_sq / valid (nlist, max_list) float32, uniq (s,) int32, member
     (s, b) float 0/1, queries (b, d), the optional scales (nlist, max_list)
@@ -188,20 +280,31 @@ def ivf_score_topk_dedup(grouped: torch.Tensor, grouped_sq: torch.Tensor,
 
     ``mask`` (nlist, max_list) float 0/1 (the filter algebra's candidate
     mask, ``mask=`` of the reference, which multiplies it into ``valid``
-    outside its kernel) is multiplied into ``valid`` here, and the same
-    kernel runs: it keeps only rows whose valid flag is > 0.5 and skips
-    tiles with none. Masked launches count apart
-    (``ivf_score_topk_dedup_masked`` and its ``_bf16``/``_int8``).
-    ``_select`` forces the selection path (True) or the buffered one
-    (False), for holding one against the other."""
-    name = NAME_DEDUP
+    outside its kernel) takes its own design: the flat scan's tensor-core
+    kernel over the eligible slots only (``masked_slots``: valid * mask >
+    0.5 in a source with a member query), gathered by flat id from the
+    slab viewed as (nlist * max_list, d) rows, with B5's epilogue: no
+    -||q||^2 term, -inf where the query is no member of the slot's source,
+    flat slot ids ordered by (score desc, flat id asc), unfilled slots
+    (-inf, 0). The same function as the list scan's, for any member matrix
+    whose live sources are distinct lists (ascending in both callers).
+    Masked launches count apart (``ivf_score_topk_dedup_masked`` and its
+    ``_select``/``_bf16``/``_int8`` forms). ``_select`` forces the
+    selection path (True) or the buffered one (False), for holding one
+    against the other; ``_sel_stats`` (``_build.select_stats``) takes the
+    select's profile."""
     if mask is not None:
-        _build.require(mask, "mask", tuple(valid.shape), grouped.device)
-        valid = valid * mask
-        name += "_masked"
-    code, tag, vals, ids, _ = _launch(grouped, grouped_sq, valid, uniq,
-                                      member, queries, k, scales=scales,
-                                      select=_select)
+        code, tag, vals, ids = _dedup_masked(grouped, grouped_sq, valid,
+                                             uniq, member, queries, k,
+                                             scales, mask, _select,
+                                             _sel_stats)
+        name = NAME_DEDUP + "_masked"
+    else:
+        code, tag, vals, ids, _ = _launch(grouped, grouped_sq, valid, uniq,
+                                          member, queries, k, scales=scales,
+                                          select=_select,
+                                          sel_stats=_sel_stats)
+        name = NAME_DEDUP
     _build.check(code, name + tag)
     _build.count(name + tag)
     return vals, ids
@@ -230,14 +333,15 @@ def ivf_score_topk_batch(grouped: torch.Tensor, grouped_sq: torch.Tensor,
                          valid: torch.Tensor, probes: torch.Tensor,
                          queries: torch.Tensor, k: int,
                          scales: Optional[torch.Tensor] = None, *,
-                         _select: Optional[bool] = None):
+                         _select: Optional[bool] = None,
+                         _sel_stats: Optional[torch.Tensor] = None):
     """Query-major probed scan: probes (b, nprobe) int32 list ids, queries
     (b, d); the slab operands as in ``ivf_score_topk_dedup``. Returns (vals
     (b, k) f32, flat ids (b, k) int32); ties go to the earlier probe
     position, then the earlier slot."""
     code, tag, vals, ids, _ = _launch(grouped, grouped_sq, valid, probes,
                                       None, queries, k, scales=scales,
-                                      select=_select)
+                                      select=_select, sel_stats=_sel_stats)
     _build.check(code, NAME_BATCH + tag)
     _build.count(NAME_BATCH + tag)
     return vals, ids

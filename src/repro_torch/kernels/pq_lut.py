@@ -191,7 +191,8 @@ def topk_plan(n: int, b: int, kk: int, m: int, ksub: int, num_sms: int,
 def pq_score_topk(codes: torch.Tensor, ids: torch.Tensor,
                   offsets: torch.Tensor, offsets_host: Sequence[int],
                   luts: torch.Tensor, k: int, *,
-                  _select: Optional[bool] = None):
+                  _select: Optional[bool] = None,
+                  _sel_stats: Optional[torch.Tensor] = None):
     """The fused ADC scan + first-occurrence top-k over the grouped layout:
     codes (n, M) uint8 or int32 and ids (n,) int32 (original row ids) in
     coarse-grouped order, offsets (ncoarse + 1,) int32 the groups' offsets
@@ -199,7 +200,8 @@ def pq_score_topk(codes: torch.Tensor, ids: torch.Tensor,
     ncoarse * ksub) float32. Returns (vals (b, k) f32 = -d2, ids (b, k)
     int32 original row ids), ranked by the order-preserving bits of -d2,
     then the smaller id. ``_select`` forces the selection path (True) or
-    the buffered one (False), for holding one against the other."""
+    the buffered one (False), for holding one against the other;
+    ``_sel_stats`` (``_build.select_stats``) takes the select's profile."""
     if codes.dim() != 2 or luts.dim() != 3:
         raise ValueError("codes must be 2-D and luts 3-D")
     n, m = codes.shape
@@ -219,11 +221,12 @@ def pq_score_topk(codes: torch.Tensor, ids: torch.Tensor,
     p = topk_plan(n, b, k, m, ksub,
                   torch.cuda.get_device_properties(dev).multi_processor_count,
                   _select)
-    part = sel = sort_w = sort_pos = None
-    sort_len = 0
+    part = sel = sel_args = sel_scratch = None
     if p.select:
         sel = torch.empty((b, n), dtype=torch.float32, device=dev)
-        sort_len, sort_w, sort_pos = _build.select_scratch(b, k, dev)
+        sp = _build.select_plan(b, n, k, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        sel_args, sel_scratch = _build.select_args(sp, b, k, dev, _sel_stats)
     else:
         part = torch.empty((b, p.nchunks, k), dtype=torch.int64, device=dev)
     vals = torch.empty((b, k), dtype=torch.float32, device=dev)
@@ -235,10 +238,11 @@ def pq_score_topk(codes: torch.Tensor, ids: torch.Tensor,
             codes.data_ptr(), CODE_BYTES[codes.dtype], ids.data_ptr(),
             offsets.data_ptr(), ncoarse, luts.data_ptr(), n, b, m, ksub,
             p.bq, int(p.staged), k, p.cap, p.nchunks, p.chunk_rows,
-            p.merge_cap, ptr(part), ptr(sel), sort_len, ptr(sort_w),
-            ptr(sort_pos), vals.data_ptr(), out_ids.data_ptr(),
-            _build.stream(dev))
+            p.merge_cap, ptr(part), ptr(sel), _build.addr(sel_args),
+            vals.data_ptr(), out_ids.data_ptr(), _build.stream(dev))
     name = NAME_TOPK + ("_select" if p.select else "")
     _build.check(code, name)
     _build.count(name)
+    if p.select:
+        _build.count(_build.SELECT_NAME)
     return vals, out_ids

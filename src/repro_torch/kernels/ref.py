@@ -24,6 +24,23 @@ def topk_first(x: Tensor, k: int):
     return vals[..., :k], pos[..., :k]
 
 
+def ref_select_topk(scores: Tensor, k: int):
+    """The selection path's select alone (``topk_select.select_topk``): per
+    row of scores (b, n), the k best by (score desc, column asc); -inf and
+    NaN do not compete, slots past the competing entries read (-inf, 0),
+    and -0.0 counts as +0.0 but keeps its bits. Returns (vals (b, k) f32,
+    ids (b, k) int32)."""
+    s = torch.where(torch.isnan(scores), float("-inf"), scores)
+    vals, pos = topk_first(s, min(k, s.shape[-1]))
+    if vals.shape[-1] < k:
+        pad = k - vals.shape[-1]
+        vals = torch.cat([vals, vals.new_full((vals.shape[0], pad),
+                                              float("-inf"))], dim=-1)
+        pos = torch.cat([pos, pos.new_zeros((pos.shape[0], pad))], dim=-1)
+    ids = torch.where(torch.isneginf(vals), 0, pos)
+    return vals, ids.to(torch.int32)
+
+
 def partition_matrix(d: int, m: int, dtype=torch.float32,
                      device=None) -> Tensor:
     """P in R^{m x d} with P[i, j] = 1 iff j % m == i, so that

@@ -983,8 +983,10 @@ def test_pq_score_topk_bit_equal_to_plain(cuda, m, kk):
         _build.reset_launch_counts()
         got = ops.pq_score_topk(ccodes, luts, kk, layout)
         sel = pq_lut.topk_plan(5000, b, kk, m, 256, 132).select
-        assert _build.launch_counts() == {
-            "pq_score_topk" + ("_select" if sel else ""): 1}
+        want = {"pq_score_topk" + ("_select" if sel else ""): 1}
+        if sel:   # the select's kernels, counted where they run
+            want[_build.SELECT_NAME] = 1
+        assert _build.launch_counts() == want
         assert _equal(got, ref.ref_pq_score_topk(ccodes, luts, kk))
         if b == 16:
             for forced in (True, False):
@@ -1027,7 +1029,8 @@ def test_pq_score_topk_signed_zeros_ties_and_layouts(cuda):
     _build.reset_launch_counts()
     assert _equal(ops.pq_score_topk(ccodes, luts, 20000, layout),
                   ref.ref_pq_score_topk(ccodes, luts, 20000))
-    assert _build.launch_counts() == {"pq_score_topk_select": 1}
+    assert _build.launch_counts() == {"pq_score_topk_select": 1,
+                                      _build.SELECT_NAME: 1}
 
 
 def test_fused_transform_fold_matrix_past_shared_memory(cuda):
@@ -1286,3 +1289,247 @@ def test_flat_scan_near_cancelling_scores(cuda, dtype, mag):
     print(f"near-cancelling {dtype} |x|^2~{mag}: against fp64 the scan "
           f"{err:.3g}, the plain version {err_plain:.3g}")
     assert err <= err_plain
+
+
+# -- the multi-block select and B5 mask= on the tensor cores ---------------
+
+def _modes(stats, launch):
+    """The modes (bit 1 << mode: 1 histogram, 2 compaction) the blocks of
+    one select launch ran, from ``_build.select_stats``."""
+    return int(stats[3 * launch + 2].item())
+
+
+def _bits_equal(a, b):
+    return (torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
+            and torch.equal(a[1], b[1]))
+
+
+@pytest.mark.parametrize("case", ["spread", "ties", "forced_cap",
+                                  "zeros_nan_inf", "few_live", "kk_n",
+                                  "kk_past_n"])
+def test_select_topk_matches_plain_bit_for_bit(cuda, case):
+    """The select alone against its plain version, bit for bit: spread
+    scores (one histogram), every score equal past the buffer (the full-row
+    passes under the prefix: four histograms), a buffer forced to kk, -0.0
+    with +0.0, NaN and -inf, fewer live entries than kk, kk = n, kk past
+    n."""
+    from repro_torch.kernels import topk_select
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    b, n, kks, cap = 5, 100_000, (1, 88, 2056, 20_000), None
+    s = torch.randn((b, n), generator=g, device=cuda) - 3.0
+    if case == "ties":
+        s = torch.full((3, 70_000), -1.25, device=cuda)
+        kks = (100, 16_000)
+    elif case == "forced_cap":
+        kks, cap = (300,), 300
+    elif case == "zeros_nan_inf":
+        r = torch.rand((b, n), generator=g, device=cuda)
+        s = torch.where(r < 0.45, -0.0, 0.0)
+        s = torch.where(r > 0.9, float("-inf"), s)
+        s = torch.where((r > 0.85) & (r <= 0.9), float("nan"), s)
+    elif case == "few_live":
+        s = torch.where(torch.rand((b, n), generator=g, device=cuda) < 1e-3,
+                        s, float("-inf"))
+        kks = (88, 2056)
+    elif case == "kk_n":
+        s, kks = s[:, :3000].contiguous(), (3000,)
+    elif case == "kk_past_n":
+        s, kks = s[:, :100].contiguous(), (300,)
+    for kk in kks:
+        stats = _build.select_stats(cuda)
+        _build.reset_launch_counts()
+        got = topk_select.select_topk(s, kk, _cap=cap, _stats=stats)
+        assert _build.launch_counts() == {_build.SELECT_NAME: 1}
+        assert _bits_equal(got, ref.ref_select_topk(s, kk))
+        hists = sum(_modes(stats, p) & 1 for p in range(_build.SELECT_PASSES))
+        if case == "ties":
+            assert hists == 4, stats.tolist()   # every full-row pass ran
+        elif case == "spread":
+            assert hists == 1, stats.tolist()
+        elif case == "forced_cap":
+            assert hists >= 2, stats.tolist()
+
+
+def _ties_flat(n, d, cuda):
+    """Zero rows and a zero query: every score +0.0 (int8 codes with
+    negative scales score -0.0), so the select's histograms see one bin
+    past the buffer."""
+    x = torch.zeros((n, d), device=cuda)
+    return x, torch.zeros(n, device=cuda), torch.zeros((3, d), device=cuda)
+
+
+def test_select_path_adversarial_flat(cuda):
+    """Flat B2 (plain and masked) and B3 selection bit-equal to buffered
+    on adversarial scratch: every score equal past the candidate buffer
+    (the full-row passes run), -0.0 and +0.0 with -inf and NaN scores,
+    fewer eligible rows than kk, no eligible row; kk = n against the plain
+    version on exact scores."""
+    n, d, kk = 40_000, 16, 100
+    x, sq, q = _ties_flat(n, d, cuda)
+    pv = torch.randn((n, 8), device=cuda)
+    pf = torch.randn((n, 3), device=cuda)
+    stats = _build.select_stats(cuda)
+    sel = scan.score_topk(x, sq, q, kk, _select=True, _sel_stats=stats)
+    assert _modes(stats, 3) & 1, stats.tolist()   # the fourth histogram
+    assert _equal(sel, scan.score_topk(x, sq, q, kk, _select=False))
+    assert _equal(sel, ref.ref_score_topk(x, sq, q, kk))
+    rows = scan.score_topk_rows(x, sq, pv, pf, q, kk, _select=True)
+    assert _equal(rows, scan.score_topk_rows(x, sq, pv, pf, q, kk,
+                                             _select=False))
+    g = torch.Generator(device=cuda).manual_seed(4)
+    r = torch.rand(n, generator=g, device=cuda)
+    codes = torch.zeros((n, d), dtype=torch.int8, device=cuda)
+    scales = torch.where(r < 0.5, -1.0, 1.0)
+    wild = torch.where(r > 0.9, float("inf"), 0.0)
+    wild = torch.where((r > 0.8) & (r <= 0.9), float("nan"), wild)
+    for kw in (dict(), dict(mask=(r < 0.6).float()),
+               dict(mask=(r < 2e-4).float()),
+               dict(mask=torch.zeros(n, device=cuda))):
+        a = scan.score_topk(codes, wild, q, kk, scales, _select=True, **kw)
+        assert _equal(a, scan.score_topk(codes, wild, q, kk, scales,
+                                         _select=False, **kw))
+        if "mask" in kw and int(kw["mask"].sum()) < kk:
+            live = int((kw["mask"] * (r <= 0.8)).sum())
+            assert (~torch.isneginf(a[0])).sum(dim=1).eq(live).all()
+            assert (a[1][torch.isneginf(a[0])] == 0).all()
+    xs, sqs, qs = (tensor(a, cuda) for a in tie_inputs())   # exact scores
+    assert _equal(scan.score_topk(xs, sqs, qs, xs.shape[0], _select=True),
+                  ref.ref_score_topk(xs, sqs, qs, xs.shape[0]))
+
+
+def test_select_path_adversarial_ivf_and_pq(cuda):
+    """IVF B5 (dedup), B6 (rows) and B7 (batch) and the fused PQ scan:
+    selection bit-equal to buffered (and to plain where scores are exact)
+    when every score is equal past the candidate buffer, so the full-row
+    passes run; -inf slots and a segment no query is a member of."""
+    nlist, L, b, d, k = 64, 1024, 3, 16, 100
+    g = torch.zeros((nlist, L, d), device=cuda)
+    gsq = torch.zeros((nlist, L), device=cuda)
+    valid = torch.ones((nlist, L), device=cuda)
+    valid[5, ::3] = 0.0                         # -inf slots
+    q = torch.zeros((b, d), device=cuda)
+    uniq = torch.arange(nlist, dtype=torch.int32, device=cuda)
+    member = torch.ones((nlist, b), device=cuda)
+    member[7, 1] = 0.0                          # a non-member segment
+    pv = torch.randn((nlist, L, 5), device=cuda)
+    pf = torch.randn((nlist, L, 2), device=cuda)
+    ded = (g, gsq, valid, uniq, member, q)
+    stats = _build.select_stats(cuda)
+    sel = ivf_score.ivf_score_topk_dedup(*ded, k, _select=True,
+                                         _sel_stats=stats)
+    assert _modes(stats, 1) & 1, stats.tolist()   # a second histogram
+    assert _equal(sel, ivf_score.ivf_score_topk_dedup(*ded, k,
+                                                      _select=False))
+    assert _equal(sel, ref.ref_ivf_score_topk_dedup(*ded, k))
+    assert _equal(ivf_score.ivf_score_topk_dedup_rows(*ded, pv, pf, k,
+                                                      _select=True),
+                  ivf_score.ivf_score_topk_dedup_rows(*ded, pv, pf, k,
+                                                      _select=False))
+    probes = torch.stack([torch.randperm(nlist, device=cuda)[:32]
+                          for _ in range(b)]).to(torch.int32)
+    bat = (g, gsq, valid, probes, q)
+    assert _equal(ivf_score.ivf_score_topk_batch(*bat, k, _select=True),
+                  ivf_score.ivf_score_topk_batch(*bat, k, _select=False))
+    assert _equal(ivf_score.ivf_score_topk_batch(*bat, k, _select=True),
+                  ref.ref_ivf_score_topk_batch(*bat, k))
+    ccodes, layout, luts = _pq_case(40_000, 8, 16, 4, 3, torch.uint8, cuda)
+    luts = torch.zeros_like(luts)               # every -d2 is -0.0
+    for kk in (100, 40_000):
+        want = ref.ref_pq_score_topk(ccodes, luts, kk)
+        assert _equal(pq_lut.pq_score_topk(*layout, luts, kk, _select=True),
+                      want)
+    assert _equal(pq_lut.pq_score_topk(*layout, luts, 100, _select=False),
+                  ref.ref_pq_score_topk(ccodes, luts, 100))
+
+
+def _ivf_case(nlist, max_list, b, d, dtype, cuda, seed=0):
+    g, gsq, valid, _, q, _, _ = (tensor(a, cuda) for a in ivf_inputs(
+        nlist, max_list, b, 4, d=d, seed=seed))
+    if dtype == "float32":
+        return g, gsq, None, valid, q
+    flat, scales, sq = _stored(g.reshape(-1, d), dtype)
+    return (flat.reshape(nlist, max_list, d), sq.reshape(nlist, max_list),
+            None if scales is None else scales.reshape(nlist, max_list),
+            valid, q)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("sel", [0.6, 0.166, 0.011])
+def test_ivf_mask_on_tensor_cores_matches_plain(cuda, dtype, sel):
+    """B5 ``mask=`` (the flat tensor-core scan over the eligible slots,
+    B5's epilogue) at P1/P2/P3 selectivities, as the mask plan runs it
+    (every list, an all-ones member), the routed plan (the lists holding
+    an eligible row, the tail repeating a live id under an empty member
+    row) and under a sparse member, against its plain version; the
+    selection path bit-equal to the buffered one; its launches on the
+    masked counters."""
+    from repro_torch.index import ivf
+
+    nlist, max_list, b, d = 48, 200, 64, 128
+    g, gsq, gsc, valid, q = _ivf_case(nlist, max_list, b, d, dtype, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(int(sel * 1000))
+    mask = (torch.rand((nlist, max_list), generator=gen, device=cuda)
+            < sel).float()
+    lists = torch.where(valid > 0.5, torch.arange(
+        nlist * max_list, dtype=torch.int32, device=cuda).view(
+            nlist, max_list), -1)
+    uniq, n_live = ivf.eligible_lists(lists, (mask > 0.5).view(-1))
+    rmember = (torch.arange(uniq.numel(), device=cuda) < n_live)[:, None] \
+        .float().expand(uniq.numel(), b).contiguous()
+    every = torch.arange(nlist, dtype=torch.int32, device=cuda)
+    sparse = (torch.rand((nlist, b), generator=gen, device=cuda)
+              < 0.25).float()
+    suffix = {"float32": "", "bfloat16": "_bf16", "int8": "_int8"}[dtype]
+    for uniq_, member in ((every, torch.ones((nlist, b), device=cuda)),
+                          (uniq, rmember), (every, sparse)):
+        for k in (18, 128):
+            args = (g, gsq, valid, uniq_, member, q)
+            _build.reset_launch_counts()
+            got = ops.ivf_score_topk_dedup(*args, k, scales=gsc, mask=mask)
+            counts = _build.launch_counts()
+            assert counts.get("ivf_score_topk_dedup_masked" + suffix,
+                              0) == 1, counts
+            want = ref.ref_ivf_score_topk_dedup(*args, k, gsc, mask)
+            nxt = ref.ref_ivf_score_topk_dedup(*args, k + 1, gsc, mask)
+            _masked_check(got, want, nxt)
+            sel_path = ivf_score.ivf_score_topk_dedup(*args, k, gsc, mask,
+                                                      _select=True)
+            assert _equal(sel_path, got)
+    # the mask plan's all-lists scan and the routed plan's agree bit for bit
+    a = ivf_score.ivf_score_topk_dedup(g, gsq, valid, every, torch.ones(
+        (nlist, b), device=cuda), q, 18, gsc, mask)
+    r = ivf_score.ivf_score_topk_dedup(g, gsq, valid, uniq, rmember, q, 18,
+                                       gsc, mask)
+    assert _equal(a, r)
+
+
+def test_ivf_mask_and_routed_plans_equal_flat_on_card(cuda):
+    """Phase 3f in small: the IVF mask and routed plans (both on B5
+    ``mask=``'s tensor-core scan) give the same bits as each other and as
+    the flat index's plans after ``filtered_refine``, at P1/P2/P3-shaped
+    predicates; every plan against a CPU engine."""
+    from repro_torch.core.filters import F
+
+    corpus, q = _predicate_case(n=8000)
+    ixs = {name: fcvi.build(corpus.vectors, corpus.filters,
+                            fcvi.FCVIConfig(**cfg), device=cuda)
+           for name, cfg in (("flat", {}),
+                             ("ivf", dict(backend="ivf", nlist=32,
+                                          nprobe=6)))}
+    engines = {name: FCVIEngine(ix, EngineConfig(k=10), device=cuda,
+                                attributes=corpus.filters)
+               for name, ix in ixs.items()}
+    cpu = FCVIEngine(fcvi.index_from_state(
+        ixs["flat"].config, fcvi.index_state(ixs["flat"]), device="cpu"),
+        EngineConfig(k=10), device="cpu", attributes=corpus.filters)
+    preds = [F.range("f7", 0.0, 0.6),
+             F.eq("f0", 1.0) & F.range("f7", 0.25, 0.75),
+             F.eq("f5", 1.0) & F.range("f7", 0.0, 0.1)]
+    for pred in preds:
+        fs, fi = engines["flat"].search(q, filter=pred, plan="mask")
+        for plan in ("mask", "routed"):
+            s, i = engines["ivf"].search(q, filter=pred, plan=plan)
+            assert np.array_equal(s, fs) and np.array_equal(i, fi), plan
+        cs, ci = cpu.search(q, filter=pred)
+        assert_topk_match(cs, ci, fs, fi, rtol=1e-5, atol=1e-4)
