@@ -94,9 +94,11 @@ Phases, each of which raises (and exits non-zero) on a failure:
    (the flat int8 codes) at kk=18 and 128 under the P2, P3 and a 10-row
    mask (dead slots exactly (-inf, 0)), and B5 ``mask=`` at k=18 on the
    IVF fp32, bf16 and int8 slabs, over every list under P2 and P3 and over
-   the lists P3 routes to, against their plain versions. The bound of a
-   masked scan counts the eligible rows (the B2 variants read those rows
-   only). Then flat fp32, flat int8
+   the lists P3 routes to, against their plain versions (B5 ``mask=`` runs
+   the flat tensor-core scan over the eligible slots; its selection path
+   is timed beside it). The bound of a masked scan counts the eligible
+   rows (the variants read those rows only) and the function's 2 b n_elig
+   d flops at the tensor cores' peak, the larger. Then flat fp32, flat int8
    and IVF fp32 (nlist=1024, nprobe=16) engines serve a warm-up batch and
    512 queries in batches of 64 per predicate (qps, p50/p99, plan
    counters); each first batch against an fp64 brute force over the
@@ -114,7 +116,12 @@ Phases, each of which raises (and exits non-zero) on a failure:
    and 960 and kk 88, 328 and 2056 against their plain versions (the L2
    tolerance plus a sqrt(d) depth term); the flat selection path bit-equal
    to the buffered one at kk 88, 328 and 1032, and against the plain
-   version at kk 2048 and 2056; B5-B7 likewise at k 80 and 3200.
+   version at kk 2048 and 2056; B5-B7 likewise at k 80 and 3200; the
+   select alone (``topk_select.select_topk``: the kernels every selection
+   path runs) on phase 3's (64, 1M) scores at kk 88 and 2056, bit-equal to
+   its plain version, beside ``torch.topk`` on the same scratch (its
+   ``library_ms``) and its bytes bound, with its launches' spans; and on
+   equal scores, where the four full-row histogram passes must run.
 4. a ``kernels`` JSON line with each kernel variant's launches over phases
    3 to 3g (each must be > 0), errors, times and bound.
 

@@ -24,14 +24,20 @@ With ``--select`` it times the selection path's select: the flat scan at
 kk=88 (forced) and kk=2056, the IVF dedup and batch scans at k=3200 (nlist
 1024, 16 random probes a query, about 977 rows a list) and the fused PQ
 scan at kk=2048, each call split into its kernels (``torch.profiler``) and
-timed whole (CUDA events), beside ``torch.topk(scores, kk, dim=1,
-sorted=True)`` on a (b, n) score scratch of the same shape and the same
-live entries (CUDA events; the scratch is larger than L2, as the scan
-leaves it) and the select's bytes bound: one read of each query's live
-entries at 3.35 TB/s.
+timed whole (CUDA events), with the select's stages from its own profile
+(each launch's span on the card's global timer and what its blocks did:
+a histogram pass, the compaction, the finish's select and sort); then the
+select alone (``topk_select.select_topk``, the same kernels) on a (b, n)
+score scratch of the same shape and live entries, beside
+``torch.topk(scores, kk, dim=1, sorted=True)`` on that scratch (CUDA
+events; the scratch is larger than L2, as the scan leaves it) and the
+select's bytes bound: one read of each query's live entries at 3.35 TB/s.
+``--full-row`` adds the select alone with its candidate buffer cut to kk
+and on a scratch of equal scores, both of which force the histogram
+passes over the full row.
 
     python3 scripts/profile_topk.py [--kk 80 320 2048] [--iters 5] [--plans]
-    python3 scripts/profile_topk.py --select [--iters 5]
+    python3 scripts/profile_topk.py --select [--full-row] [--iters 5]
 
 Needs one CUDA device; exits 1 without one.
 """
@@ -56,6 +62,7 @@ from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import fused_score_topk as scan  # noqa: E402
 from repro_torch.kernels import ivf_score  # noqa: E402
 from repro_torch.kernels import pq_lut  # noqa: E402
+from repro_torch.kernels import topk_select  # noqa: E402
 
 PEAK_BYTES_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 
@@ -175,28 +182,59 @@ def compare_plans(dev, g, iters: int, power: str) -> None:
         del x, q, sq, want, got
 
 
+def stages(stats) -> str:
+    """The select's launches from its profile: each pass launch's span and
+    what its blocks did (h histogram, c compaction), then the finish."""
+    st = stats.tolist()
+    out = []
+    for p in range(_build.SELECT_PASSES + 1):
+        if not st[3 * p + 2]:
+            continue
+        what = ("finish" if p == _build.SELECT_PASSES else
+                "".join(m for bit, m in ((1, "h"), (2, "c"))
+                        if st[3 * p + 2] & bit))
+        out.append(f"{what} {(st[3 * p + 1] - st[3 * p]) / 1e6:.4f}")
+    return ", ".join(out)
+
+
 def split(tag: str, fn, iters: int, power: str) -> float:
-    """Print ``fn``'s kernels (profiler) and its time per call (events)."""
-    parts = kernel_times(fn, iters)
-    ms = time_ms(fn, iters)
+    """Print ``fn``'s kernels (profiler), its time per call (events) and
+    its select's stages (``fn(stats)`` fills them)."""
+    parts = kernel_times(lambda: fn(None), iters)
+    ms = time_ms(lambda: fn(None), iters)
+    stats = _build.select_stats(torch.device("cuda"))
+    fn(stats)
+    torch.cuda.synchronize()
     print(f"select {tag}: call {ms:.4f} ms (events); kernels "
           + " + ".join(f"{name} {t:.4f}" for name, t in parts)
-          + f"; card {power}")
+          + f"; select stages ms (global timer) {stages(stats)}; card "
+          f"{power}")
     return ms
 
 
 def library_topk(tag: str, scores, kk: int, live: int, iters: int,
-                 power: str) -> None:
-    """torch.topk on a (b, n) score scratch, beside the select's bound."""
-    ms = time_ms(lambda: torch.topk(scores, kk, dim=1, sorted=True), iters)
+                 power: str, cap=None) -> None:
+    """The select alone and torch.topk on a (b, n) score scratch, beside
+    the select's bound; the select checked against its plain version."""
+    got = topk_select.select_topk(scores, kk, _cap=cap)
+    want = ref.ref_select_topk(scores, kk)
+    if not (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+            and torch.equal(got[1], want[1])):
+        raise AssertionError(f"select {tag}: differs from its plain version")
+    ms = time_ms(lambda: topk_select.select_topk(scores, kk, _cap=cap), iters)
+    stats = _build.select_stats(scores.device)
+    topk_select.select_topk(scores, kk, _cap=cap, _stats=stats)
+    lib = time_ms(lambda: torch.topk(scores, kk, dim=1, sorted=True), iters)
     bound = 1e3 * (4 * live + 12 * scores.shape[0] * kk) / PEAK_BYTES_S
-    print(f"select {tag}: torch.topk on the ({scores.shape[0]}, "
-          f"{scores.shape[1]}) scratch {ms:.4f} ms; select bound "
-          f"{bound:.4f} ms (bytes: {live} live entries read once, "
-          f"(vals, ids) written); card {power}")
+    print(f"select {tag}: the select alone on the ({scores.shape[0]}, "
+          f"{scores.shape[1]}) scratch{'' if cap is None else f' (buffer {cap})'}"
+          f" {ms:.4f} ms (stages: {stages(stats)}), bit-equal to its plain "
+          f"version; torch.topk {lib:.4f} ms; select bound {bound:.4f} ms "
+          f"(bytes: {live} live entries read once, (vals, ids) written); "
+          f"card {power}")
 
 
-def select_profile(dev, g, iters: int, power: str) -> None:
+def select_profile(dev, g, iters: int, power: str, full_row: bool) -> None:
     """The selection path's select at the serving shapes (see above)."""
     n, b, d = 1_000_000, 64, 128
     x = torch.randn((n, d), generator=g, device=dev)
@@ -205,9 +243,17 @@ def select_profile(dev, g, iters: int, power: str) -> None:
     scores = (2.0 * (q @ x.T) - sq[None, :]) - torch.sum(q * q, -1,
                                                         keepdim=True)
     for kk in (88, 2056):
-        split(f"flat kk={kk}", lambda kk=kk: scan.score_topk(
-            x, sq, q, kk, _select=True), iters, power)
+        split(f"flat kk={kk}", lambda st, kk=kk: scan.score_topk(
+            x, sq, q, kk, _select=True, _sel_stats=st), iters, power)
         library_topk(f"flat kk={kk}", scores, kk, b * n, iters, power)
+        if full_row:
+            library_topk(f"flat kk={kk}", scores, kk, b * n, iters, power,
+                         cap=kk)
+    if full_row:
+        ties = torch.full((b, n), -1.25, device=dev)
+        library_topk("every score equal kk=88", ties, 88, b * n, iters,
+                     power)
+        del ties
     del scores
     # IVF: 1024 lists of about 977 rows (max_list 984), 16 random probes a
     # query; the library's scratch is the plain dedup scores (b, s * L),
@@ -216,7 +262,7 @@ def select_profile(dev, g, iters: int, power: str) -> None:
     sizes = torch.full((nlist,), n // nlist, device=dev)
     sizes[: n % nlist] += 1
     L = -(-int(sizes.max()) // 8) * 8
-    grouped = x[: nlist * 0].new_zeros((nlist, L, d))
+    grouped = x.new_zeros((nlist, L, d))
     valid = (torch.arange(L, device=dev)[None, :] < sizes[:, None]).float()
     grouped[valid > 0.5] = x
     gsq = torch.sum(grouped * grouped, dim=-1)
@@ -224,11 +270,12 @@ def select_profile(dev, g, iters: int, power: str) -> None:
                            dim=1)[:, :nprobe].to(torch.int32).contiguous()
     uniq, member = ref.dedup_probes(probes, nlist)
     ded = (grouped, gsq, valid, uniq, member, q)
-    split(f"ivf dedup k={k} ({uniq.numel()} unique lists)",
-          lambda: ivf_score.ivf_score_topk_dedup(*ded, k, _select=True),
-          iters, power)
-    split(f"ivf batch k={k}", lambda: ivf_score.ivf_score_topk_batch(
-        grouped, gsq, valid, probes, q, k, _select=True), iters, power)
+    split(f"ivf dedup k={k} ({uniq.numel()} slots)",
+          lambda st: ivf_score.ivf_score_topk_dedup(
+              *ded, k, _select=True, _sel_stats=st), iters, power)
+    split(f"ivf batch k={k}", lambda st: ivf_score.ivf_score_topk_batch(
+        grouped, gsq, valid, probes, q, k, _select=True, _sel_stats=st),
+        iters, power)
     s, _ = ref._dedup_scores(*ded)
     live = int(torch.isfinite(s).sum())
     library_topk(f"ivf dedup k={k}", s, k, live, iters, power)
@@ -240,8 +287,8 @@ def select_profile(dev, g, iters: int, power: str) -> None:
                            device=dev).to(torch.int32)
     layout = pq.grouped_layout(codes, coarse, ncoarse)
     luts = torch.rand((b, m, ncoarse * ksub), generator=g, device=dev) * 10
-    split(f"pq kk={kk}", lambda: pq_lut.pq_score_topk(
-        *layout, luts, kk, _select=True), iters, power)
+    split(f"pq kk={kk}", lambda st: pq_lut.pq_score_topk(
+        *layout, luts, kk, _select=True, _sel_stats=st), iters, power)
     ccodes = (coarse[:, None] * ksub + codes.to(torch.int32)).contiguous()
     neg = -ref.ref_pq_score_batch(ccodes, luts)
     library_topk(f"pq kk={kk}", neg, kk, b * n, iters, power)
@@ -255,6 +302,8 @@ def main() -> int:
                     help="time the flat planner's choices (see above)")
     ap.add_argument("--select", action="store_true",
                     help="time the selection path's select (see above)")
+    ap.add_argument("--full-row", action="store_true",
+                    help="with --select: force the full-row passes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_topk: no CUDA device", file=sys.stderr)
@@ -272,7 +321,7 @@ def main() -> int:
         return 0
     if args.select:
         _build.build()
-        select_profile(dev, g, args.iters, power)
+        select_profile(dev, g, args.iters, power, args.full_row)
         return 0
     n, m, ksub, ncoarse, b, d = 1_000_000, 8, 256, 32, 64, 128
     codes = torch.randint(0, ksub, (n, m), generator=g,

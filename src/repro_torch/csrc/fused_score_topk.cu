@@ -5,7 +5,10 @@
 // variant `_kernel`, at fp32 and bf16 storage, the int8 variant
 // `_scaled_kernel`, and the filtered variants `_masked_kernel` (fp32, bf16)
 // and `_masked_scaled_kernel` (int8)) and ::score_topk_rows (`_rows_kernel`
-// at every storage dtype), Pallas kernels for the TPU.
+// at every storage dtype), Pallas kernels for the TPU; and, with the
+// template flag B5, the filtered variant of
+// src/repro/kernels/ivf_score.py::ivf_score_topk_dedup (its `mask=`,
+// `_dedup_kernel` / `_dedup_scaled_kernel` over valid * mask).
 //
 // Rows are stored as fp32, bf16 or int8 codes (the storage ladder), with an
 // optional per-row fp32 scale (int8). Scores are
@@ -98,6 +101,20 @@
 // from device memory, splits them evenly across the chunks, and gathers
 // those rows by id, so its time follows the eligible rows. With fewer than
 // kk eligible rows the unfilled slots read (-inf, id 0).
+//
+// B5 mask= (kernels/ivf_score.py routes it here): the IVF mask and routed
+// plans' masked dedup scan is this masked scan over the eligible slots of
+// the grouped slab viewed as (nlist * max_list, d) rows (the slots of a
+// source with a member query and valid * mask > 0.5, in flat-id order,
+// built on the card like the flat scan's eligible rows), with B5's
+// epilogue under the template flag B5: (2 <x, q>) * scale - ||x||^2 with
+// no -||q||^2 term, and -inf for a query whose member bit of the slot's
+// source is clear (each row carries its source's 64-query word of member
+// bits), so any member matrix gives B5's function. Ids are flat slot ids,
+// ordered by (score desc, flat id asc), B5's order over an ascending uniq.
+// The list scan of ivf_score.cu restaged each list's rows for every four
+// member queries and merged one partial per (list, query); here the
+// eligible rows are read once per 64 queries, on the tensor cores.
 //
 // Passes:
 //   the sample pass (scan_kernel on the selection path's epilogue, over
@@ -1191,12 +1208,11 @@ struct FlatScores {
   }
   __device__ long long seg_len() const { return kWholeRow; }
   __device__ bool seg_live(int, long long) const { return true; }
-  __device__ bool get(int q, long long, long long e, u64* w) const {
-    const float v = s[(long long)q * ld + e];
-    if (!(v > -INFINITY)) return false;
-    *w = pack(ord_bits_eq0(v), (int)e);
-    return true;
+  __device__ const float* row(int q) const { return s + (long long)q * ld; }
+  __device__ unsigned ord(float v) const {
+    return v > -INFINITY ? ord_bits_eq0(v) : 0u;
   }
+  __device__ int key(int, long long, long long e) const { return (int)e; }
 };
 
 // The selection path's finish: one block per query over its row of the

@@ -12,6 +12,11 @@
 //   * ivf_score_topk_batch (`_batch_kernel`, `_batch_scaled_kernel`; and
 //     ivf_score_topk, its batch-1 wrapper): the query-major scan over a
 //     (b, nprobe) probe grid.
+// B5's `mask=` (the filter algebra's masked dedup) is not scanned here: it
+// runs on the flat scan of fused_score_topk.cu over the eligible slots only
+// (kernels/ivf_score.py routes it), whose 64-query tile suits the mask
+// plan's dense member matrix; the sparse members of the dedup, rows and
+// batch scans keep these list scans.
 //
 // The grouped slab holds fp32, bf16 or int8 codes, with an optional
 // per-slot fp32 scale (int8's grouped_scales). Scores are
@@ -535,13 +540,14 @@ struct ListScores {
   __device__ bool seg_live(int j, long long seg) const {
     return member == nullptr || member[seg * b + j] > 0.5f;
   }
-  __device__ bool get(int j, long long seg, long long e, u64* w) const {
-    const float v = s[(long long)j * nseg * L + e];
-    if (!(v > -INFINITY)) return false;
-    const int slot = (int)(e - seg * L);
-    *w = pack(ord_bits_eq0(v), member != nullptr ? uniq[seg] * L + slot
-                                                 : (int)e);
-    return true;
+  __device__ const float* row(int j) const {
+    return s + (long long)j * nseg * L;
+  }
+  __device__ unsigned ord(float v) const {
+    return v > -INFINITY ? ord_bits_eq0(v) : 0u;
+  }
+  __device__ int key(int, long long seg, long long e) const {
+    return member != nullptr ? uniq[seg] * L + (int)(e - seg * L) : (int)e;
   }
 };
 

@@ -14,8 +14,14 @@
 //      equal digits, so a hot bin takes one atomic a run), and add their
 //      non-zero bins to the query's histogram in device memory. The last
 //      block of each query (a completion counter) picks the bin that holds
-//      the kk-th word. A float's top 16 bits are its sign, exponent and 7
-//      mantissa bits, so where the scores spread, that bin is small: the
+//      the kk-th word. On the first pass an entry under a floor, the digit
+//      of the r-th best of 4,096 entries sampled evenly (sel_init_kernel;
+//      some 2 kk entries lie above it), is counted in a register, not
+//      binned: it cannot be in the chosen bin, so most entries take no
+//      atomic (where the kk-th word lies under the floor after all, the
+//      first pass runs again with none). A float's top 16 bits are its
+//      sign, exponent and 7 mantissa bits, so where the scores spread, that
+//      bin is small: the
 //      words above it and in it (their count is known exactly from the
 //      histogram) fit the query's candidate buffer in device memory, and
 //   2. the next launch of the same kernel compacts them into it (one read
@@ -25,8 +31,8 @@
 //      kSelPasses times, does a histogram, a compaction or nothing per
 //      query as the query's state says, so the pass count follows the
 //      data (one histogram and one compaction where the scores spread, at
-//      most four histograms). An entry set no larger than the buffer is
-//      compacted at once, with no histogram.
+//      most four histograms, and a fifth past a failed floor). An entry set
+//      no larger than the buffer is compacted at once, with no histogram.
 //   3. one block per query (select_finish, in each caller's finish kernel)
 //      radix-selects the kk-th word among the buffer's words by 11-bit
 //      digits below the fixed ones (2048 bins in shared memory), gathers
@@ -126,15 +132,21 @@ __device__ void trim_words(u64* w, int* cnt, u64* thr, int segs, int cap,
 }
 
 // The selection path's launch shapes. kSelThreads: a finish block (one a
-// query); kPassThreads: a pass block; kPassUnroll: entries a pass thread
-// loads before testing any (its loads in flight).
-constexpr int kSelThreads = 512;
+// query); kPassThreads: a pass block; kPassUnroll: 16-byte loads a pass
+// thread issues before testing any entry (its loads in flight).
+constexpr int kSelThreads = 1024;
 constexpr int kPassThreads = 1024;
-constexpr int kPassUnroll = 8;
+constexpr int kPassUnroll = 4;
 constexpr int kDigit = 16;                 // bits of a full-row pass's digit
 constexpr int kBins = 1 << kDigit;
+constexpr int kCoarse = 256;               // bins of a digit's top 8 bits
+constexpr int kHistWords = kBins + kCoarse;  // a query's histogram
 constexpr long long kMaxChunk = 65535;     // a pass block's entries: 16-bit bins
-constexpr int kSelPasses = 64 / kDigit + 1;  // launches: four digits + a compaction
+// launches: four digits, a compaction, and one first pass again where the
+// sample's floor (below) was too high
+constexpr int kSelPasses = 64 / kDigit + 2;
+constexpr int kSample = 4096;              // entries a query's floor samples
+constexpr int kInitThreads = 256;
 constexpr int kFinDigit = 11;              // the buffer's digits (select_finish)
 constexpr int kFinBins = 1 << kFinDigit;
 // a query's state between the passes (mode)
@@ -159,14 +171,18 @@ struct SelQuery {
   unsigned total;      // competing entries (the first histogram's sum)
   int shift;
   int mode;
-  unsigned pad[6];
+  unsigned floor;      // first pass: digits below it are only counted
+  unsigned below;      // the entries under the floor (first pass)
+  unsigned pad[4];
 };
 
 // The selection path's plan and device scratch (kernels/_build.py's
 // SelectArgs fills it: the same fields in the same order).
 struct SelectArgs {
   SelQuery* st;        // (nq,)
-  unsigned* hist;      // (nq, kBins) zeros; null when no histogram runs
+  unsigned* hist;      // (nq, kHistWords) zeros: each query's kBins bins,
+                       //   then their kCoarse sums; null when no
+                       //   histogram runs
   u64* bufw;           // (nq, cap) candidate words
   int* bufp;           // (nq, cap) their entry indices
   u64* sort_w;         // (nq, len) and (nq, len): the sort's scratch, or
@@ -196,34 +212,65 @@ __device__ __forceinline__ void stat_span(u64* stats, int slot, u64 t0,
   atomicOr(stats + 3 * slot + 2, 1ull << mode);
 }
 
-// Calls f(in, word, entry) for the entries [e0, e1) of query q, every
-// thread of the block alike (in false past the range or for an entry that
-// does not compete), kPassUnroll loads in flight a thread. A segment whose
-// src.seg_live is false is skipped unread: its live test runs once a
-// block.
+// Calls f(ord, entry, segment) for the entries [e0, e1) of query q, every
+// thread of the block the same number of times (ord 0 past the range and
+// for an entry that does not compete: a competing entry's order bits are
+// never 0). The scores are read 16 bytes a thread at a time, kPassUnroll
+// of them in flight (a thread's four consecutive entries a load), with the
+// few entries before the first aligned one and after the last, one a
+// thread. A segment whose src.seg_live is false is skipped unread: its
+// live test runs once a block. Src gives the query's row of scores
+// (row(q)), an entry's order bits (ord(v), 0 when it does not compete),
+// and its key (key(q, seg, e)), read only where a word is needed.
 template <class Src, class F>
 __device__ __forceinline__ void for_entries(const Src& src, int q,
                                             long long e0, long long e1,
                                             F f) {
   const long long L = src.seg_len();
-  const long long step = (long long)blockDim.x * kPassUnroll;
+  const float* row = src.row(q);
+  const int tid = threadIdx.x;
+  const long long nt = blockDim.x;
   for (long long seg = e0 / L; seg * L < e1; ++seg) {
     if (!src.seg_live(q, seg)) continue;
     const long long lo = seg * L > e0 ? seg * L : e0;
     const long long hi = (seg + 1) * L < e1 ? (seg + 1) * L : e1;
-    for (long long base = lo; base < hi; base += step) {
-      u64 v[kPassUnroll];
-      bool in[kPassUnroll];
+    const int mis = (int)((reinterpret_cast<uintptr_t>(row + lo) >> 2) & 3);
+    long long a = lo + ((4 - mis) & 3);
+    if (a > hi) a = hi;
+    const long long nvec = (hi - a) >> 2;
+    const long long tail = a + 4 * nvec;
+    {  // the entries before the first aligned one, and after the last
+      const long long e = lo + tid, t = tail + tid;
+      f(e < a ? src.ord(row[e]) : 0u, e, seg);
+      f(t < hi ? src.ord(row[t]) : 0u, t, seg);
+    }
+    const float4* v4 = reinterpret_cast<const float4*>(row + a);
+    for (long long base = 0; base < nvec; base += nt * kPassUnroll) {
+      float4 v[kPassUnroll];
 #pragma unroll
       for (int u = 0; u < kPassUnroll; ++u) {
-        const long long e = base + (long long)u * blockDim.x + threadIdx.x;
-        in[u] = e < hi && src.get(q, seg, e, &v[u]);
+        const long long i = base + u * nt + tid;
+        if (i < nvec) v[u] = __ldcs(v4 + i);
       }
 #pragma unroll
-      for (int u = 0; u < kPassUnroll; ++u)
-        f(in[u], v[u], base + (long long)u * blockDim.x + threadIdx.x);
+      for (int u = 0; u < kPassUnroll; ++u) {
+        const long long i = base + u * nt + tid;
+        const long long e = a + 4 * i;
+        const bool in = i < nvec;   // past it, nothing competes
+        f(in ? src.ord(v[u].x) : 0u, e, seg);
+        f(in ? src.ord(v[u].y) : 0u, e + 1, seg);
+        f(in ? src.ord(v[u].z) : 0u, e + 2, seg);
+        f(in ? src.ord(v[u].w) : 0u, e + 3, seg);
+      }
     }
   }
+}
+
+// The packed word of an entry of order bits o.
+template <class Src>
+__device__ __forceinline__ u64 word_at(const Src& src, int q, long long seg,
+                                       long long e, unsigned o) {
+  return ((u64)o << 32) | (u64)(~(unsigned)src.key(q, seg, e));
 }
 
 // Exclusive prefix sum of v over the block's threads in order; *total gets
@@ -251,43 +298,92 @@ __device__ __forceinline__ unsigned block_scan(unsigned v, unsigned* total) {
 }
 
 // The last block of query q's histogram pass: picks the bin of the query's
-// histogram (kBins bins, best first from the top) that holds its kk-th
-// word, zeroes the histogram for the next pass, and sets the state: a
-// compaction where the candidates fit the buffer (or every competing entry
-// is kept), else the next digit.
+// histogram that holds its kk-th word (best first from the top: the coarse
+// bin by one warp over kCoarse sums, then the bin among its 256 by the
+// block, so every read is coalesced), zeroes the histogram for the next
+// pass, and sets the state: a compaction where the candidates fit the
+// buffer (or every competing entry is kept), else the next digit; where
+// the kk-th word lies under the first pass's floor, the first pass again
+// without one.
 __device__ void choose_bin(const SelectArgs& a, int q) {
-  __shared__ int s_dsel;
-  __shared__ unsigned s_above, s_bin;
+  __shared__ int s_coarse, s_dsel, s_found;
+  __shared__ unsigned s_total, s_left, s_above, s_bin;
   SelQuery* sq = a.st + q;
-  unsigned* gh = a.hist + (long long)q * kBins;
-  const int per = kBins / kPassThreads;
-  const int top = kBins - per * (int)threadIdx.x;   // this thread's bins,
-  unsigned sum = 0;                                  // top - 1 down to
-  for (int i = 1; i <= per; ++i) sum += __ldcg(gh + top - i);   // top - per
-  unsigned total;
-  const unsigned before = block_scan(sum, &total);
+  unsigned* gh = a.hist + (long long)q * kHistWords;
+  unsigned* gc = gh + kBins;
+  const int tid = threadIdx.x;
   const unsigned want = sq->want;
   const bool first = sq->fixed == 0;
-  if (!(first && total <= (unsigned)a.kk) && before < want &&
-      before + sum >= want) {
-    unsigned acc = before;
-    for (int i = 1; i <= per; ++i) {
-      const unsigned c = __ldcg(gh + top - i);
-      if (acc + c >= want) {
-        s_dsel = top - i;
-        s_above = acc;
-        s_bin = c;
-        break;
+  if (tid < 32) {
+    // lane l: coarse bins 255 - 8l down to 248 - 8l
+    unsigned c[8], sum = 0;
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      c[m] = __ldcg(gc + kCoarse - 1 - 8 * tid - m);
+      sum += c[m];
+    }
+    unsigned incl = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned t = __shfl_up_sync(0xffffffffu, incl, o);
+      if (tid >= o) incl += t;
+    }
+    const unsigned binned = __shfl_sync(0xffffffffu, incl, 31);
+    const unsigned hit = __ballot_sync(0xffffffffu, incl >= want);
+    const int leader = __ffs(hit) - 1;
+    if (tid == 0) {
+      s_total = binned + (first ? __ldcg(&sq->below) : 0u);
+      s_found = hit != 0u;
+    }
+    if (tid == leader) {
+      unsigned acc = incl - sum;
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        if (acc + c[m] >= want) {
+          s_coarse = kCoarse - 1 - 8 * tid - m;
+          s_left = want - acc;
+          s_above = acc;
+          break;
+        }
+        acc += c[m];
       }
-      acc += c;
     }
   }
   __syncthreads();
-  for (int i = 1; i <= per; ++i) gh[top - i] = 0;
-  if (threadIdx.x == 0) {
+  const unsigned total = s_total;
+  const bool all = first && total <= (unsigned)a.kk;
+  if (!all && s_found && tid < 256) {
+    // thread t: bin 255 - t of the coarse bin, best first
+    const int bin = s_coarse * 256 + 255 - tid;
+    const unsigned c = __ldcg(gh + bin);
+    unsigned incl = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned t = __shfl_up_sync(0xffffffffu, incl, o);
+      if ((tid & 31) >= o) incl += t;
+    }
+    __shared__ unsigned wsum[8];
+    if ((tid & 31) == 31) wsum[tid >> 5] = incl;
+    asm volatile("bar.sync 2, 256;" ::: "memory");
+    unsigned before = incl - c;
+    for (int w = 0; w < (tid >> 5); ++w) before += wsum[w];
+    if (before < s_left && before + c >= s_left) {
+      s_dsel = bin;
+      s_above = s_above + before;
+      s_bin = c;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < kHistWords; i += blockDim.x) gh[i] = 0;
+  if (tid == 0) {
     if (first) sq->total = total;
-    if (first && total <= (unsigned)a.kk) {   // every competing entry
+    if (all) {   // every competing entry is kept
       sq->mode = kModeCompact;
+    } else if (!s_found) {
+      // the kk-th word lies under the sample's floor: the first pass again,
+      // every entry binned
+      sq->floor = 0;
+      sq->below = 0;
     } else {
       sq->prefix |= (u64)s_dsel << sq->shift;
       sq->fixed |= (u64)(kBins - 1) << sq->shift;
@@ -323,42 +419,87 @@ sel_pass_kernel(const Src src, const SelectArgs a, int launch) {
   const long long e0 = (long long)blockIdx.y * a.chunk;
   const long long e1 = e0 + a.chunk < n ? e0 + a.chunk : n;
   const u64 prefix = sq->prefix, fixed = sq->fixed;
+  // while the fixed digits lie in the score bits (the common case), only
+  // the 32 order bits are tested, and the key is read for kept words only
+  const bool hi_only = (unsigned)fixed == 0u;
+  const unsigned fh = (unsigned)(fixed >> 32), ph = (unsigned)(prefix >> 32);
   if (e0 >= e1) {
     // past the query's entries (a masked count below the bound): nothing
   } else if (mode == kModeHist) {
     for (int i = tid; i < kBins / 2; i += blockDim.x) h2[i] = 0;
     __syncthreads();
     const int shift = sq->shift;
+    // each thread counts runs of equal digits in a register and adds a run
+    // when its digit changes: where many entries share a bin (ties), a run
+    // takes one atomic
     int run_dig = 0;
     unsigned run = 0;
-    auto add = [&](int dig, unsigned c) {
-      atomicAdd(&h2[dig >> 1], c << ((dig & 1) * 16));
-    };
-    for_entries(src, q, e0, e1, [&](bool in, u64 w, long long) {
-      if (!in || (w & fixed) != prefix) return;
-      const int dig = (int)((w >> shift) & (kBins - 1));
+    auto count = [&](int dig) {
       if (dig != run_dig) {
-        if (run) add(run_dig, run);
+        if (run) atomicAdd(&h2[run_dig >> 1], run << ((run_dig & 1) * 16));
         run_dig = dig;
         run = 0;
       }
       ++run;
-    });
-    if (run) add(run_dig, run);
+    };
+    if (hi_only && shift >= 32) {
+      // on the first pass, an entry under the sample's floor cannot be in
+      // the chosen bin: it is counted in a register, not binned
+      const int sh = shift - 32;
+      const unsigned flo = fixed == 0 ? sq->floor : 0u;
+      unsigned below = 0;
+      for_entries(src, q, e0, e1, [&](unsigned o, long long, long long) {
+        if (o == 0u || (o & fh) != ph) return;
+        const unsigned dig = (o >> sh) & (kBins - 1);
+        if (dig < flo)
+          ++below;
+        else
+          count((int)dig);
+      });
+      if (flo != 0u) {
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          below += __shfl_xor_sync(0xffffffffu, below, o);
+        if ((tid & 31) == 0 && below) atomicAdd(&sq->below, below);
+      }
+    } else {
+      for_entries(src, q, e0, e1, [&](unsigned o, long long e,
+                                      long long seg) {
+        if (o == 0u) return;
+        const u64 w = word_at(src, q, seg, e, o);
+        if ((w & fixed) == prefix) count((int)((w >> shift) & (kBins - 1)));
+      });
+    }
+    if (run) atomicAdd(&h2[run_dig >> 1], run << ((run_dig & 1) * 16));
     __syncthreads();
-    unsigned* gh = a.hist + (long long)q * kBins;
+    // the non-zero bins into the query's histogram, and each warp's 64
+    // bins (a quarter of a coarse bin) into their coarse sum
+    unsigned* gh = a.hist + (long long)q * kHistWords;
     for (int i = tid; i < kBins / 2; i += blockDim.x) {
       const unsigned v = h2[i];
-      if (v & 0xffffu) atomicAdd(gh + 2 * i, v & 0xffffu);
-      if (v >> 16) atomicAdd(gh + 2 * i + 1, v >> 16);
+      const unsigned lo = v & 0xffffu, hi = v >> 16;
+      if (lo) atomicAdd(gh + 2 * i, lo);
+      if (hi) atomicAdd(gh + 2 * i + 1, hi);
+      unsigned part = lo + hi;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        part += __shfl_xor_sync(0xffffffffu, part, o);
+      if ((tid & 31) == 0 && part) atomicAdd(gh + kBins + (2 * i) / 256, part);
     }
   } else {
     // the words at or above the prefix, appended at a warp's atomic offset
     u64* bw = a.bufw + (long long)q * a.cap;
     int* bp = a.bufp + (long long)q * a.cap;
     const int lane = tid & 31;
-    for_entries(src, q, e0, e1, [&](bool in, u64 w, long long e) {
-      const bool keep = in && (w & fixed) >= prefix;
+    for_entries(src, q, e0, e1, [&](unsigned o, long long e, long long seg) {
+      bool keep = o != 0u;
+      u64 w = 0;
+      if (hi_only) {
+        keep = keep && (o & fh) >= ph;
+      } else if (keep) {
+        w = word_at(src, q, seg, e, o);
+        keep = (w & fixed) >= prefix;
+      }
       const unsigned m = __ballot_sync(0xffffffffu, keep);
       if (m == 0) return;
       const int leader = __ffs(m) - 1;
@@ -367,7 +508,7 @@ sel_pass_kernel(const Src src, const SelectArgs a, int launch) {
       at = __shfl_sync(0xffffffffu, at, leader) +
            __popc(m & ((1u << lane) - 1u));
       if (keep && at < (unsigned)a.cap) {
-        bw[at] = w;
+        bw[at] = hi_only ? word_at(src, q, seg, e, o) : w;
         bp[at] = (int)e;
       }
     });
@@ -389,14 +530,82 @@ sel_pass_kernel(const Src src, const SelectArgs a, int launch) {
   if (tid == 0) stat_span(a.stats, launch, t0, mode);
 }
 
-__global__ void sel_init_kernel(const SelectArgs a) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= a.nq) return;
-  SelQuery s = {};
-  s.want = (unsigned)a.kk;
-  s.shift = 64 - kDigit;
-  s.mode = a.hist != nullptr ? kModeHist : kModeCompact;
-  a.st[q] = s;
+// One block per query sets its state and, where histograms run, the first
+// pass's floor: the 16-bit digit of the r-th best of kSample entries spaced
+// evenly over the query's entries (r = 2 kk kSample / n, plus 8), so that
+// some 2 kk entries lie at or above it; 0 (no floor) where fewer than r
+// samples compete. A radix select of two 8-bit digits over the sample's
+// digits.
+template <class Src>
+__global__ void __launch_bounds__(kInitThreads)
+sel_init_kernel(const Src src, const SelectArgs a) {
+  __shared__ unsigned h[256];
+  __shared__ unsigned s_pick, s_left;
+  constexpr int kPer = kSample / kInitThreads;
+  constexpr unsigned kNone = 0xffffffffu;
+  const int q = blockIdx.x, tid = threadIdx.x;
+  unsigned floor = 0;
+  if (a.hist != nullptr) {
+    const long long n = src.size(q);
+    const long long L = src.seg_len();
+    const float* row = src.row(q);
+    unsigned dig[kPer];
+    unsigned live = 0;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const long long i = (long long)j * kInitThreads + tid;
+      const long long e = i * n / kSample;
+      dig[j] = kNone;
+      if (e < n && src.seg_live(q, e / L)) {
+        const unsigned o = src.ord(row[e]);
+        if (o != 0u) {
+          dig[j] = o >> 16;
+          ++live;
+        }
+      }
+    }
+    unsigned ns;
+    block_scan(live, &ns);
+    // each sample stands for n / kSample entries
+    const long long r = n > 0 ? (2LL * a.kk * kSample + n - 1) / n + 8 : 0;
+    if (r <= (long long)ns) {
+      unsigned left = (unsigned)r, pick = 0;
+      for (int pass = 0; pass < 2; ++pass) {   // high byte, then low byte
+        const int sh = pass == 0 ? 8 : 0;
+        h[tid] = 0;
+        __syncthreads();
+#pragma unroll
+        for (int j = 0; j < kPer; ++j)
+          if (dig[j] != kNone && (pass == 0 || (dig[j] >> 8) == pick))
+            atomicAdd(&h[(dig[j] >> sh) & 255u], 1u);
+        __syncthreads();
+        if (tid == 0) {
+          unsigned acc = 0;
+          for (int d = 255; d >= 0; --d) {
+            if (acc + h[d] >= left) {
+              s_pick = pass == 0 ? (unsigned)d : (pick << 8) | d;
+              s_left = left - acc;
+              break;
+            }
+            acc += h[d];
+          }
+        }
+        __syncthreads();
+        pick = s_pick;
+        left = s_left;
+        __syncthreads();
+      }
+      floor = pick;
+    }
+  }
+  if (tid == 0) {
+    SelQuery s = {};
+    s.want = (unsigned)a.kk;
+    s.shift = 64 - kDigit;
+    s.mode = a.hist != nullptr ? kModeHist : kModeCompact;
+    s.floor = floor;
+    a.st[q] = s;
+  }
 }
 
 // Steps 1 and 2 for every query of src: a.nq queries, each with
@@ -404,13 +613,13 @@ __global__ void sel_init_kernel(const SelectArgs a) {
 template <class Src>
 cudaError_t select_passes(const Src& src, const SelectArgs& a,
                           cudaStream_t st) {
-  sel_init_kernel<<<(a.nq + 255) / 256, 256, 0, st>>>(a);
+  sel_init_kernel<Src><<<a.nq, kInitThreads, 0, st>>>(src, a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   int smem = 0;
   if (a.hist != nullptr) {
-    err = cudaMemsetAsync(a.hist, 0, sizeof(unsigned) * kBins * (size_t)a.nq,
-                          st);
+    err = cudaMemsetAsync(a.hist, 0,
+                          sizeof(unsigned) * kHistWords * (size_t)a.nq, st);
     if (err != cudaSuccess) return err;
     smem = sizeof(unsigned) * kBins / 2;
   }

@@ -215,10 +215,14 @@ def staged_cols(d: int) -> int:
 # 4-byte entry index) in shared memory up to SORT_SMEM_LIMIT bytes, else in
 # device scratch.
 SELECT_BINS = 1 << 16          # kBins
+SELECT_HIST_WORDS = SELECT_BINS + 256   # kHistWords: bins and coarse sums
 SELECT_MAX_CHUNK = 65535       # kMaxChunk
 SELECT_MIN_CHUNK = 16384       # the fewest entries a pass block is given
 SELECT_MIN_CAP = 16384         # the smallest candidate buffer (words)
-SELECT_PASSES = 5              # kSelPasses: four digits and a compaction
+SELECT_PASSES = 6              # kSelPasses: four digits, a compaction and
+                               # a first pass again past a failed floor
+SELECT_SAMPLE = 4096           # kSample: entries the first pass's floor
+                               # samples a query
 SELECT_STATS = 3 * (SELECT_PASSES + 1)   # kSelStatSlots
 SELECT_STATE = 64              # sizeof(SelQuery)
 SORT_SMEM_LIMIT = 196_608
@@ -284,7 +288,7 @@ def select_scratch_bytes(p: SelectPlan, nq: int) -> dict:
     states, the histograms (when they run), the candidate buffer (words and
     entry indices) and the sort's scratch past shared memory."""
     return {"state": _aligned(SELECT_STATE * nq),
-            "hist": _aligned(4 * SELECT_BINS * nq) if p.hist else 0,
+            "hist": _aligned(4 * SELECT_HIST_WORDS * nq) if p.hist else 0,
             "bufw": _aligned(8 * p.cap * nq),
             "bufp": _aligned(4 * p.cap * nq),
             "sort_w": 0 if p.sort_in_smem else _aligned(8 * p.sort_len * nq),

@@ -4,8 +4,9 @@ One CUDA source (``csrc/ivf_score.cu``) serves the three output contracts
 of ``repro/kernels/ivf_score.py``, at every storage dtype:
 
 * ``ivf_score_topk_dedup`` (B5): the probe-major scan of the batch's unique
-  probed lists (``uniq`` (s,), ``member`` (s, b)), with the optional
-  ``mask=`` of the filter algebra multiplied into ``valid``;
+  probed lists (``uniq`` (s,), ``member`` (s, b)); its ``mask=`` (the
+  filter algebra's mask and routed plans) runs the flat tensor-core scan
+  of ``fused_score_topk`` over the eligible slots instead (below);
 * ``ivf_score_topk_dedup_rows`` (B6): B5's (vals, ids) bit for bit, plus the
   winners' grouped payload rows, zero rows for dead slots;
 * ``ivf_score_topk_batch`` (B7) and ``ivf_score_topk``, its batch-1 call:
@@ -21,6 +22,13 @@ Scores are ``(2 <x, q>) scale - ||x||^2`` (the caller adds ``-||q||^2``
 back) and ids are flat slot ids ``list * max_list + slot``. Ties go to the smaller
 flat id for B5/B6 and to the earlier (probe position, slot) for B7, as the
 TPU kernels' running top-k orders them; dead slots read (-inf, id 0).
+
+``mask=`` builds the eligible slots on the card (``masked_slots``: valid *
+mask > 0.5 in a source with a member query, in flat-id order, no host
+synchronisation) and the sources' member bits (``member_bits``), and runs
+the flat scan over those rows of the slab viewed as (nlist * max_list, d),
+with B5's epilogue (no -||q||^2, the member test per query); its selection
+path is the flat scan's. The unmasked scans keep the list scans below.
 
 Pass 1 is a persistent kernel whose blocks take work items, one list and
 up to four of its member queries each, and scan the list for those queries

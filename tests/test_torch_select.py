@@ -65,8 +65,9 @@ def test_select_plan_every_kk(nq, n, seg_len):
         assert kk <= p.sort_len < 2 * kk
         assert p.sort_in_smem == (12 * p.sort_len <= _build.SORT_SMEM_LIMIT)
         parts = _build.select_scratch_bytes(p, nq)
-        assert parts["hist"] == (4 * _build.SELECT_BINS * nq if p.hist
-                                 else 0)
+        assert parts["hist"] >= (4 * _build.SELECT_HIST_WORDS * nq
+                                 if p.hist else 0)
+        assert p.hist or parts["hist"] == 0
         assert parts["bufw"] >= 8 * p.cap * nq
         assert parts["bufp"] >= 4 * p.cap * nq
         assert (parts["sort_w"] == 0) == p.sort_in_smem
@@ -98,6 +99,22 @@ def _ord_eq0(s):
     return np.where(b & 0x80000000, ~b & 0xFFFFFFFF, b | 0x80000000)
 
 
+def _floor(scores, kk):
+    """sel_init_kernel's first-pass floor: the 16-bit digit of the r-th
+    best of SELECT_SAMPLE entries spaced evenly (r = 2 kk SELECT_SAMPLE /
+    n, plus 8), 0 where fewer than r samples compete."""
+    n, S = scores.size, _build.SELECT_SAMPLE
+    at = np.arange(S, dtype=np.int64) * n // S
+    sample = scores[at[at < n]]
+    sample = sample[sample > -np.inf]
+    ns = sample.size
+    r = (2 * kk * S + n - 1) // n + 8
+    if r > ns:
+        return 0
+    dig = (_ord_eq0(sample) >> np.uint64(16)).astype(np.int64)
+    return int(np.sort(dig)[::-1][r - 1])
+
+
 def _emulate_select(scores, kk, cap):
     """One query's multi-block select, digit for digit: (the kk best
     packed words, best first; the histogram passes run)."""
@@ -108,16 +125,24 @@ def _emulate_select(scores, kk, cap):
     prefix = fixed = np.uint64(0)
     want, shift = kk, 48
     mode = "hist" if scores.size > cap else "compact"
+    floor = _floor(scores, kk) if mode == "hist" else 0
     for _ in range(_build.SELECT_PASSES if mode == "hist" else 1):
         if mode == "hist":
             hist_passes += 1
             under = w[(w & fixed) == prefix]
-            if fixed == 0 and under.size <= kk:
-                mode = "compact"
-                continue
             dig = ((under >> np.uint64(shift)) & np.uint64(0xFFFF)).astype(
                 np.int64)
+            below = 0
+            if fixed == 0:
+                below = int((dig < floor).sum())
+                dig = dig[dig >= floor]
+            if fixed == 0 and dig.size + below <= kk:
+                mode = "compact"
+                continue
             counts = np.bincount(dig, minlength=1 << 16)[::-1]
+            if counts.sum() < want:   # the kk-th word under the floor
+                floor = 0
+                continue
             above = np.cumsum(counts) - counts
             d = int(np.argmax(above + counts >= want))
             prefix |= np.uint64((65535 - d) << shift)
@@ -158,15 +183,24 @@ def _emulate_select(scores, kk, cap):
 
 
 @pytest.mark.parametrize("case", ["spread", "ties", "signed_zeros", "dead",
-                                  "few_live"])
+                                  "few_live", "floor_fails"])
 def test_select_passes_emulated(case):
     """The passes' state machine against a sort: spread scores take one
     histogram; equal scores past the buffer take the full-row passes under
     the prefix (every score bit, then key bits); -0.0 ties +0.0; -inf
-    entries never compete; fewer live entries than kk keep them all."""
+    entries never compete; fewer live entries than kk keep them all; a
+    sample whose floor lies above the kk-th word (high scores at the
+    sampled entries alone) takes the first pass again."""
     rng = np.random.default_rng(7)
     n, kk, cap = 70_000, 300, 1024
     s = rng.normal(-3.0, 0.5, n).astype(np.float32)
+    if case == "floor_fails":
+        n, kk = 1_000_000, 2056
+        s = rng.normal(-3.0, 0.5, n).astype(np.float32)
+        at = np.arange(_build.SELECT_SAMPLE) * n // _build.SELECT_SAMPLE
+        s[at[:30]] = 10.0
+        cap = 16384
+        assert _floor(s, kk) > _floor(np.full(n, -3.0, np.float32), kk)
     if case == "ties":
         s[:] = -1.25
     elif case == "signed_zeros":
@@ -183,7 +217,7 @@ def test_select_passes_emulated(case):
     want = np.sort(w)[::-1][:kk]
     np.testing.assert_array_equal(got, want)
     assert passes == {"spread": 1, "ties": 4, "signed_zeros": 4, "dead": 1,
-                      "few_live": 1}[case]
+                      "few_live": 1, "floor_fails": 2}[case]
 
 
 # -- the select's plain version and dispatch -----------------------------------
