@@ -106,12 +106,13 @@
 // plans' masked dedup scan is this masked scan over the eligible slots of
 // the grouped slab viewed as (nlist * max_list, d) rows (the slots of a
 // source with a member query and valid * mask > 0.5, in flat-id order,
-// built on the card like the flat scan's eligible rows), with B5's
+// built on the card by ivf_score.cu's fcvi_ivf_masked_slots), with B5's
 // epilogue under the template flag B5: (2 <x, q>) * scale - ||x||^2 with
 // no -||q||^2 term, and -inf for a query whose member bit of the slot's
-// source is clear (each row carries its source's 64-query word of member
-// bits), so any member matrix gives B5's function. Ids are flat slot ids,
-// ordered by (score desc, flat id asc), B5's order over an ascending uniq.
+// list is clear (each row reads its list's 64-query word of member bits),
+// so any member matrix whose live sources are distinct lists gives B5's
+// function. Ids are flat slot ids, ordered by (score desc, flat id asc),
+// B5's order over an ascending uniq.
 // The list scan of ivf_score.cu restaged each list's rows for every four
 // member queries and merged one partial per (list, query); here the
 // eligible rows are read once per 64 queries, on the tensor cores.
@@ -493,9 +494,9 @@ struct ScanArgs {
   const float* scale;     // null: 1.0
   const int* elig;        // null: every row
   const int* n_elig;
-  const int* esrc;        // B5: the source (uniq slot) of each eligible row
-  const u64* mbits;       // B5: (sources, mwords) member bits; null: not B5
+  const u64* mbits;       // B5: (lists, mwords) member bits; null: not B5
   int mwords;
+  int mlist;              // B5: rows a list (row r is in list r / mlist)
   const float* q;
   long long n;
   int nq, d, kk, cap;     // cap 0 on the selection path
@@ -518,7 +519,7 @@ struct ScanArgs {
 
 // Pass 1 (see the header). BQ queries a block (the MMA's N); SEL: the
 // selection path (scores to a.sel), else the buffered one; B5: the IVF
-// masked scan's epilogue (no -||q||^2 term; -inf where the row's source has
+// masked scan's epilogue (no -||q||^2 term; -inf where the row's list has
 // the query's member bit clear), over the eligible slots of a flattened
 // grouped slab.
 template <int ET, int BQ, bool SEL, bool B5>
@@ -731,7 +732,7 @@ scan_kernel(const ScanArgs a, const __grid_constant__ CUtensorMap map) {
   // and + 8 (corpus id, virtual index, ||x||^2, scale)
   long long rid_r[2] = {0, 0}, col_r[2] = {0, 0};
   float xsq_r[2] = {0.f, 0.f}, sc_r[2] = {1.f, 1.f};
-  u64 mw_r[2] = {0, 0};   // B5: the member bits of the row's source
+  u64 mw_r[2] = {0, 0};   // B5: the member bits of the row's list
   const unsigned lbo = BQ * 16, sbo = 128;
   auto tile_rows = [&](int t) {
     const long long t0 = r_begin + (long long)t * kRows;
@@ -749,8 +750,7 @@ scan_kernel(const ScanArgs a, const __grid_constant__ CUtensorMap map) {
         xsq_r[h] = xsq[rid_r[h]];
         sc_r[h] = scale != nullptr ? scale[rid_r[h]] : 1.f;
         if constexpr (B5)
-          mw_r[h] = a.mbits[(long long)a.esrc[pos_of(t0 + r)] * a.mwords +
-                            (q0 >> 6)];
+          mw_r[h] = a.mbits[(rid_r[h] / a.mlist) * a.mwords + (q0 >> 6)];
       }
     }
   };
@@ -1463,10 +1463,11 @@ int score_topk(ScanArgs a, int bq, int nchunks,
 // variants pass elig, the ascending ids of the eligible rows, and n_elig,
 // their count, both on the card (null for every row). B5 mask= (the IVF
 // masked scan, x the grouped slab viewed as (nlist * max_list, d) rows)
-// also passes esrc, each eligible row's source, and mbits (sources,
-// mwords), the sources' member bits (query j at bit j % 64 of word j / 64):
-// scores lose the -||q||^2 term and read -inf for a query whose bit is
-// clear; null mbits for the flat scans. bq is the query tile
+// also passes mlist, the rows a list (max_list), and mbits (nlist,
+// mwords), the lists' member bits (query j at bit j % 64 of word j / 64;
+// fcvi_ivf_masked_slots builds both): scores lose the -||q||^2 term and
+// read -inf for a query whose bit is clear; null mbits for the flat
+// scans. bq is the query tile
 // (64, 32, 16 or 8), stages the ring's slots (3..kMaxStages); qstream
 // stages the query operand a column chunk at a time (rows too wide for all
 // of it in shared memory).
@@ -1484,7 +1485,7 @@ int score_topk(ScanArgs a, int bq, int nchunks,
 // ids-only variant. stats, null but for profiling, takes kStatSlots sums.
 extern "C" int fcvi_score_topk(
     const void* x, int et, const float* xsq, const float* scale,
-    const int* elig, const int* n_elig, const int* esrc, const void* mbits,
+    const int* elig, const int* n_elig, int mlist, const void* mbits,
     int mwords, const float* q, long long n, int nq,
     int d, int kk, int bq, int cap, int stages, int qstream, int nchunks,
     long long chunk_rows, float* part_s, int* part_i, int* part_n,
@@ -1496,11 +1497,10 @@ extern "C" int fcvi_score_topk(
     float* rows_v, float* rows_f, u64* stats, void* stream) {
   if (nq <= 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  if (mbits != nullptr && (elig == nullptr || esrc == nullptr))
+  if (mbits != nullptr && (elig == nullptr || mlist <= 0))
     return (int)cudaErrorInvalidValue;
-  ScanArgs a{x, xsq, scale, elig, n_elig, esrc,
-             static_cast<const u64*>(mbits), mwords, q, n, nq, d, kk, cap,
-             chunk_rows,
+  ScanArgs a{x, xsq, scale, elig, n_elig, static_cast<const u64*>(mbits),
+             mwords, mlist, q, n, nq, d, kk, cap, chunk_rows,
              part_s, part_i, part_n, spill_s, spill_i, sel, n, sample,
              nullptr, nullptr, stats, 0, qstream, stages};
   const SelectArgs* sa = static_cast<const SelectArgs*>(sel_args);

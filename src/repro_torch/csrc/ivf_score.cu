@@ -591,6 +591,85 @@ list_select_kernel(const SelectArgs sa, const float* __restrict__ sel,
 }
 
 // Pass 1's dynamic shared memory for dc staged columns (staged_cols(d)).
+// B5 mask='s operands, built on the card with no host synchronisation for
+// the flat scan (fused_score_topk.cu) that runs it:
+//   list_bits_kernel: a warp a source; the source's member bits (query j
+//     at bit j % 64 of word j / 64) OR-ed into its list's words of lbits
+//     (zeroed first), so a list's bits are its member queries;
+//   slot_count_kernel / offsets_kernel / slot_ids_kernel: the eligible
+//     slots, valid * mask > 0.5 in a list with a member query, as flat ids
+//     in ascending order (kSlotChunk slots a block: each block counts its
+//     own, the offsets are their exclusive sum, then each block writes its
+//     ids at its offset, in order by a block-wide scan).
+constexpr int kSlotChunk = 4 * kThreads;
+
+__global__ void __launch_bounds__(kThreads)
+list_bits_kernel(const float* __restrict__ member,
+                 const int* __restrict__ uniq, int nsrc, int b, int words,
+                 u64* __restrict__ lbits) {
+  const long long s = ((long long)blockIdx.x * kThreads + threadIdx.x) / 32;
+  const int lane = threadIdx.x & 31;
+  if (s >= nsrc) return;                         // whole warps alike
+  for (int w = 0; w < words; ++w) {
+    u64 bits = 0;
+    for (int h = 0; h < 2; ++h) {
+      const int j = 64 * w + 32 * h + lane;
+      const unsigned m = __ballot_sync(0xffffffffu,
+                                       j < b && member[s * b + j] > 0.5f);
+      bits |= (u64)m << (32 * h);
+    }
+    if (lane == 0 && bits != 0)
+      atomicOr(lbits + (long long)uniq[s] * words + w, bits);
+  }
+}
+
+// slot e is eligible: valid * mask > 0.5, and its list has a member query
+__device__ __forceinline__ bool slot_live(const float* valid,
+                                          const float* mask, const u64* lbits,
+                                          int L, int words, long long e) {
+  if (!(valid[e] * mask[e] > 0.5f)) return false;
+  const u64* lw = lbits + (e / L) * words;
+  for (int w = 0; w < words; ++w)
+    if (lw[w] != 0) return true;
+  return false;
+}
+
+__global__ void __launch_bounds__(kThreads)
+slot_count_kernel(const float* __restrict__ valid,
+                  const float* __restrict__ mask,
+                  const u64* __restrict__ lbits, long long n, int L,
+                  int words, int* __restrict__ counts) {
+  const long long e0 = (long long)blockIdx.x * kSlotChunk;
+  int c = 0;
+  for (int i = threadIdx.x; i < kSlotChunk; i += kThreads)
+    c += e0 + i < n && slot_live(valid, mask, lbits, L, words, e0 + i);
+  unsigned total;
+  block_scan((unsigned)c, &total);
+  if (threadIdx.x == 0) counts[blockIdx.x] = (int)total;
+}
+
+__global__ void __launch_bounds__(kThreads)
+slot_ids_kernel(const float* __restrict__ valid,
+                const float* __restrict__ mask,
+                const u64* __restrict__ lbits, long long n, int L, int words,
+                const int* __restrict__ offsets, int* __restrict__ elig) {
+  constexpr int kPer = kSlotChunk / kThreads;    // a thread's run of slots
+  const long long e0 = (long long)blockIdx.x * kSlotChunk +
+                       (long long)threadIdx.x * kPer;
+  bool live[kPer];
+  unsigned c = 0;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    live[i] = e0 + i < n && slot_live(valid, mask, lbits, L, words, e0 + i);
+    c += live[i];
+  }
+  unsigned total;
+  int at = offsets[blockIdx.x] + (int)block_scan(c, &total);
+#pragma unroll
+  for (int i = 0; i < kPer; ++i)
+    if (live[i]) elig[at++] = (int)(e0 + i);
+}
+
 size_t list_scan_smem(int cap, int dc) {
   const size_t ds = (size_t)dc + 4;
   const size_t words = kBQ * ds + kTile * ds + 3 * kTile + 4 * kBQ + 8 +
@@ -634,6 +713,41 @@ cudaError_t launch_list_scan(const void* grouped, const float* gsq,
 }
 
 }  // namespace
+
+// B5 mask='s operands (see list_bits_kernel): valid, mask (nlist, L), member
+// (nsrc, b) and uniq (nsrc,) in; lbits (nlist, words) u64, the lists'
+// member bits (words = ceil(b / 64)), and elig (nlist * L,) int32, the
+// eligible slots' flat ids in ascending order, out; work holds 2 *
+// ceil(nlist * L / kSlotChunk) + 1 ints: the blocks' counts, then their
+// offsets, whose last is the eligible count (the flat scan's n_elig).
+extern "C" int fcvi_ivf_masked_slots(const float* valid, const float* mask,
+                                     const float* member, const int* uniq,
+                                     int nsrc, int b, int nlist, int L,
+                                     int words, void* lbits, int* elig,
+                                     int* work, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  u64* lb = static_cast<u64*>(lbits);
+  cudaError_t err = cudaMemsetAsync(
+      lb, 0, sizeof(u64) * (size_t)nlist * words, st);
+  if (err != cudaSuccess) return (int)err;
+  if (nsrc > 0) {
+    const long long warps = (long long)nsrc * 32;
+    list_bits_kernel<<<(unsigned)((warps + kThreads - 1) / kThreads),
+                       kThreads, 0, st>>>(member, uniq, nsrc, b, words, lb);
+  }
+  const long long n = (long long)nlist * L;
+  const int chunks = (int)((n + kSlotChunk - 1) / kSlotChunk);
+  int* counts = work;
+  int* offsets = work + chunks;
+  if (chunks > 0)
+    slot_count_kernel<<<chunks, kThreads, 0, st>>>(valid, mask, lb, n, L,
+                                                   words, counts);
+  offsets_kernel<<<1, kThreads, 0, st>>>(counts, chunks, offsets);
+  if (chunks > 0)
+    slot_ids_kernel<<<chunks, kThreads, 0, st>>>(valid, mask, lb, n, L,
+                                                 words, offsets, elig);
+  return (int)cudaGetLastError();
+}
 
 // One entry point for the three kernels. et selects the slab's stored
 // element type (0 fp32, 1 bf16, 2 int8) and gsc (nlist, max_list) its

@@ -43,7 +43,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "fcvi_fused_transform": [_P, _P, _P, _F, _P, _P, _P, _P, _P, _L, _I, _I,
                              _P],
-    "fcvi_score_topk": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _L, _I, _I,
+    "fcvi_score_topk": [_P, _I, _P, _P, _P, _P, _I, _P, _I, _P, _L, _I, _I,
                         _I, _I, _I, _I, _I, _I, _L, _P, _P, _P, _P, _P, _L,
                         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
                         _P, _P, _P],
@@ -52,6 +52,8 @@ SIGNATURES = {
     "fcvi_ivf_score_topk": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
                             _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                             _P, _P, _I, _I, _P, _P, _P],
+    "fcvi_ivf_masked_slots": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
+                              _P],
     "fcvi_pq_lut_qdot": [_P, _P, _P, _I, _I, _I, _I, _P],
     "fcvi_pq_score": [_P, _I, _P, _P, _L, _I, _I, _I, _P],
     "fcvi_pq_score_topk": [_P, _I, _P, _P, _I, _P, _L, _I, _I, _I, _I, _I,

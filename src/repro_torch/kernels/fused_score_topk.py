@@ -213,8 +213,9 @@ def _launch(corpus, sq_norms, queries, k, payload_v=None, payload_f=None,
     (error code, counter name infix and suffix, vals, ids, rows). ``stats``,
     an (STATS,) int64 tensor or None, takes the scan's optional profile;
     ``sel_stats`` (``_build.select_stats``) the select's. ``b5`` (the IVF
-    masked scan, ``ivf_score``'s ``mask=``): (elig, n_elig, esrc, member
-    bits) in place of ``mask``, over the grouped slab's flattened rows."""
+    masked scan, ``ivf_score``'s ``mask=``): (elig, n_elig, the lists'
+    member bits (nlist, words), rows a list) in place of ``mask``, over the
+    grouped slab's flattened rows."""
     if corpus.dim() != 2 or queries.dim() != 2:
         raise ValueError("corpus and queries must be 2-D")
     n, d = corpus.shape
@@ -233,11 +234,12 @@ def _launch(corpus, sq_norms, queries, k, payload_v=None, payload_f=None,
     p = plan(n, nq, k, d,
              torch.cuda.get_device_properties(dev).multi_processor_count,
              select, et)
-    elig = n_elig = esrc = mbits = None
+    elig = n_elig = mbits = None
+    mlist = 0
     if mask is not None:
         elig, n_elig = eligible_ids(mask)
     if b5 is not None:
-        elig, n_elig, esrc, mbits = b5
+        elig, n_elig, mbits, mlist = b5
     part_s = part_i = part_n = spill_s = spill_i = None
     sel = sel_args = sel_scratch = None
     sample_sel = thr0_s = thr0_i = None
@@ -275,7 +277,7 @@ def _launch(corpus, sq_norms, queries, k, payload_v=None, payload_f=None,
     with torch.cuda.device(dev):
         code = lib.fcvi_score_topk(
             corpus.data_ptr(), et, sq_norms.data_ptr(), ptr(scales),
-            ptr(elig), ptr(n_elig), ptr(esrc), ptr(mbits),
+            ptr(elig), ptr(n_elig), mlist, ptr(mbits),
             0 if mbits is None else mbits.shape[1], queries.data_ptr(), n,
             nq, d, k, p.bq,
             p.cap, p.stages, int(p.qstream), p.nchunks, p.chunk_rows,

@@ -23,9 +23,9 @@ back) and ids are flat slot ids ``list * max_list + slot``. Ties go to the small
 flat id for B5/B6 and to the earlier (probe position, slot) for B7, as the
 TPU kernels' running top-k orders them; dead slots read (-inf, id 0).
 
-``mask=`` builds the eligible slots on the card (``masked_slots``: valid *
-mask > 0.5 in a source with a member query, in flat-id order, no host
-synchronisation) and the sources' member bits (``member_bits``), and runs
+``mask=`` builds its operands on the card (``masked_slots``: the eligible
+slots, valid * mask > 0.5 in a list with a member query, as ascending flat
+ids, and each list's member bits, with no host synchronisation) and runs
 the flat scan over those rows of the slab viewed as (nlist * max_list, d),
 with B5's epilogue (no -||q||^2, the member test per query); its selection
 path is the flat scan's. The unmasked scans keep the list scans below.
@@ -190,49 +190,33 @@ def _launch(grouped, grouped_sq, valid, src_list, member, queries, k,
     return code, ("_select" if p.select else "") + suffix, vals, ids, rows
 
 
-def member_bits(member: torch.Tensor) -> torch.Tensor:
-    """member (s, b) float 0/1 -> (s, ceil(b / 64)) int64: query j's entry
-    > 0.5 as bit j % 64 of word j // 64 (the B5 masked scan's member
-    test)."""
-    s, b = member.shape
-    words = -(-b // 64)
-    bits = torch.zeros((s, words * 64), dtype=torch.int64,
-                       device=member.device)
-    bits[:, :b] = (member > 0.5).to(torch.int64)
-    weight = torch.ones(64, dtype=torch.int64, device=member.device) << \
-        torch.arange(64, device=member.device)
-    # distinct powers of two: the sum is their OR (bit 63 is -2**63)
-    return (bits.view(s, words, 64) * weight).sum(dim=-1)
+SLOT_CHUNK = 4 * THREADS   # slots a block of the eligible-slot builder
 
 
 def masked_slots(valid: torch.Tensor, mask: torch.Tensor, uniq: torch.Tensor,
                  member: torch.Tensor):
-    """The eligible slots of B5 ``mask=``, built on the operands' device by
-    a prefix sum and scatters, with no host synchronisation (the kernel
-    reads the count): (elig (s * L + 1,) int32 whose first ``count``
-    entries are the flat slot ids ``uniq[i] * L + slot`` of the slots with
-    valid * mask > 0.5 of the sources i whose member row has any query set,
-    in source then slot order; count (1,) int32; esrc (s * L + 1,) int32,
-    each one's source i). Over an ascending ``uniq`` (both callers in
-    ``index/ivf.py``; the routed plan's tail repeats a live id under an
-    empty member row and is skipped) the ids ascend. Slot s * L takes the
-    other slots' writes and is never read."""
-    s, L = uniq.shape[0], valid.shape[1]
+    """B5 ``mask=``'s operands on the card (``fcvi_ivf_masked_slots``, no
+    host synchronisation): (elig (nlist * max_list,) int32 whose first
+    ``count`` entries are the flat ids of the eligible slots, valid * mask
+    > 0.5 in a list with a member query, ascending; count (1,) int32; the
+    lists' member bits (nlist, ceil(b / 64)) int64, query j at bit j % 64
+    of word j // 64, OR-ed over a list's sources). The plain version is
+    ``ref.ref_ivf_masked_slots``."""
+    nlist, L = valid.shape
+    nsrc, b = member.shape
     dev = valid.device
-    u = uniq.long()
-    live = (member > 0.5).any(dim=1)
-    keep = (((valid * mask)[u] > 0.5) & live[:, None]).reshape(-1)
-    pos = torch.cumsum(keep, 0, dtype=torch.int32)
-    at = torch.where(keep, pos - 1, s * L).long()
-    flat = (u[:, None] * L + torch.arange(L, device=dev)).reshape(-1)
-    elig = torch.empty(s * L + 1, dtype=torch.int32, device=dev)
-    elig.scatter_(0, at, flat.to(torch.int32))
-    esrc = torch.empty(s * L + 1, dtype=torch.int32, device=dev)
-    esrc.scatter_(0, at, torch.arange(s, dtype=torch.int32, device=dev)
-                  .repeat_interleave(L))
-    count = (pos[-1:] if s * L else
-             torch.zeros(1, dtype=torch.int32, device=dev))
-    return elig, count, esrc
+    words = -(-b // 64)
+    chunks = -(-nlist * L // SLOT_CHUNK)
+    lbits = torch.empty((nlist, words), dtype=torch.int64, device=dev)
+    elig = torch.empty(max(1, nlist * L), dtype=torch.int32, device=dev)
+    work = torch.empty(2 * chunks + 1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        code = _build.library().fcvi_ivf_masked_slots(
+            valid.data_ptr(), mask.data_ptr(), member.data_ptr(),
+            uniq.data_ptr(), nsrc, b, nlist, L, words, lbits.data_ptr(),
+            elig.data_ptr(), work.data_ptr(), _build.stream(dev))
+    # the offsets follow the blocks' counts; their last is the count
+    return code, elig, work[2 * chunks:], lbits
 
 
 def _dedup_masked(grouped, grouped_sq, valid, uniq, member, queries, k,
@@ -260,12 +244,14 @@ def _dedup_masked(grouped, grouped_sq, valid, uniq, member, queries, k,
         _build.require(scales, "scales", (nlist, max_list), dev)
     if n == 0:
         raise ValueError("an empty slab")
-    elig, count, esrc = masked_slots(valid, mask, uniq, member)
+    code, elig, count, lbits = masked_slots(valid, mask, uniq, member)
+    if code:
+        return code, "", None, None
     kk = min(k, n)
     code, tag, vals, ids, _ = _scan._launch(
         grouped.view(n, d), grouped_sq.view(n), queries, kk,
         scales=None if scales is None else scales.view(n), select=select,
-        b5=(elig, count, esrc, member_bits(member)), sel_stats=sel_stats)
+        b5=(elig, count, lbits, max_list), sel_stats=sel_stats)
     if kk < k:   # past every slot: dead slots read (-inf, 0)
         vals = torch.cat([vals, vals.new_full((b, k - kk), float("-inf"))],
                          dim=1)
@@ -290,12 +276,14 @@ def ivf_score_topk_dedup(grouped: torch.Tensor, grouped_sq: torch.Tensor,
     mask, ``mask=`` of the reference, which multiplies it into ``valid``
     outside its kernel) takes its own design: the flat scan's tensor-core
     kernel over the eligible slots only (``masked_slots``: valid * mask >
-    0.5 in a source with a member query), gathered by flat id from the
-    slab viewed as (nlist * max_list, d) rows, with B5's epilogue: no
-    -||q||^2 term, -inf where the query is no member of the slot's source,
-    flat slot ids ordered by (score desc, flat id asc), unfilled slots
-    (-inf, 0). The same function as the list scan's, for any member matrix
-    whose live sources are distinct lists (ascending in both callers).
+    0.5 in a list with a member query), gathered by flat id from the slab
+    viewed as (nlist * max_list, d) rows, with B5's epilogue: no -||q||^2
+    term, -inf where the query is no member of the slot's list, flat slot
+    ids ordered by (score desc, flat id asc), unfilled slots (-inf, 0).
+    The same function as the list scan's for any member matrix whose live
+    sources (those with a member query) are distinct lists, in ascending
+    order: both callers' (``index/ivf.py``; the routed plan's tail repeats
+    a live id under an empty member row).
     Masked launches count apart (``ivf_score_topk_dedup_masked`` and its
     ``_select``/``_bf16``/``_int8`` forms). ``_select`` forces the
     selection path (True) or the buffered one (False), for holding one

@@ -292,6 +292,28 @@ def ref_ivf_score_topk_dedup_rows(grouped: Tensor, grouped_sq: Tensor,
     return (vals, ids, *rows)
 
 
+def ref_ivf_masked_slots(valid: Tensor, mask: Tensor, uniq: Tensor,
+                         member: Tensor):
+    """B5 ``mask=``'s operands (``ivf_score.masked_slots``'s kernel): (the
+    eligible slots' flat ids, ascending int32: valid * mask > 0.5 in a list
+    with a member query; the lists' member bits (nlist, ceil(b / 64))
+    int64, query j at bit j % 64 of word j // 64, OR-ed over the list's
+    sources in ``uniq``)."""
+    nlist, L = valid.shape
+    s, b = member.shape
+    words = -(-b // 64)
+    hits = torch.zeros((nlist, words * 64), dtype=torch.int64,
+                       device=valid.device)
+    hits[:, :b].index_add_(0, uniq.long(), (member > 0.5).to(torch.int64))
+    weight = torch.ones(64, dtype=torch.int64, device=valid.device) << \
+        torch.arange(64, device=valid.device)
+    # distinct powers of two: the sum is their OR (bit 63 is -2**63)
+    lbits = ((hits > 0).to(torch.int64).view(nlist, words, 64)
+             * weight).sum(dim=-1)
+    keep = ((valid * mask) > 0.5) & (lbits != 0).any(dim=1)[:, None]
+    return torch.nonzero(keep.reshape(-1)).flatten().to(torch.int32), lbits
+
+
 def dedup_probes(probes: Tensor, nlist: int):
     """Compact a (b, nprobe) probe matrix into (uniq, member) for the dedup
     scan: uniq (s,) int32 unique list ids in ascending order, s = min(nlist,

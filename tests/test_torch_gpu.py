@@ -1469,7 +1469,8 @@ def test_ivf_mask_on_tensor_cores_matches_plain(cuda, dtype, sel):
     an eligible row, the tail repeating a live id under an empty member
     row) and under a sparse member, against its plain version; the
     selection path bit-equal to the buffered one; its launches on the
-    masked counters."""
+    masked counters; its operand builder (eligible slots, the lists'
+    member bits) equal to the plain version."""
     from repro_torch.index import ivf
 
     nlist, max_list, b, d = 48, 200, 64, 128
@@ -1489,6 +1490,14 @@ def test_ivf_mask_on_tensor_cores_matches_plain(cuda, dtype, sel):
     suffix = {"float32": "", "bfloat16": "_bf16", "int8": "_int8"}[dtype]
     for uniq_, member in ((every, torch.ones((nlist, b), device=cuda)),
                           (uniq, rmember), (every, sparse)):
+        # the operand builder against its plain version
+        code, elig, count, lbits = ivf_score.masked_slots(valid, mask, uniq_,
+                                                          member)
+        want_ids, want_bits = ref.ref_ivf_masked_slots(valid, mask, uniq_,
+                                                       member)
+        assert code == 0 and int(count.item()) == want_ids.numel()
+        assert torch.equal(elig[:want_ids.numel()], want_ids)
+        assert torch.equal(lbits, want_bits)
         for k in (18, 128):
             args = (g, gsq, valid, uniq_, member, q)
             _build.reset_launch_counts()

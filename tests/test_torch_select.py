@@ -9,7 +9,8 @@ the buffer), against a sort, so the state machine's pass counts and its
 result are held without a card. B5 ``mask=`` now runs the flat scan over
 the eligible slots of the flattened grouped slab, with B5's epilogue; that
 function, composed here in plain PyTorch from the wrapper's own operands
-(``ivf_score.masked_slots``, ``member_bits``), is held against the port's
+(``ref.ref_ivf_masked_slots``, the plain version of its operand builder),
+is held against the port's
 plain B5 and the JAX package's B5 ``mask=`` (its Pallas kernel in
 interpret mode and its plain path): scores at rtol 1e-5 / atol 1e-4, ids
 equal outside near-ties, dead slots exactly (-inf, 0).
@@ -254,9 +255,11 @@ def test_ref_select_topk_matches_a_sort():
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_masked_slots_match_numpy_nonzero(seed):
-    """The eligible slots in source then slot order: valid * mask > 0.5 in
-    the sources whose member row has any query set (numpy.nonzero over the
-    same product), with each slot's source; the count on the device."""
+    """The eligible slots (the plain version of the card's builder): flat
+    ids of valid * mask > 0.5 in the lists with a member query, ascending
+    (numpy.nonzero over the same product); each list's member bits, OR-ed
+    over its sources (a routed tail repeats a live id under an empty member
+    row; a source no query probed adds nothing)."""
     rng = np.random.default_rng(seed)
     nlist, L, b = 12, 37, 70
     valid = (rng.random((nlist, L)) < 0.8).astype(np.float32)
@@ -265,20 +268,18 @@ def test_masked_slots_match_numpy_nonzero(seed):
     member = (rng.random((8, b)) < 0.3).astype(np.float32)
     member[6:] = 0.0           # the routed tail: a live id, no member
     member[1] = 0.0            # a source no query probed
-    elig, count, esrc = ivf_score.masked_slots(
+    ids, lbits = ref.ref_ivf_masked_slots(
         *map(tensor, (valid, mask, uniq, member)))
-    keep = ((valid * mask)[uniq] > 0.5) & member.any(axis=1)[:, None]
-    src, slot = np.nonzero(keep)
-    want = uniq[src].astype(np.int64) * L + slot
-    c = int(count.item())
-    assert c == want.size
-    np.testing.assert_array_equal(elig[:c].numpy(), want)
-    np.testing.assert_array_equal(esrc[:c].numpy(), src)
-    assert (np.diff(want) > 0).all()   # ascending: uniq ascends on live
-    bits = ivf_score.member_bits(tensor(member)).numpy().view(np.uint64)
+    want_bits = np.zeros((nlist, b), bool)
+    for src, lst in enumerate(uniq):
+        want_bits[lst] |= member[src] > 0.5
+    live = want_bits.any(axis=1)
+    want = np.nonzero((((valid * mask) > 0.5) & live[:, None]).reshape(-1))
+    np.testing.assert_array_equal(ids.numpy(), want[0])
+    bits = lbits.numpy().view(np.uint64)
     for j in range(b):
         got = (bits[:, j // 64] >> np.uint64(j % 64)) & np.uint64(1)
-        np.testing.assert_array_equal(got.astype(bool), member[:, j] > 0.5)
+        np.testing.assert_array_equal(got.astype(bool), want_bits[:, j])
 
 
 # -- B5 mask=: the new kernel's function, composed in plain PyTorch -------------
@@ -286,26 +287,24 @@ def test_masked_slots_match_numpy_nonzero(seed):
 def _b5_masked(grouped, gsq, valid, uniq, member, q, k, scales, mask):
     """What the tensor-core masked scan computes: over the eligible slots
     of the flattened slab, (2 <x, q>) scale - ||x||^2 (no ||q||^2), -inf
-    where the query's member bit of the slot's source is clear, the first
-    k by (score desc, flat id asc), unfilled slots (-inf, 0)."""
+    where the query's member bit of the slot's list is clear, the first k
+    by (score desc, flat id asc), unfilled slots (-inf, 0)."""
     nlist, L, d = grouped.shape
-    elig, count, esrc = ivf_score.masked_slots(valid, mask, uniq, member)
-    c = int(count.item())
-    ids = elig[:c].long()
+    ids, lbits = ref.ref_ivf_masked_slots(valid, mask, uniq, member)
+    ids = ids.long()
     rows = grouped.reshape(nlist * L, d)[ids].to(torch.float32)
     s = 2.0 * (q @ rows.T)
     if scales is not None:
         s = s * scales.reshape(-1)[ids]
     s = s - gsq.reshape(-1)[ids]
-    b = q.shape[0]
-    j = torch.arange(b)
-    words = ivf_score.member_bits(member)[esrc[:c].long()][:, j // 64]
+    j = torch.arange(q.shape[0])
+    words = lbits[ids // L][:, j // 64]
     bit = (words >> (j % 64)) & 1
     s = torch.where(bit.T.bool(), s, float("-inf"))
-    vals, ids_out = ref.ref_select_topk(s, k)
-    ids_out = torch.where(torch.isneginf(vals), 0,
-                          ids[ids_out.long()] if c else ids_out)
-    return vals, ids_out.to(torch.int32)
+    vals, pos = ref.ref_select_topk(s, k)
+    out = torch.where(torch.isneginf(vals), 0,
+                      ids[pos.long()] if ids.numel() else pos)
+    return vals, out.to(torch.int32)
 
 
 def _b5_case(dtype, case, rng):
