@@ -226,9 +226,10 @@ def library_topk(tag: str, scores, kk: int, live: int, iters: int,
     topk_select.select_topk(scores, kk, _cap=cap, _stats=stats)
     lib = time_ms(lambda: torch.topk(scores, kk, dim=1, sorted=True), iters)
     bound = 1e3 * (4 * live + 12 * scores.shape[0] * kk) / PEAK_BYTES_S
+    buf = "" if cap is None else f" (buffer {cap})"
     print(f"select {tag}: the select alone on the ({scores.shape[0]}, "
-          f"{scores.shape[1]}) scratch{'' if cap is None else f' (buffer {cap})'}"
-          f" {ms:.4f} ms (stages: {stages(stats)}), bit-equal to its plain "
+          f"{scores.shape[1]}) scratch{buf} {ms:.4f} ms (stages: "
+          f"{stages(stats)}), bit-equal to its plain "
           f"version; torch.topk {lib:.4f} ms; select bound {bound:.4f} ms "
           f"(bytes: {live} live entries read once, (vals, ids) written); "
           f"card {power}")

@@ -83,8 +83,8 @@
 // radix select of select_common.cuh (its passes skip a query's non-member
 // lists unread; then list_select_kernel, one block per query) selects and
 // sorts the top-kk over its member lists' slots by (score, ordering key),
-// -0.0 taken as +0.0 as better() takes it. Its (vals, ids) are the buffered path's
-// bits; the rows epilogue is the same function.
+// -0.0 taken as +0.0 as better() takes it. Its (vals, ids) are the
+// buffered path's bits; the rows epilogue is the same function.
 #include <cuda_runtime.h>
 
 #include <climits>

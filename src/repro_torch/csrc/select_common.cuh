@@ -14,16 +14,12 @@
 //      equal digits, so a hot bin takes one atomic a run), and add their
 //      non-zero bins to the query's histogram in device memory. The last
 //      block of each query (a completion counter) picks the bin that holds
-//      the kk-th word. On the first pass an entry under a floor, the digit
-//      of the r-th best of 4,096 entries sampled evenly (sel_init_kernel;
-//      some 2 kk entries lie above it), is counted in a register, not
-//      binned: it cannot be in the chosen bin, so most entries take no
-//      atomic (where the kk-th word lies under the floor after all, the
-//      first pass runs again with none). A float's top 16 bits are its
-//      sign, exponent and 7 mantissa bits, so where the scores spread, that
-//      bin is small: the
-//      words above it and in it (their count is known exactly from the
-//      histogram) fit the query's candidate buffer in device memory, and
+//      the kk-th word, from coarse sums of 256 bins first (coalesced reads:
+//      a scan of all 65,536 bins by one block set the pass's pace). A
+//      float's top 16 bits are its sign, exponent and 7 mantissa bits, so
+//      where the scores spread, that bin is small: the words above it and
+//      in it (their count is known exactly from the histogram) fit the
+//      query's candidate buffer in device memory, and
 //   2. the next launch of the same kernel compacts them into it (one read
 //      of the scratch; warp-aggregated appends). Where the bin does not
 //      fit (mass ties), the next launch histograms the next digit over the
@@ -31,8 +27,8 @@
 //      kSelPasses times, does a histogram, a compaction or nothing per
 //      query as the query's state says, so the pass count follows the
 //      data (one histogram and one compaction where the scores spread, at
-//      most four histograms, and a fifth past a failed floor). An entry set
-//      no larger than the buffer is compacted at once, with no histogram.
+//      most four histograms). An entry set no larger than the buffer is
+//      compacted at once, with no histogram.
 //   3. one block per query (select_finish, in each caller's finish kernel)
 //      radix-selects the kk-th word among the buffer's words by 11-bit
 //      digits below the fixed ones (2048 bins in shared memory), gathers
@@ -48,8 +44,6 @@
 #pragma once
 
 #include <cuda_runtime.h>
-
-#include <climits>
 
 namespace {
 
@@ -141,13 +135,9 @@ constexpr int kDigit = 16;                 // bits of a full-row pass's digit
 constexpr int kBins = 1 << kDigit;
 constexpr int kCoarse = 256;               // bins of a digit's top 8 bits
 constexpr int kHistWords = kBins + kCoarse;  // a query's histogram
-constexpr long long kMaxChunk = 65535;     // a pass block's entries: 16-bit bins
-// launches: four digits, a compaction, and one first pass again where the
-// sample's floor (below) was too high
-constexpr int kSelPasses = 64 / kDigit + 2;
-constexpr int kSample = 4096;              // entries a query's floor samples
-constexpr int kInitThreads = 256;
-constexpr int kFinDigit = 11;              // the buffer's digits (select_finish)
+constexpr long long kMaxChunk = 65535;   // a pass block's entries (16-bit bins)
+constexpr int kSelPasses = 64 / kDigit + 1;  // four digits, a compaction
+constexpr int kFinDigit = 11;      // the buffer's digits (select_finish)
 constexpr int kFinBins = 1 << kFinDigit;
 // a query's state between the passes (mode)
 enum : int { kModeHist = 0, kModeCompact = 1, kModeDone = 2 };
@@ -168,12 +158,9 @@ struct SelQuery {
   unsigned want;
   unsigned nbuf;       // words compacted into the candidate buffer
   unsigned arrived;    // blocks of the current launch that are done
-  unsigned total;      // competing entries (the first histogram's sum)
   int shift;
   int mode;
-  unsigned floor;      // first pass: digits below it are only counted
-  unsigned below;      // the entries under the floor (first pass)
-  unsigned pad[4];
+  unsigned pad[7];
 };
 
 // The selection path's plan and device scratch (kernels/_build.py's
@@ -302,11 +289,9 @@ __device__ __forceinline__ unsigned block_scan(unsigned v, unsigned* total) {
 // bin by one warp over kCoarse sums, then the bin among its 256 by the
 // block, so every read is coalesced), zeroes the histogram for the next
 // pass, and sets the state: a compaction where the candidates fit the
-// buffer (or every competing entry is kept), else the next digit; where
-// the kk-th word lies under the first pass's floor, the first pass again
-// without one.
+// buffer (or every competing entry is kept), else the next digit.
 __device__ void choose_bin(const SelectArgs& a, int q) {
-  __shared__ int s_coarse, s_dsel, s_found;
+  __shared__ int s_coarse, s_dsel;
   __shared__ unsigned s_total, s_left, s_above, s_bin;
   SelQuery* sq = a.st + q;
   unsigned* gh = a.hist + (long long)q * kHistWords;
@@ -328,13 +313,8 @@ __device__ void choose_bin(const SelectArgs& a, int q) {
       const unsigned t = __shfl_up_sync(0xffffffffu, incl, o);
       if (tid >= o) incl += t;
     }
-    const unsigned binned = __shfl_sync(0xffffffffu, incl, 31);
-    const unsigned hit = __ballot_sync(0xffffffffu, incl >= want);
-    const int leader = __ffs(hit) - 1;
-    if (tid == 0) {
-      s_total = binned + (first ? __ldcg(&sq->below) : 0u);
-      s_found = hit != 0u;
-    }
+    const int leader = __ffs(__ballot_sync(0xffffffffu, incl >= want)) - 1;
+    if (tid == 31) s_total = incl;
     if (tid == leader) {
       unsigned acc = incl - sum;
 #pragma unroll
@@ -350,9 +330,9 @@ __device__ void choose_bin(const SelectArgs& a, int q) {
     }
   }
   __syncthreads();
-  const unsigned total = s_total;
-  const bool all = first && total <= (unsigned)a.kk;
-  if (!all && s_found && tid < 256) {
+  // the first pass's sum counts every competing entry
+  const bool all = first && s_total <= (unsigned)a.kk;
+  if (!all && tid < 256) {
     // thread t: bin 255 - t of the coarse bin, best first
     const int bin = s_coarse * 256 + 255 - tid;
     const unsigned c = __ldcg(gh + bin);
@@ -376,14 +356,8 @@ __device__ void choose_bin(const SelectArgs& a, int q) {
   __syncthreads();
   for (int i = tid; i < kHistWords; i += blockDim.x) gh[i] = 0;
   if (tid == 0) {
-    if (first) sq->total = total;
     if (all) {   // every competing entry is kept
       sq->mode = kModeCompact;
-    } else if (!s_found) {
-      // the kk-th word lies under the sample's floor: the first pass again,
-      // every entry binned
-      sq->floor = 0;
-      sq->below = 0;
     } else {
       sq->prefix |= (u64)s_dsel << sq->shift;
       sq->fixed |= (u64)(kBins - 1) << sq->shift;
@@ -443,25 +417,10 @@ sel_pass_kernel(const Src src, const SelectArgs a, int launch) {
       ++run;
     };
     if (hi_only && shift >= 32) {
-      // on the first pass, an entry under the sample's floor cannot be in
-      // the chosen bin: it is counted in a register, not binned
       const int sh = shift - 32;
-      const unsigned flo = fixed == 0 ? sq->floor : 0u;
-      unsigned below = 0;
       for_entries(src, q, e0, e1, [&](unsigned o, long long, long long) {
-        if (o == 0u || (o & fh) != ph) return;
-        const unsigned dig = (o >> sh) & (kBins - 1);
-        if (dig < flo)
-          ++below;
-        else
-          count((int)dig);
+        if (o != 0u && (o & fh) == ph) count((int)((o >> sh) & (kBins - 1)));
       });
-      if (flo != 0u) {
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-          below += __shfl_xor_sync(0xffffffffu, below, o);
-        if ((tid & 31) == 0 && below) atomicAdd(&sq->below, below);
-      }
     } else {
       for_entries(src, q, e0, e1, [&](unsigned o, long long e,
                                       long long seg) {
@@ -530,82 +489,14 @@ sel_pass_kernel(const Src src, const SelectArgs a, int launch) {
   if (tid == 0) stat_span(a.stats, launch, t0, mode);
 }
 
-// One block per query sets its state and, where histograms run, the first
-// pass's floor: the 16-bit digit of the r-th best of kSample entries spaced
-// evenly over the query's entries (r = 2 kk kSample / n, plus 8), so that
-// some 2 kk entries lie at or above it; 0 (no floor) where fewer than r
-// samples compete. A radix select of two 8-bit digits over the sample's
-// digits.
-template <class Src>
-__global__ void __launch_bounds__(kInitThreads)
-sel_init_kernel(const Src src, const SelectArgs a) {
-  __shared__ unsigned h[256];
-  __shared__ unsigned s_pick, s_left;
-  constexpr int kPer = kSample / kInitThreads;
-  constexpr unsigned kNone = 0xffffffffu;
-  const int q = blockIdx.x, tid = threadIdx.x;
-  unsigned floor = 0;
-  if (a.hist != nullptr) {
-    const long long n = src.size(q);
-    const long long L = src.seg_len();
-    const float* row = src.row(q);
-    unsigned dig[kPer];
-    unsigned live = 0;
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const long long i = (long long)j * kInitThreads + tid;
-      const long long e = i * n / kSample;
-      dig[j] = kNone;
-      if (e < n && src.seg_live(q, e / L)) {
-        const unsigned o = src.ord(row[e]);
-        if (o != 0u) {
-          dig[j] = o >> 16;
-          ++live;
-        }
-      }
-    }
-    unsigned ns;
-    block_scan(live, &ns);
-    // each sample stands for n / kSample entries
-    const long long r = n > 0 ? (2LL * a.kk * kSample + n - 1) / n + 8 : 0;
-    if (r <= (long long)ns) {
-      unsigned left = (unsigned)r, pick = 0;
-      for (int pass = 0; pass < 2; ++pass) {   // high byte, then low byte
-        const int sh = pass == 0 ? 8 : 0;
-        h[tid] = 0;
-        __syncthreads();
-#pragma unroll
-        for (int j = 0; j < kPer; ++j)
-          if (dig[j] != kNone && (pass == 0 || (dig[j] >> 8) == pick))
-            atomicAdd(&h[(dig[j] >> sh) & 255u], 1u);
-        __syncthreads();
-        if (tid == 0) {
-          unsigned acc = 0;
-          for (int d = 255; d >= 0; --d) {
-            if (acc + h[d] >= left) {
-              s_pick = pass == 0 ? (unsigned)d : (pick << 8) | d;
-              s_left = left - acc;
-              break;
-            }
-            acc += h[d];
-          }
-        }
-        __syncthreads();
-        pick = s_pick;
-        left = s_left;
-        __syncthreads();
-      }
-      floor = pick;
-    }
-  }
-  if (tid == 0) {
-    SelQuery s = {};
-    s.want = (unsigned)a.kk;
-    s.shift = 64 - kDigit;
-    s.mode = a.hist != nullptr ? kModeHist : kModeCompact;
-    s.floor = floor;
-    a.st[q] = s;
-  }
+__global__ void sel_init_kernel(const SelectArgs a) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= a.nq) return;
+  SelQuery s = {};
+  s.want = (unsigned)a.kk;
+  s.shift = 64 - kDigit;
+  s.mode = a.hist != nullptr ? kModeHist : kModeCompact;
+  a.st[q] = s;
 }
 
 // Steps 1 and 2 for every query of src: a.nq queries, each with
@@ -613,7 +504,9 @@ sel_init_kernel(const Src src, const SelectArgs a) {
 template <class Src>
 cudaError_t select_passes(const Src& src, const SelectArgs& a,
                           cudaStream_t st) {
-  sel_init_kernel<Src><<<a.nq, kInitThreads, 0, st>>>(src, a);
+  if (a.chunk <= 0 || a.chunk > kMaxChunk || a.cap <= 0)
+    return cudaErrorInvalidValue;
+  sel_init_kernel<<<(a.nq + 255) / 256, 256, 0, st>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   int smem = 0;

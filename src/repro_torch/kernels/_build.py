@@ -221,10 +221,7 @@ SELECT_HIST_WORDS = SELECT_BINS + 256   # kHistWords: bins and coarse sums
 SELECT_MAX_CHUNK = 65535       # kMaxChunk
 SELECT_MIN_CHUNK = 16384       # the fewest entries a pass block is given
 SELECT_MIN_CAP = 16384         # the smallest candidate buffer (words)
-SELECT_PASSES = 6              # kSelPasses: four digits, a compaction and
-                               # a first pass again past a failed floor
-SELECT_SAMPLE = 4096           # kSample: entries the first pass's floor
-                               # samples a query
+SELECT_PASSES = 5              # kSelPasses: four digits and a compaction
 SELECT_STATS = 3 * (SELECT_PASSES + 1)   # kSelStatSlots
 SELECT_STATE = 64              # sizeof(SelQuery)
 SORT_SMEM_LIMIT = 196_608

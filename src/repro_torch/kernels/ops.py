@@ -26,7 +26,6 @@ from repro_torch.kernels import fused_score_topk as _scan
 from repro_torch.kernels import ivf_score as _ivf
 from repro_torch.kernels import pq_lut as _pq
 from repro_torch.kernels import rescore as _rescore
-from repro_torch.kernels import topk_select as _select
 
 Tensor = torch.Tensor
 
@@ -55,16 +54,6 @@ def score_topk(corpus: Tensor, sq_norms: Tensor, queries: Tensor, k: int,
     if corpus.is_cuda:
         return _scan.score_topk(corpus, sq_norms, queries, k, scales, mask)
     return ref.ref_score_topk(corpus, sq_norms, queries, k, scales, mask)
-
-
-def select_topk(scores: Tensor, k: int):
-    """The scans' selection-path select alone over (b, n) scores: each
-    row's k best by (score desc, column asc); -inf and NaN never enter,
-    unfilled slots read (-inf, 0). No serving path calls it: the scans run
-    the same kernels on their own scratch."""
-    if scores.is_cuda:
-        return _select.select_topk(scores, k)
-    return ref.ref_select_topk(scores, k)
 
 
 def score_topk_rows(corpus: Tensor, sq_norms: Tensor, payload_v: Tensor,

@@ -24,7 +24,7 @@ import torch
 jnp = pytest.importorskip("jax.numpy")  # the card's machine has no JAX
 
 from repro.kernels import ops as jops
-from repro_torch.kernels import _build, ivf_score, ops, ref
+from repro_torch.kernels import _build, ref
 from test_torch_filter_kernels import _check_masked, _opt
 from test_torch_quant_kernels import _ivf_operands
 from test_torch_support import ivf_inputs, tensor
@@ -33,7 +33,7 @@ SMS = 132   # the H100's SMs
 FINISH_STATIC = 4 * 2048 + 64   # select_finish's FinishState, bytes
 
 
-# -- the planner ---------------------------------------------------------------
+# -- the planner --------------------------------------------------------------
 
 @pytest.mark.parametrize("nq,n,seg_len", [
     (64, 1_000_000, None), (64, 2 ** 31 - 1, None), (1, 1_000_000, None),
@@ -91,29 +91,13 @@ def test_select_plan_serving_shapes_and_refusals():
             _build.select_plan(**args)
 
 
-# -- the passes, emulated -------------------------------------------------------
+# -- the passes, emulated -----------------------------------------------------
 
 def _ord_eq0(s):
     """select_common.cuh's ord_bits_eq0 on float32 scores, as uint64."""
     b = s.astype(np.float32).view(np.uint32).astype(np.uint64)
     b = np.where(b == 0x80000000, 0, b)
     return np.where(b & 0x80000000, ~b & 0xFFFFFFFF, b | 0x80000000)
-
-
-def _floor(scores, kk):
-    """sel_init_kernel's first-pass floor: the 16-bit digit of the r-th
-    best of SELECT_SAMPLE entries spaced evenly (r = 2 kk SELECT_SAMPLE /
-    n, plus 8), 0 where fewer than r samples compete."""
-    n, S = scores.size, _build.SELECT_SAMPLE
-    at = np.arange(S, dtype=np.int64) * n // S
-    sample = scores[at[at < n]]
-    sample = sample[sample > -np.inf]
-    ns = sample.size
-    r = (2 * kk * S + n - 1) // n + 8
-    if r > ns:
-        return 0
-    dig = (_ord_eq0(sample) >> np.uint64(16)).astype(np.int64)
-    return int(np.sort(dig)[::-1][r - 1])
 
 
 def _emulate_select(scores, kk, cap):
@@ -126,24 +110,16 @@ def _emulate_select(scores, kk, cap):
     prefix = fixed = np.uint64(0)
     want, shift = kk, 48
     mode = "hist" if scores.size > cap else "compact"
-    floor = _floor(scores, kk) if mode == "hist" else 0
     for _ in range(_build.SELECT_PASSES if mode == "hist" else 1):
         if mode == "hist":
             hist_passes += 1
             under = w[(w & fixed) == prefix]
-            dig = ((under >> np.uint64(shift)) & np.uint64(0xFFFF)).astype(
-                np.int64)
-            below = 0
-            if fixed == 0:
-                below = int((dig < floor).sum())
-                dig = dig[dig >= floor]
-            if fixed == 0 and dig.size + below <= kk:
+            if fixed == 0 and under.size <= kk:
                 mode = "compact"
                 continue
+            dig = ((under >> np.uint64(shift)) & np.uint64(0xFFFF)).astype(
+                np.int64)
             counts = np.bincount(dig, minlength=1 << 16)[::-1]
-            if counts.sum() < want:   # the kk-th word under the floor
-                floor = 0
-                continue
             above = np.cumsum(counts) - counts
             d = int(np.argmax(above + counts >= want))
             prefix |= np.uint64((65535 - d) << shift)
@@ -184,24 +160,15 @@ def _emulate_select(scores, kk, cap):
 
 
 @pytest.mark.parametrize("case", ["spread", "ties", "signed_zeros", "dead",
-                                  "few_live", "floor_fails"])
+                                  "few_live"])
 def test_select_passes_emulated(case):
     """The passes' state machine against a sort: spread scores take one
     histogram; equal scores past the buffer take the full-row passes under
     the prefix (every score bit, then key bits); -0.0 ties +0.0; -inf
-    entries never compete; fewer live entries than kk keep them all; a
-    sample whose floor lies above the kk-th word (high scores at the
-    sampled entries alone) takes the first pass again."""
+    entries never compete; fewer live entries than kk keep them all."""
     rng = np.random.default_rng(7)
     n, kk, cap = 70_000, 300, 1024
     s = rng.normal(-3.0, 0.5, n).astype(np.float32)
-    if case == "floor_fails":
-        n, kk = 1_000_000, 2056
-        s = rng.normal(-3.0, 0.5, n).astype(np.float32)
-        at = np.arange(_build.SELECT_SAMPLE) * n // _build.SELECT_SAMPLE
-        s[at[:30]] = 10.0
-        cap = 16384
-        assert _floor(s, kk) > _floor(np.full(n, -3.0, np.float32), kk)
     if case == "ties":
         s[:] = -1.25
     elif case == "signed_zeros":
@@ -218,15 +185,14 @@ def test_select_passes_emulated(case):
     want = np.sort(w)[::-1][:kk]
     np.testing.assert_array_equal(got, want)
     assert passes == {"spread": 1, "ties": 4, "signed_zeros": 4, "dead": 1,
-                      "few_live": 1, "floor_fails": 2}[case]
+                      "few_live": 1}[case]
 
 
-# -- the select's plain version and dispatch -----------------------------------
+# -- the select's plain version and dispatch ----------------------------------
 
 def test_ref_select_topk_matches_a_sort():
     """(score desc, column asc); NaN and -inf never enter; unfilled slots
-    (-inf, 0); -0.0 ties +0.0 and keeps its bits; k past n; on the CPU
-    ``ops.select_topk`` is the plain version and launches nothing."""
+    (-inf, 0); -0.0 ties +0.0 and keeps its bits; k past n."""
     rng = np.random.default_rng(3)
     s = rng.integers(-4, 4, (5, 40)).astype(np.float32) * 0.5
     s[0, ::3] = np.nan
@@ -245,13 +211,9 @@ def test_ref_select_topk_matches_a_sort():
                 s[r, order].view(np.uint32))
             assert torch.isneginf(vals[r, m:]).all()
             assert (ids[r, m:] == 0).all()
-        _build.reset_launch_counts()
-        got = ops.select_topk(tensor(s), k)
-        assert torch.equal(got[0], vals) and torch.equal(got[1], ids)
-        assert _build.launch_counts() == {}
 
 
-# -- B5 mask=: the eligible slots and the member bits ----------------------------
+# -- B5 mask=: the eligible slots and the member bits -------------------------
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_masked_slots_match_numpy_nonzero(seed):
@@ -282,7 +244,7 @@ def test_masked_slots_match_numpy_nonzero(seed):
         np.testing.assert_array_equal(got.astype(bool), want_bits[:, j])
 
 
-# -- B5 mask=: the new kernel's function, composed in plain PyTorch -------------
+# -- B5 mask=: the new kernel's function, composed in plain PyTorch -----------
 
 def _b5_masked(grouped, gsq, valid, uniq, member, q, k, scales, mask):
     """What the tensor-core masked scan computes: over the eligible slots
