@@ -1196,8 +1196,7 @@ merge_kernel(const float* __restrict__ part_s, const int* __restrict__ part_i,
 // The queries' scores in the selection path (query q's row at q * ld): a
 // -inf or NaN score does not compete, as it never beats a buffer's
 // threshold; -0.0 counts as +0.0. The count is n, or *n_elig (the masked
-// scan's eligible rows, on the card). One segment: no entry is skipped
-// unread.
+// scan's eligible rows, on the card). No segments: every entry is read.
 struct FlatScores {
   const float* s;
   long long ld;
@@ -1206,8 +1205,7 @@ struct FlatScores {
   __device__ long long size(int) const {
     return n_elig != nullptr ? (long long)*n_elig : n;
   }
-  __device__ long long seg_len() const { return kWholeRow; }
-  __device__ bool seg_live(int, long long) const { return true; }
+  static constexpr bool kSegmented = false;
   __device__ const float* row(int q) const { return s + (long long)q * ld; }
   __device__ unsigned ord(float v) const {
     return v > -INFINITY ? ord_bits_eq0(v) : 0u;

@@ -535,6 +535,7 @@ struct ListScores {
   const float* member;   // (nseg, b) for dedup, null for batch
   const int* uniq;
   int nseg, L, b;
+  static constexpr bool kSegmented = true;
   __device__ long long size(int) const { return (long long)nseg * L; }
   __device__ long long seg_len() const { return L; }
   __device__ bool seg_live(int j, long long seg) const {

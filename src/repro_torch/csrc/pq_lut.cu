@@ -312,14 +312,13 @@ pq_merge_kernel(const u64* __restrict__ part, long long len, int kk, int cap,
 
 // The queries' -d2 in grouped order (query q's row at q * n), keyed by the
 // original row id; every entry competes (its order bits are never 0 for a
-// sum of finite LUT entries). One segment.
+// sum of finite LUT entries). No segments.
 struct PqScores {
   const float* s;
   const int* gid;
   long long n;
   __device__ long long size(int) const { return n; }
-  __device__ long long seg_len() const { return kWholeRow; }
-  __device__ bool seg_live(int, long long) const { return true; }
+  static constexpr bool kSegmented = false;
   __device__ const float* row(int q) const { return s + (long long)q * n; }
   __device__ unsigned ord(float v) const { return ord_bits(v); }
   __device__ int key(int, long long, long long e) const { return gid[e]; }

@@ -145,8 +145,6 @@ enum : int { kModeHist = 0, kModeCompact = 1, kModeDone = 2 };
 // first block's start and the last block's end (globaltimer ns) and the
 // modes its blocks ran (bit 1 << mode)
 constexpr int kSelStatSlots = 3 * (kSelPasses + 1);
-// a source with no segments: one segment longer than any row
-constexpr long long kWholeRow = 1LL << 62;
 
 // One query's state, 64 bytes. The words at or above `prefix` in the bits
 // `fixed` are the candidates; `want` is the kk-th word's rank among those
@@ -199,67 +197,6 @@ __device__ __forceinline__ void stat_span(u64* stats, int slot, u64 t0,
   atomicOr(stats + 3 * slot + 2, 1ull << mode);
 }
 
-// Calls f(ord, entry, segment) for the entries [e0, e1) of query q, every
-// thread of the block the same number of times (ord 0 past the range and
-// for an entry that does not compete: a competing entry's order bits are
-// never 0). The scores are read 16 bytes a thread at a time, kPassUnroll
-// of them in flight (a thread's four consecutive entries a load), with the
-// few entries before the first aligned one and after the last, one a
-// thread. A segment whose src.seg_live is false is skipped unread: its
-// live test runs once a block. Src gives the query's row of scores
-// (row(q)), an entry's order bits (ord(v), 0 when it does not compete),
-// and its key (key(q, seg, e)), read only where a word is needed.
-template <class Src, class F>
-__device__ __forceinline__ void for_entries(const Src& src, int q,
-                                            long long e0, long long e1,
-                                            F f) {
-  const long long L = src.seg_len();
-  const float* row = src.row(q);
-  const int tid = threadIdx.x;
-  const long long nt = blockDim.x;
-  for (long long seg = e0 / L; seg * L < e1; ++seg) {
-    if (!src.seg_live(q, seg)) continue;
-    const long long lo = seg * L > e0 ? seg * L : e0;
-    const long long hi = (seg + 1) * L < e1 ? (seg + 1) * L : e1;
-    const int mis = (int)((reinterpret_cast<uintptr_t>(row + lo) >> 2) & 3);
-    long long a = lo + ((4 - mis) & 3);
-    if (a > hi) a = hi;
-    const long long nvec = (hi - a) >> 2;
-    const long long tail = a + 4 * nvec;
-    {  // the entries before the first aligned one, and after the last
-      const long long e = lo + tid, t = tail + tid;
-      f(e < a ? src.ord(row[e]) : 0u, e, seg);
-      f(t < hi ? src.ord(row[t]) : 0u, t, seg);
-    }
-    const float4* v4 = reinterpret_cast<const float4*>(row + a);
-    for (long long base = 0; base < nvec; base += nt * kPassUnroll) {
-      float4 v[kPassUnroll];
-#pragma unroll
-      for (int u = 0; u < kPassUnroll; ++u) {
-        const long long i = base + u * nt + tid;
-        if (i < nvec) v[u] = __ldcs(v4 + i);
-      }
-#pragma unroll
-      for (int u = 0; u < kPassUnroll; ++u) {
-        const long long i = base + u * nt + tid;
-        const long long e = a + 4 * i;
-        const bool in = i < nvec;   // past it, nothing competes
-        f(in ? src.ord(v[u].x) : 0u, e, seg);
-        f(in ? src.ord(v[u].y) : 0u, e + 1, seg);
-        f(in ? src.ord(v[u].z) : 0u, e + 2, seg);
-        f(in ? src.ord(v[u].w) : 0u, e + 3, seg);
-      }
-    }
-  }
-}
-
-// The packed word of an entry of order bits o.
-template <class Src>
-__device__ __forceinline__ u64 word_at(const Src& src, int q, long long seg,
-                                       long long e, unsigned o) {
-  return ((u64)o << 32) | (u64)(~(unsigned)src.key(q, seg, e));
-}
-
 // Exclusive prefix sum of v over the block's threads in order; *total gets
 // the sum. Every thread must call it.
 __device__ __forceinline__ unsigned block_scan(unsigned v, unsigned* total) {
@@ -282,6 +219,86 @@ __device__ __forceinline__ unsigned block_scan(unsigned v, unsigned* total) {
   __syncthreads();
   *total = all;
   return before + incl - v;
+}
+
+// Calls f(ord, entry, segment) for the entries [e0, e1) of query q, every
+// thread of the block the same number of times (ord 0 past the range and
+// for an entry that does not compete: a competing entry's order bits are
+// never 0). The scores are read 16 bytes a thread at a time, kPassUnroll
+// of them in flight (a thread's four consecutive entries a load), with the
+// few entries before the first aligned one and after the last, one a
+// thread. A source with segments (Src::kSegmented: IVF lists of seg_len()
+// entries) has the block test seg_live a block's width of segments at a
+// time, a segment a thread, and read the live ones only. Src gives the
+// query's row of scores (row(q)), an entry's order bits (ord(v), 0 when it
+// does not compete), and its key (key(q, seg, e)), read only where a word
+// is needed.
+template <class Src, class F>
+__device__ __forceinline__ void for_entries(const Src& src, int q,
+                                            long long e0, long long e1,
+                                            F f) {
+  const float* row = src.row(q);
+  const int tid = threadIdx.x;
+  const long long nt = blockDim.x;
+  // the entries [lo, hi) of segment seg
+  auto run = [&](long long seg, long long lo, long long hi) {
+    const int mis = (int)((reinterpret_cast<uintptr_t>(row + lo) >> 2) & 3);
+    long long a = lo + ((4 - mis) & 3);
+    if (a > hi) a = hi;
+    const long long nvec = (hi - a) >> 2;
+    const long long tail = a + 4 * nvec;
+    {  // the entries before the first aligned one, and after the last
+      const long long e = lo + tid, t = tail + tid;
+      f(e < a ? src.ord(row[e]) : 0u, e, seg);
+      f(t < hi ? src.ord(row[t]) : 0u, t, seg);
+    }
+    const float4* v4 = reinterpret_cast<const float4*>(row + a);
+    for (long long base = 0; base < nvec; base += nt * kPassUnroll) {
+      float4 v[kPassUnroll];
+#pragma unroll
+      for (int u = 0; u < kPassUnroll; ++u) {
+        const long long j = base + u * nt + tid;
+        if (j < nvec) v[u] = __ldcs(v4 + j);
+      }
+#pragma unroll
+      for (int u = 0; u < kPassUnroll; ++u) {
+        const long long j = base + u * nt + tid;
+        const long long e = a + 4 * j;
+        const bool in = j < nvec;   // past it, nothing competes
+        f(in ? src.ord(v[u].x) : 0u, e, seg);
+        f(in ? src.ord(v[u].y) : 0u, e + 1, seg);
+        f(in ? src.ord(v[u].z) : 0u, e + 2, seg);
+        f(in ? src.ord(v[u].w) : 0u, e + 3, seg);
+      }
+    }
+  };
+  if constexpr (!Src::kSegmented) {
+    run(0, e0, e1);
+  } else {
+    __shared__ int live_off[kPassThreads];   // a group's live segments
+    const long long L = src.seg_len();
+    const long long s_end = (e1 - 1) / L + 1;
+    for (long long g0 = e0 / L; g0 < s_end; g0 += nt) {
+      const bool lv = g0 + tid < s_end && src.seg_live(q, g0 + tid);
+      unsigned nlive;
+      const unsigned at = block_scan(lv ? 1u : 0u, &nlive);
+      if (lv) live_off[at] = tid;
+      __syncthreads();
+      for (unsigned i = 0; i < nlive; ++i) {
+        const long long seg = g0 + live_off[i];
+        run(seg, seg * L > e0 ? seg * L : e0,
+            (seg + 1) * L < e1 ? (seg + 1) * L : e1);
+      }
+      __syncthreads();   // every thread has read live_off before the next
+    }
+  }
+}
+
+// The packed word of an entry of order bits o.
+template <class Src>
+__device__ __forceinline__ u64 word_at(const Src& src, int q, long long seg,
+                                       long long e, unsigned o) {
+  return ((u64)o << 32) | (u64)(~(unsigned)src.key(q, seg, e));
 }
 
 // The last block of query q's histogram pass: picks the bin of the query's
