@@ -1597,11 +1597,11 @@ def masked_kernels(ix: dict, masks, q_t, power) -> dict:
                                   device=q_t.device)
             scanned[uniq[:n_scan].long()] = True
             live = int(((ib.valid * gmask) > 0.5)[scanned].sum())
-            # PR 17's rule: the larger of the bytes (the eligible rows read
-            # once, the scanned lists' valid and mask flags, the queries and
-            # member matrix, (vals, ids) written) and the function's 2 b
-            # n_elig d flops at the tensor cores' peak (TF32 for fp32 rows,
-            # bf16 otherwise)
+            # as for the flat scan: the larger of the bytes (the eligible
+            # rows read once, the scanned lists' valid and mask flags, the
+            # queries and member matrix, (vals, ids) written) and the
+            # function's 2 b n_elig d flops at the tensor cores' peak (TF32
+            # for fp32 rows, bf16 otherwise)
             bnd, by, unit = scan_bound_ms(
                 live * row_bytes + 8 * n_scan * ib.max_list + q_t.nbytes
                 + member.nbytes + 8 * B * K_MASK, B * live, D,
