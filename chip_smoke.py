@@ -46,7 +46,8 @@ Phases, each of which raises (and exits non-zero) on a failure:
    serving path calls it, in the JAX package either). Checks: the first
    batch against a CPU engine on the same state; one batch at
    ``nprobe=nlist`` against the flat engine on the same corpus; recall@10
-   printed beside the flat path's (IVF is approximate: no floor).
+   printed beside the flat path's (IVF is approximate: no floor) and held
+   to its value before the list scan's redesign (the same scores).
 3c. end to end, PQ: the same corpus and queries with
    ``FCVIConfig(backend="pq")``, every field at its default (pq_m=8,
    pq_ksub=256, pq_coarse=32: 64-bit codes) and all of ``EngineConfig`` at
@@ -82,7 +83,8 @@ Phases, each of which raises (and exits non-zero) on a failure:
    the serving sequence of phase 3, one ``fcvi.query`` and one direct
    ``ops.ivf_score_topk_batch`` call (B7 int8); the first batch against a
    CPU engine on the same state (probe near-ties left out); recall@10
-   printed beside IVF fp32's (no floor). Last, an engine over the bf16
+   printed beside IVF fp32's and held to its value before the list scan's
+   redesign. Last, an engine over the bf16
    slabs serves its warm-up batch and one batch of 64, one ``fcvi.query``
    and one direct B7 call, its first batch against a CPU engine too.
 3f. predicate search (the filter algebra) on the same corpus with its raw
@@ -116,7 +118,8 @@ Phases, each of which raises (and exits non-zero) on a failure:
    and 960 and kk 88, 328 and 2056 against their plain versions (the L2
    tolerance plus a sqrt(d) depth term); the flat selection path bit-equal
    to the buffered one at kk 88, 328 and 1032, and against the plain
-   version at kk 2048 and 2056; B5-B7 likewise at k 80 and 3200; the
+   version at kk 2048 and 2056; B5-B7 likewise at k 80 (bit-equal) and
+   3200 (past the buffers: against the plain version); the
    select alone (``topk_select.select_topk``: the kernels every selection
    path runs) on phase 3's (64, 1M) scores at kk 88 and 2056, bit-equal to
    its plain version, beside ``torch.topk`` on the same scratch (its
@@ -165,6 +168,9 @@ PEAK_TF32_S = 495e12          # dense TF32 on the tensor cores
 PEAK_BF16_S = 989e12          # dense bf16 on the tensor cores
 FLAT_RECALL_BEFORE = 0.9992   # phase 3's flat recall@10 before the
                               # tensor-core scan (PERF.md)
+# phases 3b's and 3e's IVF recall@10 before the list scan's redesign (fp32,
+# int8; PERF.md): its scores are the same bits, so its results are too
+IVF_RECALL_BEFORE = {"ivf": 0.9992, "ivf-int8": 0.9992}
 
 N, D, M, B = 1_000_000, 128, 8, 64
 KP = 80                      # k' of the defaults: k=10, lam=0.5, c=4
@@ -728,6 +734,57 @@ def ivf_bound(be, uniq, member, nq, k, row_floats):
     return bnd, by, real, padded
 
 
+def member_stats(be, uniq, member) -> dict:
+    """A batch's probed lists: how many, how many member queries each (a
+    histogram), their live rows, the member pairs (query, live row), and
+    the passes the list scan makes over them (``ivf_score.list_passes``
+    at its plan's default of Q_MAX member queries a pass)."""
+    mem = member.cpu().numpy() > 0.5
+    per = mem.sum(axis=1)
+    live = per > 0
+    sizes = be.list_sizes.long().cpu().numpy()[uniq.long().cpu().numpy()]
+    hist = np.bincount(per[live])
+    passes = ivf_kern.list_passes(member).cpu().numpy()
+    out = dict(unique_lists=int(live.sum()), probes=int(per.sum()),
+               members_mean=float(per[live].mean()),
+               members_max=int(per.max()),
+               members_hist={int(m): int(c) for m, c in enumerate(hist) if c},
+               live_rows=int(sizes[live].sum()),
+               pair_rows=int((per * sizes).sum()),
+               list_rows_median=float(np.median(sizes[live])),
+               list_rows_max=int(sizes[live].max()),
+               passes=int(passes.sum()),
+               rows_read_by_passes=int((passes * sizes).sum()))
+    print(f"[members] {out['unique_lists']} unique lists for "
+          f"{out['probes']} probes: {out['members_mean']:.3f} member "
+          f"queries a list (max {out['members_max']}); lists by members "
+          f"{out['members_hist']}; live rows {out['live_rows']} (a list: "
+          f"median {out['list_rows_median']:.0f}, max "
+          f"{out['list_rows_max']}); member pairs x rows {out['pair_rows']}; "
+          f"the list scan: {out['passes']} list passes reading "
+          f"{out['rows_read_by_passes']} rows")
+    return out
+
+
+def kernel_split(fn, calls: int = 10) -> dict:
+    """Device ms per call of each kernel ``fn`` launches (torch.profiler
+    over ``calls`` calls, after one)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.key.replace("(anonymous namespace)::", "")
+            out[name.split("(")[0][:48]] = (e.self_device_time_total / 1e3
+                                            / calls)
+    return out
+
+
 def depth_atol(q_t, rows, d: int) -> torch.Tensor:
     """(b, 1) the absolute term a d-term fp32 dot product's rounding adds to
     a score: sqrt(d) u ||q|| max ||x|| (u = 2^-24), the usual estimate of a
@@ -762,6 +819,7 @@ def ivf_kernels(index, qb: np.ndarray, fb: np.ndarray, dev, power: str,
     n_live = int((member > 0.5).any(dim=1).sum())
     print(f"[ivf-kernel] batch of {B}: {n_live} unique probed lists of "
           f"{NLIST} ({B * NPROBE} probes); slabs {be.grouped.dtype}")
+    member_stats(be, uniq, member)
     grp = (be.grouped, be.grouped_sq, be.valid)
     ded = (*grp, uniq, member, q_t)
     d = be.grouped.shape[-1]
@@ -781,6 +839,18 @@ def ivf_kernels(index, qb: np.ndarray, fb: np.ndarray, dev, power: str,
               "ivf_score_topk_dedup_rows rows differ from the gathered rows")
         bv, bi = ops.ivf_score_topk_batch(*grp, probes, q_t, k, scales=sc)
         rbv, rbi = ref.ref_ivf_score_topk_batch(*grp, probes, q_t, k + 1, sc)
+        if not ivf_kern.plan(k, d, be.grouped.dtype).select:
+            # the selection path forced: the buffered path's bits
+            sel = (ivf_kern.ivf_score_topk_dedup(*ded, k, sc, _select=True),
+                   ivf_kern.ivf_score_topk_dedup_rows(*ded, gpv, gpf, k, sc,
+                                                      _select=True),
+                   ivf_kern.ivf_score_topk_batch(*grp, probes, q_t, k, sc,
+                                                 _select=True))
+            check(all(all(torch.equal(u, v) for u, v in zip(a, b_))
+                      for a, b_ in zip(sel, ((vals, ids), out, (bv, bi)))),
+                  f"B5-B7 {be.grouped.dtype} k={k}: the selection path "
+                  "differs from the buffered one")
+            del sel
         runs = {
             "ivf_score_topk_dedup": (
                 (vals, ids), (rvals, rids),
@@ -820,13 +890,17 @@ def ivf_kernels(index, qb: np.ndarray, fb: np.ndarray, dev, power: str,
             plain = time_ms(plain_fn, 3)
             bnd, by, real, padded = ivf_bound(be, uniq, member, B, k,
                                               row_floats)
+            split = ""
+            if base != "ivf_score_topk_batch":   # B5's and B6's kernels
+                split = "; by kernel, device ms: " + ", ".join(
+                    f"{n} {t:.4f}" for n, t in kernel_split(kernel).items())
             print(f"[kernel] {name} b={B} nlist={NLIST} max_list="
                   f"{be.max_list} d={d} nprobe={NPROBE} k={k}: max_abs_err "
                   f"{err:.3g} (tolerance up to {tol:.3g}) ids {agree}/{total} "
                   "outside near-ties; "
                   f"kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms "
                   f"{bnd:.4f} ({by}; probed lists {real / 1e6:.1f} MB of "
-                  f"real rows, {padded / 1e6:.1f} MB padded)")
+                  f"real rows, {padded / 1e6:.1f} MB padded){split}")
             if k == ks[0]:    # the main path's default width goes in the line
                 res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                  bound_ms=bnd, bound_by=by, library_ms=None)
@@ -834,7 +908,8 @@ def ivf_kernels(index, qb: np.ndarray, fb: np.ndarray, dev, power: str,
                 res[name]["max_abs_err"] = max(err, res[name]["max_abs_err"])
     print(f"[ivf-kernel] B6{suffix} (vals, ids) bit-equal to B5{suffix}'s "
           f"and its rows bit-equal to the gathered rows at k in {ks}, "
-          f"d={d}; card {power}")
+          f"d={d}; the selection path bit-equal to the buffered one where "
+          f"both plan; card {power}")
     return res
 
 
@@ -891,7 +966,10 @@ def phase_ivf(dev, power: str, inp: Inputs, flat_recall: float):
 
     recall = recall_vs_truth(index, state0, inp, ids, dev)
     print(f"[ivf] recall@10 {recall:.4f} over 512 queries (flat path "
-          f"{flat_recall:.4f}); card {power}")
+          f"{flat_recall:.4f}; before the list scan's redesign "
+          f"{IVF_RECALL_BEFORE['ivf']:.4f}); card {power}")
+    check(abs(recall - IVF_RECALL_BEFORE["ivf"]) < 1e-4, "IVF recall@10 "
+          f"{recall:.4f} differs from {IVF_RECALL_BEFORE['ivf']:.4f}")
     qb, fb = inp.q_all[:B], inp.f_all[:B]
     ties = probe_ties(be.centroids, index.transform.apply(qv, qf), NPROBE)
     print(f"[ivf] {int(ties.sum())} of {B} first-batch queries at a probe "
@@ -1395,7 +1473,11 @@ def phase_storage_ivf(dev, power: str, inp: Inputs, ivf_recall: float):
     del eng
     recall = recall_vs_truth(index, state0, inp, ids, dev)
     print(f"[ivf-int8] recall@10 {recall:.4f} over 512 queries (IVF fp32 "
-          f"{ivf_recall:.4f}); card {power}")
+          f"{ivf_recall:.4f}; before the list scan's redesign "
+          f"{IVF_RECALL_BEFORE['ivf-int8']:.4f}); card {power}")
+    check(abs(recall - IVF_RECALL_BEFORE["ivf-int8"]) < 1e-4, "IVF int8 "
+          f"recall@10 {recall:.4f} differs from "
+          f"{IVF_RECALL_BEFORE['ivf-int8']:.4f}")
     ties = probe_ties(be.centroids, index.transform.apply(qv, qf), NPROBE)
     print(f"[ivf-int8] {int(ties.sum())} of {B} first-batch queries at a "
           "probe near-tie")
@@ -2000,10 +2082,12 @@ def select_kernels(flat_ix, ivf_ix, inp: Inputs, dev, power) -> dict:
                         *grp, probes, q_t, k, _select=s),
                     lambda: ref.ref_ivf_score_topk_batch(*grp, probes, q_t,
                                                          k), 0)}
+        buffered = not ivf_kern.plan(k, D, ib.grouped.dtype).select
         for name, (kern, plain_fn, row_floats) in runs.items():
-            a, b = kern(True), kern(False)
-            check(all(torch.equal(u, v) for u, v in zip(a, b)),
-                  f"{name} k={k}: selection path differs from buffered")
+            a = kern(True)
+            if buffered:
+                check(all(torch.equal(u, v) for u, v in zip(a, kern(False))),
+                      f"{name} k={k}: selection path differs from buffered")
             want = plain_fn()[0]
             live = ~torch.isneginf(want)
             check(torch.equal(torch.isneginf(a[0]), ~live),
@@ -2011,16 +2095,18 @@ def select_kernels(flat_ix, ivf_ix, inp: Inputs, dev, power) -> dict:
             err = (a[0] - want)[live].abs().max().item()
             tol = (L2_ATOL + L2_RTOL * want[live].abs()).max().item()
             check(err <= tol, f"{name}_select k={k} error {err}")
-            del a, b, want
+            del a, want
             ms_sel = time_ms(lambda: kern(True), 5)
-            ms_buf = time_ms(lambda: kern(False), 5)
             plain = time_ms(plain_fn, 2)
             bnd, by, _, _ = ivf_bound(ib, uniq, member, B, k, row_floats)
+            versus = (f"bit-equal to the buffered path (buffered "
+                      f"{time_ms(lambda: kern(False), 5):.4f} ms)"
+                      if buffered else
+                      "past the buffers: against the plain version")
             print(f"[kernel] {name}_select (forced) b={B} nlist={NLIST} "
-                  f"nprobe={NPROBE} k={k}: bit-equal to the buffered path; "
-                  f"max_abs_err {err:.3g}; kernel_ms {ms_sel:.4f} (buffered "
-                  f"{ms_buf:.4f}) plain_ms {plain:.4f} bound_ms {bnd:.4f} "
-                  f"({by}); card {power}")
+                  f"nprobe={NPROBE} k={k}: {versus}; max_abs_err {err:.3g}; "
+                  f"kernel_ms {ms_sel:.4f} plain_ms {plain:.4f} bound_ms "
+                  f"{bnd:.4f} ({by}); card {power}")
             if k == 40 * KP:
                 res[name + "_select"] = dict(
                     max_abs_err=err, ms=ms_sel, plain_ms=plain, bound_ms=bnd,

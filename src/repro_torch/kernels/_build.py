@@ -50,8 +50,8 @@ SIGNATURES = {
     "fcvi_select_topk": [_P, _L, _P, _P, _P, _P],
     "fcvi_rescore": [_P, _P, _P, _P, _F, _F, _P, _I, _I, _I, _I, _P],
     "fcvi_ivf_score_topk": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
-                            _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                            _P, _P, _I, _I, _P, _P, _P],
+                            _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                            _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     "fcvi_ivf_masked_slots": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
                               _P],
     "fcvi_pq_lut_qdot": [_P, _P, _P, _I, _I, _I, _I, _P],
@@ -198,15 +198,6 @@ def element_type(t: torch.Tensor, name: str):
         raise ValueError(f"{name} must be float32, bfloat16 or int8, got "
                          f"{t.dtype}")
     return ELEMENT_TYPES[t.dtype]
-
-
-DC = 128  # columns the scans stage per chunk (kDC in csrc/topk_common.cuh)
-
-
-def staged_cols(d: int) -> int:
-    """Columns of a row the scans stage per chunk: d rounded up to 4, at
-    most DC."""
-    return min((d + 3) & ~3, DC)
 
 
 # The selection path of the scans (csrc/select_common.cuh): pass blocks over

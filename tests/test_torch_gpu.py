@@ -949,6 +949,129 @@ def test_ivf_select_ties_dense_member_and_routed_tail(cuda):
         assert _equal(ops.ivf_score_topk_dedup(*args, k), want)
 
 
+def _list_case(case, dev):
+    """(grouped fp32, valid, uniq, member, probes, q, pv, pf, k) of a shape
+    that breaks the list scan's mapping: a list that all 64 queries probe
+    (eight passes of Q_MAX), sources with no member between live ones,
+    ragged and empty lists (a tile with no valid row; a max_list that is no
+    multiple of 4), k past every query's live rows, and wide rows (a ring of
+    many column chunks)."""
+    rng = np.random.default_rng(7)
+    nlist, L, b, nprobe, d, k = {
+        "all_probe": (6, 300, 64, 3, 64, 80),
+        "no_member": (40, 100, 5, 2, 64, 40),
+        "ragged": (9, 650, 7, 4, 32, 60),
+        "k_past_live": (10, 64, 4, 2, 64, 500),
+        "wide960": (8, 300, 5, 3, 960, 50),
+        "wide1536": (8, 300, 5, 3, 1536, 50)}[case]
+    grouped = normal(rng, nlist, L, d)
+    valid = (rng.random((nlist, L)) > 0.2).astype(np.float32)
+    probes = np.stack([rng.permutation(nlist)[:nprobe]
+                       for _ in range(b)]).astype(np.int32)
+    if case == "all_probe":
+        others = np.array([0, 1, 3, 4, 5])
+        probes = np.stack([[2, *rng.choice(others, nprobe - 1, False)]
+                           for _ in range(b)]).astype(np.int32)
+    elif case == "ragged":
+        valid[:] = 0.0
+        for i, n in enumerate((0, 1, 31, 32, 33, 255, 256, 257, 600)):
+            valid[i, :n] = 1.0
+        valid[8, 256:512] = 0.0   # a whole tile with no valid row
+    elif case == "k_past_live":
+        valid[:, 20:] = 0.0
+    pv, pf = normal(rng, nlist, L, d), normal(rng, nlist, L, 8)
+    g, v, p, qq, pv_t, pf_t = (tensor(a, dev) for a in
+                               (grouped, valid, probes,
+                                normal(rng, b, d), pv, pf))
+    if case == "no_member":   # every list a source, most with no member
+        uniq = torch.arange(nlist, dtype=torch.int32, device=dev)
+        member = torch.zeros((nlist, b), device=dev)
+        member[p.long(), torch.arange(b, device=dev)[:, None]] = 1.0
+    else:
+        uniq, member = ops.dedup_probes(p, nlist)
+    return g, v, uniq, member, p, qq, pv_t, pf_t, k
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("case", ["all_probe", "no_member", "ragged",
+                                  "k_past_live", "wide960", "wide1536"])
+def test_ivf_list_scan_edges(cuda, case, dtype):
+    """B5, B6 and B7 against their plain versions where the list scan's
+    items, passes, tiles and ring meet their edges; B6's (vals, ids)
+    bit-equal to B5's and its rows to the gathered rows; the selection
+    path bit-equal to the buffered one for all three."""
+    g, valid, uniq, member, probes, q, pv, pf, k = _list_case(case, cuda)
+    nlist, L, d = g.shape
+    gsc = None
+    if dtype == "float32":
+        grouped, gsq = g, torch.sum(g * g, dim=-1)
+    else:
+        flat, scales, sq = _stored(g.reshape(-1, d), dtype)
+        grouped, gsq = flat.reshape(g.shape), sq.reshape(nlist, L)
+        gsc = None if scales is None else scales.reshape(nlist, L)
+    assert not ivf_score.plan(k, d, grouped.dtype).select
+    total = nlist * L
+    ded = (grouped, gsq, valid, uniq, member, q)
+    got = ops.ivf_score_topk_dedup(*ded, k, scales=gsc)
+    _ivf_check(got, ref.ref_ivf_score_topk_dedup(*ded, k, gsc),
+               ref.ref_ivf_score_topk_dedup(*ded, k + 1, gsc)
+               if k < total else None)
+    assert _equal(got, ivf_score.ivf_score_topk_dedup(*ded, k, gsc,
+                                                      _select=True))
+    rows = ops.ivf_score_topk_dedup_rows(*ded, pv, pf, k, scales=gsc)
+    assert _equal(rows[:2], got)
+    dead = torch.isneginf(got[0])[..., None]
+    idx = got[1].long()
+    assert torch.equal(rows[2], torch.where(dead, 0.0, pv.reshape(-1, d)[idx]))
+    assert torch.equal(rows[3], torch.where(dead, 0.0, pf.reshape(-1, 8)[idx]))
+    assert _equal(rows, ivf_score.ivf_score_topk_dedup_rows(
+        *ded, pv, pf, k, gsc, _select=True))
+    bat = (grouped, gsq, valid, probes, q)
+    got = ops.ivf_score_topk_batch(*bat, k, scales=gsc)
+    _ivf_check(got, ref.ref_ivf_score_topk_batch(*bat, k, gsc),
+               ref.ref_ivf_score_topk_batch(*bat, k + 1, gsc)
+               if k < total else None)
+    assert _equal(got, ivf_score.ivf_score_topk_batch(*bat, k, gsc,
+                                                      _select=True))
+    if case == "k_past_live":   # every query's tail slots are dead
+        assert torch.isneginf(got[0][:, 40:]).all()
+        assert (got[1][:, 40:] == 0).all()
+
+
+@pytest.mark.parametrize("case", ["all_probe", "ragged", "no_member"])
+def test_ivf_scan_profile_counts_tiles_and_passes(cuda, case):
+    """The list scan reads a list once per pass of at most Q_MAX member
+    queries (none for a source with no member; one a probe for B7), and in
+    each pass only the tiles with a valid row: its profile's pass and tile
+    counts against counts from the inputs, on both paths."""
+    g, valid, uniq, member, probes, q, _, _, k = _list_case(case, cuda)
+    nlist, L, _ = g.shape
+    gsq = torch.sum(g * g, dim=-1)
+    t = ivf_score.TILE_ROWS
+    v = valid.cpu().numpy() > 0.5
+    tiles = np.array([sum(v[i, t0:t0 + t].any() for t0 in range(0, L, t))
+                      for i in range(nlist)])
+    passes = ivf_score.list_passes(member).cpu().numpy()
+    lists = uniq.long().cpu().numpy()
+    probed = probes.long().cpu().numpy().ravel()
+    for select in (False, True):
+        stats = torch.zeros(ivf_score.STATS, dtype=torch.int64, device=cuda)
+        ivf_score.ivf_score_topk_dedup(g, gsq, valid, uniq, member, q, k,
+                                       _select=select, _stats=stats)
+        st = dict(zip(ivf_score.STAT_NAMES, stats.tolist()))
+        assert st["tiles"] == int((passes * tiles[lists]).sum())
+        assert st["passes"] == (0 if select else int(passes.sum()))
+        assert st["compute"] > 0 and st["producer_item"] > 0
+        stats.zero_()
+        ivf_score.ivf_score_topk_batch(g, gsq, valid, probes, q, k,
+                                       _select=select, _stats=stats)
+        st = dict(zip(ivf_score.STAT_NAMES, stats.tolist()))
+        assert st["tiles"] == int(tiles[probed].sum())
+        assert st["passes"] == (0 if select else probed.size)
+    if case == "all_probe":   # list 2 has 64 members: eight passes
+        assert passes[lists == 2].tolist() == [64 // ivf_score.Q_MAX]
+
+
 def _pq_case(n, m, ksub, ncoarse, b, dtype, dev, seed=0,
              signed_zeros=False):
     """(combined codes, grouped layout, luts) of a random PQ corpus on

@@ -168,31 +168,101 @@ def test_dedup_probes_matches_jax(b, nlist, nprobe):
     assert set(uniq.numpy()[live]) == set(probes.ravel())
 
 
-def test_ivf_plan_sizes_fit_and_refuse():
+DTYPES = [torch.float32, torch.bfloat16, torch.int8]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ivf_plan_sizes_fit_and_refuse(dtype):
     """Every k >= 1 and every width plans (slots past the live candidates
-    read (-inf, 0), as in the reference): buffered where the buffers fit in
-    shared memory, the selection path past them; only k <= 0 raises."""
-    for k, d in itertools.product([80, 320, 2048, 3200, 4096, 50_000, 1, 16],
+    read (-inf, 0), as in the reference): buffered where a ring of at least
+    MIN_STAGES stages, the buffers of some member queries a pass and the
+    merge fit in shared memory, the selection path past them; only k <= 0
+    raises."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    for k, d in itertools.product([80, 320, 1000, 1744, 1745, 2048, 3200, 4096,
+                                   50_000, 1, 16],
                                   [128, 384, 960, 1536, 30, 64]):
-        p = ivf_score.plan(k, d)
-        dc = ivf_score.staged_cols(d)
-        assert ivf_score.scan_smem(p.cap, dc) <= ivf_score.SMEM_LIMIT
-        fits = (ivf_score.scan_smem(ivf_score._pow2(k + 2 * ivf_score.TILE),
-                                    dc) <= ivf_score.SMEM_LIMIT)
-        assert p.select == (not fits), (k, d)
+        p = ivf_score.plan(k, d, dtype)
+        assert p.smem == ivf_score.scan_smem(elem, p.stages, p.q, p.cap)
+        assert p.smem <= ivf_score.SMEM_LIMIT
+        assert ivf_score.MIN_STAGES <= p.stages <= ivf_score.MAX_STAGES
+        assert 1 <= p.q <= ivf_score.Q_MAX
         if p.select:
-            assert p.cap == p.merge_cap == 0
-        else:
-            assert p.cap >= k + 2 * ivf_score.TILE and p.merge_cap >= k
-        assert ivf_score.plan(k, d, select=True).select
-        if not fits:
+            assert p.cap == 0 and p.q == ivf_score.Q_MAX
             with pytest.raises(ValueError, match="do not fit"):
-                ivf_score.plan(k, d, select=False)
-    # IVF at EngineConfig(k=100) escalates to k'=3200: buffered at d=384
-    assert not ivf_score.plan(3200, 384).select
+                ivf_score.plan(k, d, dtype, select=False)
+        else:
+            # a tile of admissions never overflows a buffer that was cut
+            assert p.cap >= k + ivf_score.TILE_ROWS
+            assert ivf_score.merge_smem(k) <= ivf_score.MERGE_LIMIT
+            assert ivf_score.plan(k, d, dtype, select=False) == p
+        assert ivf_score.plan(k, d, dtype, select=True).select
+    # the default k' and its escalation: every member query of a list in one
+    # pass, two tiles of room; IVF at EngineConfig(k=100) escalates to
+    # k'=3200: the selection path, whose select reads the scores once
+    for k in (80, 320):
+        p = ivf_score.plan(k, 128, dtype)
+        assert not p.select and p.q == ivf_score.Q_MAX
+        assert p.cap == k + 2 * ivf_score.TILE_ROWS
+    assert ivf_score.plan(3200, 384, dtype).select
     for k in (0, -3):
         with pytest.raises(ValueError):
-            ivf_score.plan(k, 128)
+            ivf_score.plan(k, 128, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ivf_ring_fits_every_width(dtype):
+    """A stage is one tile of TILE_ROWS rows x one 128-byte column chunk,
+    whatever d: rows of any width take more stages of the ring, not larger
+    ones, so the plan (and its shared memory) is the same at every d up to
+    1536, and each box of BOX_ROWS rows is one consumer warp's."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    assert ivf_score.stage_bytes(elem) == (
+        ivf_score.TILE_ROWS * 128 + ivf_score.Q_MAX * (128 // elem) * 4
+        + 2 * ivf_score.TILE_ROWS * 4 + ivf_score.META_BYTES)
+    assert ivf_score.TILE_ROWS % ivf_score.BOX_ROWS == 0
+    assert ivf_score.TILE_ROWS // ivf_score.BOX_ROWS == 8
+    for k in (1, 80, 320, 1000):
+        plans = {ivf_score.plan(k, d, dtype)
+                 for d in (1, 16, 100, 128, 384, 960, 1536)}
+        assert len(plans) == 1
+        (p,) = plans
+        assert p.stages * ivf_score.stage_bytes(elem) <= p.smem
+
+
+def test_ivf_merge_smem_is_the_stream_cut():
+    """Pass 2's shared memory: eight warps' buffers of k plus eight rounds
+    of 256 entries (two where that passes 200 KB, k where k is larger), 8
+    bytes an entry, beside a 256-bin histogram a warp."""
+    for k in (1, 80, 320, 1024, 1744, 2048, 3200):
+        extra = 8 * 256 if 8 * 8 * (k + max(k, 8 * 256)) <= 200 * 1024 \
+            else 2 * 256
+        assert ivf_score.merge_smem(k) == 8 * (8 * (k + max(k, extra))
+                                               + 4 * 256)
+    assert ivf_score.merge_smem(1744) <= ivf_score.MERGE_LIMIT
+    assert ivf_score.merge_smem(1745) > ivf_score.MERGE_LIMIT
+    assert ivf_score.plan(1744, 128).q == 4      # the merge's last k
+    assert ivf_score.plan(1745, 128).select
+
+
+@pytest.mark.parametrize("q", [1, 2, 4, 8])
+def test_ivf_list_passes_count_member_queries(q):
+    """Pass 1 reads a source's list once per q of its member queries, and
+    not at all with none: against a numpy count on member matrices from
+    empty to dense (every query on every list, the mask plan's shape)."""
+    rng = np.random.default_rng(q)
+    for s, b, density in ((40, 64, 0.03), (17, 5, 0.5), (8, 64, 1.0),
+                          (6, 3, 0.0)):
+        member = (rng.random((s, b)) < density).astype(np.float32)
+        want = -(-member.sum(axis=1).astype(np.int64) // q)
+        got = ivf_score.list_passes(torch.tensor(member), q)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+    # the default plan's passes at phase 3b's members (at most 6 a list)
+    member = np.zeros((3, 64), np.float32)
+    member[0, :6] = member[1, :1] = 1.0
+    assert ivf_score.list_passes(torch.tensor(member)).tolist() == [1, 1, 0]
+
 
 def test_ivf_cpu_dispatch_launches_no_kernel():
     g, gsq, valid, probes, q, pv, pf = map(tensor, ivf_inputs(8, 16, 3, 2))

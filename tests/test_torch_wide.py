@@ -15,6 +15,7 @@ PQ queries at a candidate near-tie of either stage are left out, as in
 """
 import numpy as np
 import pytest
+import torch
 
 jnp = pytest.importorskip("jax.numpy")  # the card's machine has no JAX
 
@@ -82,13 +83,16 @@ def test_card_plans_take_these_shapes(d):
     (what used to raise): the stage-2 flat scan at kk=2056 on the
     selection path (its merge's buffers do not fit) for a batch of 40 and
     a sub-batch of 4, at every stored type; kk=1032 on the buffers for a
-    sub-batch of 4; the IVF scan at k'=2048 and 3200 on the buffered path
-    at any d, a forced fold at kp=4096 on the selection path."""
-    for et in (0, 1, 2):
+    sub-batch of 4; the IVF scan at k'=1024 on the buffered path and at
+    k'=2048 and 3200 on the selection path (its merge's buffers do not fit)
+    at any d and stored type, a forced fold at kp=4096 on the selection
+    path."""
+    for et, dtype in enumerate((torch.float32, torch.bfloat16, torch.int8)):
         assert fused_score_topk.plan(4096, 40, 2056, d, 132, et=et).select
         assert fused_score_topk.plan(4096, 4, 2056, d, 132, et=et).select
         assert not fused_score_topk.plan(4096, 4, 1032, d, 132,
                                          et=et).select
-    assert not ivf_score.plan(2048, d).select
-    assert not ivf_score.plan(3200, d).select
+        assert not ivf_score.plan(1024, d, dtype).select
+        assert ivf_score.plan(2048, d, dtype).select
+        assert ivf_score.plan(3200, d, dtype).select
     assert fused_score_topk.plan(1_000_000, 64, 4096, d, 132).select
