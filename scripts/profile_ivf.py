@@ -59,7 +59,7 @@ def ptxas_lines() -> list:
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             name = m.group(1)
-        elif name and re.search(r"list_|count_kernel|offsets_kernel", name) and (
+        elif name and "list_" in name and (
                 "spill" in line or "registers" in line):
             short = re.sub(r"^_ZN\w*?_cu_\w{8}\d+", "", name)[:48]
             out.append(f"{short}: {line.strip()}")

@@ -120,7 +120,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // the merge and the eligible-slot builders
+constexpr int kThreads = 256;   // a block of the eligible-slot builders
 constexpr int kWarps = kThreads / 32;
 
 // Pass 1: a tile of kTileRows rows, one a consumer thread; a copy-engine box
