@@ -24,7 +24,12 @@ Phases, each of which raises (and exits non-zero) on a failure:
    rows, bf16 otherwise), with the split's three products a multiply-add
    and the fp32 SIMT bound beside it as information; its yardstick is the
    library pair ``torch.addmm`` at "highest" fp32 precision plus
-   ``torch.topk`` (``pair_ms``), timed only.
+   ``torch.topk`` (``pair_ms``), timed only. B4's re-rank
+   (``ops.rescore_topk``: the scores, their first-occurrence top-k and the
+   ids, one launch) at kp = 80, 328 and 2056 is held bit for bit against
+   the sequence it replaced (``ops.rescore``, ``topk_first``, a gather),
+   and both are timed as a host loop (CUDA events around back-to-back
+   calls) and as device time (``torch.profiler``'s kernel sum a call).
 3. end to end, flat: a synthetic SIFT1M-shaped corpus, ``fcvi.build`` on
    the card with every ``FCVIConfig`` default, ``FCVIEngine`` with every
    ``EngineConfig`` default, then 512 queries, the first 64 again (cache
@@ -55,7 +60,9 @@ Phases, each of which raises (and exits non-zero) on a failure:
    and the bytes of the codes and coarse ids. Then the PQ kernels B8, B9
    and B10 are held against their plain versions on the built index's
    codebooks, combined codes and one batch's LUTs (B9 at b=64 and at an
-   escalation sub-batch's b=16), and the first-occurrence top-k of the
+   escalation sub-batch's b=16, bit for bit, beside ``embedding_bag``, its
+   bound and its LUT relayout's share of the device time; B10 beside its
+   time before the redesign), and the first-occurrence top-k of the
    (64, 1M) ADC distances is timed and checked against a stable sort. Then
    the serving sequence of phase 3, one ``fcvi.query`` and one direct
    ``ops.pq_score`` call (B10: no serving path calls it, in the JAX
@@ -126,7 +133,10 @@ Phases, each of which raises (and exits non-zero) on a failure:
    ``library_ms``) and its bytes bound, with its launches' spans; and on
    equal scores, where the four full-row histogram passes must run.
 4. a ``kernels`` JSON line with each kernel variant's launches over phases
-   3 to 3g (each must be > 0), errors, times and bound.
+   3 to 3g (each must be > 0), errors, times and bound, and the device
+   time (``device_ms``) of B4, B8 and B10, whose host loops sit near the
+   host's cost of a launch (null for the others). No serving phase may
+   re-rank past the fused re-rank's capacity (``rescore_wide``).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
 the script prints no result and exits 1.
@@ -158,6 +168,7 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import fused_score_topk as scan_mod  # noqa: E402
 from repro_torch.kernels import ivf_score as ivf_kern  # noqa: E402
 from repro_torch.kernels import pq_lut  # noqa: E402
+from repro_torch.kernels import rescore as rescore_kern  # noqa: E402
 from repro_torch.kernels import topk_select  # noqa: E402
 from repro_torch.serve import engine as engine_mod  # noqa: E402
 
@@ -176,6 +187,10 @@ N, D, M, B = 1_000_000, 128, 8, 64
 KP = 80                      # k' of the defaults: k=10, lam=0.5, c=4
 NLIST, NPROBE = 1024, 16     # IVF-Flat at SIFT1M's size: nlist ~ sqrt(n)
 B_ESC = 16                   # an escalation sub-batch's size (B9 check)
+# B9 by batch and B10 (host loop, device) before the query-innermost
+# redesign (PERF.md, step 0), printed beside this run's times
+B9_STEP0 = {B: 2.9828, B_ESC: 0.6472}
+B10_STEP0 = (0.0696, 0.0471)
 L2_RTOL, L2_ATOL = 1e-5, 1e-4
 COS_ATOL = 1e-5
 
@@ -507,20 +522,58 @@ def phase_kernels(dev, gen, power: str) -> dict:
         del vals, ids, rvals, rids, out
     del x, sq, q, pv, pf
 
-    # B4 rescore on the engine's (64, 80) candidate tiles
-    cv, cf, qn, fqn = randn(B, KP, D), randn(B, KP, M), randn(B, D), randn(B, M)
-    got = ops.rescore(cv, cf, qn, fqn, 0.5)
-    err = (got - ref.ref_rescore(cv, cf, qn, fqn, 0.5)).abs().max().item()
-    check(err <= COS_ATOL, f"rescore error {err}")
-    ms = time_ms(lambda: ops.rescore(cv, cf, qn, fqn, 0.5), 50)
-    plain = time_ms(lambda: ref.ref_rescore(cv, cf, qn, fqn, 0.5), 50)
-    bnd, by = bound_ms(4 * (B * KP * (D + M + 1) + B * (D + M)),
-                       B * KP * (6 * (D + M) + 12))
-    print(f"[kernel] rescore ({B},{KP},{D})/({B},{KP},{M}): max_abs_err "
-          f"{err:.3g} kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms "
-          f"{bnd:.5f} ({by}); card {power}")
-    res["rescore"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                          bound_ms=bnd, bound_by=by, library_ms=None)
+    # B4 on the engine's candidate tiles: the scores alone (ops.rescore),
+    # and the re-rank the main path runs (ops.rescore_topk: the scores,
+    # their first-occurrence top-k and the ids, one launch) beside the
+    # sequence it replaced (ops.rescore, topk_first, gather), at the
+    # default k', the flat path's escalated k' and EngineConfig(k=64)'s
+    for kp, k in ((KP, 10), (328, 10), (2056, 64)):
+        cv, cf = randn(B, kp, D), randn(B, kp, M)
+        qn, fqn = randn(B, D), randn(B, M)
+        cand = torch.randint(0, N, (B, kp), generator=gen, device=dev,
+                             dtype=torch.int32)
+        got = ops.rescore(cv, cf, qn, fqn, 0.5)
+        err = (got - ref.ref_rescore(cv, cf, qn, fqn, 0.5)).abs().max().item()
+        check(err <= COS_ATOL, f"rescore kp={kp} error {err}")
+
+        def seq():
+            vals, pos = ref.topk_first(ops.rescore(cv, cf, qn, fqn, 0.5), k)
+            return vals, torch.gather(cand, -1, pos)
+
+        def fused():
+            return ops.rescore_topk(cv, cf, qn, fqn, 0.5, cand, k)
+
+        gv, gi = fused()
+        sv, si = seq()
+        check(torch.equal(gv.view(torch.int32), sv.view(torch.int32))
+              and torch.equal(gi, si), f"rescore_topk kp={kp} differs from "
+              "ops.rescore + topk_first + gather")
+        pv, pi = ref.ref_rescore_topk(cv, cf, qn, fqn, 0.5, cand, k + 1)
+        err = max(err, (gv - pv[:, :k]).abs().max().item())
+        agree, total = ids_outside_ties(pv, pi, gi, 0.0, COS_ATOL)
+        check(err <= COS_ATOL and agree == total, f"rescore_topk kp={kp}: "
+              f"error {err}, {total - agree} ids differ outside near-ties")
+        ms, (dev_ms, _, n_fused) = time_ms(fused, 50), device_time(fused)
+        ms_seq, (dev_seq, _, n_seq) = time_ms(seq, 50), device_time(seq)
+        one = (lambda: ops.rescore(cv, cf, qn, fqn, 0.5))
+        ms_one, dev_one = time_ms(one, 50), device_time(one)[0]
+        plain = time_ms(lambda: ref.ref_rescore_topk(cv, cf, qn, fqn, 0.5,
+                                                     cand, k), 50)
+        bnd, by = bound_ms(4 * (B * kp * (D + M + 1) + B * (D + M))
+                           + 8 * B * k, B * kp * (6 * (D + M) + 12))
+        print(f"[kernel] rescore_topk ({B},{kp},{D})/({B},{kp},{M}) k={k}: "
+              f"max_abs_err {err:.3g}, ids {agree}/{total} outside near-ties, "
+              f"bit-equal to the sequence; host loop {ms:.4f} ms, device "
+              f"{dev_ms:.4f} ms ({n_fused:g} launch); the sequence it "
+              f"replaced (rescore, topk_first, gather): host loop "
+              f"{ms_seq:.4f}, device {dev_seq:.4f} ({n_seq:g} launches); "
+              f"rescore alone: host loop {ms_one:.4f}, device {dev_one:.4f}; "
+              f"plain_ms {plain:.4f} bound_ms {bnd:.5f} ({by}); card {power}")
+        if kp == KP:
+            res["rescore"] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
+                                  plain_ms=plain, bound_ms=bnd, bound_by=by,
+                                  library_ms=None)
+        del cv, cf, qn, fqn, cand
     torch.cuda.empty_cache()
     return res
 
@@ -766,9 +819,10 @@ def member_stats(be, uniq, member) -> dict:
     return out
 
 
-def kernel_split(fn, calls: int = 10) -> dict:
-    """Device ms per call of each kernel ``fn`` launches (torch.profiler
-    over ``calls`` calls, after one)."""
+def device_time(fn, calls: int = 10):
+    """(device ms a call summed over its kernels, {kernel: device ms a
+    call}, kernel launches a call) of ``fn``, from torch.profiler over
+    ``calls`` calls after one."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
@@ -776,13 +830,21 @@ def kernel_split(fn, calls: int = 10) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    out = {}
+    split, launches = {}, 0
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             name = e.key.replace("(anonymous namespace)::", "")
-            out[name.split("(")[0][:48]] = (e.self_device_time_total / 1e3
-                                            / calls)
-    return out
+            name = name.split("(")[0][:48]
+            split[name] = split.get(name, 0.0) + (e.self_device_time_total
+                                                  / 1e3 / calls)
+            launches += e.count
+    return sum(split.values()), split, launches / calls
+
+
+def kernel_split(fn, calls: int = 10) -> dict:
+    """Device ms per call of each kernel ``fn`` launches (torch.profiler
+    over ``calls`` calls, after one)."""
+    return device_time(fn, calls)[1]
 
 
 def depth_atol(q_t, rows, d: int) -> torch.Tensor:
@@ -1038,15 +1100,18 @@ def pq_kernels(be, q_t, power: str) -> dict:
     err = pq_check("pq_lut_qdot", got, ref.ref_pq_lut_qdot(qs, be.codebooks),
                    (B, m, dsub, ksub))
     ms = time_ms(lambda: ops.pq_lut_qdot(qs, be.codebooks), 50)
+    dev_ms = device_time(lambda: ops.pq_lut_qdot(qs, be.codebooks))[0]
     plain = time_ms(lambda: ref.ref_pq_lut_qdot(qs, be.codebooks), 50)
     lib = time_ms(lambda: torch.einsum("qmd,mkd->qmk", qs, be.codebooks), 50)
     bnd, by = bound_ms(4 * (B * m * dsub + m * ksub * dsub + B * m * ksub),
                        2 * B * m * ksub * dsub)
     print(f"[kernel] pq_lut_qdot ({B},{m},{dsub})x({m},{ksub},{dsub}): "
-          f"max_abs_err {err:.3g} kernel_ms {ms:.4f} plain_ms {plain:.4f} "
-          f"library_ms(einsum) {lib:.4f} bound_ms {bnd:.5f} ({by})")
-    res["pq_lut_qdot"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                              bound_ms=bnd, bound_by=by, library_ms=lib)
+          f"max_abs_err {err:.3g} kernel_ms {ms:.4f} (device {dev_ms:.4f}) "
+          f"plain_ms {plain:.4f} library_ms(einsum) {lib:.4f} bound_ms "
+          f"{bnd:.5f} ({by}); card {power}")
+    res["pq_lut_qdot"] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
+                              plain_ms=plain, bound_ms=bnd, bound_by=by,
+                              library_ms=lib)
 
     luts = pq_mod.scan_luts(be, q_t)
     kk = luts.shape[-1]
@@ -1058,23 +1123,29 @@ def pq_kernels(be, q_t, power: str) -> dict:
         got = ops.pq_score_batch(codes, lb)
         want = ref.ref_pq_score_batch(codes, lb)
         err = pq_check("pq_score_batch", got, want, (n, m, b, kk))
-        exact = bool(torch.equal(got, want))
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"pq_score_batch b={b} is not bit-equal to its plain version")
         lib_out = torch.nn.functional.embedding_bag(pos, w, mode="sum")
         lib_err = (lib_out.T - want).abs().max().item()
         ms = time_ms(lambda: ops.pq_score_batch(codes, lb))
+        dev_ms, split, _ = device_time(lambda: ops.pq_score_batch(codes, lb))
+        relayout = sum(t for name, t in split.items() if "relayout" in name)
         plain = time_ms(lambda: ref.ref_pq_score_batch(codes, lb), 3)
         lib = time_ms(lambda: torch.nn.functional.embedding_bag(
             pos, w, mode="sum"))
         bnd, by = bound_ms(codes.nbytes + lb.nbytes + 4 * b * n, b * n * m)
         print(f"[kernel] pq_score_batch codes ({n},{m}) int32, luts "
-              f"({b},{m},{kk}): max_abs_err {err:.3g} (bit-equal {exact}) "
-              f"kernel_ms {ms:.4f} plain_ms {plain:.4f} "
-              f"library_ms(embedding_bag) {lib:.4f} (its error {lib_err:.3g}) "
-              f"bound_ms {bnd:.4f} ({by})")
+              f"({b},{m},{kk}): max_abs_err {err:.3g} (bit-equal) kernel_ms "
+              f"{ms:.4f} (device {dev_ms:.4f}, the LUT relayout "
+              f"{relayout:.4f} of it) plain_ms {plain:.4f} "
+              f"library_ms(embedding_bag) {lib:.4f} (its error {lib_err:.3g};"
+              f" the kernel faster: {ms < lib}) bound_ms {bnd:.4f} ({by}); "
+              f"step 0 (PERF.md) {B9_STEP0[b]:.4f}; card {power}")
         if b == B:
             res["pq_score_batch"] = dict(max_abs_err=err, ms=ms,
-                                         plain_ms=plain, bound_ms=bnd,
-                                         bound_by=by, library_ms=lib)
+                                         device_ms=dev_ms, plain_ms=plain,
+                                         bound_ms=bnd, bound_by=by,
+                                         library_ms=lib)
             d2 = got
         else:
             res["pq_score_batch"]["max_abs_err"] = max(
@@ -1085,16 +1156,23 @@ def pq_kernels(be, q_t, power: str) -> dict:
     w = lut.reshape(m * kk, 1)
     got = ops.pq_score(codes, lut)
     err = pq_check("pq_score", got, ref.ref_pq_score(codes, lut), (n, m, kk))
+    check(torch.equal(got.view(torch.int32),
+                      ref.ref_pq_score(codes, lut).view(torch.int32)),
+          "pq_score is not bit-equal to its plain version")
     ms = time_ms(lambda: ops.pq_score(codes, lut), 20)
+    dev_ms = device_time(lambda: ops.pq_score(codes, lut))[0]
     plain = time_ms(lambda: ref.ref_pq_score(codes, lut), 5)
     lib = time_ms(lambda: torch.nn.functional.embedding_bag(pos, w,
                                                             mode="sum"), 20)
     bnd, by = bound_ms(codes.nbytes + lut.nbytes + 4 * n, n * m)
     print(f"[kernel] pq_score codes ({n},{m}), lut ({m},{kk}): max_abs_err "
-          f"{err:.3g} kernel_ms {ms:.4f} plain_ms {plain:.4f} "
-          f"library_ms(embedding_bag) {lib:.4f} bound_ms {bnd:.4f} ({by})")
-    res["pq_score"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                           bound_ms=bnd, bound_by=by, library_ms=lib)
+          f"{err:.3g} (bit-equal) kernel_ms {ms:.4f} (device {dev_ms:.4f}; "
+          f"step 0 (PERF.md) {B10_STEP0[0]:.4f}, device {B10_STEP0[1]:.4f}) "
+          f"plain_ms {plain:.4f} library_ms(embedding_bag) {lib:.4f} "
+          f"bound_ms {bnd:.4f} ({by}); card {power}")
+    res["pq_score"] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
+                           plain_ms=plain, bound_ms=bnd, bound_by=by,
+                           library_ms=lib)
     del pos
 
     # the candidate selection after B9 (lax.top_k in the reference)
@@ -2386,6 +2464,8 @@ def main() -> int:
         res.update(r)
         for name, n in c.items():
             counts[name] = counts.get(name, 0) + n
+    check(counts.get(rescore_kern.NAME_WIDE, 0) == 0,
+          "a serving path re-ranked past the fused re-rank's capacity")
     print("[counts] launches by phase: "
           + json.dumps({name: [phases[p].get(name, 0) for p in phases]
                         for name in SOURCES}))
@@ -2400,7 +2480,8 @@ def main() -> int:
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"],
-                            library_ms=r["library_ms"]))
+                            library_ms=r["library_ms"],
+                            device_ms=r.get("device_ms")))
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(power)

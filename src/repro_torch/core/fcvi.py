@@ -181,12 +181,11 @@ def combined_score(cand_v: Tensor, cand_f: Tensor, qn: Tensor, fqn: Tensor,
 def rescore(index: FCVIIndex, qn: Tensor, fqn: Tensor, cand_idx: Tensor,
             k: int):
     """Alg. 1 lines 10-16: combined-score re-ranking of candidates
-    cand_idx (b, k'). Returns (scores (b, k), ids (b, k))."""
+    cand_idx (b, k'), one launch on the card (``ops.rescore_topk``).
+    Returns (scores (b, k), ids (b, k))."""
     cand = cand_idx.long()
-    score = combined_score(index.vectors_n[cand], index.filters_n[cand],
-                           qn, fqn, index.config.lam)
-    vals, pos = topk_first(score, k)
-    return vals, torch.gather(cand_idx, -1, pos)
+    return ops.rescore_topk(index.vectors_n[cand], index.filters_n[cand], qn,
+                            fqn, index.config.lam, cand_idx, k)
 
 
 def query(index: FCVIIndex, q: Tensor, f_q: Tensor, k: int,

@@ -22,26 +22,36 @@
 // fp32 with fmaf, in order. No matrix unit: dsub = 16 is too short a depth
 // to pay for one, and the call is a microsecond of work.
 //
-// pq_score_batch. Bound on the H100: bytes in principle (the (b, n) fp32
-// output dominates: 256 MB at b = 64, n = 1M, against 32 MB of int32 codes
-// and 16.8 MB of LUTs), but in practice the b * n * M random 4-byte LUT
-// reads. The TPU kernel keeps one query's (M, K) LUT resident in VMEM and
-// turns each subspace's gather into a one-hot matmul. On Hopper one query's
-// combined LUT, 8 x 32 x 256 fp32 = 256 KB, does not fit in the 227 KB of
-// shared memory a block can have, and the corpus rows are in corpus order,
-// not grouped by coarse id, so no smaller slice of it serves a tile of rows.
-// The design kept here is the simple one: a block owns a tile of kRowTile
-// rows (one per thread) and a group of up to kQGroup queries; it stages the
-// tile's codes in shared memory, transposed to (M, kRowTile) so the lanes
-// read consecutive words, and reads the LUT entries through the read-only
-// path (__ldg). The whole batch's LUTs, 16.8 MB, stay in the 50 MB L2. Each
-// thread walks the subspaces in order and, per subspace, issues the kQGroup
-// queries' loads together (independent addresses, so they overlap), adding
-// each into its query's accumulator: every sum is the left-to-right fp32
-// sum over m = 0..M-1 that the TPU kernel's one-hot matmuls give. Output
-// offsets are 64-bit (b * n passes 2^31 at n >= 34M for b = 64); writes
-// are coalesced along the rows. No serving path launches it: pq.search
-// takes the fused scan below; the tests and pq_score (B10) keep it.
+// pq_score_batch (and pq_score). Bound on the H100: the function's bytes
+// (the (b, n) fp32 output, 256 MB at b = 64, n = 1M, against 32 MB of int32
+// codes and 16.8 MB of LUTs: 0.091 ms at 3.35 TB/s); what a kernel pays
+// first is the b * n * M LUT entries it reads from L2. The TPU kernel keeps
+// one query's (M, K) LUT resident in VMEM and turns each subspace's gather
+// into a one-hot matmul. On Hopper one query's combined LUT, 8 x 32 x 256
+// fp32 = 256 KB, does not fit in a block's 227 KB of shared memory, and the
+// rows are in corpus order, so the entries come from L2. In the batch's
+// (b, M, K) layout one code's entries for the batch's queries lie M * K * 4
+// bytes apart: each 4-byte read pulls a 32-byte sector (about 16 GB of L2
+// traffic at b = 64). So the call first copies the LUTs once to (M, K, bp),
+// queries innermost (pq_lut_relayout_kernel, a tiled transpose through
+// shared memory; bp is b padded to the vector width, the pad zeroed; at
+// b = 1 the layouts agree and no copy runs): one code's entries for a group
+// of up to kAdcGroup queries are then one run of 4 * QP bytes (256 B at
+// b = 64), and every sector read is useful (n * M * b * 4 bytes of L2
+// reads, 2.1 GB at b = 64). The scan (pq_adc_kernel): a block owns a tile
+// of rows and a group of QP query slots (a power of two, at most 64); it
+// stages the tile's codes in shared memory with cp.async; a warp's lanes
+// map to query slots first (V = min(4, QP) floats each, one 16-, 8- or
+// 4-byte load) and rows second (32 / (QP / V) rows a warp instruction: 2 at
+// b = 64, 8 at b = 16, 32 at b = 1, where each lane owns a row), and each
+// lane keeps kAdcUnroll rows' loads in flight across the subspaces. Every
+// sum is the left-to-right fp32 sum over m started from the m = 0 entry:
+// the plain version's value, bit for bit (a row of -0.0 entries sums to
+// -0.0). The (QP x rows) tile leaves through shared memory as coalesced
+// row segments of out[q, row0:row0 + rows], with 64-bit offsets. A batch
+// past 64 queries runs groups of 64 (the grid's y) and its tail group at
+// the tail's own width in a second launch. No serving path launches it:
+// pq.search takes the fused scan below.
 //
 // pq_score_topk: the serving path's redesign of pq_score_batch and the
 // first-occurrence top-k of its negated distances (the reference's
@@ -82,9 +92,10 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kQTile = 8;      // queries per pq_lut_qdot block
-constexpr int kRowTile = kThreads;  // rows per pq_score block
-constexpr int kQGroup = 8;     // queries per pq_score block
 constexpr int kMaxBQ = 16;     // queries per pq_topk block, at most
+constexpr int kAdcWarps = kThreads / 32;
+constexpr int kAdcGroup = 64;  // query slots a pq_adc block, at most
+constexpr int kAdcUnroll = 2;  // row steps a pq_adc lane keeps in flight
 
 __global__ void __launch_bounds__(kThreads)
 pq_lut_qdot_kernel(const float* __restrict__ q_sub,
@@ -118,38 +129,139 @@ pq_lut_qdot_kernel(const float* __restrict__ q_sub,
   }
 }
 
-template <typename CodeT>
+// luts (b, mk) -> lq (mk, bp), queries innermost, columns b..bp-1 zeroed:
+// a 32 x 32 tile a block through shared memory, read along mk, written
+// along the queries.
 __global__ void __launch_bounds__(kThreads)
-pq_score_kernel(const CodeT* __restrict__ codes,
-                const float* __restrict__ luts, float* __restrict__ out,
-                long long n, int b, int M, int K) {
-  extern __shared__ int code_s[];       // (M, kRowTile), transposed
-  const long long row0 = (long long)blockIdx.x * kRowTile;
-  const int rows = (int)(n - row0 < kRowTile ? n - row0 : kRowTile);
-  const int q0 = blockIdx.y * kQGroup;
-  const int nq = min(kQGroup, b - q0);
-  const CodeT* src = codes + row0 * M;
-  for (int i = threadIdx.x; i < rows * M; i += kThreads) {
-    const int r = i / M;
-    code_s[(i - r * M) * kRowTile + r] = (int)src[i];
+pq_lut_relayout_kernel(const float* __restrict__ luts, float* __restrict__ lq,
+                       long long mk, int b, int bp) {
+  __shared__ float t[32][33];
+  const long long e0 = (long long)blockIdx.x * 32;
+  const int q0 = blockIdx.y * 32;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  for (int i = ty; i < 32; i += kAdcWarps) {
+    const int q = q0 + i;
+    const long long e = e0 + tx;
+    t[i][tx] = q < b && e < mk ? luts[(long long)q * mk + e] : 0.f;
   }
   __syncthreads();
-  const int r = threadIdx.x;
-  if (r >= rows) return;
-  const float* lut0 = luts + (long long)q0 * M * K;
-  float acc[kQGroup];
+  for (int i = ty; i < 32; i += kAdcWarps) {
+    const long long e = e0 + i;
+    const int q = q0 + tx;
+    if (e < mk && q < bp) lq[e * bp + q] = t[tx][i];
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// V consecutive floats of the relayout LUT, one 16-, 8- or 4-byte load.
+template <int V>
+__device__ __forceinline__ void load_lut(const float* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  } else if constexpr (V == 2) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+// The ADC scan over the relayout LUT lq (M, K, bp): one block per (tile of
+// 1 << rows_log2 rows, group of QP query slots, blockIdx.y). The launch
+// covers queries [q_begin, q_end). aligned: the codes' base address is
+// 16-byte aligned, so the tile is copied in whole 16-byte pieces.
+template <typename CodeT, int QP>
+__global__ void __launch_bounds__(kThreads, 2)
+pq_adc_kernel(const CodeT* __restrict__ codes, const float* __restrict__ lq,
+              float* __restrict__ out, long long n, int bp, int q_begin,
+              int q_end, int M, long long K, int rows_log2, int aligned) {
+  constexpr int V = QP < 4 ? QP : 4;   // floats a lane loads
+  constexpr int L = QP / V;            // lanes a row
+  constexpr int RW = 32 / L;           // rows a warp instruction
+  constexpr int STEP = RW * kAdcUnroll;
+  extern __shared__ __align__(16) unsigned char adc_smem[];
+  const int rows_tile = 1 << rows_log2;
+  const size_t code_bytes =
+      ((size_t)rows_tile * M * sizeof(CodeT) + 15) & ~(size_t)15;
+  const CodeT* code_s = reinterpret_cast<const CodeT*>(adc_smem);
+  float* out_s = reinterpret_cast<float*>(adc_smem + code_bytes);
+  const int stride = rows_tile + 1;    // odd: conflict-free row reads
+  const long long row0 = (long long)blockIdx.x * rows_tile;
+  const int rows = (int)(n - row0 < rows_tile ? n - row0 : rows_tile);
+  const int qg0 = q_begin + blockIdx.y * QP;
+  const int qn = q_end - qg0 < QP ? q_end - qg0 : QP;
+  {  // the tile's codes into shared memory
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(codes) +
+                               row0 * M * (long long)sizeof(CodeT);
+    unsigned char* dst = adc_smem;
+    const int bytes = rows * M * (int)sizeof(CodeT);
+    int done = 0;
+    if (aligned) {
+      const int n16 = bytes >> 4;
+      for (int i = threadIdx.x; i < n16; i += kThreads)
+        cp_async16(dst + 16 * i, src + 16 * (long long)i);
+      done = n16 << 4;
+    }
+    for (int i = done + threadIdx.x; i < bytes; i += kThreads) dst[i] = src[i];
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lr = lane / L;             // row within a warp instruction
+  const int qoff = (lane % L) * V;     // first query slot of this lane
+  if (qoff < qn) {
+    const float* base = lq + qg0 + qoff;
+    for (int r0 = warp * STEP; r0 < rows; r0 += kAdcWarps * STEP) {
+      float acc[kAdcUnroll][V];
+      int rr[kAdcUnroll];
 #pragma unroll
-  for (int qi = 0; qi < kQGroup; ++qi) acc[qi] = 0.f;
-  for (int m = 0; m < M; ++m) {
-    const long long off = (long long)m * K + code_s[m * kRowTile + r];
+      for (int u = 0; u < kAdcUnroll; ++u) {
+        rr[u] = r0 + u * RW + lr;
+        if (rr[u] < rows)    // the sum starts from the m = 0 entry
+          load_lut<V>(base + (long long)code_s[rr[u] * M] * bp, acc[u]);
+      }
+#pragma unroll 4
+      for (int m = 1; m < M; ++m) {
+        const long long mk = (long long)m * K;
 #pragma unroll
-    for (int qi = 0; qi < kQGroup; ++qi) {
-      if (qi < nq) acc[qi] += __ldg(lut0 + (long long)qi * M * K + off);
+        for (int u = 0; u < kAdcUnroll; ++u) {
+          if (rr[u] < rows) {
+            float v[V];
+            load_lut<V>(base + (mk + code_s[rr[u] * M + m]) * bp, v);
+#pragma unroll
+            for (int j = 0; j < V; ++j) acc[u][j] += v[j];
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kAdcUnroll; ++u) {
+        if (rr[u] >= rows) continue;
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          if (qoff + j < qn) out_s[(qoff + j) * stride + rr[u]] = acc[u][j];
+      }
     }
   }
-#pragma unroll
-  for (int qi = 0; qi < kQGroup; ++qi) {
-    if (qi < nq) out[(long long)(q0 + qi) * n + row0 + r] = acc[qi];
+  __syncthreads();
+  for (int i = threadIdx.x; i < qn << rows_log2; i += kThreads) {
+    const int q = i >> rows_log2;
+    const int r = i & (rows_tile - 1);
+    if (r < rows)
+      out[(long long)(qg0 + q) * n + row0 + r] = out_s[q * stride + r];
   }
 }
 
@@ -388,34 +500,91 @@ extern "C" int fcvi_pq_lut_qdot(const float* q_sub, const float* cb,
   return (int)cudaGetLastError();
 }
 
-template <typename CodeT>
-static int launch_pq_score(const CodeT* codes, const float* luts, float* out,
-                           long long n, int b, int M, int K,
-                           cudaStream_t st) {
-  const size_t smem = sizeof(int) * (size_t)M * kRowTile;
-  cudaError_t err = cudaFuncSetAttribute(
-      pq_score_kernel<CodeT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+namespace {
+
+size_t pq_adc_smem(int qp, int rows_log2, int M, int code_bytes) {
+  const size_t rows = (size_t)1 << rows_log2;
+  return ((rows * M * code_bytes + 15) & ~(size_t)15) +
+         sizeof(float) * qp * (rows + 1);
+}
+
+template <typename CodeT, int QP>
+int launch_pq_adc(const CodeT* codes, const float* lq, float* out,
+                  long long n, int bp, int q_begin, int groups, int nq, int M,
+                  long long K, int rows_log2, cudaStream_t st) {
+  const size_t smem = pq_adc_smem(QP, rows_log2, M, (int)sizeof(CodeT));
+  const cudaError_t err = cudaFuncSetAttribute(
+      pq_adc_kernel<CodeT, QP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((n + kRowTile - 1) / kRowTile),
-                  (unsigned)((b + kQGroup - 1) / kQGroup));
-  pq_score_kernel<CodeT><<<grid, kThreads, smem, st>>>(codes, luts, out, n,
-                                                       b, M, K);
+  const long long tiles = (n + (1LL << rows_log2) - 1) >> rows_log2;
+  const int aligned = (reinterpret_cast<uintptr_t>(codes) & 15) == 0;
+  const dim3 grid((unsigned)tiles, (unsigned)groups);
+  pq_adc_kernel<CodeT, QP><<<grid, kThreads, smem, st>>>(
+      codes, lq, out, n, bp, q_begin, q_begin + nq, M, K, rows_log2,
+      aligned);
   return (int)cudaGetLastError();
 }
 
+template <typename CodeT>
+int launch_pq_adc_qp(int qp, const CodeT* codes, const float* lq, float* out,
+                     long long n, int bp, int q_begin, int groups, int nq,
+                     int M, long long K, int rows_log2, cudaStream_t st) {
+  switch (qp) {
+#define FCVI_ADC_CASE(Q)                                                   \
+  case Q:                                                                  \
+    return launch_pq_adc<CodeT, Q>(codes, lq, out, n, bp, q_begin, groups, \
+                                   nq, M, K, rows_log2, st);
+    FCVI_ADC_CASE(1)
+    FCVI_ADC_CASE(2)
+    FCVI_ADC_CASE(4)
+    FCVI_ADC_CASE(8)
+    FCVI_ADC_CASE(16)
+    FCVI_ADC_CASE(32)
+    FCVI_ADC_CASE(kAdcGroup)
+#undef FCVI_ADC_CASE
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
 // codes: (n, M) of code_bytes bytes each (1: uint8, 4: int32), every value
-// in [0, K); luts (b, M, K) fp32; out (b, n) fp32.
+// in [0, K); luts (b, M, K) fp32; out (b, n) fp32. lq: the (M, K, bp)
+// scratch the LUTs are copied to, or luts itself at b = 1 (bp = 1: the
+// layouts agree and no copy runs). parts: nparts scan launches of five ints
+// each, (first query, query groups, queries, query slots QP a group, log2
+// of the rows a tile), from the wrapper's plan (kernels/pq_lut.py
+// adc_plan).
 extern "C" int fcvi_pq_score(const void* codes, int code_bytes,
-                             const float* luts, float* out, long long n,
-                             int b, int M, int K, void* stream) {
+                             const float* luts, float* lq, float* out,
+                             long long n, int b, int bp, int M, long long K,
+                             int nparts, const int* parts, void* stream) {
   if (n <= 0 || b <= 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  if (code_bytes == 1)
-    return launch_pq_score((const uint8_t*)codes, luts, out, n, b, M, K, st);
-  if (code_bytes == 4)
-    return launch_pq_score((const int32_t*)codes, luts, out, n, b, M, K, st);
-  return (int)cudaErrorInvalidValue;
+  if (lq != luts) {
+    const long long mk = (long long)M * K;
+    const dim3 grid((unsigned)((mk + 31) / 32), (unsigned)((bp + 31) / 32));
+    pq_lut_relayout_kernel<<<grid, kThreads, 0, st>>>(luts, lq, mk, b, bp);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  } else if (b != 1 || bp != 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  for (int p = 0; p < nparts; ++p) {
+    const int* a = parts + 5 * p;
+    int err;
+    if (code_bytes == 1)
+      err = launch_pq_adc_qp(a[3], (const uint8_t*)codes, lq, out, n, bp,
+                             a[0], a[1], a[2], M, K, a[4], st);
+    else if (code_bytes == 4)
+      err = launch_pq_adc_qp(a[3], (const int32_t*)codes, lq, out, n, bp,
+                             a[0], a[1], a[2], M, K, a[4], st);
+    else
+      return (int)cudaErrorInvalidValue;
+    if (err != (int)cudaSuccess) return err;
+  }
+  return (int)cudaSuccess;
 }
 
 // The fused ADC scan + top-k over the grouped layout: codes (n, M) of

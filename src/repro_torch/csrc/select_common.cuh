@@ -109,8 +109,7 @@ __device__ void sort_desc(u64* w, int* pay, int segs, int len) {
 // admission threshold to its kk-th word once it holds kk. All segments at
 // once: a cut costs its sort's barriers whatever its size, and cutting every
 // buffer whenever one is full keeps them in step, so cuts stay rare (cutting
-// only the full ones measured 1.5x slower). The u64 twin of trim() in
-// topk_common.cuh. Every thread must call it.
+// only the full ones measured 1.5x slower). Every thread must call it.
 __device__ void trim_words(u64* w, int* cnt, u64* thr, int segs, int cap,
                            int kk) {
   sort_desc(w, nullptr, segs, cap);

@@ -1,7 +1,6 @@
 // Device helpers of the top-k scans: the (score desc, key asc) total
 // order, the stored element types (fp32, bf16, int8) and the bitonic sort
-// of candidate segments, which fused_score_topk.cu and ivf_score.cu share,
-// and the block-wide trim of thresholded candidate buffers.
+// of candidate segments, which fused_score_topk.cu and ivf_score.cu share.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -61,29 +60,6 @@ __device__ void sort_segments(float* s, int* id, int segs, int cap) {
       __syncthreads();
     }
   }
-}
-
-// Sort every buffer, keep its best kk entries, and raise its admission
-// threshold to its kk-th entry once it holds kk. Every thread must call it.
-__device__ void trim(float* s, int* id, int* cnt, float* thr_s, int* thr_i,
-                     int segs, int cap, int kk) {
-  sort_segments(s, id, segs, cap);
-  for (int i = threadIdx.x; i < segs * cap; i += blockDim.x) {
-    if ((i & (cap - 1)) >= kk) {
-      s[i] = -INFINITY;
-      id[i] = INT_MAX;
-    }
-  }
-  if (threadIdx.x < segs) {
-    const int q = threadIdx.x;
-    const int c = cnt[q] < kk ? cnt[q] : kk;
-    cnt[q] = c;
-    if (c >= kk) {
-      thr_s[q] = s[q * cap + kk - 1];
-      thr_i[q] = id[q * cap + kk - 1];
-    }
-  }
-  __syncthreads();
 }
 
 }  // namespace

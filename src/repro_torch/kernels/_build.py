@@ -49,13 +49,15 @@ SIGNATURES = {
                         _P, _P, _P],
     "fcvi_select_topk": [_P, _L, _P, _P, _P, _P],
     "fcvi_rescore": [_P, _P, _P, _P, _F, _F, _P, _I, _I, _I, _I, _P],
+    "fcvi_rescore_topk": [_P, _P, _P, _P, _F, _F, _P, _I, _I, _I, _I, _I, _I,
+                          _L, _P, _P, _P],
     "fcvi_ivf_score_topk": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
                             _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                             _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     "fcvi_ivf_masked_slots": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
                               _P],
     "fcvi_pq_lut_qdot": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "fcvi_pq_score": [_P, _I, _P, _P, _L, _I, _I, _I, _P],
+    "fcvi_pq_score": [_P, _I, _P, _P, _P, _L, _I, _I, _I, _L, _I, _P, _P],
     "fcvi_pq_score_topk": [_P, _I, _P, _P, _I, _P, _L, _I, _I, _I, _I, _I,
                            _I, _I, _I, _L, _I, _P, _P, _P, _P, _P, _P],
 }
@@ -134,8 +136,11 @@ def build_log() -> str:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call; once loaded, no
+    lock is taken)."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))

@@ -77,6 +77,18 @@ def rescore(cand_v: Tensor, cand_f: Tensor, qn: Tensor, fqn: Tensor,
     return ref.ref_rescore(cand_v, cand_f, qn, fqn, lam)
 
 
+def rescore_topk(cand_v: Tensor, cand_f: Tensor, qn: Tensor, fqn: Tensor,
+                 lam: float, cand_ids: Tensor, k: int):
+    """The re-rank: ``rescore``'s scores, their first-occurrence top-k
+    (``ref.topk_first``'s order) and ``cand_ids`` (b, kp) at those
+    positions. Returns (scores (b, min(k, kp)) f32, ids in cand_ids'
+    dtype); one launch on the card."""
+    if cand_v.is_cuda:
+        return _rescore.rescore_topk(cand_v, cand_f, qn, fqn, lam, cand_ids,
+                                     k)
+    return ref.ref_rescore_topk(cand_v, cand_f, qn, fqn, lam, cand_ids, k)
+
+
 # IVF scans over the grouped (nlist, max_list, d) slabs: scores 2<x,q> -
 # ||x||^2 (the caller adds -||q||^2 back), flat slot ids, dead slots (-inf, 0)
 

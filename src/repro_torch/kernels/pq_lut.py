@@ -6,9 +6,12 @@ One CUDA source (``csrc/pq_lut.cu``) replaces the three Pallas kernels of
 * ``pq_lut_qdot`` (B8): (b, M, dsub) x (M, ksub, dsub) -> (b, M, ksub), the
   q . codebook cross term of ``index.pq.compute_luts``;
 * ``pq_score_batch`` (B9): codes (n, M) uint8 or int32, luts (b, M, K) ->
-  squared distances (b, n), each a left-to-right fp32 sum over m;
-* ``pq_score`` (B10): the same at one LUT, (M, K) -> (n,); B9's kernel
-  launched at b = 1, counted under its own name.
+  squared distances (b, n), each a left-to-right fp32 sum over m. The call
+  copies the LUTs once to (M, K, bp), queries innermost (``bp`` is b padded
+  to the load width), then scans the rows with a warp's lanes on a group's
+  query slots first and rows second (``adc_plan``);
+* ``pq_score`` (B10): the same at one LUT, (M, K) -> (n,); B9's scan at
+  b = 1, where the LUT needs no copy, counted under its own name.
 
 and, for the serving path, ``pq_score_topk``: B9 and the first-occurrence
 top-k of its negated distances as one fused scan over the rows grouped by
@@ -26,6 +29,7 @@ either. The plain versions are ``ref.ref_pq_*``.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 from typing import Optional, Sequence
@@ -41,9 +45,14 @@ NAME_TOPK = "pq_score_topk"
 
 Q_TILE = 8            # queries per pq_lut_qdot block (kQTile in the source)
 SMEM_LIMIT = 232_448  # shared memory one block may use on Hopper (bytes)
-ROW_TILE = 256        # rows per pq_score block (kRowTile)
-THREADS = 256         # threads per pq_score_topk block (kThreads)
+THREADS = 256         # threads per pq_score_topk and pq_adc block (kThreads)
 MAX_BQ = 16           # queries per pq_score_topk block, at most (kMaxBQ)
+ADC_GROUP = 64        # query slots a pq_adc block, at most (kAdcGroup)
+ADC_UNROLL = 2        # row steps a pq_adc lane keeps in flight (kAdcUnroll)
+ADC_ROWS = 256        # rows a pq_adc tile before shared memory halves it
+ADC_MIN_ROWS = 32     # the fewest rows a pq_adc tile is cut to
+# pq_adc's dynamic shared memory, at most: two blocks an SM
+ADC_SMEM_TARGET = SMEM_LIMIT // 2 - 1024
 # pq_score_topk's dynamic shared memory, beside its static thresholds
 TOPK_SMEM_LIMIT = SMEM_LIMIT - 1024
 CODE_BYTES = {torch.uint8: 1, torch.int32: 4}
@@ -79,6 +88,84 @@ def pq_lut_qdot(queries_sub: torch.Tensor,
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class AdcPart:
+    """One launch of the ADC scan (``pq_adc_kernel``)."""
+    q0: int          # first query
+    groups: int      # query groups of ``qp`` slots (the grid's y)
+    nq: int          # queries
+    qp: int          # query slots a group: a power of two, <= ADC_GROUP
+    vec: int         # floats a lane loads: min(4, qp)
+    lanes: int       # lanes a row: qp / vec
+    rows: int        # rows a block tile, a power of two
+    tiles: int       # row tiles (the grid's x)
+    smem: int        # dynamic shared memory in bytes
+
+
+@dataclasses.dataclass(frozen=True)
+class AdcPlan:
+    bp: int          # the relayout LUT's row: b padded to the load width
+    relayout: bool   # b > 1: the LUTs are copied to (M, K, bp) first
+    parts: tuple     # one AdcPart, or two (full groups of 64, the tail)
+    out_span: int    # b * n: the output's largest offset + 1
+    lut_span: int    # M * K * bp: the relayout LUT's largest offset + 1
+
+
+def adc_smem(qp: int, rows: int, m: int, code_bytes: int) -> int:
+    """pq_adc's dynamic shared memory in bytes (the source's
+    ``pq_adc_smem``): the tile's codes, padded to 16 bytes, and its
+    (qp, rows + 1) fp32 output tile."""
+    return ((rows * m * code_bytes + 15) & ~15) + 4 * qp * (rows + 1)
+
+
+def adc_part(q0: int, groups: int, nq: int, qp: int, n: int, m: int,
+             code_bytes: int) -> AdcPart:
+    vec = min(4, qp)
+    lanes = qp // vec
+    step = (THREADS // 32) * ADC_UNROLL * (32 // lanes)  # rows a block step
+    rows = max(ADC_ROWS, step)
+    while rows > ADC_MIN_ROWS and adc_smem(qp, rows, m,
+                                           code_bytes) > ADC_SMEM_TARGET:
+        rows //= 2
+    smem = adc_smem(qp, rows, m, code_bytes)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"M={m} codes a row do not fit in shared memory")
+    tiles = max(1, math.ceil(n / rows))
+    if tiles >= 2 ** 31:
+        raise ValueError(f"n={n} rows past the grid's 2^31 - 1 tiles")
+    return AdcPart(q0=q0, groups=groups, nq=nq, qp=qp, vec=vec, lanes=lanes,
+                   rows=rows, tiles=tiles, smem=smem)
+
+
+def adc_plan(n: int, b: int, m: int, k: int, code_bytes: int) -> AdcPlan:
+    """Launch shape of ``pq_score_batch`` / ``pq_score`` for b queries over
+    n rows of M codes (``code_bytes`` each) into a K-wide LUT. A group of
+    queries takes qp = the next power of two of its size, at most 64
+    slots: a lane loads min(4, qp) of a code's consecutive query entries,
+    qp / that many lanes cover a row, and a warp instruction covers the
+    rest of its 32 lanes' rows. A batch past 64 runs groups of 64 and a
+    tail group of its own qp. The rows a tile start at a block's step, at
+    least 256 (512 where a lane owns a row), and halve, down to 32, while
+    the codes and the output tile would keep two blocks off an SM."""
+    if b < 1 or m < 1 or k < 1:
+        raise ValueError(f"no ADC scan of b={b}, M={m}, K={k}")
+    vec0 = min(4, _pow2(b))
+    bp = -(-b // vec0) * vec0
+    parts = []
+    if b <= ADC_GROUP:
+        parts.append(adc_part(0, 1, b, _pow2(b), n, m, code_bytes))
+    else:
+        full = b // ADC_GROUP
+        parts.append(adc_part(0, full, full * ADC_GROUP, ADC_GROUP, n, m,
+                              code_bytes))
+        tail = b - full * ADC_GROUP
+        if tail:
+            parts.append(adc_part(full * ADC_GROUP, 1, tail, _pow2(tail), n,
+                                  m, code_bytes))
+    return AdcPlan(bp=bp, relayout=b > 1, parts=tuple(parts), out_span=b * n,
+                   lut_span=m * k * bp)
+
+
 def _score(codes: torch.Tensor, luts: torch.Tensor, name: str):
     if codes.dim() != 2 or luts.dim() != 3:
         raise ValueError("codes must be 2-D and luts 3-D")
@@ -89,14 +176,19 @@ def _score(codes: torch.Tensor, luts: torch.Tensor, name: str):
         raise ValueError(f"codes must be uint8 or int32, got {codes.dtype}")
     _build.require(codes, "codes", (n, m), dev, codes.dtype)
     _build.require(luts, "luts", (b, m, k), dev)
-    if 4 * m * ROW_TILE > SMEM_LIMIT:
-        raise ValueError(f"M={m} codes per row do not fit in shared memory")
+    p = adc_plan(n, b, m, k, CODE_BYTES[codes.dtype])
     out = torch.empty((b, n), dtype=torch.float32, device=dev)
+    lq = (torch.empty((m, k, p.bp), dtype=torch.float32, device=dev)
+          if p.relayout else luts)
+    parts = (ctypes.c_int * (5 * len(p.parts)))(*(
+        v for a in p.parts
+        for v in (a.q0, a.groups, a.nq, a.qp, a.rows.bit_length() - 1)))
     lib = _build.library()
     with torch.cuda.device(dev):
         code = lib.fcvi_pq_score(codes.data_ptr(), CODE_BYTES[codes.dtype],
-                                 luts.data_ptr(), out.data_ptr(), n, b, m, k,
-                                 _build.stream(dev))
+                                 luts.data_ptr(), lq.data_ptr(),
+                                 out.data_ptr(), n, b, p.bp, m, k,
+                                 len(p.parts), parts, _build.stream(dev))
     _build.check(code, name)
     _build.count(name)
     return out

@@ -192,6 +192,18 @@ def ref_rescore(cand_v: Tensor, cand_f: Tensor, qn: Tensor, fqn: Tensor,
     return lam * s_v + (1.0 - lam) * s_f
 
 
+def ref_rescore_topk(cand_v: Tensor, cand_f: Tensor, qn: Tensor, fqn: Tensor,
+                     lam: float, cand_ids: Tensor, k: int):
+    """The re-rank around ``ref_rescore``: the first-occurrence top-k of the
+    combined scores (``topk_first``: score descending, NaN first, -0.0
+    equal to +0.0, ties to the smaller position) and ``cand_ids`` (b, kp)
+    at those positions, as the reference's ``lax.top_k`` and
+    ``take_along_axis`` after its rescore. Returns (scores (b, min(k, kp))
+    f32, ids in cand_ids' dtype)."""
+    vals, pos = topk_first(ref_rescore(cand_v, cand_f, qn, fqn, lam), k)
+    return vals, torch.gather(cand_ids, -1, pos)
+
+
 # ---------------------------------------------------------------------------
 # IVF (B5, B6, B7): the kernels' score convention, 2 <x, q> - ||x||^2, with
 # the ||q||^2 constant left to the caller; ids are flat slot ids
@@ -360,6 +372,19 @@ def ref_pq_score_batch(codes: Tensor, luts: Tensor) -> Tensor:
     for m in range(1, codes.shape[1]):
         total = total + luts[:, m, :][:, idx[:, m]]
     return total
+
+
+def ref_pq_lut_query_major(luts: Tensor) -> Tensor:
+    """The B9 kernel's LUT relayout: (b, M, K) -> (M, K, bp), queries
+    innermost, with bp = b padded to the kernel's load width (min(4, the
+    next power of two of b) floats) and the pad columns zero. At b = 1 it
+    is the same memory order as the input."""
+    b, m, k = luts.shape
+    vec = min(4, 1 << (b - 1).bit_length())
+    bp = -(-b // vec) * vec
+    out = luts.new_zeros((m, k, bp))
+    out[:, :, :b] = luts.permute(1, 2, 0)
+    return out
 
 
 def ref_pq_score(codes: Tensor, lut: Tensor) -> Tensor:

@@ -11,8 +11,9 @@ The serving-side optimizations around one ``FCVIIndex``:
   * a delta buffer for inserts with compaction into the main index.
 
 The per-batch step (``_batch_step``) is normalize -> psi fold (fused
-transform kernel) -> candidates -> combined-cosine rescore (rescore kernel)
--> top-k -> delta-tier search + ``merge_topk`` -> escalation margin. The
+transform kernel) -> candidates -> combined-cosine re-rank, the scores and
+their top-k in one launch (rescore kernel) -> delta-tier search +
+``merge_topk`` -> escalation margin. The
 flat backend's candidates are a scan + top-(k'+REFINE_PAD) (fused scan
 kernel) and an exact refine; the IVF backend's are the coarse quantizer
 (fused scan kernel over the centroids) and the probe-major scan of the
@@ -55,7 +56,6 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.index import flat as flat_mod
 from repro_torch.index import ivf as ivf_mod
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import topk_first
 from repro_torch.serve.health import BackpressureError, TransientShardError
 from repro_torch.serve.planner import (CANDIDATE_PAD, PLAN_FOLD, PLAN_MASK,
                                        PLAN_ROUTED, PLANS, QueryPlanner,
@@ -125,17 +125,15 @@ def _batch_step(index: FCVIIndex, delta: Optional[_DeltaBuffer], q: Tensor,
         _, cand = fcvi._backend_search(index, q_t, kp)
         rows = cand.long()
         rv, rf = index.vectors_n[rows], index.filters_n[rows]
-    score = fcvi.combined_score(rv, rf, qn, fqn, cfg.lam)
-    scores, pos = topk_first(score, k)
-    ids = torch.gather(cand, -1, pos)
+    scores, ids = ops.rescore_topk(rv, rf, qn, fqn, cfg.lam, cand, k)
 
     if delta is not None:
         # same over-retrieval bound as the main path (Thm 5.4); q_t is
         # reused, so the fused transform runs once
         dcand, drv, drf = _delta_candidates(delta, q_t, kd, gather_free)
-        s = fcvi.combined_score(drv, drf, qn, fqn, cfg.lam)
-        dvals, dpos = topk_first(s, min(k, kd))
-        dids = index.size + torch.gather(dcand, -1, dpos)
+        dvals, dids = ops.rescore_topk(drv, drf, qn, fqn, cfg.lam, dcand,
+                                       min(k, kd))
+        dids = index.size + dids
         scores, ids = flat_mod.merge_topk(scores, ids, dvals,
                                           dids.to(ids.dtype), k)
 

@@ -9,7 +9,9 @@ Tolerances: fused_transform rtol = atol = 1e-5, and bit for bit with the
 0/1 partition fold; scan scores (flat and IVF) rtol 1e-5, atol 1e-4 with
 ids equal outside near-ties (the kernel sums the dot product in another
 order than the plain matmul); the carried rows and the rows variants'
-(scores, ids) exactly; rescore atol 1e-5; the PQ LUT cross term rtol 1e-5,
+(scores, ids) exactly; rescore atol 1e-5, and the fused re-rank
+(``rescore_topk``) bit for bit against ``ops.rescore`` + ``topk_first`` +
+the gather of the ids; the PQ LUT cross term rtol 1e-5,
 atol 1e-4 (dot products summed in another order), the PQ ADC scans bit for
 bit (both sides add the LUT values left to right in fp32). The bf16 and
 int8-scaled scan variants are held the same way as the fp32 scans, their
@@ -26,6 +28,7 @@ from repro_torch.index import pq
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import fused_score_topk as scan
 from repro_torch.kernels import ivf_score, pq_lut
+from repro_torch.kernels import rescore as rescore_kern
 from repro_torch.serve.engine import EngineConfig, FCVIEngine
 from test_torch_support import (assert_topk_match,  # noqa: F401
                                 candidate_ties, cuda, ivf_inputs, normal,
@@ -225,6 +228,7 @@ def test_ivf_engine_on_card_matches_cpu_engine(cuda):
                 else "ivf_score_topk_dedup")
         for name in ("fused_transform", "score_topk", scan, "rescore"):
             assert counts.get(name, 0) > 0, counts
+        assert counts.get("rescore_wide", 0) == 0, counts
     engines[0].compact()
     assert engines[0].index.size == 4300
     s, i = engines[0].search(q, fq)
@@ -259,6 +263,7 @@ def test_engine_on_card_matches_cpu_engine(cuda):
     counts = _build.launch_counts()
     for name in ("fused_transform", "score_topk_rows", "rescore"):
         assert counts.get(name, 0) > 0, counts
+    assert counts.get("rescore_wide", 0) == 0, counts
 
 
 @pytest.mark.parametrize("b,m,dsub,ksub", [(64, 8, 16, 256), (1, 8, 16, 256),
@@ -307,6 +312,9 @@ def test_pq_wrappers_count_launches_and_check_inputs(cuda):
     for bad in (lambda: ops.pq_score_batch(codes.long(), luts),
                 lambda: ops.pq_score_batch(codes, luts[:, :3]),
                 lambda: ops.pq_score_batch(codes, luts.transpose(1, 2)),
+                lambda: ops.pq_score_batch(   # a row's codes past the smem
+                    torch.zeros((10, 4096), dtype=torch.int32, device=cuda),
+                    torch.zeros((3, 4096, 4), device=cuda)),
                 lambda: ops.pq_lut_qdot(qs, cb[:2])):
         with pytest.raises(ValueError):
             bad()
@@ -347,6 +355,7 @@ def test_pq_engine_on_card_matches_cpu_engine(cuda):
                  "rescore", "score_topk"):
         assert counts.get(name, 0) > 0, counts
     assert counts.get("pq_score_batch", 0) == 0, counts
+    assert counts.get("rescore_wide", 0) == 0, counts
     engines[0].compact()
     assert engines[0].index.size == 4300
     s, i = engines[0].search(q, fq)
@@ -1665,3 +1674,156 @@ def test_ivf_mask_and_routed_plans_equal_flat_on_card(cuda):
             assert np.array_equal(s, fs) and np.array_equal(i, fi), plan
         cs, ci = cpu.search(q, filter=pred)
         assert_topk_match(cs, ci, fs, fi, rtol=1e-5, atol=1e-4)
+
+
+# -- B9/B10 over the query-innermost LUT; B4's re-rank as one launch ---------
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("m", [8, 16])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])
+@pytest.mark.parametrize("b", [1, 2, 16, 33, 64, 65, 130])
+def test_pq_adc_bit_equal_every_width(cuda, b, dtype, m):
+    """B9 (and B10 at b = 1) bit for bit against the plain version: n not a
+    multiple of any row tile, a tail query group past 64, K past 2^16 for
+    int32 codes, codes at a base that is not 16-byte aligned, and rows
+    whose LUT entries are all -0.0 (their sums stay -0.0)."""
+    rng = np.random.default_rng(b * m)
+    k = 70001 if dtype == torch.int32 and b <= 33 else 256
+    n = 3001
+    raw = rng.integers(0, min(k, 256) if dtype == torch.uint8 else k,
+                       n * m + 1)
+    raw[1 + 4 * m:1 + 8 * m] = 0       # rows 4..7 of the unaligned view
+    flat = tensor(raw, cuda).to(dtype)
+    luts = tensor(rng.standard_normal((b, m, k)).astype(np.float32), cuda)
+    luts[:, :, 0] = -0.0
+    for codes in (flat[1:].view(n, m), flat[:-1].view(n, m)):
+        want = ref.ref_pq_score_batch(codes, luts)
+        _build.reset_launch_counts()
+        assert torch.equal(_bits(ops.pq_score_batch(codes, luts)),
+                           _bits(want))
+        assert _build.launch_counts() == {"pq_score_batch": 1}
+        if b == 1:
+            assert torch.equal(_bits(ops.pq_score(codes, luts[0])),
+                               _bits(want[0]))
+    neg0 = _bits(torch.tensor([-0.0], device=cuda))
+    unaligned = flat[1:].view(n, m)
+    assert unaligned.data_ptr() % 16
+    zero_rows = ref.ref_pq_score_batch(unaligned, luts)[:, 4:8]
+    assert bool((_bits(zero_rows) == neg0).all())
+
+
+def test_pq_adc_equals_a_plain_sum_over_the_query_major_layout(cuda):
+    """B9 at a b whose relayout pads (37 queries in rows of 40) equals the
+    in-order sum read from ``ref.ref_pq_lut_query_major``'s layout, the
+    one the kernel reads."""
+    rng = np.random.default_rng(1)
+    codes = tensor(rng.integers(0, 300, (777, 8)).astype(np.int32), cuda)
+    luts = tensor(rng.random((37, 8, 300)).astype(np.float32), cuda)
+    lq = ref.ref_pq_lut_query_major(luts)
+    assert lq.shape == (8, 300, 40)
+    idx = codes.long()
+    total = lq[0][idx[:, 0]]
+    for j in range(1, 8):
+        total = total + lq[j][idx[:, j]]
+    assert torch.equal(total[:, :37].T, ops.pq_score_batch(codes, luts))
+
+
+def _rerank_case(b, kp, d, m, kind, seed=0, dev="cpu"):
+    """Candidate tiles (b, kp, d) / (b, kp, m), queries, lam and int32 ids:
+    ``plain`` normal rows; ``ties`` every row repeated in fours (equal
+    scores, broken by position); ``zeros`` lam = 1 with rows whose scores
+    underflow to -0.0 and +0.0 beside normal ones; ``nan`` NaN columns in
+    some rows (their scores are NaN, above every other)."""
+    rng = np.random.default_rng(seed)
+    cv, cf = normal(rng, b, kp, d), normal(rng, b, kp, m)
+    qn, fqn = normal(rng, b, d), normal(rng, b, m)
+    lam = 0.6
+    if kind == "ties":
+        cv = np.repeat(cv[:, ::4], 4, axis=1)[:, :kp]
+        cf = np.repeat(cf[:, ::4], 4, axis=1)[:, :kp]
+    elif kind == "zeros":
+        lam = 1.0
+        qn[0] = -1e-30
+        sign = np.where(np.arange(kp) % 3 == 0, 1.0, -1.0)[:, None]
+        tiny = np.arange(kp) % 2 == 0
+        cv[0] = np.abs(cv[0])           # the other rows score below 0
+        cv[0, tiny] = (1e-30 * sign[tiny]).astype(np.float32)
+        cf[0] = -fqn[0]
+    elif kind == "nan":
+        cv[:, 3::7, 1] = np.nan
+    ids = rng.permutation(10 * kp * b)[:b * kp].reshape(b, kp)
+    return ([tensor(a, dev) for a in (cv, cf, qn, fqn)], lam,
+            tensor(ids.astype(np.int32), dev))
+
+
+def _sequence(args, lam, ids, k):
+    """What the fused re-rank replaces: ops.rescore, topk_first, gather."""
+    vals, pos = ref.topk_first(ops.rescore(*args, lam), k)
+    return vals, torch.gather(ids, -1, pos)
+
+
+@pytest.mark.parametrize("kind", ["plain", "ties", "zeros", "nan"])
+@pytest.mark.parametrize("kp", [1, 10, 80, 328, 513, 2056, 12000, 20000])
+def test_rescore_topk_bit_equal_to_sequence(cuda, kp, kind):
+    """The fused re-rank against ops.rescore + topk_first + gather, bit for
+    bit (the sort on the card and on the host agree): every candidate
+    ranked against all (kp <= 512), the radix-selected k-th key first
+    (past it), and past the capacity (kp = 20000 at d = 64, m = 8) the
+    wide route, counted apart."""
+    b, d, m, k = (3, 64, 8, 10) if kp > 4096 else (6, 64, 8, 10)
+    args, lam, ids = _rerank_case(b, kp, d, m, kind, seed=kp, dev=cuda)
+    want = _sequence(args, lam, ids, k)
+    host = ref.topk_first(ops.rescore(*args, lam).cpu(), k)
+    assert torch.equal(_bits(want[0]).cpu(), _bits(host[0]))
+    assert torch.equal(want[1].cpu(), torch.gather(ids.cpu(), -1, host[1]))
+    _build.reset_launch_counts()
+    got = ops.rescore_topk(*args, lam, ids, k)
+    wide = not rescore_kern.fits(kp, d, m)
+    assert _build.launch_counts() == {
+        "rescore_wide" if wide else "rescore": 1}
+    assert got[1].dtype == torch.int32
+    assert torch.equal(_bits(got[0]), _bits(want[0]))
+    assert torch.equal(got[1], want[1])
+    if kind == "zeros" and kp >= 10:   # both zeros among query 0's top k
+        z = _bits(got[0][0])
+        assert bool((z == _bits(torch.tensor([-0.0], device=cuda))).any())
+        assert bool((z == 0).any())
+
+
+@pytest.mark.parametrize("kp", [10, 80, 2056])
+def test_rescore_topk_k_equal_kp_bf16_and_int64_ids(cuda, kp):
+    """k = kp (the whole sort), bf16 tiles (cast up as ops.rescore casts
+    them) and int64 ids, each bit-equal to the sequence."""
+    args, lam, ids = _rerank_case(5, kp, 40, 6, "ties", seed=3, dev=cuda)
+    for k in (kp, kp + 3):
+        got = ops.rescore_topk(*args, lam, ids, k)
+        assert got[0].shape == (5, kp)
+        assert torch.equal(_bits(got[0]), _bits(_sequence(args, lam, ids,
+                                                          k)[0]))
+    half = [a.to(torch.bfloat16) for a in args]
+    ids64 = ids.long()
+    got = ops.rescore_topk(*half, lam, ids64, 7)
+    want = _sequence([a.float() for a in half], lam, ids64, 7)
+    assert got[1].dtype == torch.int64
+    assert torch.equal(_bits(got[0]), _bits(want[0]))
+    assert torch.equal(got[1], want[1])
+
+
+def test_rescore_topk_refuses_and_counts(cuda):
+    args, lam, ids = _rerank_case(4, 30, 16, 4, "plain", dev=cuda)
+    _build.reset_launch_counts()
+    ops.rescore_topk(*args, lam, ids, 5)
+    ops.rescore_topk(*args, lam, ids.t().contiguous().t(), 5)
+    assert _build.launch_counts() == {"rescore": 2}
+    for bad in (lambda: ops.rescore_topk(*args, lam, ids.float(), 5),
+                lambda: ops.rescore_topk(*args, lam, ids[:, :5], 5),
+                lambda: ops.rescore_topk(args[0].double(), *args[1:], lam,
+                                         ids, 5),
+                lambda: ops.rescore_topk(args[0], args[1][:, :3], *args[2:],
+                                         lam, ids, 5)):
+        with pytest.raises(ValueError):
+            bad()
+    assert _build.launch_counts() == {"rescore": 2}
