@@ -63,12 +63,21 @@ Phases, each of which raises (and exits non-zero) on a failure:
    escalation sub-batch's b=16, bit for bit, beside ``embedding_bag``, its
    bound and its LUT relayout's share of the device time; B10 beside its
    time before the redesign), and the first-occurrence top-k of the
-   (64, 1M) ADC distances is timed and checked against a stable sort. Then
-   the serving sequence of phase 3, one ``fcvi.query`` and one direct
-   ``ops.pq_score`` call (B10: no serving path calls it, in the JAX
-   package either). Checks: the first batch against a CPU engine on the
+   (64, 1M) ADC distances is timed and checked against a stable sort. The
+   scan LUT (``ops.pq_scan_luts``: B8's cross term, the residual norms and
+   the build's terms in one launch) is held bit for bit against its plain
+   version at b=64, 16 and 1, timed as a host loop and as device time
+   beside its bytes bound, the plain version and the chain of launches it
+   replaced (step 0, PERF.md). Then the serving sequence of phase 3, one
+   ``fcvi.query`` and one direct call each of ``ops.pq_lut_qdot``,
+   ``ops.pq_score_batch`` and ``ops.pq_score`` (B8, B9 and B10: no serving
+   path calls them). Checks: serving builds its LUTs through
+   ``pq_scan_luts`` alone, the first batch against a CPU engine on the
    same state, queries at a candidate near-tie left out; recall@10 printed
-   beside the flat and IVF values (PQ is approximate: no floor).
+   beside the flat and IVF values (PQ is approximate: no floor) and its
+   last value before the scan LUT's kernel; on the same index, the first
+   batch's ADC candidates over the kernel's table equal those over the
+   chain it replaced outside the chain's near-ties (k'=80 and 320).
 3d. the storage ladder, flat: the same corpus and queries with
    ``FCVIConfig(storage_dtype="bfloat16")`` and then ``"int8"`` (every other
    field and all of ``EngineConfig`` at their defaults). For each: the bytes
@@ -134,7 +143,8 @@ Phases, each of which raises (and exits non-zero) on a failure:
    equal scores, where the four full-row histogram passes must run.
 4. a ``kernels`` JSON line with each kernel variant's launches over phases
    3 to 3g (each must be > 0), errors, times and bound, and the device
-   time (``device_ms``) of B4, B8 and B10, whose host loops sit near the
+   time (``device_ms``) of B4, B8, B10 and the scan LUT, whose host loops
+   sit near the
    host's cost of a launch (null for the others). No serving phase may
    re-rank past the fused re-rank's capacity (``rescore_wide``).
 
@@ -191,6 +201,14 @@ B_ESC = 16                   # an escalation sub-batch's size (B9 check)
 # redesign (PERF.md, step 0), printed beside this run's times
 B9_STEP0 = {B: 2.9828, B_ESC: 0.6472}
 B10_STEP0 = (0.0696, 0.0471)
+# scan_luts by batch (host loop, device) before pq_scan_luts: B8 and a
+# chain of plain torch ops, nine launches (PERF.md, step 0)
+LUTS_STEP0 = {B: (0.1826, 0.0762), B_ESC: (0.2611, 0.0304), 1: (0.2537,
+                                                                0.0154)}
+# phase 3c's recall@10 in the last run before pq_scan_luts, printed beside
+# this run's: the PQ build's k-means sums with atomics on the card, so the
+# codebooks, and the recall, move from run to run of the same code
+PQ_RECALL_BEFORE = 0.6609
 L2_RTOL, L2_ATOL = 1e-5, 1e-4
 COS_ATOL = 1e-5
 
@@ -211,6 +229,9 @@ SOURCES = {
                              "src/repro/kernels/ivf_score.py:94"),
     "pq_lut_qdot": ("src/repro_torch/csrc/pq_lut.cu",
                     "src/repro/kernels/pq_lut.py:69"),
+    # B8 fused with the rest of the scan LUT: the serving path's LUTs
+    "pq_scan_luts": ("src/repro_torch/csrc/pq_lut.cu",
+                     "src/repro/kernels/pq_lut.py:69"),
     "pq_score_batch": ("src/repro_torch/csrc/pq_lut.cu",
                        "src/repro/kernels/pq_lut.py:120"),
     "pq_score": ("src/repro_torch/csrc/pq_lut.cu",
@@ -384,7 +405,7 @@ def fp64_errs(x, sq, q, vals, ids, scales=None):
     if not bool(live.any()):
         return 0.0, 0.0
     idx = ids.long()
-    s = 2.0 * (q @ x.float().T)
+    s = 2.0 * ref.dot_rounded(q, x)
     if scales is not None:
         s = s * scales
     s = (s - sq[None, :]) - torch.sum(q * q, dim=-1, keepdim=True)
@@ -474,11 +495,11 @@ def phase_kernels(dev, gen, power: str) -> dict:
         vals, ids = ops.score_topk(x, sq, q, kk)
         rvals, rids = ref.ref_score_topk(x, sq, q, kk + 1)
         err = (vals - rvals[:, :kk]).abs().max().item()
-        tol = (L2_ATOL + L2_RTOL * rvals[:, :kk].abs()).max().item()
         agree, total = ids_outside_ties(rvals, rids, ids, L2_RTOL, L2_ATOL)
         share = tol_share(vals, rvals[:, :kk])
         e64, p64 = fp64_errs(x, sq, q, vals, ids)
-        check(err <= tol, f"score_topk kk={kk} error {err} > {tol}")
+        check(share <= 1.0, f"score_topk kk={kk} error {err}: {share:.3f} "
+              "of its slot's tolerance")
         check(agree == total, f"score_topk kk={kk}: {total - agree} ids "
               "differ outside near-ties")
         out = ops.score_topk_rows(x, sq, pv, pf, q, kk)
@@ -822,23 +843,30 @@ def member_stats(be, uniq, member) -> dict:
 def device_time(fn, calls: int = 10):
     """(device ms a call summed over its kernels, {kernel: device ms a
     call}, kernel launches a call) of ``fn``, from torch.profiler over
-    ``calls`` calls after one."""
+    ``calls`` calls after one: each kernel's mean time times its launches a
+    call, rounded to a whole number. The trace may drop a launch's record
+    (a sum over the calls would count it as no time), or every record: then
+    it is taken again, up to three times."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     split, launches = {}, 0
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.key.replace("(anonymous namespace)::", "")
-            name = name.split("(")[0][:48]
-            split[name] = split.get(name, 0.0) + (e.self_device_time_total
-                                                  / 1e3 / calls)
-            launches += e.count
-    return sum(split.values()), split, launches / calls
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.count:
+                name = e.key.replace("(anonymous namespace)::", "")
+                name = name.split("(")[0][:48]
+                per_call = max(1, round(e.count / calls))
+                split[name] = split.get(name, 0.0) + (
+                    e.self_device_time_total / 1e3 / e.count * per_call)
+                launches += per_call
+        if split:
+            break
+    return sum(split.values()), split, launches
 
 
 def kernel_split(fn, calls: int = 10) -> dict:
@@ -1080,11 +1108,13 @@ def candidate_ties(be, q_t, kp, window: int = 64):
 
 
 def pq_check(name, got, want, shape) -> float:
-    """Largest error of a PQ kernel against its plain version; raises past
-    the L2 tolerance (atol 1e-4 + rtol 1e-5 of the plain value)."""
+    """Largest error of a PQ kernel against its plain version; raises where
+    a slot lies past its own L2 tolerance (atol 1e-4 + rtol 1e-5 of the
+    plain value)."""
     err = (got - want).abs().max().item()
-    tol = (L2_ATOL + L2_RTOL * want.abs()).max().item()
-    check(err <= tol, f"{name} {shape} error {err} > {tol}")
+    share = tol_share(got, want)
+    check(share <= 1.0, f"{name} {shape} error {err}: {share:.3f} of its "
+          "slot's tolerance")
     return err
 
 
@@ -1112,6 +1142,7 @@ def pq_kernels(be, q_t, power: str) -> dict:
     res["pq_lut_qdot"] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
                               plain_ms=plain, bound_ms=bnd, bound_by=by,
                               library_ms=lib)
+    res.update(scan_luts_kernel(be, q_t, power))
 
     luts = pq_mod.scan_luts(be, q_t)
     kk = luts.shape[-1]
@@ -1192,6 +1223,83 @@ def pq_kernels(be, q_t, power: str) -> dict:
     del d2, neg
     torch.cuda.empty_cache()
     res.update(pq_topk_kernels(be, luts, power))
+    return res
+
+
+def chain_luts(be, queries):
+    """The scan LUT as B8 and a chain of plain torch ops, nine launches
+    (``index.pq.scan_luts`` before ``ops.pq_scan_luts``): timed as what the
+    one kernel replaced; the port never calls it."""
+    q = queries.shape[0]
+    m, ksub, dsub = be.codebooks.shape
+    q_dot = ops.pq_lut_qdot(queries.reshape(q, m, dsub).contiguous(),
+                            be.codebooks)
+    qres = queries[:, None, :] - be.coarse_centers[None]
+    qres_sq = torch.sum(qres.reshape(q, be.ncoarse, m, dsub) ** 2,
+                        dim=-1).transpose(1, 2)
+    luts = (qres_sq[..., None]
+            - 2.0 * (q_dot[:, :, None, :]
+                     - be.coarse_dot.transpose(0, 1)[None])
+            + be.cb_sq[None, :, None, :])
+    return luts.reshape(q, m, -1).contiguous()
+
+
+def scan_luts_kernel(be, q_t, power: str) -> dict:
+    """``ops.pq_scan_luts`` bit for bit against its plain version at b=64,
+    16 and 1 on the index's codebooks, centres and build terms, timed (host
+    loop, device) beside its bound (the table written once, the inputs
+    read once, or its fp32 operations), the plain version and the chain
+    of launches it replaced (``chain_luts``)."""
+    m, ksub, dsub = be.codebooks.shape
+    c = be.ncoarse
+    terms = (be.codebooks, be.coarse_centers, be.coarse_dot, be.cb_sq)
+    res = {}
+    for b in (B, B_ESC, 1):
+        qb = q_t[:b].contiguous()
+        got = ops.pq_scan_luts(qb, *terms)
+        want = ref.ref_pq_scan_luts(qb, *terms)
+        check(got.shape == (b, m, c * ksub) and torch.equal(
+            got.view(torch.int32), want.view(torch.int32)),
+              f"pq_scan_luts b={b} is not bit-equal to its plain version")
+        old = chain_luts(be, qb)
+        share = tol_share(got, old)
+        check(share <= 1.0, f"pq_scan_luts b={b}: {share:.3f} of the L2 "
+              "tolerance from the chain it replaced")
+        ms = time_ms(lambda: ops.pq_scan_luts(qb, *terms), 50)
+        dev_ms, _, n_launch = device_time(lambda: ops.pq_scan_luts(qb,
+                                                                  *terms))
+        ms_old = time_ms(lambda: chain_luts(be, qb), 50)
+        dev_old, _, n_old = device_time(lambda: chain_luts(be, qb))
+        plain = time_ms(lambda: ref.ref_pq_scan_luts(qb, *terms), 10)
+        bnd, by = bound_ms(
+            got.nbytes + qb.nbytes + sum(t.nbytes for t in terms),
+            b * m * ksub * (2 * dsub + 4 * c) + b * c * m * 3 * dsub)
+        h0, d0 = LUTS_STEP0[b]
+        print(f"[kernel] pq_scan_luts b={b} M={m} ncoarse={c} ksub={ksub} "
+              f"dsub={dsub}: bit-equal to its plain version ({share:.3f} of "
+              f"the L2 tolerance from the chain it replaced); host loop "
+              f"{ms:.4f} ms, device {dev_ms:.4f} ({n_launch:g} launch); the "
+              f"chain (B8 + torch ops): host loop {ms_old:.4f}, device "
+              f"{dev_old:.4f} ({n_old:g} launches); step 0 (PERF.md) "
+              f"{h0:.4f} / {d0:.4f}; plain_ms {plain:.4f} bound_ms "
+              f"{bnd:.5f} ({by}); card {power}")
+        if b == B:   # the table's order moves no candidate past a near-tie
+            for kp in (KP, 4 * KP):
+                new = ops.pq_score_topk(be.ccodes, got, kp, be.grouped)
+                chain = ops.pq_score_topk(be.ccodes, old, kp + 1,
+                                          be.grouped)
+                agree, total = ids_outside_ties(chain[0], chain[1], new[1],
+                                                L2_RTOL, L2_ATOL)
+                check(agree == total, f"pq_scan_luts k'={kp}: {total - agree}"
+                      " candidates differ from the chain's outside near-ties")
+                print(f"[kernel] pq_scan_luts k'={kp}: ADC candidates "
+                      f"{agree}/{total} equal to the chain's outside its "
+                      "near-ties")
+            res["pq_scan_luts"] = dict(max_abs_err=0.0, ms=ms,
+                                       device_ms=dev_ms, plain_ms=plain,
+                                       bound_ms=bnd, bound_by=by,
+                                       library_ms=None)
+        del got, want, old
     return res
 
 
@@ -1318,14 +1426,23 @@ def phase_pq(dev, power: str, inp: Inputs, flat_recall: float,
     run = _build.launch_counts()
     check(run.get("pq_score_batch", 0) == 0 and run.get("pq_score_topk", 0),
           f"pq serving did not go through the fused scan alone: {run}")
+    check(run.get("pq_lut_qdot", 0) == 0 and run.get("pq_scan_luts", 0),
+          f"pq serving did not build its LUTs through pq_scan_luts: {run}")
     print(f"[pq] serving run: pq_score_topk {run['pq_score_topk']} "
           f"launches, pq_score_batch {run.get('pq_score_batch', 0)} (the "
-          "(b, n) distances are never written)")
-    # B9 and B10 are off every serving path (the reference's serving path
-    # does not call B10 either): one direct call each on the index's codes
+          "(b, n) distances are never written); pq_scan_luts "
+          f"{run['pq_scan_luts']}, pq_lut_qdot {run.get('pq_lut_qdot', 0)}")
+    # B8, B9 and B10 are off every serving path (the reference's serving
+    # path does not call B10 either): one direct call each on the index
     _build.reset_launch_counts()
     ib = eng.index.backend
-    one = pq_mod.scan_luts(ib, eng.index.transform.apply(qv, qf))
+    q1 = eng.index.transform.apply(qv, qf)
+    one = pq_mod.scan_luts(ib, q1)
+    m1, _, dsub1 = ib.codebooks.shape
+    cross = ops.pq_lut_qdot(q1.reshape(B, m1, dsub1).contiguous(),
+                            ib.codebooks)
+    check(bool(torch.isfinite(cross).all()), "pq_lut_qdot on the index's "
+          "codebooks returned non-finite values")
     d2 = ops.pq_score(ib.ccodes, one[0])
     d2b = ops.pq_score_batch(ib.ccodes, one)
     torch.cuda.synchronize()
@@ -1339,7 +1456,8 @@ def phase_pq(dev, power: str, inp: Inputs, flat_recall: float,
 
     recall = recall_vs_truth(index, state0, inp, ids, dev)
     print(f"[pq] recall@10 {recall:.4f} over 512 queries (flat path "
-          f"{flat_recall:.4f}, IVF {ivf_recall:.4f}); card {power}")
+          f"{flat_recall:.4f}, IVF {ivf_recall:.4f}; before pq_scan_luts "
+          f"{PQ_RECALL_BEFORE:.4f}); card {power}")
     sweep = []
     for kp in (KP, 4 * KP, 16 * KP):   # the default k', escalated, wider
         kp_ids = np.concatenate([fcvi.query(
@@ -1387,12 +1505,12 @@ def flat_variant_kernels(index, q_t, power: str) -> dict:
         vals, ids = ops.score_topk(x, sq, q_t, kk, scales=sc)
         rvals, rids = ref.ref_score_topk(x, sq, q_t, kk + 1, sc)
         err = (vals - rvals[:, :kk]).abs().max().item()
-        tol = (L2_ATOL + L2_RTOL * rvals[:, :kk].abs()).max().item()
         agree, total = ids_outside_ties(rvals, rids, ids, L2_RTOL, L2_ATOL)
         name, name_rows = "score_topk" + suffix, "score_topk_rows" + suffix
         share = tol_share(vals, rvals[:, :kk])
         e64, p64 = fp64_errs(x, sq, q_t, vals, ids, sc)
-        check(err <= tol, f"{name} kk={kk} error {err} > {tol}")
+        check(share <= 1.0, f"{name} kk={kk} error {err}: {share:.3f} of "
+              "its slot's tolerance")
         check(agree == total, f"{name} kk={kk}: {total - agree} ids differ "
               "outside near-ties")
         out = ops.score_topk_rows(x, sq, pv, pf, q_t, kk, scales=sc)
@@ -1680,9 +1798,8 @@ def masked_kernels(ix: dict, masks, q_t, power) -> dict:
                 err = (vals - rv[:, :kk])[live].abs().max().item()
                 share = tol_share(vals, rv[:, :kk])
                 e64, p64 = fp64_errs(x, sq, q_t, vals, ids, sc)
-                tol = (L2_ATOL + L2_RTOL * rv[:, :kk][live].abs()).max()
-                check(err <= tol.item(), f"{name} {pname} kk={kk} error "
-                      f"{err} > {tol.item()}")
+                check(share <= 1.0, f"{name} {pname} kk={kk} error {err}: "
+                      f"{share:.3f} of its slot's tolerance")
                 # dead slots read -1e30 here, so the near-tie rule sees
                 # finite gaps (equal dead slots tie with each other)
                 agree, total = ids_outside_ties(
@@ -1744,9 +1861,10 @@ def masked_kernels(ix: dict, masks, q_t, power) -> dict:
             rv, ri = ref.ref_ivf_score_topk_dedup(*ded, K_MASK + 1, gsc,
                                                   gmask)
             err = (vals - rv[:, :K_MASK]).abs().max().item()
-            tol = (L2_ATOL + L2_RTOL * rv[:, :K_MASK].abs()).max().item()
+            share = tol_share(vals, rv[:, :K_MASK])
             agree, total = ids_outside_ties(rv, ri, ids, L2_RTOL, L2_ATOL)
-            check(err <= tol, f"{name} {scan} {pname} error {err} > {tol}")
+            check(share <= 1.0, f"{name} {scan} {pname} error {err}: "
+                  f"{share:.3f} of its slot's tolerance")
             check(agree == total, f"{name} {scan} {pname}: {total - agree} "
                   "ids differ outside near-ties")
             ms = time_ms(lambda: ops.ivf_score_topk_dedup(
@@ -1770,8 +1888,9 @@ def masked_kernels(ix: dict, masks, q_t, power) -> dict:
                 *ded, K_MASK, gsc, gmask, _select=True), 5)
             print(f"[kernel] {name} {scan} ({n_scan} of {NLIST} lists in "
                   f"{uniq.numel()} slots), mask {pname} ({live} eligible "
-                  f"rows) b={B} k={K_MASK}: max_abs_err {err:.3g} ids "
-                  f"{agree}/{total} outside near-ties; kernel_ms {ms:.4f} "
+                  f"rows) b={B} k={K_MASK}: max_abs_err {err:.3g} "
+                  f"({share:.3f} of the tolerance) ids {agree}/{total} "
+                  f"outside near-ties; kernel_ms {ms:.4f} "
                   f"(selection path forced {sel_ms:.4f}) plain_ms "
                   f"{plain:.4f} bound_ms {bnd:.4f} ({by}, {unit}); card "
                   f"{power}")
@@ -2114,10 +2233,11 @@ def select_kernels(flat_ix, ivf_ix, inp: Inputs, dev, power) -> dict:
                       "buffered")
             rv, ri = ref.ref_score_topk(x, sq, q_t, kk + 1)
             err = (a[0] - rv[:, :kk]).abs().max().item()
-            tol = (L2_ATOL + L2_RTOL * rv.abs()).max().item()
+            share = tol_share(a[0], rv[:, :kk])
             agree, total = ids_outside_ties(rv, ri, a[1], L2_RTOL, L2_ATOL)
-            check(err <= tol and agree == total, f"{name}_select kk={kk} "
-                  f"error {err}, ids {agree}/{total}")
+            check(share <= 1.0 and agree == total, f"{name}_select kk={kk} "
+                  f"error {err} ({share:.3f} of its slot's tolerance), ids "
+                  f"{agree}/{total}")
             del a, rv, ri
             ms_sel = time_ms(lambda: kern(True), 5)
             ms_buf = time_ms(lambda: kern(False), 5) if buffered else None
@@ -2126,7 +2246,8 @@ def select_kernels(flat_ix, ivf_ix, inp: Inputs, dev, power) -> dict:
                       f"{ms_buf:.4f} ms)" if buffered else
                       "past the buffers: against the plain version")
             print(f"[kernel] {name}_select (forced) b={B} n={N} d={D} "
-                  f"kk={kk}: {versus}; max_abs_err {err:.3g}; kernel_ms "
+                  f"kk={kk}: {versus}; max_abs_err {err:.3g} ({share:.3f} "
+                  f"of the tolerance); kernel_ms "
                   f"{ms_sel:.4f} plain_ms {plain:.4f} pair_ms {pair:.4f} "
                   f"bound_ms {bnd:.4f} ({by}, {unit}); card "
                   f"{power}")
@@ -2171,8 +2292,9 @@ def select_kernels(flat_ix, ivf_ix, inp: Inputs, dev, power) -> dict:
             check(torch.equal(torch.isneginf(a[0]), ~live),
                   f"{name}_select k={k}: dead slots differ from plain")
             err = (a[0] - want)[live].abs().max().item()
-            tol = (L2_ATOL + L2_RTOL * want[live].abs()).max().item()
-            check(err <= tol, f"{name}_select k={k} error {err}")
+            share = tol_share(a[0], want)
+            check(share <= 1.0, f"{name}_select k={k} error {err}: "
+                  f"{share:.3f} of its slot's tolerance")
             del a, want
             ms_sel = time_ms(lambda: kern(True), 5)
             plain = time_ms(plain_fn, 2)
@@ -2182,7 +2304,8 @@ def select_kernels(flat_ix, ivf_ix, inp: Inputs, dev, power) -> dict:
                       if buffered else
                       "past the buffers: against the plain version")
             print(f"[kernel] {name}_select (forced) b={B} nlist={NLIST} "
-                  f"nprobe={NPROBE} k={k}: {versus}; max_abs_err {err:.3g}; "
+                  f"nprobe={NPROBE} k={k}: {versus}; max_abs_err {err:.3g} "
+                  f"({share:.3f} of the tolerance); "
                   f"kernel_ms {ms_sel:.4f} plain_ms {plain:.4f} bound_ms "
                   f"{bnd:.4f} ({by}); card {power}")
             if k == 40 * KP:

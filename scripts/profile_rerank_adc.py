@@ -25,6 +25,17 @@ ids, k=10, 64 at kp=2056) and, where the package has it,
 host loop (CUDA events around back-to-back calls, so a call's host cost
 shows) and as device time, with its kernel launches a call.
 
+``--luts`` times the PQ scan LUTs on the same index instead, at b=64, 16
+and 1: ``index.pq.scan_luts`` (one ``pq_scan_luts`` launch) and the chain
+of plain torch ops around B8 that it replaced (``chip_smoke.chain_luts``:
+B8, the residual, its squared sum per subspace, the broadcast terms),
+each as a host loop and as device time with its launches and each
+kernel's share, beside the bound of one write of the table; then the
+kernel at every tiling of up to 8 queries and 1 to 32 coarse ids a block
+(``pq_lut.luts_plan``'s choice marked), each bit-equal to the planned
+one, by device time (the host's cost of a call hides the tiling in a host
+loop).
+
 It also prints whether ``topk_first`` on the card orders -0.0, +0.0 and
 NaN as on the CPU (a stable descending sort: NaN first, the two zeros
 equal). The last line is a JSON object with every number and the card's
@@ -47,7 +58,7 @@ sys.path.insert(0, ROOT)
 import chip_smoke as smoke  # noqa: E402
 from repro_torch.core import fcvi  # noqa: E402
 from repro_torch.index import pq as pq_mod  # noqa: E402
-from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import _build, ops, pq_lut, ref  # noqa: E402
 
 B, D, M = smoke.B, smoke.D, smoke.M
 
@@ -80,15 +91,77 @@ def timed(tag, fn, iters, power, extra="") -> dict:
     return dict(host_ms=host, device_ms=dev, launches=launches, split=split)
 
 
-def adc(iters, power) -> dict:
+def pq_index():
+    """(phase 3c's PQ index, the first batch's transformed queries)."""
     dev = torch.device("cuda", 0)
     inp = smoke.make_inputs()
     index = fcvi.build(inp.corpus.vectors, inp.corpus.filters,
                        fcvi.FCVIConfig(backend="pq"), device=dev)
-    be = index.backend
     qv, qf = (torch.tensor(a, device=dev) for a in (inp.q_all[:B],
                                                     inp.f_all[:B]))
-    luts = pq_mod.scan_luts(be, index.transform.apply(qv, qf).contiguous())
+    return index, index.transform.apply(qv, qf).contiguous()
+
+
+def luts(iters, power) -> dict:
+    index, q_t = pq_index()
+    be = index.backend
+    m, ksub, dsub = be.codebooks.shape
+    c = be.ncoarse
+    out = {}
+    for b in (B, smoke.B_ESC, 1):
+        qb = q_t[:b].contiguous()
+        table = 4 * b * m * c * ksub
+        inputs = 4 * (b * m * dsub + m * ksub * dsub + c * m * dsub
+                      + c * m * ksub + m * ksub)
+        bnd, by = smoke.bound_ms(table + inputs,
+                                 b * m * ksub * (2 * dsub + 4 * c)
+                                 + b * c * m * 3 * dsub)
+        runs = {"scan_luts": lambda: pq_mod.scan_luts(be, qb),
+                "chain_luts (replaced)": lambda: smoke.chain_luts(be, qb)}
+        for name, fn in runs.items():
+            r = timed(f"{name} b={b}", fn, iters, power,
+                      f"; table ({b},{m},{c * ksub}) {table / 1e6:.2f} MB; "
+                      f"bound {bnd:.5f} ({by})")
+            out[f"{name} b={b}"] = dict(r, bound_ms=bnd, bound_by=by)
+        out[f"tilings b={b}"] = tilings(be, qb, power)
+    return out
+
+
+def tilings(be, qb, power) -> dict:
+    """``pq_scan_luts`` at each (queries, coarse ids) a block, every
+    codeword a block (the default shapes' plan keeps kc = ksub)."""
+    b = qb.shape[0]
+    m, ksub, dsub = be.codebooks.shape
+    terms = (be.codebooks, be.coarse_centers, be.coarse_dot, be.cb_sq)
+    planned = pq_lut.luts_plan(b, m, ksub, dsub, be.ncoarse, torch.cuda.
+                               get_device_properties(0).multi_processor_count)
+    want = pq_lut.pq_scan_luts(qb, *terms)
+    times = {}
+    for qt in (q for q in (1, 2, 4, 8) if q <= b):
+        for cr in (c for c in (1, 2, 4, 8, 16, 32) if c <= be.ncoarse):
+            p = pq_lut.LutPlan(
+                qt=qt, kc=planned.kc, cr=cr, vec=planned.vec,
+                blocks=-(-b // qt) * -(-ksub // planned.kc)
+                * -(-be.ncoarse // cr),
+                smem=pq_lut.luts_smem(qt, planned.kc, cr, dsub))
+            got = pq_lut.pq_scan_luts(qb, *terms, _plan=p)
+            smoke.check(torch.equal(got.view(torch.int32),
+                                    want.view(torch.int32)),
+                        f"pq_scan_luts b={b} qt={qt} cr={cr} differs")
+            times[f"{qt}x{cr}"] = smoke.device_time(
+                lambda: pq_lut.pq_scan_luts(qb, *terms, _plan=p))[0]
+    ranked = sorted(times.items(), key=lambda kv: kv[1])
+    print(f"[scan_luts tilings b={b}] queries x coarse ids a block, device "
+          f"ms: " + ", ".join(f"{k} {v:.4f}" for k, v in ranked)
+          + f"; planned {planned.qt}x{planned.cr}; card {power}")
+    return dict(times=times, planned=f"{planned.qt}x{planned.cr}")
+
+
+def adc(iters, power) -> dict:
+    dev = torch.device("cuda", 0)
+    index, q_t = pq_index()
+    be = index.backend
+    luts = pq_mod.scan_luts(be, q_t)
     codes = be.ccodes
     n, m = codes.shape
     kk = luts.shape[-1]
@@ -183,6 +256,8 @@ def sort_order() -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--luts", action="store_true",
+                    help="time the PQ scan LUTs only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_rerank_adc: no CUDA device; nothing was run",
@@ -193,9 +268,13 @@ def main() -> int:
     ptx = ptxas_lines()
     for line in ptx:
         print(f"[ptxas] {line}")
-    out = {"card": power, "ptxas": ptx, "sort": sort_order()}
-    out["rerank"] = rerank(args.iters, power)
-    out["adc"] = adc(args.iters, power)
+    out = {"card": power, "ptxas": ptx}
+    if args.luts:
+        out["luts"] = luts(args.iters, power)
+    else:
+        out["sort"] = sort_order()
+        out["rerank"] = rerank(args.iters, power)
+        out["adc"] = adc(args.iters, power)
     print(power)
     print(json.dumps(out))
     return 0

@@ -39,12 +39,15 @@
 //     most 8 bits), so the rows enter the bf16 products at their stored
 //     width (int8 pairs widened to bf16 pairs in registers), and the query
 //     is split into three bf16 terms (about 24 bits): x q2 + x q1 + x q0.
-// The MMA sums groups of four k-steps from zero (fp32 accumulators), and
-// the groups are added in fp32 in registers: the tensor cores' own
+// The MMA sums each k-step's products from zero (fp32 accumulators), and
+// the k-steps are added in fp32 in registers: the tensor cores' own
 // accumulation does not round to nearest, and its error grows with the
 // terms it adds (over one sum at d=128, chip_smoke.py phase 3f saw an
 // error of 7.2e-4 on scores near -56, past the tolerance where 2 <q, x>
-// and the norms cancel).
+// and the norms cancel). On the serving corpus (norms about 250-440),
+// sums of four k-steps left a score up to 0.87 of its slot's L2
+// tolerance from the fp64 score and up to 1.2 from the plain version's;
+// sums of one k-step, 0.64 and 0.67 (scripts/scan_accuracy.py --corpus).
 // Scale, ||x||^2 and ||q||^2 are applied in the epilogue, in the order
 // above. The K order of the MMA is a fixed permutation of the columns (so
 // one 16-byte shared-memory load feeds two or four k-steps), applied to
@@ -161,7 +164,7 @@ constexpr int kProducers = 128;      // and a producer warpgroup
 constexpr int kThreads = kConsumers + kProducers;
 constexpr int kRows = 128;           // corpus rows a tile: 64 a warpgroup
 constexpr int kMaxStages = 4;        // most slots of the staging ring
-constexpr int kGroup = 4;            // k-steps an MMA sum runs before an add
+constexpr int kGroup = 1;            // k-steps an MMA sum runs before an add
 constexpr int kMargin = 16;          // a buffer past cap - kMargin is cut
 constexpr int kSpill = kRows;        // spill slots per (block, query)
 constexpr int kMergeThreads = 256;   // pass 2

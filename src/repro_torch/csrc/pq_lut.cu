@@ -1,26 +1,44 @@
-// PQ asymmetric-distance (ADC) kernels: the LUT cross term, the
-// gather-accumulate scans, and the fused ADC scan + top-k of the serving
-// path.
+// PQ asymmetric-distance (ADC) kernels: the scan LUT with its cross term,
+// the gather-accumulate scans, and the fused ADC scan + top-k of the
+// serving path.
 //
 // Replaces three Pallas kernels for the TPU, all in
 // src/repro/kernels/pq_lut.py:
 //   * pq_lut_qdot: out[i, m, j] = <q_sub[i, m], codebook[m, j]>, the
 //     q . codebook cross term of compute_luts, (b, M, dsub) x
-//     (M, ksub, dsub) -> (b, M, ksub);
+//     (M, ksub, dsub) -> (b, M, ksub); here the cross-term-only mode of
+//     pq_scan_luts_kernel, which fuses it with the rest of the LUT;
 //   * pq_score_batch: d2[i, r] = sum_m luts[i, m, codes[r, m]], codes
 //     (n, M), luts (b, M, K) -> (b, n). Callers pass the combined
 //     (coarse id * ksub + code) index, so K = ncoarse * ksub;
 //   * pq_score: the same at one LUT, (n, M) x (M, K) -> (n,). Launched as
 //     pq_score_batch at b = 1 (the wrapper counts it apart).
 //
-// pq_lut_qdot. Bound on the H100: launch latency. At the serving shapes
-// (64, 8, 16) x (8, 256, 16) it does about 4.2 MFLOP on about 0.7 MB. One
-// block per (query tile of kQTile, subspace m) stages codebook[m] (ksub x
-// dsub fp32, 16 KB at the default shapes) in shared memory with its rows
-// padded to an odd stride, so the lanes that read consecutive codewords hit
-// distinct banks; one thread per (query, codeword) sums the dsub products in
-// fp32 with fmaf, in order. No matrix unit: dsub = 16 is too short a depth
-// to pay for one, and the call is a microsecond of work.
+// pq_scan_luts (index.pq.scan_luts): the serving path's whole table,
+// lut[i, m, c * ksub + j] = (qres_sq[i, c, m] - 2 (q_dot[i, m, j] -
+// coarse_dot[c, m, j])) + cb_sq[m, j], (b, M, ncoarse * ksub) fp32, where
+// the reference's compute_luts runs B8 and plain ops around it (about
+// nine launches here before, four of them passes over the whole table).
+// Bound on the H100: writing the table once, 16.8 MB at b = 64, M = 8,
+// ncoarse = 32, ksub = 256 (0.005 ms at 3.35 TB/s), against about 21
+// MFLOP and 0.5 MB of inputs. One block per (query tile of up to 8,
+// codeword chunk, coarse range) and subspace: it stages its codewords, the
+// coarse_dot slice and cb_sq once (cp.async, all in flight together),
+// computes its queries' cross terms (a thread holds a codeword's columns
+// in registers and runs the tile's queries, read as broadcast 16-byte
+// loads, past it) and residual norms once into shared memory, then writes
+// each (query, coarse id) row segment once, as 16-byte stores, with
+// ordinary write-back stores so the table stays in the 50 MB L2 for the
+// scan that reads it next. Codewords come in chunks when a subspace's do
+// not fit (any ksub: a 4096 x 64 codebook is 1 MB), the dsub sums in
+// chunks of kLutCols columns, and the coarse axis splits across blocks
+// until the grid covers the SMs once (pq_lut.luts_plan). Every sum runs
+// in column order, the first product and then each next one added, with
+// __fmul_rn / __fadd_rn / __fsub_rn in the plain version's order
+// (ref.ref_pq_scan_luts), so the table is its bits. No tensor cores: a
+// dsub of 16 is a single k-step, the products are a tenth of the bound's
+// time at the SIMT rate, and a split of the fp32 operands (as the flat
+// scan's) would cost more than the table's write.
 //
 // pq_score_batch (and pq_score). Bound on the H100: the function's bytes
 // (the (b, n) fp32 output, 256 MB at b = 64, n = 1M, against 32 MB of int32
@@ -91,41 +109,196 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kQTile = 8;      // queries per pq_lut_qdot block
+constexpr int kLutThreads = 256;  // threads a pq_scan_luts block
+constexpr int kLutCols = 16;   // dsub columns staged at a time
 constexpr int kMaxBQ = 16;     // queries per pq_topk block, at most
 constexpr int kAdcWarps = kThreads / 32;
 constexpr int kAdcGroup = 64;  // query slots a pq_adc block, at most
 constexpr int kAdcUnroll = 2;  // row steps a pq_adc lane keeps in flight
 
-__global__ void __launch_bounds__(kThreads)
-pq_lut_qdot_kernel(const float* __restrict__ q_sub,
-                   const float* __restrict__ cb, float* __restrict__ out,
-                   int b, int M, int ksub, int dsub) {
-  extern __shared__ float smem[];
-  const int ds = dsub | 1;              // odd stride: conflict-free reads
-  float* cb_s = smem;                   // (ksub, ds)
-  float* q_s = smem + (size_t)ksub * ds;  // (kQTile, dsub)
-  const int m = blockIdx.y;
-  const int q0 = blockIdx.x * kQTile;
-  const int nq = min(kQTile, b - q0);
-  const float* cbm = cb + (long long)m * ksub * dsub;
-  for (int i = threadIdx.x; i < ksub * dsub; i += kThreads) {
-    const int j = i / dsub;
-    cb_s[j * ds + (i - j * dsub)] = cbm[i];
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__host__ __device__ inline size_t round4(size_t n) {
+  return (n + 3) & ~(size_t)3;
+}
+
+// One entry of the scan LUT, in the plain version's order.
+__device__ __forceinline__ float lut_entry(float qr, float qd, float cd,
+                                          float sq) {
+  return __fadd_rn(__fsub_rn(qr, __fmul_rn(2.f, __fsub_rn(qd, cd))), sq);
+}
+
+// pq_scan_luts_kernel's dynamic shared memory in bytes (pq_lut.luts_smem):
+// the cross term (qt, kc), the coarse_dot slice (cr, kc), cb_sq (kc), the
+// codewords' column chunk (kc, dc | 1), the queries' (qt, dq) and the
+// centres' (cr, dq) with dq = dc rounded up to 4, the residual norms
+// (qt, cr); each region a multiple of 16 bytes.
+size_t pq_luts_smem(int qt, int kc, int cr, int dc) {
+  const size_t ds = (size_t)(dc | 1), dq = round4(dc);
+  return sizeof(float) *
+         (round4((size_t)qt * kc) + round4((size_t)cr * kc) + round4(kc) +
+          round4((size_t)kc * ds) + (size_t)qt * dq + (size_t)cr * dq +
+          round4((size_t)qt * cr));
+}
+
+// rows x cols floats of src (row stride ss) to dst (row stride sd) by
+// cp.async, every copy in flight at once; the caller waits
+// (cp_async_wait_all) and syncs.
+__device__ __forceinline__ void lut_stage(float* dst, int sd,
+                                          const float* __restrict__ src,
+                                          long long ss, int rows, int cols) {
+  for (int e = threadIdx.x; e < rows * cols; e += kLutThreads) {
+    const int r = e / cols;
+    cp_async4(dst + r * sd + (e - r * cols), src + r * ss + (e - r * cols));
   }
-  for (int i = threadIdx.x; i < nq * dsub; i += kThreads) {
-    const int r = i / dsub;
-    q_s[i] = q_sub[((long long)(q0 + r) * M + m) * dsub + (i - r * dsub)];
+}
+
+// The scan LUT (or, with ncoarse = 0, the cross term alone): one block per
+// (query tile of qt, codeword chunk of kc, coarse range of cr; blockIdx.x,
+// query tile fastest) and subspace m (blockIdx.y). The dsub sums run in
+// column order in chunks of kLutCols columns staged in shared memory, each
+// the first product, then each next product added (mul and add rounded
+// apart, as the plain version's separate torch ops round them): a thread
+// holds a codeword's chunk in registers and runs the tile's queries (read
+// as broadcast 16-byte loads) past it; then the table entries
+// ((qres_sq - 2 (q_dot - coarse_dot)) + cb_sq) leave as rows of
+// out[q, m, c * ksub + j0 : + kc], 16-byte stores where VEC.
+// Three blocks an SM (at most 85 registers a thread): a block's fixed
+// cost is its staging, which more resident blocks overlap.
+template <bool VEC>
+__global__ void __launch_bounds__(kLutThreads, 3)
+pq_scan_luts_kernel(const float* __restrict__ q, const float* __restrict__ cb,
+                    const float* __restrict__ cen,
+                    const float* __restrict__ cdot,
+                    const float* __restrict__ cbsq, float* __restrict__ out,
+                    int b, int M, int ksub, int dsub, int ncoarse, int qt,
+                    int kc, int cr, int qtiles, int kchunks) {
+  extern __shared__ __align__(16) float lut_smem[];
+  const bool full = ncoarse > 0;
+  const int m = blockIdx.y;
+  int x = blockIdx.x;
+  const int q0 = (x % qtiles) * qt;
+  x /= qtiles;
+  const int j0 = (x % kchunks) * kc;
+  const int c0 = (x / kchunks) * cr;
+  const int nq = min(qt, b - q0);
+  const int nk = min(kc, ksub - j0);
+  const int nc = full ? min(cr, ncoarse - c0) : 0;
+  const int crs = full ? cr : 0;
+  const int dc = min(dsub, kLutCols);
+  const int ds = dc | 1;            // odd stride: conflict-free reads
+  const int dq = (dc + 3) & ~3;     // 16-byte rows: broadcast loads
+  float* qdot_s = lut_smem;                               // (qt, kc)
+  float* cdot_s = qdot_s + round4((size_t)qt * kc);       // (cr, kc)
+  float* cbsq_s = cdot_s + round4((size_t)crs * kc);      // (kc)
+  float* cb_s = cbsq_s + round4(kc);                      // (kc, ds)
+  float* q_s = cb_s + round4((size_t)kc * ds);            // (qt, dq)
+  float* cen_s = q_s + (size_t)qt * dq;                   // (cr, dq)
+  float* qres_s = cen_s + (size_t)crs * dq;               // (qt, cr)
+  const int tid = threadIdx.x;
+  const long long d = (long long)M * dsub;
+  const float* cbm = cb + ((long long)m * ksub + j0) * dsub;
+  if (full) {
+    lut_stage(cdot_s, kc, cdot + ((long long)c0 * M + m) * ksub + j0,
+              (long long)M * ksub, nc, nk);
+    lut_stage(cbsq_s, nk, cbsq + (long long)m * ksub + j0, nk, 1, nk);
+  }
+  for (int t0 = 0; t0 < dsub; t0 += dc) {
+    const int w = min(dc, dsub - t0);
+    __syncthreads();  // the last chunk's reads are done
+    lut_stage(cb_s, ds, cbm + t0, dsub, nk, w);
+    lut_stage(q_s, dq, q + q0 * d + (long long)m * dsub + t0, d, nq, w);
+    lut_stage(cen_s, dq, cen + c0 * d + (long long)m * dsub + t0, d, nc, w);
+    cp_async_wait_all();
+    __syncthreads();
+    const bool first = t0 == 0;
+    for (int j = tid; j < nk; j += kLutThreads) {
+      float cj[kLutCols];
+#pragma unroll
+      for (int t = 0; t < kLutCols; ++t)
+        cj[t] = t < w ? cb_s[j * ds + t] : 0.f;
+#pragma unroll 4
+      for (int i = 0; i < nq; ++i) {
+        const float4* xq = reinterpret_cast<const float4*>(q_s + i * dq);
+        float xv[kLutCols];
+#pragma unroll
+        for (int t4 = 0; t4 < kLutCols / 4; ++t4) {
+          if (4 * t4 < w) {
+            const float4 v = xq[t4];
+            xv[4 * t4] = v.x;
+            xv[4 * t4 + 1] = v.y;
+            xv[4 * t4 + 2] = v.z;
+            xv[4 * t4 + 3] = v.w;
+          }
+        }
+        float acc = __fmul_rn(xv[0], cj[0]);
+        if (!first) acc = __fadd_rn(qdot_s[i * kc + j], acc);
+#pragma unroll
+        for (int t = 1; t < kLutCols; ++t)
+          if (t < w) acc = __fadd_rn(acc, __fmul_rn(xv[t], cj[t]));
+        qdot_s[i * kc + j] = acc;
+      }
+    }
+    for (int e = tid; e < nq * nc; e += kLutThreads) {
+      const int i = e / nc, c = e - i * nc;
+      const float* xq = q_s + i * dq;
+      const float* xc = cen_s + c * dq;
+      float r = __fsub_rn(xq[0], xc[0]);
+      float acc = __fmul_rn(r, r);
+      if (!first) acc = __fadd_rn(qres_s[i * cr + c], acc);
+      for (int t = 1; t < w; ++t) {
+        r = __fsub_rn(xq[t], xc[t]);
+        acc = __fadd_rn(acc, __fmul_rn(r, r));
+      }
+      qres_s[i * cr + c] = acc;
+    }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < nq * ksub; i += kThreads) {
-    const int r = i / ksub;
-    const int j = i - r * ksub;
-    const float* c = cb_s + j * ds;
-    const float* x = q_s + r * dsub;
-    float acc = 0.f;
-    for (int t = 0; t < dsub; ++t) acc = fmaf(x[t], c[t], acc);
-    out[((long long)(q0 + r) * M + m) * ksub + j] = acc;
+  constexpr int V = VEC ? 4 : 1;
+  const int nv = nk / V;             // VEC: nk is a multiple of 4
+  if (!full) {                       // the cross term alone, (b, M, ksub)
+    for (int u = tid; u < nq * nv; u += kLutThreads) {
+      const int i = u / nv, j = (u - i * nv) * V;
+      float* o = out + ((long long)(q0 + i) * M + m) * ksub + j0 + j;
+      if constexpr (VEC)
+        *reinterpret_cast<float4*>(o) =
+            *reinterpret_cast<const float4*>(qdot_s + i * kc + j);
+      else
+        *o = qdot_s[i * kc + j];
+    }
+    return;
+  }
+  for (int u = tid; u < nq * nc * nv; u += kLutThreads) {
+    const int j = (u % nv) * V;
+    const int r = u / nv;
+    const int c = r % nc, i = r / nc;
+    const float qr = qres_s[i * cr + c];
+    float* o = out + (((long long)(q0 + i) * M + m) * ncoarse + c0 + c) *
+                         ksub + j0 + j;
+    if constexpr (VEC) {
+      const float4 qd = *reinterpret_cast<const float4*>(qdot_s + i * kc + j);
+      const float4 cd = *reinterpret_cast<const float4*>(cdot_s + c * kc + j);
+      const float4 sq = *reinterpret_cast<const float4*>(cbsq_s + j);
+      *reinterpret_cast<float4*>(o) = make_float4(
+          lut_entry(qr, qd.x, cd.x, sq.x), lut_entry(qr, qd.y, cd.y, sq.y),
+          lut_entry(qr, qd.z, cd.z, sq.z), lut_entry(qr, qd.w, cd.w, sq.w));
+    } else {
+      *o = lut_entry(qr, qdot_s[i * kc + j], cdot_s[c * kc + j], cbsq_s[j]);
+    }
   }
 }
 
@@ -150,16 +323,6 @@ pq_lut_relayout_kernel(const float* __restrict__ luts, float* __restrict__ lq,
     const int q = q0 + tx;
     if (e < mk && q < bp) lq[e * bp + q] = t[tx][i];
   }
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // V consecutive floats of the relayout LUT, one 16-, 8- or 4-byte load.
@@ -484,19 +647,39 @@ int launch_pq_topk(const CodeT* codes, const int* gid, const int* goff,
 
 }  // namespace
 
-extern "C" int fcvi_pq_lut_qdot(const float* q_sub, const float* cb,
-                                float* out, int b, int M, int ksub, int dsub,
-                                void* stream) {
-  if (b <= 0 || M <= 0 || ksub <= 0) return (int)cudaSuccess;
+// The scan LUT of ops.pq_scan_luts: queries (b, M * dsub), codebooks
+// (M, ksub, dsub), centres (ncoarse, M * dsub), coarse_dot (ncoarse, M,
+// ksub), cb_sq (M, ksub), fp32 -> out (b, M, ncoarse * ksub). With
+// ncoarse = 0 (cen, cdot, cbsq unused) the cross term alone, out (b, M,
+// ksub): pq_lut_qdot. qt queries, kc codewords and cr coarse ids a block
+// (pq_lut.luts_plan); vec: 16-byte stores (kc and ksub multiples of 4, the
+// pointers 16-byte aligned).
+extern "C" int fcvi_pq_scan_luts(const float* q, const float* cb,
+                                 const float* cen, const float* cdot,
+                                 const float* cbsq, float* out, int b, int M,
+                                 int ksub, int dsub, int ncoarse, int qt,
+                                 int kc, int cr, int vec, void* stream) {
+  if (b <= 0 || M <= 0 || ksub <= 0 || dsub <= 0 || ncoarse < 0)
+    return (int)cudaSuccess;
+  if (qt < 1 || kc < 1 || (ncoarse > 0 && cr < 1) || M > 65535 ||
+      (vec && (kc % 4 || ksub % 4)))
+    return (int)cudaErrorInvalidValue;
+  const long long qtiles = (b + qt - 1) / qt;
+  const long long kchunks = (ksub + kc - 1) / kc;
+  const long long csplits = ncoarse > 0 ? (ncoarse + cr - 1) / cr : 1;
+  const long long blocks = qtiles * kchunks * csplits;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
   const size_t smem =
-      sizeof(float) * ((size_t)ksub * (dsub | 1) + (size_t)kQTile * dsub);
+      pq_luts_smem(qt, kc, ncoarse > 0 ? cr : 0, dsub < kLutCols ? dsub
+                                                                  : kLutCols);
+  auto kern = vec ? pq_scan_luts_kernel<true> : pq_scan_luts_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      pq_lut_qdot_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((b + kQTile - 1) / kQTile), (unsigned)M);
-  pq_lut_qdot_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      q_sub, cb, out, b, M, ksub, dsub);
+  const dim3 grid((unsigned)blocks, (unsigned)M);
+  kern<<<grid, kLutThreads, smem, (cudaStream_t)stream>>>(
+      q, cb, cen, cdot, cbsq, out, b, M, ksub, dsub, ncoarse, qt, kc, cr,
+      (int)qtiles, (int)kchunks);
   return (int)cudaGetLastError();
 }
 

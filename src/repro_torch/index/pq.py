@@ -8,7 +8,8 @@ gathering and summing its M entries, a sweep of M codes per row instead of
 d floats.
 
 Search mirrors the JAX package's kernel path (``use_pallas=True``): the
-LUT's cross term is ``ops.pq_lut_qdot``, the per-row coarse indirection is
+LUTs are ``ops.pq_scan_luts`` (B8's cross term with the residual norms and
+the build's terms, one launch on the card), the per-row coarse indirection is
 folded into a combined (coarse, code) index over the flattened (M, ncoarse *
 ksub) LUT, and a first-occurrence top-k of the negative distances picks the
 candidates. The reference runs that as ``lax.top_k(-pq_score_batch(...))``;
@@ -84,7 +85,8 @@ def from_arrays(codebooks: Tensor, codes: Tensor, coarse_centers: Tensor,
         codebooks=codebooks, codes=codes, coarse_centers=coarse_centers,
         coarse_ids=coarse_ids,
         cb_sq=torch.sum(codebooks * codebooks, dim=-1),
-        coarse_dot=torch.einsum("cmd,mkd->cmk", centers_sub, codebooks),
+        coarse_dot=torch.einsum("cmd,mkd->cmk", centers_sub,
+                                codebooks).contiguous(),
         ccodes=ccodes.contiguous(),
         grouped=grouped_layout(codes, coarse_ids, coarse_centers.shape[0]))
 
@@ -144,20 +146,11 @@ def build(vectors: Tensor, m_subspaces: int = 8, ksub: int = 256,
 def scan_luts(index: PQIndex, queries: Tensor) -> Tensor:
     """(q, d) -> (q, M, ncoarse * ksub): ``compute_luts``'s tables with the
     coarse axis inside the subspace axis, contiguous, as the ADC scan reads
-    them through the combined codes. Each entry is the reference's
-    expression."""
-    q, _ = queries.shape
-    m, ksub, dsub = index.codebooks.shape
-    qs = queries.reshape(q, m, dsub).contiguous()
-    q_dot = ops.pq_lut_qdot(qs, index.codebooks)              # (q, M, ksub)
-    qres = queries[:, None, :] - index.coarse_centers[None]   # (q, C, d)
-    qres_sq = torch.sum(qres.reshape(q, index.ncoarse, m, dsub) ** 2,
-                        dim=-1).transpose(1, 2)               # (q, M, C)
-    luts = (qres_sq[..., None]
-            - 2.0 * (q_dot[:, :, None, :]
-                     - index.coarse_dot.transpose(0, 1)[None])
-            + index.cb_sq[None, :, None, :])                  # (q, M, C, ksub)
-    return luts.reshape(q, m, -1).contiguous()
+    them through the combined codes; ``ops.pq_scan_luts``, one launch on
+    the card. Each entry is the reference's expression."""
+    return ops.pq_scan_luts(queries.contiguous(), index.codebooks,
+                            index.coarse_centers, index.coarse_dot,
+                            index.cb_sq)
 
 
 def compute_luts(index: PQIndex, queries: Tensor) -> Tensor:
@@ -165,9 +158,8 @@ def compute_luts(index: PQIndex, queries: Tensor) -> Tensor:
 
     lut[i, c, m, j] = ||(q_i - coarse_c)_m - codebook[m, j]||^2, expanded as
     ||qres_m||^2 - 2 (q_m . cb_j - center_m . cb_j) + ||cb_j||^2: the q . cb
-    cross term is the B8 kernel (``ops.pq_lut_qdot``), the residual-norm
-    term plain torch, and the center . cb and ||cb||^2 terms come from the
-    build."""
+    cross term (B8's), the residual norms and the sums with the build's
+    center . cb and ||cb||^2 terms are one op, ``ops.pq_scan_luts``."""
     luts = scan_luts(index, queries)
     return luts.reshape(*luts.shape[:2], index.ncoarse,
                         index.ksub).transpose(1, 2)

@@ -163,6 +163,19 @@ def pq_lut_qdot(queries_sub: Tensor, codebooks: Tensor) -> Tensor:
     return ref.ref_pq_lut_qdot(queries_sub, codebooks)
 
 
+def pq_scan_luts(queries: Tensor, codebooks: Tensor, coarse_centers: Tensor,
+                 coarse_dot: Tensor, cb_sq: Tensor) -> Tensor:
+    """The PQ scan LUT: queries (q, d) -> (q, M, ncoarse * ksub) squared
+    subspace distances to every (coarse id, codeword), the coarse axis
+    inside the subspace axis (``index.pq.scan_luts``); one launch on the
+    card."""
+    if queries.is_cuda:
+        return _pq.pq_scan_luts(queries, codebooks, coarse_centers,
+                                coarse_dot, cb_sq)
+    return ref.ref_pq_scan_luts(queries, codebooks, coarse_centers,
+                                coarse_dot, cb_sq)
+
+
 def pq_score_batch(codes: Tensor, luts: Tensor) -> Tensor:
     """Multi-query ADC: codes (n, M), luts (q, M, K) -> squared distances
     (q, n)."""

@@ -1,10 +1,12 @@
-"""CUDA kernels B8/B9/B10: PQ LUT cross term and ADC scans.
+"""CUDA kernels B8/B9/B10: PQ LUTs and ADC scans.
 
 One CUDA source (``csrc/pq_lut.cu``) replaces the three Pallas kernels of
 ``repro/kernels/pq_lut.py``:
 
 * ``pq_lut_qdot`` (B8): (b, M, dsub) x (M, ksub, dsub) -> (b, M, ksub), the
-  q . codebook cross term of ``index.pq.compute_luts``;
+  q . codebook cross term of ``index.pq.compute_luts``. It runs as the
+  cross-term-only mode of ``pq_scan_luts``'s kernel, counted under its own
+  name; no serving path launches it;
 * ``pq_score_batch`` (B9): codes (n, M) uint8 or int32, luts (b, M, K) ->
   squared distances (b, n), each a left-to-right fp32 sum over m. The call
   copies the LUTs once to (M, K, bp), queries innermost (``bp`` is b padded
@@ -13,13 +15,21 @@ One CUDA source (``csrc/pq_lut.cu``) replaces the three Pallas kernels of
 * ``pq_score`` (B10): the same at one LUT, (M, K) -> (n,); B9's scan at
   b = 1, where the LUT needs no copy, counted under its own name.
 
-and, for the serving path, ``pq_score_topk``: B9 and the first-occurrence
-top-k of its negated distances as one fused scan over the rows grouped by
-coarse id (``index.pq.PQIndex``'s grouped layout), staging each group's
-LUT slice in shared memory and never writing the (b, n) distances; its
-(vals, ids) are ``ref.ref_pq_score_topk``'s bits. Past the candidate
-buffers' kk it takes the selection path (counted
-``pq_score_topk_select``). No serving path launches B9 any more.
+and, for the serving path:
+
+* ``pq_scan_luts``: the whole scan LUT of ``index.pq.scan_luts``, (b, M,
+  ncoarse * ksub), in one launch: B8's cross term, the residual norms and
+  the build-time terms, each table entry written once
+  (``ref.ref_pq_scan_luts``'s bits; ``luts_plan`` tiles queries,
+  codewords and coarse ids so that any shape fits and the grid fills the
+  card);
+* ``pq_score_topk``: B9 and the first-occurrence top-k of its negated
+  distances as one fused scan over the rows grouped by coarse id
+  (``index.pq.PQIndex``'s grouped layout), staging each group's LUT slice
+  in shared memory and never writing the (b, n) distances; its (vals, ids)
+  are ``ref.ref_pq_score_topk``'s bits. Past the candidate buffers' kk it
+  takes the selection path (counted ``pq_score_topk_select``). No serving
+  path launches B9 any more.
 
 The wrappers take unpadded shapes (the JAX ``pq_score`` needs n to divide
 its row block; these do not), check operands, launch on the current stream
@@ -31,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 from typing import Optional, Sequence
 
@@ -39,12 +50,15 @@ import torch
 from repro_torch.kernels import _build
 
 NAME_QDOT = "pq_lut_qdot"
+NAME_LUTS = "pq_scan_luts"
 NAME_BATCH = "pq_score_batch"
 NAME_SCORE = "pq_score"
 NAME_TOPK = "pq_score_topk"
 
-Q_TILE = 8            # queries per pq_lut_qdot block (kQTile in the source)
 SMEM_LIMIT = 232_448  # shared memory one block may use on Hopper (bytes)
+LUT_QT = 8            # queries a pq_scan_luts block, at most
+LUT_COLS = 16         # dsub columns it stages at a time (kLutCols)
+LUT_SMEM_TARGET = 65_536  # its shared memory, at most: three blocks an SM
 THREADS = 256         # threads per pq_score_topk and pq_adc block (kThreads)
 MAX_BQ = 16           # queries per pq_score_topk block, at most (kMaxBQ)
 ADC_GROUP = 64        # query slots a pq_adc block, at most (kAdcGroup)
@@ -58,15 +72,105 @@ TOPK_SMEM_LIMIT = SMEM_LIMIT - 1024
 CODE_BYTES = {torch.uint8: 1, torch.int32: 4}
 
 
-def qdot_smem(ksub: int, dsub: int) -> int:
-    """pq_lut_qdot's dynamic shared memory in bytes (the source's)."""
-    return 4 * (ksub * (dsub | 1) + Q_TILE * dsub)
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def luts_smem(qt: int, kc: int, cr: int, dsub: int) -> int:
+    """pq_scan_luts' dynamic shared memory in bytes (the source's
+    ``pq_luts_smem``): the cross term (qt, kc), the coarse_dot slice
+    (cr, kc), cb_sq (kc), a chunk of LUT_COLS columns of the codewords (an
+    odd stride) and of the queries and centres (rows of 16 bytes), and the
+    residual norms (qt, cr); each region a multiple of 16 bytes."""
+    dc = min(dsub, LUT_COLS)
+    dq = _round4(dc)
+    return 4 * (_round4(qt * kc) + _round4(cr * kc) + _round4(kc)
+                + _round4(kc * (dc | 1)) + qt * dq + cr * dq
+                + _round4(qt * cr))
+
+
+@dataclasses.dataclass(frozen=True)
+class LutPlan:
+    qt: int          # queries a block
+    kc: int          # codewords a block (ksub, or a chunk of it)
+    cr: int          # coarse ids a block (0: the cross term alone)
+    vec: bool        # 16-byte stores: ksub and kc multiples of 4
+    blocks: int      # blocks a subspace (the grid's x; M is its y)
+    smem: int        # dynamic shared memory in bytes
+
+
+@functools.lru_cache(maxsize=256)
+def luts_plan(b: int, m: int, ksub: int, dsub: int, ncoarse: int,
+              num_sms: int) -> LutPlan:
+    """Launch shape of ``pq_scan_luts`` (``ncoarse`` = 0: the cross term
+    alone, ``pq_lut_qdot``) for any b, M, ksub, dsub and ncoarse: up to
+    LUT_QT queries a block; the codewords halved into chunks (multiples of
+    4 where the stores are 16 bytes) until their staged columns fit
+    LUT_SMEM_TARGET; the coarse ids split across blocks until the grid
+    covers the SMs once, and further while their slices do not fit. A
+    block's staging is its fixed cost, so the blocks stay few and large
+    (``scripts/profile_rerank_adc.py --luts`` times every tiling)."""
+    if min(b, m, ksub, dsub) < 1 or ncoarse < 0:
+        raise ValueError(f"no scan LUT of b={b}, M={m}, ksub={ksub}, "
+                         f"dsub={dsub}, ncoarse={ncoarse}")
+    if m > 65535:
+        raise ValueError(f"M={m} subspaces past the grid's 65535")
+    vec = ksub % 4 == 0
+    step = 4 if vec else 1
+    qt = min(LUT_QT, b)
+    kc = ksub
+    while kc > step and luts_smem(qt, kc, min(ncoarse, 1),
+                                  dsub) > LUT_SMEM_TARGET:
+        kc = _round4(kc // 2) if vec else kc // 2
+    kchunks = math.ceil(ksub / kc)
+    base = math.ceil(b / qt) * kchunks
+    cr, csplits = 0, 1
+    if ncoarse:
+        cr = max(1, ncoarse // math.ceil(num_sms / (base * m)))
+        while cr > 1 and luts_smem(qt, kc, cr, dsub) > LUT_SMEM_TARGET:
+            cr = math.ceil(cr / 2)
+        csplits = math.ceil(ncoarse / cr)
+    blocks = base * csplits
+    if blocks >= 2 ** 31:
+        raise ValueError(f"{blocks} blocks past the grid's 2^31 - 1")
+    return LutPlan(qt=qt, kc=kc, cr=cr, vec=vec, blocks=blocks,
+                   smem=luts_smem(qt, kc, cr, dsub))
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _luts(queries, codebooks, centers, coarse_dot, cb_sq, name: str,
+          plan: Optional[LutPlan] = None):
+    """Launch pq_scan_luts' kernel: queries (b, M * dsub); with ``centers``
+    None, the cross term alone (b, M, ksub), else the scan LUT (b, M,
+    ncoarse * ksub)."""
+    b = queries.shape[0]
+    m, ksub, dsub = codebooks.shape
+    ncoarse = 0 if centers is None else centers.shape[0]
+    dev = queries.device
+    p = plan or luts_plan(b, m, ksub, dsub, ncoarse, _num_sms(dev.index))
+    out = torch.empty((b, m, max(ncoarse, 1) * ksub), dtype=torch.float32,
+                      device=dev)
+    ptr = _build.ptr
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        code = lib.fcvi_pq_scan_luts(
+            queries.data_ptr(), codebooks.data_ptr(), ptr(centers),
+            ptr(coarse_dot), ptr(cb_sq), out.data_ptr(), b, m, ksub, dsub,
+            ncoarse, p.qt, p.kc, p.cr, int(p.vec), _build.stream(dev))
+    _build.check(code, name)
+    _build.count(name)
+    return out
 
 
 def pq_lut_qdot(queries_sub: torch.Tensor,
                 codebooks: torch.Tensor) -> torch.Tensor:
     """queries_sub (b, M, dsub), codebooks (M, ksub, dsub), float32 on one
-    CUDA device. Returns (b, M, ksub) float32."""
+    CUDA device. Returns (b, M, ksub) float32, each a column-order fp32
+    sum of the dsub products."""
     if queries_sub.dim() != 3 or codebooks.dim() != 3:
         raise ValueError("queries_sub and codebooks must be 3-D")
     b, m, dsub = queries_sub.shape
@@ -74,18 +178,35 @@ def pq_lut_qdot(queries_sub: torch.Tensor,
     dev = queries_sub.device
     _build.require(queries_sub, "queries_sub", (b, m, dsub), dev)
     _build.require(codebooks, "codebooks", (m, ksub, dsub), dev)
-    if qdot_smem(ksub, dsub) > SMEM_LIMIT:
-        raise ValueError(f"a ({ksub}, {dsub}) codebook does not fit in "
-                         "shared memory")
-    out = torch.empty((b, m, ksub), dtype=torch.float32, device=dev)
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        code = lib.fcvi_pq_lut_qdot(queries_sub.data_ptr(),
-                                    codebooks.data_ptr(), out.data_ptr(), b,
-                                    m, ksub, dsub, _build.stream(dev))
-    _build.check(code, NAME_QDOT)
-    _build.count(NAME_QDOT)
-    return out
+    return _luts(queries_sub.view(b, m * dsub), codebooks, None, None, None,
+                 NAME_QDOT)
+
+
+def pq_scan_luts(queries: torch.Tensor, codebooks: torch.Tensor,
+                 coarse_centers: torch.Tensor, coarse_dot: torch.Tensor,
+                 cb_sq: torch.Tensor, *,
+                 _plan: Optional[LutPlan] = None) -> torch.Tensor:
+    """queries (b, d), codebooks (M, ksub, dsub) with d = M * dsub,
+    coarse_centers (ncoarse, d), coarse_dot (ncoarse, M, ksub), cb_sq (M,
+    ksub), float32 on one CUDA device. Returns the scan LUT (b, M, ncoarse
+    * ksub) float32, ``ref.ref_pq_scan_luts``'s bits, whatever the tiling;
+    ``_plan`` forces one (profiles only)."""
+    if queries.dim() != 2 or codebooks.dim() != 3:
+        raise ValueError("queries must be 2-D and codebooks 3-D")
+    b, d = queries.shape
+    m, ksub, dsub = codebooks.shape
+    ncoarse = coarse_centers.shape[0]
+    if m * dsub != d or ncoarse < 1:
+        raise ValueError(f"queries of width {d} against {m} x {dsub} "
+                         f"subspaces and {ncoarse} coarse centres")
+    dev = queries.device
+    _build.require(queries, "queries", (b, d), dev)
+    _build.require(codebooks, "codebooks", (m, ksub, dsub), dev)
+    _build.require(coarse_centers, "coarse_centers", (ncoarse, d), dev)
+    _build.require(coarse_dot, "coarse_dot", (ncoarse, m, ksub), dev)
+    _build.require(cb_sq, "cb_sq", (m, ksub), dev)
+    return _luts(queries, codebooks, coarse_centers, coarse_dot, cb_sq,
+                 NAME_LUTS, _plan)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -61,20 +61,38 @@ def ref_fused_transform(v: Tensor, f: Tensor, proj: Tensor, alpha: float,
     return vn - alpha * (fn @ proj)
 
 
+DOT_ROWS = 1 << 18   # rows a chunk of ``dot_rounded``'s fp64 product
+
+
+def dot_rounded(queries: Tensor, rows: Tensor) -> Tensor:
+    """<q, x> for every query (b, d) and row (n, d) of any stored type,
+    (b, n) fp32: the dot product taken in fp64 (products of fp32, bf16 and
+    int8 values are exact there) and rounded once to fp32, so the value
+    does not depend on a library's summation order. An fp32 sum of d
+    products of the serving corpus's magnitudes is off by up to a slot's
+    whole L2 tolerance (``scripts/scan_accuracy.py --corpus``)."""
+    if rows.shape[0] == 0:
+        return queries.new_zeros((queries.shape[0], 0))
+    qd = queries.to(torch.float64)
+    return torch.cat([(qd @ part.to(torch.float64).T).to(torch.float32)
+                      for part in rows.split(DOT_ROWS)], dim=1)
+
+
 def ref_score_topk(corpus: Tensor, sq_norms: Tensor, queries: Tensor, k: int,
                    scales: Optional[Tensor] = None,
                    mask: Optional[Tensor] = None):
     """Exact negative-squared-L2 top-k: (vals (q, k) f32, ids (q, k) int32),
     descending, first occurrence on ties. ``corpus`` is fp32, bf16 or int8
-    codes with their per-row ``scales`` (n,), cast up to fp32; the score is
-    the kernels' ``((2 dot) scale - ||x||^2) - ||q||^2``: the scale
+    codes with their per-row ``scales`` (n,); the score is the kernels'
+    ``((2 dot) scale - ||x||^2) - ||q||^2`` with the dot product rounded
+    once (``dot_rounded``) and each later step an fp32 op: the scale
     multiplies the dot product's output, never the rows. ``mask`` (n,)
     float 0/1 is the filter algebra's candidate mask: rows at <= 0.5 score
     -inf after the score is formed, and slots left -inf read id 0, as the
     kernel's unfilled slots do (the reference leaves those ids to its
     callers, which clamp them)."""
     q2 = torch.sum(queries * queries, dim=-1, keepdim=True)
-    s = 2.0 * (queries @ corpus.to(torch.float32).T)
+    s = 2.0 * dot_rounded(queries, corpus)
     if scales is not None:
         s = s * scales
     s = (s - sq_norms[None, :]) - q2
@@ -227,6 +245,24 @@ def _topk_padded(scores: Tensor, flat_ids: Tensor, k: int):
     return vals, ids.to(torch.int32)
 
 
+def list_scores(grouped: Tensor, uniq: Tensor, queries: Tensor,
+                scales: Optional[Tensor] = None) -> Tensor:
+    """``(2 <x, q>) scale`` of every query (b, d) against every slot of the
+    lists ``uniq`` (s,): (b, s, max_list) fp32, the slabs cast up to fp32
+    and multiplied as one fp32 matrix product. The list scans sum each
+    dot product as an fmaf chain in column order, and on the card this
+    product's scores have been theirs bit for bit (``chip_smoke.py`` phases
+    3b and 3e), so the IVF plain versions keep fp32 products, B7's too;
+    the flat scan's plain version rounds its dot products once instead
+    (``dot_rounded``)."""
+    u = uniq.long()
+    s = 2.0 * torch.einsum("bd,sld->bsl", queries,
+                           grouped[u].to(torch.float32))
+    if scales is not None:
+        s = s * scales[u][None]
+    return s
+
+
 def ref_ivf_score_topk_batch(grouped: Tensor, grouped_sq: Tensor,
                              valid: Tensor, probes: Tensor, queries: Tensor,
                              k: int, scales: Optional[Tensor] = None):
@@ -234,14 +270,14 @@ def ref_ivf_score_topk_batch(grouped: Tensor, grouped_sq: Tensor,
     Candidates are flattened in probe order, so ties go to the earlier probe
     position, then the earlier slot (a list probed twice competes twice).
     ``grouped`` is fp32, bf16 or int8 codes with their per-row ``scales``
-    (nlist, max_list): ``(2 <x, q>) scale - ||x||^2``. Returns (vals (b, k)
-    f32, flat ids (b, k) int32)."""
+    (nlist, max_list): ``(2 <x, q>) scale - ||x||^2``, each score
+    ``list_scores``' (the dedup scan's) value. Returns (vals (b, k) f32,
+    flat ids (b, k) int32)."""
     max_list = grouped.shape[1]
     pr = probes.long()
-    slabs = grouped[pr].to(torch.float32)              # (b, nprobe, L, d)
-    s = 2.0 * torch.einsum("bpld,bd->bpl", slabs, queries)
-    if scales is not None:
-        s = s * scales[pr]
+    uniq, inv = torch.unique(pr, return_inverse=True)
+    s = list_scores(grouped, uniq, queries, scales)       # (b, s, L)
+    s = torch.gather(s, 1, inv[:, :, None].expand(-1, -1, max_list))
     s = torch.where(valid[pr] > 0.5, s - grouped_sq[pr], float("-inf"))
     flat = pr[:, :, None] * max_list + torch.arange(max_list,
                                                    device=pr.device)
@@ -255,11 +291,7 @@ def _dedup_scores(grouped: Tensor, grouped_sq: Tensor, valid: Tensor,
     """The dedup scans' (b, s * max_list) masked scores and flat id map."""
     max_list = grouped.shape[1]
     u = uniq.long()
-    s = 2.0 * torch.einsum("bd,sld->bsl", queries,
-                           grouped[u].to(torch.float32))
-    if scales is not None:
-        s = s * scales[u][None]
-    s = s - grouped_sq[u][None]
+    s = list_scores(grouped, uniq, queries, scales) - grouped_sq[u][None]
     keep = (valid[u] > 0.5)[None, :, :] & (member.T > 0.5)[:, :, None]
     s = torch.where(keep, s, float("-inf"))
     flat = (u[:, None] * max_list
@@ -359,6 +391,47 @@ def ref_pq_lut_qdot(queries_sub: Tensor, codebooks: Tensor) -> Tensor:
     """PQ LUT q.codebook cross term: (q, M, dsub) x (M, ksub, dsub) ->
     (q, M, ksub), out[i, m, j] = <queries_sub[i, m], codebooks[m, j]>."""
     return torch.einsum("qmd,mkd->qmk", queries_sub, codebooks)
+
+
+def in_order_sum(x: Tensor) -> Tensor:
+    """The fp32 sum over the last axis in column order: the first entry,
+    then each next one added (the kernels' order, which no reduction
+    promises)."""
+    acc = x[..., 0]
+    for t in range(1, x.shape[-1]):
+        acc = acc + x[..., t]
+    return acc
+
+
+def ref_pq_scan_luts(queries: Tensor, codebooks: Tensor,
+                     coarse_centers: Tensor, coarse_dot: Tensor,
+                     cb_sq: Tensor) -> Tensor:
+    """The PQ scan LUT (``index.pq.scan_luts``): queries (b, d),
+    codebooks (M, ksub, dsub), coarse_centers (ncoarse, d), the build's
+    coarse_dot (ncoarse, M, ksub) and cb_sq (M, ksub) -> (b, M, ncoarse *
+    ksub) fp32, the reference's expansion with the coarse axis inside the
+    subspace axis:
+
+        lut[i, m, c * ksub + j] = (qres_sq[i, c, m]
+                                   - 2 (q_dot[i, m, j] - coarse_dot[c, m, j]))
+                                  + cb_sq[m, j]
+
+    q_dot = <q_m, cb[m, j]> and qres_sq = ||(q - centre_c)_m||^2, each a sum
+    over the dsub columns in column order of products rounded to fp32
+    (``in_order_sum``); every step is one rounded fp32 op, in this order.
+    The kernel follows it op for op, so it is this function's bits."""
+    b, d = queries.shape
+    m, ksub, dsub = codebooks.shape
+    c = coarse_centers.shape[0]
+    q_dot = in_order_sum(queries.reshape(b, m, 1, dsub) * codebooks[None])
+    res = (queries.reshape(b, 1, m, dsub)
+           - coarse_centers.reshape(1, c, m, dsub))
+    qres_sq = in_order_sum(res * res)                     # (b, C, M)
+    luts = ((qres_sq.transpose(1, 2)[..., None]
+             - 2.0 * (q_dot[:, :, None, :]
+                      - coarse_dot.transpose(0, 1)[None]))
+            + cb_sq[None, :, None, :])                    # (b, M, C, ksub)
+    return luts.reshape(b, m, c * ksub)
 
 
 def ref_pq_score_batch(codes: Tensor, luts: Tensor) -> Tensor:

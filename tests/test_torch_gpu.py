@@ -6,14 +6,16 @@ Every test here is marked ``gpu`` and skips where there is no CUDA device
 file imports no JAX: the card's machine has none.
 
 Tolerances: fused_transform rtol = atol = 1e-5, and bit for bit with the
-0/1 partition fold; scan scores (flat and IVF) rtol 1e-5, atol 1e-4 with
-ids equal outside near-ties (the kernel sums the dot product in another
-order than the plain matmul); the carried rows and the rows variants'
-(scores, ids) exactly; rescore atol 1e-5, and the fused re-rank
-(``rescore_topk``) bit for bit against ``ops.rescore`` + ``topk_first`` +
-the gather of the ids; the PQ LUT cross term rtol 1e-5,
-atol 1e-4 (dot products summed in another order), the PQ ADC scans bit for
-bit (both sides add the LUT values left to right in fp32). The bf16 and
+0/1 partition fold; scan scores (flat and IVF) rtol 1e-5, atol 1e-4 in
+every slot with ids equal outside near-ties (the flat scan's dot products
+come off the tensor cores, its plain version's are rounded once from
+fp64; the list scans sum as the IVF plain versions' fp32 product); the
+carried rows and the rows variants' (scores, ids) exactly; rescore atol
+1e-5, and the fused re-rank (``rescore_topk``) bit for bit against
+``ops.rescore`` + ``topk_first`` + the gather of the ids; the PQ LUT cross
+term rtol 1e-5, atol 1e-4 against the plain einsum (and bit for bit
+against its column-order sum), the scan LUT and the PQ ADC scans bit for
+bit (each side rounds the same fp32 ops in the same order). The bf16 and
 int8-scaled scan variants are held the same way as the fp32 scans, their
 carried rows bit for bit against the plain dequantized rows, and exactly
 on integer codes with power-of-two scales.
@@ -268,16 +270,94 @@ def test_engine_on_card_matches_cpu_engine(cuda):
 
 @pytest.mark.parametrize("b,m,dsub,ksub", [(64, 8, 16, 256), (1, 8, 16, 256),
                                            (5, 4, 8, 32), (130, 2, 4, 1024),
-                                           (3, 3, 7, 100)])
+                                           (3, 3, 7, 100), (4, 2, 64, 4096)])
 def test_pq_lut_qdot_matches_plain(cuda, b, m, dsub, ksub):
     """B8 at the serving shapes, b = 1, more queries than one block holds,
-    a codebook past 48 KB of shared memory and an odd dsub."""
+    a codebook past 48 KB of shared memory, an odd dsub, and a (4096, 64)
+    codebook (1 MB, past a block's shared memory: its codewords are tiled)
+    that the card once refused. Each slot within the L2 tolerance of the
+    plain einsum, and bit-equal to the column-order sum of rounded
+    products that the kernel computes."""
     rng = np.random.default_rng(b + ksub)
     qs, cb = (tensor(a, cuda) for a in (normal(rng, b, m, dsub),
                                         normal(rng, m, ksub, dsub)))
-    torch.testing.assert_close(ops.pq_lut_qdot(qs, cb),
-                               ref.ref_pq_lut_qdot(qs, cb),
+    got = ops.pq_lut_qdot(qs, cb)
+    torch.testing.assert_close(got, ref.ref_pq_lut_qdot(qs, cb),
                                rtol=L2_RTOL, atol=L2_ATOL)
+    assert torch.equal(got, ref.in_order_sum(qs[:, :, None, :] * cb[None]))
+
+
+def _scan_luts_case(case, dev):
+    """(queries (b, d), codebooks, centres, coarse_dot, cb_sq) for one case
+    of ``test_pq_scan_luts_bit_equal_to_plain``."""
+    b, m, ncoarse, ksub, dsub = SCAN_LUTS_CASES[case]
+    rng = np.random.default_rng(ncoarse + ksub + dsub)
+    q = normal(rng, b, m * dsub)
+    cb = normal(rng, m, ksub, dsub)
+    cen = normal(rng, ncoarse, m * dsub)
+    if case == "signed_zeros":      # -0.0 and +0.0 entries, zero residuals
+        q[:, ::2] = -0.0
+        cb[:, ::3] = -0.0
+        cen[0] = q[0]
+        cen[1, ::2] = 0.0
+    if case == "large_centres":     # residual norms near 1e10 and 1e-2
+        cen *= 1e4
+        cen[0] = q[0] + 1e-3
+    q, cb, cen = (tensor(a, dev) for a in (q, cb, cen))
+    cdot = torch.einsum("cmd,mkd->cmk", cen.reshape(ncoarse, m, dsub), cb)
+    return q, cb, cen, cdot.contiguous(), torch.sum(cb * cb, dim=-1)
+
+
+# (b, M, ncoarse, ksub, dsub): the serving shape; each of b in {1, 16,
+# 64}, ncoarse in {1, 32, 1024}, ksub in {16, 256, 4096} and dsub in {4,
+# 16, 120}; a codebook past shared memory (4096 x 64 and 4096 x 120); a
+# ksub that is no multiple of 4 (scalar stores); -0.0; large centres.
+# Each table at most 537 MB.
+SCAN_LUTS_CASES = {
+    "serving": (64, 8, 32, 256, 16),
+    "b16_ncoarse1024_ksub16_dsub4": (16, 8, 1024, 16, 4),
+    "b64_ncoarse1024": (64, 8, 1024, 256, 16),
+    "b1_ncoarse1_ksub4096_dsub120": (1, 2, 1, 4096, 120),
+    "codebook_4096x64": (16, 4, 32, 4096, 64),
+    "ragged": (5, 3, 7, 13, 5),
+    "signed_zeros": (9, 4, 3, 24, 8),
+    "large_centres": (16, 8, 32, 256, 16),
+}
+
+
+@pytest.mark.parametrize("case", list(SCAN_LUTS_CASES))
+def test_pq_scan_luts_bit_equal_to_plain(cuda, case):
+    """The scan LUT kernel bit for bit against its plain version (each
+    sum in column order of rounded products, then the three element-wise
+    steps, each rounded as torch rounds them), one launch a call; -0.0
+    keeps its sign where the plain version's does."""
+    args = _scan_luts_case(case, cuda)
+    b, m, ncoarse, ksub, _ = SCAN_LUTS_CASES[case]
+    _build.reset_launch_counts()
+    got = ops.pq_scan_luts(*args)
+    assert _build.launch_counts() == {"pq_scan_luts": 1}
+    want = ref.ref_pq_scan_luts(*args)
+    assert got.shape == (b, m, ncoarse * ksub)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_pq_scan_luts_refuses_and_plans(cuda):
+    """Operands the kernel does not take raise before a launch; the plan
+    fills the card at the serving batch and the escalation's."""
+    q, cb, cen, cdot, cbsq = _scan_luts_case("serving", cuda)
+    _build.reset_launch_counts()
+    for bad in (lambda: ops.pq_scan_luts(q[:, :64], cb, cen, cdot, cbsq),
+                lambda: ops.pq_scan_luts(q, cb, cen, cdot[:, :4], cbsq),
+                lambda: ops.pq_scan_luts(q, cb, cen.double(), cdot, cbsq),
+                lambda: ops.pq_scan_luts(q, cb.transpose(1, 2), cen, cdot,
+                                         cbsq)):
+        with pytest.raises(ValueError):
+            bad()
+    assert _build.launch_counts() == {}
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for b in (64, 16, 1):
+        p = pq_lut.luts_plan(b, 8, 256, 16, 32, sms)
+        assert p.blocks * 8 >= sms and p.vec and p.kc == 256
 
 
 @pytest.mark.parametrize("n,m,k,b,dtype", [
@@ -307,7 +387,11 @@ def test_pq_wrappers_count_launches_and_check_inputs(cuda):
     ops.pq_lut_qdot(qs, cb)
     ops.pq_score_batch(codes, luts)
     ops.pq_score(codes, luts[0])
-    want = {"pq_lut_qdot": 1, "pq_score_batch": 1, "pq_score": 1}
+    ops.pq_scan_luts(qs.reshape(3, 32), cb, normal_t(rng, (2, 32), cuda),
+                     torch.zeros((2, 4, 64), device=cuda),
+                     torch.zeros((4, 64), device=cuda))
+    want = {"pq_lut_qdot": 1, "pq_score_batch": 1, "pq_score": 1,
+            "pq_scan_luts": 1}
     assert _build.launch_counts() == want
     for bad in (lambda: ops.pq_score_batch(codes.long(), luts),
                 lambda: ops.pq_score_batch(codes, luts[:, :3]),
@@ -315,17 +399,23 @@ def test_pq_wrappers_count_launches_and_check_inputs(cuda):
                 lambda: ops.pq_score_batch(   # a row's codes past the smem
                     torch.zeros((10, 4096), dtype=torch.int32, device=cuda),
                     torch.zeros((3, 4096, 4), device=cuda)),
-                lambda: ops.pq_lut_qdot(qs, cb[:2])):
+                lambda: ops.pq_lut_qdot(qs, cb[:2]),
+                lambda: ops.pq_scan_luts(qs, cb, cb, cb, cb)):
         with pytest.raises(ValueError):
             bad()
     assert _build.launch_counts() == want
 
 
+def normal_t(rng, shape, dev):
+    return tensor(normal(rng, *shape), dev)
+
+
 def test_pq_engine_on_card_matches_cpu_engine(cuda):
-    """The PQ serving path through B1, B8, the fused ADC scan + top-k, B4
-    and (delta tier) B2, with escalation and compaction, against the plain
-    path on the same state; queries at a candidate near-tie are left out.
-    B9 (pq_score_batch) is off the serving path."""
+    """The PQ serving path through B1, the scan LUT (B8 fused with the
+    rest of the table), the fused ADC scan + top-k, B4 and (delta tier)
+    B2, with escalation and compaction, against the plain path on the same
+    state; queries at a candidate near-tie are left out. B8 alone and B9
+    (pq_score_batch) are off the serving path."""
     corpus = make_corpus(CorpusSpec(n=4000, d=64, n_categories=5,
                                     n_numeric=3, seed=2))
     q, fq = sample_queries(corpus, 100, seed=3)
@@ -351,10 +441,11 @@ def test_pq_engine_on_card_matches_cpu_engine(cuda):
                       atol=1e-5)
     assert engines[0].stats.escalations == engines[1].stats.escalations > 0
     counts = _build.launch_counts()
-    for name in ("fused_transform", "pq_lut_qdot", "pq_score_topk",
+    for name in ("fused_transform", "pq_scan_luts", "pq_score_topk",
                  "rescore", "score_topk"):
         assert counts.get(name, 0) > 0, counts
     assert counts.get("pq_score_batch", 0) == 0, counts
+    assert counts.get("pq_lut_qdot", 0) == 0, counts
     assert counts.get("rescore_wide", 0) == 0, counts
     engines[0].compact()
     assert engines[0].index.size == 4300
@@ -1395,13 +1486,14 @@ def near_cancelling(n, b, d, mag, seed):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("mag", [64, 250])
 def test_flat_scan_near_cancelling_scores(cuda, dtype, mag):
-    """Where 2 <q, x> and the norms cancel, fp32 itself is off by several
-    of the L2 tolerance's atol (the plain version too). The tensor cores'
+    """Where 2 <q, x> and the norms cancel, an fp32 sum of the products is
+    off by several of the L2 tolerance's atol. The tensor cores'
     accumulation is the larger part of the scan's error, and the CPU
     emulation of the split does not cover it: here the scan's scores are
     held against fp64 scores of the same rows and must be no further from
-    them than the plain fp32 version's. One MMA sum over the whole row
-    (in place of groups of kGroup k-steps added in fp32) goes past it."""
+    them than the same expression through torch's fp32 matrix product.
+    One MMA sum over the whole row (in place of groups of kGroup k-steps
+    added in fp32) goes past it."""
     n, b, d, kk = 50_000, 64, 128, 88
     x, q = (tensor(a, cuda) for a in near_cancelling(n, b, d, mag, 13))
     rows, scales, sq = (x, None, torch.sum(x * x, dim=-1)) \
@@ -1421,6 +1513,54 @@ def test_flat_scan_near_cancelling_scores(cuda, dtype, mag):
     print(f"near-cancelling {dtype} |x|^2~{mag}: against fp64 the scan "
           f"{err:.3g}, the plain version {err_plain:.3g}")
     assert err <= err_plain
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("backend", ["flat", "ivf"])
+def test_scans_within_each_slots_tolerance(cuda, backend, dtype):
+    """Every slot of the flat scan (kk 88, 328, 2056: buffered and
+    selection paths) and of the IVF scans B5 and B7 (k 80, 320, 3200)
+    within its own L2 tolerance of the plain version, on a transformed
+    corpus whose norms (about 250-440) make an fp32 sum of the dot
+    product's products err by up to a slot's tolerance: the flat plain
+    version rounds its dot product once, and the flat scan sums each
+    k-step's products apart; the IVF plain versions' fp32 product sums as
+    the list scans do."""
+    corpus = make_corpus(CorpusSpec(n=200_000, d=128, n_categories=6,
+                                    n_numeric=2, seed=0))
+    qv, qf = sample_queries(corpus, 64, seed=1)
+    cfg = fcvi.FCVIConfig(backend=backend, storage_dtype=dtype, nlist=256,
+                          nprobe=16)
+    ix = fcvi.build(corpus.vectors, corpus.filters, cfg, device=cuda)
+    be = ix.backend
+    q = ix.transform.apply(tensor(qv, cuda), tensor(qf, cuda)).contiguous()
+    runs = []
+    if backend == "flat":
+        for kk in (88, 328, 2056):
+            runs.append((f"score_topk kk={kk}",
+                         ops.score_topk(be.vectors, be.sq_norms, q, kk,
+                                        scales=be.scales),
+                         ref.ref_score_topk(be.vectors, be.sq_norms, q, kk,
+                                            be.scales)))
+    else:
+        c2 = torch.sum(be.centroids * be.centroids, dim=-1)
+        probes = ops.score_topk(be.centroids, c2, q, 16)[1]
+        uniq, member = ops.dedup_probes(probes, 256)
+        grp, sc = (be.grouped, be.grouped_sq, be.valid), be.grouped_scales
+        for k in (80, 320, 3200):
+            runs.append((f"B5 k={k}", ops.ivf_score_topk_dedup(
+                *grp, uniq, member, q, k, scales=sc),
+                ref.ref_ivf_score_topk_dedup(*grp, uniq, member, q, k, sc)))
+            runs.append((f"B7 k={k}", ops.ivf_score_topk_batch(
+                *grp, probes, q, k, scales=sc),
+                ref.ref_ivf_score_topk_batch(*grp, probes, q, k, sc)))
+    for what, (gv, _), (wv, _) in runs:
+        live = torch.isfinite(wv)
+        assert torch.equal(torch.isfinite(gv), live), what
+        share = ((gv - wv).abs() / (L2_ATOL + L2_RTOL * wv.abs()))[live]
+        assert share.max().item() <= 1.0, (
+            f"{backend} {dtype} {what}: {share.max().item():.3f} of a "
+            "slot's tolerance")
 
 
 # -- the multi-block select and B5 mask= on the tensor cores ---------------

@@ -136,13 +136,20 @@ def test_pq_wrapper_shape_checks_and_cpu_dispatch():
     ops.pq_lut_qdot(tensor(luts[:, :, :4]).contiguous(),
                     tensor(normal(np.random.default_rng(0), 8, 16, 4)))
     assert _build.launch_counts() == {}
-    assert pq_lut.qdot_smem(256, 16) == 4 * (256 * 17 + 8 * 16)
+    # B8's shape: the cross term (8, 256), cb_sq, a 16-column chunk of the
+    # codewords (an odd stride) and of the queries (16-byte rows)
+    assert pq_lut.luts_smem(8, 256, 0, 16) == 4 * (8 * 256 + 256 + 256 * 17
+                                                   + 8 * 16)
     with pytest.raises(ValueError, match="uint8 or int32"):
         pq_lut.pq_score_batch(tensor(codes).long(), tensor(luts))
     with pytest.raises(ValueError, match="3-D"):
         pq_lut.pq_lut_qdot(tensor(luts[0]), tensor(luts))
-    with pytest.raises(ValueError, match="shared memory"):
-        pq_lut.pq_lut_qdot(torch.zeros(2, 1, 64), torch.zeros(1, 4096, 64))
+    # a (4096, 64) codebook (1 MB) is no longer refused: its codewords are
+    # tiled into chunks whose staged columns fit (held on the card in
+    # tests/test_torch_gpu.py)
+    p = pq_lut.luts_plan(2, 1, 4096, 64, 0, 132)
+    assert p.kc < 4096 and p.kc % 4 == 0 and p.smem <= pq_lut.SMEM_LIMIT
+    assert p.blocks == -(-4096 // p.kc)
 
 
 # -- the serving path's fused ADC scan + top-k (its plain version here; the
