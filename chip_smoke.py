@@ -141,8 +141,25 @@ Phases, each of which raises (and exits non-zero) on a failure:
    its plain version, beside ``torch.topk`` on the same scratch (its
    ``library_ms``) and its bytes bound, with its launches' spans; and on
    equal scores, where the four full-row histogram passes must run.
+3h. the checkpoint lifecycle and the paper's query surfaces, on phase 3's
+   flat fp32 index (n=1M, d=128) and phase 3d's flat bf16 index: each
+   engine takes 1,000 inserts (pending), saves (``engine.save``, to a
+   temporary directory removed afterwards) and restores on the card
+   (``FCVIEngine.restore``); the restored first batch must equal the saved
+   engine's bit for bit; the bytes written and the save and restore
+   seconds are printed. The restored flat engine serves 512 queries of
+   ``search_predicate`` under a price range (``f7`` in [0.3, 0.7], r =
+   ``multi_probe_r`` = 4) in batches of 64 (qps, p50/p99). On the raw
+   corpus, ``pre_filter_search`` (B2 masked), ``post_filter_search`` (B2),
+   ``hybrid_search`` and FCVI multi-probe + verify (the multi-probe example's
+   flow: k=200 candidates, the predicate, exact distance) give recall@10
+   against ``ground_truth_filtered``; pre-filtering must equal it outside
+   near-ties. Then B4 as multi-probe calls it (d = m = 8 at lam = 0, and
+   the vectors at lam = 1) against its plain version in every slot, and the
+   first multi-probe batch against a CPU engine restored from the same
+   checkpoint.
 4. a ``kernels`` JSON line with each kernel variant's launches over phases
-   3 to 3g (each must be > 0), errors, times and bound, and the device
+   3 to 3h (each must be > 0), errors, times and bound, and the device
    time (``device_ms``) of B4, B8, B10 and the scan LUT, whose host loops
    sit near the
    host's cost of a launch (null for the others). No serving phase may
@@ -158,6 +175,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -167,6 +185,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.core import clustering, fcvi, theory  # noqa: E402
+from repro_torch.core.baselines import (BoxPredicate,  # noqa: E402
+                                        build_hybrid, ground_truth_filtered,
+                                        hybrid_search, post_filter_search,
+                                        pre_filter_search)
 from repro_torch.core.filters import F, compile_predicate  # noqa: E402
 from repro_torch.core.filters import eval_mask  # noqa: E402
 from repro_torch.data.synthetic import (CorpusSpec, make_corpus,  # noqa: E402
@@ -2549,6 +2571,201 @@ def phase_shapes(dev, power: str, inp: Inputs, flat_ix, ivf_ix, pq_ix):
     return res, counts
 
 
+PRICE = ("f7", 0.3, 0.7)     # phase 3h's price range: 40% of the corpus
+R_PROBES = 4                 # EngineConfig().multi_probe_r
+
+
+def price_box(dev) -> BoxPredicate:
+    """``PRICE`` as a BoxPredicate over the m=8 raw filter columns."""
+    low = torch.full((M,), -float("inf"), device=dev)
+    high = torch.full((M,), float("inf"), device=dev)
+    col = int(PRICE[0][1:])
+    low[col], high[col] = PRICE[1], PRICE[2]
+    return BoxPredicate(low=low, high=high)
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, name))
+               for root, _, names in os.walk(path) for name in names)
+
+
+def round_trip(tag: str, eng, tmp: str, inp: Inputs, dev, power: str):
+    """Save ``eng`` (1,000 pending inserts) to ``tmp``, restore it on the
+    card, and check that the restored engine's first batch is the saved
+    engine's, bit for bit. Returns the restored engine."""
+    q, f = inp.q_all[:B], inp.f_all[:B]
+    eng.insert(inp.new_v, inp.new_f)
+    want = eng.search(q, f)
+    t0 = time.perf_counter()
+    eng.save(tmp)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = engine_mod.FCVIEngine.restore(tmp, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    got = again.search(q, f)
+    check(again.delta_size() == 1000 and again.stats.inserts == 1000,
+          f"{tag}: the restored engine lost its pending rows")
+    check(np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1]),
+          f"{tag}: the restored engine's first batch differs from the "
+          "saved engine's")
+    check((want[1] >= N).any(), f"{tag}: no pending row answered")
+    print(f"[{tag}] checkpoint {dir_bytes(tmp) / 1e9:.3f} GB written in "
+          f"{save_s:.2f} s, restored on the card in {restore_s:.2f} s; the "
+          f"restored first batch equals the saved engine's bit for bit "
+          f"(1,000 pending rows carried); card {power}")
+    return again
+
+
+def probe_tiles(index, q, probes):
+    """The candidate tiles ``fcvi.multi_probe_query`` re-ranks: (vectors
+    (b, r k', d), filters (b, r k', m), qn, the normalized probes)."""
+    b, r = probes.shape[:2]
+    cfg = index.config
+    kp = theory.k_prime(10, cfg.lam, cfg.resolved_alpha(), index.size, cfg.c)
+    tfm = index.transform
+    qn, fqn = tfm.vec_norm.apply(q), tfm.filt_norm.apply(probes)
+    q_t = tfm.apply_normalized(qn[:, None].expand(b, r, D), fqn)
+    _, cand = fcvi._backend_search(index, q_t.reshape(b * r, -1), kp)
+    rows = torch.sort(cand.reshape(b, -1), dim=-1).values.long()
+    return (index.vectors_n[rows], index.filters_n[rows], qn,
+            [fqn[:, j].contiguous() for j in range(r)])
+
+
+def probe_rescore(index, q, probes, power: str) -> None:
+    """B4 as multi-probe calls it (d = m = 8 at lam = 0, the vectors at
+    lam = 1) against its plain version in every slot, timed beside it."""
+    cv, cf, qn, probe = probe_tiles(index, q, probes)
+    b, c, m = cf.shape
+    err = 0.0
+    for args, lam in [((cv, cf, qn, probe[0]), 1.0)] + [
+            ((cf, cf, p, p), 0.0) for p in probe]:
+        err = max(err, (ops.rescore(*args, lam)
+                        - ref.ref_rescore(*args, lam)).abs().max().item())
+    check(err <= COS_ATOL, f"rescore at d=m={m}: {err} from the plain "
+          "version")
+    ms = time_ms(lambda: ops.rescore(cf, cf, probe[0], probe[0], 0.0), 20)
+    plain = time_ms(lambda: ref.ref_rescore(cf, cf, probe[0], probe[0], 0.0),
+                    5)
+    bound, by = bound_ms(4 * (b * c * m + 2 * b * m + b * c),
+                         b * c * (3 * 2 * m + 8))
+    print(f"[kernel] rescore at d=m={m} (multi-probe, (b, r k') = ({b}, "
+          f"{c})): max |err| {err:.3g} in every slot (atol {COS_ATOL}); "
+          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.5f} ms ({by}); "
+          f"card {power}")
+
+
+def phase_lifecycle(dev, power: str, inp: Inputs, flat_ix, bf16_ix):
+    """Phase 3h: checkpoints, multi-probe range predicates and the paper's
+    baselines at full width. Returns the launch counts of the path (the
+    kernel and CPU checks after it are not counted)."""
+    q = inp.q_all[:B]
+    t_phase = time.perf_counter()
+    _build.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="fcvi_ckpt_") as tmp:
+        eng = round_trip("3h flat", engine_mod.FCVIEngine(
+            flat_ix, engine_mod.EngineConfig(), device=dev),
+            os.path.join(tmp, "flat"), inp, dev, power)
+        with tempfile.TemporaryDirectory(prefix="fcvi_ckpt_") as tmp_b:
+            round_trip("3h flat-bf16", engine_mod.FCVIEngine(
+                bf16_ix, engine_mod.EngineConfig(), device=dev), tmp_b,
+                inp, dev, power)
+        torch.cuda.empty_cache()
+
+        # multi-probe on the restored engine: 512 queries, batches of 64
+        pred = price_box(dev)
+        eng.search_predicate(inp.q_warm, pred)      # first-call allocations
+        lat, served = [], []
+        for s in range(0, 512, B):
+            t0 = time.perf_counter()
+            sv, si = eng.search_predicate(inp.q_all[s:s + B], pred)
+            served.append((sv.cpu().numpy(), si.cpu().numpy()))
+            lat.append(time.perf_counter() - t0)
+        mp_s = np.concatenate([s for s, _ in served])
+        mp_i = np.concatenate([i for _, i in served])
+        check(np.isfinite(mp_s).all() and ((mp_i >= 0) & (mp_i < N)).all(),
+              "3h: multi-probe results out of range")
+        print(f"[3h] search_predicate ({PRICE[0]} in [{PRICE[1]}, "
+              f"{PRICE[2]}], r={eng.cfg.multi_probe_r}), 512 queries in "
+              f"batches of {B}: qps {512 / sum(lat):.1f} batch p50 "
+              f"{1e3 * np.percentile(lat, 50):.2f} ms p99 "
+              f"{1e3 * np.percentile(lat, 99):.2f} ms; card {power}")
+
+        # the baselines on the raw corpus, and FCVI multi-probe + verify
+        v = torch.tensor(inp.corpus.vectors, device=dev)
+        fl = torch.tensor(inp.corpus.filters, device=dev)
+        raw = flat_mod.build(v)
+        hyb = build_hybrid(v, fl, key_dim=int(PRICE[0][1:]), device=dev)
+        got = {"pre-filter": [], "post-filter": [], "hybrid": [],
+               "FCVI multi-probe + verify": []}
+        truth, truth_s = [], []
+        for s in range(0, 512, B):
+            qb = torch.tensor(inp.q_all[s:s + B], device=dev)
+            tv, ti = ground_truth_filtered(v, fl, qb, pred, 11)
+            truth_s.append(tv)
+            truth.append(ti[:, :10].cpu().numpy())
+            got["pre-filter"].append(pre_filter_search(raw, fl, qb, pred, 10))
+            got["post-filter"].append(post_filter_search(raw, fl, qb, pred,
+                                                         10))
+            got["hybrid"].append(hybrid_search(hyb, qb, pred, 10))
+            pb = pred.probes(R_PROBES)[None].expand(B, R_PROBES, M)
+            _, cids = fcvi.multi_probe_query(eng.index, qb, pb, 200)
+            rows = cids.long()
+            d2 = torch.sum((v[rows] - qb[:, None, :]) ** 2, dim=-1)
+            vs = torch.where(pred.mask(fl[rows]), -d2, float("-inf"))
+            top, pos = ref.topk_first(vs, 10)
+            got["FCVI multi-probe + verify"].append(
+                (top, torch.gather(cids, -1, pos)))
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        print(f"[3h] counts {json.dumps(counts)}")
+
+        truth = np.concatenate(truth)
+        recalls = {name: fcvi.recall_at_k(
+            np.concatenate([i.cpu().numpy() for _, i in runs]), truth)
+            for name, runs in got.items()}
+        sel = float(pred.mask(fl).float().mean())
+        print(f"[3h] recall@10 against ground_truth_filtered over 512 "
+              f"queries, {PRICE[0]} in [{PRICE[1]}, {PRICE[2]}] "
+              f"(selectivity {sel:.4f}, n={N}): "
+              + ", ".join(f"{k} {r:.4f}" for k, r in recalls.items())
+              + f" (FCVI: k=200 multi-probe candidates, r={R_PROBES}, "
+              f"verified, ranked by exact distance); card {power}")
+        # pre-filtering is exact: the truth's ids outside its near-ties
+        # (the truth's expansion q2 - 2 q.v + |v|^2 against the refine's
+        # elementwise (q - v)^2: atol 1e-3 covers its fp32 rounding at
+        # these norms; the largest difference is printed)
+        pre_s = torch.cat([s for s, _ in got["pre-filter"]])
+        pre_i = torch.cat([i for _, i in got["pre-filter"]])
+        tv = torch.cat(truth_s)
+        err = (pre_s - tv[:, :10]).abs().max().item()
+        same, kept = ids_outside_ties(tv, torch.tensor(truth), pre_i, 0.0,
+                                      1e-3)
+        print(f"[3h] pre-filter vs ground_truth_filtered: ids {same}/{kept} "
+              f"outside near-ties; max |score diff| {err:.3g}")
+        check(err <= 1e-3 and same == kept, "3h: pre_filter_search differs "
+              "from ground_truth_filtered")
+        del raw, hyb, v, fl, got
+        torch.cuda.empty_cache()
+
+        # the first multi-probe batch against a CPU engine on the same
+        # checkpoint, and B4 at d = m against its plain version
+        probe_rescore(eng.index, torch.tensor(q, device=dev),
+                      pred.probes(R_PROBES)[None].expand(B, R_PROBES, M),
+                      power)
+        t0 = time.perf_counter()
+        cpu_eng = engine_mod.FCVIEngine.restore(os.path.join(tmp, "flat"),
+                                                device="cpu")
+        cs, ci = cpu_eng.search_predicate(q, price_box("cpu"))
+        same_top10("3h search_predicate first batch vs CPU engine",
+                   mp_s[:B], mp_i[:B], cs.numpy(), ci.numpy().astype(
+                       np.int64), np.zeros(B, bool))
+        print(f"[3h] CPU engine restored from the same checkpoint: "
+              f"{time.perf_counter() - t0:.1f} s")
+    print(f"[3h] phase in {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2577,12 +2794,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     pf_res, pf_counts = phase_predicates(dev, power, inp, dict(
         flat=flat_ix, ivf=ivf_ix, **built, **ivf_built))
+    bf16_ix = built["flat-bf16"]
     del built, ivf_built
     torch.cuda.empty_cache()
     sg_res, sg_counts = phase_shapes(dev, power, inp, flat_ix, ivf_ix, pq_ix)
+    del ivf_ix, pq_ix
+    torch.cuda.empty_cache()
+    lc_counts = phase_lifecycle(dev, power, inp, flat_ix, bf16_ix)
     for tag, r, c in (("3b", ivf_res, ivf_counts), ("3c", pq_res, pq_counts),
                       ("3d", sf_res, sf_counts), ("3e", si_res, si_counts),
-                      ("3f", pf_res, pf_counts), ("3g", sg_res, sg_counts)):
+                      ("3f", pf_res, pf_counts), ("3g", sg_res, sg_counts),
+                      ("3h", {}, lc_counts)):
         phases[tag] = dict(c)
         res.update(r)
         for name, n in c.items():
@@ -2596,7 +2818,7 @@ def main() -> int:
     for name, (source, replaces) in SOURCES.items():
         launches = counts.get(name, 0)
         check(launches > 0, f"kernel {name} was not launched on the main "
-              "paths (phases 3, 3b, 3c, 3d, 3e, 3f and 3g)")
+              "paths (phases 3 and 3b to 3h)")
         r = res[name]
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches,

@@ -201,6 +201,48 @@ def query(index: FCVIIndex, q: Tensor, f_q: Tensor, k: int,
     return rescore(index, qn, fqn, cand, k)
 
 
+def multi_probe_query(index: FCVIIndex, q: Tensor, filter_probes: Tensor,
+                      k: int, k_prime: Optional[int] = None):
+    """Range and disjunctive filters (section 4.3): probe r representative
+    filter vectors, merge and dedup the candidates, re-score them against
+    the NEAREST probe, return the top-k. q (b, d); filter_probes (b, r, m)
+    raw filter representatives. Returns (scores (b, k), ids (b, k)).
+
+    The b * r probes go through the fused transform and the backend scan as
+    one batch. The candidates are sorted by id (duplicates sit side by side
+    and score -inf past their first copy). lam * cos(v, q) is the same for
+    every probe, so the re-rank kernel runs once at lam = 1 over the (b,
+    r * k', d) vectors, then once a probe at lam = 0 over the (b, r * k', m)
+    filters, which stand in for both of its operands (the combine collapses
+    to cos(f, probe)); the score is lam * s_v + (1 - lam) * max_r s_f, and
+    the top-k takes the first occurrence of equal scores."""
+    cfg = index.config
+    b, r, m = filter_probes.shape
+    kp = k_prime if k_prime is not None else theory.k_prime(
+        k, cfg.lam, cfg.resolved_alpha(), index.size, cfg.c)
+    tfm = index.transform
+    qn = tfm.vec_norm.apply(q)
+    fqn = tfm.filt_norm.apply(filter_probes)                  # (b, r, m)
+    q_t = tfm.apply_normalized(qn[:, None, :].expand(b, r, qn.shape[-1]),
+                               fqn)                           # (b, r, d)
+    _, cand = _backend_search(index, q_t.reshape(b * r, -1), kp)
+    cand = torch.sort(cand.reshape(b, -1), dim=-1, stable=True).values
+    dup = torch.cat([torch.zeros((b, 1), dtype=torch.bool,
+                                 device=cand.device),
+                     cand[:, 1:] == cand[:, :-1]], dim=-1)
+    rows = cand.long()
+    cv, cf = index.vectors_n[rows], index.filters_n[rows]
+    probe = [fqn[:, j].contiguous() for j in range(r)]
+    s_v = ops.rescore(cv, cf, qn, probe[0], 1.0)
+    s_f = ops.rescore(cf, cf, probe[0], probe[0], 0.0)
+    for j in range(1, r):
+        s_f = torch.maximum(s_f, ops.rescore(cf, cf, probe[j], probe[j], 0.0))
+    score = cfg.lam * s_v + (1.0 - cfg.lam) * s_f
+    score = torch.where(dup, float("-inf"), score)
+    vals, pos = topk_first(score, k)
+    return vals, torch.gather(cand, -1, pos)
+
+
 # ---------------------------------------------------------------------------
 # Predicate (filtered) search support
 # ---------------------------------------------------------------------------

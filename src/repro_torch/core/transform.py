@@ -76,6 +76,21 @@ def psi_partition(v: Tensor, f: Tensor, alpha: float) -> Tensor:
     return (vt - alpha * f[..., None, :]).reshape(v.shape)
 
 
+def psi_partition_inverse(v_t: Tensor, f: Tensor, alpha: float) -> Tensor:
+    """The exact inverse of ``psi_partition`` given the filter."""
+    d, m = v_t.shape[-1], f.shape[-1]
+    segs = check_partition(d, m)
+    vt = v_t.reshape(*v_t.shape[:-1], segs, m)
+    return (vt + alpha * f[..., None, :]).reshape(v_t.shape)
+
+
+def tiled_filter(f: Tensor, d: int) -> Tensor:
+    """f (..., m) tiled to length d: psi_partition(v, f, a) == v - a *
+    tiled_filter(f, d), the implicit filter direction of Eq. 5."""
+    segs = check_partition(d, f.shape[-1])
+    return f.repeat(*([1] * (f.dim() - 1)), segs)
+
+
 def nearest_center(f: Tensor, centers: Tensor) -> Tensor:
     """Each filter replaced by its nearest center (squared L2; the first
     center wins a tie, as ``jnp.argmin`` picks)."""

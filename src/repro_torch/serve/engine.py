@@ -35,9 +35,18 @@ B2's masked variants for flat, B5's ``mask=`` over every list for IVF) or
 row). Every plan finishes in the same exact refine (``flat.filtered_d2``,
 ``flat.lexsort_topk``), so forced plans return the same bits.
 
-Mirrors the meshless paths of ``repro.serve.engine``. Meshes and routing
-are ROADMAP A12, checkpoints A10 and ``search_predicate`` A11; they raise
-here.
+Range predicates (``search_predicate(q, BoxPredicate(...))``) run the
+multi-probe query (``fcvi.multi_probe_query``): ``multi_probe_r`` probes
+spanning the box, their candidates merged and deduped, and a re-rank
+against the nearest probe.
+
+``save`` checkpoints the index state, the pending delta rows and the
+attribute table in the JAX package's format (``repro_torch.checkpoint``),
+and ``FCVIEngine.restore`` rebuilds an engine from it with no re-training;
+checkpoints cross between the two packages both ways.
+
+Mirrors the meshless paths of ``repro.serve.engine``. Meshes, routing and
+``heal`` are ROADMAP A12; they raise here.
 """
 from __future__ import annotations
 
@@ -49,8 +58,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import ckpt as ckpt_mod
 from repro_torch.core import fcvi, theory
-from repro_torch.core.fcvi import FCVIIndex
+from repro_torch.core.baselines import BoxPredicate
+from repro_torch.core.fcvi import FCVIConfig, FCVIIndex
 from repro_torch.core.filters import Predicate, compile_predicate, eval_mask
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.index import flat as flat_mod
@@ -221,6 +232,8 @@ class EngineConfig:
     escalate_margin: float = 0.02  # top-k score margin triggering stage 2
     kprime_escalation: int = 4     # stage-2 k' multiplier
     compact_threshold: int = 2048  # delta rows triggering compaction
+    multi_probe_r: int = 4         # probes of search_predicate
+    router_nprobe: int = 0         # routed serving (A12); inert meshless
     # gather-free re-rank: the scan emits the winners' re-rank rows instead
     # of ids that a second gather from vectors_n/filters_n resolves; the
     # results are the same either way
@@ -230,6 +243,7 @@ class EngineConfig:
     max_retries: int = 2           # bounded retry on TransientShardError
     retry_backoff_s: float = 0.05  # base backoff, doubled per retry
     queue_budget: int = 0          # max cache-miss queue; 0 = unlimited
+    straggler_z: float = 3.0       # shard health (A12); inert meshless
 
 
 @dataclasses.dataclass
@@ -294,10 +308,7 @@ class FCVIEngine:
     def __init__(self, index: FCVIIndex, config: Optional[EngineConfig] = None,
                  *, device: DeviceLike = "cuda", mesh=None,
                  routing: str = "dense", attributes=None, attr_names=None):
-        if mesh is not None or routing != "dense":
-            raise NotImplementedError(
-                "mesh-sharded and routed serving are ROADMAP A12; the "
-                "port serves meshless")
+        _refuse_mesh(mesh, routing)
         self.device = resolve_device(device)
         if index.device != self.device:
             raise ValueError(
@@ -814,17 +825,102 @@ class FCVIEngine:
         self._grouped_payload = None  # corpus changed: payload slabs stale
         self.stats.compactions += 1
 
-    # -- later slices -------------------------------------------------------
-    def search_predicate(self, queries, pred):
-        raise NotImplementedError(
-            "multi-probe predicate search is ROADMAP A11")
+    # -- range predicates (multi-probe) ------------------------------------
+    def search_predicate(self, queries, pred: BoxPredicate):
+        """Range or disjunctive predicate -> multi-probe (section 4.3):
+        ``pred.probes(cfg.multi_probe_r)`` broadcast over the batch through
+        ``fcvi.multi_probe_query``. queries (n, d) raw. Returns (scores (n,
+        k) fp32, ids (n, k) int32) as tensors on the engine's device, as the
+        reference returns device arrays; like it, this bypasses the cache,
+        the batching and the delta tier."""
+        q = torch.as_tensor(np.asarray(queries, np.float32),
+                            device=self.device)
+        probes = pred.probes(self.cfg.multi_probe_r).to(self.device)
+        fp = probes[None].expand(q.shape[0], *probes.shape)
+        return fcvi.multi_probe_query(self.index, q, fp, self.cfg.k)
 
+    # -- later slices -------------------------------------------------------
     def heal(self, *args, **kwargs):
         raise NotImplementedError("shard health and heal() are ROADMAP A12")
 
-    def save(self, *args, **kwargs):
-        raise NotImplementedError("engine checkpoints are ROADMAP A10")
+    # -- checkpoint lifecycle ---------------------------------------------
+    def save(self, ckpt_dir: str, step: int = 0, keep: int = 3) -> str:
+        """Checkpoint the serving state in the JAX package's format: the
+        index (``fcvi.index_state``: the transform, the backend's source
+        arrays, the re-rank originals; derived slabs are rebuilt on
+        restore), the PENDING delta rows and the raw attribute table, with
+        the configs and the serving knobs (meshless: contiguous placement,
+        dense routing, and the attribute names) in the manifest's metadata.
+        Returns the step directory."""
+        d = self.index.transform.vec_norm.mean.shape[-1]
+        m = self.index.transform.filt_norm.mean.shape[-1]
+        dv = (np.concatenate(self._delta_v) if self._delta_v
+              else np.zeros((0, d), np.float32))
+        df = (np.concatenate(self._delta_f) if self._delta_f
+              else np.zeros((0, m), np.float32))
+        tree = {"index": fcvi.index_state(self.index),
+                "delta_v": dv, "delta_f": df, "attrs": self._attrs_np}
+        metadata = {
+            "fcvi_config": dataclasses.asdict(self.index.config),
+            "engine_config": dataclasses.asdict(self.cfg),
+            "serving": {"placement": "contiguous", "routing": "dense",
+                        "attr_names": list(self._attr_names)},
+        }
+        return ckpt_mod.save(ckpt_dir, step, tree, metadata=metadata,
+                             keep=keep)
 
     @classmethod
-    def restore(cls, *args, **kwargs):
-        raise NotImplementedError("engine checkpoints are ROADMAP A10")
+    def restore(cls, ckpt_dir: str, *, step: Optional[int] = None,
+                config: Optional[EngineConfig] = None,
+                device: DeviceLike = "cuda", mesh=None,
+                routing: Optional[str] = None,
+                placement: Optional[str] = None) -> "FCVIEngine":
+        """An engine from a checkpoint of either package, on ``device``.
+
+        The index comes back through ``fcvi.index_from_state`` with no
+        re-training; the attribute table and its names (and so the planner),
+        the pending delta rows and ``stats.inserts`` are put back.
+        ``config`` overrides the saved ``EngineConfig``. Meshless, the saved
+        ``routing`` and ``placement`` have no effect (routing is forced
+        dense, as in the reference) and a saved ``router|centers`` is
+        ignored; ``mesh=`` is ROADMAP A12 and raises."""
+        _refuse_mesh(mesh)
+        del routing, placement   # meshless: dense routing, no placement
+        dev = resolve_device(device)
+        tree, _, metadata = ckpt_mod.load(ckpt_dir, step=step)
+        fcfg = _config_from(FCVIConfig, metadata["fcvi_config"],
+                            ignore=_JAX_ONLY_FCVI_KEYS)
+        index = fcvi.index_from_state(fcfg, tree["index"], device=dev)
+        ecfg = (config if config is not None
+                else _config_from(EngineConfig, metadata["engine_config"]))
+        eng = cls(index, ecfg, device=dev,
+                  attributes=tree["attrs"].numpy(),
+                  attr_names=metadata.get("serving", {}).get("attr_names"))
+        if tree["delta_v"].shape[0]:
+            eng._delta_v = [tree["delta_v"].numpy().astype(np.float32)]
+            eng._delta_f = [tree["delta_f"].numpy().astype(np.float32)]
+            eng.stats.inserts = int(tree["delta_v"].shape[0])
+        return eng
+
+
+# the JAX package's FCVIConfig field with no counterpart here: it picks
+# Pallas or jnp, which the port decides by the device of the inputs
+_JAX_ONLY_FCVI_KEYS = ("use_pallas",)
+
+
+def _config_from(cls, saved: dict, ignore=()):
+    """``cls(**saved)`` without the ``ignore`` keys; any other key that
+    ``cls`` lacks raises ValueError."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    unknown = sorted(set(saved) - names - set(ignore))
+    if unknown:
+        raise ValueError(f"checkpoint {cls.__name__} has unknown fields "
+                         f"{unknown}")
+    return cls(**{k: v for k, v in saved.items() if k in names})
+
+
+def _refuse_mesh(mesh, routing: str = "dense"):
+    if mesh is not None or routing != "dense":
+        raise NotImplementedError(
+            "mesh-sharded and routed serving are ROADMAP A12; the port "
+            "serves meshless")

@@ -11,12 +11,14 @@ queries and the counts must agree.
 """
 import numpy as np
 import pytest
+import torch
 
 jnp = pytest.importorskip("jax.numpy")  # the card's machine has no JAX
 
 from repro.core import fcvi as jfcvi
 from repro.serve import engine as jengine
 from repro_torch.core import fcvi
+from repro_torch.core.baselines import BoxPredicate
 from repro_torch.data.synthetic import CorpusSpec, make_corpus, sample_queries
 from repro_torch.serve import engine
 from repro_torch.serve.health import BackpressureError, TransientShardError
@@ -172,7 +174,7 @@ def test_retry_and_deadline(data):
     assert mine.stats.retries == 2 + 3      # max_retries=2, then it raises
 
 
-def test_later_slices_refuse_by_roadmap_item(data):
+def test_later_slices_refuse_by_roadmap_item(data, tmp_path):
     _, q, fq, _, _, jidx = data
     _, mine = _engines(jidx)
     # predicate search (A7) is served now: what is not a predicate, and a
@@ -181,12 +183,22 @@ def test_later_slices_refuse_by_roadmap_item(data):
         mine.search(q, filter=object())
     with pytest.raises(ValueError, match="plan= only applies"):
         mine.search(q, fq, plan="mask")
-    for call, item in [(lambda: mine.search_predicate(q, None), "A11"),
-                       (lambda: mine.save("ckpt"), "A10"),
-                       (lambda: engine.FCVIEngine.restore("ckpt"), "A10"),
-                       (lambda: mine.heal("ckpt"), "A12"),
+    # multi-probe (A11) and checkpoints (A10) are served now
+    m = fq.shape[1]
+    box = BoxPredicate(low=torch.full((m,), -np.inf),
+                       high=torch.full((m,), np.inf))
+    assert mine.search_predicate(q, box)[1].shape == (len(q), 10)
+    mine.save(str(tmp_path))
+    assert engine.FCVIEngine.restore(str(tmp_path),
+                                     device="cpu").index.size == 2500
+    for call, item in [(lambda: mine.heal("ckpt"), "A12"),
                        (lambda: engine.FCVIEngine(mine.index, mesh=object(),
-                                                  device="cpu"), "A12")]:
+                                                  device="cpu"), "A12"),
+                       (lambda: engine.FCVIEngine(mine.index, device="cpu",
+                                                  routing="routed"), "A12"),
+                       (lambda: engine.FCVIEngine.restore(
+                           str(tmp_path), device="cpu", mesh=object()),
+                        "A12")]:
         with pytest.raises(NotImplementedError, match=item):
             call()
     with pytest.raises(TypeError):

@@ -1967,3 +1967,98 @@ def test_rescore_topk_refuses_and_counts(cuda):
         with pytest.raises(ValueError):
             bad()
     assert _build.launch_counts() == {"rescore": 2}
+
+
+# -- multi-probe (B4 at d = m) and checkpoints on the card -------------------
+
+@pytest.mark.parametrize("dm", [4, 8, 12])
+@pytest.mark.parametrize("cands", [4 * 80, 4 * 328, 4 * 2056])
+def test_rescore_at_filter_width_matches_plain(cuda, dm, cands):
+    """B4 scores-only as ``multi_probe_query`` calls it: the (b, r * k', m)
+    filter tile standing in for both operands at lam = 0, d = m, and the
+    vectors at lam = 1; every slot within atol 1e-5 of the plain version."""
+    rng = np.random.default_rng(dm + cands)
+    cf = tensor(normal(rng, 8, cands, dm), cuda)
+    cv = tensor(normal(rng, 8, cands, 32), cuda)
+    qn, probe = tensor(normal(rng, 8, 32), cuda), tensor(normal(rng, 8, dm),
+                                                         cuda)
+    _build.reset_launch_counts()
+    got = ops.rescore(cf, cf, probe, probe, 0.0)
+    torch.testing.assert_close(got, ref.ref_rescore(cf, cf, probe, probe,
+                                                    0.0), rtol=0, atol=1e-5)
+    got = ops.rescore(cv, cf, qn, probe, 1.0)
+    torch.testing.assert_close(got, ref.ref_rescore(cv, cf, qn, probe, 1.0),
+                               rtol=0, atol=1e-5)
+    assert _build.launch_counts() == {"rescore": 2}
+
+
+def _probe_case(dev, backend="flat"):
+    corpus = make_corpus(CorpusSpec(n=6000, d=64, n_categories=4,
+                                    n_numeric=4, seed=21))
+    cfg = fcvi.FCVIConfig(alpha=2.0, lam=0.4, c=16.0) if backend == "flat" \
+        else fcvi.FCVIConfig(backend="ivf", nlist=32, nprobe=8)
+    cpu_ix = fcvi.build(corpus.vectors, corpus.filters, cfg, device="cpu")
+    ix = fcvi.index_from_state(cfg, fcvi.index_state(cpu_ix), device=dev)
+    q, _ = sample_queries(corpus, 16, seed=22)
+    return corpus, cpu_ix, ix, q
+
+
+@pytest.mark.parametrize("backend", ["flat", "ivf"])
+def test_multi_probe_query_on_card_matches_cpu(cuda, backend):
+    from repro_torch.core.baselines import BoxPredicate
+
+    corpus, cpu_ix, ix, q = _probe_case(cuda, backend)
+    low = torch.full((8,), -float("inf"))
+    high = torch.full((8,), float("inf"))
+    low[4], high[4] = 0.3, 0.7
+    probes = BoxPredicate(low=low, high=high).probes(4)
+    fp = probes[None].expand(16, 4, 8).contiguous()
+    want = fcvi.multi_probe_query(cpu_ix, tensor(q), fp, 10)
+    _build.reset_launch_counts()
+    got = fcvi.multi_probe_query(ix, tensor(q, cuda), fp.to(cuda), 10)
+    counts = _build.launch_counts()
+    assert counts["rescore"] == 5 and counts["fused_transform"] == 1, counts
+    ties = np.zeros(16, bool)
+    if backend == "ivf":
+        from test_torch_support import probe_ties
+        tfm = cpu_ix.transform
+        qn = tfm.vec_norm.apply(tensor(q))
+        q_t = tfm.apply_normalized(qn[:, None].expand(16, 4, 64),
+                                   tfm.filt_norm.apply(fp)).reshape(64, -1)
+        ties = probe_ties(cpu_ix.backend.centroids.numpy(), q_t.numpy(),
+                          8).reshape(16, 4).any(-1)
+    keep = ~ties
+    assert_topk_match(want[0].numpy()[keep], want[1].numpy()[keep],
+                      got[0].cpu().numpy()[keep], got[1].cpu().numpy()[keep],
+                      rtol=0.0, atol=1e-5)
+
+
+def test_bf16_engine_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """A bf16 flat engine with pending rows, saved and restored on the
+    card: the restored engine's answers, similarity and multi-probe, are
+    the saved engine's bits."""
+    from repro_torch.core.baselines import BoxPredicate
+
+    corpus = make_corpus(CorpusSpec(n=5000, d=64, n_categories=4,
+                                    n_numeric=4, seed=5))
+    q, fq = sample_queries(corpus, 64, seed=6)
+    index = fcvi.build(corpus.vectors, corpus.filters,
+                       fcvi.FCVIConfig(storage_dtype="bfloat16"),
+                       device=cuda)
+    eng = FCVIEngine(index, EngineConfig(), device=cuda)
+    eng.insert(corpus.vectors[:40] + 0.01, corpus.filters[:40])
+    eng.save(str(tmp_path))
+    again = FCVIEngine.restore(str(tmp_path), device=cuda)
+    assert again.index.backend.vectors.dtype == torch.bfloat16
+    assert torch.equal(again.index.backend.vectors.view(torch.int16),
+                       index.backend.vectors.view(torch.int16))
+    s, i = eng.search(q, fq)
+    s2, i2 = again.search(q, fq)
+    assert np.array_equal(s, s2) and np.array_equal(i, i2)
+    assert (i >= 5000).any()
+    low = torch.full((8,), -float("inf"))
+    high = torch.full((8,), float("inf"))
+    low[4], high[4] = 0.3, 0.7
+    pred = BoxPredicate(low=low, high=high)
+    a, b = eng.search_predicate(q, pred), again.search_predicate(q, pred)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])

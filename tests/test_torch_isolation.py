@@ -7,8 +7,10 @@
 * The entry points default to ``device="cuda"`` and raise where there is no
   card; whether there is one is decided inside the test.
 * No handler in the package catches an exception to fall back to the plain
-  versions: the only ``except`` is the engine's retry on
-  ``TransientShardError``.
+  versions: the only ``except`` clauses are the engine's retry on
+  ``TransientShardError`` and the checkpoint module's four: the cleanup of
+  a failed save (which re-raises), unreadable manifests and arrays turned
+  into ``CheckpointCorruptError``, and the walk back past corrupt steps.
 """
 import ast
 import os
@@ -59,7 +61,9 @@ def test_module_list_covers_every_slice():
     assert {"repro_torch.core.clustering", "repro_torch.index.ivf",
             "repro_torch.index.slab", "repro_torch.kernels.ivf_score",
             "repro_torch.kernels.fused_score_topk", "repro_torch.index.pq",
-            "repro_torch.kernels.pq_lut", "repro_torch.index.quant"} <= mods
+            "repro_torch.kernels.pq_lut", "repro_torch.index.quant",
+            "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
+            "repro_torch.core.baselines"} <= mods
 
 
 def test_entry_points_default_to_cuda_and_raise_without_a_card():
@@ -85,6 +89,24 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
             FCVIEngine(index)
 
 
+def test_engine_restore_defaults_to_cuda_and_raises_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    from repro_torch.core import baselines, fcvi
+    from repro_torch.serve.engine import FCVIEngine
+
+    rng = np.random.default_rng(0)
+    v = rng.normal(size=(64, 16)).astype(np.float32)
+    f = rng.normal(size=(64, 4)).astype(np.float32)
+    FCVIEngine(fcvi.build(v, f, fcvi.FCVIConfig(), device="cpu"),
+               device="cpu").save(str(tmp_path))
+    with pytest.raises(RuntimeError, match="cuda"):
+        FCVIEngine.restore(str(tmp_path))
+    assert FCVIEngine.restore(str(tmp_path), device="cpu").index.size == 64
+    with pytest.raises(RuntimeError, match="cuda"):
+        baselines.build_hybrid(v, f)
+
+
 def test_no_handler_falls_back():
     handlers = []
     for path in PKG.rglob("*.py"):
@@ -92,4 +114,9 @@ def test_no_handler_falls_back():
             if isinstance(node, ast.ExceptHandler):
                 handlers.append((path.name, ast.unparse(node.type)
                                  if node.type is not None else "<bare>"))
-    assert handlers == [("engine.py", "TransientShardError")], handlers
+    assert sorted(handlers) == [
+        ("ckpt.py", "(OSError, ValueError)"),
+        ("ckpt.py", "BaseException"),
+        ("ckpt.py", "CheckpointCorruptError"),
+        ("ckpt.py", "_UNREADABLE"),
+        ("engine.py", "TransientShardError")], handlers
