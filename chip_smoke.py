@@ -227,6 +227,11 @@ B10_STEP0 = (0.0696, 0.0471)
 # chain of plain torch ops, nine launches (PERF.md, step 0)
 LUTS_STEP0 = {B: (0.1826, 0.0762), B_ESC: (0.2611, 0.0304), 1: (0.2537,
                                                                 0.0154)}
+# pq_score_topk (b=64, n=1M, M=8) before its redesign for Hopper (PERF.md,
+# the PR 16 kernel): ms by kk, the selection path at kk=2048
+TOPK_STEP0 = {KP: 2.6878, 4 * KP: 4.4830, 2048: 1.0441}
+# the shared memory's rate: 128 bytes a clock on each SM (Hopper)
+SMEM_BYTES_CLK = 128
 # phase 3c's recall@10 in the last run before pq_scan_luts, printed beside
 # this run's: the PQ build's k-means sums with atomics on the card, so the
 # codebooks, and the recall, move from run to run of the same code
@@ -1325,28 +1330,63 @@ def scan_luts_kernel(be, q_t, power: str) -> dict:
     return res
 
 
+def smem_floor_ms(lookups: float) -> float:
+    """The least time for ``lookups`` 4-byte shared-memory reads on this
+    card: every SM reading SMEM_BYTES_CLK bytes a clock at its largest SM
+    clock (``nvidia-smi clocks.max.sm``)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 1e3 * 4 * lookups / (sms * SMEM_BYTES_CLK * mhz * 1e6)
+
+
+def topk_split(split: dict) -> str:
+    """A fused PQ call's device ms by kernel, named by stage."""
+    stage = (("relayout", "relayout"), ("sample", "sample"),
+             ("threshold", "threshold"), ("pq_topk", "scan"),
+             ("merge", "merge"), ("sel_pass", "select passes"),
+             ("pq_select", "select finish"))
+    out = []
+    for name, t in split.items():
+        tag = next((v for k, v in stage if k in name), name)
+        out.append(f"{tag} {t:.4f}")
+    return ", ".join(out)
+
+
 def pq_topk_kernels(be, luts, power: str) -> dict:
     """The serving path's fused ADC scan + top-k (``ops.pq_score_topk``)
     bit-equal to its plain version at kk = 80, 320 and 2048 (EngineConfig(
-    k=64)'s escalated k'), at b=64 and an escalation sub-batch's b=16;
-    timed beside its bound, the plain version, the path it replaced (B9 +
-    the packed-key top-k) and the library pair (embedding_bag + the same
-    top-k); the selection path forced at kk=2048, bit-equal too."""
+    k=64)'s escalated k'), at b=64 and an escalation sub-batch's b=16, by
+    the planner's path and with each path forced (the buffered one where
+    its buffers fit); timed beside its bound (bytes) and its floor (the
+    shared-memory lookups), its time before the redesign, the plain
+    version, the path it replaced (B9 + the packed-key top-k) and the
+    library pair (embedding_bag + the same top-k); each call split into its
+    kernels (relayout, sample, threshold, scan, merge, or the select), with
+    the words admitted a query and the cuts of pass 1 (``_stats``)."""
     m, kk_all = luts.shape[1], luts.shape[2]
     n = be.size
     codes = be.ccodes
     pos = codes.long() + kk_all * torch.arange(m, device=codes.device)
     gcodes, gids, goff, _ = be.grouped
+    ksub = be.codebooks.shape[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     res = {}
     for b in (B, B_ESC):
         lb = luts[:b].contiguous()
         w = lb.permute(1, 2, 0).reshape(m * kk_all, b).contiguous()
+        floor = smem_floor_ms(b * n * m)
         for kk in (KP, 4 * KP, 2048):
             got = ops.pq_score_topk(codes, lb, kk, be.grouped)
             want = ref.ref_pq_score_topk(codes, lb, kk)
-            check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            check(bits_equal(got, want),
                   f"pq_score_topk b={b} kk={kk} differs from its plain version")
+            plan = pq_lut.topk_plan(n, b, kk, m, ksub, sms)
             ms = time_ms(lambda: ops.pq_score_topk(codes, lb, kk, be.grouped))
+            _, split, _ = device_time(
+                lambda: ops.pq_score_topk(codes, lb, kk, be.grouped))
             plain = time_ms(lambda: ref.ref_pq_score_topk(codes, lb, kk), 3)
             old = time_ms(lambda: ref.topk_first_packed(
                 -ops.pq_score_batch(codes, lb), kk), 5)
@@ -1355,37 +1395,67 @@ def pq_topk_kernels(be, luts, power: str) -> dict:
                 kk), 5)
             bnd, by = bound_ms(gcodes.nbytes + gids.nbytes + goff.nbytes
                                + lb.nbytes + 8 * b * kk, b * n * m)
-            print(f"[kernel] pq_score_topk b={b} n={n} M={m} kk={kk}: "
-                  f"bit-equal to its plain version; kernel_ms {ms:.4f} "
-                  f"plain_ms {plain:.4f} bound_ms {bnd:.4f} ({by}); "
-                  f"replaced path (pq_score_batch + packed top-k) "
-                  f"{old:.4f} ms; library pair (embedding_bag + packed "
-                  f"top-k) {pair:.4f} ms; card {power}")
+            before = (f"; before the redesign (PERF.md) "
+                      f"{TOPK_STEP0[kk]:.4f}" if b == B else "")
+            print(f"[kernel] pq_score_topk b={b} n={n} M={m} kk={kk} "
+                  f"({'selection' if plan.select else 'buffered'} path, bq "
+                  f"{plan.bq}, {plan.nchunks} chunks, cap {plan.cap}, "
+                  f"sample {plan.sample}): bit-equal to its plain version; "
+                  f"kernel_ms {ms:.4f}{before}; by kernel, device ms: "
+                  f"{topk_split(split)}; plain_ms {plain:.4f} bound_ms "
+                  f"{bnd:.4f} ({by}), shared-memory floor {floor:.4f} ms "
+                  f"({b * n * m / 1e6:.0f}M 4-byte lookups); replaced path "
+                  f"(pq_score_batch + packed top-k) {old:.4f} ms; library "
+                  f"pair (embedding_bag + packed top-k) {pair:.4f} ms; card "
+                  f"{power}")
             if b == B and kk == KP:
                 res["pq_score_topk"] = dict(max_abs_err=0.0, ms=ms,
                                             plain_ms=plain, bound_ms=bnd,
                                             bound_by=by, library_ms=None)
-            if b == B and kk == 2048:   # both paths, forced, bit-equal
-                ms_path = {}
-                for forced in (True, False):
-                    alt = pq_lut.pq_score_topk(*be.grouped, lb, kk,
-                                               _select=forced)
-                    check(torch.equal(alt[0], want[0])
-                          and torch.equal(alt[1], want[1]),
-                          f"pq_score_topk (select={forced}) differs at "
-                          f"kk={kk}")
-                    ms_path[forced] = time_ms(lambda: pq_lut.pq_score_topk(
-                        *be.grouped, lb, kk, _select=forced))
-                print(f"[kernel] pq_score_topk_select (forced) b={b} "
-                      f"kk={kk}: bit-equal; kernel_ms {ms_path[True]:.4f} "
-                      f"(buffered path forced: {ms_path[False]:.4f}) "
-                      f"plain_ms {plain:.4f} bound_ms {bnd:.4f} ({by})")
+            ms_path = {}
+            for forced in (True, False):   # both paths, forced, bit-equal
+                try:
+                    fp = pq_lut.topk_plan(n, b, kk, m, ksub, sms, forced)
+                except ValueError:       # the buffers do not fit
+                    continue
+                alt = pq_lut.pq_score_topk(*be.grouped, lb, kk,
+                                           _select=forced)
+                check(bits_equal(alt, want), f"pq_score_topk (select="
+                      f"{forced}) differs at b={b} kk={kk}")
+                ms_path[forced] = time_ms(lambda: pq_lut.pq_score_topk(
+                    *be.grouped, lb, kk, _select=forced))
+                if forced:
+                    continue
+                stats = torch.zeros(pq_lut.STATS, dtype=torch.int64,
+                                    device=lb.device)
+                pq_lut.pq_score_topk(*be.grouped, lb, kk, _select=False,
+                                     _stats=stats)
+                st = dict(zip(pq_lut.STAT_NAMES, stats.tolist()))
+                print(f"[pq-topk] buffered b={b} kk={kk} (bq {fp.bq}, "
+                      f"{fp.nchunks} chunks, cap {fp.cap}, tile {fp.tile}, "
+                      f"sample {fp.sample}): words admitted a query "
+                      f"{st['admitted'] / b:.1f} (a query a chunk "
+                      f"{st['admitted'] / max(st['query_chunks'], 1):.2f}), "
+                      f"cuts {st['cuts']} ({st['cuts'] / b:.2f} a query, "
+                      f"{st['cut_words'] / max(st['cuts'], 1):.1f} words a "
+                      f"cut); card {power}")
+            print(f"[kernel] pq_score_topk b={b} kk={kk} both paths forced, "
+                  f"bit-equal: selection {ms_path[True]:.4f} ms, buffered "
+                  + (f"{ms_path[False]:.4f} ms" if False in ms_path
+                     else "(its buffers do not fit)") + f"; card {power}")
+            if b == B and kk == 2048:
                 res["pq_score_topk_select"] = dict(
                     max_abs_err=0.0, ms=ms_path[True], plain_ms=plain,
                     bound_ms=bnd, bound_by=by, library_ms=None)
             del got, want
         torch.cuda.empty_cache()
     return res
+
+
+def bits_equal(a, b) -> bool:
+    """(vals, ids) pairs equal bit for bit (-0.0 apart from +0.0)."""
+    return (torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
+            and torch.equal(a[1], b[1]))
 
 
 def phase_pq(dev, power: str, inp: Inputs, flat_recall: float,

@@ -9,11 +9,17 @@ allows it: the buffered path (candidate buffers in shared memory, then a
 merge) and the selection path (every score to scratch, then a radix select
 per query). Prints each kernel's device time per call from
 ``torch.profiler`` (CUDA activity), so a call's time splits into its
-kernels: for the flat buffered path the sample pass's scan, the threshold,
-the scan and the merge. The flat scan's own profile (its ``_stats``: block
-thread 0's clock cycles by phase) splits the scan into its cuts and the
-rest, and counts the cuts and admitted candidates a chunk took. Every line
-carries the card's name and power limit.
+kernels: for the buffered paths the sample pass, the threshold, the scan
+and the merge (PQ: after the LUT relayout). The flat scan's own profile
+(its ``_stats``: block thread 0's clock cycles by phase) splits the scan
+into its cuts and the rest, and counts the cuts and admitted candidates a
+chunk took; the PQ scan's (``pq_lut.STAT_NAMES``) counts the words
+admitted a query and the cuts. The PQ operands here are random LUTs over
+uniformly random codes and coarse ids: every group is alike and no query
+is nearer one group, so its admissions spread evenly over the chunks;
+``chip_smoke.py`` phase 3c prints the same counts on the clustered
+SIFT1M-shaped index, where a query's admissions fall in its nearest
+groups' chunks. Every line carries the card's name and power limit.
 
 With ``--plans`` it instead times the flat planner's choice of a query
 operand resident for every column chunk against the operand staged a chunk
@@ -37,6 +43,7 @@ and on a scratch of equal scores, both of which force the histogram
 passes over the full row.
 
     python3 scripts/profile_topk.py [--kk 80 320 2048] [--iters 5] [--plans]
+    python3 scripts/profile_topk.py --pq --kk 320 512 1024 2048
     python3 scripts/profile_topk.py --select [--full-row] [--iters 5]
 
 Needs one CUDA device; exits 1 without one.
@@ -107,6 +114,26 @@ def flat_profile(x, sq, q, kk, scales=None) -> str:
         f"a query a chunk {v['admitted'] / blocks / p.bq:.1f} ({blocks} "
         f"chunks x query tiles, bq {p.bq}, cap {p.cap}, {p.stages} ring "
         f"slots)")
+
+
+def pq_profile(layout, luts, kk) -> str:
+    """The fused PQ scan's buffered pass 1 from its own profile: words
+    admitted a query (over the whole corpus and a chunk) and the cuts."""
+    stats = torch.zeros(pq_lut.STATS, dtype=torch.int64, device=luts.device)
+    pq_lut.pq_score_topk(*layout, luts, kk, _select=False, _stats=stats)
+    torch.cuda.synchronize()
+    v = dict(zip(pq_lut.STAT_NAMES, stats.tolist()))
+    b = luts.shape[0]
+    p = pq_lut.topk_plan(layout[0].shape[0], b, kk, luts.shape[1],
+                         luts.shape[2] // (len(layout[3]) - 1),
+                         torch.cuda.get_device_properties(
+                             luts.device).multi_processor_count, False)
+    return (f"random LUTs: words admitted a query {v['admitted'] / b:.1f} "
+            f"(a query a chunk {v['admitted'] / v['query_chunks']:.2f}), "
+            f"cuts {v['cuts']} ({v['cuts'] / b:.2f} a query, "
+            f"{v['cut_words'] / max(v['cuts'], 1):.1f} words a cut); plan bq "
+            f"{p.bq}, {p.blocks_per_sm} blocks an SM, {p.nchunks} chunks, "
+            f"cap {p.cap}, tile {p.tile}, sample {p.sample}")
 
 
 def time_ms(fn, iters: int) -> float:
@@ -305,6 +332,10 @@ def main() -> int:
                     help="time the selection path's select (see above)")
     ap.add_argument("--full-row", action="store_true",
                     help="with --select: force the full-row passes")
+    ap.add_argument("--pq", action="store_true",
+                    help="only the fused PQ scan (both paths at each kk)")
+    ap.add_argument("--b", type=int, nargs="+", default=[64],
+                    help="with --pq: the batch sizes (queries a call)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_topk: no CUDA device", file=sys.stderr)
@@ -343,12 +374,18 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     runs = []
     for kk in args.kk:
-        runs += [(f"pq_score_topk kk={kk} {path}",
-                  lambda kk=kk, s=s: pq_lut.pq_score_topk(
-                      *layout, luts, kk, _select=s), None)
-                 for path, s in (("buffered", False), ("selection", True))]
+        for bs in args.b if args.pq else [b]:
+            lb = luts[:bs].contiguous()
+            plan = pq_lut.topk_plan(n, bs, kk, m, ksub, sms)
+            runs += [(f"pq_score_topk b={bs} kk={kk} {path}"
+                      f"{' (planned)' if s == plan.select else ''}",
+                      lambda kk=kk, s=s, lb=lb: pq_lut.pq_score_topk(
+                          *layout, lb, kk, _select=s),
+                      ("pq", kk, lb) if not s else None)
+                     for path, s in (("buffered", False), ("selection", True))
+                     if s or pq_lut.word_plan(kk) is not None]
         kf = kk + 8          # the flat scan's width: k' + the refine's pad
-        for tag, (xr, sqr, sc) in rows.items():
+        for tag, (xr, sqr, sc) in ({} if args.pq else rows).items():
             et = _build.ELEMENT_TYPES[xr.dtype][0]
             paths = [("selection", True)]
             if not scan.plan(n, b, kf, d, sms, et=et).select:
@@ -358,13 +395,17 @@ def main() -> int:
                       scan.score_topk(xr, sqr, q, kf, sc, _select=s),
                       (xr, sqr, kf, sc) if not s else None)
                      for path, s in paths]
-    for tag, fn, flat in runs:
+    for tag, fn, prof in runs:
         parts = kernel_times(fn, args.iters)
         total = sum(t for _, t in parts)
+        ms = time_ms(fn, args.iters)
         print(f"{tag}: {total:.4f} ms = " + " + ".join(
-            f"{name} {t:.4f}" for name, t in parts) + f"; card {power}")
-        if flat is not None:
-            xr, sqr, kf, sc = flat
+            f"{name} {t:.4f}" for name, t in parts) + f" (call {ms:.4f} ms, "
+            f"CUDA events); card {power}")
+        if prof is not None and prof[0] == "pq":
+            print(f"    {pq_profile(layout, prof[2], prof[1])}; card {power}")
+        elif prof is not None:
+            xr, sqr, kf, sc = prof
             print(f"    {flat_profile(xr, sqr, q, kf, sc)}; card {power}")
     return 0
 

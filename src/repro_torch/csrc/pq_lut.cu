@@ -73,38 +73,58 @@
 //
 // pq_score_topk: the serving path's redesign of pq_score_batch and the
 // first-occurrence top-k of its negated distances (the reference's
-// pq.search runs lax.top_k(-pq_score_batch(...))), as one kernel that never
-// writes the (b, n) distance matrix. Bound on the H100: bytes in principle
-// (the grouped uint8 codes, row ids and the batch's LUTs, about 29 MB at
-// b = 64, n = 1M, M = 8, against b * n * M adds), in practice its
-// shared-memory LUT reads and its candidate buffers. The rows are laid out
-// once, at build, stably grouped by coarse id (codes, original row ids,
-// group offsets), so a run of rows reads one coarse id's (M, ksub) slice
-// of the scan LUT, luts[q, m, c * ksub:(c + 1) * ksub]: 8 KB a query at
-// M = 8, ksub = 256. Pass 1 (pq_topk_kernel): one block per (query tile of
-// bq, chunk of grouped rows), about two blocks per SM per query tile; for
-// each coarse group the chunk touches, the block stages the tile's slices
-// in shared memory (or reads them from L2 when one query's slice does not
-// fit), then scores one row per thread as the left-to-right fp32 sum over
-// m of the staged entries, started from the first (the plain version's
-// value, bit for bit), and negates it. A score enters its query's
-// thresholded candidate buffer as one 64-bit word, (order-preserving bits
-// of -d2) << 32 | ~(original row id): topk_first_packed's key, so -0.0
+// pq.search runs lax.top_k(-pq_score_batch(...))), without the (b, n)
+// distance matrix. The rows are laid out once, at build, stably grouped by
+// coarse id (codes, original row ids, group offsets), so a run of rows reads
+// one coarse id's (M, ksub) slice of the scan LUT. A score is the
+// left-to-right fp32 sum over m started from the m = 0 entry (the plain
+// version's bits) and enters the top-k as one 64-bit word, (order-preserving
+// bits of -d2) << 32 | ~(original row id): topk_first_packed's key, so -0.0
 // ranks below +0.0 and equal scores go to the smaller row, as lax.top_k
-// orders them. When a buffer nears capacity, every buffer of the tile is
-// bitonic-sorted and cut to kk; the block writes its chunk's top-kk words.
-// These cuts, not the LUT reads, take most of its time (measured by
-// scripts/profile_topk.py: the scan without buffers is a third of it). Pass 2
-// (pq_merge_kernel): one block per query merges the chunks' words and
-// decodes the final (vals, ids). The selection path (the buffers do not
-// fit, or would shrink the tile to 4; or the caller asks): pass 1 writes
-// every -d2 to a (b, n) scratch in grouped order, then the multi-block
-// radix select of select_common.cuh (its passes, then pq_select_kernel,
-// one block per query) takes the top-kk words by the same key.
+// orders them. Bound on the H100: bytes (the grouped uint8 codes, row ids
+// and the batch's LUTs, about 29 MB at b = 64, n = 1M, M = 8: 0.0086 ms);
+// its floor in practice is the b * n * M LUT lookups in shared memory (2.05
+// GB at b = 64: about 0.07 ms at 132 SMs x 128 B a clock). Launches:
+//   the relayout (pq_lut_relayout_kernel, B9's): the LUTs to (M, K, bp),
+//     queries innermost, so one (m, code) entry of a query tile is one run;
+//   the sample pass (pq_sample_kernel) and pq_threshold_kernel, on the
+//     buffered path of at least 8 kk rows: the words of an even sample of
+//     the grouped rows (up to 16,384, an eighth at most), and as each
+//     query's starting threshold the lower edge of its kk-th best sampled
+//     word's 24-bit bin (two 12-bit histogram passes); every word of the
+//     true top-kk is at or above it, so a chunk admits a few words a query
+//     a tile where it admitted every row before its first cut;
+//   pass 1 (pq_topk_kernel): one block per (query tile of bq, chunk of
+//     grouped rows), two blocks an SM. Each coarse group the chunk meets has
+//     its (M, ksub, bq) slice staged once by cp.async (or is read from L2
+//     when one query's slice does not fit). A warp's lanes take query slots
+//     first (4 a lane: one 16-byte load of a slice entry) and rows second,
+//     two rows a lane a step, the rows' codes read from device memory (M =
+//     8 uint8 codes a step ahead). A first test on the distance alone (a float compare with
+//     the threshold's top half) lets a step with no candidate in the warp
+//     pass on; a word at or above its query's threshold (in registers) is
+//     appended to the query's buffer in shared memory (kk, a margin and
+//     some slack), past it to a spill area in device memory. Every tile of
+//     rows the block meets once (twice after a cut): the buffers past cap -
+//     margin are cut back to kk, spill included, by the warp that owns the
+//     query (warp_cut on words: a radix select of 8-bit digits that keeps
+//     their order, __syncwarp only), raising its threshold to the kk-th
+//     word. The block writes its chunk's words a query (at most kk,
+//     unordered, 0 in empty slots);
+//   pass 2 (pq_merge_kernel): one block per query keeps the kk best of its
+//     chunks' words with the same cut (stream_words, stream_topk's pattern
+//     on words), sorts those kk once and decodes (vals, ids).
+// The selection path (the buffers do not fit, or the planner's measured
+// rule, or the caller asks): pass 1 writes every -d2 to a (b, n) scratch in
+// grouped order, then the multi-block radix select of select_common.cuh
+// (its passes, then pq_select_kernel, one block per query) takes the top-kk
+// words by the same key.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "select_common.cuh"
+#include <type_traits>
+
+#include "ring_topk.cuh"
 
 namespace {
 
@@ -428,158 +448,662 @@ pq_adc_kernel(const CodeT* __restrict__ codes, const float* __restrict__ lq,
   }
 }
 
-// Pass 1 of pq_score_topk: one block per (query tile of bq, chunk of
-// grouped rows). codes (n, M) and gid (n,) are in grouped order, goff
-// (ncoarse + 1,) the groups' offsets, luts (b, M, ncoarse * ksub). staged: the
-// tile's LUT slices live in shared memory, else they are read from L2.
-// Buffered: writes the chunk's top-kk words per query to part (b, nchunks,
-// kk), 0 past the chunk's rows. Selection (sel not null): writes -d2 to sel
-// (b, n) in grouped order.
-template <typename CodeT>
-__global__ void __launch_bounds__(kThreads)
-pq_topk_kernel(const CodeT* __restrict__ codes, const int* __restrict__ gid,
-               const int* __restrict__ goff, int ncoarse,
-               const float* __restrict__ luts, long long n, int b, int M,
-               int ksub, int bq, int staged, int kk, int cap,
-               long long chunk_rows, u64* __restrict__ part,
-               float* __restrict__ sel) {
-  extern __shared__ __align__(16) unsigned char pq_smem[];
-  __shared__ u64 thr[kMaxBQ];
-  __shared__ int cnt[kMaxBQ];
-  __shared__ int flag;
-  const long long K = (long long)ncoarse * ksub;
-  const int slice = M * ksub;                     // one query's LUT slice
-  float* lut_s = reinterpret_cast<float*>(pq_smem);
-  u64* buf = reinterpret_cast<u64*>(
-      pq_smem + (staged ? ((size_t)bq * slice * sizeof(float) + 15) & ~(size_t)15
-                        : 0));                    // (bq, cap)
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * bq;
-  const int nq = b - q0 < bq ? b - q0 : bq;
-  const long long r_begin = (long long)blockIdx.y * chunk_rows;
-  const long long r_end = r_begin + chunk_rows < n ? r_begin + chunk_rows : n;
-  const bool select = sel != nullptr;
-  if (!select)
-    for (int i = tid; i < bq * cap; i += kThreads) buf[i] = 0;
-  if (tid < kMaxBQ) {
-    thr[tid] = 0;                 // every real word is > 0
-    cnt[tid] = 0;
-  }
-  int c = 0;                      // the group holding r_begin
-  for (int lo = 0, hi = ncoarse - 1; lo < hi;) {
-    const int mid = (lo + hi + 1) / 2;
-    if (goff[mid] <= r_begin) lo = mid; else hi = mid - 1;
-    c = lo;
-  }
-  for (; c < ncoarse && goff[c] < r_end; ++c) {
-    const long long g0 = goff[c] > r_begin ? goff[c] : r_begin;
-    const long long g1 = goff[c + 1] < r_end ? goff[c + 1] : r_end;
-    if (g0 >= g1) continue;       // an empty group (uniform in the block)
-    const float* lbase;
-    long long qstride;
-    int ldm;
-    if (staged) {
-      __syncthreads();            // the previous group's readers are done
-      for (int i = tid; i < nq * slice; i += kThreads) {
-        const int qi = i / slice;
-        const int r = i - qi * slice;
-        const int m = r / ksub;
-        lut_s[i] = luts[((long long)(q0 + qi) * M + m) * K +
-                        (long long)c * ksub + (r - m * ksub)];
-      }
-      lbase = lut_s;
-      qstride = slice;
-      ldm = ksub;
-    } else {
-      lbase = luts + (long long)q0 * M * K + (long long)c * ksub;
-      qstride = (long long)M * K;
-      ldm = (int)K;
-    }
-    __syncthreads();
-    for (long long t0 = g0; t0 < g1; t0 += kThreads) {
-      const long long r = t0 + tid;
-      if (r < g1) {
-        float acc[kMaxBQ];
-        const CodeT* cr = codes + r * M;
-        for (int m = 0; m < M; ++m) {
-          const float* lm = lbase + (long long)m * ldm + (int)cr[m];
-#pragma unroll
-          for (int qi = 0; qi < kMaxBQ; ++qi) {
-            if (qi < nq) {
-              const float v = lm[qi * qstride];
-              acc[qi] = m == 0 ? v : acc[qi] + v;
-            }
-          }
-        }
-        const int id = gid[r];
-#pragma unroll
-        for (int qi = 0; qi < kMaxBQ; ++qi) {
-          if (qi >= nq) continue;
-          const float x = -acc[qi];
-          if (select) {
-            sel[(long long)(q0 + qi) * n + r] = x;
-          } else {
-            const u64 w = pack(ord_bits(x), id);
-            if (w > thr[qi]) {
-              const int pos = atomicAdd(&cnt[qi], 1);
-              buf[qi * cap + pos] = w;
-            }
-          }
-        }
-      }
-      if (select) continue;
-      __syncthreads();
-      if (tid == 0) {       // a buffer another step could overflow
-        int need = 0;
-        for (int qi = 0; qi < nq; ++qi) need |= cnt[qi] > cap - kThreads;
-        flag = need;
-      }
-      __syncthreads();
-      if (flag) trim_words(buf, cnt, thr, nq, cap, kk);
-    }
-  }
-  if (select) return;
-  __syncthreads();
-  trim_words(buf, cnt, thr, nq, cap, kk);
-  const long long nchunks = gridDim.y;
-  for (int i = tid; i < nq * kk; i += kThreads) {
-    const int qi = i / kk;
-    const int j = i - qi * kk;
-    part[((long long)(q0 + qi) * nchunks + blockIdx.y) * kk + j] =
-        buf[qi * cap + j];
+// ---- pq_score_topk: the fused ADC scan + top-k over the grouped rows ----
+
+constexpr int kTopkWarps = kThreads / 32;   // a pass-1 block's warps
+constexpr int kWordRound = 256;             // words a warp reads a round
+constexpr int kMaxWordWarps = 8;            // warps a merge block, at most
+constexpr int kTopkRows = 2;                // rows a pass-1 lane scores a step
+
+// One call's operands, scratch and plan (kernels/pq_lut.py's PqTopkArgs
+// fills the same fields in the same order).
+struct PqTopkArgs {
+  const void* codes;      // (n, M) in grouped order, code_bytes each
+  const int* gid;         // (n,) original row ids, grouped order
+  const int* goff;        // (ncoarse + 1,) the groups' offsets
+  const float* luts;      // (b, M, ncoarse * ksub)
+  float* lq;              // (M, K, bp): the LUTs, queries innermost (luts
+                          //   itself at b = bp = 1)
+  u64* sw;                // (b, sample) the sample's words
+  u64* thr;               // (b,) starting thresholds, or null
+  u64* part;              // (b, nchunks, kk) each chunk's words (buffered)
+  u64* spill;             // (blocks, bq, tile) pass 1's overflow (buffered)
+  float* sel;             // (b, n) -d2 in grouped order (selection), or null
+  long long* stats;       // null, or 4 int64 zeros (pq_lut.STAT_NAMES)
+  float* vals;            // (b, kk) -d2
+  int* ids;               // (b, kk) original row ids
+  long long n;
+  long long chunk_rows;   // grouped rows a chunk
+  long long sample;       // sampled rows (0: no starting threshold)
+  int code_bytes;
+  int ncoarse;
+  int b;
+  int bp;                 // lq's query stride: b padded (pq_lut.topk_plan)
+  int M;
+  int ksub;
+  int bq;                 // queries a pass-1 block (1, 2, 4, 8, 16)
+  int staged;             // the tile's LUT slice lives in shared memory
+  int kk;
+  int cap;                // words a query's buffer (0: selection path)
+  int tile;               // rows between two looks at the buffers
+  int margin;             // a buffer past cap - margin is cut after a tile
+  int nchunks;
+  int wslots;             // words a merge warp's buffer
+  int wwarps;             // warps a merge block
+};
+
+__host__ __device__ inline size_t round16(size_t n) {
+  return (n + 15) & ~(size_t)15;
+}
+
+// Pass 1's dynamic shared memory (pq_lut.topk_smem): the tile's LUT slice
+// (M, ksub, bq) when staged, and on the buffered path the queries' word
+// buffers and each warp's 256 digit counters.
+size_t pq_topk_smem(int bq, int staged, int cap, int M, int ksub) {
+  size_t s = staged ? round16((size_t)bq * M * ksub * sizeof(float)) : 0;
+  if (cap > 0)
+    s += (size_t)bq * cap * sizeof(u64) + sizeof(unsigned) * 256 * kTopkWarps;
+  return s;
+}
+
+// B (4, 8 or 16) bytes global -> shared by cp.async
+template <int B>
+__device__ __forceinline__ void cp_async_n(void* smem, const void* gmem) {
+  if constexpr (B == 16) {
+    cp_async16(smem, gmem);
+  } else if constexpr (B == 8) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(gmem));
+  } else {
+    cp_async4(smem, gmem);
   }
 }
 
-// Pass 2 of pq_score_topk: one block per query merges its chunks' words
-// (len = nchunks * kk, 0 for an empty slot) and decodes the top-kk.
-__global__ void __launch_bounds__(kThreads)
-pq_merge_kernel(const u64* __restrict__ part, long long len, int kk, int cap,
-                float* __restrict__ vals, int* __restrict__ ids) {
-  extern __shared__ __align__(16) u64 mbuf[];     // (cap,)
-  __shared__ u64 thr;
-  __shared__ int cnt;
-  const int tid = threadIdx.x;
-  const long long qi = blockIdx.x;
-  for (int i = tid; i < cap; i += kThreads) mbuf[i] = 0;
-  if (tid == 0) {
-    thr = 0;
-    cnt = 0;
+// The last group c with goff[c] <= r: the group holding grouped row r
+// (empty groups share their offset with the next).
+__device__ __forceinline__ int group_of(const int* goff, int ncoarse,
+                                        long long r) {
+  int lo = 0, hi = ncoarse - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (goff[mid] <= r) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
+
+// Four consecutive codes of a row (4-byte aligned for uint8, 16-byte for
+// int32), one load through the read-only path.
+template <typename CodeT>
+__device__ __forceinline__ void codes4(const CodeT* p, int (&c)[4]) {
+  if constexpr (sizeof(CodeT) == 1) {
+    const unsigned w = __ldg(reinterpret_cast<const unsigned*>(p));
+    c[0] = w & 255u;
+    c[1] = (w >> 8) & 255u;
+    c[2] = (w >> 16) & 255u;
+    c[3] = w >> 24;
+  } else {
+    const int4 w = __ldg(reinterpret_cast<const int4*>(p));
+    c[0] = w.x;
+    c[1] = w.y;
+    c[2] = w.z;
+    c[3] = w.w;
+  }
+}
+
+// V consecutive query slots of one LUT entry: from the staged slice in
+// shared memory, or from lq through L2.
+template <bool STAGED, int V>
+__device__ __forceinline__ void lut_at(const float* p, float (&v)[V]) {
+  if constexpr (STAGED) {
+    if constexpr (V == 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p);
+      v[0] = t.x;
+      v[1] = t.y;
+      v[2] = t.z;
+      v[3] = t.w;
+    } else if constexpr (V == 2) {
+      const float2 t = *reinterpret_cast<const float2*>(p);
+      v[0] = t.x;
+      v[1] = t.y;
+    } else {
+      v[0] = *p;
+    }
+  } else {
+    load_lut<V>(p, v);
+  }
+}
+
+// One row's distances for a lane's V query slots: the left-to-right fp32
+// sum over m started from the m = 0 entry (the plain version's bits). cr is
+// the row's codes in device memory, read four a load where vec (M a
+// multiple of 4, the codes aligned). lb points at the lane's first slot of
+// entry (m = 0, code 0); ms and js are the m and code strides in floats
+// (32-bit in shared memory).
+template <bool STAGED>
+using LutOff = std::conditional_t<STAGED, int, long long>;
+
+template <typename CodeT, int V, bool STAGED>
+__device__ __forceinline__ void score_row(const CodeT* cr, int M, bool vec,
+                                          const float* lb, LutOff<STAGED> ms,
+                                          LutOff<STAGED> js, float (&acc)[V]) {
+  if (vec) {
+    int cc[4];
+    codes4(cr, cc);
+    lut_at<STAGED, V>(lb + cc[0] * js, acc);
+#pragma unroll
+    for (int u = 1; u < 4; ++u) {
+      float v[V];
+      lut_at<STAGED, V>(lb + u * ms + cc[u] * js, v);
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc[j] += v[j];
+    }
+#pragma unroll 2
+    for (int m0 = 4; m0 < M; m0 += 4) {
+      codes4(cr + m0, cc);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float v[V];
+        lut_at<STAGED, V>(lb + (m0 + u) * ms + cc[u] * js, v);
+#pragma unroll
+        for (int j = 0; j < V; ++j) acc[j] += v[j];
+      }
+    }
+  } else {
+    lut_at<STAGED, V>(lb + (int)__ldg(cr) * js, acc);
+    for (int m = 1; m < M; ++m) {
+      float v[V];
+      lut_at<STAGED, V>(lb + m * ms + (int)__ldg(cr + m) * js, v);
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc[j] += v[j];
+    }
+  }
+}
+
+// score_row for M = 8 uint8 codes held in one 8-byte word.
+template <int V, bool STAGED>
+__device__ __forceinline__ void score_row8(uint2 cw, const float* lb,
+                                           LutOff<STAGED> ms,
+                                           LutOff<STAGED> js,
+                                           float (&acc)[V]) {
+  lut_at<STAGED, V>(lb + (int)(cw.x & 255u) * js, acc);
+#pragma unroll
+  for (int m = 1; m < 8; ++m) {
+    const unsigned c = ((m < 4 ? cw.x : cw.y) >> (8 * (m & 3))) & 255u;
+    float v[V];
+    lut_at<STAGED, V>(lb + m * ms + (int)c * js, v);
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[j] += v[j];
+  }
+}
+
+// Group c's LUT slice for the block's BQ queries, (M, ksub, BQ) queries
+// innermost, from lq (M, K, bp) by cp.async: each (m, code) is one run of
+// BQ floats there.
+template <int BQ>
+__device__ __forceinline__ void stage_slice(float* dst, const float* lq,
+                                            long long K, int bp, int M,
+                                            int ksub, int c, int q0) {
+  constexpr int V = BQ < 4 ? BQ : 4;
+  constexpr int P = BQ / V;    // V-float pieces an entry
+  const int total = M * ksub * P;
+  const float* src0 = lq + (long long)c * ksub * bp + q0;
+  for (int i = threadIdx.x; i < total; i += kThreads) {
+    const int mj = i / P, p = i - mj * P;
+    const int m = mj / ksub, j = mj - m * ksub;
+    cp_async_n<4 * V>(dst + mj * BQ + p * V,
+                      src0 + ((long long)m * K + j) * bp + p * V);
+  }
+}
+
+// Pass 1: one block per (query tile of BQ, chunk of grouped rows). Each
+// coarse group the chunk meets has its (M, ksub, BQ) LUT slice staged once
+// by cp.async (STAGED; else the lanes read lq through L2). A warp's lanes
+// take query slots first (V of them, one 16-, 8- or 4-byte load an entry)
+// and rows second, kTopkRows rows a lane a step (their loads in flight
+// together); a lane reads its rows' codes from device memory (M = 8 uint8
+// codes: one 8-byte load a row, a step ahead). Buffered (a.sel null): a
+// step whose scores all fail a first test on the distance alone (against
+// the float of the threshold's top half) passes on with one warp vote;
+// else a score enters its query's buffer as the word pack(ord_bits(-d2),
+// id) when it is at or above the query's threshold (in registers: the
+// sample's, then each cut's kk-th word); an append past the
+// buffer's cap goes to the block's spill area in device memory. Every
+// a.tile rows the block meets (__syncthreads_or: did any append pass cap -
+// margin) and the buffers past the mark are cut back to kk, with their
+// spill, by the warp that owns the query (query qi belongs to warp qi % 8;
+// warp_cut, __syncwarp only); a second barrier follows a cut. The block
+// writes its chunk's (at most) kk words a query to a.part, 0 in the empty
+// slots. Selection (a.sel not null): writes -d2 to a.sel in grouped order.
+template <typename CodeT, int BQ, bool STAGED>
+__global__ void __launch_bounds__(kThreads, 2)
+pq_topk_kernel(const PqTopkArgs a, int vec) {
+  constexpr int V = BQ < 4 ? BQ : 4;   // query slots a lane
+  constexpr int L = BQ / V;            // lanes a row
+  constexpr int RW = 32 / L;           // rows a warp instruction
+  constexpr int U = kTopkRows;
+  extern __shared__ __align__(16) unsigned char pq_smem[];
+  __shared__ u64 thr_s[BQ];
+  __shared__ int cnt_s[BQ];
+  const CodeT* codes = static_cast<const CodeT*>(a.codes);
+  const int M = a.M, ksub = a.ksub, bp = a.bp, kk = a.kk, cap = a.cap;
+  const long long n = a.n;
+  const long long K = (long long)a.ncoarse * ksub;
+  const int tile = a.tile, mark = a.cap - a.margin;
+  const bool select = a.sel != nullptr;
+  const size_t slice_bytes =
+      STAGED ? round16((size_t)M * ksub * BQ * sizeof(float)) : 0;
+  float* lut_s = reinterpret_cast<float*>(pq_smem);
+  u64* buf = reinterpret_cast<u64*>(pq_smem + slice_bytes);   // (BQ, cap)
+  unsigned* hist = reinterpret_cast<unsigned*>(buf + (size_t)BQ * cap);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * BQ;
+  const int nq = a.b - q0 < BQ ? a.b - q0 : BQ;
+  const long long r_begin = (long long)blockIdx.y * a.chunk_rows;
+  const long long r_end =
+      r_begin + a.chunk_rows < n ? r_begin + a.chunk_rows : n;
+  const int lr = lane / L;               // row within a warp instruction
+  const int qoff = (lane % L) * V;       // the lane's first query slot
+  // the block's spill area: tile words a query
+  u64* spill = select ? nullptr
+                      : a.spill + ((long long)blockIdx.y * gridDim.x +
+                                   blockIdx.x) * BQ * tile;
+  if (!select && tid < BQ) {
+    thr_s[tid] = a.thr != nullptr && tid < nq ? a.thr[q0 + tid] : 0ull;
+    cnt_s[tid] = 0;
   }
   __syncthreads();
-  const u64* src = part + qi * len;
-  for (long long t0 = 0; t0 < len; t0 += kThreads) {
-    const long long t = t0 + tid;
-    if (t < len) {
-      const u64 w = src[t];
-      if (w > thr) mbuf[atomicAdd(&cnt, 1)] = w;
+  // The lane's queries' thresholds (words), and a first test on the
+  // distance alone: a word at or above t[j] has -d2 >= the float of its top
+  // half, so d2 <= ntf[j] (that float negated; -0.0 and +0.0 compare equal
+  // here, and the words decide). An empty slot's ntf is -inf: no row
+  // passes.
+  u64 t[V];
+  float ntf[V];
+  auto refresh = [&]() {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      t[j] = !select && qoff + j < nq ? thr_s[qoff + j] : 0ull;
+      const unsigned h = (unsigned)(t[j] >> 32);
+      ntf[j] = select || qoff + j >= nq ? -INFINITY
+               : h <= 0x007fffffu       ? INFINITY   // below -inf: all pass
+                                        : -from_ord(h);
+    }
+  };
+  refresh();
+  const bool fast8 = sizeof(CodeT) == 1 && M == 8 && vec;
+  long long ncut = 0, cut_words = 0, removed = 0;   // the owner warps' profile
+  int c = group_of(a.goff, a.ncoarse, r_begin);
+  int staged_c = -1;
+  for (long long t0 = r_begin; t0 < r_end; t0 += tile) {
+    const long long t1 = t0 + tile < r_end ? t0 + tile : r_end;
+    bool crossed = false;
+    for (long long s0 = t0; s0 < t1;) {
+      while (a.goff[c + 1] <= s0) ++c;
+      const long long s1 = a.goff[c + 1] < t1 ? a.goff[c + 1] : t1;
+      const float* lb;
+      LutOff<STAGED> ms, js;
+      if constexpr (STAGED) {
+        if (c != staged_c) {
+          __syncthreads();             // the old slice's readers are done
+          stage_slice<BQ>(lut_s, a.lq, K, bp, M, ksub, c, q0);
+          cp_async_wait_all();
+          __syncthreads();
+          staged_c = c;
+        }
+        lb = lut_s + qoff;
+        ms = ksub * BQ;
+        js = BQ;
+      } else {
+        lb = a.lq + (long long)c * ksub * bp + q0 + qoff;
+        ms = K * bp;
+        js = bp;
+      }
+      // a step's rows (r0 + u * RW + lr): their -d2 to a.sel, or their
+      // words past their thresholds to the buffers
+      auto emit = [&](long long r0, float (&acc)[U][V]) {
+        if (select) {
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const long long r = r0 + u * RW + lr;
+            if (r >= s1) continue;
+#pragma unroll
+            for (int j = 0; j < V; ++j)
+              if (qoff + j < nq)
+                a.sel[(long long)(q0 + qoff + j) * n + r] = -acc[u][j];
+          }
+          return;
+        }
+        bool hit = false;
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+          for (int j = 0; j < V; ++j)
+            hit |= r0 + u * RW + lr < s1 && acc[u][j] <= ntf[j];
+        if (!__any_sync(0xffffffffu, hit)) return;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const long long r = r0 + u * RW + lr;
+          if (r >= s1) continue;
+          int id = -1;
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            if (!(acc[u][j] <= ntf[j])) continue;
+            const unsigned hi = ord_bits(-acc[u][j]);
+            if (hi < (unsigned)(t[j] >> 32)) continue;
+            if (id < 0) id = a.gid[r];
+            const u64 w = pack(hi, id);
+            if (w < t[j]) continue;
+            const int pos = atomicAdd(&cnt_s[qoff + j], 1);
+            if (pos < cap)
+              buf[(qoff + j) * cap + pos] = w;
+            else
+              spill[(qoff + j) * tile + pos - cap] = w;
+            crossed |= pos >= mark;
+          }
+        }
+      };
+      constexpr int kStep = kTopkWarps * RW * U;
+      if (fast8) {   // M = 8 uint8 codes: a row's codes in one 8-byte load,
+                     // the next step's in flight during this one
+        const uint2* c8 = reinterpret_cast<const uint2*>(codes);
+        auto load8 = [&](long long r0, uint2 (&w)[U]) {
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const long long r = r0 + u * RW + lr;
+            w[u] = __ldg(c8 + (r < s1 ? r : s1 - 1));
+          }
+        };
+        long long r0 = s0 + warp * RW * U;
+        uint2 cw[U];
+        if (r0 < s1) load8(r0, cw);
+        for (; r0 < s1; r0 += kStep) {
+          uint2 nw[U];
+          if (r0 + kStep < s1) load8(r0 + kStep, nw);
+          float acc[U][V];
+#pragma unroll
+          for (int u = 0; u < U; ++u) score_row8<V, STAGED>(cw[u], lb, ms, js, acc[u]);
+          emit(r0, acc);
+#pragma unroll
+          for (int u = 0; u < U; ++u) cw[u] = nw[u];
+        }
+      } else {
+        for (long long r0 = s0 + warp * RW * U; r0 < s1; r0 += kStep) {
+          float acc[U][V];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {   // past the segment: its last row
+            long long r = r0 + u * RW + lr;
+            r = r < s1 ? r : s1 - 1;
+            score_row<CodeT, V, STAGED>(codes + r * M, M, vec, lb, ms, js,
+                                        acc[u]);
+          }
+          emit(r0, acc);
+        }
+      }
+      s0 = s1;
+    }
+    if (select) continue;
+    if (__syncthreads_or(crossed)) {   // cut the buffers past the mark
+      for (int qi = warp; qi < nq; qi += kTopkWarps) {
+        const int cn = cnt_s[qi];
+        if (cn <= mark) continue;
+        const u64 w = warp_cut(Words{buf + qi * cap, spill + qi * tile, cap},
+                               cn, kk, hist + 256 * warp);
+        if (lane == 0) {
+          cnt_s[qi] = kk;
+          thr_s[qi] = w;
+          ++ncut;
+          cut_words += cn;
+          removed += cn - kk;
+        }
+      }
+      __syncthreads();
+      refresh();
+    }
+  }
+  if (select) return;
+  // each owner warp cuts its queries' buffers to kk and writes them
+  long long admitted = 0;
+  for (int qi = warp; qi < nq; qi += kTopkWarps) {
+    int cn = cnt_s[qi];
+    u64* qb = buf + qi * cap;
+    admitted += cn;
+    if (cn > kk) {
+      warp_cut(Words{qb, spill + qi * tile, cap}, cn, kk, hist + 256 * warp);
+      ++ncut;
+      cut_words += cn;
+      cn = kk;
+    }
+    u64* dst = a.part + ((long long)(q0 + qi) * a.nchunks + blockIdx.y) * kk;
+    for (int j = lane; j < kk; j += 32) dst[j] = j < cn ? qb[j] : 0ull;
+  }
+  if (a.stats != nullptr && lane == 0 && warp < nq) {
+    atomicAdd(reinterpret_cast<unsigned long long*>(a.stats),
+              (unsigned long long)(admitted + removed));
+    atomicAdd(reinterpret_cast<unsigned long long*>(a.stats + 1),
+              (unsigned long long)ncut);
+    atomicAdd(reinterpret_cast<unsigned long long*>(a.stats + 2),
+              (unsigned long long)cut_words);
+    if (warp == 0)
+      atomicAdd(reinterpret_cast<unsigned long long*>(a.stats + 3),
+                (unsigned long long)nq);
+  }
+}
+
+// The sample pass: each thread scores one evenly spaced grouped row, p = v
+// * n / sample, for V query slots (lq through L2; a row's query groups on
+// neighbouring threads, so their loads share sectors) and writes its words
+// to sw (b, sample).
+template <typename CodeT, int V>
+__global__ void __launch_bounds__(kThreads)
+pq_sample_kernel(const PqTopkArgs a) {
+  const long long count = a.sample;
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const int groups = a.bp / V;
+  if (i >= count * groups) return;
+  const long long v = i / groups;
+  const int g = (int)(i - v * groups);
+  const long long p = v * a.n / count;
+  const int c = group_of(a.goff, a.ncoarse, p);
+  const CodeT* cr = static_cast<const CodeT*>(a.codes) + p * a.M;
+  const long long K = (long long)a.ncoarse * a.ksub;
+  const float* base = a.lq + (long long)c * a.ksub * a.bp + g * V;
+  float acc[V];
+  load_lut<V>(base + (long long)__ldg(cr) * a.bp, acc);
+  for (int m = 1; m < a.M; ++m) {
+    float x[V];
+    load_lut<V>(base + ((long long)m * K + (long long)__ldg(cr + m)) * a.bp,
+                x);
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[j] += x[j];
+  }
+  const int id = a.gid[p];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int q = g * V + j;
+    if (q < a.b) a.sw[(long long)q * count + v] = pack(ord_bits(-acc[j]), id);
+  }
+}
+
+constexpr int kThrDigit = 12;                 // bits a threshold pass reads
+constexpr int kThrBins = 1 << kThrDigit;
+constexpr int kThrThreads = 1024;
+
+// The starting thresholds: one block per query, two passes of 12-bit
+// digits from the top over its sample's words (sample >= kk, all real):
+// the bin that holds the kk-th best word, then its sub-bin. The threshold
+// is that sub-bin's lower edge (the kk-th word's top 24 bits, the rest 0):
+// at or below the kk-th best sampled word, so every word of the true top-kk
+// is at or above it. (A word's top 24 bits are its score's sign, exponent
+// and 15 mantissa bits: the edge admits at most the words a 2^-15 relative
+// step below the kk-th.)
+__global__ void __launch_bounds__(kThrThreads)
+pq_threshold_kernel(const u64* __restrict__ sw, long long count, int kk,
+                    u64* __restrict__ thr) {
+  __shared__ unsigned hist[kThrBins];
+  __shared__ unsigned pick, skipped;
+  constexpr int kPer = kThrBins / kThrThreads;   // bins a thread sums
+  const u64* src = sw + (long long)blockIdx.x * count;
+  u64 prefix = 0, fixed = 0;
+  unsigned want = (unsigned)kk;
+  for (int pass = 0; pass < 2; ++pass) {
+    const int shift = 64 - kThrDigit * (pass + 1);
+    for (int i = threadIdx.x; i < kThrBins; i += kThrThreads) hist[i] = 0;
+    __syncthreads();
+    // 8 words a thread in flight, then one atomic a distinct bin a warp
+    // (most words share a few bins)
+    for (long long e0 = threadIdx.x; e0 < count; e0 += 8 * kThrThreads) {
+      u64 w[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const long long e = e0 + (long long)u * kThrThreads;
+        w[u] = e < count ? src[e] : 0ull;
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const bool in = e0 + (long long)u * kThrThreads < count &&
+                        (w[u] & fixed) == prefix;
+        const unsigned bin = (unsigned)(w[u] >> shift) & (kThrBins - 1);
+        const unsigned peers =
+            __match_any_sync(__activemask(), in ? bin : kThrBins);
+        if (in && (threadIdx.x & 31) == __ffs(peers) - 1)
+          atomicAdd(&hist[bin], (unsigned)__popc(peers));
+      }
     }
     __syncthreads();
-    const bool full = cnt > cap - kThreads;
+    // thread t holds bins kThrBins - 1 - kPer t down: the best first
+    unsigned sum = 0;
+    for (int i = 0; i < kPer; ++i)
+      sum += hist[kThrBins - 1 - kPer * threadIdx.x - i];
+    unsigned total;
+    unsigned above = block_scan(sum, &total);
+    if (above < want && above + sum >= want) {
+      for (int i = 0; i < kPer; ++i) {
+        const int bin = kThrBins - 1 - kPer * threadIdx.x - i;
+        if (above + hist[bin] >= want) {
+          pick = (unsigned)bin;
+          skipped = above;
+          break;
+        }
+        above += hist[bin];
+      }
+    }
     __syncthreads();
-    if (full) trim_words(mbuf, &cnt, &thr, 1, cap, kk);
+    prefix |= (u64)pick << shift;
+    fixed |= (u64)(kThrBins - 1) << shift;
+    want -= skipped;
+    __syncthreads();   // pick and skipped are read before the next pass
   }
-  trim_words(mbuf, &cnt, &thr, 1, cap, kk);
-  for (int j = tid; j < kk; j += kThreads) {
+  if (threadIdx.x == 0) thr[blockIdx.x] = prefix;
+}
+
+// Keeps the kk best words above thr0 of src[0, len) (0 marks an empty
+// slot), as stream_topk keeps (score, id) pairs: each warp streams its share
+// (8 words a lane before testing any), appends those above its threshold to
+// its own buffer of `slots` words (a ballot, no atomics) and cuts it back to
+// kk by warp_cut when the next round might not fit; then warp 0 gathers the
+// warps' lists and cuts them to kk. Leaves them, unordered, in warp 0's
+// buffer (bufs[0, count)) and returns count = min(kk, words above thr0).
+// slots >= kk + kWordRound and >= 2 kk. Every thread of the block calls it.
+__device__ int stream_words(const u64* __restrict__ src, long long len,
+                            int kk, int slots, u64 thr0, u64* bufs,
+                            unsigned* hists) {
+  __shared__ int counts[kMaxWordWarps];
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  u64* bw = bufs + (size_t)warp * slots;
+  unsigned* hist = hists + 256 * warp;
+  u64 thr = thr0;
+  int cnt = 0;
+  for (long long base = (long long)warp * kWordRound; base < len;
+       base += (long long)warps * kWordRound) {
+    u64 v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const long long e = base + u * 32 + lane;
+      v[u] = e < len ? src[e] : 0ull;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const bool in = v[u] > thr;
+      const unsigned bal = __ballot_sync(0xffffffffu, in);
+      if (in) bw[cnt + __popc(bal & ((1u << lane) - 1u))] = v[u];
+      cnt += __popc(bal);
+    }
+    __syncwarp();
+    if (cnt > slots - kWordRound) {
+      thr = warp_cut(Words{bw, nullptr, slots}, cnt, kk, hist);
+      cnt = kk;
+    }
+  }
+  if (cnt > kk) {
+    warp_cut(Words{bw, nullptr, slots}, cnt, kk, hist);
+    cnt = kk;
+  }
+  if (lane == 0) counts[warp] = cnt;
+  __syncthreads();
+  if (warp == 0) {
+    int total = counts[0];
+    for (int w = 1; w < warps; ++w) {
+      if (total + counts[w] > slots) {   // room for the next list
+        warp_cut(Words{bw, nullptr, slots}, total, kk, hist);
+        total = kk;
+      }
+      const u64* ws = bufs + (size_t)w * slots;
+      for (int j = lane; j < counts[w]; j += 32) bw[total + j] = ws[j];
+      total += counts[w];
+      __syncwarp();
+    }
+    if (total > kk) {
+      warp_cut(Words{bw, nullptr, slots}, total, kk, hist);
+      total = kk;
+    }
+    if (lane == 0) counts[0] = total;
+  }
+  __syncthreads();
+  return counts[0];
+}
+
+// Pass 2: one block per query keeps the kk best of its chunks' words
+// (nchunks lists of kk, 0 for an empty slot) with stream_words, sorts those
+// kk once, best first, and decodes them. It starts from the largest of the
+// full lists' least words (each is at or below the query's kk-th best
+// word), so the stream admits little past the kk it keeps.
+__global__ void __launch_bounds__(kMaxWordWarps * 32)
+pq_merge_kernel(const u64* __restrict__ part, int nchunks, int kk,
+                int slots, float* __restrict__ vals, int* __restrict__ ids) {
+  extern __shared__ __align__(16) u64 mbuf[];
+  __shared__ u64 bound;
+  const long long qi = blockIdx.x;
+  const long long len = (long long)nchunks * kk;
+  const u64* src = part + qi * len;
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned* hists = reinterpret_cast<unsigned*>(mbuf + (size_t)warps * slots);
+  if (threadIdx.x == 0) bound = 0;
+  __syncthreads();
+  for (int ch = warp; ch < nchunks; ch += warps) {   // a list a warp
+    u64 least = ~0ull;
+    for (int j = lane; j < kk; j += 32) {
+      const u64 w = src[(long long)ch * kk + j];
+      least = w < least ? w : least;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const u64 v = __shfl_xor_sync(0xffffffffu, least, o);
+      least = v < least ? v : least;
+    }
+    if (lane == 0 && least != 0) atomicMax(&bound, least);   // a full list
+  }
+  __syncthreads();
+  const u64 thr0 = bound != 0 ? bound - 1 : 0;   // the bound's word competes
+  const int cnt = stream_words(src, len, kk, slots, thr0, mbuf, hists);
+  int len2 = 1;
+  while (len2 < kk) len2 <<= 1;
+  for (int j = cnt + threadIdx.x; j < len2; j += blockDim.x) mbuf[j] = 0;
+  __syncthreads();
+  sort_desc(mbuf, nullptr, 1, len2);
+  for (int j = threadIdx.x; j < kk; j += blockDim.x) {
     vals[qi * kk + j] = from_ord((unsigned)(mbuf[j] >> 32));
     ids[qi * kk + j] = key_of(mbuf[j]);
   }
@@ -619,30 +1143,55 @@ pq_select_kernel(const SelectArgs sa, const float* __restrict__ sel,
   }
 }
 
-size_t pq_topk_smem(int bq, int staged, int cap, int M, int ksub) {
-  const size_t lut = staged ? ((size_t)bq * M * ksub * sizeof(float) + 15) &
-                                  ~(size_t)15
-                            : 0;
-  return lut + (size_t)bq * cap * sizeof(u64);
+template <typename CodeT, int BQ, bool STAGED>
+int launch_pq_topk(const PqTopkArgs& a, cudaStream_t st) {
+  const int cap = a.sel != nullptr ? 0 : a.cap;
+  const size_t smem = pq_topk_smem(BQ, STAGED, cap, a.M, a.ksub);
+  const cudaError_t err = cudaFuncSetAttribute(
+      pq_topk_kernel<CodeT, BQ, STAGED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  // four codes a load: M a multiple of 4 and the rows aligned to them
+  const int vec = a.M % 4 == 0 &&
+                  (reinterpret_cast<uintptr_t>(a.codes) & 15) == 0;
+  const dim3 grid((unsigned)((a.b + BQ - 1) / BQ), (unsigned)a.nchunks);
+  pq_topk_kernel<CodeT, BQ, STAGED><<<grid, kThreads, smem, st>>>(a, vec);
+  return (int)cudaGetLastError();
 }
 
 template <typename CodeT>
-int launch_pq_topk(const CodeT* codes, const int* gid, const int* goff,
-                   int ncoarse, const float* luts, long long n, int b, int M,
-                   int ksub, int bq, int staged, int kk, int cap, int nchunks,
-                   long long chunk_rows, u64* part, float* sel,
-                   cudaStream_t st) {
-  if (sel != nullptr) cap = 0;
-  const size_t smem = pq_topk_smem(bq, staged, cap, M, ksub);
-  cudaError_t err = cudaFuncSetAttribute(
-      pq_topk_kernel<CodeT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((b + bq - 1) / bq), (unsigned)nchunks);
-  pq_topk_kernel<CodeT><<<grid, kThreads, smem, st>>>(
-      codes, gid, goff, ncoarse, luts, n, b, M, ksub, bq, staged, kk, cap,
-      chunk_rows, part, sel);
+int launch_pq_topk_bq(const PqTopkArgs& a, cudaStream_t st) {
+  switch (a.bq) {
+#define FCVI_TOPK_CASE(Q)                                             \
+  case Q:                                                             \
+    return a.staged ? launch_pq_topk<CodeT, Q, true>(a, st)           \
+                    : launch_pq_topk<CodeT, Q, false>(a, st);
+    FCVI_TOPK_CASE(1)
+    FCVI_TOPK_CASE(2)
+    FCVI_TOPK_CASE(4)
+    FCVI_TOPK_CASE(8)
+    FCVI_TOPK_CASE(16)
+#undef FCVI_TOPK_CASE
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename CodeT>
+int launch_pq_sample(const PqTopkArgs& a, cudaStream_t st) {
+  const int v = a.bp % 4 == 0 ? 4 : a.bp % 2 == 0 ? 2 : 1;
+  const long long threads = a.sample * (a.bp / v);
+  const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
+  if (v == 4)
+    pq_sample_kernel<CodeT, 4><<<blocks, kThreads, 0, st>>>(a);
+  else if (v == 2)
+    pq_sample_kernel<CodeT, 2><<<blocks, kThreads, 0, st>>>(a);
+  else
+    pq_sample_kernel<CodeT, 1><<<blocks, kThreads, 0, st>>>(a);
   return (int)cudaGetLastError();
+}
+
+size_t pq_words_smem(int slots, int warps) {
+  return (size_t)warps * ((size_t)slots * sizeof(u64) + 256 * sizeof(unsigned));
 }
 
 }  // namespace
@@ -770,58 +1319,74 @@ extern "C" int fcvi_pq_score(const void* codes, int code_bytes,
   return (int)cudaSuccess;
 }
 
-// The fused ADC scan + top-k over the grouped layout: codes (n, M) of
-// code_bytes bytes each (1: uint8, 4: int32) and gid (n,) in grouped order,
-// goff (ncoarse + 1,) int32, luts (b, M, ncoarse * ksub) fp32 -> vals (b, kk)
-// = -d2 and ids (b, kk) original row ids, ranked by the packed key. bq <=
-// 16 queries a block. Buffered path (sel null): part is a (b, nchunks, kk)
-// u64 scratch and merge_cap the merge's buffer. Selection path (sel, a
-// (b, n) fp32 scratch, not null): cap, merge_cap and part are unused; sa
-// holds the select's plan and scratch (select_common.cuh), null on the
-// buffered path.
-extern "C" int fcvi_pq_score_topk(const void* codes, int code_bytes,
-                                  const int* gid, const int* goff,
-                                  int ncoarse, const float* luts, long long n,
-                                  int b, int M, int ksub, int bq, int staged,
-                                  int kk, int cap, int nchunks,
-                                  long long chunk_rows, int merge_cap,
-                                  void* part, float* sel,
-                                  const void* sel_args, float* vals,
-                                  int* ids, void* stream) {
-  if (n <= 0 || b <= 0) return (int)cudaSuccess;
-  if (bq < 1 || bq > kMaxBQ) return (int)cudaErrorInvalidValue;
+// The fused ADC scan + top-k over the grouped layout (pq_lut.pq_score_topk):
+// a's codes (n, M) of code_bytes bytes each (1: uint8, 4: int32) and gid
+// (n,) in grouped order, goff (ncoarse + 1,), luts (b, M, ncoarse * ksub)
+// fp32 -> vals (b, kk) = -d2 and ids (b, kk) original row ids, ranked by the
+// packed key. Launches: the LUT relayout to lq (none at b = 1), then on the
+// buffered path (a.sel null) the sample pass and the threshold kernel (where
+// a.sample > 0), pass 1 and the merge; on the selection path (a.sel, a (b,
+// n) fp32 scratch) pass 1, then the select's passes and pq_select_kernel
+// with sel_args (select_common.cuh's SelectArgs; null on the buffered path).
+// (args is a PqTopkArgs; its type is local to this file, so the C
+// interface takes its address untyped, as it takes sel_args.)
+extern "C" int fcvi_pq_score_topk(const void* args, const void* sel_args,
+                                  void* stream) {
+  const PqTopkArgs& a = *static_cast<const PqTopkArgs*>(args);
+  if (a.n <= 0 || a.b <= 0) return (int)cudaSuccess;
+  const bool select = a.sel != nullptr;
   const SelectArgs* sa = static_cast<const SelectArgs*>(sel_args);
-  if (sel != nullptr && sa == nullptr) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  u64* pw = static_cast<u64*>(part);
-  int err;
-  if (code_bytes == 1)
-    err = launch_pq_topk((const uint8_t*)codes, gid, goff, ncoarse, luts, n,
-                         b, M, ksub, bq, staged, kk, cap, nchunks, chunk_rows,
-                         pw, sel, st);
-  else if (code_bytes == 4)
-    err = launch_pq_topk((const int32_t*)codes, gid, goff, ncoarse, luts, n,
-                         b, M, ksub, bq, staged, kk, cap, nchunks, chunk_rows,
-                         pw, sel, st);
-  else
+  if (a.bq < 1 || a.bq > kMaxBQ || a.bp < a.b || a.bp % a.bq ||
+      (select && sa == nullptr) ||
+      (!select && (a.cap < a.kk + a.margin || a.margin < 1 ||
+                   a.margin > a.tile || a.tile < 1 || a.spill == nullptr ||
+                   a.wwarps < 1 || a.wwarps > kMaxWordWarps)) ||
+      (a.code_bytes != 1 && a.code_bytes != 4))
     return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (a.lq != a.luts) {
+    const long long mk = (long long)a.M * a.ncoarse * a.ksub;
+    const dim3 grid((unsigned)((mk + 31) / 32), (unsigned)((a.bp + 31) / 32));
+    pq_lut_relayout_kernel<<<grid, kThreads, 0, st>>>(a.luts, a.lq, mk, a.b,
+                                                      a.bp);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  } else if (a.b != 1 || a.bp != 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t wsmem = pq_words_smem(a.wslots, a.wwarps);
+  int err;
+  if (!select && a.sample > 0) {
+    err = a.code_bytes == 1 ? launch_pq_sample<uint8_t>(a, st)
+                            : launch_pq_sample<int32_t>(a, st);
+    if (err != (int)cudaSuccess) return err;
+    pq_threshold_kernel<<<a.b, kThrThreads, 0, st>>>(a.sw, a.sample, a.kk,
+                                                     a.thr);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  PqTopkArgs p = a;
+  if (select || a.sample <= 0) p.thr = nullptr;
+  err = a.code_bytes == 1 ? launch_pq_topk_bq<uint8_t>(p, st)
+                          : launch_pq_topk_bq<int32_t>(p, st);
   if (err != (int)cudaSuccess) return err;
-  if (sel != nullptr) {
-    cudaError_t e = select_passes(PqScores{sel, gid, n}, *sa, st);
+  if (select) {
+    cudaError_t e = select_passes(PqScores{a.sel, a.gid, a.n}, *sa, st);
     if (e != cudaSuccess) return (int)e;
     const size_t smem = select_smem(*sa);
     e = cudaFuncSetAttribute(pq_select_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
     if (e != cudaSuccess) return (int)e;
-    pq_select_kernel<<<b, kSelThreads, smem, st>>>(*sa, sel, n, vals, ids);
+    pq_select_kernel<<<a.b, kSelThreads, smem, st>>>(*sa, a.sel, a.n, a.vals,
+                                                     a.ids);
     return (int)cudaGetLastError();
   }
-  const size_t smem = sizeof(u64) * (size_t)merge_cap;
   cudaError_t e = cudaFuncSetAttribute(
-      pq_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      pq_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)wsmem);
   if (e != cudaSuccess) return (int)e;
-  pq_merge_kernel<<<b, kThreads, smem, st>>>(pw, (long long)nchunks * kk, kk,
-                                             merge_cap, vals, ids);
+  pq_merge_kernel<<<a.b, 32 * a.wwarps, wsmem, st>>>(
+      a.part, a.nchunks, a.kk, a.wslots, a.vals, a.ids);
   return (int)cudaGetLastError();
 }

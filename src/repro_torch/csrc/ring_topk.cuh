@@ -2,10 +2,11 @@
 // TMA (cp.async.bulk.tensor) helpers for a staging ring fed by a producer
 // warp, the packed (score, key) word of a candidate, warp_cut (one warp cuts
 // a query's candidate buffer back to its kk best by a radix select of
-// 8-bit digits, keeping their order) and stream_topk (a block keeps the kk
-// best of a stream of candidates, each warp cutting its own buffer). The
-// IVF list scan (ivf_score.cu) uses them; fused_score_topk.cu carries the
-// same definitions of its own.
+// 8-bit digits, keeping their order; on (score, id) pairs or on packed
+// words) and stream_topk (a block keeps the kk best of a stream of
+// candidates, each warp cutting its own buffer). The IVF list scan
+// (ivf_score.cu) and the fused PQ scan (pq_lut.cu, warp_cut on words) use
+// them; fused_score_topk.cu carries the same definitions of its own.
 #pragma once
 
 #include <cuda.h>
@@ -93,47 +94,64 @@ __device__ __forceinline__ u64 word_of(float s, int id) {
   return pack(ord_bits_eq0(s), id);
 }
 
-// Candidate e of one query: its buffer below cap, its spill slots past it.
+// Candidate e of one query as an item for warp_cut: its (score, id), from
+// its buffer below cap or its spill slots past it, ranked by word_of.
 struct Cands {
   float* bs;
   int* bi;
   const float* ss;
   const int* si;
   int cap;
-  __device__ __forceinline__ void get(int e, float* s, int* id) const {
-    if (e < cap) {
-      *s = bs[e];
-      *id = bi[e];
-    } else {
-      *s = ss[e - cap];
-      *id = si[e - cap];
-    }
+  struct Item {
+    float s;
+    int id;
+  };
+  __device__ __forceinline__ Item get(int e) const {
+    return e < cap ? Item{bs[e], bi[e]} : Item{ss[e - cap], si[e - cap]};
+  }
+  __device__ __forceinline__ static u64 word(const Item& t) {
+    return word_of(t.s, t.id);
+  }
+  __device__ __forceinline__ void put(int p, const Item& t) const {
+    bs[p] = t.s;
+    bi[p] = t.id;
   }
 };
 
-// One warp keeps the kk best of a query's cnt (> kk) candidates, in their
-// order, in bs/bi[0..kk) and returns the kk-th best packed word: a radix
-// select of 8-bit digits from the highest bit on which the words differ
-// (the words are unique: each carries its row id), stopping once the chosen
-// bin holds exactly the words still wanted, then a compaction. hist is the
-// warp's own 256 counters. Every lane of the warp calls it.
-__device__ __forceinline__ u64 warp_cut(const Cands& c, int cnt, int kk,
+// A query's packed words in place (the PQ scan's): the word is the item and
+// its own rank, so -0.0 ranks below +0.0 as ord_bits orders them. Words
+// past cap are read from spill (null where none can be).
+struct Words {
+  u64* w;
+  const u64* spill;
+  int cap;
+  using Item = u64;
+  __device__ __forceinline__ u64 get(int e) const {
+    return e < cap ? w[e] : spill[e - cap];
+  }
+  __device__ __forceinline__ static u64 word(u64 t) { return t; }
+  __device__ __forceinline__ void put(int p, u64 t) const { w[p] = t; }
+};
+
+// One warp keeps the kk best of a query's cnt (> kk) items, in their order,
+// in positions [0, kk) and returns the kk-th best word: a radix select of
+// 8-bit digits from the highest bit on which the words differ (the words are
+// unique: each carries its row id), stopping once the chosen bin holds
+// exactly the words still wanted, then a compaction. C is Cands or Words.
+// hist is the warp's own 256 counters. Every lane of the warp calls it.
+template <class C>
+__device__ __forceinline__ u64 warp_cut(const C& c, int cnt, int kk,
                                          unsigned* hist) {
+  using Item = typename C::Item;
   const int lane = threadIdx.x & 31;
-  float s0;
-  int i0;
-  c.get(0, &s0, &i0);
-  const u64 w0 = word_of(s0, i0);
+  const u64 w0 = C::word(c.get(0));
   // the entries in rounds of 8 a lane, every load of a round issued first
   auto words = [&](int base, u64 (&w)[8], bool (&in)[8]) {
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
       const int e = base + 32 * u + lane;
       in[u] = e < cnt;
-      float s = 0.f;
-      int id = 0;
-      if (in[u]) c.get(e, &s, &id);
-      w[u] = word_of(s, id);
+      w[u] = in[u] ? C::word(c.get(e)) : 0ull;
     }
   };
   u64 diff = 0;
@@ -208,16 +226,15 @@ __device__ __forceinline__ u64 warp_cut(const Cands& c, int cnt, int kk,
   u64 least = ~0ull;
   int out = 0;
   for (int base = 0; base < cnt; base += 256) {
-    float s[8];
-    int id[8];
+    Item it[8];
     bool keep[8];
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
       const int e = base + 32 * u + lane;
       keep[u] = false;
       if (e < cnt) {
-        c.get(e, &s[u], &id[u]);
-        const u64 w = word_of(s[u], id[u]);
+        it[u] = c.get(e);
+        const u64 w = C::word(it[u]);
         keep[u] = (w & fixed) >= prefix;
         if (keep[u] && w < least) least = w;
       }
@@ -226,11 +243,7 @@ __device__ __forceinline__ u64 warp_cut(const Cands& c, int cnt, int kk,
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
       const unsigned b = __ballot_sync(0xffffffffu, keep[u]);
-      if (keep[u]) {
-        const int p = out + __popc(b & ((1u << lane) - 1u));
-        c.bs[p] = s[u];
-        c.bi[p] = id[u];
-      }
+      if (keep[u]) c.put(out + __popc(b & ((1u << lane) - 1u)), it[u]);
       out += __popc(b);
     }
     __syncwarp();

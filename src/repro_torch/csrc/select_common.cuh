@@ -105,25 +105,6 @@ __device__ void sort_desc(u64* w, int* pay, int segs, int len) {
   }
 }
 
-// Sort every segment, keep its best kk words (0 after them), and raise its
-// admission threshold to its kk-th word once it holds kk. All segments at
-// once: a cut costs its sort's barriers whatever its size, and cutting every
-// buffer whenever one is full keeps them in step, so cuts stay rare (cutting
-// only the full ones measured 1.5x slower). Every thread must call it.
-__device__ void trim_words(u64* w, int* cnt, u64* thr, int segs, int cap,
-                           int kk) {
-  sort_desc(w, nullptr, segs, cap);
-  for (int i = threadIdx.x; i < segs * cap; i += blockDim.x)
-    if ((i & (cap - 1)) >= kk) w[i] = 0;
-  if ((int)threadIdx.x < segs) {
-    const int q = threadIdx.x;
-    const int c = cnt[q] < kk ? cnt[q] : kk;
-    cnt[q] = c;
-    if (c >= kk) thr[q] = w[q * cap + kk - 1];
-  }
-  __syncthreads();
-}
-
 // The selection path's launch shapes. kSelThreads: a finish block (one a
 // query); kPassThreads: a pass block; kPassUnroll: 16-byte loads a pass
 // thread issues before testing any entry (its loads in flight).

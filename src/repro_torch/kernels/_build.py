@@ -59,8 +59,7 @@ SIGNATURES = {
     "fcvi_pq_scan_luts": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _I, _I, _I, _P],
     "fcvi_pq_score": [_P, _I, _P, _P, _P, _L, _I, _I, _I, _L, _I, _P, _P],
-    "fcvi_pq_score_topk": [_P, _I, _P, _P, _I, _P, _L, _I, _I, _I, _I, _I,
-                           _I, _I, _I, _L, _I, _P, _P, _P, _P, _P, _P],
+    "fcvi_pq_score_topk": [_P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -25,11 +25,14 @@ and, for the serving path:
   card);
 * ``pq_score_topk``: B9 and the first-occurrence top-k of its negated
   distances as one fused scan over the rows grouped by coarse id
-  (``index.pq.PQIndex``'s grouped layout), staging each group's LUT slice
-  in shared memory and never writing the (b, n) distances; its (vals, ids)
-  are ``ref.ref_pq_score_topk``'s bits. Past the candidate buffers' kk it
-  takes the selection path (counted ``pq_score_topk_select``). No serving
-  path launches B9 any more.
+  (``index.pq.PQIndex``'s grouped layout), never writing the (b, n)
+  distances; its (vals, ids) are ``ref.ref_pq_score_topk``'s bits. A
+  sample of the rows sets each query's starting threshold, each coarse
+  group's LUT slice is staged queries innermost, and each query's buffer is
+  cut back to kk by its own warp (``topk_plan``). Past what the buffers
+  hold, or where the measured rule says the select is faster, it takes the
+  selection path (counted ``pq_score_topk_select``). No serving path
+  launches B9 any more.
 
 The wrappers take unpadded shapes (the JAX ``pq_score`` needs n to divide
 its row block; these do not), check operands, launch on the current stream
@@ -61,14 +64,31 @@ LUT_COLS = 16         # dsub columns it stages at a time (kLutCols)
 LUT_SMEM_TARGET = 65_536  # its shared memory, at most: three blocks an SM
 THREADS = 256         # threads per pq_score_topk and pq_adc block (kThreads)
 MAX_BQ = 16           # queries per pq_score_topk block, at most (kMaxBQ)
+TOPK_WARPS = THREADS // 32   # a pass-1 block's warps (kTopkWarps)
 ADC_GROUP = 64        # query slots a pq_adc block, at most (kAdcGroup)
 ADC_UNROLL = 2        # row steps a pq_adc lane keeps in flight (kAdcUnroll)
 ADC_ROWS = 256        # rows a pq_adc tile before shared memory halves it
 ADC_MIN_ROWS = 32     # the fewest rows a pq_adc tile is cut to
 # pq_adc's dynamic shared memory, at most: two blocks an SM
 ADC_SMEM_TARGET = SMEM_LIMIT // 2 - 1024
-# pq_score_topk's dynamic shared memory, beside its static thresholds
+# pq_score_topk's pass-1 dynamic shared memory, beside its static
+# thresholds and counts: one block an SM, or two (the SM's 233,472 bytes
+# halved, less each block's 1 KB reserve)
 TOPK_SMEM_LIMIT = SMEM_LIMIT - 1024
+TOPK_SMEM_TWO = 233_472 // 2 - 1024 - 512
+TOPK_TILE = 2048      # rows a pass-1 block scans between looks at its buffers
+TOPK_MARGIN = 128     # a buffer past cap - margin words is cut after a tile
+TOPK_MIN_SLACK = 64   # buffer words past kk + the margin, at least
+TOPK_MAX_SLACK = 2048  # and at most (fewer, larger cuts up to there)
+TOPK_SAMPLE = 16_384  # rows the sample pass scores, at most (n / 8 at most)
+WORD_ROUND = 256      # words a merge warp reads a round
+WORD_WARPS = 8        # warps a merge block, at most
+# the buffered path's largest kk, and the most words its merge reads a
+# query (chunks x kk), before the selection path: measured on the H100
+# (scripts/profile_topk.py --pq: kk 320 / 512 / 1024 / 2048 at b=64; kk 80
+# and 320 at b = 1 to 64)
+SELECT_FROM_KK = 320
+MERGE_WORDS_MAX = 32_768
 CODE_BYTES = {torch.uint8: 1, torch.int32: 4}
 
 
@@ -331,81 +351,157 @@ def pq_score(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class TopkPlan:
-    bq: int           # queries per pass-1 block (1..MAX_BQ)
+    bq: int           # queries per pass-1 block (1, 2, 4, 8, 16)
     staged: bool      # the query tile's LUT slices live in shared memory
-    cap: int          # pass-1 candidate buffer per query (power of two)
+    blocks_per_sm: int  # pass-1 blocks an SM (2, or 1 where 2 do not fit)
+    tile: int         # rows pass 1 scans between looks at its buffers
+    margin: int       # a buffer past cap - margin words is cut after a tile
+    cap: int          # pass-1 buffer words a query (0 on the selection path)
     nchunks: int      # chunks of grouped rows, one pass-1 block column each
-    chunk_rows: int   # grouped rows per chunk (multiple of THREADS)
-    merge_cap: int    # pass-2 candidate buffer (power of two)
-    select: bool      # the selection path: no buffers (cap, merge_cap 0)
+    chunk_rows: int   # grouped rows per chunk (a multiple of 256)
+    bp: int           # the relayout LUT's query stride: b padded
+    sample: int       # rows the sample pass scores (0: no threshold)
+    word_slots: int   # words a merge warp's buffer (buffered)
+    word_warps: int   # warps a merge block (buffered)
+    smem: int         # pass 1's dynamic shared memory in bytes
+    select: bool      # the selection path
 
 
 def _pow2(x: int) -> int:
     return 1 << (x - 1).bit_length()
 
 
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
 def topk_smem(bq: int, staged: bool, cap: int, m: int, ksub: int) -> int:
     """pq_score_topk's pass-1 dynamic shared memory in bytes (the source's
-    ``pq_topk_smem``): the tile's (M, ksub) LUT slices when staged, padded
-    to 16 bytes, and its 8-byte candidate words."""
-    lut = (bq * m * ksub * 4 + 15) & ~15 if staged else 0
-    return lut + 8 * bq * cap
+    ``pq_topk_smem``): the tile's (M, ksub, bq) LUT slice when staged,
+    padded to 16 bytes, and with buffers (``cap`` > 0) the queries' 8-byte
+    words and each warp's 256 digit counters."""
+    s = _round16(4 * bq * m * ksub) if staged else 0
+    if cap:
+        s += 8 * bq * cap + 4 * 256 * TOPK_WARPS
+    return s
+
+
+def word_plan(kk: int):
+    """(slots, warps) of the merge block's word buffers (``stream_words``): kk plus room for a round of reads and for another
+    list of kk, four rounds where shared memory holds eight warps' buffers;
+    the warps halve until the buffers fit. None where one warp's does not."""
+    for rounds in (4, 1):
+        slots = kk + max(kk, rounds * WORD_ROUND)
+        warps = WORD_WARPS
+        while warps and warps * (8 * slots + 1024) > TOPK_SMEM_LIMIT:
+            warps //= 2
+        if warps == WORD_WARPS or (warps and rounds == 1):
+            return slots, warps
+    return None
 
 
 def topk_plan(n: int, b: int, kk: int, m: int, ksub: int, num_sms: int,
               select: Optional[bool] = None) -> TopkPlan:
-    """Launch shape of ``pq_score_topk`` for any 1 <= kk <= n: the widest
-    query tile (16, 8, 4, 2, 1) whose LUT slices (4 * M * ksub bytes a
-    query) and candidate buffers (kk plus one step of rows: a step adds at
-    most THREADS candidates a query, and a full buffer is cut back to kk)
-    fit in shared memory; the slices are read from L2 when one query's do
-    not fit. A kk whose buffers do not fit, or shrink the query tile to 4
-    or fewer below what the slices alone allow, takes the selection path
-    (``select`` forces either path). The chunk count gives about two
-    blocks per SM."""
+    """Launch shape of ``pq_score_topk`` for any 1 <= kk <= n. Pass 1 takes
+    the widest query tile (16 down to 1, at most b's next power of two)
+    that fits two blocks an SM (else one) with its (M, ksub) LUT slices
+    staged (else read from L2) and, on the buffered path, buffers of kk +
+    TOPK_MARGIN + at least TOPK_MIN_SLACK words a query (up to
+    TOPK_MAX_SLACK of slack, as shared memory allows); it looks at its
+    buffers every TOPK_TILE rows, an append past a buffer going to a spill
+    area of TOPK_TILE words a (block, query) in device memory. The chunks
+    fill one wave of blocks (floor: no tail wave). The sample pass runs on
+    a corpus of at least 8 kk rows (``TOPK_SAMPLE`` rows, an eighth of n at
+    most). The selection path takes a kk whose buffers or merge do not
+    fit, past SELECT_FROM_KK, or whose merge would read more than
+    MERGE_WORDS_MAX words a query (``select`` forces either path)."""
     if not 0 < kk <= n:
         raise ValueError(f"k={kk} outside 1..{n} (the corpus size)")
-    cap = merge_cap = _pow2(kk + THREADS)
     widest = max(1, min(MAX_BQ, _pow2(b)))
+    need = kk + TOPK_MARGIN + TOPK_MIN_SLACK
 
-    def pick(cap):
-        for staged in (True, False):
-            bq = widest
-            while bq > 1 and topk_smem(bq, staged, cap, m, ksub) > \
-                    TOPK_SMEM_LIMIT:
-                bq //= 2
-            if topk_smem(bq, staged, cap, m, ksub) <= TOPK_SMEM_LIMIT:
-                return bq, staged
+    def pick(buffered: bool):
+        """(bq, staged, blocks an SM, cap) of the first query tile that
+        fits, with buffers of ``need`` words a query or more (``buffered``)
+        or none."""
+        for per_sm, budget in ((2, TOPK_SMEM_TWO), (1, TOPK_SMEM_LIMIT)):
+            for staged in (True, False):
+                bq = widest
+                while bq >= 1:
+                    fixed = topk_smem(bq, staged, 0, m, ksub)
+                    if not buffered and fixed <= budget:
+                        return bq, staged, per_sm, 0
+                    room = (budget - fixed - 4 * 256 * TOPK_WARPS) // (8 * bq)
+                    if buffered and room >= need:
+                        return (bq, staged, per_sm,
+                                min(room, kk + TOPK_MARGIN + TOPK_MAX_SLACK))
+                    bq //= 2
         return None
 
-    fit, bare = pick(cap), pick(0)
-    fits = fit is not None and 8 * merge_cap <= SMEM_LIMIT
+    def chunks(bq: int, per_sm: int) -> tuple:
+        """(chunks, rows a chunk): one wave of blocks (floor: no tail)."""
+        qtiles = math.ceil(b / bq)
+        nch = max(1, min(math.ceil(n / 256), per_sm * num_sms // qtiles))
+        rows = math.ceil(math.ceil(n / nch) / 256) * 256
+        return math.ceil(n / rows), rows
+
+    buf = pick(True)
+    words = word_plan(kk)
+    fits = buf is not None and words is not None
     if select is None:
-        # the buffers shrinking the tile to 4 or fewer: measured on the H100
-        # at kk=2048, b=64, the buffered path's trims took 9.8 ms of a
-        # 10.4 ms call, the selection path 3.7 ms in all
-        select = not fits or fit[0] <= 4 < bare[0]
+        select = (not fits or kk > SELECT_FROM_KK
+                  or chunks(buf[0], buf[2])[0] * kk > MERGE_WORDS_MAX)
     elif not select and not fits:
         raise ValueError(f"kk={kk}: the buffers do not fit")
     if select:
-        cap = merge_cap = 0
-        fit = bare
-    bq, staged = fit
-    qtiles = math.ceil(b / bq)
-    nchunks = max(1, min(math.ceil(n / THREADS),
-                         math.ceil(2 * num_sms / qtiles)))
-    chunk_rows = math.ceil(math.ceil(n / nchunks) / THREADS) * THREADS
-    nchunks = math.ceil(n / chunk_rows)
-    return TopkPlan(bq=bq, staged=staged, cap=cap, nchunks=nchunks,
-                    chunk_rows=chunk_rows, merge_cap=merge_cap,
-                    select=select)
+        fit = pick(False)
+        if fit is None:
+            raise ValueError(f"M={m} LUT entries past shared memory")
+        words = (0, 0)
+    else:
+        fit = buf
+    bq, staged, per_sm, cap = fit
+    bp = b if b <= 2 else -(-b // max(bq, 4)) * max(bq, 4)
+    nchunks, chunk_rows = chunks(bq, per_sm)
+    if nchunks >= 65536:
+        raise ValueError(f"{nchunks} chunks past the grid's 65535")
+    sample = min(TOPK_SAMPLE, n // 8)
+    if select or n < 8 * kk or sample < kk:
+        sample = 0
+    return TopkPlan(bq=bq, staged=staged, blocks_per_sm=per_sm,
+                    tile=TOPK_TILE, margin=TOPK_MARGIN, cap=cap,
+                    nchunks=nchunks, chunk_rows=chunk_rows, bp=bp,
+                    sample=sample, word_slots=words[0], word_warps=words[1],
+                    smem=topk_smem(bq, staged, cap, m, ksub), select=select)
+
+
+class PqTopkArgs(ctypes.Structure):
+    """csrc/pq_lut.cu's PqTopkArgs: the same fields in the same order."""
+    _fields_ = (
+        [(f, ctypes.c_void_p) for f in ("codes", "gid", "goff", "luts", "lq",
+                                        "sw", "thr", "part", "spill", "sel",
+                                        "stats", "vals", "ids")]
+        + [(f, ctypes.c_longlong) for f in ("n", "chunk_rows", "sample")]
+        + [(f, ctypes.c_int) for f in ("code_bytes", "ncoarse", "b", "bp",
+                                       "m", "ksub", "bq", "staged", "kk",
+                                       "cap", "tile", "margin", "nchunks",
+                                       "wslots", "wwarps")])
+
+
+# pass 1's optional profile (``_stats=``): words admitted to the buffers,
+# cuts (a tile's and the chunk's last), the words those cuts read, and the
+# (query, chunk) pairs, summed over the blocks
+STAT_NAMES = ("admitted", "cuts", "cut_words", "query_chunks")
+STATS = len(STAT_NAMES)
 
 
 def pq_score_topk(codes: torch.Tensor, ids: torch.Tensor,
                   offsets: torch.Tensor, offsets_host: Sequence[int],
                   luts: torch.Tensor, k: int, *,
                   _select: Optional[bool] = None,
-                  _sel_stats: Optional[torch.Tensor] = None):
+                  _sel_stats: Optional[torch.Tensor] = None,
+                  _stats: Optional[torch.Tensor] = None,
+                  _plan: Optional[TopkPlan] = None):
     """The fused ADC scan + first-occurrence top-k over the grouped layout:
     codes (n, M) uint8 or int32 and ids (n,) int32 (original row ids) in
     coarse-grouped order, offsets (ncoarse + 1,) int32 the groups' offsets
@@ -414,7 +510,10 @@ def pq_score_topk(codes: torch.Tensor, ids: torch.Tensor,
     int32 original row ids), ranked by the order-preserving bits of -d2,
     then the smaller id. ``_select`` forces the selection path (True) or
     the buffered one (False), for holding one against the other;
-    ``_sel_stats`` (``_build.select_stats``) takes the select's profile."""
+    ``_sel_stats`` (``_build.select_stats``) takes the select's profile and
+    ``_stats`` (an int64 tensor of STATS zeros on the card) pass 1's
+    (``STAT_NAMES``); ``_plan`` replaces the planned launch (tests: smaller
+    buffers, so that cuts run)."""
     if codes.dim() != 2 or luts.dim() != 3:
         raise ValueError("codes must be 2-D and luts 3-D")
     n, m = codes.shape
@@ -427,32 +526,49 @@ def pq_score_topk(codes: torch.Tensor, ids: torch.Tensor,
         raise ValueError("offsets must hold ncoarse + 1 group offsets ending "
                          f"at n={n}, with luts {ncoarse} groups wide")
     ksub = width // ncoarse
+    cb = CODE_BYTES[codes.dtype]
     _build.require(codes, "codes", (n, m), dev, codes.dtype)
     _build.require(ids, "ids", (n,), dev, torch.int32)
     _build.require(offsets, "offsets", (ncoarse + 1,), dev, torch.int32)
     _build.require(luts, "luts", (b, m, width), dev)
-    p = topk_plan(n, b, k, m, ksub,
-                  torch.cuda.get_device_properties(dev).multi_processor_count,
-                  _select)
-    part = sel = sel_args = sel_scratch = None
+    if _stats is not None:
+        _build.require(_stats, "_stats", (STATS,), dev, torch.int64)
+    p = _plan or topk_plan(n, b, k, m, ksub, _num_sms(dev.index), _select)
+    # one scratch: the relayout LUT, then the sample's words and the
+    # thresholds, or the (b, n) scores of the selection path, then the
+    # chunks' words and pass 1's spill area
+    parts = {"lq": 0 if p.bp == 1 else 4 * m * width * p.bp,
+             "sw": 8 * b * p.sample, "thr": 8 * b if p.sample else 0,
+             "sel": 4 * b * n if p.select else 0,
+             "part": 0 if p.select else 8 * b * p.nchunks * k,
+             "spill": 0 if p.select else 8 * math.ceil(b / p.bq) * p.bq
+             * p.nchunks * p.tile}
+    scratch = torch.empty(sum(-(-v // 256) * 256 for v in parts.values()),
+                          dtype=torch.uint8, device=dev)
+    at, ptrs = scratch.data_ptr(), {}
+    for name, nbytes in parts.items():
+        ptrs[name] = at if nbytes else None
+        at += -(-nbytes // 256) * 256
+    if ptrs["lq"] is None:
+        ptrs["lq"] = luts.data_ptr()
+    sel_args = sel_scratch = None
     if p.select:
-        sel = torch.empty((b, n), dtype=torch.float32, device=dev)
-        sp = _build.select_plan(b, n, k, torch.cuda.get_device_properties(
-            dev).multi_processor_count)
+        sp = _build.select_plan(b, n, k, _num_sms(dev.index))
         sel_args, sel_scratch = _build.select_args(sp, b, k, dev, _sel_stats)
-    else:
-        part = torch.empty((b, p.nchunks, k), dtype=torch.int64, device=dev)
     vals = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_ids = torch.empty((b, k), dtype=torch.int32, device=dev)
-    ptr = _build.ptr
+    args = PqTopkArgs(
+        codes.data_ptr(), ids.data_ptr(), offsets.data_ptr(),
+        luts.data_ptr(), ptrs["lq"], ptrs["sw"], ptrs["thr"], ptrs["part"],
+        ptrs["spill"], ptrs["sel"], _build.ptr(_stats), vals.data_ptr(),
+        out_ids.data_ptr(), n, p.chunk_rows, p.sample, cb, ncoarse, b, p.bp,
+        m, ksub, p.bq, int(p.staged), k, p.cap, p.tile, p.margin,
+        p.nchunks, p.word_slots, p.word_warps)
     lib = _build.library()
     with torch.cuda.device(dev):
-        code = lib.fcvi_pq_score_topk(
-            codes.data_ptr(), CODE_BYTES[codes.dtype], ids.data_ptr(),
-            offsets.data_ptr(), ncoarse, luts.data_ptr(), n, b, m, ksub,
-            p.bq, int(p.staged), k, p.cap, p.nchunks, p.chunk_rows,
-            p.merge_cap, ptr(part), ptr(sel), _build.addr(sel_args),
-            vals.data_ptr(), out_ids.data_ptr(), _build.stream(dev))
+        code = lib.fcvi_pq_score_topk(ctypes.addressof(args),
+                                      _build.addr(sel_args),
+                                      _build.stream(dev))
     name = NAME_TOPK + ("_select" if p.select else "")
     _build.check(code, name)
     _build.count(name)

@@ -20,6 +20,8 @@ int8-scaled scan variants are held the same way as the fp32 scans, their
 carried rows bit for bit against the plain dequantized rows, and exactly
 on integer codes with power-of-two scales.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1193,45 +1195,63 @@ def _pq_case(n, m, ksub, ncoarse, b, dtype, dev, seed=0,
     return ccodes, layout, tensor(luts, dev)
 
 
+def _pq_bits(a, b):
+    """(vals, ids) pairs equal bit for bit (-0.0 apart from +0.0)."""
+    return (torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
+            and torch.equal(a[1], b[1]))
+
+
 @pytest.mark.parametrize("m", [8, 16, 64, 128])
 @pytest.mark.parametrize("kk", [80, 320, 2048])
 def test_pq_score_topk_bit_equal_to_plain(cuda, m, kk):
     """The fused ADC scan + top-k bit for bit against ``ref_pq_score_topk``
-    at M in {8, 16, 64, 128} (query tiles 16 down to 1) and the serving
-    kk's, on quarter-integer LUTs (many equal scores), b of one tile and of
-    several, uint8 codes; B9 stays off this path."""
-    for b in (1, 16, 64):
+    at M in {8, 16, 64, 128} (query tiles 16 down to 1, slices staged or
+    read from L2) and the serving kk's, on quarter-integer LUTs (many equal
+    scores), b of one query, of a ragged tile (3), of one and of several
+    tiles, uint8 codes; both paths forced bit-equal too; one launch counted
+    under the planned path's name; B9 stays off this path."""
+    for b in (1, 3, 16, 64):
         ccodes, layout, luts = _pq_case(5000, m, 256, 32, b, torch.uint8,
                                         cuda, seed=m + b)
+        want = ref.ref_pq_score_topk(ccodes, luts, kk)
         _build.reset_launch_counts()
         got = ops.pq_score_topk(ccodes, luts, kk, layout)
         sel = pq_lut.topk_plan(5000, b, kk, m, 256, 132).select
-        want = {"pq_score_topk" + ("_select" if sel else ""): 1}
+        counts = {"pq_score_topk" + ("_select" if sel else ""): 1}
         if sel:   # the select's kernels, counted where they run
-            want[_build.SELECT_NAME] = 1
-        assert _build.launch_counts() == want
-        assert _equal(got, ref.ref_pq_score_topk(ccodes, luts, kk))
-        if b == 16:
-            for forced in (True, False):
-                assert _equal(got, pq_lut.pq_score_topk(*layout, luts, kk,
-                                                        _select=forced))
+            counts[_build.SELECT_NAME] = 1
+        assert _build.launch_counts() == counts
+        assert _pq_bits(got, want)
+        for forced in (True, False):
+            assert _pq_bits(pq_lut.pq_score_topk(*layout, luts, kk,
+                                              _select=forced), want)
 
 
 def test_pq_score_topk_signed_zeros_ties_and_layouts(cuda):
     """-0.0 ranks below +0.0 and equal scores go to the smaller row, as
-    ``lax.top_k`` ranks them; int32 codes, ragged groups with an empty one,
-    kk = n, a (M, ksub) slice too wide for shared memory (read from L2),
-    and a kk past the buffers (the selection path)."""
+    ``lax.top_k`` ranks them, on both paths; every LUT entry equal (every
+    score ties: ids decide); int32 codes, ragged groups with an empty one,
+    one coarse group, kk = n, n below 8 kk (no sample), a (M, ksub) slice
+    too wide for shared memory (read from L2), and a kk past the buffers
+    (the selection path)."""
     ccodes, layout, luts = _pq_case(3000, 8, 64, 8, 5, torch.int32, cuda,
                                     signed_zeros=True)
     for kk in (1, 300, 3000):
         want = ref.ref_pq_score_topk(ccodes, luts, kk)
-        assert _equal(ops.pq_score_topk(ccodes, luts, kk, layout), want)
-        assert _equal(pq_lut.pq_score_topk(*layout, luts, kk, _select=True),
-                      want)
+        for forced in (None, True, False):
+            assert _pq_bits(pq_lut.pq_score_topk(*layout, luts, kk,
+                                              _select=forced), want)
         if kk == 300:   # +0.0 (d2 = -0.0) above -0.0, the data really ties
             assert (want[0] == 0).all() and torch.signbit(want[0]).any()
             assert not torch.signbit(want[0][:, 0]).all()
+    # every entry equal: every score ties and the smaller row wins
+    flat = torch.full_like(luts, 1.25)
+    for kk in (40, 700):
+        want = ref.ref_pq_score_topk(ccodes, flat, kk)
+        assert torch.equal(torch.sort(want[1], dim=1).values, want[1])
+        for forced in (True, False):
+            assert _pq_bits(pq_lut.pq_score_topk(*layout, flat, kk,
+                                              _select=forced), want)
     rng = np.random.default_rng(3)
     codes = tensor(rng.integers(0, 16, (2000, 4)), cuda).to(torch.uint8)
     coarse = tensor(rng.permutation(np.repeat([0, 2, 3], [700, 1000, 300])),
@@ -1240,20 +1260,67 @@ def test_pq_score_topk_signed_zeros_ties_and_layouts(cuda):
     assert layout[3] == (0, 700, 700, 1700, 2000)
     luts = tensor(rng.random((3, 4, 64)).astype(np.float32), cuda)
     ccodes = coarse[:, None] * 16 + codes.to(torch.int32)
-    for kk in (50, 2000):
-        assert _equal(ops.pq_score_topk(ccodes, luts, kk, layout),
-                      ref.ref_pq_score_topk(ccodes, luts, kk))
+    for kk in (50, 400, 2000):
+        want = ref.ref_pq_score_topk(ccodes, luts, kk)
+        assert _pq_bits(ops.pq_score_topk(ccodes, luts, kk, layout), want)
+        assert _pq_bits(pq_lut.pq_score_topk(*layout, luts, kk, _select=True),
+                     want)
+    one = pq.grouped_layout(codes, torch.zeros_like(coarse), 1)
+    luts1 = tensor(rng.random((7, 4, 16)).astype(np.float32), cuda)
+    for kk in (30, 2000):
+        assert _pq_bits(ops.pq_score_topk(codes.to(torch.int32), luts1, kk, one),
+                     ref.ref_pq_score_topk(codes.to(torch.int32), luts1, kk))
     ccodes, layout, luts = _pq_case(4000, 256, 256, 2, 3, torch.uint8, cuda)
     assert not pq_lut.topk_plan(4000, 3, 100, 256, 256, 132).staged
-    assert _equal(ops.pq_score_topk(ccodes, luts, 100, layout),
-                  ref.ref_pq_score_topk(ccodes, luts, 100))
+    assert _pq_bits(ops.pq_score_topk(ccodes, luts, 100, layout),
+                 ref.ref_pq_score_topk(ccodes, luts, 100))
     ccodes, layout, luts = _pq_case(30000, 8, 256, 4, 2, torch.uint8, cuda)
     assert pq_lut.topk_plan(30000, 2, 20000, 8, 256, 132).select
     _build.reset_launch_counts()
-    assert _equal(ops.pq_score_topk(ccodes, luts, 20000, layout),
-                  ref.ref_pq_score_topk(ccodes, luts, 20000))
+    assert _pq_bits(ops.pq_score_topk(ccodes, luts, 20000, layout),
+                 ref.ref_pq_score_topk(ccodes, luts, 20000))
     assert _build.launch_counts() == {"pq_score_topk_select": 1,
                                       _build.SELECT_NAME: 1}
+
+
+@pytest.mark.parametrize("b", [1, 3, 16, 64])
+def test_pq_score_topk_admissions_pile_up_in_one_chunk(cuda, b):
+    """A clustered corpus where every query is nearest one coarse group, so
+    nearly every admission falls in that group's chunks: bit-equal on both
+    paths at kk 80, 320 and 2048; with the planned buffers and with small
+    ones (kk + a 16-word margin + 8 words, looked at every 64 rows, one
+    chunk a query tile), whose cuts run after many tiles and whose appends
+    spill past the buffers. The profile counts every (query, chunk) once and
+    at least kk words a query admitted; the sample cuts the admissions."""
+    rng = np.random.default_rng(b)
+    n, m, ksub, ncoarse = 60_000, 8, 256, 16
+    codes = tensor(rng.integers(0, ksub, (n, m)), cuda).to(torch.uint8)
+    coarse = tensor(rng.integers(0, ncoarse, n), cuda).to(torch.int32)
+    layout = pq.grouped_layout(codes, coarse, ncoarse)
+    luts = rng.random((b, m, ncoarse * ksub)).astype(np.float32) + 4.0
+    luts.reshape(b, m, ncoarse, ksub)[:, :, 5, :] -= 3.5   # group 5 nearest
+    luts = tensor(luts, cuda)
+    ccodes = coarse[:, None] * ksub + codes.to(torch.int32)
+    for kk in (80, 320, 2048):
+        want = ref.ref_pq_score_topk(ccodes, luts, kk)
+        assert (coarse[want[1].long()] == 5).all()
+        for forced in (True, False):
+            assert _pq_bits(pq_lut.pq_score_topk(*layout, luts, kk,
+                                              _select=forced), want)
+        plan = pq_lut.topk_plan(n, b, kk, m, ksub, 132, select=False)
+        small = dataclasses.replace(plan, tile=64, margin=16,
+                                    cap=kk + 16 + 8, nchunks=1, chunk_rows=n)
+        stats = torch.zeros(pq_lut.STATS, dtype=torch.int64, device=cuda)
+        assert _pq_bits(pq_lut.pq_score_topk(*layout, luts, kk, _plan=small,
+                                          _stats=stats), want)
+        st = dict(zip(pq_lut.STAT_NAMES, stats.tolist()))
+        assert st["query_chunks"] == b and st["cuts"] >= b
+        assert st["admitted"] >= kk * b and st["cut_words"] > kk * st["cuts"]
+        stats.zero_()
+        pq_lut.pq_score_topk(*layout, luts, kk, _select=False, _stats=stats)
+        st = dict(zip(pq_lut.STAT_NAMES, stats.tolist()))
+        assert st["query_chunks"] == b * plan.nchunks
+        assert kk * b <= st["admitted"] < n * b // 2
 
 
 def test_fused_transform_fold_matrix_past_shared_memory(cuda):

@@ -183,46 +183,76 @@ def test_grouped_layout_is_stable_with_count_offsets():
 
 @pytest.mark.parametrize("m", [8, 16, 64, 128])
 def test_pq_topk_plan_sizes_fit(m):
-    """The fused scan's planner sizes the query tile from M * ksub: the
-    tile's LUT slices and buffers fit in shared memory; the selection path
-    where the buffers cannot; every 1 <= kk <= n plans, kk <= 0 and kk > n
-    raise."""
+    """The fused scan's planner: pass 1's LUT slices, buffers and digit
+    counters fit in shared memory, two blocks an SM where they can (always
+    at the serving shapes); the widest query tile that fits; buffers of kk
+    + the margin + at least TOPK_MIN_SLACK words; the chunks one wave of
+    blocks; the margin within a tile; the sample (16,384 rows, an
+    eighth of n at most) only on the buffered path of at least 8 kk rows;
+    the merge's word buffers fit; the selection path where the buffers do
+    not fit, past SELECT_FROM_KK or where the merge would read more than
+    MERGE_WORDS_MAX words a query; every 1 <= kk <= n plans, kk <= 0 and
+    kk > n raise."""
+    budget = {2: pq_lut.TOPK_SMEM_TWO, 1: pq_lut.TOPK_SMEM_LIMIT}
     for kk, n, b in ((80, 1_000_000, 64), (320, 1_000_000, 64),
                      (2048, 1_000_000, 16), (50_000, 50_000, 64),
-                     (1, 1, 1), (4096, 200_000, 3)):
+                     (1, 1, 1), (4096, 200_000, 3), (300, 2000, 5)):
         p = pq_lut.topk_plan(n, b, kk, m, 256, 132)
-        assert 1 <= p.bq <= pq_lut.MAX_BQ and p.staged
-        assert pq_lut.topk_smem(p.bq, p.staged, p.cap, m, 256) <= \
-            pq_lut.TOPK_SMEM_LIMIT
-        cap = pq_lut._pow2(kk + 256)
-        widest = min(16, pq_lut._pow2(b))
-
-        def tile(c):   # the widest staged tile that fits with buffers c
-            return max([q for q in (16, 8, 4, 2, 1) if q <= widest and
-                        pq_lut.topk_smem(q, True, c, m, 256)
-                        <= pq_lut.TOPK_SMEM_LIMIT], default=0)
-        buffered = tile(cap) > 0
-        # the selection path where the buffers do not fit, or shrink the
-        # tile to 4 or fewer below what the LUT slices alone allow
-        assert p.select == (not buffered or tile(cap) <= 4 < tile(0))
-        if not p.select:
-            assert p.cap >= kk + pq_lut.THREADS and p.merge_cap >= kk
-            if p.bq < min(16, pq_lut._pow2(b)):   # the next tile does not fit
-                assert pq_lut.topk_smem(2 * p.bq, True, p.cap, m, 256) > \
-                    pq_lut.TOPK_SMEM_LIMIT
-        assert p.chunk_rows % pq_lut.THREADS == 0
-        assert (p.nchunks - 1) * p.chunk_rows < n <= p.nchunks * p.chunk_rows
+        assert p.bq in (1, 2, 4, 8, 16) and p.bq <= pq_lut._pow2(b)
+        assert p.smem == pq_lut.topk_smem(p.bq, p.staged, p.cap, m, 256)
+        assert p.smem <= budget[p.blocks_per_sm]
+        assert p.tile == pq_lut.TOPK_TILE and 0 < p.margin <= p.tile
+        assert (p.nchunks - 1) * p.chunk_rows < n <= \
+            p.nchunks * p.chunk_rows
+        qtiles = -(-b // p.bq)
+        assert qtiles * p.nchunks <= max(
+            qtiles, p.blocks_per_sm * 132)      # one wave, no tail
+        assert p.bp >= qtiles * p.bq and p.bp % min(p.bq, 4) == 0
+        if b <= 2:
+            assert p.bp == b
+        if p.select:
+            assert p.cap == p.sample == p.word_warps == 0
+            continue
+        assert kk + p.margin + pq_lut.TOPK_MIN_SLACK <= p.cap <= \
+            kk + p.margin + pq_lut.TOPK_MAX_SLACK
+        assert kk <= pq_lut.SELECT_FROM_KK
+        assert p.nchunks * kk <= pq_lut.MERGE_WORDS_MAX
+        # the next wider tile would not fit two blocks an SM
+        if p.bq < min(16, pq_lut._pow2(b)) and p.blocks_per_sm == 2:
+            wide = pq_lut.topk_smem(2 * p.bq, p.staged, kk + p.margin +
+                                    pq_lut.TOPK_MIN_SLACK, m, 256)
+            assert wide > pq_lut.TOPK_SMEM_TWO
+        want = min(pq_lut.TOPK_SAMPLE, n // 8)
+        assert p.sample == (want if n >= 8 * kk and want >= kk else 0)
+        slots, warps = p.word_slots, p.word_warps
+        assert slots >= max(2 * kk, kk + pq_lut.WORD_ROUND)
+        assert warps * (8 * slots + 1024) <= pq_lut.TOPK_SMEM_LIMIT
         assert pq_lut.topk_plan(n, b, kk, m, 256, 132, select=True).select
-    assert pq_lut.topk_plan(1_000_000, 64, 80, 8, 256, 132).bq == 16
-    # the serving widths at EngineConfig() stay on the buffers (no (b, n)
-    # scratch); EngineConfig(k=64)'s escalated 2048 takes the selection path
-    for kk, sel in ((80, False), (320, False), (2048, True)):
-        assert pq_lut.topk_plan(1_000_000, 64, kk, 8, 256, 132).select == sel
-    # one query's slice past shared memory is read from L2
+    # the serving shapes at M=8: two blocks an SM, the slices staged, a
+    # sample of 16,384 rows; EngineConfig()'s k' = 80 buffered at every
+    # batch, 320 where its merge reads at most MERGE_WORDS_MAX words a query
+    for b in (64, 32, 16, 8, 1):
+        for kk in (80, 320):
+            p = pq_lut.topk_plan(1_000_000, b, kk, 8, 256, 132)
+            buf = pq_lut.topk_plan(1_000_000, b, kk, 8, 256, 132, False)
+            assert p.select == (buf.nchunks * kk > pq_lut.MERGE_WORDS_MAX)
+            assert p.select == (kk == 320 and b <= 16)
+            assert buf.blocks_per_sm == 2 and buf.staged
+            assert buf.sample == 16_384 and buf.bq == min(8, b)
+    assert pq_lut.topk_plan(1_000_000, 64, 80, 8, 256, 132).bq == 8
+    for kk in (512, 1024, 2048):
+        assert pq_lut.topk_plan(1_000_000, 64, kk, 8, 256, 132).select == \
+            (kk > pq_lut.SELECT_FROM_KK)
+    # below 8 kk rows no sample; one query's slice past shared memory is
+    # read from L2
+    assert pq_lut.topk_plan(1000, 4, 200, 8, 256, 132).sample == 0
+    assert pq_lut.topk_plan(8000, 4, 200, 8, 256, 132).sample == 1000
     assert not pq_lut.topk_plan(1000, 4, 10, 256, 256, 132).staged
     for kk in (0, 1001):
         with pytest.raises(ValueError):
             pq_lut.topk_plan(1000, 4, kk, 8, 256, 132)
+    with pytest.raises(ValueError):
+        pq_lut.topk_plan(200_000, 4, 20_000, 8, 256, 132, select=False)
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])
