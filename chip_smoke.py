@@ -158,8 +158,28 @@ Phases, each of which raises (and exits non-zero) on a failure:
    the vectors at lam = 1) against its plain version in every slot, and the
    first multi-probe batch against a CPU engine restored from the same
    checkpoint.
+3i. sharded, routed and degraded serving: the engine over 8 shards of
+   ``make_mesh((8, 1), ("data", "model"))`` on this one card (the shards
+   are logical: each holds its block in its own tensors and launches its
+   own scans, back to back), on phase 3's flat fp32 index (contiguous
+   dense, cluster routed), phase 3d's flat bf16 index (contiguous dense),
+   phase 3b's IVF index (balanced dense and routed), phase 3c's PQ index
+   (dense) and P3 over the IVF shards under the routed plan. Each case's
+   512 timed queries (and a warm-up batch) must equal the meshless engine's
+   on the same index bit for bit; both are timed (qps, batch p50/p99), with
+   the shard build's seconds, the launches a batch by kernel, and the
+   routed cases' shard_skip_rate and fallbacks, and the device memory
+   each engine adds beside the index and its peak over the timed run
+   (``torch.cuda.memory_allocated``). On the flat cluster routed
+   and IVF balanced dense engines shard 3 is then marked dead: 128
+   queries bit-equal to ``faultinject.surviving_reference`` on the card,
+   the coverage certificate never under-flagged, ``coverage_rate``
+   printed; then ``heal`` (checkpoint to a temporary directory, restore
+   onto the 7 surviving shard positions, probe check, cutover), its
+   seconds printed, and 128 more queries bit-equal to a meshless restore
+   of that checkpoint at full coverage.
 4. a ``kernels`` JSON line with each kernel variant's launches over phases
-   3 to 3h (each must be > 0), errors, times and bound, and the device
+   3 to 3i (each must be > 0), errors, times and bound, and the device
    time (``device_ms``) of B4, B8, B10 and the scan LUT, whose host loops
    sit near the
    host's cost of a launch (null for the others). No serving phase may
@@ -202,7 +222,9 @@ from repro_torch.kernels import ivf_score as ivf_kern  # noqa: E402
 from repro_torch.kernels import pq_lut  # noqa: E402
 from repro_torch.kernels import rescore as rescore_kern  # noqa: E402
 from repro_torch.kernels import topk_select  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.serve import engine as engine_mod  # noqa: E402
+from repro_torch.serve import faultinject  # noqa: E402
 
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
 PEAK_BYTES_S = 3.35e12
@@ -2836,6 +2858,203 @@ def phase_lifecycle(dev, power: str, inp: Inputs, flat_ix, bf16_ix):
     return counts
 
 
+# -- phase 3i: sharded, routed and degraded serving ----------------------------
+
+SHARDS = 8                   # logical shards, every one on the card
+SHARD_CASES = [   # (tag, index, placement, routing, predicate)
+    ("flat contiguous dense", "flat", "contiguous", "dense", None),
+    ("flat cluster routed", "flat", "cluster", "routed", None),
+    ("flat-bf16 contiguous dense", "flat-bf16", "contiguous", "dense", None),
+    ("IVF balanced dense", "ivf", "balanced", "dense", None),
+    ("IVF balanced routed", "ivf", "balanced", "routed", None),
+    ("PQ dense", "pq", "contiguous", "dense", None),
+    ("IVF P3 routed over shards", "ivf", "balanced", "dense", "P3"),
+]
+DEGRADED = ("flat cluster routed", "IVF balanced dense")
+
+
+def timed_512(eng, inp: Inputs, pred=None):
+    """A warm-up batch, then the 512 timed queries in batches of 64
+    (predicate search under the routed plan when ``pred`` is given).
+    Returns (scores, ids, per-batch seconds)."""
+    def call(q, f):
+        if pred is None:
+            return eng.search(q, f)
+        return eng.search(q, filter=pred, plan="routed")
+
+    call(inp.q_warm, inp.f_warm)
+    lat, served = [], []
+    for s in range(0, 512, B):
+        t0 = time.perf_counter()
+        served.append(call(inp.q_all[s:s + B], inp.f_all[s:s + B]))
+        lat.append(time.perf_counter() - t0)
+    return (np.concatenate([a for a, _ in served]),
+            np.concatenate([b for _, b in served]), lat)
+
+
+def lat_str(lat) -> str:
+    return (f"qps {512 / sum(lat):.1f} batch p50 "
+            f"{1e3 * np.percentile(lat, 50):.2f} ms p99 "
+            f"{1e3 * np.percentile(lat, 99):.2f} ms")
+
+
+def cuda_bytes(obj) -> int:
+    """Bytes of the distinct card storages reachable from ``obj`` through
+    dataclass fields, tuples, lists and dicts."""
+    seen, total, stack = set(), 0, [obj]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, torch.Tensor):
+            st = x.untyped_storage()
+            if x.is_cuda and st.data_ptr() not in seen:
+                seen.add(st.data_ptr())
+                total += st.nbytes()
+        elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+            stack.extend(getattr(x, f.name) for f in dataclasses.fields(x))
+        elif isinstance(x, (tuple, list)):
+            stack.extend(x)
+        elif isinstance(x, dict):
+            stack.extend(x.values())
+    return total
+
+
+def add_counts(into: dict, counts: dict) -> None:
+    for name, n in counts.items():
+        into[name] = into.get(name, 0) + n
+
+
+def degraded_and_heal(tag, eng, inp: Inputs, healthy_ids, dev, power,
+                      counts):
+    """Shard 3 dead: 128 queries bit-equal to the surviving reference on
+    the card, the coverage certificate never under-flags (a query whose
+    healthy top-10 held a dead row is flagged); then ``heal`` from a
+    checkpoint, and the next 128 queries bit-equal to a meshless restore
+    of it, with full coverage."""
+    q, f = inp.q_all[:2 * B], inp.f_all[:2 * B]
+    eng.health.mark_dead([3])
+    _build.reset_launch_counts()
+    got = eng.search(q, f)
+    torch.cuda.synchronize()
+    add_counts(counts, _build.launch_counts())
+    cov = eng.stats.last_coverage.copy()
+    want = faultinject.surviving_reference(eng).search(q, f)
+    check(np.array_equal(got[1], want[1]) and np.array_equal(got[0], want[0]),
+          f"3i {tag}: degraded results differ from the surviving reference")
+    alive = faultinject.surviving_row_mask(eng)
+    n = eng.index.size
+    affected = np.array([(~alive[r[r < n]]).any()
+                         for r in healthy_ids[:2 * B]])
+    check(not (affected & cov).any(), f"3i {tag}: a coverage flag missed")
+    print(f"[3i] {tag}, shard 3 dead: 128 queries bit-equal to the "
+          f"surviving reference; coverage of the call {cov.mean():.4f} "
+          f"({int(affected.sum())} queries had a dead row in their healthy "
+          f"top-10, {int((~cov).sum())} flagged); stats.coverage_rate "
+          f"{eng.stats.coverage_rate:.4f}, degraded batches "
+          f"{eng.stats.degraded_batches}")
+    q2, f2 = inp.q_all[2 * B:4 * B], inp.f_all[2 * B:4 * B]
+    with tempfile.TemporaryDirectory(prefix="fcvi_heal_") as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = eng.heal(tmp, q[:B], f[:B])
+        torch.cuda.synchronize()
+        heal_s = time.perf_counter() - t0
+        check(ok and eng._sharded.n_shards == SHARDS - 1,
+              f"3i {tag}: heal did not cut over")
+        _build.reset_launch_counts()
+        got = eng.search(q2, f2)
+        torch.cuda.synchronize()
+        add_counts(counts, _build.launch_counts())
+        check(eng.stats.last_coverage.all(),
+              f"3i {tag}: coverage after heal below 1")
+        want = engine_mod.FCVIEngine.restore(tmp, device=dev).search(q2, f2)
+        check(np.array_equal(got[1], want[1])
+              and np.array_equal(got[0], want[0]),
+              f"3i {tag}: healed results differ from a meshless restore")
+    print(f"[3i] {tag}: heal (checkpoint, restore onto the {SHARDS - 1} "
+          f"surviving shard positions, bit-equal check on 64 probe queries, "
+          f"cutover) in {heal_s:.2f} s; the next 128 queries bit-equal to a "
+          f"meshless restore, coverage 1.0; card {power}")
+
+
+def phase_sharded(dev, power: str, inp: Inputs, ix: dict):
+    """Phase 3i: the engine over 8 shards on the card (``make_mesh((8,
+    1))``: every position is this card), each case's 512 timed queries
+    bit-equal to the meshless engine on the same index, timed beside it;
+    then shard 3 dead and ``heal`` on two of them. Returns the launch
+    counts of the sharded runs (the meshless references are not
+    counted)."""
+    t_phase = time.perf_counter()
+    mesh = make_mesh((SHARDS, 1), ("data", "model"), device=dev)
+    attrs = inp.corpus.filters
+    counts = {}
+    for tag, key, placement, routing, pname in SHARD_CASES:
+        index = ix[key]
+        pred = None if pname is None else PREDICATES[pname]
+        # device memory (GiB): what each engine adds beside the index, and
+        # its peak over the timed run above what it holds
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        plain = engine_mod.FCVIEngine(index, engine_mod.EngineConfig(),
+                                      device=dev, attributes=attrs)
+        m_plain = torch.cuda.memory_allocated() - m0
+        torch.cuda.reset_peak_memory_stats()
+        ws, wi, wlat = timed_512(plain, inp, pred)
+        torch.cuda.synchronize()
+        peak_plain = torch.cuda.max_memory_allocated() - m0 - m_plain
+        del plain
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        eng = engine_mod.FCVIEngine(index, engine_mod.EngineConfig(),
+                                    device=dev, mesh=mesh,
+                                    placement=placement, routing=routing,
+                                    attributes=attrs)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        m_shard = torch.cuda.memory_allocated() - m0
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        gs, gi, glat = timed_512(eng, inp, pred)
+        torch.cuda.synchronize()
+        c = _build.launch_counts()
+        peak_shard = torch.cuda.max_memory_allocated() - m0 - m_shard
+        gib = 2.0 ** 30
+        print(f"[3i] {tag} memory, GiB: the index "
+              f"{cuda_bytes(index) / gib:.4f} (on the home device, meshless and sharded alike); the "
+              f"meshless engine adds {m_plain / gib:.4f}, the {SHARDS}-shard "
+              f"engine {m_shard / gib:.4f} (its blocks); peak over the timed "
+              f"run above that, meshless {peak_plain / gib:.4f}, sharded "
+              f"{peak_shard / gib:.4f}; card {power}")
+        add_counts(counts, c)
+        check(np.array_equal(gi, wi) and np.array_equal(gs, ws),
+              f"3i {tag}: the 8-shard engine differs from the meshless one")
+        scans = {k: v for k, v in c.items()
+                 if k.startswith(("score_topk", "ivf_score_topk",
+                                  "pq_score_topk"))}
+        check(sum(scans.values()) > 0, f"3i {tag}: no scan was launched")
+        st = eng.stats
+        route = ""
+        if routing == "routed":
+            route = (f"; shard_skip_rate {st.shard_skip_rate:.4f} over "
+                     f"{st.routed_batches} batches, router fallbacks "
+                     f"{st.router_fallbacks}")
+        elif pname is not None:
+            route = f"; plan_routed {st.plan_routed}"
+        print(f"[3i] {tag} ({SHARDS} shards, placement {placement}): 512 "
+              f"queries bit-equal to meshless; sharded {lat_str(glat)} | "
+              f"meshless {lat_str(wlat)}; shard build {build_s:.2f} s; "
+              f"escalations {st.escalations}{route}; launches a batch (9 "
+              f"batches) {json.dumps({k: round(v / 9, 2) for k, v in sorted(c.items())})}; "
+              f"card {power}")
+        if tag in DEGRADED:
+            degraded_and_heal(tag, eng, inp, gi, dev, power, counts)
+        del eng
+        torch.cuda.empty_cache()
+    print(f"[3i] counts {json.dumps(counts)}")
+    print(f"[3i] phase in {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2868,13 +3087,15 @@ def main() -> int:
     del built, ivf_built
     torch.cuda.empty_cache()
     sg_res, sg_counts = phase_shapes(dev, power, inp, flat_ix, ivf_ix, pq_ix)
-    del ivf_ix, pq_ix
     torch.cuda.empty_cache()
     lc_counts = phase_lifecycle(dev, power, inp, flat_ix, bf16_ix)
+    torch.cuda.empty_cache()
+    sh_counts = phase_sharded(dev, power, inp, {
+        "flat": flat_ix, "flat-bf16": bf16_ix, "ivf": ivf_ix, "pq": pq_ix})
     for tag, r, c in (("3b", ivf_res, ivf_counts), ("3c", pq_res, pq_counts),
                       ("3d", sf_res, sf_counts), ("3e", si_res, si_counts),
                       ("3f", pf_res, pf_counts), ("3g", sg_res, sg_counts),
-                      ("3h", {}, lc_counts)):
+                      ("3h", {}, lc_counts), ("3i", {}, sh_counts)):
         phases[tag] = dict(c)
         res.update(r)
         for name, n in c.items():
@@ -2888,7 +3109,7 @@ def main() -> int:
     for name, (source, replaces) in SOURCES.items():
         launches = counts.get(name, 0)
         check(launches > 0, f"kernel {name} was not launched on the main "
-              "paths (phases 3 and 3b to 3h)")
+              "paths (phases 3 and 3b to 3i)")
         r = res[name]
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches,

@@ -9,8 +9,13 @@ default).
 Run from the root of the repository on a machine with one CUDA device:
 
     python3 scripts/profile_serving.py [--batches 8] [--backend pq ...]
-        [--storage int8] [--predicate P2 ...]
+        [--storage int8] [--predicate P2 ...] [--shards 8 [--placement
+        cluster] [--routed]]
 
+``--shards N`` also profiles each engine sharded over N logical shards on
+the card (``make_mesh((N, 1), ("data", "model"))``, placement
+``--placement``, default contiguous; ``--routed`` for routed serving, flat
+cluster or IVF), beside the meshless engine on the same index.
 ``--backend`` (repeatable; all three when absent) picks the engines, and
 ``--storage`` the flat and IVF corpus storage (``FCVIConfig.storage_dtype``:
 float32, the default, bfloat16 or int8; PQ ignores it). ``--predicate``
@@ -40,6 +45,7 @@ sys.path.insert(0, ROOT)
 import chip_smoke as smoke  # noqa: E402
 from repro_torch.core import fcvi  # noqa: E402
 from repro_torch.core.filters import compile_predicate  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.serve import engine as engine_mod  # noqa: E402
 
 
@@ -124,6 +130,12 @@ def main() -> int:
     ap.add_argument("--predicate", action="append",
                     choices=sorted(smoke.PREDICATES),
                     help="profile predicate search with these predicates")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="also profile each engine over this many shards")
+    ap.add_argument("--placement", default="contiguous",
+                    help="the sharded engines' placement")
+    ap.add_argument("--routed", action="store_true",
+                    help="the sharded engines route (flat cluster, IVF)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_serving: no CUDA device; nothing was run",
@@ -137,21 +149,35 @@ def main() -> int:
         cfg = fcvi.FCVIConfig(storage_dtype=args.storage, **CONFIGS[tag])
         index = fcvi.build(inp.corpus.vectors, inp.corpus.filters, cfg,
                            device=dev)
-        eng = engine_mod.FCVIEngine(index, engine_mod.EngineConfig(),
-                                    device=dev,
-                                    attributes=inp.corpus.filters)
-        if not args.predicate:
-            res[tag] = profile(tag, eng, inp, args.batches)
-        for name in args.predicate or ():
-            if tag == "pq":
-                continue   # PQ serves no predicate search
-            pred = smoke.PREDICATES[name]
-            cp = compile_predicate(pred, eng._attr_names)
-            plan = eng.planner.choose(cp)
-            res[f"{tag} {name}"] = dict(
-                plan=plan, **profile(f"{tag} {name} {plan}", eng, inp,
-                                     args.batches, pred))
-        del eng, index
+        engines = {tag: engine_mod.FCVIEngine(
+            index, engine_mod.EngineConfig(), device=dev,
+            attributes=inp.corpus.filters)}
+        if args.shards:
+            placement = ("contiguous" if tag == "pq"
+                         else "balanced" if tag == "ivf"
+                         and args.placement == "contiguous"
+                         else args.placement)
+            routing = "routed" if args.routed and tag != "pq" else "dense"
+            engines[f"{tag} {args.shards} shards {placement} {routing}"] = \
+                engine_mod.FCVIEngine(
+                    index, engine_mod.EngineConfig(), device=dev,
+                    mesh=make_mesh((args.shards, 1), ("data", "model"),
+                                   device=dev),
+                    placement=placement, routing=routing,
+                    attributes=inp.corpus.filters)
+        for name_e, eng in engines.items():
+            if not args.predicate:
+                res[name_e] = profile(name_e, eng, inp, args.batches)
+            for name in args.predicate or ():
+                if tag == "pq":
+                    continue   # PQ serves no predicate search
+                pred = smoke.PREDICATES[name]
+                cp = compile_predicate(pred, eng._attr_names)
+                plan = eng.planner.choose(cp)
+                res[f"{name_e} {name}"] = dict(
+                    plan=plan, **profile(f"{name_e} {name} {plan}", eng,
+                                         inp, args.batches, pred))
+        del engines, eng, index
         torch.cuda.empty_cache()
     print(json.dumps(res))
     return 0

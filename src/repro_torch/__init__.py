@@ -5,10 +5,15 @@ and numpy, never JAX or the ``repro`` package. Layout mirrors ``repro``:
 
   * ``core``    - transform (psi), theory (k'), k-means, the FCVI index and
     query;
-  * ``index``   - the flat and IVF backends and the grouped slab layout;
+  * ``index``   - the flat, IVF and PQ backends, the serving slabs and
+    their shard layouts, and the cross-shard merges;
   * ``kernels`` - the CUDA kernels, their plain PyTorch versions, and the
     ``ops`` layer that picks between them by the device of the inputs;
-  * ``serve``   - the meshless serving engine;
+  * ``serve``   - the serving engine, meshless or sharded over a mesh
+    (routed and degraded serving, shard health, fault injection);
+  * ``launch``  - device meshes (``ShardMesh``);
+  * ``distributed`` - sharding rules and the fault-tolerance policies;
+  * ``checkpoint`` - checkpoints in the reference's format;
   * ``data``    - synthetic corpora.
 
 Numerics: TF32 is switched off for matmuls and cuDNN at import. TF32 keeps

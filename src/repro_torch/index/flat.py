@@ -60,6 +60,11 @@ class FlatIndex:
         """Gather-free entry point (rows, not just ids)."""
         return search_rows(self, queries, k, payload_v, payload_f)
 
+    def slab(self):
+        """The serving slab (``index.slab.FlatSlab``) to shard."""
+        from repro_torch.index.slab import FlatSlab
+        return FlatSlab(self.vectors, self.sq_norms, self.scales)
+
 
 def from_stored(vectors: Tensor, scales: Optional[Tensor] = None
                 ) -> FlatIndex:
@@ -263,14 +268,16 @@ def masked_candidates(index: FlatIndex, queries: Tensor, kk: int,
 
 def filtered_refine(vectors: Tensor, scales: Optional[Tensor],
                     queries: Tensor, cand_idx: Tensor, cand_valid: Tensor,
-                    elig: Tensor, k: int):
+                    elig: Tensor, k: int, row_ids: Optional[Tensor] = None):
     """Exact filtered top-k over a candidate set.
 
-    cand_idx: (b, c) corpus ids (valid entries duplicate-free); cand_valid:
-    (b, c) bool (False = unfilled scan slot); elig: (n,) bool row
-    eligibility. Ineligible or invalid candidates get (+inf, DEAD_ID) and
-    the rest sort by (exact fp32 d2, id). Returns (d2 (b, k), ids (b, k)
-    int32); callers finish with ``finalize_filtered``."""
+    cand_idx: (b, c) row positions in ``vectors`` (valid entries
+    duplicate-free); cand_valid: (b, c) bool (False = unfilled scan slot);
+    elig: (n,) bool row eligibility; ``row_ids`` (n,) the rows' corpus ids
+    when they are not their positions (a shard's block). Ineligible or
+    invalid candidates get (+inf, DEAD_ID) and the rest sort by (exact fp32
+    d2, corpus id). Returns (d2 (b, k), ids (b, k) int32); callers finish
+    with ``finalize_filtered``."""
     idx = cand_idx.long()
     rows = vectors[idx].to(torch.float32)                   # (b, c, d)
     if scales is not None:
@@ -278,5 +285,6 @@ def filtered_refine(vectors: Tensor, scales: Optional[Tensor],
     d2 = filtered_d2(queries, rows)
     ok = cand_valid & elig[idx]
     d2 = torch.where(ok, d2, float("inf"))
-    ids = torch.where(ok, cand_idx.to(torch.int32), DEAD_ID)
+    ids = cand_idx if row_ids is None else row_ids[idx]
+    ids = torch.where(ok, ids.to(torch.int32), DEAD_ID)
     return lexsort_topk(d2, ids, k)

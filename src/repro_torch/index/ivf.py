@@ -69,6 +69,12 @@ class IVFIndex:
         return search_rows(self, queries, k, payload_v, payload_f,
                            grouped_pv, grouped_pf, nprobe=nprobe)
 
+    def slab(self):
+        """The serving slab (``index.slab.IVFSlab``) to shard."""
+        from repro_torch.index.slab import IVFSlab
+        return IVFSlab(self.centroids, self.lists, self.grouped,
+                       self.grouped_sq, self.valid, self.grouped_scales)
+
 
 def _pad_to(x: int, mult: int) -> int:
     return x + (-x) % mult

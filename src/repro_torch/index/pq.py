@@ -20,7 +20,7 @@ of the LUT, with no (q, n) distance matrix; on the CPU the plain
 are built once with the index: the combined codes, ``coarse_id * ksub +
 code`` as (n, M) int32 (the reference rebuilds them on every search), and
 the grouped layout (``PQIndex.grouped``). Mirrors ``repro.index.pq``;
-``PQIndex.slab`` (the sharded layout) is ROADMAP A12.
+``PQIndex.slab`` is the layout sharded serving splits.
 """
 from __future__ import annotations
 
@@ -67,6 +67,12 @@ class PQIndex:
     def search(self, queries: Tensor, k: int):
         """SearchBackend entry point."""
         return search(self, queries, k)
+
+    def slab(self):
+        """The serving slab (``index.slab.PQSlab``) to shard."""
+        from repro_torch.index.slab import PQSlab
+        return PQSlab(self.codebooks, self.codes, self.coarse_centers,
+                      self.coarse_ids, self.cb_sq, self.coarse_dot)
 
 
 def from_arrays(codebooks: Tensor, codes: Tensor, coarse_centers: Tensor,

@@ -45,13 +45,32 @@ attribute table in the JAX package's format (``repro_torch.checkpoint``),
 and ``FCVIEngine.restore`` rebuilds an engine from it with no re-training;
 checkpoints cross between the two packages both ways.
 
-Mirrors the meshless paths of ``repro.serve.engine``. Meshes, routing and
-``heal`` are ROADMAP A12; they raise here.
+Sharded serving: ``FCVIEngine(index, cfg, mesh=make_mesh((8, 1), ("data",
+"model")), placement=..., routing=...)`` splits the serving state over the
+shards of a ``launch.mesh.ShardMesh`` and runs the batch step of
+``serve/sharded.py``: each shard scans its own block, the candidates merge
+across shards, the re-rank runs once; results equal the meshless engine's
+bit for bit. ``routing="routed"`` skips the shards a batch does not route
+to (flat with ``placement="cluster"``: psi-cluster ownership and a ball
+bound, flagged queries re-run dense; IVF: probed-list ownership, exact),
+and the dispatch sorts each cache-miss queue by route signature so
+co-routed queries share a batch.
+
+Degraded serving: a sharded engine carries a ``ShardHealth`` layer. Dead
+shards (``health.mark_dead``, heartbeat timeouts, evicted stragglers) are
+skipped in every stage, results equal a search over the surviving rows
+(``serve.faultinject.surviving_reference``), and ``stats.last_coverage``
+flags the queries the dead shards could have changed. Around the step:
+bounded retry on ``TransientShardError``, a deadline counter, queue
+backpressure. ``heal()`` checkpoints, restores the whole corpus onto the
+surviving shard positions, checks the candidate bit for bit against a
+meshless restore and cuts over. Mirrors ``repro.serve.engine``.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import threading
 import time
 from typing import List, Optional
 
@@ -67,7 +86,9 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.index import flat as flat_mod
 from repro_torch.index import ivf as ivf_mod
 from repro_torch.kernels import ops
-from repro_torch.serve.health import BackpressureError, TransientShardError
+from repro_torch.launch.mesh import ShardMesh
+from repro_torch.serve.health import (BackpressureError, ShardHealth,
+                                      TransientShardError)
 from repro_torch.serve.planner import (CANDIDATE_PAD, PLAN_FOLD, PLAN_MASK,
                                        PLAN_ROUTED, PLANS, QueryPlanner,
                                        _pow2_at_least)
@@ -223,7 +244,10 @@ def _filtered_delta_step(delta_flat: flat_mod.FlatIndex, q_t: Tensor,
 @dataclasses.dataclass
 class EngineConfig:
     """Serving-side knobs (host-side policy; none changes result values
-    except ``k``)."""
+    except ``k``). ``router_nprobe`` only matters for routed flat serving:
+    the psi-clusters the shard router probes a query (0 = about two
+    shards' worth; fewer skip more shards and re-run more queries
+    dense)."""
 
     k: int = 10
     batch_size: int = 64
@@ -233,7 +257,7 @@ class EngineConfig:
     kprime_escalation: int = 4     # stage-2 k' multiplier
     compact_threshold: int = 2048  # delta rows triggering compaction
     multi_probe_r: int = 4         # probes of search_predicate
-    router_nprobe: int = 0         # routed serving (A12); inert meshless
+    router_nprobe: int = 0         # routed flat serving: probed clusters
     # gather-free re-rank: the scan emits the winners' re-rank rows instead
     # of ids that a second gather from vectors_n/filters_n resolves; the
     # results are the same either way
@@ -243,12 +267,19 @@ class EngineConfig:
     max_retries: int = 2           # bounded retry on TransientShardError
     retry_backoff_s: float = 0.05  # base backoff, doubled per retry
     queue_budget: int = 0          # max cache-miss queue; 0 = unlimited
-    straggler_z: float = 3.0       # shard health (A12); inert meshless
+    # straggler-eviction z-threshold of the shard health layer. The sample
+    # sd z of ONE outlier in a fleet of n is at most (n - 1) / sqrt(n)
+    # (~2.47 for n = 8): small fleets need a threshold below that bound
+    straggler_z: float = 3.0
 
 
 @dataclasses.dataclass
 class EngineStats:
-    """Host-side serving counters."""
+    """Host-side serving counters. The ``router_*`` / ``shard*`` fields move
+    on routed sharded engines only: ``shard_steps`` counts (batch x shard)
+    slots, ``shards_active`` the slots whose scan ran (the rest launched
+    nothing), ``router_fallbacks`` the queries re-run dense because the
+    routed clipping bound could not certify them."""
 
     queries: int = 0
     cache_hits: int = 0
@@ -256,19 +287,31 @@ class EngineStats:
     inserts: int = 0
     compactions: int = 0
     total_time_s: float = 0.0
+    routed_batches: int = 0
+    router_fallbacks: int = 0
+    shards_active: int = 0
+    shard_steps: int = 0
     # device-memory bytes the candidate scans stream, modeled per batch from
     # the slab sizes (see FCVIEngine._batch_scan_bytes)
     bytes_scanned: int = 0
     scan_batches: int = 0          # batches the bytes model accounted
+    # -- degraded serving / resilience envelope ---------------------------
+    degraded_batches: int = 0      # batches served with >= 1 dead shard
+    uncovered_queries: int = 0     # queries whose coverage flag was raised
     retries: int = 0               # TransientShardError retries
     deadline_misses: int = 0       # batches exceeding cfg.deadline_s
     backpressure_drops: int = 0    # queries shed by BackpressureError
+    straggler_evictions: int = 0   # shards evicted by the health layer
+    heals: int = 0                 # validated heal() cutovers
     # -- predicate-filtered serving (filter algebra + planner) -------------
     filtered_queries: int = 0      # queries served through search(filter=)
     plan_fold: int = 0             # queries executed under each plan
     plan_mask: int = 0
     plan_routed: int = 0
     filtered_fallbacks: int = 0    # fold queries re-run under mask
+    # per-query coverage flags of the LAST search call (True = certified
+    # unaffected by dead shards; all True while healthy)
+    last_coverage: Optional[np.ndarray] = None
 
     @property
     def qps(self) -> float:
@@ -287,9 +330,23 @@ class EngineStats:
             return 0.0
         return self.bytes_scanned / self.total_time_s / 1e9
 
+    @property
+    def shard_skip_rate(self) -> float:
+        """Share of (batch x shard) slots routing skipped."""
+        if not self.shard_steps:
+            return 0.0
+        return 1.0 - self.shards_active / self.shard_steps
+
+    @property
+    def coverage_rate(self) -> float:
+        """Share of served queries certified unaffected by dead shards."""
+        if not self.queries:
+            return 1.0
+        return 1.0 - self.uncovered_queries / self.queries
+
 
 class FCVIEngine:
-    """Batched serving engine over one ``FCVIIndex`` on one device.
+    """Batched serving engine over one ``FCVIIndex``.
 
     ``search(queries (n, d), filters (n, m))`` takes and returns HOST numpy
     arrays: (scores (n, k) fp32, ids (n, k) int64); ids >= ``index.size``
@@ -303,17 +360,44 @@ class FCVIEngine:
     ``f0..f{m-1}``).
 
     ``device`` (default ``"cuda"``) is where the engine serves; the index
-    must live there. Asking for a card that is not there raises."""
+    must live there. Asking for a card that is not there raises.
+
+    ``mesh`` (a ``launch.mesh.ShardMesh``; None = meshless) shards the
+    serving state over the mesh axes of ``rules`` (``AxisRules``; the
+    "corpus" and "ivf_lists" entries); ``placement`` is "contiguous" or
+    "cluster" (filter-centric: psi-clusters for flat, affinity-packed lists
+    for IVF; IVF also takes "balanced" and "affinity"); ``routing`` is
+    "dense" (every shard scans every batch) or "routed" (needs a mesh, and
+    ``placement="cluster"`` for flat; PQ refuses it); ``router_centers``
+    pins the flat router's psi-cluster centers. All are deployment knobs:
+    the results are the meshless engine's on every combination."""
 
     def __init__(self, index: FCVIIndex, config: Optional[EngineConfig] = None,
-                 *, device: DeviceLike = "cuda", mesh=None,
-                 routing: str = "dense", attributes=None, attr_names=None):
-        _refuse_mesh(mesh, routing)
+                 *, device: DeviceLike = "cuda", mesh=None, rules=None,
+                 placement: str = "contiguous", routing: str = "dense",
+                 router_centers=None, attributes=None, attr_names=None):
         self.device = resolve_device(device)
         if index.device != self.device:
             raise ValueError(
                 f"the index lives on {index.device}, the engine serves on "
                 f"{self.device}; build or load the index on the same device")
+        if routing not in ("dense", "routed"):
+            raise ValueError(
+                f"routing must be 'dense' or 'routed', got {routing!r}")
+        if routing == "routed" and mesh is None:
+            raise ValueError("routing='routed' requires a device mesh")
+        if mesh is not None and not isinstance(mesh, ShardMesh):
+            raise TypeError(
+                f"mesh must be a repro_torch.launch.mesh.ShardMesh, got "
+                f"{type(mesh).__name__}")
+        if mesh is not None:
+            kinds = sorted({d.type for d in mesh.devices.flat})
+            if kinds != [self.device.type]:
+                # a shard on another kind of device would move its scan
+                # there without a word
+                raise ValueError(
+                    f"the mesh's devices are {kinds}, the engine serves on "
+                    f"{self.device}; make the mesh on the engine's device")
         self.index = index
         # one default per engine: a shared EngineConfig() default instance
         # would leak mutations across engines
@@ -324,10 +408,25 @@ class FCVIEngine:
         self._delta_f: list = []
         self._delta: Optional[_DeltaBuffer] = None
         self._grouped_payload = None  # IVF gather-free payload slabs (lazy)
+        self._mesh, self._rules, self._placement = mesh, rules, placement
+        self._routing = routing
+        self._router_centers = router_centers
+        self._sharded = None
+        self._sharded_delta = None
         # hook for a fault-injection harness: an object whose
-        # ``before_batch()`` may raise TransientShardError
+        # ``before_batch()`` may raise TransientShardError and whose
+        # ``shard_times(n, elapsed)`` feeds the health layer
         self.fault_injector = None
+        # degraded serving: the health layer (sharded engines only), the
+        # alive mask the cache was filled under, the heal cutover lock
+        self.health: Optional[ShardHealth] = None
+        self._alive_sig: Optional[bytes] = None
+        self._heal_lock = threading.Lock()
         self._init_attrs(attributes, attr_names)
+        if mesh is not None:
+            self._build_sharded()
+            self.health = ShardHealth(self._sharded.n_shards,
+                                      straggler_z=self.cfg.straggler_z)
 
     # -- predicate-filtered serving state ----------------------------------
     def _init_attrs(self, attributes, attr_names):
@@ -369,9 +468,30 @@ class FCVIEngine:
             self.planner = QueryPlanner.build(
                 self._attrs_np, backend=cfg.backend,
                 storage_fp32=cfg.resolved_storage_dtype() is None,
-                sharded=False)
+                sharded=self._mesh is not None)
         else:
             self.planner = None  # PQ: no filtered plans
+
+    def _build_sharded(self):
+        """(Re)shard the serving state onto the configured mesh."""
+        from repro_torch.serve.sharded import ShardedServing
+
+        attrs = (self._attrs_np
+                 if self.index.config.backend in ("flat", "ivf") else None)
+        centers = self._router_centers
+        if centers is not None:
+            centers = torch.as_tensor(centers, dtype=torch.float32).to(
+                self.device)
+        self._sharded = ShardedServing(
+            self.index, self._mesh, rules=self._rules,
+            placement=self._placement, routing=self._routing,
+            router_nprobe=self.cfg.router_nprobe, router_centers=centers,
+            attrs=attrs)
+        self._sharded_delta = None
+
+    @property
+    def _routed(self) -> bool:
+        return self._sharded is not None and self._routing == "routed"
 
     # -- cache ------------------------------------------------------------
     def _cache_keys(self, queries: np.ndarray,
@@ -465,6 +585,25 @@ class FCVIEngine:
                 f"k={self.cfg.k} exceeds corpus size {total}")
         return q, f
 
+    def _alive_for_search(self) -> Optional[np.ndarray]:
+        """The health layer's snapshot for one search call: None while
+        every shard is healthy (the fast path), else the (n_shards,) bool
+        alive mask. The result cache and the sharded delta tier are dropped
+        whenever the mask changes (cached results were computed over other
+        rows; the delta blocks live on the live shards), and the cache is
+        not used while degraded (a (scores, ids) entry cannot carry a
+        coverage flag)."""
+        if self.health is None:
+            return None
+        self.health.check_failures()
+        alive = self.health.alive_mask()
+        sig = alive.tobytes() if self.health.any_dead() else None
+        if sig != self._alive_sig:
+            self._cache.clear()
+            self._sharded_delta = None
+            self._alive_sig = sig
+        return None if sig is None else alive
+
     # -- search -----------------------------------------------------------
     def search(self, queries: np.ndarray, filters: Optional[np.ndarray] = None,
                *, filter: Optional[Predicate] = None,
@@ -474,6 +613,8 @@ class FCVIEngine:
         * SIMILARITY mode (``filters`` (n, m) fp32, raw): the paper's
           combined-score search. Returns (scores (n, k) fp32, ids (n, k)
           int64); ids >= ``index.size`` refer to un-compacted delta rows.
+          A routed engine first sorts the cache-miss queue by route
+          signature, so co-routed queries share a padded batch.
         * PREDICATE mode (``filter=F.range("f7", 0.0, 0.6) &
           F.eq("f0", 1.0)``): exact top-k by L2 over the rows satisfying
           the predicate (``repro_torch.core.filters``). The planner picks
@@ -482,7 +623,10 @@ class FCVIEngine:
           fold-transformed queries. Queries with no eligible row return
           (-inf, -1) rows. This path bypasses the result cache.
 
-        Inputs are validated here (see ``_validate_inputs``). Raises
+        Inputs are validated here (see ``_validate_inputs``). With dead
+        shards the engine serves DEGRADED: results equal a search over the
+        surviving shards' rows and ``stats.last_coverage`` flags the
+        queries the dead shards could have changed. Raises
         ``BackpressureError`` when the cache-miss queue exceeds
         ``cfg.queue_budget`` (> 0)."""
         if filter is not None:
@@ -503,11 +647,14 @@ class FCVIEngine:
         k = self.cfg.k
         out_scores = np.zeros((n, k), np.float32)
         out_ids = np.zeros((n, k), np.int64)
+        coverage = np.ones((n,), bool)
+        alive = self._alive_for_search()
+        use_cache = alive is None
 
         keys = self._cache_keys(queries, filters)
         todo = []
         for i, key in enumerate(keys):
-            hit = self._cache_get(key)
+            hit = self._cache_get(key) if use_cache else None
             if hit is not None:
                 out_scores[i], out_ids[i] = hit
                 self.stats.cache_hits += 1
@@ -520,26 +667,43 @@ class FCVIEngine:
                 f"dispatch queue {len(todo)} exceeds queue_budget="
                 f"{self.cfg.queue_budget}; shed load and retry")
 
+        if todo and self._routed:
+            # bucket the queue by route signature so each padded batch
+            # touches as few shards as it can
+            sigs = self._sharded.route_signatures(queries[todo],
+                                                  filters[todo])
+            order = sorted(range(len(todo)), key=lambda j: sigs[j].tobytes())
+            todo = [todo[j] for j in order]
+
         bs = self.cfg.batch_size
         for s in range(0, len(todo), bs):
             idxs = todo[s:s + bs]
-            # zero rows pad the batch to its fixed size; they only affect
-            # the padded rows' own results, which are dropped
+            # pad rows fill the batch to its fixed size and only affect
+            # their own (dropped) results: zeros, or on a routed engine the
+            # last real query, so pad rows route where it routes
             q = np.zeros((bs, queries.shape[1]), np.float32)
             f = np.zeros((bs, filters.shape[1]), np.float32)
+            if self._routed:
+                q[:], f[:] = queries[idxs[-1]], filters[idxs[-1]]
             q[:len(idxs)], f[:len(idxs)] = queries[idxs], filters[idxs]
-            scores, ids = self._dispatch_batch(
+            scores, ids, covered = self._dispatch_batch(
                 torch.tensor(q, device=self.device),
-                torch.tensor(f, device=self.device), k, n_real=len(idxs))
+                torch.tensor(f, device=self.device), k, n_real=len(idxs),
+                alive=alive)
             self.stats.bytes_scanned += self._batch_scan_bytes(bs)
             self.stats.scan_batches += 1
             scores = scores.cpu().numpy()
             ids = ids.cpu().numpy().astype(np.int64)
             for j, i in enumerate(idxs):
                 out_scores[i], out_ids[i] = scores[j], ids[j]
-                self._cache_put(keys[i], (scores[j], ids[j]))
+                if covered is not None:
+                    coverage[i] = covered[j]
+                if use_cache:
+                    self._cache_put(keys[i], (scores[j], ids[j]))
 
         self.stats.queries += n
+        self.stats.uncovered_queries += int((~coverage).sum())
+        self.stats.last_coverage = coverage
         self.stats.total_time_s += time.perf_counter() - t0
         return out_scores, out_ids
 
@@ -554,7 +718,15 @@ class FCVIEngine:
         the same rows). All plans score against the SAME fold-transformed
         queries and funnel into the same refine, so forced plans agree bit
         for bit. Pending delta rows are checked against the filters they
-        were inserted with."""
+        were inserted with.
+
+        A sharded engine runs the mask and routed plans per shard
+        (``ShardedServing.filtered_step``, eligibility evaluated in each
+        shard); the fold plan stays meshless, as in the reference (its
+        certificate needs the global scan). With dead shards the dead
+        shards are skipped, a fold choice runs the mask plan instead, and
+        every query is flagged uncovered when a dead shard holds an
+        eligible row."""
         if self.planner is None:
             raise ValueError(
                 "predicate-filtered search needs a flat or ivf backend "
@@ -585,13 +757,18 @@ class FCVIEngine:
                     "attribute predicate")
             if plan == PLAN_ROUTED and not self.planner.routed_capable():
                 raise ValueError("plan='routed' needs an IVF backend")
-        kp = self.planner.kp_for(chosen, cp, k)
+        alive = self._alive_for_search()
+        run = chosen
+        if alive is not None and chosen == PLAN_FOLD:
+            run = PLAN_MASK      # the fold plan's scan reads every shard
+        kp = self.planner.kp_for(run, cp, k)
         if self.index.config.backend == "flat":
             kp = min(kp, self.index.size)  # the scan's width <= the corpus
         self.stats.queries += n
         self.stats.filtered_queries += n
         setattr(self.stats, f"plan_{chosen}",
                 getattr(self.stats, f"plan_{chosen}") + n)
+        self.stats.last_coverage = np.ones((n,), bool)
 
         lo, hi, isin_vals, isin_count = cp.as_arrays(self.device)
         # only the IN-list slots some column uses: the rest never match
@@ -618,7 +795,13 @@ class FCVIEngine:
                                     torch.tensor(q, device=self.device),
                                     fold_raw)
         route = None
-        if chosen == PLAN_ROUTED and n_elig > 0:
+        if self._sharded is not None and run != PLAN_FOLD and n_elig > 0:
+            eligs, counts = self._sharded.eligibility(arrays, elig, alive)
+            route = (eligs, counts)
+            if alive is not None and (counts[~alive] > 0).any():
+                self.stats.last_coverage[:] = False
+                self.stats.uncovered_queries += n
+        elif chosen == PLAN_ROUTED and n_elig > 0:
             route = ivf_mod.eligible_lists(self.index.backend.lists, elig)
 
         bs = self.cfg.batch_size
@@ -628,8 +811,8 @@ class FCVIEngine:
             sel = np.full((nb,), idxs[-1], np.int64)
             sel[: len(idxs)] = idxs
             q_t = q_t_all[torch.as_tensor(sel, device=self.device)]
-            d2, ids = self._filtered_main(chosen, q_t, elig, n_elig, route,
-                                          k=k, kp=kp)
+            d2, ids = self._filtered_main(run, q_t, elig, n_elig, route,
+                                          k=k, kp=kp, alive=alive)
             if nd_elig > 0:
                 dd2, dids = _filtered_delta_step(delta.flat, q_t, delig, k=k)
                 dids = torch.where(dids == flat_mod.DEAD_ID,
@@ -646,16 +829,22 @@ class FCVIEngine:
         return out_scores, out_ids
 
     def _filtered_main(self, plan: str, q_t: Tensor, elig: Tensor,
-                       n_elig: int, route, *, k: int, kp: int):
+                       n_elig: int, route, *, k: int, kp: int, alive=None):
         """Main-tier (d2, ids) for one padded batch under ``plan``, dead
         slots at (+inf, DEAD_ID) so the delta tier merges in d2 space.
         Uncertified fold rows re-run under the mask plan in a power-of-two
-        sub-batch."""
+        sub-batch. ``route``: the meshless routed plan's lists, or a
+        sharded engine's per-shard (eligibility, counts)."""
         b = q_t.shape[0]
         if n_elig == 0:
             return (torch.full((b, k), float("inf"), device=q_t.device),
                     torch.full((b, k), flat_mod.DEAD_ID, dtype=torch.int32,
                                device=q_t.device))
+        if self._sharded is not None and plan != PLAN_FOLD:
+            eligs, counts = route
+            return self._sharded.filtered_step(
+                q_t, eligs, counts, k=k, kp=kp,
+                routed=(plan == PLAN_ROUTED), alive=alive)
         backend = self.index.backend
         if plan == PLAN_ROUTED:
             uniq, n_live = route
@@ -683,17 +872,20 @@ class FCVIEngine:
             ids[take] = idsf[: len(fidx)]
         return d2, ids
 
-    def _dispatch_batch(self, q: Tensor, f: Tensor, k: int, n_real: int):
+    def _dispatch_batch(self, q: Tensor, f: Tensor, k: int, n_real: int,
+                        alive: Optional[np.ndarray] = None):
         """One padded batch through the resilience envelope: bounded retry
-        with exponential backoff on ``TransientShardError`` and a per-batch
-        deadline counter."""
+        with exponential backoff on ``TransientShardError`` (a real dispatch
+        failure or an attached fault injector), a per-batch deadline
+        counter, and the heartbeat feed to the health layer. Returns
+        (scores, ids, covered)."""
         attempt = 0
         while True:
             t0 = time.perf_counter()
             try:
                 if self.fault_injector is not None:
                     self.fault_injector.before_batch()
-                out = self._run_batch(q, f, k, n_real=n_real)
+                out = self._run_batch(q, f, k, n_real=n_real, alive=alive)
             except TransientShardError:
                 attempt += 1
                 self.stats.retries += 1
@@ -701,18 +893,40 @@ class FCVIEngine:
                     raise
                 time.sleep(self.cfg.retry_backoff_s * (2 ** (attempt - 1)))
                 continue
-            if self.cfg.deadline_s and (time.perf_counter() - t0
-                                        > self.cfg.deadline_s):
+            elapsed = time.perf_counter() - t0
+            if self.cfg.deadline_s and elapsed > self.cfg.deadline_s:
                 self.stats.deadline_misses += 1
+            if self.health is not None:
+                if self.fault_injector is not None:
+                    times = self.fault_injector.shard_times(
+                        self.health.n_shards, elapsed)
+                else:
+                    # the shards of one process run back to back: per-shard
+                    # time is not observable, feed the batch's wall time
+                    times = [elapsed] * self.health.n_shards
+                evicted = self.health.record_batch(times)
+                self.stats.straggler_evictions += len(evicted)
+            if alive is not None:
+                self.stats.degraded_batches += 1
             return out
 
-    def _run_batch(self, q: Tensor, f: Tensor, k: int, n_real: int):
+    def _run_batch(self, q: Tensor, f: Tensor, k: int, n_real: int,
+                   alive: Optional[np.ndarray] = None):
         """One padded batch through the step, then stage-2 escalation for
         the real rows whose top-k margin is below ``escalate_margin``: they
         re-run with k' scaled by ``kprime_escalation`` in a power-of-two
         sub-batch and are scattered back. Pad rows never trigger (or count
-        as) escalations. Returns (scores (b, k), ids (b, k))."""
+        as) escalations.
+
+        A routed engine runs the routed step first and re-runs the queries
+        whose clipping flag is set through the DENSE step (same k'), so
+        routed results equal dense results; the route mask feeds the
+        router counters. ``alive`` (degraded) reaches every stage: the
+        routed step, its dense fallback and the escalation sub-batch.
+        Returns (scores (b, k), ids (b, k), covered (n_real,) bool or None
+        while healthy)."""
         cfg = self.index.config
+        degraded = alive is not None
         alpha = cfg.resolved_alpha()
         kp = theory.k_prime(k, cfg.lam, alpha, self.index.size, cfg.c)
         delta = self._ensure_delta()
@@ -721,33 +935,75 @@ class FCVIEngine:
             nd = delta.vn.shape[0]
             kd = min(nd, max(theory.k_prime(k, cfg.lam, alpha, nd, cfg.c),
                              4 * k))
-        scores, ids, margin = self._step(delta, q, f, k=k, kp=kp, kd=kd)
+        unc = None
+        if self._routed:
+            out = self._sharded.step(
+                self._sharded_delta_view(delta, alive), q, f, k=k, kp=kp,
+                kd=kd, routed=True, alive=alive,
+                gather_free=self.cfg.gather_free)
+            scores, ids, margin, flag = out[:4]
+            self.stats.routed_batches += 1
+            self.stats.shard_steps += self._sharded.n_shards
+            self.stats.shards_active += self._sharded.last_active
+            if degraded:
+                unc = out[5].cpu().numpy()
+            need = flag[:n_real].cpu().numpy()
+            if need.any():
+                idxs = np.nonzero(need)[0]
+                self.stats.router_fallbacks += len(idxs)
+                sub = self._dense_subbatch(delta, q, f, idxs, k=k, kp=kp,
+                                           kd=kd, alive=alive)
+                take = torch.as_tensor(idxs, device=q.device)
+                scores[take], ids[take], margin[take] = sub[:3]
+                if degraded:
+                    # the dense re-run's certificate (vs the dense k'-th
+                    # candidate) supersedes the routed one for these rows
+                    unc[idxs] = sub[3].cpu().numpy()
+        else:
+            out = self._step(delta, q, f, k=k, kp=kp, kd=kd, alive=alive)
+            scores, ids, margin = out[:3]
+            if degraded:
+                unc = out[3].cpu().numpy()
         need = (margin < self.cfg.escalate_margin)[:n_real].cpu().numpy()
         if need.any():
             idxs = np.nonzero(need)[0]
             self.stats.escalations += len(idxs)
             kp2 = theory.k_prime(k, cfg.lam, alpha, self.index.size,
                                  cfg.c * self.cfg.kprime_escalation)
-            s2, i2, _ = self._dense_subbatch(delta, q, f, idxs, k=k, kp=kp2,
-                                             kd=kd)
+            sub = self._dense_subbatch(delta, q, f, idxs, k=k, kp=kp2,
+                                       kd=kd, alive=alive)
             take = torch.as_tensor(idxs, device=q.device)
-            scores[take] = s2
-            ids[take] = i2
-        return scores, ids
+            scores[take] = sub[0]
+            ids[take] = sub[1]
+            if degraded:
+                unc[idxs] = sub[3].cpu().numpy()
+        covered = None if unc is None else ~unc[:n_real]
+        return scores, ids, covered
 
     def _dense_subbatch(self, delta, q: Tensor, f: Tensor, idxs, *, k: int,
-                        kp: int, kd: int):
-        """Re-run rows ``idxs`` of the padded batch through the step in the
-        smallest power-of-two sub-batch that holds them (halving the batch
-        size); pad slots recompute query 0. Returns the rows for ``idxs``."""
+                        kp: int, kd: int, alive=None):
+        """Re-run rows ``idxs`` of the padded batch through the dense step
+        in the smallest power-of-two sub-batch that holds them (halving the
+        batch size); pad slots recompute query 0. Returns the step's
+        outputs for ``idxs`` (with the coverage flags when degraded)."""
         nb = q.shape[0]
         while nb // 2 >= max(len(idxs), 1):
             nb //= 2
         sel = np.zeros((nb,), np.int64)
         sel[: len(idxs)] = idxs
         sel_t = torch.as_tensor(sel, device=q.device)
-        out = self._step(delta, q[sel_t], f[sel_t], k=k, kp=kp, kd=kd)
+        out = self._step(delta, q[sel_t], f[sel_t], k=k, kp=kp, kd=kd,
+                         alive=alive)
         return tuple(o[: len(idxs)] for o in out)
+
+    def _sharded_delta_view(self, delta, alive=None):
+        """The delta tier split over the live shards (lazy; dropped on
+        inserts, compaction and alive-mask changes)."""
+        if delta is None:
+            return None
+        if self._sharded_delta is None:
+            self._sharded_delta = self._sharded.shard_delta(delta, alive)
+        return self._sharded_delta
 
     def _rows_payload(self):
         """The IVF gather-free payload slabs (lazy): ``vectors_n`` and
@@ -765,13 +1021,18 @@ class FCVIEngine:
         return self._grouped_payload
 
     def _step(self, delta, q: Tensor, f: Tensor, *, k: int, kp: int,
-              kd: int):
-        """One padded batch through ``_batch_step``; PQ takes the id-gather
-        variant whatever ``gather_free`` says (its re-rank rows are the
-        originals, which no PQ scan reads), so its delta tier scans ids
-        only, as in the reference."""
+              kd: int, alive=None):
+        """One padded batch through ``_batch_step`` or, on a mesh, the
+        sharded DENSE step (the routed step is ``_run_batch``'s); PQ takes
+        the id-gather variant whatever ``gather_free`` says (its re-rank
+        rows are the originals, which no PQ scan reads), so its delta tier
+        scans ids only, as in the reference."""
         gather_free = (self.cfg.gather_free
                        and self.index.config.backend != "pq")
+        if self._sharded is not None:
+            return self._sharded.step(
+                self._sharded_delta_view(delta, alive), q, f, k=k, kp=kp,
+                kd=kd, alive=alive, gather_free=gather_free)
         return _batch_step(self.index, delta, q, f, k=k, kp=kp, kd=kd,
                            gather_free=gather_free,
                            grouped_payload=self._rows_payload())
@@ -785,6 +1046,7 @@ class FCVIEngine:
         self.stats.inserts += len(vectors)
         self._cache.clear()  # results may change
         self._delta = None   # rebuilt lazily on the next search
+        self._sharded_delta = None
         if self.delta_size() >= self.cfg.compact_threshold:
             self.compact()
 
@@ -811,7 +1073,8 @@ class FCVIEngine:
     def compact(self):
         """Fold the pending inserts into the main index (``fcvi.extend``
         re-transforms the whole corpus; an IVF or PQ backend re-trains its
-        k-means)."""
+        k-means). A sharded engine re-shards the grown index (a flat
+        cluster placement re-derives its router from the new corpus)."""
         if not self._delta_v:
             return
         v, f = self._pending()
@@ -822,7 +1085,11 @@ class FCVIEngine:
                                         np.concatenate(self._delta_f)]))
         self._delta_v, self._delta_f = [], []
         self._delta = None
+        self._sharded_delta = None
         self._grouped_payload = None  # corpus changed: payload slabs stale
+        self._router_centers = None   # corpus changed: re-derive the router
+        if self._sharded is not None:
+            self._build_sharded()
         self.stats.compactions += 1
 
     # -- range predicates (multi-probe) ------------------------------------
@@ -839,19 +1106,101 @@ class FCVIEngine:
         fp = probes[None].expand(q.shape[0], *probes.shape)
         return fcvi.multi_probe_query(self.index, q, fp, self.cfg.k)
 
-    # -- later slices -------------------------------------------------------
-    def heal(self, *args, **kwargs):
-        raise NotImplementedError("shard health and heal() are ROADMAP A12")
+    # -- self-healing ------------------------------------------------------
+    def heal(self, ckpt_dir: str, probe_queries=None, probe_filters=None, *,
+             step: int = 0, background: bool = False):
+        """Recover full coverage after shard loss by re-placing the corpus.
+
+        Checkpoint -> restore the WHOLE corpus onto a mesh of the surviving
+        shard positions (placement and routing kept; a cluster placement
+        routes from the saved router centers) -> hold the candidate engine
+        bit for bit against a meshless restore of the same checkpoint on
+        ``probe_queries`` / ``probe_filters`` -> cut over under the heal
+        lock (index, mesh, shards, delta tier, a fresh health layer, the
+        cache cleared). Afterwards every row serves again and coverage is
+        back to 100%.
+
+        The reference asks for one device per shard and re-meshes onto the
+        surviving devices. Here a shard is a mesh position, and several
+        positions may share a card (all of them, on one card): the new mesh
+        is the surviving shard positions, each on the device it had.
+
+        Returns True on a checked cutover, False when the check failed (the
+        degraded engine serves on, untouched). ``background=True`` runs the
+        same flow on a daemon thread and returns the thread (join it, then
+        read ``stats.heals``). Needs a sharded engine whose shards are its
+        mesh positions, with at least one alive."""
+        if background:
+            t = threading.Thread(
+                target=self.heal, args=(ckpt_dir, probe_queries,
+                                        probe_filters),
+                kwargs={"step": step}, daemon=True)
+            t.start()
+            return t
+        if self._sharded is None or self.health is None:
+            raise RuntimeError("heal() requires a sharded engine")
+        if self._sharded.n_shards != self._mesh.size:
+            raise NotImplementedError(
+                "heal() assumes one shard per mesh position")
+        alive_idx = np.nonzero(self.health.alive_mask())[0]
+        if alive_idx.size == 0:
+            raise RuntimeError("heal() needs at least one surviving shard")
+        self.save(ckpt_dir, step=step)
+        from repro_torch.launch.mesh import ShardMesh
+
+        names = self._mesh.axis_names
+        devices = np.empty((alive_idx.size,), dtype=object)
+        for j, s in enumerate(alive_idx):
+            devices[j] = self._sharded.devices[s]
+        new_mesh = ShardMesh(
+            devices=devices.reshape((alive_idx.size,)
+                                    + (1,) * (len(names) - 1)),
+            axis_names=names)
+        cand = FCVIEngine.restore(ckpt_dir, step=step, config=self.cfg,
+                                  device=self.device, mesh=new_mesh,
+                                  rules=self._rules,
+                                  placement=self._placement,
+                                  routing=self._routing)
+        if probe_queries is not None:
+            ref = FCVIEngine.restore(ckpt_dir, step=step, config=self.cfg,
+                                     device=self.device)
+            s_new, i_new = cand.search(probe_queries, probe_filters)
+            s_ref, i_ref = ref.search(probe_queries, probe_filters)
+            if not (np.array_equal(s_new, s_ref)
+                    and np.array_equal(i_new, i_ref)):
+                return False
+        with self._heal_lock:
+            self.index = cand.index
+            self._mesh = new_mesh
+            self._attrs_np, self._attrs = cand._attrs_np, cand._attrs
+            self._attr_names = cand._attr_names
+            self._col_means = cand._col_means
+            self.planner = cand.planner
+            self._router_centers = cand._router_centers
+            self._sharded = cand._sharded
+            self._sharded_delta = cand._sharded_delta
+            self._delta_v, self._delta_f = cand._delta_v, cand._delta_f
+            self._delta = cand._delta
+            self._grouped_payload = None
+            self.health = ShardHealth(self._sharded.n_shards,
+                                      straggler_z=self.cfg.straggler_z)
+            self._alive_sig = None
+            self._cache.clear()
+            self.stats.heals += 1
+        return True
 
     # -- checkpoint lifecycle ---------------------------------------------
     def save(self, ckpt_dir: str, step: int = 0, keep: int = 3) -> str:
         """Checkpoint the serving state in the JAX package's format: the
         index (``fcvi.index_state``: the transform, the backend's source
-        arrays, the re-rank originals; derived slabs are rebuilt on
-        restore), the PENDING delta rows and the raw attribute table, with
-        the configs and the serving knobs (meshless: contiguous placement,
-        dense routing, and the attribute names) in the manifest's metadata.
-        Returns the step directory."""
+        arrays, the re-rank originals; derived slabs and shards are rebuilt
+        on restore), the PENDING delta rows and the raw attribute table,
+        with the configs and the serving knobs (placement, routing, the
+        attribute names) in the manifest's metadata. A cluster-placed flat
+        engine also saves its router's psi-cluster centers
+        (``router|centers``, (ncl, d) fp32), so a restore onto any mesh, in
+        either package, routes from the same clusters instead of running
+        k-means again. Returns the step directory."""
         d = self.index.transform.vec_norm.mean.shape[-1]
         m = self.index.transform.filt_norm.mean.shape[-1]
         dv = (np.concatenate(self._delta_v) if self._delta_v
@@ -860,10 +1209,15 @@ class FCVIEngine:
               else np.zeros((0, m), np.float32))
         tree = {"index": fcvi.index_state(self.index),
                 "delta_v": dv, "delta_f": df, "attrs": self._attrs_np}
+        if (self._sharded is not None
+                and getattr(self._sharded.slab, "router_centers", None)
+                is not None):
+            tree["router"] = {"centers": self._sharded.slab.router_centers}
         metadata = {
             "fcvi_config": dataclasses.asdict(self.index.config),
             "engine_config": dataclasses.asdict(self.cfg),
-            "serving": {"placement": "contiguous", "routing": "dense",
+            "serving": {"placement": self._placement,
+                        "routing": self._routing,
                         "attr_names": list(self._attr_names)},
         }
         return ckpt_mod.save(ckpt_dir, step, tree, metadata=metadata,
@@ -872,20 +1226,21 @@ class FCVIEngine:
     @classmethod
     def restore(cls, ckpt_dir: str, *, step: Optional[int] = None,
                 config: Optional[EngineConfig] = None,
-                device: DeviceLike = "cuda", mesh=None,
+                device: DeviceLike = "cuda", mesh=None, rules=None,
                 routing: Optional[str] = None,
                 placement: Optional[str] = None) -> "FCVIEngine":
-        """An engine from a checkpoint of either package, on ``device``.
+        """An engine from a checkpoint of either package, on ``device``,
+        meshless or onto ANY mesh (the elastic restart: build on 8 shards,
+        restore and serve on 2).
 
         The index comes back through ``fcvi.index_from_state`` with no
         re-training; the attribute table and its names (and so the planner),
         the pending delta rows and ``stats.inserts`` are put back.
-        ``config`` overrides the saved ``EngineConfig``. Meshless, the saved
-        ``routing`` and ``placement`` have no effect (routing is forced
-        dense, as in the reference) and a saved ``router|centers`` is
-        ignored; ``mesh=`` is ROADMAP A12 and raises."""
-        _refuse_mesh(mesh)
-        del routing, placement   # meshless: dense routing, no placement
+        ``config`` overrides the saved ``EngineConfig``; ``placement`` and
+        ``routing`` default to the saved ones, and a saved
+        ``router|centers`` pins the flat router. Meshless, routing is
+        forced dense (routing needs shards to skip), as in the
+        reference."""
         dev = resolve_device(device)
         tree, _, metadata = ckpt_mod.load(ckpt_dir, step=step)
         fcfg = _config_from(FCVIConfig, metadata["fcvi_config"],
@@ -893,9 +1248,21 @@ class FCVIEngine:
         index = fcvi.index_from_state(fcfg, tree["index"], device=dev)
         ecfg = (config if config is not None
                 else _config_from(EngineConfig, metadata["engine_config"]))
-        eng = cls(index, ecfg, device=dev,
+        serving = metadata.get("serving", {})
+        if placement is None:
+            placement = serving.get("placement", "contiguous")
+        if routing is None:
+            routing = serving.get("routing", "dense")
+        if mesh is None:
+            routing = "dense"
+        centers = None
+        if "router" in tree and mesh is not None:
+            centers = tree["router"]["centers"].to(torch.float32)
+        eng = cls(index, ecfg, device=dev, mesh=mesh, rules=rules,
+                  placement=placement, routing=routing,
+                  router_centers=centers,
                   attributes=tree["attrs"].numpy(),
-                  attr_names=metadata.get("serving", {}).get("attr_names"))
+                  attr_names=serving.get("attr_names"))
         if tree["delta_v"].shape[0]:
             eng._delta_v = [tree["delta_v"].numpy().astype(np.float32)]
             eng._delta_f = [tree["delta_f"].numpy().astype(np.float32)]
@@ -918,9 +1285,3 @@ def _config_from(cls, saved: dict, ignore=()):
                          f"{unknown}")
     return cls(**{k: v for k, v in saved.items() if k in names})
 
-
-def _refuse_mesh(mesh, routing: str = "dense"):
-    if mesh is not None or routing != "dense":
-        raise NotImplementedError(
-            "mesh-sharded and routed serving are ROADMAP A12; the port "
-            "serves meshless")

@@ -17,10 +17,9 @@ the planner is a pure performance decision):
     rows — exact for ANY predicate, the safe default at mid selectivity.
   * ``routed`` — pruning: only the inverted lists of a meshless IVF index
     that hold at least one eligible row are scanned, with the in-scan mask
-    finishing the job. Right for SELECTIVE predicates, where most of the
-    corpus never needs to be touched. (The reference also routes across the
-    shards of a mesh; the port's ``sharded`` flag is there for that, ROADMAP
-    A12, and the meshless engine passes False.)
+    finishing the job; on a sharded engine (``sharded=True``), only the
+    shards holding an eligible row scan. Right for SELECTIVE predicates,
+    where most of the corpus never needs to be touched.
 
 The choice comes from cheap per-attribute equi-width histograms maintained
 on the index (plus exact value counts for low-cardinality categorical

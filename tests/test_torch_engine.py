@@ -191,15 +191,20 @@ def test_later_slices_refuse_by_roadmap_item(data, tmp_path):
     mine.save(str(tmp_path))
     assert engine.FCVIEngine.restore(str(tmp_path),
                                      device="cpu").index.size == 2500
-    for call, item in [(lambda: mine.heal("ckpt"), "A12"),
-                       (lambda: engine.FCVIEngine(mine.index, mesh=object(),
-                                                  device="cpu"), "A12"),
-                       (lambda: engine.FCVIEngine(mine.index, device="cpu",
-                                                  routing="routed"), "A12"),
-                       (lambda: engine.FCVIEngine.restore(
-                           str(tmp_path), device="cpu", mesh=object()),
-                        "A12")]:
-        with pytest.raises(NotImplementedError, match=item):
+    # sharded serving (A12) is served now: what is not a mesh, routing
+    # without one and heal() on a meshless engine are refused as the
+    # reference refuses them
+    for call, err, item in [
+            (lambda: mine.heal("ckpt"), RuntimeError, "sharded engine"),
+            (lambda: engine.FCVIEngine(mine.index, mesh=object(),
+                                       device="cpu"), TypeError, "ShardMesh"),
+            (lambda: engine.FCVIEngine(mine.index, device="cpu",
+                                       routing="routed"), ValueError,
+             "requires a device mesh"),
+            (lambda: engine.FCVIEngine.restore(
+                str(tmp_path), device="cpu", mesh=object()), TypeError,
+             "ShardMesh")]:
+        with pytest.raises(err, match=item):
             call()
     with pytest.raises(TypeError):
         mine.search(q)

@@ -196,7 +196,7 @@ def test_configs_cross_both_ways():
 def test_restore_refuses_a_mesh_and_an_unknown_field(tmp_path, data):
     mine = _port_engine(data, "flat")
     mine.save(str(tmp_path), step=0)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="ShardMesh"):
         engine.FCVIEngine.restore(str(tmp_path), device="cpu", mesh=object())
     # routing is forced dense meshless, as the reference does
     eng = engine.FCVIEngine.restore(str(tmp_path), device="cpu",

@@ -1,4 +1,4 @@
-"""The port's three examples on the CPU against the JAX examples they follow.
+"""The port's four examples on the CPU against the JAX examples they follow.
 
 Each ``examples/*_torch.py`` runs its ``main`` with ``--device cpu`` and
 returns the numbers it prints; the JAX example runs in the same process
@@ -7,8 +7,10 @@ one result slot in 100 (near-ties may order differently in the two
 frameworks), and they must hold what the examples are there to show:
 FCVI's recall@10 against the combined-score oracle >= 0.95, FCVI above
 post-filtering under the selective predicate, every verified multi-probe
-result inside the range and recall not falling as r grows, and recall
->= 0.85 under every distribution shift with the index not rebuilt.
+result inside the range and recall not falling as r grows, recall
+>= 0.85 under every distribution shift with the index not rebuilt, and
+the predicate example's plans, selectivities and ids (its sharded part on
+8 shards of ``make_host_mesh``).
 """
 import importlib.util
 import pathlib
@@ -75,12 +77,35 @@ def test_distribution_shift(capsys):
         assert out[key] >= 0.85
 
 
+def test_filtered_predicates(capsys):
+    """The plans, the estimated selectivities, query 0's top ids and the
+    plan counters equal the JAX example's printed ones (the predicate
+    results are exact, so the ids are the same), and the port's 8-shard
+    engines answer as its meshless ones (asserted inside)."""
+    _load("filtered_predicates").main()
+    lines = capsys.readouterr().out.splitlines()
+    out = _load("filtered_predicates_torch").main(["--device", "cpu"])
+    mine = capsys.readouterr().out.splitlines()
+    assert len(mine) == len(lines) == 8
+    for j, line in enumerate(lines[:3]):
+        sel = float(re.search(r"est_sel=(\d+\.\d+)", line).group(1))
+        assert round(out["est_sel"][j], 3) == pytest.approx(sel, abs=1e-9)
+        assert out["plans"][j] == re.search(r"plan=(\w+)", line).group(1)
+        ids = [int(x) for x in re.search(r"ids=\[([^]]*)\]", line)
+               .group(1).split(",")]
+        assert out["top"][j] == ids
+    assert list(out["stats"]) == [int(x) for x in
+                                  re.findall(r"\d+", lines[-1])]
+    assert mine[:6] == lines[:6] and mine[-1] == lines[-1]
+    assert "sharded (8 shards" in mine[6]
+
+
 def test_examples_default_to_the_card():
     import torch
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: nothing to refuse")
     for name in ("quickstart_torch", "multiprobe_range_filters_torch",
-                 "distribution_shift_torch"):
+                 "distribution_shift_torch", "filtered_predicates_torch"):
         with pytest.raises(RuntimeError, match="cuda"):
             _load(name).main([])

@@ -2129,3 +2129,169 @@ def test_bf16_engine_checkpoint_round_trip_on_card(cuda, tmp_path):
     pred = BoxPredicate(low=low, high=high)
     a, b = eng.search_predicate(q, pred), again.search_predicate(q, pred)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+# -- sharded serving (8 shards on one card) and +inf norms -------------------
+
+_DEAD_FRACTIONS = {"eighth": 8, "seven_eighths": 8 / 7}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("dead", sorted(_DEAD_FRACTIONS))
+@pytest.mark.parametrize("path", ["buffered", "select", "rows", "masked"])
+def test_inf_norms_never_compete_on_every_flat_path(cuda, dtype, dead, path):
+    """A +inf squared norm (the surviving reference's dead row) scores -inf
+    on every flat path: the tensor-core scan with its sample threshold
+    (buffered, B3's rows), the selection path's histogram, and the masked
+    scan; no dead row is returned while live rows remain, and the results
+    equal the plain version's."""
+    n, b, kk = 20000, 16, 328
+    x, _, q, pv, pf = (tensor(a, cuda) for a in scan_inputs(n, b))
+    from repro_torch.index import flat as flat_mod
+    fl = flat_mod.build(x, storage_dtype=fcvi.STORAGE_DTYPES[dtype])
+    step = _DEAD_FRACTIONS[dead]
+    alive = (torch.arange(n, device=cuda) % 8) < (8 - 8 / step)
+    alive[:1000] = False                      # and one contiguous block
+    sq = torch.where(alive, fl.sq_norms, float("inf"))
+    mask = None
+    if path == "masked":
+        mask = (torch.arange(n, device=cuda) % 3 != 0).to(torch.float32)
+    if path == "rows":
+        vals, ids, _, rv, _ = ops.score_topk_rows(fl.vectors, sq, pv, pf, q,
+                                                  kk, scales=fl.scales)
+        assert torch.equal(rv, pv[ids.long()])
+    else:
+        vals, ids = scan.score_topk(fl.vectors, sq, q, kk, fl.scales, mask,
+                                    _select=(path == "select"))
+    want_v, want_i = ref.ref_score_topk(fl.vectors, sq, q, kk, fl.scales,
+                                        mask)
+    assert torch.isfinite(vals).all()
+    assert alive[ids.long()].all()
+    assert_topk_match(want_v.cpu(), want_i.cpu(), vals.cpu(), ids.cpu(),
+                      rtol=L2_RTOL, atol=L2_ATOL)
+
+
+def _shard_data(cuda, n=20000, d=64):
+    corpus = make_corpus(CorpusSpec(n=n, d=d, n_categories=5, n_numeric=3,
+                                    seed=21))
+    q, fq = sample_queries(corpus, 96, seed=22)
+    rng = np.random.default_rng(23)
+    rows = rng.integers(0, n, 150)
+    new_v = (corpus.vectors[rows]
+             + 0.05 * rng.normal(size=(150, d))).astype(np.float32)
+    return corpus, q, fq, new_v, corpus.filters[rows]
+
+
+def _card_mesh(cuda, n=8):
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh((n, 1), ("data", "model"), device=cuda)
+
+
+@pytest.mark.parametrize("gather_free", [True, False])
+@pytest.mark.parametrize("backend,placement,storage", [
+    ("flat", "contiguous", "float32"), ("flat", "cluster", "bfloat16"),
+    ("flat", "cluster", "int8"), ("ivf", "balanced", "float32"),
+    ("ivf", "affinity", "int8"), ("pq", "contiguous", "float32")])
+def test_eight_shards_on_one_card_bit_equal_to_meshless(cuda, backend,
+                                                        placement, storage,
+                                                        gather_free):
+    """8 shards on cuda:0: each launches its own scan (the launch counts
+    move by 8 a batch), the results equal the meshless engine's bit for
+    bit, with escalations and a delta tier the shards scan; routed (flat
+    cluster, IVF) equals them too."""
+    corpus, q, fq, new_v, new_f = _shard_data(cuda)
+    kw = {"flat": {}, "ivf": dict(backend="ivf", nlist=64, nprobe=8),
+          "pq": dict(backend="pq", pq_ksub=64, pq_coarse=8)}[backend]
+    idx = fcvi.build(corpus.vectors, corpus.filters,
+                     fcvi.FCVIConfig(storage_dtype=storage, **kw),
+                     device=cuda)
+    ek = dict(gather_free=gather_free, escalate_margin=0.1)
+    e0 = FCVIEngine(idx, EngineConfig(**ek), device=cuda)
+    e1 = FCVIEngine(idx, EngineConfig(**ek), device=cuda,
+                    mesh=_card_mesh(cuda), placement=placement)
+    want = e0.search(q, fq)
+    _build.reset_launch_counts()
+    got = e1.search(q, fq)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0], want[0])
+    scans = sum(v for name, v in _build.launch_counts().items()
+                if name.startswith(("score_topk", "ivf_score_topk",
+                                    "pq_score_topk")))
+    assert scans >= 8 * 2                 # two batches of 64, 8 shards each
+    for e in (e0, e1):
+        e.insert(new_v, new_f)
+    got = e1.search(q, fq)
+    want = e0.search(q, fq)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0], want[0])
+    if backend != "pq" and (backend == "ivf" or placement == "cluster"):
+        er = FCVIEngine(idx, EngineConfig(**ek), device=cuda,
+                        mesh=_card_mesh(cuda), placement=placement,
+                        routing="routed")
+        er.insert(new_v, new_f)
+        got = er.search(q, fq)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[0], want[0])
+        assert er.stats.routed_batches > 0
+
+
+@pytest.mark.parametrize("backend,placement,routing", [
+    ("flat", "cluster", "routed"), ("flat", "contiguous", "dense"),
+    ("ivf", "balanced", "routed")])
+def test_dead_shards_on_the_card_equal_surviving_reference(
+        cuda, backend, placement, routing, tmp_path):
+    """Shard 3 dead, then 3 and 6: bit-equal to the surviving reference on
+    the card (flat: +inf norms through the scan), coverage never
+    under-flagged; heal back to a meshless restore's bits."""
+    from repro_torch.serve import faultinject as fi
+
+    corpus, q, fq, new_v, new_f = _shard_data(cuda)
+    kw = dict(backend="ivf", nlist=64, nprobe=8) if backend == "ivf" else {}
+    idx = fcvi.build(corpus.vectors, corpus.filters, fcvi.FCVIConfig(**kw),
+                     device=cuda)
+    eng = FCVIEngine(idx, EngineConfig(escalate_margin=0.1), device=cuda,
+                     mesh=_card_mesh(cuda), placement=placement,
+                     routing=routing)
+    eng.insert(new_v, new_f)
+    healthy = eng.search(q, fq)[1]
+    for dead in ([3], [6]):
+        eng.health.mark_dead(dead)
+        got = eng.search(q, fq)
+        want = fi.surviving_reference(eng).search(q, fq)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[0], want[0])
+        mask = fi.surviving_row_mask(eng)
+        n = eng.index.size
+        affected = np.array([(~mask[r[r < n]]).any() for r in healthy])
+        assert not (affected & eng.stats.last_coverage).any()
+    assert eng.heal(str(tmp_path), q, fq) is True
+    assert eng._sharded.n_shards == 6
+    got = eng.search(q, fq)
+    assert eng.stats.last_coverage.all()
+    ref_eng = FCVIEngine.restore(str(tmp_path), device=cuda)
+    want = ref_eng.search(q, fq)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("backend", ["flat", "ivf"])
+def test_predicates_over_shards_on_the_card(cuda, backend):
+    """The mask and routed plans over 8 shards (B2 masked per shard, B5
+    ``mask=`` per shard) equal the meshless engine's bits."""
+    from repro_torch.core.filters import F
+
+    corpus, q, _, _, _ = _shard_data(cuda)
+    kw = dict(backend="ivf", nlist=64, nprobe=8) if backend == "ivf" else {}
+    idx = fcvi.build(corpus.vectors, corpus.filters, fcvi.FCVIConfig(**kw),
+                     device=cuda)
+    e0 = FCVIEngine(idx, EngineConfig(), device=cuda)
+    e1 = FCVIEngine(idx, EngineConfig(), device=cuda, mesh=_card_mesh(cuda),
+                    placement="cluster")
+    for pred in (F.range("f5", 0.1, 0.9),
+                 F.eq("f1", 1.0) & F.range("f6", 0.0, 0.5),
+                 F.eq("f0", 1.0) & F.range("f5", 0.0, 0.03)):
+        want = e0.search(q, filter=pred)
+        for plan in ("mask", "routed"):
+            got = e1.search(q, filter=pred, plan=plan)
+            np.testing.assert_array_equal(got[1], want[1])
+            np.testing.assert_array_equal(got[0], want[0])

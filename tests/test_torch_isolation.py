@@ -56,14 +56,19 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
 
 def test_module_list_covers_every_slice():
     """The import check above walks the package, so each new module is in
-    it; pin the IVF, PQ and storage-ladder slices' modules there."""
+    it; pin the IVF, PQ, storage-ladder, checkpoint and sharded-serving
+    slices' modules there."""
     mods = set(_modules())
     assert {"repro_torch.core.clustering", "repro_torch.index.ivf",
             "repro_torch.index.slab", "repro_torch.kernels.ivf_score",
             "repro_torch.kernels.fused_score_topk", "repro_torch.index.pq",
             "repro_torch.kernels.pq_lut", "repro_torch.index.quant",
             "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
-            "repro_torch.core.baselines"} <= mods
+            "repro_torch.core.baselines", "repro_torch.launch.mesh",
+            "repro_torch.distributed.sharding",
+            "repro_torch.distributed.fault", "repro_torch.index.distributed",
+            "repro_torch.serve.sharded", "repro_torch.serve.health",
+            "repro_torch.serve.faultinject"} <= mods
 
 
 def test_entry_points_default_to_cuda_and_raise_without_a_card():

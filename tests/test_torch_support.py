@@ -135,6 +135,17 @@ def candidate_ties(vals, k, *, rtol=1e-5, atol=1e-4):
     return np.abs(v[:, k - 1] - v[:, k]) <= atol + rtol * np.abs(v[:, k])
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread while a module that imports this runs: its tests
+    make many small tensor ops, and the suite's workers share the cores, so
+    several threads a worker spin against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def cuda():
     """The card for ``gpu``-marked tests; skips where there is none (the
