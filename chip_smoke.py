@@ -178,8 +178,28 @@ Phases, each of which raises (and exits non-zero) on a failure:
    onto the 7 surviving shard positions, probe check, cutover), its
    seconds printed, and 128 more queries bit-equal to a meshless restore
    of that checkpoint at full coverage.
+3j. the LM embedder's serving path: gemma3-1b at its published widths (26
+   layers, d_model 1152, vocab 262144, about 1.0 B parameters) with weights
+   drawn on the card from seed 0 (``repro_torch.models``). (a) 32,768 token
+   documents of 128 tokens, whose leading block encodes one of 6 topics,
+   are embedded in batches of 256 (the mean-pooled fp32 final hidden state;
+   tokens/s and the weights' flops against the bf16 dense peak), the first
+   documents held against the host's plain run of the same weights (cosine
+   >= 0.9999); FCVI is built over the embeddings (d = 1152, m = 8, the
+   serving example's ``FCVIConfig(alpha=2.0, lam=0.5, c=8.0)``) and served
+   as ``examples/serve_filtered_search_torch.py`` serves it: 8 shards of
+   ``make_host_mesh``, cluster placement, routed, 512 timed queries (the
+   docs' own embeddings plus noise, their filters; qps, p50/p99, top-1
+   topic match >= 0.9) bit-equal to a dense sharded engine and to the
+   meshless one, 64 inserts, and a checkpoint round trip with identical
+   results; B1, B3 and B4 must launch. (b) 8 prompts of 1024 tokens are
+   prefilled (the local caches roll past the 512 window) and decoded 32
+   steps; each step's logits lie within 0.15 (the reference test's drift
+   bound) of the teacher-forced forward's at that position (computed only
+   there). Prefill ms and decode ms a step are printed beside the step's
+   bytes bound (the fp32 parameters read once).
 4. a ``kernels`` JSON line with each kernel variant's launches over phases
-   3 to 3i (each must be > 0), errors, times and bound, and the device
+   3 to 3j (each must be > 0), errors, times and bound, and the device
    time (``device_ms``) of B4, B8, B10 and the scan LUT, whose host loops
    sit near the
    host's cost of a launch (null for the others). No serving phase may
@@ -222,7 +242,9 @@ from repro_torch.kernels import ivf_score as ivf_kern  # noqa: E402
 from repro_torch.kernels import pq_lut  # noqa: E402
 from repro_torch.kernels import rescore as rescore_kern  # noqa: E402
 from repro_torch.kernels import topk_select  # noqa: E402
-from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh, make_mesh  # noqa: E402
+from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.serve import engine as engine_mod  # noqa: E402
 from repro_torch.serve import faultinject  # noqa: E402
 
@@ -3055,6 +3077,280 @@ def phase_sharded(dev, power: str, inp: Inputs, ix: dict):
     return counts
 
 
+# -- phase 3j: the LM embedder feeding FCVI; prefill and decode --------------
+
+LM_ARCH = "gemma3-1b"        # at its published widths, weights from seed 0
+LM_DOCS, LM_SEQ, LM_BATCH = 32768, 128, 256
+LM_TOPICS = 6
+LM_K = 5                     # the serving example's EngineConfig(k=5)
+LM_TIMED = 512
+LM_PROMPTS, LM_PROMPT, LM_STEPS = 8, 1024, 32
+LM_DRIFT = 0.15              # tests/test_models.py's decode drift bound
+LM_COS = 0.9999              # the embeddings' cosine to the plain path
+LM_CHECK_DOCS, LM_CHECK_SEQ = 2, 32   # the small input run on the host too
+
+
+def lm_config():
+    return get_config(LM_ARCH)
+
+
+def lm_corpus(vocab: int):
+    """Token documents whose leading block of 8 encodes the topic (the
+    serving example's), their filters (topic one-hot + 2 recency columns,
+    m = 8) and the generator the queries continue from."""
+    r = np.random.default_rng(0)
+    topics = r.integers(0, LM_TOPICS, LM_DOCS)
+    tokens = r.integers(0, vocab, (LM_DOCS, LM_SEQ)).astype(np.int32)
+    tokens[:, :8] = (topics[:, None] * 17 + np.arange(8)) % vocab
+    onehot = np.eye(LM_TOPICS, dtype=np.float32)[topics]
+    recency = r.uniform(0, 1, (LM_DOCS, 2)).astype(np.float32)
+    return topics, tokens, np.concatenate([onehot, recency], axis=1), r
+
+
+def lm_embed(model, tokens, power: str):
+    """(a) the corpus embedded on the card, timed (a batch's warm-up apart),
+    with its weights' flops against the bf16 tensor cores' peak; the first
+    documents' embeddings held against the host's plain run of the same
+    weights."""
+    cfg = model.cfg
+    lm.pooled_embedding(model, tokens[:LM_BATCH], LM_BATCH)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    embs = lm.pooled_embedding(model, tokens, LM_BATCH)
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t0
+    check(tuple(embs.shape) == (LM_DOCS, cfg.d_model)
+          and bool(torch.isfinite(embs).all()),
+          f"3j: embeddings are not finite ({LM_DOCS}, {cfg.d_model})")
+    n_tok = LM_DOCS * LM_SEQ
+    dense = sum(p.numel() for p in model.parameters()) \
+        - model.embed.embedding.numel()
+    flops = 2.0 * dense * n_tok
+    # the attention products, fp32, over each chunk's whole span (masked
+    # positions are computed too): QK and PV, 2 flops a multiply-add
+    attn_flops = 4.0 * n_tok * LM_SEQ * cfg.n_heads * cfg.head_dim \
+        * cfg.n_layers
+    print(f"[3j] embedded {LM_DOCS} docs x {LM_SEQ} tokens in batches of "
+          f"{LM_BATCH}: {embed_s:.2f} s, {n_tok / embed_s:,.0f} tokens/s; "
+          f"the weights' multiply-adds {flops / 1e15:.2f} PFLOP (2 x "
+          f"{dense / 1e9:.3f} B non-embedding parameters a token) at "
+          f"{flops / embed_s / 1e12:.1f} TFLOP/s = "
+          f"{flops / embed_s / PEAK_BF16_S:.1%} of the bf16 dense peak; "
+          f"the fp32 attention products {attn_flops / 1e12:.1f} TFLOP "
+          f"besides; card {power}")
+    one = tokens[:LM_BATCH]
+    dev_ms, split, launches = device_time(
+        lambda: lm.pooled_embedding(model, one, LM_BATCH), 2)
+    wall_ms = 1e3 * embed_s * LM_BATCH / LM_DOCS
+    print(f"[3j] a batch of {LM_BATCH} docs: wall {wall_ms:.1f} ms, device "
+          f"{dev_ms:.1f} ms (idle {1 - dev_ms / wall_ms:.3f}), {launches} "
+          f"launches; {top_kernels(split)}")
+    t0 = time.perf_counter()
+    small = tokens[:LM_CHECK_DOCS, :LM_CHECK_SEQ]
+    host = copy_model(model, "cpu")
+    want = lm.pooled_embedding(host, small)
+    got = lm.pooled_embedding(model, small).cpu()
+    del host
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+    check(bool((cos >= LM_COS).all()), f"3j: embeddings on the card vs the "
+          f"plain host run: cosine {cos.min().item():.7f} < {LM_COS}")
+    print(f"[3j] {LM_CHECK_DOCS} docs x {LM_CHECK_SEQ} tokens on the card "
+          f"vs the plain path on the host, the same weights: cosine "
+          f"{cos.min().item():.7f} (>= {LM_COS}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    return embs
+
+
+def top_kernels(split: dict, n: int = 6) -> str:
+    """The ``n`` kernels with the most device time, and the shares of the
+    GEMMs (cuBLAS's and CUTLASS's kernels by name: gemm, nvjet, cutlass)
+    and of PyTorch's elementwise kernels."""
+    total = sum(split.values())
+
+    def share(*tags):
+        return sum(v for k, v in split.items()
+                   if any(t in k.lower() for t in tags)) / total
+
+    top = sorted(split.items(), key=lambda kv: -kv[1])[:n]
+    return (f"of the device time GEMMs {share('gemm', 'nvjet', 'cutlass'):.3f}"
+            f", elementwise {share('elementwise'):.3f}; top kernels "
+            + "; ".join(f"{k} {v:.2f} ms" for k, v in top))
+
+
+def copy_model(model, device):
+    """The same weights in a model on ``device``."""
+    out = lm.Model(model.cfg, torch.device(device))
+    out.load_state_dict({k: v.to(device) for k, v in
+                         model.state_dict().items()})
+    return out
+
+
+def lm_serve(embs, topics, filters, r, dev, power: str) -> dict:
+    """(a) FCVI over the embeddings (d = d_model, m = 8), served as the
+    example serves it: 8 shards, cluster placement, routed; the timed
+    queries bit-equal to dense and to the meshless engine; inserts; a
+    checkpoint round trip. Returns the launch counts of the routed engine's
+    run (build, serving, inserts, restore; the references uncounted)."""
+    n, d = embs.shape
+    q_ids = r.integers(0, n, LM_TIMED + B)
+    embs_np = embs.cpu().numpy()
+    queries = (embs_np[q_ids] + 0.05 * r.normal(size=(len(q_ids), d))
+               ).astype(np.float32)
+    fq = filters[q_ids]
+    warm = (queries[LM_TIMED:], fq[LM_TIMED:])
+    q, f = queries[:LM_TIMED], fq[:LM_TIMED]
+    ecfg = engine_mod.EngineConfig(k=LM_K, batch_size=32)
+    mesh = make_host_mesh(dev, n_shards=SHARDS)
+
+    def timed(eng):
+        eng.search(*warm)
+        lat, served = [], []
+        for s in range(0, LM_TIMED, B):
+            t0 = time.perf_counter()
+            served.append(eng.search(q[s:s + B], f[s:s + B]))
+            lat.append(time.perf_counter() - t0)
+        return (np.concatenate([a for a, _ in served]),
+                np.concatenate([b for _, b in served]), lat)
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    index = fcvi.build(embs, torch.tensor(filters, device=dev),
+                       fcvi.FCVIConfig(alpha=2.0, lam=0.5, c=8.0), device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    eng = engine_mod.FCVIEngine(index, ecfg, device=dev, mesh=mesh,
+                                placement="cluster", routing="routed")
+    rs, ri, rlat = timed(eng)
+    check(np.isfinite(rs).all() and ((ri >= 0) & (ri < n)).all(),
+          "3j: routed results out of range")
+    match = float((topics[ri[:, 0]] == topics[q_ids[:LM_TIMED]]).mean())
+    st = eng.stats
+    eng.insert(embs_np[:64] + 0.01, filters[:64])
+    eng.search(q[:16], f[:16])
+    check(eng.delta_size() == 64, "3j: the inserts are not pending")
+    with tempfile.TemporaryDirectory(prefix="fcvi_lm_") as tmp:
+        eng.save(tmp, step=1)
+        restored = engine_mod.FCVIEngine.restore(tmp, device=dev, mesh=mesh)
+        eng._cache.clear()
+        s0, i0 = eng.search(q[:B], f[:B])
+        s1, i1 = restored.search(q[:B], f[:B])
+        check(np.array_equal(s0, s1) and np.array_equal(i0, i1),
+              "3j: the restored engine's results differ")
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    for name in ("fused_transform", "score_topk_rows", "rescore"):
+        check(counts.get(name, 0) > 0, f"3j: {name} was not launched")
+    print(f"[3j] FCVI flat over {n} embeddings (d={d}, m={filters.shape[1]}) "
+          f"built in {build_s:.2f} s; {SHARDS} shards, cluster placement, "
+          f"routed: {lat_str(rlat)}; top-1 topic match {match:.4f}; "
+          f"shard_skip_rate {st.shard_skip_rate:.4f}, router fallbacks "
+          f"{st.router_fallbacks}, escalations {st.escalations}; 64 inserts "
+          f"pending, checkpoint round trip identical; card {power}")
+    for tag, ref_eng in (
+            ("dense", engine_mod.FCVIEngine(index, ecfg, device=dev,
+                                            mesh=mesh, placement="cluster",
+                                            routing="dense")),
+            ("meshless", engine_mod.FCVIEngine(index, ecfg, device=dev))):
+        ws, wi, wlat = timed(ref_eng)
+        check(np.array_equal(ws, rs) and np.array_equal(wi, ri),
+              f"3j: routed results differ from the {tag} engine's")
+        print(f"[3j] {tag} engine: {lat_str(wlat)}; the {LM_TIMED} timed "
+              f"queries bit-equal to routed")
+    print(f"[3j] counts (build, routed serving, inserts, restore) "
+          f"{json.dumps(counts)}")
+    check(match >= 0.9, f"3j: top-1 topic match {match} below 0.9")
+    return counts
+
+
+def lm_decode(model, power: str) -> None:
+    """(b) prefill of 8 prompts of 1024 tokens (the local caches roll past
+    the 512 window), then 32 decode steps; each step's logits held to the
+    teacher-forced forward's at that position (only there: the full
+    logits would be 8.9 GB)."""
+    cfg = model.cfg
+    r = np.random.default_rng(5)
+    toks = r.integers(0, cfg.vocab_size,
+                      (LM_PROMPTS, LM_PROMPT + LM_STEPS)).astype(np.int32)
+    max_len = LM_PROMPT + LM_STEPS
+    prompt = {"tokens": toks[:, :LM_PROMPT]}
+    lm.prefill(model, prompt, max_len)                       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lp, cache0 = lm.prefill(model, prompt, max_len)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    local = cache0["self"][cfg.layer_kinds().index("local")]
+    size = local["k"].shape[1]
+    sp = local["slot_pos"].cpu().numpy()
+    check(size < LM_PROMPT and int(sp.min()) == LM_PROMPT - size
+          and np.array_equal(sp % size, np.arange(size))
+          and int(local["pos"]) == LM_PROMPT,
+          f"3j: the local cache did not roll to the last {size} positions")
+    run_ms = []
+    for run in range(2):          # the first run is the warm-up
+        cache, steps = cache0, []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(LM_PROMPT, LM_PROMPT + LM_STEPS):
+            lg, cache = lm.decode_step(model, toks[:, t:t + 1], cache)
+            steps.append(lg[:, 0])
+        torch.cuda.synchronize()
+        run_ms.append(1e3 * (time.perf_counter() - t0) / LM_STEPS)
+    dev_ms, split, launches = device_time(
+        lambda: lm.decode_step(model, toks[:, LM_PROMPT:LM_PROMPT + 1],
+                               cache0), 4)
+    print(f"[3j] a decode step: wall {run_ms[1]:.2f} ms, device "
+          f"{dev_ms:.2f} ms (idle {1 - dev_ms / run_ms[1]:.3f}), {launches} "
+          f"launches; {top_kernels(split)}")
+    h = lm.forward_hidden(model, {"tokens": toks})
+    # positions LM_PROMPT - 1 .. max_len - 1: the prefill's, then each step's
+    full = lm._logits(model, h[:, LM_PROMPT - 1:])
+    got = torch.stack([lp[:, 0]] + steps, dim=1)
+    errs = (got - full).abs().amax(dim=(0, 2))
+    drift = errs.max().item()
+    check(bool(torch.isfinite(got).all()), "3j: decode logits not finite")
+    check(drift < LM_DRIFT, f"3j: decode drift {drift} >= {LM_DRIFT}")
+    pbytes = 4.0 * sum(p.numel() for p in model.parameters())
+    bound = 1e3 * pbytes / PEAK_BYTES_S
+    prefill_flops = 2.0 * (pbytes / 4 - model.embed.embedding.numel()) \
+        * LM_PROMPTS * LM_PROMPT
+    print(f"[3j] prefill {LM_PROMPTS} x {LM_PROMPT} tokens: {prefill_ms:.2f} "
+          f"ms ({prefill_flops / prefill_ms / 1e9:.1f} TFLOP/s of the "
+          f"weights' multiply-adds); decode {run_ms[1]:.3f} ms a step (the "
+          f"warm-up run {run_ms[0]:.3f}) beside its bytes bound "
+          f"{bound:.3f} ms (the fp32 parameters, {pbytes / 1e9:.2f} GB, "
+          f"read once at {PEAK_BYTES_S / 1e12:.2f} TB/s); decode drift "
+          f"against the teacher-forced logits, max over {len(errs)} "
+          f"positions {drift:.4f} (< {LM_DRIFT}), by position "
+          f"{[round(e, 4) for e in errs.tolist()]}; card {power}")
+
+
+def phase_lm(dev, power: str) -> dict:
+    """Phase 3j: gemma3-1b at its published widths with weights from a
+    seed: (a) embeds the corpus and feeds FCVI's sharded, routed serving,
+    (b) prefill and decode against the teacher-forced forward. Returns (a)'s
+    launch counts."""
+    t_phase = time.perf_counter()
+    cfg = lm_config()
+    t0 = time.perf_counter()
+    model = lm.init_params(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    n = lm.param_count(model)
+    print(f"[3j] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV of {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n:,} parameters "
+          f"({4 * n / 1e9:.2f} GB fp32), drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    topics, tokens, filters, r = lm_corpus(cfg.vocab_size)
+    embs = lm_embed(model, tokens, power)
+    counts = lm_serve(embs, topics, filters, r, dev, power)
+    lm_decode(model, power)
+    del model, embs
+    torch.cuda.empty_cache()
+    print(f"[3j] phase in {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3092,10 +3388,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     sh_counts = phase_sharded(dev, power, inp, {
         "flat": flat_ix, "flat-bf16": bf16_ix, "ivf": ivf_ix, "pq": pq_ix})
+    del flat_ix, bf16_ix, ivf_ix, pq_ix
+    torch.cuda.empty_cache()
+    lm_counts = phase_lm(dev, power)
     for tag, r, c in (("3b", ivf_res, ivf_counts), ("3c", pq_res, pq_counts),
                       ("3d", sf_res, sf_counts), ("3e", si_res, si_counts),
                       ("3f", pf_res, pf_counts), ("3g", sg_res, sg_counts),
-                      ("3h", {}, lc_counts), ("3i", {}, sh_counts)):
+                      ("3h", {}, lc_counts), ("3i", {}, sh_counts),
+                      ("3j", {}, lm_counts)):
         phases[tag] = dict(c)
         res.update(r)
         for name, n in c.items():
@@ -3109,7 +3409,7 @@ def main() -> int:
     for name, (source, replaces) in SOURCES.items():
         launches = counts.get(name, 0)
         check(launches > 0, f"kernel {name} was not launched on the main "
-              "paths (phases 3 and 3b to 3i)")
+              "paths (phases 3 and 3b to 3j)")
         r = res[name]
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches,

@@ -1,0 +1,315 @@
+"""Attention: GQA + RoPE + sliding window + softcap + KV caches, flash-style.
+Mirrors ``repro.models.attention`` for the ``attn`` and ``local`` blocks.
+
+No (S x S) score matrix is held: prefill and the full forward run the
+reference's two-level chunked online softmax (query chunks outside, KV
+chunks inside), and sliding-window layers slice only the (window +
+q_chunk) span of KV each query chunk can see. The chunking is kept as the
+reference has it: ``p = exp(s - m_new)`` is rounded to bf16 against each
+chunk's running max before the PV product, which a one-shot softmax (or
+``scaled_dot_product_attention``) would round differently.
+
+Decode attends one position over the whole cache with a single softmax,
+and its PV product has a bf16 result, as the reference's.
+
+Plain PyTorch: the reference computes attention in ``jnp`` outside any
+Pallas kernel. The sequence-sharded core of the reference (``shard_map``
+over an ``attn_core_seq_shard`` axis) has no counterpart on one card
+(ROADMAP A13f); cross attention waits for the encoder-decoder (A13d).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import Tensor, nn
+
+from repro_torch.models.layers import (COMPUTE_DTYPE, _param, apply_rope,
+                                       bf16, normal_, softcap)
+
+NEG = -1e30  # mask value (no nan from -inf - -inf)
+
+
+class Attention(nn.Module):
+    """Projections: wq (d, H, dh), wk / wv (d, KV, dh), wo (H, dh, d). GQA
+    groups the query heads as (KV, g): head h = kv * g + j."""
+
+    def __init__(self, d: int, n_heads: int, n_kv: int, head_dim: int,
+                 device=None):
+        super().__init__()
+        self.wq = _param((d, n_heads, head_dim), device)
+        self.wk = _param((d, n_kv, head_dim), device)
+        self.wv = _param((d, n_kv, head_dim), device)
+        self.wo = _param((n_heads, head_dim, d), device)
+
+    def reset_parameters(self, gen=None) -> None:
+        d, h, dh = self.wq.shape
+        for w in (self.wq, self.wk, self.wv):
+            normal_(w, 1.0 / math.sqrt(d), gen)
+        normal_(self.wo, 1.0 / math.sqrt(h * dh), gen)
+
+
+def _proj(xc: Tensor, w: Tensor) -> Tensor:
+    """einsum("bsd,dhk->bshk") in bf16."""
+    d, h, k = w.shape
+    return (xc @ bf16(w).reshape(d, h * k)).unflatten(-1, (h, k))
+
+
+def _qkv(p: Attention, x: Tensor):
+    xc = bf16(x)
+    return _proj(xc, p.wq), _proj(xc, p.wk), _proj(xc, p.wv)
+
+
+def _out(p: Attention, o: Tensor) -> Tensor:
+    """einsum("bshk,hkd->bsd") in bf16."""
+    h, k, d = p.wo.shape
+    return bf16(o).flatten(-2) @ bf16(p.wo).reshape(h * k, d)
+
+
+# ---------------------------------------------------------------------------
+# Chunked online-softmax core
+# ---------------------------------------------------------------------------
+
+def _chunk_scores(q, ks, scale, cap):
+    """q: (b, qc, KV, g, dh); ks: (b, kc, KV, dh) -> (b, KV, g, qc, kc)
+    fp32."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", bf16(q).float(), bf16(ks).float())
+    return softcap(s * scale, cap)
+
+
+def _online_block(q, k, v, q_pos, kv_pos, *, scale, cap, causal, window,
+                  kv_chunk):
+    """Attend a q chunk over the whole given k/v, one KV chunk at a time.
+
+    q: (b, qc, KV, g, dh); k, v: (b, skv, KV, dh); q_pos: (qc,) absolute;
+    kv_pos: (skv,) absolute (-1 = invalid slot). Returns (b, qc, KV, g, dh)
+    fp32."""
+    b, qc, KV, g, dh = q.shape
+    m = torch.full((b, KV, g, qc), NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, KV, g, qc), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, KV, g, qc, dh), dtype=torch.float32,
+                      device=q.device)
+    for lo in range(0, k.shape[1], kv_chunk):
+        ks, vs = k[:, lo:lo + kv_chunk], v[:, lo:lo + kv_chunk]
+        kp = kv_pos[lo:lo + kv_chunk]
+        s = _chunk_scores(q, ks, scale, cap)             # (b, KV, g, qc, kc)
+        ok = kp[None, :] >= 0
+        if causal:
+            ok = ok & (q_pos[:, None] >= kp[None, :])
+        if window > 0:
+            ok = ok & (q_pos[:, None] - kp[None, :] < window)
+        s = torch.where(ok, s, NEG)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + torch.sum(p, dim=-1)
+        upd = torch.einsum("bhgqk,bkhd->bhgqd", bf16(p).float(),
+                           bf16(vs).float())
+        acc = acc * alpha[..., None] + upd
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4)                    # (b, qc, KV, g, dh)
+
+
+def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
+                      q_offset: int = 0, scale: Optional[float] = None,
+                      cap: Optional[float] = None, q_chunk: int = 512,
+                      kv_chunk: int = 512,
+                      banded_causal: bool = False) -> Tensor:
+    """q: (b, sq, H, dh); k, v: (b, skv, KV, dh). Returns (b, sq, H, dh)
+    bf16.
+
+    ``window`` > 0 (with ``causal``) restricts attention to the last
+    ``window`` positions and takes the banded path: each query chunk sees
+    a span of ``ceil((window + q_chunk) / kv_chunk) * kv_chunk`` KV
+    positions with a clipped start. ``banded_causal`` truncates each query
+    chunk's KV at its causal limit."""
+    b, sq, H, dh = q.shape
+    KV = k.shape[2]
+    g = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    q = q.reshape(b, sq, KV, g, dh)
+
+    q_chunk = min(q_chunk, sq)
+    kv_chunk = min(kv_chunk, k.shape[1])
+    # pad q/kv to chunk multiples (padded KV slots carry kv_pos = -1)
+    sq_orig, skv_orig = sq, k.shape[1]
+    q_pad = (-sq) % q_chunk
+    kv_pad = (-skv_orig) % kv_chunk
+    if q_pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, 0, 0, q_pad))
+        sq += q_pad
+    kv_pos = torch.arange(skv_orig, dtype=torch.int32, device=q.device)
+    if kv_pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, kv_pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, kv_pad))
+        kv_pos = torch.cat([kv_pos, torch.full((kv_pad,), -1,
+                                               dtype=torch.int32,
+                                               device=q.device)])
+    skv = k.shape[1]
+    kw = dict(scale=scale, cap=cap, kv_chunk=kv_chunk)
+    outs = []
+    for i in range(sq // q_chunk):
+        qs = q[:, i * q_chunk:(i + 1) * q_chunk]
+        q0 = q_offset + i * q_chunk
+        q_pos = q0 + torch.arange(q_chunk, dtype=torch.int32,
+                                  device=q.device)
+        if window > 0 and causal:
+            # banded: each q chunk sees a fixed (window + q_chunk) KV span
+            span = min(math.ceil((window + q_chunk) / kv_chunk) * kv_chunk,
+                       skv)
+            start = min(max(q0 + q_chunk - span, 0), skv - span)
+            kp = start + torch.arange(span, dtype=torch.int32,
+                                      device=q.device)
+            o = _online_block(qs, k[:, start:start + span],
+                              v[:, start:start + span], q_pos, kp,
+                              causal=True, window=window, **kw)
+        elif causal and banded_causal:
+            # FLOP-exact causal: q chunk i scans only the chunks it can see
+            hi_chunk = min((q0 + q_chunk + kv_chunk - 1) // kv_chunk,
+                           skv // kv_chunk)
+            hi = max(hi_chunk * kv_chunk, kv_chunk)
+            o = _online_block(qs, k[:, :hi], v[:, :hi], q_pos, kv_pos[:hi],
+                              causal=True, window=0, **kw)
+        else:
+            o = _online_block(qs, k, v, q_pos, kv_pos, causal=causal,
+                              window=window, **kw)
+        outs.append(o)
+    out = torch.cat(outs, dim=1).reshape(b, sq, H, dh)
+    return bf16(out[:, :sq_orig])
+
+
+# ---------------------------------------------------------------------------
+# KV caches
+# ---------------------------------------------------------------------------
+
+def cache_size(max_len: int, window: int = 0) -> int:
+    """Slots of a cache: a local (window > 0) cache is a rolling buffer of
+    ``max(128, roundup(min(max_len, window), 128))`` slots; a global one is
+    ``max_len`` rounded up to 128 (at least 128), clipped to ``max_len``."""
+    size = min(max_len, window) if window > 0 else max_len
+    size = max(128, ((size + 127) // 128) * 128)
+    return min(size, max_len) if window == 0 else size
+
+
+def init_kv_cache(batch: int, n_kv: int, head_dim: int, max_len: int,
+                  window: int = 0, dtype=COMPUTE_DTYPE, device=None) -> dict:
+    size = cache_size(max_len, window)
+    return {
+        "k": torch.zeros((batch, size, n_kv, head_dim), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((batch, size, n_kv, head_dim), dtype=dtype,
+                         device=device),
+        # absolute position held by each slot (-1: empty)
+        "slot_pos": torch.full((size,), -1, dtype=torch.int32, device=device),
+        "pos": torch.zeros((), dtype=torch.int32, device=device),  # next
+    }
+
+
+def cache_update_prefill(cache: dict, k: Tensor, v: Tensor) -> dict:
+    """A new cache holding a prefill of length s at positions [0, s)."""
+    s = k.shape[1]
+    size = cache["k"].shape[1]
+    dev = k.device
+    if s >= size:  # keep the last `size` positions (the rolling case)
+        pos = torch.arange(s - size, s, dtype=torch.int32, device=dev)
+        # slot = pos % size, so decode writes continue seamlessly
+        order = torch.argsort(pos % size)
+        return {"k": k[:, s - size:][:, order], "v": v[:, s - size:][:, order],
+                "slot_pos": pos[order],
+                "pos": torch.tensor(s, dtype=torch.int32, device=dev)}
+    nk, nv, sp = (cache[n].clone() for n in ("k", "v", "slot_pos"))
+    nk[:, :s] = k.to(nk.dtype)
+    nv[:, :s] = v.to(nv.dtype)
+    sp[:s] = torch.arange(s, dtype=torch.int32, device=dev)
+    return {"k": nk, "v": nv, "slot_pos": sp,
+            "pos": torch.tensor(s, dtype=torch.int32, device=dev)}
+
+
+def cache_update_decode(cache: dict, k1: Tensor, v1: Tensor) -> dict:
+    """A new cache with one more position (k1, v1: (b, 1, KV, dh)) at slot
+    ``pos % size``. The slot stays on the device: no host sync."""
+    size = cache["k"].shape[1]
+    pos = cache["pos"]
+    slot = torch.remainder(pos, size).long().reshape(1)
+    return {
+        "k": cache["k"].index_copy(1, slot, k1.to(cache["k"].dtype)),
+        "v": cache["v"].index_copy(1, slot, v1.to(cache["v"].dtype)),
+        "slot_pos": cache["slot_pos"].index_copy(0, slot, pos.reshape(1)),
+        "pos": pos + 1,
+    }
+
+
+def decode_attend(q: Tensor, cache: dict, *, window: int = 0, scale=None,
+                  cap=None) -> Tensor:
+    """Single-step attention over the cache. q: (b, 1, H, dh); one softmax
+    over every slot, the PV product in bf16."""
+    b, sq, H, dh = q.shape
+    k, v, slot_pos = cache["k"], cache["v"], cache["slot_pos"]
+    KV = k.shape[2]
+    g = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    pos = cache["pos"] - 1  # position of the query token
+    qh = q.reshape(b, sq, KV, g, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", bf16(qh).float(), bf16(k).float())
+    s = softcap(s * scale, cap)
+    ok = (slot_pos >= 0) & (slot_pos <= pos)
+    if window > 0:
+        ok = ok & (pos - slot_pos < window)
+    s = torch.where(ok, s, NEG)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", bf16(p), bf16(v))
+    return o.reshape(b, sq, H, dh)
+
+
+# ---------------------------------------------------------------------------
+# Attention blocks (full forward / prefill / decode)
+# ---------------------------------------------------------------------------
+
+def _positions(x: Tensor) -> Tensor:
+    return torch.arange(x.shape[1], dtype=torch.int32,
+                        device=x.device).expand(x.shape[:2])
+
+
+def attn_forward(p: Attention, x, *, causal: bool, window: int = 0,
+                 positions=None, rope_theta: float = 10000.0,
+                 use_rope: bool = True, cap=None, q_chunk=512, kv_chunk=512,
+                 banded_causal: bool = False):
+    """The full-sequence forward, no cache. x: (b, s, d)."""
+    q, k, v = _qkv(p, x)
+    if use_rope:
+        positions = _positions(x) if positions is None else positions
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    o = chunked_attention(q, k, v, causal=causal, window=window, cap=cap,
+                          q_chunk=q_chunk, kv_chunk=kv_chunk,
+                          banded_causal=banded_causal)
+    return _out(p, o)
+
+
+def attn_prefill(p: Attention, x, cache, *, window: int = 0,
+                 rope_theta: float = 10000.0, use_rope: bool = True,
+                 cap=None, q_chunk=512, kv_chunk=512):
+    q, k, v = _qkv(p, x)
+    if use_rope:
+        positions = _positions(x)
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    o = chunked_attention(q, k, v, causal=True, window=window, cap=cap,
+                          q_chunk=q_chunk, kv_chunk=kv_chunk)
+    return _out(p, o), cache_update_prefill(cache, k, v)
+
+
+def attn_decode(p: Attention, x, cache, *, window: int = 0,
+                rope_theta: float = 10000.0, use_rope: bool = True,
+                cap=None):
+    """x: (b, 1, d), the one new token."""
+    q, k, v = _qkv(p, x)
+    if use_rope:
+        pos = cache["pos"].expand(x.shape[0], 1)
+        q = apply_rope(q, pos, rope_theta)
+        k = apply_rope(k, pos, rope_theta)
+    cache = cache_update_decode(cache, k, v)
+    return _out(p, decode_attend(q, cache, window=window, cap=cap)), cache

@@ -106,6 +106,10 @@ def test_examples_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: nothing to refuse")
     for name in ("quickstart_torch", "multiprobe_range_filters_torch",
-                 "distribution_shift_torch", "filtered_predicates_torch"):
+                 "distribution_shift_torch", "filtered_predicates_torch",
+                 "serve_filtered_search_torch"):
         with pytest.raises(RuntimeError, match="cuda"):
             _load(name).main([])
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--n", "64"])

@@ -2295,3 +2295,103 @@ def test_predicates_over_shards_on_the_card(cuda, backend):
             got = e1.search(q, filter=pred, plan=plan)
             np.testing.assert_array_equal(got[1], want[1])
             np.testing.assert_array_equal(got[0], want[0])
+
+
+# -- the LM embedder's serving path (plain PyTorch on the card) ---------------
+
+LM_DENSE = ["gemma3-1b", "gemma2-27b", "mistral-nemo-12b", "starcoder2-7b",
+            "internvl2-26b"]
+
+
+def _lm_case(arch, dev, seed=0):
+    """A reduced dense arch with weights from ``seed`` on the CPU and the
+    same weights on ``dev``, and a batch of 143 tokens (past the local
+    caches' 128 slots) with the vision stub's patches where it has them."""
+    import copy
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as lm
+
+    cfg = reduced(get_config(arch))
+    cpu = lm.init_params(seed, cfg, device="cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    r = np.random.default_rng(seed)
+    batch = {"tokens": torch.tensor(r.integers(0, cfg.vocab_size, (2, 143))
+                                    .astype(np.int32))}
+    if cfg.frontend == "vision_stub":
+        batch["patches"] = torch.tensor(
+            r.normal(size=(2, cfg.n_prefix, cfg.d_model)).astype(np.float32))
+    return cfg, cpu, card, batch
+
+
+def _rel(a, b):
+    """The largest row-relative error of ``a`` against ``b``."""
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(((a - b).norm(dim=-1) / b.norm(dim=-1)).max())
+
+
+@pytest.mark.parametrize("arch", LM_DENSE)
+def test_lm_forward_on_the_card_matches_the_cpu(cuda, arch, monkeypatch):
+    """The same weights on the card and on the CPU (the plain path): the two
+    sum each bf16 matmul's fp32 products in their own order, so the card's
+    final hidden states are held as the CPU test holds the port to the
+    reference: within 1.5 times the CPU's distance from the same function
+    without bf16 rounding, the mean-pooled embeddings to cosine >= 0.9999,
+    the logits to 0.15."""
+    import copy
+
+    from repro_torch.models import layers
+    from repro_torch.models import model as lm
+
+    cfg, cpu, card, batch = _lm_case(arch, cuda)
+    want = lm.forward_hidden(cpu, batch)
+    got = lm.forward_hidden(card, {k: v.to(cuda) for k, v in batch.items()})
+    assert got.device.type == "cuda" and got.dtype == torch.bfloat16
+    hi = copy.deepcopy(cpu).double()
+    with monkeypatch.context() as m:
+        m.setattr(layers, "COMPUTE_DTYPE", torch.float64)
+        exact = lm.forward_hidden(hi, batch)
+    assert _rel(got, want) <= 1.5 * _rel(want, exact)
+    cos = torch.nn.functional.cosine_similarity(
+        got.float().mean(1).cpu(), want.float().mean(1), dim=-1)
+    assert float(cos.min()) >= 0.9999
+    lg = lm._logits(card, got).cpu()
+    assert float((lg - lm._logits(cpu, want)).abs().max()) <= 0.15
+    # the same hidden state on both: the logits agree to fp32 sums
+    same = lm._logits(card, want.to(cuda)).cpu()
+    assert float((same - lm._logits(cpu, want)).abs().max()) <= 0.05
+
+
+@pytest.mark.parametrize("arch", LM_DENSE)
+def test_lm_prefill_and_decode_on_the_card(cuda, arch):
+    """Prefill past the local caches (they roll), then decode: the caches'
+    integer state equals the CPU's at every step, each step's logits lie
+    within 0.15 of the CPU's and of the card's own teacher-forced forward
+    (the reference test's drift bound)."""
+    from repro_torch.models import model as lm
+
+    cfg, cpu, card, batch = _lm_case(arch, cuda, seed=1)
+    prefix = cfg.n_prefix if cfg.frontend == "vision_stub" else 0
+    n, steps = 136, 7
+    max_len = prefix + n + steps
+    tokens = batch["tokens"]
+    pb = dict(batch, tokens=tokens[:, :n])
+    lp_c, cache_c = lm.prefill(cpu, pb, max_len)
+    lp_g, cache_g = lm.prefill(card, {k: v.to(cuda) for k, v in pb.items()},
+                               max_len)
+    full = lm.forward(card, {k: v.to(cuda) for k, v in batch.items()})
+    mine, ref = [lp_g[:, 0]], [lp_c[:, 0]]
+    for t in range(n, n + steps - 1):
+        for a, b in zip(cache_g["self"], cache_c["self"]):
+            assert torch.equal(a["slot_pos"].cpu(), b["slot_pos"])
+            assert int(a["pos"]) == int(b["pos"])
+        lg, cache_c = lm.decode_step(cpu, tokens[:, t:t + 1], cache_c)
+        ref.append(lg[:, 0])
+        lg, cache_g = lm.decode_step(card, tokens[:, t:t + 1].to(cuda),
+                                     cache_g)
+        mine.append(lg[:, 0])
+    for i, (m, r) in enumerate(zip(mine, ref)):
+        assert m.device.type == "cuda" and bool(torch.isfinite(m).all())
+        assert float((m.cpu() - r).abs().max()) <= 0.15
+        drift = float((m - full[:, prefix + n - 1 + i]).abs().max())
+        assert drift < 0.15, f"decode drift {drift} at step {i}"

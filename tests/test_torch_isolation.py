@@ -56,7 +56,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
 
 def test_module_list_covers_every_slice():
     """The import check above walks the package, so each new module is in
-    it; pin the IVF, PQ, storage-ladder, checkpoint and sharded-serving
+    it; pin the IVF, PQ, storage-ladder, checkpoint, sharded-serving and LM
     slices' modules there."""
     mods = set(_modules())
     assert {"repro_torch.core.clustering", "repro_torch.index.ivf",
@@ -68,7 +68,11 @@ def test_module_list_covers_every_slice():
             "repro_torch.distributed.sharding",
             "repro_torch.distributed.fault", "repro_torch.index.distributed",
             "repro_torch.serve.sharded", "repro_torch.serve.health",
-            "repro_torch.serve.faultinject"} <= mods
+            "repro_torch.serve.faultinject", "repro_torch.models.layers",
+            "repro_torch.models.attention", "repro_torch.models.model",
+            "repro_torch.configs", "repro_torch.configs.base",
+            "repro_torch.configs.gemma3_1b", "repro_torch.launch.serve"
+            } <= mods
 
 
 def test_entry_points_default_to_cuda_and_raise_without_a_card():
@@ -110,6 +114,24 @@ def test_engine_restore_defaults_to_cuda_and_raises_without_a_card(tmp_path):
     assert FCVIEngine.restore(str(tmp_path), device="cpu").index.size == 64
     with pytest.raises(RuntimeError, match="cuda"):
         baselines.build_hybrid(v, f)
+
+
+def test_lm_entry_points_default_to_cuda_and_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import model as lm
+
+    cfg = reduced(get_config("gemma3-1b"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        lm.init_params(0, cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        lm.init_cache(cfg, 1, 16)
+    with pytest.raises(RuntimeError, match="cuda"):
+        lm.params_from_jax({}, cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--n", "64"])
 
 
 def test_no_handler_falls_back():
