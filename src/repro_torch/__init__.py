@@ -11,8 +11,9 @@ and numpy, never JAX or the ``repro`` package. Layout mirrors ``repro``:
     ``ops`` layer that picks between them by the device of the inputs;
   * ``serve``   - the serving engine, meshless or sharded over a mesh
     (routed and degraded serving, shard health, fault injection);
-  * ``models``  - the decoder LMs (layers, attention with KV caches,
-    forward, prefill and decode) that embed documents for FCVI;
+  * ``models``  - the LMs of every registered arch (dense, MoE,
+    recurrent, the encoder-decoder; forward, prefill and decode) that
+    embed documents for FCVI;
   * ``configs`` - their architecture configs (shapes only);
   * ``launch``  - device meshes (``ShardMesh``) and the serving launcher;
   * ``distributed`` - sharding rules and the fault-tolerance policies;

@@ -1,2 +1,4 @@
-"""Decoder language models: layers, attention with KV caches, and the model
-(forward, prefill, decode). Mirrors ``repro.models``."""
+"""The language models of every registered arch: layers, attention with KV
+caches and cross attention, the MoE FFN, the recurrent mixers (RG-LRU,
+mLSTM, sLSTM), and the model (forward, encode, prefill, decode). Mirrors
+``repro.models``."""

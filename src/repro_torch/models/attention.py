@@ -12,10 +12,14 @@ chunk's running max before the PV product, which a one-shot softmax (or
 Decode attends one position over the whole cache with a single softmax,
 and its PV product has a bf16 result, as the reference's.
 
+The encoder-decoder's cross attention (``cross_kv``, ``cross_attend``)
+runs the same chunked core, non-causal, over the encoder's keys and
+values.
+
 Plain PyTorch: the reference computes attention in ``jnp`` outside any
 Pallas kernel. The sequence-sharded core of the reference (``shard_map``
 over an ``attn_core_seq_shard`` axis) has no counterpart on one card
-(ROADMAP A13f); cross attention waits for the encoder-decoder (A13d).
+(ROADMAP A13f).
 """
 from __future__ import annotations
 
@@ -313,3 +317,23 @@ def attn_decode(p: Attention, x, cache, *, window: int = 0,
         k = apply_rope(k, pos, rope_theta)
     cache = cache_update_decode(cache, k, v)
     return _out(p, decode_attend(q, cache, window=window, cap=cap)), cache
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+def cross_kv(p: Attention, enc_out: Tensor):
+    """The encoder output's keys and values, (b, s_enc, KV, dh) bf16 each."""
+    xc = bf16(enc_out)
+    return _proj(xc, p.wk), _proj(xc, p.wv)
+
+
+def cross_attend(p: Attention, x: Tensor, k: Tensor, v: Tensor, *,
+                 q_chunk=512, kv_chunk=512, cap=None) -> Tensor:
+    """x: (b, s, d) attends, non-causal and without RoPE, over the encoder's
+    k, v."""
+    q = _proj(bf16(x), p.wq)
+    o = chunked_attention(q, k, v, causal=False, cap=cap, q_chunk=q_chunk,
+                          kv_chunk=kv_chunk)
+    return _out(p, o)

@@ -1,20 +1,27 @@
-"""Decoder LMs over a cycled pattern of attention blocks. Mirrors
-``repro.models.model`` for the dense decoder archs.
+"""The LMs of every registered arch: a cycled pattern of blocks, and the
+whisper encoder-decoder. Mirrors ``repro.models.model``.
 
-A model is ``cfg.pattern`` cycled over ``n_layers``: ``"attn"`` (global
-causal attention) and ``"local"`` (sliding-window causal attention), each
-block [norm -> mixer -> residual] + [norm -> MLP -> residual], with
-optional post-norms and softcaps. The reference scans stacked periods of
-blocks (``lax.scan`` under ``remat``); here the blocks are one
-``nn.ModuleList`` in layer order, which is what serving needs.
-``params_from_jax`` unstacks the reference's param tree into it, so the
-same weights compute in both packages.
+A model is ``cfg.pattern`` cycled over ``n_layers``:
 
-Not ported yet, and refused with the ROADMAP item that ports them (never
-computed some other way): MoE (A13b), the recurrent blocks ``rec``,
-``mlstm`` and ``slstm`` (A13c), the encoder-decoder with cross attention
-(A13d), and ``lm_loss`` with training (A13e). The passes run without
-autograd (``torch.no_grad``): gradients come with A13e.
+  "attn"   - global causal attention (RoPE, softcap optional)
+  "local"  - sliding-window causal attention
+  "rec"    - the RG-LRU recurrent block (Griffin / RecurrentGemma)
+  "mlstm"  - xLSTM's matrix-memory block (chunkwise-parallel)
+  "slstm"  - xLSTM's scalar-memory block (sequential)
+
+each block [norm -> mixer -> residual] + [norm -> MLP or MoE -> residual],
+with optional post-norms and softcaps. The encoder-decoder (whisper) runs
+an encoder stack of non-causal attention blocks over the audio stub's
+frames and adds cross attention to each decoder block; the vision and
+audio frontends are stubs that supply precomputed patch or frame
+embeddings. The reference scans stacked periods of blocks (``lax.scan``
+under ``remat``); here each stack is one ``nn.ModuleList`` in layer
+order, which is what serving needs. ``params_from_jax`` unstacks the
+reference's param tree into it, so the same weights compute in both
+packages.
+
+Not ported yet: ``lm_loss`` and training (ROADMAP A13e). The passes run
+without autograd (``torch.no_grad``): gradients come with A13e.
 """
 from __future__ import annotations
 
@@ -29,11 +36,13 @@ from torch import Tensor, nn
 from repro_torch.core.clustering import Seed, make_generator
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import (MLP, Embedding, LayerNorm, RMSNorm,
                                        Unembed, bf16, weak_scalar,
                                        sinusoidal_positions, softcap, unembed)
+from repro_torch.models.moe import MoE, apply_moe
 
-UNPORTED_KINDS = {"rec": "A13c", "mlstm": "A13c", "slstm": "A13c"}
+ATTENTION = ("attn", "local")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,25 +108,6 @@ class ModelConfig:
         return [self.pattern[i % self.period] for i in range(self.n_layers)]
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for what the port
-    does not run yet."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks are not ported yet (ROADMAP A13b)")
-    if cfg.enc_dec or cfg.frontend == "audio_stub":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder, cross attention and the "
-            "audio stub's frames are not ported yet (ROADMAP A13d)")
-    for kind in set(cfg.pattern):
-        if kind in UNPORTED_KINDS:
-            raise NotImplementedError(
-                f"{cfg.name}: {kind!r} blocks are not ported yet (ROADMAP "
-                f"{UNPORTED_KINDS[kind]})")
-        if kind not in ("attn", "local"):
-            raise ValueError(f"unknown block kind {kind}")
-
-
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
@@ -127,49 +117,110 @@ def _make_norm(cfg: ModelConfig, device):
             else LayerNorm(cfg.d_model, device))
 
 
+def _attention(cfg: ModelConfig, device):
+    return attn.Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                          cfg.head_dim, device)
+
+
 class Block(nn.Module):
-    def __init__(self, cfg: ModelConfig, kind: str, device=None):
+    """One block of ``kind``; ``cross`` adds the decoder's cross attention
+    (``norm_cross``, ``cross``)."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, device=None,
+                 cross: bool = False):
         super().__init__()
         self.kind = kind
         self.norm1 = _make_norm(cfg, device)
-        self.mixer = attn.Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                                    cfg.head_dim, device)
+        if kind in ATTENTION:
+            self.mixer = _attention(cfg, device)
+        elif kind == "rec":
+            self.mixer = rec.RGLRU(cfg.d_model, cfg.d_rnn, cfg.conv_width,
+                                   device)
+        elif kind == "mlstm":
+            self.mixer = rec.MLSTM(cfg.d_model, cfg.n_heads, cfg.head_dim,
+                                   device)
+        elif kind == "slstm":
+            self.mixer = rec.SLSTM(cfg.d_model, cfg.n_heads, cfg.head_dim,
+                                   device)
+        else:
+            raise ValueError(f"unknown block kind {kind}")
+        if cross:
+            self.norm_cross = _make_norm(cfg, device)
+            self.cross = _attention(cfg, device)
         if cfg.mlp_kind != "none":
             self.norm2 = _make_norm(cfg, device)
-            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_kind, device)
+            if cfg.is_moe:
+                self.moe = MoE(cfg.d_model, cfg.moe_d_ff, cfg.moe_experts,
+                               device)
+            else:
+                self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_kind, device)
         if cfg.post_norm:
             self.norm1_post = _make_norm(cfg, device)
             if cfg.mlp_kind != "none":
                 self.norm2_post = _make_norm(cfg, device)
 
 
+MODES = ("train", "encode", "prefill", "decode")
+
+
+def _mix(bp: Block, h: Tensor, cfg: ModelConfig, mode: str, cache):
+    """The block's mixer; returns (its output, the block's new cache)."""
+    kind = bp.kind
+    if kind in ATTENTION:
+        kw = dict(window=cfg.window if kind == "local" else 0,
+                  rope_theta=cfg.rope_theta,
+                  use_rope=cfg.pos_kind == "rope", cap=cfg.attn_softcap)
+        if mode == "train":
+            return attn.attn_forward(bp.mixer, h, causal=True,
+                                     q_chunk=cfg.q_chunk,
+                                     kv_chunk=cfg.kv_chunk,
+                                     banded_causal=cfg.banded_causal,
+                                     **kw), cache
+        if mode == "encode":
+            kw["window"] = 0
+            return attn.attn_forward(bp.mixer, h, causal=False,
+                                     q_chunk=cfg.q_chunk,
+                                     kv_chunk=cfg.kv_chunk, **kw), cache
+        if mode == "prefill":
+            return attn.attn_prefill(bp.mixer, h, cache, q_chunk=cfg.q_chunk,
+                                     kv_chunk=cfg.kv_chunk, **kw)
+        return attn.attn_decode(bp.mixer, h, cache, **kw)
+    if kind == "rec":
+        return rec.rglru_block(bp.mixer, h, cache)
+    if kind == "mlstm":
+        # every mode, decode included (chunk 1), as the reference
+        return rec.mlstm_chunkwise(bp.mixer, h, cache,
+                                   chunk=min(cfg.lstm_chunk, h.shape[1]))
+    return rec.slstm_block(bp.mixer, h, cache)
+
+
 def apply_block(bp: Block, x: Tensor, cfg: ModelConfig, mode: str,
-                cache=None):
-    """One block; ``mode`` in {"train", "prefill", "decode"}. Returns (x,
-    the block's new cache)."""
-    h = bp.norm1(x)
-    window = cfg.window if bp.kind == "local" else 0
-    use_rope = cfg.pos_kind == "rope"
-    kw = dict(window=window, rope_theta=cfg.rope_theta, use_rope=use_rope,
-              cap=cfg.attn_softcap)
-    new_cache = cache
-    if mode == "train":
-        mix = attn.attn_forward(bp.mixer, h, causal=True, q_chunk=cfg.q_chunk,
-                                kv_chunk=cfg.kv_chunk,
-                                banded_causal=cfg.banded_causal, **kw)
-    elif mode == "prefill":
-        mix, new_cache = attn.attn_prefill(bp.mixer, h, cache,
-                                           q_chunk=cfg.q_chunk,
-                                           kv_chunk=cfg.kv_chunk, **kw)
-    elif mode == "decode":
-        mix, new_cache = attn.attn_decode(bp.mixer, h, cache, **kw)
-    else:
+                cache=None, enc_out: Optional[Tensor] = None,
+                cross_cache=None):
+    """One block; ``mode`` in {"train", "encode", "prefill", "decode"}
+    ("encode": non-causal attention, the encoder's). A decoder block with
+    cross attention attends over ``cross_cache`` (k, v) where given, else
+    over ``enc_out``'s. Returns (x, the block's new cache)."""
+    if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
+    mix, new_cache = _mix(bp, bp.norm1(x), cfg, mode, cache)
     if cfg.post_norm:
         mix = bp.norm1_post(mix)
     x = x + mix
+    if hasattr(bp, "cross"):
+        hc = bp.norm_cross(x)
+        ck, cv = (cross_cache if cross_cache is not None
+                  else attn.cross_kv(bp.cross, enc_out))
+        x = x + attn.cross_attend(bp.cross, hc, ck, cv, q_chunk=cfg.q_chunk,
+                                  kv_chunk=cfg.kv_chunk,
+                                  cap=cfg.attn_softcap)
     if cfg.mlp_kind != "none":
-        ff = bp.mlp(bp.norm2(x))
+        h2 = bp.norm2(x)
+        if cfg.is_moe:
+            ff = apply_moe(bp.moe, h2, top_k=cfg.moe_top_k,
+                           capacity_factor=cfg.moe_capacity_factor)
+        else:
+            ff = bp.mlp(h2)
         if cfg.post_norm:
             ff = bp.norm2_post(ff)
         x = x + ff
@@ -182,17 +233,24 @@ def apply_block(bp: Block, x: Tensor, cfg: ModelConfig, mode: str,
 
 class Model(nn.Module):
     """Parameters at the reference's names and shapes: ``embed.embedding``
-    (padded_vocab, d), ``layers[i]`` (``norm1``, ``mixer.{wq,wk,wv,wo}``,
-    ``norm2``, ``mlp.{w_in,w_gate,w_out}``, post-norms), ``final_norm`` and,
-    untied, ``unembed.lm_head`` (d, padded_vocab). Made empty: fill it with
-    ``init_params`` or ``params_from_jax``."""
+    (padded_vocab, d), ``layers[i]`` (``norm1``; ``mixer``: attention's
+    ``{wq,wk,wv,wo}``, RG-LRU's, mLSTM's or sLSTM's weights; ``norm2`` with
+    ``mlp.{w_in,w_gate,w_out}`` or ``moe.{w_router,we_in,we_gate,we_out}``;
+    post-norms; the decoder's ``norm_cross`` and ``cross``), ``final_norm``,
+    untied ``unembed.lm_head`` (d, padded_vocab), and for the
+    encoder-decoder ``encoder[i]`` and ``enc_norm``. Made empty: fill it
+    with ``init_params`` or ``params_from_jax``."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        check_ported(cfg)
         self.cfg = cfg
         self.embed = Embedding(cfg.padded_vocab, cfg.d_model, device)
-        self.layers = nn.ModuleList(Block(cfg, kind, device)
+        if cfg.enc_dec:
+            self.encoder = nn.ModuleList(Block(cfg, "attn", device)
+                                         for _ in range(cfg.n_enc_layers))
+            self.enc_norm = _make_norm(cfg, device)
+        self.layers = nn.ModuleList(Block(cfg, kind, device,
+                                          cross=cfg.enc_dec)
                                     for kind in cfg.layer_kinds())
         self.final_norm = _make_norm(cfg, device)
         if not cfg.tie_embeddings:
@@ -207,11 +265,15 @@ def init_params(rng: Seed, cfg: ModelConfig,
                 device: DeviceLike = "cuda") -> Model:
     """A model on ``device`` with weights drawn from ``rng`` (a seed, or a
     ``torch.Generator`` on that device) at the reference's shapes and stds:
-    N(0, 1/d) embeddings and input projections, N(0, 1/(H dh)) for ``wo``,
-    N(0, 1/d_ff) for ``w_out``; RMSNorm scales 0, LayerNorm 1 and 0. Not
-    bit-equal to the reference's ``jax.random`` draws: carry its weights
-    across with ``params_from_jax``. ``device="meta"`` makes the shapes
-    only (``param_count`` of a full config without memory)."""
+    N(0, 1/d) embeddings, input projections, gates, router and experts'
+    inputs; N(0, 1/(H dh)) for ``wo`` and the LSTMs' ``w_lstm_out``;
+    N(0, 1/d_ff) for ``w_out`` and ``we_out``; N(0, 1/d_rnn) for the
+    RG-LRU's conv, gates and output, N(0, 1/dh) for the sLSTM's recurrent
+    weights; RG-LRU ``lam`` so that sigmoid(lam)^8 is uniform in [0.9,
+    0.999]; RMSNorm scales 0, LayerNorm 1 and 0. Not bit-equal to the
+    reference's ``jax.random`` draws: carry its weights across with
+    ``params_from_jax``. ``device="meta"`` makes the shapes only
+    (``param_count`` of a full config without memory)."""
     dev = resolve_device(device)
     model = Model(cfg, dev)
     gen = None if dev.type == "meta" else make_generator(rng, dev)
@@ -228,9 +290,10 @@ def param_count(model: Model) -> int:
 def params_from_jax(tree: dict, cfg: ModelConfig,
                     device: DeviceLike = "cuda") -> Model:
     """A model on ``device`` holding the reference's params (``tree``, the
-    ``init_params`` dict with numpy leaves). ``decoder.scan[j]``'s leaves,
+    ``init_params`` dict with numpy leaves). A stack's ``scan[j]`` leaves,
     stacked over periods, unstack into layer ``p * period + j``;
-    ``decoder.rest[i]`` is layer ``n_periods * period + i``."""
+    ``rest[i]`` is layer ``n_periods * period + i``: ``decoder`` into
+    ``layers``, ``encoder`` (period 1) into ``encoder``."""
     dev = resolve_device(device)
     state = {}
 
@@ -243,16 +306,19 @@ def params_from_jax(tree: dict, cfg: ModelConfig,
                 state[prefix + name] = torch.tensor(
                     a if index is None else a[index])
 
-    put("embed.", tree["embed"])
-    put("final_norm.", tree["final_norm"])
-    if "unembed" in tree:
-        put("unembed.", tree["unembed"])
-    dec = tree["decoder"]
-    for j, slot in enumerate(dec["scan"]):
-        for p in range(cfg.n_periods):
-            put(f"layers.{p * cfg.period + j}.", slot, p)
-    for i, bp in enumerate(dec["rest"]):
-        put(f"layers.{cfg.n_periods * cfg.period + i}.", bp)
+    def put_stack(prefix, stack, period, n_periods):
+        for j, slot in enumerate(stack["scan"]):
+            for p in range(n_periods):
+                put(f"{prefix}{p * period + j}.", slot, p)
+        for i, bp in enumerate(stack["rest"]):
+            put(f"{prefix}{n_periods * period + i}.", bp)
+
+    for name in ("embed", "final_norm", "unembed", "enc_norm"):
+        if name in tree:
+            put(f"{name}.", tree[name])
+    put_stack("layers.", tree["decoder"], cfg.period, cfg.n_periods)
+    if cfg.enc_dec:
+        put_stack("encoder.", tree["encoder"], 1, cfg.n_enc_layers)
     model = Model(cfg, dev)
     model.load_state_dict(state, strict=True)
     return model
@@ -287,11 +353,18 @@ def _logits(model: Model, x: Tensor) -> Tensor:
 
 
 def _with_prefix(model: Model, x: Tensor, batch: dict) -> Tensor:
-    """The vision stub's precomputed patch embeddings ahead of the
-    tokens'."""
-    if model.cfg.frontend == "vision_stub":
-        x = torch.cat([bf16(torch.as_tensor(batch["patches"],
-                                            device=x.device)), x], dim=1)
+    """A decoder-only model's stub frontend ahead of the tokens: the vision
+    stub's precomputed patch embeddings, or the audio stub's frames where
+    the batch holds them."""
+    cfg = model.cfg
+    key = None
+    if cfg.frontend == "vision_stub":
+        key = "patches"
+    elif cfg.frontend == "audio_stub" and "frames" in batch:
+        key = "frames"
+    if not cfg.enc_dec and key is not None:
+        x = torch.cat([bf16(torch.as_tensor(batch[key], device=x.device)), x],
+                      dim=1)
     return x
 
 
@@ -300,13 +373,35 @@ def _tokens(model: Model, batch: dict) -> Tensor:
 
 
 @torch.no_grad()
+def encode(model: Model, frames) -> Tensor:
+    """The whisper encoder over precomputed frame embeddings (the conv
+    stub's), (b, s_enc, d): sinusoidal positions where the config asks,
+    the non-causal encoder blocks, ``enc_norm``. Returns (b, s_enc, d)
+    bf16."""
+    cfg = model.cfg
+    x = bf16(torch.as_tensor(frames, device=model.device))
+    if cfg.pos_kind == "sinusoidal":
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                     x.device)[None].to(x.dtype)
+    for bp in model.encoder:
+        x, _ = apply_block(bp, x, cfg, "encode")
+    return model.enc_norm(x)
+
+
+@torch.no_grad()
 def forward_hidden(model: Model, batch: dict) -> Tensor:
     """Teacher-forced full-sequence final hidden states (before the final
-    norm), (b, n_prefix + s, d) bf16. ``batch``: ``tokens`` (b, s) and, for
-    a vision-stub frontend, ``patches`` (b, n_prefix, d)."""
-    x = _with_prefix(model, _embed_in(model, _tokens(model, batch)), batch)
+    norm), (b, n_prefix + s, d) bf16. ``batch``: ``tokens`` (b, s); for the
+    encoder-decoder ``frames`` (b, s_enc, d); for a vision-stub frontend
+    ``patches`` (b, n_prefix, d)."""
+    x = _embed_in(model, _tokens(model, batch))
+    enc_out = None
+    if model.cfg.enc_dec:
+        enc_out = encode(model, batch["frames"])
+    else:
+        x = _with_prefix(model, x, batch)
     for bp in model.layers:
-        x, _ = apply_block(bp, x, model.cfg, "train")
+        x, _ = apply_block(bp, x, model.cfg, "train", enc_out=enc_out)
     return x
 
 
@@ -334,44 +429,89 @@ def pooled_embedding(model: Model, tokens, batch_size: int = 256) -> Tensor:
 
 def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                  device) -> dict:
-    window = cfg.window if kind == "local" else 0
-    return attn.init_kv_cache(batch, cfg.n_kv_heads, cfg.head_dim, max_len,
-                              window=window, device=device)
+    if kind in ATTENTION:
+        window = cfg.window if kind == "local" else 0
+        return attn.init_kv_cache(batch, cfg.n_kv_heads, cfg.head_dim,
+                                  max_len, window=window, device=device)
+    if kind == "rec":
+        return rec.init_rglru_cache(batch, cfg.d_rnn, cfg.conv_width, device)
+    if kind == "mlstm":
+        return rec.init_mlstm_cache(batch, cfg.n_heads, cfg.head_dim, device)
+    if kind == "slstm":
+        return rec.init_slstm_cache(batch, cfg.n_heads, cfg.head_dim, device)
+    raise ValueError(f"unknown block kind {kind}")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: DeviceLike = "cuda") -> list:
-    """One KV cache a layer, in layer order (the reference stacks them by
-    pattern slot)."""
-    check_ported(cfg)
+    """One cache a layer, in layer order (the reference stacks them by
+    pattern slot): a KV cache for an attention block, the recurrent state
+    for the others."""
     dev = resolve_device(device)
     return [_block_cache(cfg, kind, batch, max_len, dev)
             for kind in cfg.layer_kinds()]
 
 
+def _cache_pos(cfg: ModelConfig, caches: list):
+    """The decode position: the first attention layer's cache's, else 0
+    (the reference's ``_cache_pos``; its only use is the sinusoidal
+    positions)."""
+    for kind, c in zip(cfg.layer_kinds(), caches):
+        if kind in ATTENTION:
+            return c["pos"]
+    return 0
+
+
 @torch.no_grad()
 def prefill(model: Model, batch: dict, max_len: int):
     """Process the prompt; returns (the last position's logits (b, 1, V),
-    the cache ``{"self": [a cache a layer]}``; the reference's also holds
-    the encoder-decoder's cross caches, A13d)."""
+    the cache ``{"self": [a cache a layer], "cross": [(k, v) a layer] or
+    None}``). The encoder-decoder encodes ``batch["frames"]`` once here and
+    keeps each decoder layer's cross keys and values."""
+    cfg = model.cfg
     tokens = _tokens(model, batch)
-    caches = init_cache(model.cfg, tokens.shape[0], max_len, model.device)
-    x = _with_prefix(model, _embed_in(model, tokens), batch)
+    caches = init_cache(cfg, tokens.shape[0], max_len, model.device)
+    x = _embed_in(model, tokens)
+    cross = None
+    if cfg.enc_dec:
+        cross = build_cross_cache(model, encode(model, batch["frames"]))
+    else:
+        x = _with_prefix(model, x, batch)
     new = []
-    for bp, c in zip(model.layers, caches):
-        x, c = apply_block(bp, x, model.cfg, "prefill", c)
+    for i, (bp, c) in enumerate(zip(model.layers, caches)):
+        x, c = apply_block(bp, x, cfg, "prefill", c,
+                           cross_cache=None if cross is None else cross[i])
         new.append(c)
-    return _logits(model, x[:, -1:]), {"self": new}
+    return _logits(model, x[:, -1:]), {"self": new, "cross": cross}
+
+
+def build_cross_cache(model: Model, enc_out: Tensor) -> list:
+    """Each decoder layer's cross keys and values over ``enc_out``."""
+    return [attn.cross_kv(bp.cross, enc_out) for bp in model.layers]
+
+
+def init_cross_cache(cfg: ModelConfig, batch: int, enc_len: int,
+                     device: DeviceLike = "cuda") -> list:
+    """Zero cross caches, (k, v) of (batch, enc_len, KV, dh) bf16 a decoder
+    layer."""
+    dev = resolve_device(device)
+    shape = (batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
+    return [tuple(torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+                  for _ in range(2)) for _ in range(cfg.n_layers)]
 
 
 @torch.no_grad()
 def decode_step(model: Model, token, cache: dict):
-    """token: (b, 1) -> (logits (b, 1, V), the new cache). The position is
-    the caches' (every ported block is an attention block)."""
+    """token: (b, 1) -> (logits (b, 1, V), the new cache). The position
+    (for sinusoidal positions) is the first attention layer's cache's, or
+    0 where there is none; the cross caches pass through."""
+    cfg = model.cfg
     token = torch.as_tensor(token, device=model.device)
-    x = _embed_in(model, token, offset=cache["self"][0]["pos"])
+    x = _embed_in(model, token, offset=_cache_pos(cfg, cache["self"]))
+    cross = cache.get("cross")
     new = []
-    for bp, c in zip(model.layers, cache["self"]):
-        x, c = apply_block(bp, x, model.cfg, "decode", c)
+    for i, (bp, c) in enumerate(zip(model.layers, cache["self"])):
+        x, c = apply_block(bp, x, cfg, "decode", c,
+                           cross_cache=None if cross is None else cross[i])
         new.append(c)
-    return _logits(model, x), {"self": new}
+    return _logits(model, x), {"self": new, "cross": cross}

@@ -57,7 +57,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
 def test_module_list_covers_every_slice():
     """The import check above walks the package, so each new module is in
     it; pin the IVF, PQ, storage-ladder, checkpoint, sharded-serving and LM
-    slices' modules there."""
+    slices' modules there (the LM's MoE and recurrent mixers too)."""
     mods = set(_modules())
     assert {"repro_torch.core.clustering", "repro_torch.index.ivf",
             "repro_torch.index.slab", "repro_torch.kernels.ivf_score",
@@ -71,7 +71,8 @@ def test_module_list_covers_every_slice():
             "repro_torch.serve.faultinject", "repro_torch.models.layers",
             "repro_torch.models.attention", "repro_torch.models.model",
             "repro_torch.configs", "repro_torch.configs.base",
-            "repro_torch.configs.gemma3_1b", "repro_torch.launch.serve"
+            "repro_torch.configs.gemma3_1b", "repro_torch.launch.serve",
+            "repro_torch.models.moe", "repro_torch.models.recurrent"
             } <= mods
 
 
@@ -130,6 +131,15 @@ def test_lm_entry_points_default_to_cuda_and_raise_without_a_card():
         lm.init_cache(cfg, 1, 16)
     with pytest.raises(RuntimeError, match="cuda"):
         lm.params_from_jax({}, cfg)
+    for arch in ("granite-moe-3b-a800m", "recurrentgemma-2b", "xlstm-125m",
+                 "whisper-large-v3", "dbrx-132b"):
+        other = reduced(get_config(arch))
+        with pytest.raises(RuntimeError, match="cuda"):
+            lm.init_params(0, other)
+        with pytest.raises(RuntimeError, match="cuda"):
+            lm.init_cache(other, 1, 16)
+    with pytest.raises(RuntimeError, match="cuda"):
+        lm.init_cross_cache(reduced(get_config("whisper-large-v3")), 1, 16)
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--n", "64"])
 

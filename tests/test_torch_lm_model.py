@@ -2,9 +2,15 @@
 ``repro_torch.configs``) against the JAX package's on the same numpy inputs
 and the same weights, carried across by ``params_from_jax``.
 
-The five dense archs run at ``reduced()`` (gemma3-1b, gemma2-27b,
-mistral-nemo-12b, starcoder2-7b, internvl2-26b); the other five refuse with
-the ROADMAP item that ports them.
+All ten archs run at ``reduced()``: the five dense decoders (gemma3-1b,
+gemma2-27b, mistral-nemo-12b, starcoder2-7b, internvl2-26b), the MoE
+decoders (granite-moe-3b-a800m, dbrx-132b), the recurrent ones
+(recurrentgemma-2b: RG-LRU and local attention; xlstm-125m: mLSTM and
+sLSTM, no attention) and the encoder-decoder whisper-large-v3 (its batch
+carries the audio stub's frames). The MoE archs serve at
+``moe_capacity_factor=8.0`` (nothing dropped), as the reference's own
+serving test does; their forward runs at the default 1.25 (the MoE
+module's own tests hold the dropped set at 1.25 and 0.5).
 
 Tolerances, and why:
 
@@ -14,7 +20,8 @@ Tolerances, and why:
   the ulp of its larger terms);
 * the logits of the same final hidden state: max |diff| <= 0.05;
 * the caches' integer state after prefill and after each decode step: bit
-  for bit;
+  for bit; the KV caches' bf16 keys within 5% of the reference's norm, the
+  recurrent states (fp32) and the cross caches likewise;
 * end to end (every block fed its own input): the two packages round the
   same ops, but each bf16 matmul sums its fp32 products in its own order,
   so about 1 element in 5,000 lands one ulp apart (the port's is the
@@ -47,10 +54,13 @@ from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 
 DENSE = ["gemma3-1b", "gemma2-27b", "mistral-nemo-12b", "starcoder2-7b",
-         "internvl2-26b"]
+         "internvl2-26b", "granite-moe-3b-a800m", "dbrx-132b",
+         "recurrentgemma-2b", "xlstm-125m", "whisper-large-v3"]
+# refused until the MoE, recurrent and encoder-decoder blocks were ported
 UNPORTED = {"recurrentgemma-2b": "A13c", "xlstm-125m": "A13c",
             "granite-moe-3b-a800m": "A13b", "dbrx-132b": "A13b",
             "whisper-large-v3": "A13d"}
+FRAMES = 16                  # the encoder-decoder's audio-stub frames
 RTOL = ATOL = 1e-2
 LOGITS_SAME_INPUT = 0.05
 LOGITS = 0.15                # the reference's decode drift bound
@@ -65,13 +75,17 @@ def _np(x):
 
 
 @functools.lru_cache(maxsize=None)
-def _case(arch, pos_kind=None):
+def _case(arch, pos_kind=None, serve=False):
     """(JAX cfg, its params, the port's cfg, the port's model with the same
-    weights, a numpy batch from a seed)."""
+    weights, a numpy batch from a seed). ``serve``: MoE at capacity 8.0."""
     jcfg, cfg = jreduced(jget_config(arch)), reduced(get_config(arch))
+    changes = {}
     if pos_kind is not None:
-        jcfg = dataclasses.replace(jcfg, pos_kind=pos_kind)
-        cfg = dataclasses.replace(cfg, pos_kind=pos_kind)
+        changes["pos_kind"] = pos_kind
+    if serve and cfg.is_moe:
+        changes["moe_capacity_factor"] = 8.0
+    jcfg = dataclasses.replace(jcfg, **changes)
+    cfg = dataclasses.replace(cfg, **changes)
     params = JM.init_params(jax.random.PRNGKey(0), jcfg)
     model = M.params_from_jax(jax.tree.map(np.asarray, params), cfg,
                               device="cpu")
@@ -80,6 +94,9 @@ def _case(arch, pos_kind=None):
              .astype(np.int32)}
     if cfg.frontend == "vision_stub":
         batch["patches"] = r.normal(size=(2, cfg.n_prefix, cfg.d_model)) \
+            .astype(np.float32)
+    if cfg.enc_dec:
+        batch["frames"] = r.normal(size=(2, FRAMES, cfg.d_model)) \
             .astype(np.float32)
     return jcfg, params, cfg, model, batch
 
@@ -128,14 +145,27 @@ def test_full_config_parameter_counts_on_meta(arch):
 
 @pytest.mark.parametrize("arch", sorted(UNPORTED))
 def test_unported_archs_raise_naming_their_roadmap_item(arch):
-    item = UNPORTED[arch]
-    for cfg in (get_config(arch), reduced(get_config(arch))):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            M.Model(cfg, device="meta")
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            M.init_params(0, cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            M.init_cache(cfg, 1, 16, device="cpu")
+    """The five archs the port refused before MoE (A13b), the recurrent
+    blocks (A13c) and the encoder-decoder (A13d) now construct and run:
+    the published config on the meta device counts the reference's
+    parameters; at ``reduced()`` the forward gives finite logits of the
+    reference's shape, and prefill + decode steps run and stay within the
+    reference's drift bound of the reference's own logits."""
+    cfg = get_config(arch)
+    sds = jax.eval_shape(functools.partial(JM.init_params,
+                                           cfg=jget_config(arch)),
+                         jax.random.PRNGKey(0))
+    assert M.param_count(M.Model(cfg, device="meta")) == sum(
+        int(np.prod(leaf.shape)) for leaf in jax.tree.leaves(sds))
+    jcfg, params, cfg, model, batch = _case(arch)
+    logits = M.forward(model, _tbatch(batch))
+    assert logits.shape == jax.eval_shape(
+        lambda p, b: JM.forward(p, jcfg, b), params, _jbatch(batch)).shape
+    assert bool(torch.isfinite(logits).all())
+    assert len(M.init_cache(cfg, 1, 16, device="cpu")) == cfg.n_layers
+    mine, ref, _ = _serve_both(arch)
+    for m, r in zip(mine, ref):
+        assert np.isfinite(m).all() and np.abs(m - r).max() <= LOGITS
 
 
 def test_unknown_block_kind_and_mode_raise():
@@ -146,7 +176,9 @@ def test_unknown_block_kind_and_mode_raise():
     _, _, cfg, model, _ = _case("mistral-nemo-12b")
     x = torch.zeros(1, 4, cfg.d_model, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="unknown mode"):
-        M.apply_block(model.layers[0], x, cfg, "encode")
+        M.apply_block(model.layers[0], x, cfg, "score")
+    with pytest.raises(ValueError, match="unknown block kind"):
+        M._block_cache(cfg, "conv", 1, 16, "cpu")
 
 
 # -- weights -----------------------------------------------------------------
@@ -174,6 +206,21 @@ def test_params_from_jax_unstacks_periods_in_layer_order(arch):
     np.testing.assert_array_equal(model.embed.embedding.detach().numpy(),
                                   np.asarray(params["embed"]["embedding"]))
     assert hasattr(model, "unembed") == ("unembed" in params)
+    assert hasattr(model, "encoder") == ("encoder" in params)
+    if cfg.enc_dec:
+        enc = params["encoder"]
+        for i, bp in enumerate(model.encoder):
+            want = jax.tree.map(lambda a: a[i], enc["scan"][0])
+            leaves = {".".join(k.key for k in path): v
+                      for path, v in flat(want)[0]}
+            mine = bp.state_dict()
+            assert set(mine) == set(leaves)
+            for name, v in leaves.items():
+                np.testing.assert_array_equal(mine[name].numpy(),
+                                              np.asarray(v))
+        np.testing.assert_array_equal(
+            model.enc_norm.scale.detach().numpy(),
+            np.asarray(params["enc_norm"]["scale"]))
 
 
 def test_init_params_draws_the_reference_shapes_and_stds():
@@ -208,8 +255,10 @@ def _reference_hidden(arch):
 
 
 def _reference_stack(jcfg, params, jb):
-    """The reference's input to each block and its final hidden state."""
+    """The reference's input to each block and its final hidden state (for
+    the encoder-decoder, over the reference's ``encode`` output)."""
     x = JM._embed_in(params, jcfg, jb["tokens"])
+    enc = JM.encode(params, jcfg, jb["frames"]) if jcfg.enc_dec else None
     if jcfg.frontend == "vision_stub":
         x = jnp.concatenate([jb["patches"].astype(jnp.bfloat16), x], axis=1)
     dec, ins = params["decoder"], []
@@ -219,7 +268,7 @@ def _reference_stack(jcfg, params, jb):
               if p < jcfg.n_periods
               else dec["rest"][i - jcfg.n_periods * jcfg.period])
         ins.append(x)
-        x, _ = JM.apply_block(bp, x, jcfg, kind, "train")
+        x, _ = JM.apply_block(bp, x, jcfg, kind, "train", enc_out=enc)
     return ins, x
 
 
@@ -227,13 +276,17 @@ def _reference_stack(jcfg, params, jb):
 def test_blocks_match_the_reference_on_its_inputs(arch):
     jcfg, params, cfg, model, batch = _case(arch)
     ins, last = _reference_hidden(arch)
+    enc = None
+    if cfg.enc_dec:
+        enc = torch.tensor(_np(JM.encode(params, jcfg, jnp.asarray(
+            batch["frames"])))).bfloat16()
     with torch.no_grad():
         emb = M._with_prefix(model, M._embed_in(model, torch.tensor(
             batch["tokens"])), _tbatch(batch))
         np.testing.assert_array_equal(_np(emb), _np(ins[0]))
         for i, bp in enumerate(model.layers):
             x = torch.tensor(_np(ins[i])).bfloat16()
-            got, _ = M.apply_block(bp, x, cfg, "train")
+            got, _ = M.apply_block(bp, x, cfg, "train", enc_out=enc)
             want = _np(ins[i + 1] if i + 1 < len(ins) else last)
             scale = ATOL * np.abs(want).max(axis=-1, keepdims=True)
             assert (np.abs(_np(got) - want) <= scale + RTOL * np.abs(want)
@@ -297,10 +350,31 @@ def _layer_caches(jcfg, cache):
     return out
 
 
+def _near(a, b, share=0.05):
+    a, b = _np(a), _np(b)
+    assert a.shape == b.shape
+    assert np.linalg.norm(a - b) <= share * max(np.linalg.norm(b), 1e-30)
+
+
 def _same_cache_state(mine, ref, jcfg):
+    cross = ref["cross"]
     ref = _layer_caches(jcfg, ref)
     assert len(mine["self"]) == len(ref)
-    for c, r in zip(mine["self"], ref):
+    assert (mine["cross"] is None) == (cross is None)
+    if cross is not None:
+        for i, kv in enumerate(mine["cross"]):
+            for t, r in zip(kv, cross["scan"][0]):
+                assert t.dtype == torch.bfloat16
+                _near(t, r[i])
+    for kind, c, r in zip(jcfg.layer_kinds(), mine["self"], ref):
+        assert set(c) == set(r)
+        if kind not in ("attn", "local"):
+            # the recurrent state: fp32 (RG-LRU's conv history bf16)
+            for name in r:
+                assert c[name].dtype == (torch.bfloat16 if name == "conv"
+                                         else torch.float32)
+                _near(c[name], r[name])
+            continue
         np.testing.assert_array_equal(c["slot_pos"].numpy(),
                                       np.asarray(r["slot_pos"]))
         assert c["slot_pos"].dtype == torch.int32
@@ -311,10 +385,11 @@ def _same_cache_state(mine, ref, jcfg):
         assert np.linalg.norm(k - rk) <= 0.05 * np.linalg.norm(rk)
 
 
+@functools.lru_cache(maxsize=None)
 def _serve_both(arch, pos_kind=None):
     """Prefill and decode in both packages; returns per position (the
     port's logits, the reference's, the port's teacher-forced forward's)."""
-    jcfg, params, cfg, model, batch = _case(arch, pos_kind)
+    jcfg, params, cfg, model, batch = _case(arch, pos_kind, serve=True)
     tokens = batch["tokens"]
     prefix = cfg.n_prefix if cfg.frontend == "vision_stub" else 0
     max_len = prefix + PREFILL + STEPS      # the global caches never wrap
@@ -363,6 +438,29 @@ def test_sinusoidal_positions_in_forward_and_decode():
         assert np.abs(m - f).max() < LOGITS
 
 
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "xlstm-125m"])
+def test_decode_position_without_attention_in_layer_0(arch):
+    """The decode step's position is the first attention layer's cache's
+    (recurrentgemma's pattern starts rec, rec, local), or 0 where no layer
+    attends (xlstm), as the reference's ``_cache_pos``: with sinusoidal
+    positions switched on, the port's decode logits follow the
+    reference's."""
+    jcfg, _, cfg, _, _ = _case(arch, "sinusoidal", serve=True)
+    caches = M.init_cache(cfg, 2, 32, device="cpu")
+    kinds = cfg.layer_kinds()
+    assert kinds[0] not in ("attn", "local")
+    for i, kind in enumerate(kinds):
+        if kind in ("attn", "local"):
+            caches[i]["pos"] = torch.tensor(7 + i, dtype=torch.int32)
+    first = next((i for i, k in enumerate(kinds) if k in ("attn", "local")),
+                 None)
+    pos = M._cache_pos(cfg, caches)
+    assert int(pos) == (0 if first is None else 7 + first)
+    mine, ref, _ = _serve_both(arch, pos_kind="sinusoidal")
+    for m, r in zip(mine, ref):
+        assert np.abs(m - r).max() <= LOGITS
+
+
 def test_pooled_embedding_is_the_mean_fp32_hidden_state():
     _, _, cfg, model, batch = _case("gemma3-1b")
     tokens = batch["tokens"][:, :40]
@@ -376,10 +474,14 @@ def _maxima(arch):
     """The measured maxima behind the tolerances above, for one arch."""
     jcfg, params, cfg, model, batch = _case(arch)
     ins, last = _reference_hidden(arch)
+    enc = None
+    if cfg.enc_dec:
+        enc = torch.tensor(_np(JM.encode(params, jcfg, jnp.asarray(
+            batch["frames"])))).bfloat16()
     block = 0.0
     for i, bp in enumerate(model.layers):
         got, _ = M.apply_block(bp, torch.tensor(_np(ins[i])).bfloat16(), cfg,
-                               "train")
+                               "train", enc_out=enc)
         want = _np(ins[i + 1] if i + 1 < len(ins) else last)
         scale = np.abs(want).max(axis=-1, keepdims=True)
         block = max(block, float((np.abs(_np(got) - want) / scale).max()))
