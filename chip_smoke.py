@@ -222,8 +222,26 @@ Phases, each of which raises (and exits non-zero) on a failure:
    is left out of the drift and counted (a flip elsewhere fails). The
    RG-LRU scan's launches and device time for one layer's prefill are
    printed beside a loop over positions'.
+3l. training: gemma3-1b at its published widths (1,009,397,376
+   parameters, remat on), weights drawn on the card from seed 0, trained
+   through ``launch.train.main`` (``--full-config``): (a) 20 steps of 8 x
+   1024 Markov tokens and a checkpoint at step 20; every loss and grad
+   norm finite and the last 5 steps' mean loss below step 0's; ms a step,
+   tokens/s, the bf16 peak share (6 N T, and 8 N T with the recompute),
+   peak device memory beside its prediction, and the checkpoint's bytes
+   and seconds. (c) The launcher's ``--resume`` restores it into a fresh
+   model and state, bit-equal to the trained ones, and the next step's
+   loss from them equals the uninterrupted run's (the n_micro=1 step of
+   (b)) bit for bit. (b) One step at ``n_micro=2`` against one at
+   ``n_micro=1`` from the trained state and the stream's next batch: max
+   |d param| < 5e-3 (the reference's bound); one step's device time by
+   kernel. (d) Reduced gradients of gemma3-1b, granite-moe-3b-a800m,
+   recurrentgemma-2b, xlstm-125m and whisper-large-v3 on the card lie no
+   further from the card's unrounded gradient than 1.5 times the host's
+   distance from the host's. No kernel of ``SOURCES`` lies on this path; its launches are
+   counted and printed (none).
 4. a ``kernels`` JSON line with each kernel variant's launches over phases
-   3 to 3k (each must be > 0), errors, times and bound, and the device
+   3 to 3l (each must be > 0), errors, times and bound, and the device
    time (``device_ms``) of B4, B8, B10 and the scan LUT, whose host loops
    sit near the
    host's cost of a launch (null for the others). No serving phase may
@@ -266,7 +284,10 @@ from repro_torch.kernels import ivf_score as ivf_kern  # noqa: E402
 from repro_torch.kernels import pq_lut  # noqa: E402
 from repro_torch.kernels import rescore as rescore_kern  # noqa: E402
 from repro_torch.kernels import topk_select  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.data.tokens import (TokenSpec,  # noqa: E402
+                                     global_batch_iterator)
+from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh, make_mesh  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
@@ -274,6 +295,8 @@ from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import recurrent as rec_mod  # noqa: E402
 from repro_torch.serve import engine as engine_mod  # noqa: E402
 from repro_torch.serve import faultinject  # noqa: E402
+from repro_torch.train import loop as train_loop  # noqa: E402
+from repro_torch.train import optimizer as train_opt  # noqa: E402
 
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
 PEAK_BYTES_S = 3.35e12
@@ -3331,7 +3354,8 @@ def lm_decode(model, power: str) -> None:
           f"launches; {top_kernels(split)}")
     h = lm.forward_hidden(model, {"tokens": toks})
     # positions LM_PROMPT - 1 .. max_len - 1: the prefill's, then each step's
-    full = lm._logits(model, h[:, LM_PROMPT - 1:])
+    with torch.no_grad():
+        full = lm._logits(model, h[:, LM_PROMPT - 1:])
     got = torch.stack([lp[:, 0]] + steps, dim=1)
     errs = (got - full).abs().amax(dim=(0, 2))
     drift = errs.max().item()
@@ -3714,7 +3738,8 @@ def lmk_decode(model, power: str) -> tuple:
         prompt["frames"] = batch["frames"] = frames
     max_len = plen + LM_STEPS
     h, fwd_routes = with_routes(lambda: lm.forward_hidden(model, batch))
-    full = lm._logits(model, h[:, plen - 1:])
+    with torch.no_grad():
+        full = lm._logits(model, h[:, plen - 1:])
     del h
     experts = []
     for _, e, keep in fwd_routes:
@@ -3899,6 +3924,265 @@ def phase_lm_families(dev, power: str) -> dict:
     return counts
 
 
+# -- phase 3l: training ------------------------------------------------------
+
+TRAIN_ARCH = "gemma3-1b"     # at its published widths, weights from seed 0
+TRAIN_PARAMS = 1_009_397_376
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 20
+TRAIN_LR = 1e-3              # warmup TRAIN_STEPS // 10, cosine to the end
+TRAIN_CKPT = 20              # one checkpoint, at the end of (a): a 16.2 GB
+                             # save or restore takes about 30 s here
+MICRO_ATOL = 5e-3            # the reference's microbatching bound
+# predicted peak device memory of a step at 8 x 1024 (PERF.md, written
+# before the first run): fp32 params, grads, mu, nu and master (5 x 4.04
+# GB), the update's new state beside the old and the clipped grads (4 x
+# 4.04 GB), or in the backward one loss chunk's fp32 logits, their exp and
+# their gradient (3 x 4.3 GB) with the widened unembedding weights
+TRAIN_PREDICTED_GB = 42.0
+TRAIN_FAMILIES = ("gemma3-1b", "granite-moe-3b-a800m", "recurrentgemma-2b",
+                  "xlstm-125m", "whisper-large-v3")
+
+
+def train_argv(ckpt_dir: str, steps: int = TRAIN_STEPS) -> list:
+    return ["--arch", TRAIN_ARCH, "--full-config", "--steps", str(steps),
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--lr", str(TRAIN_LR), "--ckpt-dir", ckpt_dir,
+            "--ckpt-every", str(TRAIN_CKPT), "--device", "cuda"]
+
+
+def train_batch(cfg, index: int, dev) -> dict:
+    """The launcher's token stream's batch ``index`` on the card."""
+    data = global_batch_iterator(TokenSpec(
+        vocab_size=cfg.vocab_size, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        seed=0), train_launch.batch_extras(cfg))
+    for _ in range(index):
+        next(data)
+    return {k: torch.as_tensor(v, device=dev) for k, v in next(data).items()}
+
+
+def train_report(out: dict, power: str) -> None:
+    """(a)'s checks and numbers: finite and falling loss, ms a step,
+    tokens/s, the bf16 peak share, peak device memory."""
+    losses, gnorms = out["losses"], out["grad_norms"]
+    check(len(losses) == TRAIN_STEPS and all(
+        np.isfinite(losses + gnorms)), f"3l: a loss or grad norm is not "
+        f"finite: {losses} {gnorms}")
+    tail = float(np.mean(losses[-5:]))
+    check(tail < losses[0], f"3l: the loss did not fall: step 0 "
+          f"{losses[0]:.4f}, the last 5 steps' mean {tail:.4f}")
+    steady = out["step_s"][1:]                 # step 0 warms up
+    step_s = float(np.median(steady))
+    tokens = out["tokens_per_step"]
+    n = out["params"]
+    print(f"[3l] losses {' '.join(f'{x:.4f}' for x in losses)}; grad norms "
+          f"{' '.join(f'{x:.3f}' for x in gnorms)}")
+    print(f"[3l] loss {losses[0]:.4f} at step 0 -> {tail:.4f} (the last 5 "
+          f"steps' mean); step 0 {1e3 * out['step_s'][0]:.1f} ms (warm-up), "
+          f"then median {1e3 * step_s:.1f} ms a step (min "
+          f"{1e3 * min(steady):.1f}, max {1e3 * max(steady):.1f}) = "
+          f"{tokens / step_s:,.0f} tokens/s; 6 N T = "
+          f"{6 * n * tokens / 1e12:.1f} TFLOP a step = "
+          f"{6 * n * tokens / step_s / PEAK_BF16_S:.1%} of the bf16 dense "
+          f"peak, 8 N T with the recompute "
+          f"{8 * n * tokens / step_s / PEAK_BF16_S:.1%} (N = {n:,}, T = "
+          f"{tokens}); card {power}")
+
+
+def train_adamw():
+    """The launcher's AdamW config for the resumed run of (c)
+    (``train_argv`` with ``TRAIN_STEPS + 1`` steps), the schedule every
+    step after (a) runs by; step ``TRAIN_STEPS``'s loss comes before its
+    update and does not depend on it."""
+    return train_opt.AdamWConfig(lr=TRAIN_LR,
+                                 warmup_steps=max((TRAIN_STEPS + 1) // 10, 1),
+                                 total_steps=TRAIN_STEPS + 1)
+
+
+def train_resume_check(resumed: dict, loss_next: float, nxt) -> None:
+    """(c): ``launch.train.main --steps 21 --resume`` restored the step-20
+    checkpoint into a fresh model and state and took step 20 through its
+    own token stream and loop: its loss is the uninterrupted run's next
+    loss bit for bit, and its params, mu, nu, master and step after it
+    are the uninterrupted run's (``nxt``: the state after (b)'s n_micro =
+    1 step, whose fp32 master the params are) bit for bit."""
+    same = all(torch.equal(p, nxt.master[k])
+               for k, p in resumed["model"].named_parameters())
+    for field in ("mu", "nu", "master"):
+        mine = getattr(resumed["state"], field)
+        ref_ = getattr(nxt, field)
+        same &= sorted(mine) == sorted(ref_) and all(
+            torch.equal(mine[k], ref_[k]) for k in ref_)
+    same &= int(resumed["state"].step) == int(nxt.step) == TRAIN_STEPS + 1
+    check(resumed["start"] == TRAIN_STEPS and len(resumed["losses"]) == 1,
+          f"3l: launch.train.main --resume started at step "
+          f"{resumed['start']} and took {len(resumed['losses'])} steps")
+    check(resumed["losses"][0] == loss_next, f"3l: the resumed launcher's "
+          f"step-{TRAIN_STEPS} loss {resumed['losses'][0]!r} is not the "
+          f"uninterrupted run's {loss_next!r} bit for bit")
+    check(same, "3l: the params, mu, nu, master or step after the resumed "
+          "launcher's step differ from the uninterrupted run's")
+
+
+def train_step_loss(model, state, batch, n_micro: int = 1) -> tuple:
+    """(loss, seconds, the new state) of one step of ``train_adamw``; the
+    model's params move."""
+    step = train_loop.make_train_step(model.cfg, train_adamw(),
+                                      n_micro=n_micro)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, new_state, m = step(model, state, batch)
+    loss = float(m["loss"])
+    return loss, time.perf_counter() - t0, new_state
+
+
+def train_micro(out: dict, batch, power: str) -> tuple:
+    """(b) one step at n_micro = 2 against one at n_micro = 1 from the
+    trained state, on the stream's next batch; then one step's device time
+    by kernel. Takes the trained state out of ``out`` (so that the card
+    holds one optimizer state beside the step's); returns the n_micro = 1
+    step's loss and the state after it: the uninterrupted run's next
+    step (its params are that state's fp32 master)."""
+    model, state = out["model"], out.pop("state")
+    params = dict(model.named_parameters())
+    start = {k: p.detach().clone() for k, p in params.items()}
+    loss2, secs2, _ = train_step_loss(model, state, batch, 2)
+    after2 = {k: p.detach().clone() for k, p in params.items()}
+    with torch.no_grad():
+        for k, p in params.items():
+            p.copy_(start[k])
+    del start
+    loss, secs, nxt = train_step_loss(model, state, batch, 1)
+    del state
+    d = max(float((p.detach() - after2[k]).abs().max())
+            for k, p in params.items())
+    del after2
+    print(f"[3l] (b) n_micro=2 against n_micro=1 from the same state and "
+          f"batch: max |d param| {d:.3e} (< {MICRO_ATOL}); loss "
+          f"{loss:.6f} / {loss2:.6f}; step {1e3 * secs:.1f} / "
+          f"{1e3 * secs2:.1f} ms")
+    check(d < MICRO_ATOL, f"3l: microbatching moved a param {d:.3e} from "
+          f"the one-batch step (>= {MICRO_ATOL})")
+    torch.cuda.empty_cache()
+    step = train_loop.make_train_step(model.cfg, train_adamw())
+    dev_ms, split, launches = device_time(
+        lambda: step(model, nxt, batch), 1)
+    print(f"[3l] one step by kernel: device {dev_ms:.1f} ms, {launches} "
+          f"launches; {top_kernels(split, 8)}; card {power}")
+    return loss, nxt
+
+
+def grads_of(model, batch, unrounded: bool = False) -> torch.Tensor:
+    """The loss's gradient over every param, flattened, float64 on the
+    host; ``unrounded``: a float64 copy of the model with the compute dtype
+    float64 (fp32 where the reference computes fp32)."""
+    if unrounded:
+        hi = lm.Model(model.cfg, torch.device("meta")).double().to_empty(
+            device=model.device)
+        hi.load_state_dict(model.state_dict())
+        model = hi
+    keep = lm_layers.COMPUTE_DTYPE
+    if unrounded:
+        lm_layers.COMPUTE_DTYPE = torch.float64
+    try:
+        with torch.enable_grad():
+            loss, _ = lm.lm_loss(model, batch)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+    finally:
+        lm_layers.COMPUTE_DTYPE = keep
+    return torch.cat([g.double().reshape(-1).cpu() for g in grads])
+
+
+def train_families(dev) -> None:
+    """(d) reduced gradients on the card against the host, one arch of each
+    family: the card's no further from its own unrounded gradient than
+    1.5 times the host's from the host's."""
+    for arch in TRAIN_FAMILIES:
+        cfg = reduced(get_config(arch))
+        model = lm.init_params(0, cfg, device=dev)
+        host = copy_model(model, "cpu")
+        r = np.random.default_rng(0)
+        batch = {"tokens": r.integers(0, cfg.vocab_size, (2, 64))
+                 .astype(np.int32)}
+        batch.update({k: r.normal(size=(2, *shape)).astype(np.float32)
+                      for k, shape in train_launch.batch_extras(cfg).items()})
+        card_b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        host_b = {k: torch.as_tensor(v) for k, v in batch.items()}
+        g_card, g_card64 = grads_of(model, card_b), grads_of(model, card_b,
+                                                             True)
+        g_host, g_host64 = grads_of(host, host_b), grads_of(host, host_b,
+                                                            True)
+        d_card = float(torch.linalg.norm(g_card - g_card64))
+        d_host = float(torch.linalg.norm(g_host - g_host64))
+        rel = d_card / float(torch.linalg.norm(g_card64))
+        print(f"[3l] (d) {cfg.name} reduced: |card - card unrounded| "
+              f"{d_card:.4e} ({rel:.2e} of its norm), |host - host "
+              f"unrounded| {d_host:.4e}: ratio {d_card / d_host:.3f} (<= "
+              f"{UNROUNDED}); card to host {float(torch.linalg.norm(g_card - g_host)):.4e}")
+        check(bool(torch.isfinite(g_card).all())
+              and d_card <= UNROUNDED * d_host, f"3l: {cfg.name}'s gradient "
+              f"on the card lies {d_card:.4e} from its unrounded one, more "
+              f"than {UNROUNDED} x the host's {d_host:.4e}")
+
+
+def phase_train(dev, power: str) -> dict:
+    """Phase 3l: gemma3-1b at its published widths trained through the
+    launcher (``launch.train.main``): (a) 20 steps of 8 x 1024 Markov
+    tokens, remat on, a checkpoint at the end, (b) microbatching on the
+    stream's next batch, (c) ``--steps 21 --resume`` from the checkpoint
+    into a fresh model and state, its step held to (b)'s n_micro = 1 step,
+    (d) reduced gradients of each family against the host.
+    Returns the launch counts of the port's kernels in training (none: no
+    TPU kernel lies on this path)."""
+    t_phase = time.perf_counter()
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="fcvi_train_") as tmp:
+        t0 = time.perf_counter()
+        out = train_launch.main(train_argv(tmp))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        cfg = out["model"].cfg
+        check(cfg.remat and out["params"] == TRAIN_PARAMS,
+              f"3l: {cfg.name} at {out['params']:,} parameters, remat "
+              f"{cfg.remat}")
+        print(f"[3l] {cfg.name}: {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, vocab {cfg.vocab_size}, {out['params']:,} "
+              f"parameters, remat on; launch.train.main: {TRAIN_STEPS} steps "
+              f"of {TRAIN_BATCH} x {TRAIN_SEQ} tokens, lr {TRAIN_LR}, a "
+              f"checkpoint at step {TRAIN_CKPT}: {run_s:.1f} s in all; the "
+              f"port's kernels launched {json.dumps(counts)}")
+        train_report(out, power)
+        print(f"[3l] peak device memory {peak:.2f} GB "
+              f"(torch.cuda.max_memory_allocated; predicted "
+              f"{TRAIN_PREDICTED_GB:.0f} GB); the checkpoint (params and "
+              f"AdamWState, {dir_bytes(out['checkpoints'][0]) / 1e9:.2f} GB "
+              f"on disk) saved in {out['ckpt_s'][0]:.1f} s; card {power}")
+        batch = train_batch(cfg, TRAIN_STEPS, dev)
+        loss_next, nxt = train_micro(out, batch, power)
+        del out, batch
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        resumed = train_launch.main(train_argv(tmp, TRAIN_STEPS + 1)
+                                    + ["--resume"])
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        train_resume_check(resumed, loss_next, nxt)
+        print(f"[3l] (c) launch.train.main --steps {TRAIN_STEPS + 1} "
+              f"--resume: a fresh model and state restored from step "
+              f"{TRAIN_CKPT} and one step in {resume_s:.1f} s (the model "
+              f"drawn, the checkpoint read, verified and copied to the card, "
+              f"the stream moved on); its step-{TRAIN_STEPS} loss "
+              f"{resumed['losses'][0]:.6f}, and the params, mu, nu, master "
+              f"and step after it, bit-equal to the uninterrupted run's")
+        del resumed, nxt
+        torch.cuda.empty_cache()
+    train_families(dev)
+    print(f"[3l] phase in {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3941,11 +4225,14 @@ def main() -> int:
     lm_counts = phase_lm(dev, power)
     torch.cuda.empty_cache()
     lmk_counts = phase_lm_families(dev, power)
+    torch.cuda.empty_cache()
+    train_counts = phase_train(dev, power)
     for tag, r, c in (("3b", ivf_res, ivf_counts), ("3c", pq_res, pq_counts),
                       ("3d", sf_res, sf_counts), ("3e", si_res, si_counts),
                       ("3f", pf_res, pf_counts), ("3g", sg_res, sg_counts),
                       ("3h", {}, lc_counts), ("3i", {}, sh_counts),
-                      ("3j", {}, lm_counts), ("3k", {}, lmk_counts)):
+                      ("3j", {}, lm_counts), ("3k", {}, lmk_counts),
+                      ("3l", {}, train_counts)):
         phases[tag] = dict(c)
         res.update(r)
         for name, n in c.items():
@@ -3959,7 +4246,7 @@ def main() -> int:
     for name, (source, replaces) in SOURCES.items():
         launches = counts.get(name, 0)
         check(launches > 0, f"kernel {name} was not launched on the main "
-              "paths (phases 3 and 3b to 3k)")
+              "paths (phases 3 and 3b to 3l)")
         r = res[name]
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches,

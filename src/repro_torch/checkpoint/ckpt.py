@@ -5,10 +5,12 @@ Layout:  <dir>/step_<N>/
                                   metadata
            arrays.npz           - one entry per leaf, named by its key
 
-A leaf's key is its path of dict keys (and list or tuple indices) joined by
-``SEP``: ``index|backend|vectors``. Dicts are walked in sorted key order,
-``None`` leaves are dropped, and leaves may be tensors (detached and copied
-to the host), numpy arrays or Python scalars. bf16 and fp8 leaves are stored
+A leaf's key is its path of dict keys, NamedTuple fields (as ``.name``,
+as JAX prints a ``GetAttrKey``) and list or tuple indices joined by
+``SEP``: ``index|backend|vectors``, ``1|.mu|embed|embedding`` for a
+training checkpoint's ``(params, AdamWState)``. Dicts are walked in sorted
+key order, ``None`` leaves are dropped, and leaves may be tensors (detached
+and copied to the host), numpy arrays or Python scalars. bf16 and fp8 leaves are stored
 as same-width unsigned views under their dtype's name (``"bfloat16"``,
 ``"float8_e4m3fn"``, ``"float8_e5m2"``) and come back by bit pattern, so a
 checkpoint written here loads in ``repro.checkpoint.ckpt`` and the other
@@ -59,17 +61,33 @@ class CheckpointCorruptError(RuntimeError):
     checksum mismatch, unreadable manifest, or missing arrays)."""
 
 
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
+def _children(tree) -> list:
+    """(key part, child) pairs of a dict, a NamedTuple or a list or tuple,
+    keyed as JAX's tree paths print: a dict key as itself, a NamedTuple
+    field as ``.name`` (``GetAttrKey``), an index as its number."""
+    if isinstance(tree, dict):
+        return [(str(k), v) for k, v in tree.items()]
+    if _is_namedtuple(tree):
+        return [(f".{f}", getattr(tree, f)) for f in tree._fields]
+    return [(str(i), v) for i, v in enumerate(tree)]
+
+
 def _walk(tree, path=()):
     """(key, leaf) pairs in the reference's flattening order: dicts by
-    sorted key, lists and tuples by index, ``None`` dropped."""
+    sorted key, NamedTuples by field, lists and tuples by index, ``None``
+    dropped."""
     if tree is None:
         return
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _walk(tree[k], path + (str(k),))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _walk(v, path + (str(i),))
+    if isinstance(tree, (dict, list, tuple)):
+        children = _children(tree)
+        if isinstance(tree, dict):
+            children = sorted(children, key=lambda kv: kv[0])
+        for k, v in children:
+            yield from _walk(v, path + (k,))
     else:
         yield SEP.join(path), tree
 
@@ -78,11 +96,13 @@ def _rebuild(tree, fn, path=()):
     """``tree``'s structure with each leaf replaced by ``fn(key, leaf)``."""
     if tree is None:
         return None
-    if isinstance(tree, dict):
-        return {k: _rebuild(v, fn, path + (str(k),)) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(v, fn, path + (str(i),))
-                          for i, v in enumerate(tree))
+    if isinstance(tree, (dict, list, tuple)):
+        out = [_rebuild(v, fn, path + (k,)) for k, v in _children(tree)]
+        if isinstance(tree, dict):
+            return dict(zip(tree, out))
+        if _is_namedtuple(tree):
+            return type(tree)(*out)
+        return type(tree)(out)
     return fn(SEP.join(path), tree)
 
 

@@ -1,1 +1,1 @@
-"""Synthetic corpora (numpy)."""
+"""Synthetic corpora (numpy) and the synthetic LM token stream."""

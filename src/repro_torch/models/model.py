@@ -16,12 +16,19 @@ frames and adds cross attention to each decoder block; the vision and
 audio frontends are stubs that supply precomputed patch or frame
 embeddings. The reference scans stacked periods of blocks (``lax.scan``
 under ``remat``); here each stack is one ``nn.ModuleList`` in layer
-order, which is what serving needs. ``params_from_jax`` unstacks the
-reference's param tree into it, so the same weights compute in both
-packages.
+order. ``params_from_jax`` unstacks the reference's param tree into it,
+so the same weights compute in both packages, and ``params_to_jax``
+stacks it back (``to_jax_tree`` / ``from_jax_tree`` map any tensors keyed
+by parameter name, gradients and optimizer moments too).
 
-Not ported yet: ``lm_loss`` and training (ROADMAP A13e). The passes run
-without autograd (``torch.no_grad``): gradients come with A13e.
+Training: ``lm_loss`` is the reference's next-token loss with its
+sequence-chunked, rematerialised unembedding over ``train_hidden``;
+``train_hidden``, ``encode`` and ``_logits`` build an autograd graph where
+grad is enabled, and in ``"train"`` mode each decoder block runs under
+``torch.utils.checkpoint`` when ``cfg.remat`` is set. The serving and
+evaluation entry points (``forward_hidden``, ``forward``,
+``pooled_embedding``, ``prefill``, ``decode_step``) run under
+``torch.no_grad``: they build no graph.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import Tensor, nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.clustering import Seed, make_generator
 from repro_torch.device import DeviceLike, resolve_device
@@ -287,41 +295,112 @@ def param_count(model: Model) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
+def _nest(flat: dict) -> dict:
+    """``{"a.b": x}`` -> ``{"a": {"b": x}}``."""
+    out: dict = {}
+    for name, leaf in flat.items():
+        *path, last = name.split(".")
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+    return out
+
+
+def _flat(tree: dict, prefix: str = "") -> dict:
+    """``{"a": {"b": x}}`` -> ``{prefix + "a.b": x}``."""
+    out = {}
+    for name, sub in tree.items():
+        if isinstance(sub, dict):
+            out.update(_flat(sub, f"{prefix}{name}."))
+        else:
+            out[prefix + name] = sub
+    return out
+
+
+def _stack(layers: dict, period: int, n_periods: int) -> dict:
+    """One stack of the reference's tree from ``{layer index: {name:
+    tensor}}``: ``scan[j]`` stacks layers ``p * period + j`` over p,
+    ``rest[i]`` is layer ``n_periods * period + i``."""
+    scan = [_nest({name: torch.stack([layers[p * period + j][name]
+                                      for p in range(n_periods)])
+                   for name in layers[j]})
+            for j in range(period)] if n_periods else []
+    rest = [_nest(layers[i]) for i in range(n_periods * period, len(layers))]
+    return {"scan": scan, "rest": rest}
+
+
+_TOPS = ("embed", "final_norm", "unembed", "enc_norm")
+
+
+def _stacks(cfg: ModelConfig) -> list:
+    """(tree key, parameter name prefix, period, periods) of each stack."""
+    out = [("decoder", "layers", cfg.period, cfg.n_periods)]
+    if cfg.enc_dec:
+        out.append(("encoder", "encoder", 1, cfg.n_enc_layers))
+    return out
+
+
+def to_jax_tree(named: dict, cfg: ModelConfig) -> dict:
+    """The reference's param tree (``embed``, ``decoder`` / ``encoder``
+    stacks of ``scan`` and ``rest``, norms, ``unembed``) from tensors keyed
+    by the port's parameter names: the params, or gradients or optimizer
+    moments of them. Stacked leaves are new tensors on the leaves'
+    device."""
+    top: dict = {}
+    for name, leaf in named.items():
+        head, rest = name.split(".", 1)
+        top.setdefault(head, {})[rest] = leaf
+    tree = {head: _nest(top[head]) for head in _TOPS if head in top}
+    for key, head, period, n_periods in _stacks(cfg):
+        layers: dict = {}
+        for name, leaf in top[head].items():
+            i, rest = name.split(".", 1)
+            layers.setdefault(int(i), {})[rest] = leaf
+        tree[key] = _stack(layers, period, n_periods)
+    return tree
+
+
+def from_jax_tree(tree: dict, cfg: ModelConfig) -> dict:
+    """The inverse of ``to_jax_tree``: ``{parameter name: leaf}``, each
+    stacked leaf indexed by its period (a view of a numpy or torch leaf).
+    A stack's ``scan[j]`` leaves unstack into layer ``p * period + j``;
+    ``rest[i]`` is layer ``n_periods * period + i``: ``decoder`` into
+    ``layers``, ``encoder`` (period 1) into ``encoder``."""
+    named = {}
+    for head in _TOPS:
+        if head in tree:
+            named.update(_flat(tree[head], f"{head}."))
+    for key, head, period, n_periods in _stacks(cfg):
+        for j, slot in enumerate(tree[key]["scan"]):
+            for name, leaf in _flat(slot).items():
+                for p in range(n_periods):
+                    named[f"{head}.{p * period + j}.{name}"] = leaf[p]
+        for i, bp in enumerate(tree[key]["rest"]):
+            for name, leaf in _flat(bp).items():
+                named[f"{head}.{n_periods * period + i}.{name}"] = leaf
+    return named
+
+
 def params_from_jax(tree: dict, cfg: ModelConfig,
                     device: DeviceLike = "cuda") -> Model:
     """A model on ``device`` holding the reference's params (``tree``, the
-    ``init_params`` dict with numpy leaves). A stack's ``scan[j]`` leaves,
-    stacked over periods, unstack into layer ``p * period + j``;
-    ``rest[i]`` is layer ``n_periods * period + i``: ``decoder`` into
-    ``layers``, ``encoder`` (period 1) into ``encoder``."""
+    ``init_params`` dict with numpy leaves), unstacked by
+    ``from_jax_tree``."""
     dev = resolve_device(device)
-    state = {}
-
-    def put(prefix, sub, index=None):
-        for name, leaf in sub.items():
-            if isinstance(leaf, dict):
-                put(f"{prefix}{name}.", leaf, index)
-            else:
-                a = np.asarray(leaf, np.float32)
-                state[prefix + name] = torch.tensor(
-                    a if index is None else a[index])
-
-    def put_stack(prefix, stack, period, n_periods):
-        for j, slot in enumerate(stack["scan"]):
-            for p in range(n_periods):
-                put(f"{prefix}{p * period + j}.", slot, p)
-        for i, bp in enumerate(stack["rest"]):
-            put(f"{prefix}{n_periods * period + i}.", bp)
-
-    for name in ("embed", "final_norm", "unembed", "enc_norm"):
-        if name in tree:
-            put(f"{name}.", tree[name])
-    put_stack("layers.", tree["decoder"], cfg.period, cfg.n_periods)
-    if cfg.enc_dec:
-        put_stack("encoder.", tree["encoder"], 1, cfg.n_enc_layers)
+    state = {name: torch.tensor(np.asarray(leaf, np.float32))
+             for name, leaf in from_jax_tree(tree, cfg).items()}
     model = Model(cfg, dev)
     model.load_state_dict(state, strict=True)
     return model
+
+
+def params_to_jax(model: Model, device: DeviceLike = "cpu") -> dict:
+    """The inverse of ``params_from_jax``: the reference's param tree of
+    the model's weights (``to_jax_tree``), fp32 tensors copied to
+    ``device`` (``"meta"``: shapes and dtypes only)."""
+    return to_jax_tree({name: p.detach().to(device)
+                        for name, p in model.named_parameters()}, model.cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -343,7 +422,6 @@ def _embed_in(model: Model, tokens: Tensor, offset=0) -> Tensor:
     return x
 
 
-@torch.no_grad()
 def _logits(model: Model, x: Tensor) -> Tensor:
     cfg = model.cfg
     x = model.final_norm(x)
@@ -372,7 +450,6 @@ def _tokens(model: Model, batch: dict) -> Tensor:
     return torch.as_tensor(batch["tokens"], device=model.device).long()
 
 
-@torch.no_grad()
 def encode(model: Model, frames) -> Tensor:
     """The whisper encoder over precomputed frame embeddings (the conv
     stub's), (b, s_enc, d): sinusoidal positions where the config asks,
@@ -388,21 +465,53 @@ def encode(model: Model, frames) -> Tensor:
     return model.enc_norm(x)
 
 
-@torch.no_grad()
-def forward_hidden(model: Model, batch: dict) -> Tensor:
+def _block_out(bp: Block, x: Tensor, cfg: ModelConfig,
+               enc_out: Optional[Tensor]) -> Tensor:
+    return apply_block(bp, x, cfg, "train", enc_out=enc_out)[0]
+
+
+def train_hidden(model: Model, batch: dict) -> Tensor:
     """Teacher-forced full-sequence final hidden states (before the final
-    norm), (b, n_prefix + s, d) bf16. ``batch``: ``tokens`` (b, s); for the
+    norm), (b, n_prefix + s, d) bf16, with autograd where grad is enabled:
+    the training path (``lm_loss``). ``batch``: ``tokens`` (b, s); for the
     encoder-decoder ``frames`` (b, s_enc, d); for a vision-stub frontend
-    ``patches`` (b, n_prefix, d)."""
+    ``patches`` (b, n_prefix, d).
+
+    With grad enabled and ``cfg.remat``, each decoder block runs under
+    ``torch.utils.checkpoint``: the forward keeps only the block's input,
+    and the backward recomputes the block from it, one block at a time.
+    This is the inner level of the reference's two-level remat; its outer
+    level (one saved input a period) exists for its ``lax.scan`` over
+    periods, which would otherwise keep every block's input of the scan.
+    A Python loop over layers keeps one (b, s, d) bf16 input a layer
+    (0.5 GB for gemma3-1b at 8 x 1024 tokens), and a second level would
+    buy back most of that at the price of running every block a third
+    time. The recomputation runs the same ops on the same inputs, so the
+    gradients equal those without remat bit for bit. The encoder's stack
+    runs in ``"encode"`` mode, without remat, as the reference's does."""
+    cfg = model.cfg
     x = _embed_in(model, _tokens(model, batch))
     enc_out = None
-    if model.cfg.enc_dec:
+    if cfg.enc_dec:
         enc_out = encode(model, batch["frames"])
     else:
         x = _with_prefix(model, x, batch)
+    remat = cfg.remat and torch.is_grad_enabled()
     for bp in model.layers:
-        x, _ = apply_block(bp, x, model.cfg, "train", enc_out=enc_out)
+        if remat:
+            x = checkpoint(_block_out, bp, x, cfg, enc_out,
+                           use_reentrant=False)
+        else:
+            x = _block_out(bp, x, cfg, enc_out)
     return x
+
+
+@torch.no_grad()
+def forward_hidden(model: Model, batch: dict) -> Tensor:
+    """``train_hidden`` without autograd: the teacher-forced pass that
+    embedding and evaluation call (the reference's ``forward_hidden``),
+    which holds full-width activations it never differentiates."""
+    return train_hidden(model, batch)
 
 
 @torch.no_grad()
@@ -411,6 +520,7 @@ def forward(model: Model, batch: dict) -> Tensor:
     return _logits(model, forward_hidden(model, batch))
 
 
+@torch.no_grad()
 def pooled_embedding(model: Model, tokens, batch_size: int = 256) -> Tensor:
     """Document embeddings: the mean over positions of the fp32 final hidden
     states of token rows (n, s), ``batch_size`` rows a forward. Returns an
@@ -515,3 +625,67 @@ def decode_step(model: Model, token, cache: dict):
                            cross_cache=None if cross is None else cross[i])
         new.append(c)
     return _logits(model, x), {"self": new, "cross": cross}
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def _chunk_nll(model: Model, xc: Tensor, lc: Tensor, mc: Tensor):
+    """One chunk's (sum of masked NLL, sum of masked log Z), fp32."""
+    cfg = model.cfg
+    lg = _logits(model, xc).float()
+    if cfg.padded_vocab != cfg.vocab_size:
+        valid = torch.arange(cfg.padded_vocab, device=lg.device) \
+            < cfg.vocab_size
+        lg = torch.where(valid, lg, -1e30)
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, lc[..., None])[..., 0]
+    return torch.sum((logz - gold) * mc), torch.sum(logz * mc)
+
+
+def lm_loss(model: Model, batch: dict, seq_chunk: int = 512) -> tuple:
+    """Next-token cross-entropy with a sequence-chunked, rematerialised
+    unembedding, as the reference's ``lm_loss``: the (b, s, V) logits never
+    exist. Each chunk of ``seq_chunk`` positions computes its fp32 logits
+    (padded-vocab columns at -1e30), reduces them to log Z and the gold
+    logit a token, and is recomputed in the backward pass
+    (``torch.utils.checkpoint``, where grad is enabled): one chunk's
+    logits at a time, (b, seq_chunk, V) fp32.
+
+    The prefix positions (a vision stub's patches) are cut off; labels are
+    the tokens shifted by one with the last position masked, times
+    ``batch["loss_mask"]`` where given; the sequence is padded to a
+    multiple of ``seq_chunk`` with masked positions. Returns (loss, metrics
+    ``loss``, ``ppl_log``, ``tokens``, ``logz_mean``), 0-d fp32 tensors,
+    the loss over ``max(sum(mask), 1)``."""
+    x = train_hidden(model, batch)                  # (b, s_total, d)
+    tokens = _tokens(model, batch)
+    x = x[:, x.shape[1] - tokens.shape[1]:]
+    labels = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
+    mask = torch.ones(labels.shape, dtype=torch.float32, device=x.device)
+    mask[:, -1] = 0.0
+    if "loss_mask" in batch:
+        mask = mask * torch.as_tensor(batch["loss_mask"], device=x.device)
+    s = x.shape[1]
+    seq_chunk = min(seq_chunk, s)
+    pad = (-s) % seq_chunk
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad))
+    remat = torch.is_grad_enabled()
+    nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    logz_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, s + pad, seq_chunk):
+        args = (model, x[:, lo:lo + seq_chunk], labels[:, lo:lo + seq_chunk],
+                mask[:, lo:lo + seq_chunk])
+        nll_c, logz_c = (checkpoint(_chunk_nll, *args, use_reentrant=False)
+                         if remat else _chunk_nll(*args))
+        nll = nll + nll_c
+        logz_sum = logz_sum + logz_c
+    denom = torch.clamp_min(torch.sum(mask), 1.0)
+    loss = nll / denom
+    metrics = {"loss": loss, "ppl_log": loss, "tokens": denom,
+               "logz_mean": logz_sum / denom}
+    return loss, metrics

@@ -56,8 +56,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
 
 def test_module_list_covers_every_slice():
     """The import check above walks the package, so each new module is in
-    it; pin the IVF, PQ, storage-ladder, checkpoint, sharded-serving and LM
-    slices' modules there (the LM's MoE and recurrent mixers too)."""
+    it; pin the IVF, PQ, storage-ladder, checkpoint, sharded-serving, LM
+    and training slices' modules there (the LM's MoE and recurrent mixers
+    too)."""
     mods = set(_modules())
     assert {"repro_torch.core.clustering", "repro_torch.index.ivf",
             "repro_torch.index.slab", "repro_torch.kernels.ivf_score",
@@ -72,7 +73,10 @@ def test_module_list_covers_every_slice():
             "repro_torch.models.attention", "repro_torch.models.model",
             "repro_torch.configs", "repro_torch.configs.base",
             "repro_torch.configs.gemma3_1b", "repro_torch.launch.serve",
-            "repro_torch.models.moe", "repro_torch.models.recurrent"
+            "repro_torch.models.moe", "repro_torch.models.recurrent",
+            "repro_torch.data.tokens", "repro_torch.train",
+            "repro_torch.train.optimizer", "repro_torch.train.loop",
+            "repro_torch.distributed.compression", "repro_torch.launch.train"
             } <= mods
 
 
@@ -121,7 +125,7 @@ def test_lm_entry_points_default_to_cuda_and_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: nothing to refuse")
     from repro_torch.configs import get_config, reduced
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import model as lm
 
     cfg = reduced(get_config("gemma3-1b"))
@@ -142,6 +146,8 @@ def test_lm_entry_points_default_to_cuda_and_raise_without_a_card():
         lm.init_cross_cache(reduced(get_config("whisper-large-v3")), 1, 16)
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--n", "64"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--steps", "1"])
 
 
 def test_no_handler_falls_back():
