@@ -240,8 +240,28 @@ Phases, each of which raises (and exits non-zero) on a failure:
    further from the card's unrounded gradient than 1.5 times the host's
    distance from the host's. No kernel of ``SOURCES`` lies on this path; its launches are
    counted and printed (none).
+3m. the model's shardings: gemma3-1b at its published widths, seed-0
+   weights drawn on the card, on a logical (2, 2, 2) ("pod", "data",
+   "model") mesh whose eight positions are all ``cuda:0``, under
+   ``arch_rules`` (head_dim, ff and vocab on the model axis, the attention
+   core sequence-parallel), ZeRO-1 moments and the int8 pod hop; 8 x 1024
+   tokens of 3l's stream a step, remat on. (a) Step 0 from the seed-0
+   state against the unsharded step and its twin computed without bf16
+   rounding: loss and grad norm within 1.5 times the unsharded value's
+   distance from the unrounded one (or 1e-3 of it); the synced gradient
+   with the pod hop in fp32 by the CPU tests' rule (1.5 times, over all
+   leaves and leaf by leaf); the int8 hop within 0.02 of each leaf's max
+   from the fp32 hop; the new params within 2 lr of the unsharded step's.
+   (b) 3 steps of the step function: finite losses, ms a step beside 3l's,
+   the bytes a position holds of params, gradients and optimizer state
+   beside the unsharded step's, the collective bytes a position a step by
+   kind and axis, peak device memory (< 80 GB). (c) The heads-on-model
+   layout: the reference test's reduced mistral-nemo-12b on a (4, 2)
+   ("data", "model") mesh of the card under the default rules, one step
+   held to the same step on the host (1.5 times the host's distance from
+   its unrounded step). No kernel of ``SOURCES`` lies on this path.
 4. a ``kernels`` JSON line with each kernel variant's launches over phases
-   3 to 3l (each must be > 0), errors, times and bound, and the device
+   3 to 3m (each must be > 0), errors, times and bound, and the device
    time (``device_ms``) of B4, B8, B10 and the scan LUT, whose host loops
    sit near the
    host's cost of a launch (null for the others). No serving phase may
@@ -289,6 +309,9 @@ from repro_torch.data.tokens import (TokenSpec,  # noqa: E402
                                      global_batch_iterator)
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh, make_mesh  # noqa: E402
+from repro_torch.launch.specs import (TRAIN_EXTRA_RULES,  # noqa: E402
+                                      arch_rules)
+from repro_torch.distributed import sharding as S  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
@@ -3960,9 +3983,10 @@ def train_batch(cfg, index: int, dev) -> dict:
     return {k: torch.as_tensor(v, device=dev) for k, v in next(data).items()}
 
 
-def train_report(out: dict, power: str) -> None:
+def train_report(out: dict, power: str) -> float:
     """(a)'s checks and numbers: finite and falling loss, ms a step,
-    tokens/s, the bf16 peak share, peak device memory."""
+    tokens/s, the bf16 peak share, peak device memory. Returns the median
+    ms a step."""
     losses, gnorms = out["losses"], out["grad_norms"]
     check(len(losses) == TRAIN_STEPS and all(
         np.isfinite(losses + gnorms)), f"3l: a loss or grad norm is not "
@@ -3986,6 +4010,7 @@ def train_report(out: dict, power: str) -> None:
           f"peak, 8 N T with the recompute "
           f"{8 * n * tokens / step_s / PEAK_BF16_S:.1%} (N = {n:,}, T = "
           f"{tokens}); card {power}")
+    return 1e3 * step_s
 
 
 def train_adamw():
@@ -4124,7 +4149,7 @@ def train_families(dev) -> None:
               f"than {UNROUNDED} x the host's {d_host:.4e}")
 
 
-def phase_train(dev, power: str) -> dict:
+def phase_train(dev, power: str) -> tuple:
     """Phase 3l: gemma3-1b at its published widths trained through the
     launcher (``launch.train.main``): (a) 20 steps of 8 x 1024 Markov
     tokens, remat on, a checkpoint at the end, (b) microbatching on the
@@ -4132,7 +4157,7 @@ def phase_train(dev, power: str) -> dict:
     into a fresh model and state, its step held to (b)'s n_micro = 1 step,
     (d) reduced gradients of each family against the host.
     Returns the launch counts of the port's kernels in training (none: no
-    TPU kernel lies on this path)."""
+    TPU kernel lies on this path) and (a)'s median ms a step."""
     t_phase = time.perf_counter()
     _build.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -4153,7 +4178,7 @@ def phase_train(dev, power: str) -> dict:
               f"of {TRAIN_BATCH} x {TRAIN_SEQ} tokens, lr {TRAIN_LR}, a "
               f"checkpoint at step {TRAIN_CKPT}: {run_s:.1f} s in all; the "
               f"port's kernels launched {json.dumps(counts)}")
-        train_report(out, power)
+        step_ms = train_report(out, power)
         print(f"[3l] peak device memory {peak:.2f} GB "
               f"(torch.cuda.max_memory_allocated; predicted "
               f"{TRAIN_PREDICTED_GB:.0f} GB); the checkpoint (params and "
@@ -4180,6 +4205,397 @@ def phase_train(dev, power: str) -> dict:
         torch.cuda.empty_cache()
     train_families(dev)
     print(f"[3l] phase in {time.perf_counter() - t_phase:.1f} s")
+    return counts, step_ms
+
+
+# -- phase 3m: the model's shardings -----------------------------------------
+
+SHARD_SHAPE, SHARD_AXES = (2, 2, 2), ("pod", "data", "model")
+SHARD_STEPS = 3
+INT8_BOUND = 0.02            # tests/test_compression.py's cross-pod bound
+LEAF_FLOOR = 1e-3            # tests/lm_train_support.py's leaf floor
+# predictions written in PERF.md before the first run: ms a step and the
+# peak memory; the bytes one position holds of params, gradients (ZeRO
+# layout) and optimizer state as computed from the specs on the meta device
+SHARD_PREDICTED_MS = 4000.0
+SHARD_SPEC_GB = (2.019, 1.009, 3.028)
+SHARD_PREDICTED_PEAK_GB = 60.0
+
+
+def unrounded_rule(port: dict, ref: dict, exact: dict, base=None,
+                   leaf_atol: float = 0.0) -> tuple:
+    """``tests/lm_train_support.py``'s ``within_unrounded`` without its
+    anchor (the CPU tests hold the port's unrounded step to the
+    reference's): ``port`` no further from ``ref`` than 1.5 times
+    ``ref``'s distance from ``exact``, over all leaves and leaf by leaf (a
+    leaf's bound at least ``LEAF_FLOOR`` of its norm, of its step from
+    ``base`` where given, raised by ``leaf_atol``), in float64 on the card.
+    Returns (the global ratio, the worst leaf's |port - ref| over its
+    bound, its name)."""
+    d_pr = d_re = 0.0
+    worst = (0.0, None)
+    for k in sorted(exact):
+        p, r, e = (t[k].double() for t in (port, ref, exact))
+        if base is not None:
+            p, r, e = (t - base[k].double() for t in (p, r, e))
+        a = float(torch.linalg.norm(p - r))
+        b = float(torch.linalg.norm(r - e))
+        d_pr, d_re = d_pr + a * a, d_re + b * b
+        bound = max(UNROUNDED * b, LEAF_FLOOR * float(torch.linalg.norm(e)))
+        worst = max(worst, (a / (bound + leaf_atol), k))
+    return (d_pr / d_re) ** 0.5, *worst
+
+
+def scalar_rule(s: float, u: float, x: float) -> bool:
+    """A metric by the rule: within 1.5 times the unsharded value's
+    distance from the unrounded one, or ``LEAF_FLOOR`` of it."""
+    return abs(s - u) <= max(UNROUNDED * abs(u - x), LEAF_FLOOR * abs(x))
+
+
+def unrounded_grads(model, batch) -> tuple:
+    """(loss, {name: gradient}) of a float64 copy of ``model`` with the
+    compute dtype float64 (fp32 where the reference computes fp32); the
+    gradient kept in fp32 (its rounding, 6e-8, lies far below bf16's)."""
+    hi = lm.Model(model.cfg, torch.device("meta")).double().to_empty(
+        device=model.device)
+    hi.load_state_dict(model.state_dict())
+    keep = lm_layers.COMPUTE_DTYPE
+    lm_layers.COMPUTE_DTYPE = torch.float64
+    try:
+        (loss, _), grads = train_loop._grads(
+            train_loop.make_loss_fn(model.cfg), hi, batch)
+    finally:
+        lm_layers.COMPUTE_DTYPE = keep
+    del hi
+    return float(loss), {k: g.float() for k, g in grads.items()}
+
+
+def shard_bytes(tree: dict) -> float:
+    return train_loop.per_position_bytes(tree) / 1e9
+
+
+def colls_str(colls: dict, n: int) -> str:
+    """A step's collective bytes a position (the mesh total over ``n``),
+    by kind and axis."""
+    return "; ".join(
+        f"{kind} {rec['bytes'] / n / 1e9:.3f} GB in {rec['count']} calls ("
+        + ", ".join(f"{a or '-'} {b / n / 1e9:.3f}" for a, b in
+                    sorted(rec["by_axis"].items())) + ")"
+        for kind, rec in sorted(colls.items()))
+
+
+def shard_held_step(model, batch, rules, adamw, power: str) -> None:
+    """(a) Step 0 from the seed-0 state, sharded and not: the loss and the
+    gradient norm by the rule against the unsharded step and its unrounded
+    twin; the synced gradient (the pod hop in fp32) by the rule leaf by
+    leaf; the int8 hop's synced gradient within 0.02 of each leaf's max
+    from the fp32 hop's; the new params within 2 lr of the unsharded
+    step's (Adam's first update is lr times the gradient's sign, so this
+    bounds the hop's flips only: (c) holds the update)."""
+    cfg = model.cfg
+    named = dict(model.named_parameters())
+    t0 = time.perf_counter()
+    (loss_u, _), g_u = train_loop._grads(train_loop.make_loss_fn(cfg),
+                                         model, batch)
+    new_u, _, m_u = train_opt.update(adamw, g_u, train_opt.init(named),
+                                     named)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    loss_u, gnorm_u = float(loss_u), float(m_u["grad_norm"])
+    t0 = time.perf_counter()
+    loss_x, g_x = unrounded_grads(model, batch)
+    gnorm_x = float(train_opt.global_norm(g_x))
+    torch.cuda.synchronize()
+    exact_s = time.perf_counter() - t0
+    params, state, zspecs = train_loop.place_train_state(
+        model, train_opt.init(named), rules)
+    structure = lm.Model(cfg, torch.device("meta"))
+    stats = S.CollectiveStats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with S.use_rules(rules):
+        grads, metrics = train_loop.sharded_grads(
+            cfg, structure, params, train_loop.place_batch(batch, rules),
+            rules, 1, stats)
+        synced = {int8: train_loop.sync_grads(
+            grads, params, rules, zspecs,
+            torch.Generator(device=model.device).manual_seed(0), int8, stats)
+            for int8 in (True, False)}
+    del grads
+    torch.cuda.synchronize()
+    grads_s = time.perf_counter() - t0
+    loss_s = float(metrics["loss"])
+    g32 = {k: S.join(v) for k, v in synced[False].items()}
+    ratio, leaf_ratio, leaf = unrounded_rule(g32, g_u, g_x)
+    hop = max(float((S.join(synced[True][k]) - g).abs().max())
+              / float(g.abs().max()) for k, g in g32.items())
+    del g32, g_x, synced[False]
+    new_s, _, m_s = train_loop.sharded_update(adamw, synced[True], state,
+                                              params, stats)
+    gnorm_s = float(m_s["grad_norm"])
+    lr = float(m_u["lr"])
+    flips, d_max = 0, 0.0
+    for k, p in new_u.items():
+        d = (S.join(new_s[k]) - p).abs()
+        d_max = max(d_max, float(d.max()))
+        flips += int((d > lr).sum())
+    n = sum(p.numel() for p in named.values())
+    print(f"[3m] (a) step 0 from the seed-0 state: loss sharded "
+          f"{loss_s:.6f} / unsharded {loss_u:.6f} / unrounded {loss_x:.6f};"
+          f" grad norm {gnorm_s:.6f} / {gnorm_u:.6f} / {gnorm_x:.6f}; the "
+          f"synced gradient (fp32 hop) against the unsharded one: "
+          f"{ratio:.3f} of the unsharded one's distance from unrounded, "
+          f"worst leaf {leaf_ratio:.3f} ({leaf}) (<= 1); the int8 hop "
+          f"{hop:.5f} of a leaf's max from the fp32 hop (<= {INT8_BOUND}); "
+          f"params after the step within {d_max:.3e} of the unsharded "
+          f"step's (<= 2 lr = {2 * lr:.3e}), {flips:,} of {n:,} flipped "
+          f"by more than lr; seconds: unsharded {plain_s:.1f}, unrounded "
+          f"{exact_s:.1f}, sharded gradients and both syncs {grads_s:.1f}; "
+          f"card {power}")
+    check(np.isfinite(loss_s) and scalar_rule(loss_s, loss_u, loss_x),
+          f"3m: sharded step-0 loss {loss_s} against {loss_u} (unrounded "
+          f"{loss_x})")
+    check(scalar_rule(gnorm_s, gnorm_u, gnorm_x), f"3m: sharded grad norm "
+          f"{gnorm_s} against {gnorm_u} (unrounded {gnorm_x})")
+    check(ratio <= 1.0 and leaf_ratio <= 1.0, f"3m: the sharded gradient "
+          f"lies {ratio:.3f} (worst leaf {leaf_ratio:.3f}, {leaf}) of the "
+          "bound from the unsharded one")
+    check(hop <= INT8_BOUND, f"3m: the int8 pod hop moved a leaf {hop:.4f} "
+          f"of its max (> {INT8_BOUND})")
+    check(d_max <= 2 * lr * (1 + 1e-3), f"3m: a param moved {d_max:.3e} "
+          f"from the unsharded step's (> 2 lr = {2 * lr:.3e})")
+
+
+def shard_timed_steps(model, cfg, rules, adamw, power: str,
+                      train_ms: float) -> None:
+    """(b) ``SHARD_STEPS`` steps of the public step function from the
+    seed-0 state on the stream's batches 0, 1, ...: finite losses, ms a
+    step, the bytes a position holds of params and optimizer state, the
+    collective bytes a step. Returns ``{"params", "state"}``, the placed
+    state after the steps."""
+    named = dict(model.named_parameters())
+    params, state, zspecs = train_loop.place_train_state(
+        model, train_opt.init(named), rules)
+    step = train_loop.make_train_step(cfg, adamw, grad_shardings=zspecs)
+    losses, secs, gnorms = [], [], []
+    held = dict(params=shard_bytes(params),
+                state=sum(shard_bytes(getattr(state, f))
+                          for f in ("mu", "nu", "master")))
+    colls = None
+    for i in range(SHARD_STEPS):
+        batch = train_batch(cfg, i, model.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with S.use_rules(rules):
+            params, state, m = step(params, state,
+                                    train_loop.place_batch(batch, rules))
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        gnorms.append(float(m["grad_norm"]))
+        colls = m["collectives"]
+    full = sum(p.numel() * 4 for p in named.values()) / 1e9
+    step_ms = 1e3 * float(np.median(secs[1:]))
+    print(f"[3m] (b) {SHARD_STEPS} sharded steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens: losses {' '.join(f'{x:.4f}' for x in losses)}"
+          f", grad norms {' '.join(f'{x:.3f}' for x in gnorms)}; step 0 "
+          f"{1e3 * secs[0]:.1f} ms, then {step_ms:.1f} ms a step (predicted "
+          f"{SHARD_PREDICTED_MS:.0f}; 3l's unsharded step "
+          f"{train_ms:.1f} ms in this run); card {power}")
+    print(f"[3m] bytes a position holds, as separate cards would: params "
+          f"{held['params']:.3f} GB, mu + nu + master {held['state']:.3f} "
+          f"GB (computed from the specs: {SHARD_SPEC_GB[0]}, "
+          f"{SHARD_SPEC_GB[2]}); unsharded {full:.3f} and "
+          f"{3 * full:.3f} GB")
+    print(f"[3m] collective bytes a position a step: "
+          f"{colls_str(colls, rules.mesh.size)}")
+    check(all(np.isfinite(losses + gnorms)), f"3m: a sharded loss or grad "
+          f"norm is not finite: {losses} {gnorms}")
+    pb = train_loop.place_batch(train_batch(cfg, SHARD_STEPS, model.device),
+                                rules)
+
+    def one_step():
+        with S.use_rules(rules):
+            step(params, state, pb)
+
+    dev_ms, split, launches = device_time(one_step, 1)
+    print(f"[3m] one step by kernel: device {dev_ms:.1f} ms, {launches} "
+          f"launches, idle {1 - dev_ms / step_ms:.2f} of the step; "
+          f"{top_kernels(split, 8)}; card {power}")
+    return {"params": params, "state": state}
+
+
+def shard_held_update(placed: dict, cfg, rules, adamw, batch,
+                      power: str) -> None:
+    """(c) One step from (b)'s state, whose moments are not zero (Adam's
+    update is then smooth in the gradient; step 0's is lr times its sign
+    whatever the gradient): the sharded step with the pod hop in fp32
+    (its three calls: ``sharded_grads``, ``sync_grads``, the ZeRO-1
+    ``sharded_update`` on each position's shard of mu, nu and master)
+    against the unsharded step from the same joined state, and that step
+    with the gradient of a float64 twin, by the rule on each step's
+    params less the params before it (the lr-flip allowance of 2 lr a
+    leaf, as the CPU tests). Also measures the gradients' bytes a position
+    holds before the reduce-scatter and after it. Empties ``placed``
+    (the card holds one copy of the state at a time)."""
+    params, state = placed.pop("params"), placed.pop("state")
+    zspecs = {k: v.spec for k, v in state.mu.items()}
+    structure = lm.Model(cfg, torch.device("meta"))
+    stats = S.CollectiveStats()
+    with S.use_rules(rules):
+        grads, metrics = train_loop.sharded_grads(
+            cfg, structure, params, train_loop.place_batch(batch, rules),
+            rules, 1, stats)
+        # position (group 0, model 0): its gradient of each param block
+        pre_gb = sum(g[0].numel() * g[0].element_size()
+                     for g in grads[0].values()) / 1e9
+        synced = train_loop.sync_grads(grads, params, rules, zspecs, None,
+                                       False, stats)
+    del grads
+    post_gb = shard_bytes(synced)
+    new_s, _, m_s = train_loop.sharded_update(adamw, synced, state, params,
+                                              stats)
+    del synced
+    loss_s, gnorm_s = float(metrics["loss"]), float(m_s["grad_norm"])
+    new_s = {k: S.join(v) for k, v in new_s.items()}
+    model, state = train_loop.gather_train_state(params, state, cfg)
+    del params
+    torch.cuda.empty_cache()
+    named = {k: p.detach() for k, p in model.named_parameters()}
+    loss_x, g = unrounded_grads(model, batch)
+    new_x, _, m_x = train_opt.update(adamw, g, state, named)
+    del g
+    (loss_u, _), g = train_loop._grads(train_loop.make_loss_fn(cfg), model,
+                                       batch)
+    new_u, _, m_u = train_opt.update(adamw, g, state, named)
+    del g, state
+    lr = float(m_u["lr"])
+    ratio, leaf_ratio, leaf = unrounded_rule(new_s, new_u, new_x, named,
+                                             2 * lr)
+    d_su = d_step = 0.0
+    for k, p in named.items():
+        d_su += float(torch.linalg.norm(new_s[k] - new_u[k])) ** 2
+        d_step += float(torch.linalg.norm(new_u[k].double()
+                                          - p.double())) ** 2
+    frac = (d_su / d_step) ** 0.5
+    gnorm_u, gnorm_x = float(m_u["grad_norm"]), float(m_x["grad_norm"])
+    print(f"[3m] (c) one step from (b)'s state (moments not zero), the pod "
+          f"hop in fp32: loss sharded {loss_s:.6f} / unsharded "
+          f"{float(loss_u):.6f} / unrounded {loss_x:.6f}; grad norm "
+          f"{gnorm_s:.6f} / {gnorm_u:.6f} / {gnorm_x:.6f}; the new params "
+          f"less the old against the unsharded step's: {ratio:.3f} of the "
+          f"unsharded step's distance from its float64 twin's (<= "
+          f"{UNROUNDED}), worst leaf {leaf_ratio:.3f} of its bound ({leaf})"
+          f" (<= 1, 2 lr = {2 * lr:.1e} a leaf allowed); |sharded - "
+          f"unsharded| {frac:.3e} of the step's size; card {power}")
+    print(f"[3m] gradients a position holds, measured in (c): "
+          f"{pre_gb:.3f} GB before the reduce-scatter (its gradient of its "
+          f"param blocks, params-sized), {post_gb:.3f} GB after it (ZeRO-1 "
+          f"layout; computed from the specs: {SHARD_SPEC_GB[1]})")
+    check(np.isfinite(loss_s) and scalar_rule(loss_s, float(loss_u),
+                                              loss_x),
+          f"3m: sharded loss {loss_s} from (b)'s state against "
+          f"{float(loss_u)} (unrounded {loss_x})")
+    check(scalar_rule(gnorm_s, gnorm_u, gnorm_x), f"3m: sharded grad norm "
+          f"{gnorm_s} from (b)'s state against {gnorm_u} (unrounded "
+          f"{gnorm_x})")
+    check(ratio <= UNROUNDED and leaf_ratio <= 1.0, f"3m: the sharded "
+          f"update from (b)'s state lies {ratio:.3f} (worst leaf "
+          f"{leaf_ratio:.3f}, {leaf}) of the bound from the unsharded one")
+
+
+def shard_heads_case(dev, power: str) -> None:
+    """(d) The heads-on-model layout: the reference test's reduced
+    mistral-nemo-12b (2 layers, 4 heads, 2 KV heads), 8 x 32 tokens, a (4,
+    2) ("data", "model") mesh under the default rules, one sharded step on
+    the card against the same step on the host: the card's new params no
+    further from the host's than 1.5 times the host's distance from its
+    step without bf16 rounding; loss and grad norm within 1e-3."""
+    cfg = dataclasses.replace(reduced(get_config("mistral-nemo-12b")),
+                              n_layers=2, n_heads=4, n_kv_heads=2)
+    adamw = train_opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    r = np.random.default_rng(0)
+    batch = {"tokens": r.integers(0, cfg.vocab_size, (8, 32))
+             .astype(np.int32)}
+    host_model = lm.init_params(0, cfg, device="cpu")
+    out = {}
+    for tag, d, hi in (("card", dev, False), ("host", torch.device("cpu"),
+                                              False),
+                       ("exact", torch.device("cpu"), True)):
+        model = copy_model(host_model, d)
+        model = model.double() if hi else model
+        rules = S.AxisRules(make_mesh((4, 2), ("data", "model"), device=d))
+        params, state, _ = train_loop.place_train_state(
+            model, train_opt.init(dict(model.named_parameters())), rules,
+            zero1=False)
+        keep = lm_layers.COMPUTE_DTYPE
+        if hi:
+            lm_layers.COMPUTE_DTYPE = torch.float64
+        try:
+            with S.use_rules(rules):
+                new, _, m = train_loop.make_train_step(cfg, adamw)(
+                    params, state, train_loop.place_batch(batch, rules, d))
+        finally:
+            lm_layers.COMPUTE_DTYPE = keep
+        out[tag] = (torch.cat([S.join(new[k]).double().cpu().reshape(-1)
+                               for k in sorted(new)]),
+                    float(m["loss"]), float(m["grad_norm"]))
+    (c, lc, gc), (h, lh, gh), (x, _, _) = out["card"], out["host"], \
+        out["exact"]
+    d_ch = float(torch.linalg.norm(c - h))
+    d_hx = float(torch.linalg.norm(h - x))
+    print(f"[3m] (d) {cfg.name} reduced, heads on the model axis of a (4, "
+          f"2) mesh: |card - host| {d_ch:.4e}, |host - host unrounded| "
+          f"{d_hx:.4e}: ratio {d_ch / d_hx:.3f} (<= {UNROUNDED}); loss "
+          f"{lc:.6f} / {lh:.6f}, grad norm {gc:.6f} / {gh:.6f}")
+    check(bool(torch.isfinite(c).all()) and d_ch <= UNROUNDED * d_hx
+          and abs(lc - lh) <= 1e-3 * abs(lh)
+          and abs(gc - gh) <= 1e-3 * abs(gh),
+          "3m: the heads-on-model sharded step on the card is not the "
+          "host's")
+
+
+def phase_shard_train(dev, power: str, train_ms: float) -> dict:
+    """Phase 3m: gemma3-1b at its published widths trained on a logical
+    (2, 2, 2) ("pod", "data", "model") mesh of the card under
+    ``arch_rules`` (head_dim, ff and vocab on the model axis, the attention
+    core sequence-parallel; ZeRO-1 moments; the int8 pod hop): (a) step 0
+    held to the unsharded step, (b) 3 timed steps, (c) one step from (b)'s
+    state held to the unsharded step, (d) the heads-on-model layout at
+    reduced widths against the host. Returns the launch counts
+    of the port's kernels (none: no TPU kernel lies on this path)."""
+    t_phase = time.perf_counter()
+    _build.reset_launch_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), remat=True)
+    model = lm.init_params(0, cfg, device=dev)
+    mesh = make_mesh(SHARD_SHAPE, SHARD_AXES, device=dev)
+    rules = arch_rules(mesh, TRAIN_ARCH, TRAIN_EXTRA_RULES.get(TRAIN_ARCH))
+    print(f"[3m] {cfg.name}: {lm.param_count(model):,} parameters, remat "
+          f"on, on a logical {SHARD_SHAPE} {SHARD_AXES} mesh of the card; "
+          f"rules: heads {rules.rules['heads']}, head_dim "
+          f"{rules.rules['head_dim']}, ff {rules.rules['ff']}, vocab "
+          f"{rules.rules['vocab']}, the core sequence-parallel over "
+          f"{rules.rules['attn_core_seq_shard']}, batch "
+          f"{rules.rules['batch']}")
+    adamw = train_adamw()
+    shard_held_step(model, train_batch(cfg, 0, dev), rules, adamw, power)
+    torch.cuda.empty_cache()
+    placed = shard_timed_steps(model, cfg, rules, adamw, power, train_ms)
+    del model
+    torch.cuda.empty_cache()
+    shard_held_update(placed, cfg, rules, adamw,
+                      train_batch(cfg, SHARD_STEPS, dev), power)
+    torch.cuda.empty_cache()
+    counts = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[3m] peak device memory {peak:.2f} GB (predicted "
+          f"{SHARD_PREDICTED_PEAK_GB:.0f}); the port's kernels launched "
+          f"{json.dumps(counts)}")
+    check(peak < 80.0, f"3m: peak device memory {peak:.2f} GB")
+    shard_heads_case(dev, power)
+    print(f"[3m] phase in {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -4226,13 +4642,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     lmk_counts = phase_lm_families(dev, power)
     torch.cuda.empty_cache()
-    train_counts = phase_train(dev, power)
+    train_counts, train_ms = phase_train(dev, power)
+    torch.cuda.empty_cache()
+    shard_counts = phase_shard_train(dev, power, train_ms)
     for tag, r, c in (("3b", ivf_res, ivf_counts), ("3c", pq_res, pq_counts),
                       ("3d", sf_res, sf_counts), ("3e", si_res, si_counts),
                       ("3f", pf_res, pf_counts), ("3g", sg_res, sg_counts),
                       ("3h", {}, lc_counts), ("3i", {}, sh_counts),
                       ("3j", {}, lm_counts), ("3k", {}, lmk_counts),
-                      ("3l", {}, train_counts)):
+                      ("3l", {}, train_counts), ("3m", {}, shard_counts)):
         phases[tag] = dict(c)
         res.update(r)
         for name, n in c.items():
@@ -4246,7 +4664,7 @@ def main() -> int:
     for name, (source, replaces) in SOURCES.items():
         launches = counts.get(name, 0)
         check(launches > 0, f"kernel {name} was not launched on the main "
-              "paths (phases 3 and 3b to 3l)")
+              "paths (phases 3 and 3b to 3m)")
         r = res[name]
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches,

@@ -8,15 +8,21 @@ bit and the same arithmetic; the rounding noise is drawn from a
 ``torch.Generator`` (``torch.rand``), so a code may land one step from the
 reference's for the same input.
 
-The two-stage sync that uses it across pods (``cross_pod_grad_sync``: fp32
-reduce within a pod, int8 across pods) belongs to the model's shardings
-(ROADMAP A13f) and is not here.
+``cross_pod_grad_sync`` is the two-stage gradient sync of a multi-pod
+mesh: an fp32 reduce within each pod (the fat links), then each pod's
+partial quantized once to int8, dequantized and summed across pods (the
+thin ones).
 """
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import Tensor
+
+from repro_torch.distributed.sharding import CollectiveStats, positions
 
 BLOCK = 256
 
@@ -56,3 +62,86 @@ def compress_ratio(x: Tensor) -> float:
     """Bytes(int8 codes + scales) / bytes(f32)."""
     nblocks = -(-x.numel() // BLOCK)
     return (nblocks * BLOCK + nblocks * 4) / (x.numel() * 4)
+
+
+def cross_pod_grad_sync(mesh, pod_axis: str = "pod",
+                        stats: Optional[CollectiveStats] = None,
+                        int8: bool = True):
+    """Two-stage sync over ``mesh``: an fp32 sum over every axis but
+    ``pod_axis``, then int8 across pods. Returns ``sync(blocks, gen,
+    dim=None)``: ``blocks`` an object array of the mesh's shape holding
+    each position's gradient leaf (one shape for all); the result, an
+    object array of each position's synced leaf (positions of one pod on
+    one device share it). Each pod sums its positions' leaves in
+    row-major order; its partial is quantized exactly once, with noise
+    from ``gen`` (a generator on the partial's device, drawn pod by pod
+    in order); the pods' dequantized partials are summed in pod order.
+    With ``dim``, the within-pod sum is a reduce-scatter: each position
+    keeps its block of ``dim`` (split over the inner axes, row-major), and
+    that block crosses the pods. Without a pod axis it is a plain fp32
+    sum. The reference quantizes every pod's partial with one key; here
+    each pod draws its own noise. ``int8=False`` sums the pods' partials
+    in fp32 (the reference's sharded train step sums so).
+
+    ``stats`` records the within-pod all-reduce (or reduce-scatter) at the
+    leaves' bytes and the cross-pod all-reduce at the int8 wire format's
+    (codes and scales)."""
+    names = mesh.axis_names
+    inner = tuple(a for a in names if a != pod_axis)
+    has_pod = pod_axis in names
+    n_pods = mesh.shape[pod_axis] if has_pod else 1
+    n_inner = mesh.size // n_pods
+
+    def record(kind, axes, nbytes):
+        if stats is not None and axes:
+            stats.add(kind, ",".join(axes), nbytes)
+
+    def sync(blocks: np.ndarray, gen: torch.Generator, dim=None):
+        pods: list = [[] for _ in range(n_pods)]
+        for pos, coords in positions(mesh):
+            pods[coords.get(pod_axis, 0)].append((pos, blocks[pos]))
+        leaf = pods[0][0][1]
+        kind = "all-reduce" if dim is None else "reduce-scatter"
+        record(kind, inner, mesh.size * leaf.numel() * leaf.element_size())
+        totals = []
+        for members in pods:
+            home = mesh.devices[members[0][0]]
+            total = members[0][1].float().to(home)
+            for _, t in members[1:]:
+                total = total + t.float().to(home)
+            totals.append(total)
+        out = np.empty(mesh.devices.shape, dtype=object)
+        # each inner position's slot (its block of dim), or the whole leaf
+        # for all of them
+        slots = range(n_inner) if dim is not None else [None]
+        for slot in slots:
+            partials = [t if slot is None else
+                        t.chunk(n_inner, dim)[slot].contiguous()
+                        for t in totals]
+            if has_pod:
+                deq = []
+                width = n_inner if slot is None else 1
+                for part in partials:
+                    if not int8:
+                        record("all-reduce", (pod_axis,),
+                               width * part.numel() * 4)
+                        deq.append(part)
+                        continue
+                    codes, scales, pad = quantize_int8(part.to(gen.device),
+                                                       gen)
+                    record("all-reduce", (pod_axis,), width * (
+                        codes.numel() + 4 * scales.numel()))
+                    deq.append(dequantize_int8(codes, scales, pad,
+                                               part.shape, torch.float32))
+                synced = deq[0]
+                for t in deq[1:]:
+                    synced = synced + t.to(synced.device)
+            else:
+                synced = partials[0]
+            for members in pods:
+                for i, (pos, _) in enumerate(members):
+                    if slot is None or i == slot:
+                        out[pos] = synced.to(mesh.devices[pos])
+        return out
+
+    return sync

@@ -16,10 +16,25 @@ The encoder-decoder's cross attention (``cross_kv``, ``cross_attend``)
 runs the same chunked core, non-causal, over the encoder's keys and
 values.
 
+Sequence-parallel core: where the current ``AxisRules`` set
+``attn_core_seq_shard`` (the archs whose head count does not divide the
+model axis), ``sq`` > 1 splits over that axis and ``banded_causal`` is
+off, the queries split over the axis's positions, each slice runs at its
+position with ``q_offset + index * s_loc`` and ``q_chunk = min(q_chunk,
+s_loc)``, K and V stay whole, and the outputs join in sequence order: the
+reference's ``shard_map`` branch, on the mesh's positions.
+
+In a sharded train step's group (``models.model.ShardGroup``) the
+projections split over the tensor-parallel axis in one of two layouts,
+as the rules place them: Megatron's ``heads`` (wq and wo by heads, K and V
+replicated) or ``head_dim`` (every projection by head_dim; an all-to-all
+takes the queries to sequence slices for the core above, an all-gather
+makes K and V whole, and the outputs go back by all-to-all). Each
+position's output projection is an fp32 partial; their all-reduce rounds
+to bf16 once.
+
 Plain PyTorch: the reference computes attention in ``jnp`` outside any
-Pallas kernel. The sequence-sharded core of the reference (``shard_map``
-over an ``attn_core_seq_shard`` axis) has no counterpart on one card
-(ROADMAP A13f).
+Pallas kernel.
 """
 from __future__ import annotations
 
@@ -30,8 +45,10 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
+from repro_torch.distributed.sharding import (Blocks, current_rules,
+                                              mesh_group)
 from repro_torch.models.layers import (COMPUTE_DTYPE, _param, apply_rope,
-                                       bf16, normal_, softcap)
+                                       bf16, dot_f32, normal_, softcap)
 
 NEG = -1e30  # mask value (no nan from -inf - -inf)
 
@@ -117,11 +134,27 @@ def _online_block(q, k, v, q_pos, kv_pos, *, scale, cap, causal, window,
     return out.permute(0, 3, 1, 2, 4)                    # (b, qc, KV, g, dh)
 
 
+def seq_core_group(sq: int, banded_causal: bool = False, tp=None):
+    """The positions the core's queries split over, or None: the current
+    rules' ``attn_core_seq_shard`` axis (``tp``, a sharded step's group,
+    where it runs along that axis, else the rules' mesh along it), where
+    ``sq`` > 1 splits evenly and ``banded_causal`` is off."""
+    r = current_rules()
+    ax = r.rules.get("attn_core_seq_shard") if r and r.mesh else None
+    if ax is None or banded_causal:
+        return None
+    if tp is not None and tp.axis == ax:
+        group = tp
+    else:
+        group = mesh_group(r.mesh, ax, {})
+    return group if sq > 1 and sq % group.n == 0 else None
+
+
 def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
                       q_offset: int = 0, scale: Optional[float] = None,
                       cap: Optional[float] = None, q_chunk: int = 512,
-                      kv_chunk: int = 512,
-                      banded_causal: bool = False) -> Tensor:
+                      kv_chunk: int = 512, banded_causal: bool = False,
+                      _no_seq_shard: bool = False) -> Tensor:
     """q: (b, sq, H, dh); k, v: (b, skv, KV, dh). Returns (b, sq, H, dh)
     bf16.
 
@@ -129,8 +162,22 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
     ``window`` positions and takes the banded path: each query chunk sees
     a span of ``ceil((window + q_chunk) / kv_chunk) * kv_chunk`` KV
     positions with a clipped start. ``banded_causal`` truncates each query
-    chunk's KV at its causal limit."""
+    chunk's KV at its causal limit. Under rules with
+    ``attn_core_seq_shard`` the core runs sequence-parallel
+    (``seq_core_group``; ``_no_seq_shard``: one position's slice, as the
+    reference's ``shard_map`` body calls it)."""
     b, sq, H, dh = q.shape
+    group = None if _no_seq_shard else seq_core_group(sq, banded_causal)
+    if group is not None:
+        s_loc = sq // group.n
+        outs = [chunked_attention(
+            qm, km, vm, causal=causal, window=window,
+            q_offset=q_offset + m * s_loc, scale=scale, cap=cap,
+            q_chunk=min(q_chunk, s_loc), kv_chunk=kv_chunk,
+            _no_seq_shard=True)
+            for m, (qm, km, vm) in enumerate(zip(
+                group.split(q, 1), group.broadcast(k), group.broadcast(v)))]
+        return group.all_gather(outs, 1)[0]
     KV = k.shape[2]
     g = H // KV
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
@@ -282,6 +329,13 @@ def attn_forward(p: Attention, x, *, causal: bool, window: int = 0,
                  use_rope: bool = True, cap=None, q_chunk=512, kv_chunk=512,
                  banded_causal: bool = False):
     """The full-sequence forward, no cache. x: (b, s, d)."""
+    if any(_split_dims(p)):
+        if use_rope:
+            positions = _positions(x) if positions is None else positions
+        return _split_attend(p, x, None, rope=(positions, rope_theta)
+                             if use_rope else None, causal=causal,
+                             window=window, cap=cap, q_chunk=q_chunk,
+                             kv_chunk=kv_chunk, banded_causal=banded_causal)
     q, k, v = _qkv(p, x)
     if use_rope:
         positions = _positions(x) if positions is None else positions
@@ -324,16 +378,123 @@ def attn_decode(p: Attention, x, cache, *, window: int = 0,
 # ---------------------------------------------------------------------------
 
 def cross_kv(p: Attention, enc_out: Tensor):
-    """The encoder output's keys and values, (b, s_enc, KV, dh) bf16 each."""
+    """The encoder output's keys and values, (b, s_enc, KV, dh) bf16 each
+    (in a sharded step's group, in its layout: ``Blocks`` of head_dim, or
+    replicated)."""
     xc = bf16(enc_out)
+    if any(_split_dims(p)) and _layout(p) == "head_dim":
+        tp = p.wk.group
+        xs = tp.broadcast(xc)
+        return tuple(Blocks([_proj(xm, w) for xm, w in zip(xs, ws)], 3, tp)
+                     for ws in (p.wk, p.wv))
     return _proj(xc, p.wk), _proj(xc, p.wv)
 
 
-def cross_attend(p: Attention, x: Tensor, k: Tensor, v: Tensor, *,
-                 q_chunk=512, kv_chunk=512, cap=None) -> Tensor:
+def cross_attend(p: Attention, x: Tensor, k, v, *, q_chunk=512,
+                 kv_chunk=512, cap=None) -> Tensor:
     """x: (b, s, d) attends, non-causal and without RoPE, over the encoder's
     k, v."""
+    if any(_split_dims(p)):
+        return _split_attend(p, x, (k, v), rope=None, causal=False,
+                             window=0, cap=cap, q_chunk=q_chunk,
+                             kv_chunk=kv_chunk)
     q = _proj(bf16(x), p.wq)
     o = chunked_attention(q, k, v, causal=False, cap=cap, q_chunk=q_chunk,
                           kv_chunk=kv_chunk)
     return _out(p, o)
+
+
+# ---------------------------------------------------------------------------
+# Attention with its projections split over a sharded step's group
+# ---------------------------------------------------------------------------
+
+def _split_dims(p) -> tuple:
+    """The dim each of wq, wk, wv, wo splits along over a sharded step's
+    group (None: whole)."""
+    return tuple(w.dim if isinstance(w, Blocks) else None
+                 for w in (p.wq, p.wk, p.wv, p.wo))
+
+
+def _layout(p) -> str:
+    """``"heads"`` (wq by heads, wo by heads, wk/wv replicated) or
+    ``"head_dim"`` (wq, wk, wv and wo by head_dim); other splits raise."""
+    layouts = {(1, None, None, 0): "heads", (2, 2, 2, 1): "head_dim"}
+    dims = _split_dims(p)
+    if dims not in layouts:
+        raise ValueError(f"attention splits over the tensor-parallel axis "
+                         f"by heads (wk, wv replicated) or by head_dim, not "
+                         f"along {dims}")
+    return layouts[dims]
+
+
+def _rope(t: Tensor, rope, lo: int = 0) -> Tensor:
+    """RoPE on ``t`` (b, s, h, dh) at ``rope``'s positions ``lo`` on."""
+    if rope is None:
+        return t
+    positions, theta = rope
+    positions = positions.to(t.device)[:, lo:lo + t.shape[1]]
+    return apply_rope(t, positions, theta)
+
+
+def _kv_heads(m: int, n_q: int, g: int) -> slice:
+    """The KV heads the query heads [m n_q, (m + 1) n_q) read (head h reads
+    h // g)."""
+    if n_q % g and g % n_q:
+        raise ValueError(f"{n_q} query heads a position do not align with "
+                         f"GQA groups of {g}")
+    lo = m * n_q // g
+    return slice(lo, lo + max(n_q // g, 1))
+
+
+def _split_attend(p, x: Tensor, kv, *, rope, causal: bool, window: int,
+                  cap, q_chunk: int, kv_chunk: int,
+                  banded_causal: bool = False) -> Tensor:
+    """Attention of x (b, s, d) over its own keys and values (``kv`` None)
+    or over ``kv`` (cross attention, ``cross_kv``'s), with the
+    projections split over the group's tensor-parallel axis. Returns
+    (b, s, d) bf16."""
+    layout = _layout(p)
+    tp = p.wq.group
+    core = dict(causal=causal, window=window, cap=cap, kv_chunk=kv_chunk,
+                banded_causal=banded_causal, _no_seq_shard=True)
+    xs = tp.broadcast(bf16(x))
+    q = [_proj(xm, w) for xm, w in zip(xs, p.wq)]
+    if kv is None:
+        if layout == "heads":
+            xc = bf16(x)
+            k, v = _proj(xc, p.wk), _proj(xc, p.wv)
+        else:
+            k, v = ([_proj(xm, w) for xm, w in zip(xs, ws)]
+                    for ws in (p.wk, p.wv))
+    else:
+        k, v = kv
+    if layout == "heads":
+        k = _rope(k, rope)
+        g = p.wq[0].shape[1] * tp.n // k.shape[2]
+        o = []
+        for m, (qm, km, vm) in enumerate(zip(q, tp.broadcast(k),
+                                             tp.broadcast(v))):
+            sel = _kv_heads(m, qm.shape[2], g)
+            o.append(chunked_attention(_rope(qm, rope), km[:, :, sel],
+                                       vm[:, :, sel], q_chunk=q_chunk,
+                                       **core))
+    else:
+        s = x.shape[1]
+        group = seq_core_group(s, banded_causal, tp)
+        if group is tp:
+            s_loc = s // tp.n
+            qs = tp.all_to_all(q, 1, 3)
+            ks, vs = tp.all_gather(k, 3), tp.all_gather(v, 3)
+            outs = [chunked_attention(
+                _rope(qm, rope, m * s_loc), _rope(km, rope), vm,
+                q_offset=m * s_loc, q_chunk=min(q_chunk, s_loc), **core)
+                for m, (qm, km, vm) in enumerate(zip(qs, ks, vs))]
+            o = tp.all_to_all(outs, 3, 1)
+        else:
+            qf, kf, vf = (tp.all_gather(t, 3)[0] for t in (q, k, v))
+            o = tp.split(chunked_attention(
+                _rope(qf, rope), _rope(kf, rope), vf, q_chunk=q_chunk,
+                **core), 3)
+    d = x.shape[-1]
+    return bf16(tp.psum([dot_f32(om.flatten(-2), w.reshape(-1, d))
+                         for om, w in zip(o, p.wo)]))

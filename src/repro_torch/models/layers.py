@@ -23,6 +23,8 @@ from typing import Optional
 import torch
 from torch import Tensor, nn
 
+from repro_torch.distributed.sharding import Blocks
+
 COMPUTE_DTYPE = torch.bfloat16
 
 
@@ -111,8 +113,25 @@ class LayerNorm(nn.Module):
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
 
-def embed(table: Tensor, tokens: Tensor) -> Tensor:
-    """Rows of ``table`` for int tokens (widened to int64), in bf16."""
+def embed(table, tokens: Tensor) -> Tensor:
+    """Rows of ``table`` for int tokens (widened to int64), in bf16. In a
+    sharded step's group, a table split over vocab (``Blocks`` of rows)
+    looks each token up at the position holding its row, zeros elsewhere,
+    and sums the positions' lookups (exact: one is not zero)."""
+    if isinstance(table, Blocks):
+        if table.dim != 0:
+            raise ValueError("the embedding splits over the "
+                             "tensor-parallel axis only along vocab")
+        tp = table.group
+        parts, lo = [], 0
+        for t in table:
+            rows = t.shape[0]
+            local = tokens.to(t.device).long() - lo
+            ok = (local >= 0) & (local < rows)
+            parts.append(torch.where(ok[..., None],
+                                     bf16(t[local.clamp(0, rows - 1)]), 0.0))
+            lo += rows
+        return tp.psum(parts)
     return bf16(table[tokens.long()])
 
 
@@ -226,15 +245,31 @@ class MLP(nn.Module):
             normal_(self.w_gate, 1.0 / math.sqrt(d), gen)
         normal_(self.w_out, 1.0 / math.sqrt(d_ff), gen)
 
-    def forward(self, x: Tensor) -> Tensor:
-        xc = bf16(x)
-        h = xc @ bf16(self.w_in)
+    def _hidden(self, xc: Tensor, w_in: Tensor, w_gate) -> Tensor:
+        h = xc @ bf16(w_in)
         if self.kind == "gelu":
-            h = gelu(h)
-        else:
-            g = xc @ bf16(self.w_gate)
-            h = (silu(g) if self.kind == "swiglu" else gelu(g)) * h
-        return h @ bf16(self.w_out)
+            return gelu(h)
+        g = xc @ bf16(w_gate)
+        return (silu(g) if self.kind == "swiglu" else gelu(g)) * h
+
+    def forward(self, x: Tensor) -> Tensor:
+        """In a sharded step's group with ``ff`` split (``Blocks``), each
+        position computes its columns of the hidden layer and its partial
+        output product in fp32; the partials' all-reduce rounds to bf16
+        once, as the whole product does."""
+        xc = bf16(x)
+        if isinstance(self.w_in, Blocks):
+            if (self.w_in.dim, self.w_out.dim) != (1, 0):
+                raise ValueError("the MLP splits over the tensor-parallel "
+                                 "axis only along ff")
+            tp = self.w_in.group
+            gates = self.w_gate if self.kind != "gelu" else [None] * tp.n
+            return bf16(tp.psum([dot_f32(self._hidden(xm, wi, wg), wo)
+                                 for xm, wi, wg, wo in zip(
+                                     tp.broadcast(xc), self.w_in, gates,
+                                     self.w_out)]))
+        gate = self.w_gate if self.kind != "gelu" else None
+        return self._hidden(xc, self.w_in, gate) @ bf16(self.w_out)
 
 
 # ---------------------------------------------------------------------------

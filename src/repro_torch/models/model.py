@@ -43,6 +43,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.clustering import Seed, make_generator
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import (AxisGroup, AxisRules, Blocks,
+                                              CollectiveStats, Placed,
+                                              _leaf_logical, axes_of,
+                                              block_slices, mesh_group,
+                                              positions)
 from repro_torch.models import attention as attn
 from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import (MLP, Embedding, LayerNorm, RMSNorm,
@@ -404,6 +409,194 @@ def params_to_jax(model: Model, device: DeviceLike = "cpu") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Shardings
+# ---------------------------------------------------------------------------
+
+def reference_path(name: str, cfg: ModelConfig) -> tuple:
+    """A parameter's path in the reference's param tree (``to_jax_tree``'s
+    layout, ``/``-joined) and whether it lies under a ``scan`` stack (whose
+    leaves carry a leading periods dim)."""
+    head, rest = name.split(".", 1)
+    for key, prefix, period, n_periods in _stacks(cfg):
+        if head == prefix:
+            i, sub = rest.split(".", 1)
+            i, sub = int(i), sub.replace(".", "/")
+            if i < n_periods * period:
+                return f"{key}/scan/{i % period}/{sub}", True
+            return f"{key}/rest/{i - n_periods * period}/{sub}", False
+    return name.replace(".", "/"), False
+
+
+def param_specs(cfg: ModelConfig, rules: AxisRules) -> dict:
+    """Each parameter's spec, by name: the reference's
+    ``param_spec_tree`` entry of its path, without a scanned leaf's
+    leading periods entry."""
+    out = {}
+    for name, p in Model(cfg, torch.device("meta")).named_parameters():
+        path, scanned = reference_path(name, cfg)
+        spec = rules.spec(*_leaf_logical(path, p.ndim + scanned, scanned))
+        out[name] = spec[1:] if scanned else spec
+    return out
+
+
+# block kinds whose products the port does not split: a group gathers
+# their parameters whole at the start of the layer
+GATHERED = (rec.MLSTM, rec.SLSTM)
+
+
+class ShardGroup:
+    """One batch group of a sharded train step: the positions that share
+    a block of the batch (coordinates ``coords`` on the rules' batch
+    axes), one along the tensor-parallel axis each (the mesh's one axis
+    the batch does not split; ``tp``). The model runs over the group with
+    its parameters as the group's positions hold them: a parameter split
+    over the tensor-parallel axis is ``Blocks``, one block a position,
+    which the model's layers compute on and join with ``tp``'s
+    collectives; any other is one tensor, used once for all of them.
+    Dimensions split over batch axes (FSDP) are gathered whole at the
+    layer's first use, as are the parameters of the ``GATHERED`` kinds.
+    Each parameter becomes a leaf of the group's autograd graph, so
+    ``grads`` gives each position's gradient of its blocks."""
+
+    def __init__(self, mesh, rules: AxisRules, coords: dict, params: dict,
+                 stats: Optional[CollectiveStats] = None):
+        self.mesh, self.coords, self.params = mesh, coords, params
+        self.stats = stats
+        self.batch_axes = axes_of(rules.rules.get("batch"))
+        other = [a for a in mesh.axis_names if a not in self.batch_axes]
+        if len(other) > 1:
+            raise ValueError(f"mesh axes {other} besides the batch's "
+                             f"{self.batch_axes}: one tensor-parallel axis "
+                             "at most")
+        self.tp_axis = other[0] if other else None
+        self.tp = (mesh_group(mesh, self.tp_axis, coords, stats)
+                   if other else AxisGroup([mesh.device_at(coords)], "-",
+                                           stats))
+        self.home = self.tp.home
+        self.leaves: dict = {}
+
+    def param(self, name: str, gather: bool = False):
+        if name not in self.leaves:
+            self.leaves[name] = self._leaf(self.params[name])
+        leaf = self.leaves[name]
+        if gather and isinstance(leaf, Blocks):
+            return self.tp.all_gather(leaf, leaf.dim)[0]
+        return leaf
+
+    def _leaf(self, p: Placed):
+        tp_dim, fsdp = None, []
+        for i, entry in enumerate(p.spec):
+            axes = axes_of(entry)
+            if self.tp_axis in axes:
+                if len(axes) > 1:
+                    raise ValueError(f"spec {p.spec} splits a dimension "
+                                     "over the tensor-parallel axis and "
+                                     "another")
+                tp_dim = i
+            elif axes:
+                fsdp.append(i)
+        leaves = []
+        for m in range(self.tp.n if tp_dim is not None else 1):
+            coords = dict(self.coords)
+            if self.tp_axis is not None:
+                coords[self.tp_axis] = m
+            t = self._gathered(p, coords, fsdp) if fsdp else p.block(coords)
+            leaves.append(t.detach().requires_grad_())
+        return (Blocks(leaves, tp_dim, self.tp) if tp_dim is not None
+                else leaves[0])
+
+    def _gathered(self, p: Placed, coords: dict, dims: list) -> Tensor:
+        """The position's block with its batch-axis dimensions whole: an
+        all-gather over those axes."""
+        dev = self.mesh.device_at(coords)
+        mine = p.block(coords)
+        shape = [p.shape[i] if i in dims else s
+                 for i, s in enumerate(mine.shape)]
+        out = torch.empty(shape, dtype=mine.dtype, device=dev)
+        parts, seen = [], set()
+        for _, c in positions(self.mesh):
+            if any(c[a] != v for a, v in coords.items()
+                   if a not in self.batch_axes):
+                continue
+            sl = block_slices(self.mesh, p.spec, p.shape, c)
+            key = tuple((sl[i].start, sl[i].stop) for i in dims)
+            if key not in seen:
+                seen.add(key)
+                part = p.block(c)
+                parts.append(part)
+                out[tuple(sl[i] if i in dims else slice(None)
+                          for i in range(len(shape)))] = part.to(dev)
+        if self.stats is not None:
+            axes = sorted({a for i in dims for a in axes_of(p.spec[i])},
+                          key=self.mesh.axis_names.index)
+            self.stats.add("all-gather", ",".join(axes),
+                           sum(t.numel() * t.element_size() for t in parts))
+        return out
+
+    def view(self, structure: "Model") -> "_View":
+        return _View(structure, "", self)
+
+    def grads(self, loss: Tensor) -> dict:
+        """``{name: [each tensor-parallel position's gradient]}`` (one
+        entry where the parameter is not split over that axis; zeros for a
+        parameter the forward did not use)."""
+        names = list(self.params)
+        for name in names:
+            self.param(name)
+        flat = []
+        for name in names:
+            leaf = self.leaves[name]
+            flat.extend(leaf if isinstance(leaf, Blocks) else [leaf])
+        gs = iter(torch.autograd.grad(loss, flat, allow_unused=True))
+        out = {}
+        for name in names:
+            leaf = self.leaves[name]
+            ls = leaf if isinstance(leaf, Blocks) else [leaf]
+            out[name] = [g if g is not None else torch.zeros_like(lf)
+                         for lf, g in zip(ls, gs)]
+        return out
+
+
+class _View:
+    """A module of the model as a ``ShardGroup`` runs it: parameters are
+    the group's (``ShardGroup.param``), submodules are views, anything
+    else (``kind``, ``cfg``) the module's own, and ``tp_group`` the
+    group's tensor-parallel ``AxisGroup`` (``sharding.group_of``); calling
+    it runs the module's ``forward`` on the view."""
+
+    __slots__ = ("_module", "_prefix", "_group")
+
+    def __init__(self, module: nn.Module, prefix: str, group: ShardGroup):
+        self._module, self._prefix, self._group = module, prefix, group
+
+    def __getattr__(self, name: str):
+        m = self._module
+        if name in m._parameters:
+            return self._group.param(self._prefix + name,
+                                     gather=isinstance(m, GATHERED))
+        if name in m._modules:
+            return _View(m._modules[name], f"{self._prefix}{name}.",
+                         self._group)
+        if name == "device":
+            return self._group.home
+        if name == "tp_group":
+            return self._group.tp
+        return getattr(m, name)
+
+    def __getitem__(self, i: int) -> "_View":
+        return _View(self._module[i], f"{self._prefix}{i}.", self._group)
+
+    def __len__(self) -> int:
+        return len(self._module)
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+    def __call__(self, *args):
+        return type(self._module).forward(self, *args)
+
+
+# ---------------------------------------------------------------------------
 # Forward passes
 # ---------------------------------------------------------------------------
 
@@ -422,11 +615,24 @@ def _embed_in(model: Model, tokens: Tensor, offset=0) -> Tensor:
     return x
 
 
-def _logits(model: Model, x: Tensor) -> Tensor:
+def _logits(model: Model, x: Tensor):
+    """fp32 logits (b, s, padded_vocab); in a ``ShardGroup`` whose
+    unembedding splits over vocab, ``Blocks`` of each position's columns
+    (dim 2)."""
     cfg = model.cfg
     x = model.final_norm(x)
-    w = (model.embed.embedding.T if cfg.tie_embeddings
-         else model.unembed.lm_head)
+    w = model.embed.embedding if cfg.tie_embeddings else \
+        model.unembed.lm_head
+    vocab_dim = 0 if cfg.tie_embeddings else 1
+    if isinstance(w, Blocks):
+        if w.dim != vocab_dim:
+            raise ValueError("the unembedding splits over the "
+                             "tensor-parallel axis only along vocab")
+        xs = w.group.broadcast(x)
+        return Blocks([softcap(unembed(xm, wm.T if cfg.tie_embeddings
+                                       else wm), cfg.final_softcap)
+                       for xm, wm in zip(xs, w)], 2, w.group)
+    w = w.T if cfg.tie_embeddings else w
     return softcap(unembed(x, w), cfg.final_softcap)
 
 
@@ -634,7 +840,10 @@ def decode_step(model: Model, token, cache: dict):
 def _chunk_nll(model: Model, xc: Tensor, lc: Tensor, mc: Tensor):
     """One chunk's (sum of masked NLL, sum of masked log Z), fp32."""
     cfg = model.cfg
-    lg = _logits(model, xc).float()
+    lg = _logits(model, xc)
+    if isinstance(lg, Blocks):
+        return _chunk_nll_split(cfg, lg, lc, mc)
+    lg = lg.float()
     if cfg.padded_vocab != cfg.vocab_size:
         valid = torch.arange(cfg.padded_vocab, device=lg.device) \
             < cfg.vocab_size
@@ -644,29 +853,61 @@ def _chunk_nll(model: Model, xc: Tensor, lc: Tensor, mc: Tensor):
     return torch.sum((logz - gold) * mc), torch.sum(logz * mc)
 
 
-def lm_loss(model: Model, batch: dict, seq_chunk: int = 512) -> tuple:
-    """Next-token cross-entropy with a sequence-chunked, rematerialised
-    unembedding, as the reference's ``lm_loss``: the (b, s, V) logits never
-    exist. Each chunk of ``seq_chunk`` positions computes its fp32 logits
-    (padded-vocab columns at -1e30), reduces them to log Z and the gold
-    logit a token, and is recomputed in the backward pass
-    (``torch.utils.checkpoint``, where grad is enabled): one chunk's
-    logits at a time, (b, seq_chunk, V) fp32.
+def _chunk_nll_split(cfg: ModelConfig, lgs: Blocks, lc: Tensor,
+                     mc: Tensor):
+    """``_chunk_nll`` over vocab-split logits: log Z from the positions'
+    max (an all-reduce max, outside autograd: log Z's gradient does not
+    depend on the shift) and their sums of exp (an all-reduce), the gold
+    logit from the position holding its column (an all-reduce)."""
+    tp = lgs.group
+    cols, lo = [], 0
+    for lg in lgs:
+        cols.append(torch.arange(lo, lo + lg.shape[-1], device=lg.device))
+        lo += lg.shape[-1]
+    lgs = [lg.float() if cfg.padded_vocab == cfg.vocab_size else
+           torch.where(c < cfg.vocab_size, lg.float(), -1e30)
+           for lg, c in zip(lgs, cols)]
+    mx = tp.pmax([torch.amax(lg, dim=-1) for lg in lgs])
+    se = tp.psum([torch.sum(torch.exp(lg - mx.to(lg.device)[..., None]),
+                            dim=-1) for lg in lgs])
+    logz = mx + torch.log(se)
+    golds = []
+    for lg, c in zip(lgs, cols):
+        local = lc.to(lg.device) - c[0]
+        ok = (local >= 0) & (local < lg.shape[-1])
+        g = torch.gather(lg, -1, local.clamp(0, lg.shape[-1] - 1)[..., None])
+        golds.append(torch.where(ok, g[..., 0], 0.0))
+    gold = tp.psum(golds)
+    return torch.sum((logz - gold) * mc), torch.sum(logz * mc)
 
-    The prefix positions (a vision stub's patches) are cut off; labels are
-    the tokens shifted by one with the last position masked, times
-    ``batch["loss_mask"]`` where given; the sequence is padded to a
-    multiple of ``seq_chunk`` with masked positions. Returns (loss, metrics
-    ``loss``, ``ppl_log``, ``tokens``, ``logz_mean``), 0-d fp32 tensors,
-    the loss over ``max(sum(mask), 1)``."""
+
+def _labels_mask(tokens: Tensor, batch: dict) -> tuple:
+    """The next-token labels and the loss mask (the last position masked,
+    times ``batch["loss_mask"]`` where given), fp32."""
+    labels = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
+    mask = torch.ones(labels.shape, dtype=torch.float32,
+                      device=tokens.device)
+    mask[:, -1] = 0.0
+    if "loss_mask" in batch:
+        mask = mask * torch.as_tensor(batch["loss_mask"],
+                                      device=tokens.device)
+    return labels, mask
+
+
+def loss_tokens(model: Model, batch: dict) -> Tensor:
+    """The number of positions the loss counts: the mask's sum."""
+    return torch.sum(_labels_mask(_tokens(model, batch), batch)[1])
+
+
+def loss_sums(model: Model, batch: dict, seq_chunk: int = 512) -> tuple:
+    """(sum of masked NLL, sum of masked log Z, the mask's sum), 0-d fp32
+    tensors: ``lm_loss`` before its division, which a sharded step sums
+    over the batch's blocks (the global batch's mean, not a mean of the
+    blocks' means)."""
     x = train_hidden(model, batch)                  # (b, s_total, d)
     tokens = _tokens(model, batch)
     x = x[:, x.shape[1] - tokens.shape[1]:]
-    labels = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
-    mask = torch.ones(labels.shape, dtype=torch.float32, device=x.device)
-    mask[:, -1] = 0.0
-    if "loss_mask" in batch:
-        mask = mask * torch.as_tensor(batch["loss_mask"], device=x.device)
+    labels, mask = _labels_mask(tokens, batch)
     s = x.shape[1]
     seq_chunk = min(seq_chunk, s)
     pad = (-s) % seq_chunk
@@ -684,7 +925,26 @@ def lm_loss(model: Model, batch: dict, seq_chunk: int = 512) -> tuple:
                          if remat else _chunk_nll(*args))
         nll = nll + nll_c
         logz_sum = logz_sum + logz_c
-    denom = torch.clamp_min(torch.sum(mask), 1.0)
+    return nll, logz_sum, torch.sum(mask)
+
+
+def lm_loss(model: Model, batch: dict, seq_chunk: int = 512) -> tuple:
+    """Next-token cross-entropy with a sequence-chunked, rematerialised
+    unembedding, as the reference's ``lm_loss``: the (b, s, V) logits never
+    exist. Each chunk of ``seq_chunk`` positions computes its fp32 logits
+    (padded-vocab columns at -1e30), reduces them to log Z and the gold
+    logit a token, and is recomputed in the backward pass
+    (``torch.utils.checkpoint``, where grad is enabled): one chunk's
+    logits at a time, (b, seq_chunk, V) fp32.
+
+    The prefix positions (a vision stub's patches) are cut off; labels are
+    the tokens shifted by one with the last position masked, times
+    ``batch["loss_mask"]`` where given; the sequence is padded to a
+    multiple of ``seq_chunk`` with masked positions. Returns (loss, metrics
+    ``loss``, ``ppl_log``, ``tokens``, ``logz_mean``), 0-d fp32 tensors,
+    the loss over ``max(sum(mask), 1)``."""
+    nll, logz_sum, count = loss_sums(model, batch, seq_chunk)
+    denom = torch.clamp_min(count, 1.0)
     loss = nll / denom
     metrics = {"loss": loss, "ppl_log": loss, "tokens": denom,
                "logz_mean": logz_sum / denom}

@@ -1,10 +1,20 @@
 """Mixture-of-Experts FFN: top-k routing, capacity-based dispatch into
 per-expert buffers, the expert FFNs as one batched product, and the
-combine. Mirrors ``repro.models.moe`` without a mesh.
+combine. Mirrors ``repro.models.moe``.
 
-The reference groups tokens by the data-parallel degree (``_dp_groups``),
-which is 1 without a mesh: this is that one-group function. Its EP
-sharding of the experts waits for the model's shardings (ROADMAP A13f).
+The reference groups tokens by the data-parallel degree (``_dp_groups``):
+under rules with a mesh whose batch axes have G positions (G > 1
+dividing the batch), the tokens split into G groups of consecutive rows,
+each dispatched alone with its own capacity, which changes which tokens
+drop. Without a mesh G is 1. A sharded train step hands each of its
+batch groups its own rows, which are one dispatch group.
+
+In a sharded step's group the experts' weights split over the
+tensor-parallel axis as the rules place them: by experts (EP: the router's
+columns, each position's experts run on its slice of the dispatch buffer,
+an all-gather joins their outputs) or by ``moe_ff`` (each position's
+columns of the hidden layer, fp32 partial outputs summed by an all-reduce
+and rounded once).
 
 What must match the reference for the same tokens to be dropped:
 
@@ -33,8 +43,10 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
+from repro_torch.distributed.sharding import (Blocks, current_rules,
+                                              group_of)
 from repro_torch.kernels.ref import topk_first
-from repro_torch.models.layers import _param, bf16, normal_, silu
+from repro_torch.models.layers import _param, bf16, dot_f32, normal_, silu
 
 
 class MoE(nn.Module):
@@ -62,12 +74,35 @@ def capacity(capacity_factor: float, tokens: int, top_k: int,
     return max(8, min(c, tokens))
 
 
+def _dp_groups(batch: int, in_group: bool = False) -> int:
+    """Number of dispatch groups: the data-parallel degree of the current
+    rules' mesh where it divides the batch, else 1 (and 1 ``in_group``, a
+    sharded step's group, whose rows are one group)."""
+    r = current_rules()
+    if in_group or r is None or r.mesh is None:
+        return 1
+    ax = r.rules.get("batch")
+    if ax is None:
+        return 1
+    axes = ax if isinstance(ax, tuple) else (ax,)
+    g = 1
+    for a in axes:
+        g *= r.mesh.shape.get(a, 1)
+    return g if (g > 1 and batch % g == 0) else 1
+
+
 def route(p: MoE, xt: Tensor, top_k: int, cap: int):
     """The router over tokens ``xt`` (t, d). Returns (probs (t, E) fp32,
     gate values (t, K) fp32 renormalised, experts (t, K) int64, each pair's
     slot (t * K,) int64, keep (t * K,) bool)."""
-    n_experts = p.w_router.shape[-1]
-    logits = xt.float() @ p.w_router.float()
+    w = p.w_router
+    if isinstance(w, Blocks):       # experts split: each position's logits
+        tp = w.group
+        logits = tp.all_gather([xm.float() @ wm.float() for xm, wm in
+                                zip(tp.broadcast(xt), w)], 1)[0]
+    else:
+        logits = xt.float() @ w.float()
+    n_experts = logits.shape[-1]
     e = torch.exp(logits - torch.amax(logits, dim=-1, keepdim=True))
     probs = e / torch.sum(e, dim=-1, keepdim=True)
     gate_vals, experts = topk_first(probs, top_k)
@@ -89,38 +124,74 @@ def slots(experts: Tensor, n_experts: int, cap: int):
     return pos, pos < cap
 
 
+def _experts(p: MoE, buf: Tensor) -> Tensor:
+    """The expert FFNs over the dispatch buffer (E, C, d) bf16."""
+    we_in, we_gate, we_out = p.we_in, p.we_gate, p.we_out
+    if not isinstance(we_in, Blocks):
+        h = torch.bmm(buf, bf16(we_in))
+        g = torch.bmm(buf, bf16(we_gate))
+        return torch.bmm(silu(g) * h, bf16(we_out))
+    tp = we_in.group
+    dims = (we_in.dim, we_gate.dim, we_out.dim)
+    if dims == (0, 0, 0):           # EP: each position's experts
+        outs = [torch.bmm(silu(torch.bmm(bm, bf16(wg)))
+                          * torch.bmm(bm, bf16(wi)), bf16(wo))
+                for bm, wi, wg, wo in zip(tp.split(buf, 0), we_in, we_gate,
+                                          we_out)]
+        return tp.all_gather(outs, 0)[0]
+    if dims == (2, 2, 1):           # moe_ff: partial products
+        return bf16(tp.psum([dot_f32(silu(torch.bmm(bm, bf16(wg)))
+                                     * torch.bmm(bm, bf16(wi)), wo)
+                             for bm, wi, wg, wo in zip(
+                                 tp.broadcast(buf), we_in, we_gate,
+                                 we_out)]))
+    raise ValueError("the experts split over the tensor-parallel axis by "
+                     "experts or by moe_ff, not as their rules place them")
+
+
 def apply_moe(p: MoE, x: Tensor, *, top_k: int,
               capacity_factor: float = 1.25, return_aux: bool = False):
     """x: (b, s, d) -> (b, s, d) bf16 (and the load-balancing aux loss,
     a 0-d fp32 tensor, with ``return_aux``). Dropped tokens pass through
-    the residual."""
+    the residual. The tokens dispatch in ``_dp_groups`` groups."""
     b, s, d = x.shape
-    n_experts = p.w_router.shape[-1]
-    t = b * s
-    xt = x.reshape(t, d)
+    groups = _dp_groups(b, group_of(p) is not None)
+    outs = [_moe_group(p, xg.reshape(-1, d), top_k, capacity_factor)
+            for xg in x.chunk(groups, 0)]
+    y = torch.cat([o[0] for o in outs]).reshape(b, s, d)
+    if return_aux:
+        probs = torch.cat([o[1] for o in outs])
+        experts = torch.cat([o[2] for o in outs])
+        n_experts = probs.shape[-1]
+        me = torch.mean(probs, dim=0)
+        ce = torch.mean(F.one_hot(experts[:, 0], n_experts).float(), dim=0)
+        return y, n_experts * torch.sum(me * ce)
+    return y
+
+
+def _moe_group(p: MoE, xt: Tensor, top_k: int, capacity_factor: float):
+    """One dispatch group of tokens ``xt`` (t, d): (y (t, d) bf16, probs,
+    experts)."""
+    t, d = xt.shape
+    w = p.w_router
+    n_experts = (sum(wm.shape[-1] for wm in w) if isinstance(w, Blocks)
+                 else w.shape[-1])
     cap = capacity(capacity_factor, t, top_k, n_experts)
     probs, gate_vals, experts, pos, keep = route(p, xt, top_k, cap)
     flat_e = experts.reshape(-1)
     # kept pairs own unique (expert, slot) rows; dropped ones a spare row
     dump = n_experts * cap
     slot = torch.where(keep, flat_e * cap + pos, dump)
-    tok_ids = torch.arange(t, device=x.device).repeat_interleave(top_k)
+    tok_ids = torch.arange(t, device=xt.device).repeat_interleave(top_k)
     contrib = torch.where(keep[:, None], bf16(xt[tok_ids]), 0.0)
     buf = contrib.new_zeros((dump + 1, d))
     buf[slot] = contrib
     buf = buf[:dump].reshape(n_experts, cap, d)
-    h = torch.bmm(buf, bf16(p.we_in))
-    g = torch.bmm(buf, bf16(p.we_gate))
-    out_buf = torch.bmm(silu(g) * h, bf16(p.we_out)).reshape(dump, d)
+    out_buf = _experts(p, buf).reshape(dump, d)
     safe = torch.where(keep, slot, 0)
     weighted = out_buf[safe] * (gate_vals.reshape(-1, 1) * keep[:, None])
     weighted = bf16(weighted).reshape(t, top_k, d)
     y = weighted.new_zeros((t, d))
     for k in range(top_k):
         y = y + weighted[:, k]
-    y = y.reshape(b, s, d)
-    if return_aux:
-        me = torch.mean(probs, dim=0)
-        ce = torch.mean(F.one_hot(experts[:, 0], n_experts).float(), dim=0)
-        return y, n_experts * torch.sum(me * ce)
-    return y
+    return y, probs, experts

@@ -31,7 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
-from repro_torch.models.layers import (_param, bf16, gelu, normal_,
+from repro_torch.distributed.sharding import Blocks
+from repro_torch.models.layers import (_param, bf16, dot_f32, gelu, normal_,
                                        weak_scalar)
 
 # ---------------------------------------------------------------------------
@@ -108,11 +109,18 @@ class RGLRU(nn.Module):
 
 
 def _rglru_gates(p: RGLRU, u: Tensor):
+    return _gates(u, u, p.w_gate_a, p.w_gate_x, p.lam)
+
+
+def _gates(u_full: Tensor, u: Tensor, w_gate_a: Tensor, w_gate_x: Tensor,
+           lam: Tensor):
+    """The gates' columns of ``w_gate_*`` and ``lam`` over the whole
+    ``u_full``; ``u`` is its matching columns (the same tensor unsplit)."""
+    r = sigmoid(u_full.float() @ w_gate_a.float())
+    i = sigmoid(u_full.float() @ w_gate_x.float())
     uf = u.float()
-    r = sigmoid(uf @ p.w_gate_a.float())
-    i = sigmoid(uf @ p.w_gate_x.float())
     # log sigmoid(lam)^(c r)
-    log_a = -RGLRU_C * r * softplus(p.lam.float())
+    log_a = -RGLRU_C * r * softplus(lam.float())
     a = torch.exp(log_a)
     # sqrt(1 - a^2) input normalisation (Griffin eq. 4)
     beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
@@ -158,6 +166,11 @@ def rglru_block(p: RGLRU, x: Tensor, cache: Optional[dict] = None):
     cache, or None without one). cache: {"h": (b, d_rnn) fp32, "conv":
     (b, width - 1, d_rnn) bf16}."""
     xc = bf16(x)
+    if isinstance(p.w_rnn_in, Blocks):
+        if cache is not None:
+            raise ValueError("a split RG-LRU runs the training forward "
+                             "only, without a cache")
+        return _rglru_split(p, xc), None
     gate = gelu(xc @ bf16(p.w_rnn_gate))
     u = xc @ bf16(p.w_rnn_in)
     conv_state = cache["conv"] if cache is not None else None
@@ -170,6 +183,30 @@ def rglru_block(p: RGLRU, x: Tensor, cache: Optional[dict] = None):
     if cache is not None:
         new_cache = {"h": h[:, -1], "conv": new_conv}
     return out, new_cache
+
+
+def _rglru_split(p: RGLRU, xc: Tensor) -> Tensor:
+    """The block with ``rnn`` split over a sharded step's group: each
+    position runs its channels (input projections, conv, gates' output
+    columns over the all-gathered input, the recurrence) and its fp32
+    partial of the output product; their all-reduce rounds once."""
+    tp = p.w_rnn_in.group
+    if any(not isinstance(w, Blocks) or w.dim != dim for w, dim in (
+            (p.w_rnn_gate, 1), (p.conv_w, 1), (p.w_gate_a, 1),
+            (p.w_gate_x, 1), (p.w_rnn_out, 0))):
+        raise ValueError("the RG-LRU splits over the tensor-parallel axis "
+                         "only along rnn")
+    lam = p.lam if isinstance(p.lam, Blocks) else tp.split(p.lam, 0)
+    xs = tp.broadcast(xc)
+    us = [causal_conv1d(xm @ bf16(w), c.to(xc.dtype))[0]
+          for xm, w, c in zip(xs, p.w_rnn_in, p.conv_w)]
+    parts = []
+    for m, u_full in enumerate(tp.all_gather(us, 2)):
+        a, bx = _gates(u_full, us[m], p.w_gate_a[m], p.w_gate_x[m], lam[m])
+        gate = gelu(xs[m] @ bf16(p.w_rnn_gate[m]))
+        y = bf16(gate.float() * rglru_scan(a, bx))
+        parts.append(dot_f32(y, p.w_rnn_out[m]))
+    return bf16(tp.psum(parts))
 
 
 def init_rglru_cache(batch: int, d_rnn: int, conv_width: int = 4,

@@ -3,7 +3,10 @@
 Mixed-precision recipe: the optimizer keeps an fp32 MASTER copy plus fp32
 moments, and the params are the master's cast. The state's leaves are
 dicts keyed by the model's parameter names (``dict(named_parameters())``);
-``models.model.to_jax_tree`` maps each to the reference's tree.
+``models.model.to_jax_tree`` maps each to the reference's tree. A sharded
+step (``train.loop``) places mu, nu and master ZeRO-1-split and runs
+``update`` on each position's shard with the global gradient norm
+(``gnorm``).
 
 The arithmetic is the reference's, op by op and in its order, on fp32
 tensors: clip by ``min(1, clip / (gnorm + 1e-9))``, ``step + 1``, the
@@ -73,10 +76,14 @@ def global_norm(tree: dict) -> Tensor:
                           for x in tree.values()))
 
 
-def update(cfg: AdamWConfig, grads: dict, state: AdamWState, params: dict):
+def update(cfg: AdamWConfig, grads: dict, state: AdamWState, params: dict,
+           gnorm=None):
     """Returns (new_params, new_state, metrics ``grad_norm``, ``lr``); new
-    params are the new master cast to each param's dtype."""
-    gnorm = global_norm(grads)
+    params are the new master cast to each param's dtype. ``gnorm``: the
+    gradients' global norm where ``grads`` hold only a shard of them (a
+    sharded step's position); by default theirs."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp_max(cfg.grad_clip / (gnorm + 1e-9), 1.0)
     grads = {k: g.float() * scale for k, g in grads.items()}
 

@@ -2450,3 +2450,118 @@ def test_lm_prefill_and_decode_on_the_card(cuda, arch):
         assert float((m.cpu() - r).abs().max()) <= 0.15
         drift = float((m - full[:, prefix + n - 1 + i]).abs().max())
         assert drift < 0.15, f"decode drift {drift} at step {i}"
+
+
+# -- the model's shardings on logical positions of the card -------------------
+
+def _shard_parts(dev):
+    g = torch.Generator().manual_seed(0)
+    return [torch.randn(4, 6, generator=g).to(dev).requires_grad_()
+            for _ in range(3)]
+
+
+def test_shard_collectives_on_the_card_match_the_host(cuda):
+    """Each collective of the mesh layer, forward and backward, on three
+    logical positions of the card against the same on the host: bit for
+    bit (fp32 sums in one order, copies and cuts); the same bytes
+    counted."""
+    from repro_torch.distributed import sharding as S
+
+    out = []
+    for dev in (torch.device("cpu"), cuda):
+        stats = S.CollectiveStats()
+        grp = S.AxisGroup([dev] * 3, "model", stats)
+        parts = _shard_parts(dev)
+        x = parts[0].detach().clone().requires_grad_()
+        with torch.enable_grad():
+            res = [grp.psum(parts), *grp.broadcast(x),
+                   *grp.all_gather(parts, 1), *grp.reduce_scatter(parts, 1),
+                   *grp.all_to_all(parts, 1, 0), *grp.split(x, 1)]
+            loss = sum((r.float() * (i + 1)).sum()
+                       for i, r in enumerate(res))
+            grads = torch.autograd.grad(loss, parts + [x])
+        out.append(([r.detach().cpu() for r in res],
+                    [g.cpu() for g in grads], stats.by_kind))
+    (rh, gh, sh), (rc, gc, sc) = out
+    assert all(torch.equal(a, b) for a, b in zip(rh, rc))
+    assert all(torch.equal(a, b) for a, b in zip(gh, gc))
+    assert sh == sc
+
+
+def _step_case(arch, dev, mesh_shape, axes, rules_fn, unrounded=False):
+    """One sharded step of reduced ``arch`` on ``dev``'s logical mesh, from
+    the state after one unsharded step on the host; the new params joined
+    on the host (float64) and the metrics."""
+    import copy
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers
+    from repro_torch.models import model as lm
+    from repro_torch.train import loop
+    from repro_torch.train import optimizer as opt
+    from test_torch_support import fp32_hop_step
+
+    cfg = reduced(get_config(arch))
+    adamw = opt.AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=10)
+    r = np.random.default_rng(0)
+    b0, b1 = ({"tokens": torch.tensor(r.integers(0, cfg.vocab_size, (8, 32))
+                                      .astype(np.int32))} for _ in range(2))
+    model = lm.init_params(0, cfg, device="cpu")
+    model, state, _ = loop.make_train_step(cfg, adamw)(
+        model, opt.init(dict(model.named_parameters())), b0)
+    model = copy.deepcopy(model).to(dev)
+    if unrounded:
+        model = model.double()
+    state = opt.AdamWState(step=state.step.to(dev), **{
+        f: {k: v.to(dev) for k, v in getattr(state, f).items()}
+        for f in ("mu", "nu", "master")})
+    rules = rules_fn(make_mesh(mesh_shape, axes, device=dev))
+    params, st, zspecs = loop.place_train_state(model, state, rules)
+    keep = layers.COMPUTE_DTYPE
+    if unrounded:
+        layers.COMPUTE_DTYPE = torch.float64
+    try:
+        with S.use_rules(rules):
+            new, _, m = fp32_hop_step(cfg, adamw, grad_shardings=zspecs)(
+                params, st, loop.place_batch(b1, rules, dev))
+    finally:
+        layers.COMPUTE_DTYPE = keep
+    flat = torch.cat([S.join(new[k]).double().cpu().reshape(-1)
+                      for k in sorted(new)])
+    return flat, {k: float(v) for k, v in m.items() if k != "collectives"}
+
+
+SHARD_CASES = [  # (arch, mesh shape, axes, rules): the two layouts
+    ("gemma3-1b", (2, 2, 2), ("pod", "data", "model"), "arch"),
+    ("mistral-nemo-12b", (4, 2), ("data", "model"), "default"),
+]
+
+
+@pytest.mark.parametrize("arch,shape,axes,rules", SHARD_CASES,
+                         ids=[c[0] for c in SHARD_CASES])
+def test_sharded_step_on_the_card_matches_the_host(cuda, arch, shape, axes,
+                                                   rules):
+    """The sharded step at reduced widths on logical positions of the card
+    against the same step on the host: the card's new params no further
+    from the host's than 1.5 times the host's distance from its step
+    without bf16 rounding (the CPU tests' rule), the loss and gradient
+    norm finite and within 1e-3."""
+    from repro_torch.distributed.sharding import AxisRules
+    from repro_torch.launch.specs import TRAIN_EXTRA_RULES, arch_rules
+
+    def make_rules(mesh):
+        if rules == "default":
+            return AxisRules(mesh)
+        return arch_rules(mesh, arch, TRAIN_EXTRA_RULES.get(arch))
+
+    card, mc = _step_case(arch, cuda, shape, axes, make_rules)
+    host, mh = _step_case(arch, torch.device("cpu"), shape, axes, make_rules)
+    exact, _ = _step_case(arch, torch.device("cpu"), shape, axes, make_rules,
+                          unrounded=True)
+    assert bool(torch.isfinite(card).all())
+    assert float(torch.linalg.norm(card - host)) <= 1.5 * float(
+        torch.linalg.norm(host - exact))
+    for k in ("loss", "grad_norm"):
+        assert abs(mc[k] - mh[k]) <= 1e-3 * abs(mh[k]), (k, mc[k], mh[k])

@@ -56,9 +56,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
 
 def test_module_list_covers_every_slice():
     """The import check above walks the package, so each new module is in
-    it; pin the IVF, PQ, storage-ladder, checkpoint, sharded-serving, LM
-    and training slices' modules there (the LM's MoE and recurrent mixers
-    too)."""
+    it; pin the IVF, PQ, storage-ladder, checkpoint, sharded-serving, LM,
+    training and shardings slices' modules there (the LM's MoE and
+    recurrent mixers too)."""
     mods = set(_modules())
     assert {"repro_torch.core.clustering", "repro_torch.index.ivf",
             "repro_torch.index.slab", "repro_torch.kernels.ivf_score",
@@ -76,8 +76,8 @@ def test_module_list_covers_every_slice():
             "repro_torch.models.moe", "repro_torch.models.recurrent",
             "repro_torch.data.tokens", "repro_torch.train",
             "repro_torch.train.optimizer", "repro_torch.train.loop",
-            "repro_torch.distributed.compression", "repro_torch.launch.train"
-            } <= mods
+            "repro_torch.distributed.compression", "repro_torch.launch.train",
+            "repro_torch.launch.specs"} <= mods
 
 
 def test_entry_points_default_to_cuda_and_raise_without_a_card():

@@ -156,6 +156,32 @@ def cuda():
     return torch.device("cuda")
 
 
+def fp32_hop_step(cfg, adamw, n_micro=1, grad_shardings=None):
+    """The sharded train step (``train.loop``'s ``_sharded_step``) with an
+    fp32 pod hop, as the reference's step sums: the three calls the step
+    makes, the sync's ``int8`` off. Called under ``use_rules`` of the
+    params' mesh."""
+    from repro_torch.distributed.sharding import (CollectiveStats,
+                                                  current_rules)
+    from repro_torch.models import model as M
+    from repro_torch.train import loop
+
+    structure = M.Model(cfg, torch.device("meta"))
+
+    def step(params, state, batch):
+        rules, stats = current_rules(), CollectiveStats()
+        grads, metrics = loop.sharded_grads(cfg, structure, params, batch,
+                                            rules, n_micro, stats)
+        synced = loop.sync_grads(grads, params, rules, grad_shardings, None,
+                                 False, stats)
+        new, new_state, m = loop.sharded_update(adamw, synced, state,
+                                                params, stats)
+        return new, new_state, {**metrics, **m,
+                                "collectives": stats.by_kind}
+
+    return step
+
+
 def test_near_tie_mask_flags_neighbours_within_tolerance():
     ref = np.array([[5.0, 4.0, 3.99999, 1.0]], np.float32)
     amb = near_tie_mask(ref, rtol=0.0, atol=1e-4, next_vals=[0.0])
