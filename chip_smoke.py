@@ -224,8 +224,8 @@ Phases, each of which raises (and exits non-zero) on a failure:
    printed beside a loop over positions'.
 3l. training: gemma3-1b at its published widths (1,009,397,376
    parameters, remat on), weights drawn on the card from seed 0, trained
-   through ``launch.train.main`` (``--full-config``): (a) 20 steps of 8 x
-   1024 Markov tokens and a checkpoint at step 20; every loss and grad
+   through ``launch.train.main`` (``--full-config``): (a) 12 steps of 8 x
+   1024 Markov tokens and a checkpoint at step 12; every loss and grad
    norm finite and the last 5 steps' mean loss below step 0's; ms a step,
    tokens/s, the bf16 peak share (6 N T, and 8 N T with the recompute),
    peak device memory beside its prediction, and the checkpoint's bytes
@@ -260,8 +260,31 @@ Phases, each of which raises (and exits non-zero) on a failure:
    ("data", "model") mesh of the card under the default rules, one step
    held to the same step on the host (1.5 times the host's distance from
    its unrounded step). No kernel of ``SOURCES`` lies on this path.
+3n. the dry-run (``repro_torch.launch.dryrun``) held to the card. (a) 3m's
+   cell (gemma3-1b, 8 x 1024 tokens on the logical (2, 2, 2) mesh, fp32
+   params, ZeRO-1, the int8 pod hop) traced on meta positions, every
+   group and layer, and run once on the card under ``FlopCounterMode``:
+   the trace's executed dot FLOPs equal the counter's, its collectives
+   (bytes and counts by kind and axis) equal the real step's and 3m's
+   step's, its whole-card live peak lies within [0.8, 1.25] of
+   ``max_memory_allocated`` over the step (less what else the card
+   holds), and 3m's measured step is at least 8 times the per-position
+   bound. (b) The FCVI ``base`` and ``bf16`` cells at n = 2^24, d = 128,
+   m = 8, 1,024 queries, k = 100, k' = 400 on a logical (2, 4) mesh, run
+   for real (B2 on each of the 8 row blocks, the tree merge, the
+   candidates' gather, the cosine re-rank): the k' candidates equal the
+   exact L2 top-k' and the top-k the exact re-rank of those candidates,
+   outside near-ties, B2's launches equal to the trace's
+   ``score_topk`` calls, the measured time at least 8 times the
+   per-position bound; B2's launches join the counts. (c) The table of
+   every cell on both production meshes (``--all --mesh both``, meta
+   positions only, so any host can write it), as a run of the dry-run
+   wrote it to ``docs/dryrun_torch.json``: each cell's per-position peak against
+   80 GB, its dominant roofline term and bound; every cell of the current
+   lists must be there, ok or skipped, and gemma3-1b decode_32k on 16 x 16,
+   traced again, must equal its row (a stale table fails).
 4. a ``kernels`` JSON line with each kernel variant's launches over phases
-   3 to 3m (each must be > 0), errors, times and bound, and the device
+   3 to 3n (each must be > 0), errors, times and bound, and the device
    time (``device_ms``) of B4, B8, B10 and the scan LUT, whose host loops
    sit near the
    host's cost of a launch (null for the others). No serving phase may
@@ -304,9 +327,12 @@ from repro_torch.kernels import ivf_score as ivf_kern  # noqa: E402
 from repro_torch.kernels import pq_lut  # noqa: E402
 from repro_torch.kernels import rescore as rescore_kern  # noqa: E402
 from repro_torch.kernels import topk_select  # noqa: E402
-from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.configs import get_config, list_archs, reduced  # noqa: E402
 from repro_torch.data.tokens import (TokenSpec,  # noqa: E402
                                      global_batch_iterator)
+from repro_torch.launch import cost_analysis  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import specs as launch_specs  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh, make_mesh  # noqa: E402
 from repro_torch.launch.specs import (TRAIN_EXTRA_RULES,  # noqa: E402
@@ -322,10 +348,11 @@ from repro_torch.train import loop as train_loop  # noqa: E402
 from repro_torch.train import optimizer as train_opt  # noqa: E402
 
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
-PEAK_BYTES_S = 3.35e12
-PEAK_FP32_S = 67e12
-PEAK_TF32_S = 495e12          # dense TF32 on the tensor cores
-PEAK_BF16_S = 989e12          # dense bf16 on the tensor cores
+# the card's peaks (NVIDIA H100 SXM5 data sheet): one home for them
+PEAK_BYTES_S = cost_analysis.PEAK_BYTES_S
+PEAK_FP32_S = cost_analysis.PEAK_FP32_S
+PEAK_TF32_S = cost_analysis.PEAK_TF32_S     # dense TF32 on the tensor cores
+PEAK_BF16_S = cost_analysis.PEAK_BF16_S     # dense bf16 on the tensor cores
 FLAT_RECALL_BEFORE = 0.9992   # phase 3's flat recall@10 before the
                               # tensor-core scan (PERF.md)
 # phases 3b's and 3e's IVF recall@10 before the list scan's redesign (fp32,
@@ -3951,9 +3978,9 @@ def phase_lm_families(dev, power: str) -> dict:
 
 TRAIN_ARCH = "gemma3-1b"     # at its published widths, weights from seed 0
 TRAIN_PARAMS = 1_009_397_376
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 20
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 12
 TRAIN_LR = 1e-3              # warmup TRAIN_STEPS // 10, cosine to the end
-TRAIN_CKPT = 20              # one checkpoint, at the end of (a): a 16.2 GB
+TRAIN_CKPT = TRAIN_STEPS    # one checkpoint, at the end of (a): a 16.2 GB
                              # save or restore takes about 30 s here
 MICRO_ATOL = 5e-3            # the reference's microbatching bound
 # predicted peak device memory of a step at 8 x 1024 (PERF.md, written
@@ -4024,8 +4051,8 @@ def train_adamw():
 
 
 def train_resume_check(resumed: dict, loss_next: float, nxt) -> None:
-    """(c): ``launch.train.main --steps 21 --resume`` restored the step-20
-    checkpoint into a fresh model and state and took step 20 through its
+    """(c): ``launch.train.main --steps 13 --resume`` restored the step-12
+    checkpoint into a fresh model and state and took step 12 through its
     own token stream and loop: its loss is the uninterrupted run's next
     loss bit for bit, and its params, mu, nu, master and step after it
     are the uninterrupted run's (``nxt``: the state after (b)'s n_micro =
@@ -4151,9 +4178,9 @@ def train_families(dev) -> None:
 
 def phase_train(dev, power: str) -> tuple:
     """Phase 3l: gemma3-1b at its published widths trained through the
-    launcher (``launch.train.main``): (a) 20 steps of 8 x 1024 Markov
+    launcher (``launch.train.main``): (a) 12 steps of 8 x 1024 Markov
     tokens, remat on, a checkpoint at the end, (b) microbatching on the
-    stream's next batch, (c) ``--steps 21 --resume`` from the checkpoint
+    stream's next batch, (c) ``--steps 13 --resume`` from the checkpoint
     into a fresh model and state, its step held to (b)'s n_micro = 1 step,
     (d) reduced gradients of each family against the host.
     Returns the launch counts of the port's kernels in training (none: no
@@ -4422,7 +4449,8 @@ def shard_timed_steps(model, cfg, rules, adamw, power: str,
     print(f"[3m] one step by kernel: device {dev_ms:.1f} ms, {launches} "
           f"launches, idle {1 - dev_ms / step_ms:.2f} of the step; "
           f"{top_kernels(split, 8)}; card {power}")
-    return {"params": params, "state": state}
+    return {"params": params, "state": state, "step_ms": step_ms,
+            "collectives": colls}
 
 
 def shard_held_update(placed: dict, cfg, rules, adamw, batch,
@@ -4583,6 +4611,7 @@ def phase_shard_train(dev, power: str, train_ms: float) -> dict:
     shard_held_step(model, train_batch(cfg, 0, dev), rules, adamw, power)
     torch.cuda.empty_cache()
     placed = shard_timed_steps(model, cfg, rules, adamw, power, train_ms)
+    timed = {k: placed.pop(k) for k in ("step_ms", "collectives")}
     del model
     torch.cuda.empty_cache()
     shard_held_update(placed, cfg, rules, adamw,
@@ -4596,6 +4625,270 @@ def phase_shard_train(dev, power: str, train_ms: float) -> dict:
     check(peak < 80.0, f"3m: peak device memory {peak:.2f} GB")
     shard_heads_case(dev, power)
     print(f"[3m] phase in {time.perf_counter() - t_phase:.1f} s")
+    return counts, timed
+
+
+# -- phase 3n: the dry-run ---------------------------------------------------
+
+DRY_SHAPE = "smoke_train"    # 3m's cell: 8 x 1024 tokens on its mesh
+# the table of every cell on both production meshes: ``python -m
+# repro_torch.launch.dryrun --all --mesh both --jobs 6 --summary`` (meta
+# positions only: no card needed)
+DRY_TABLE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs",
+                         "dryrun_torch.json")
+# the cell (c) traces again to hold the table to the code (seconds)
+DRY_RECHECK = ("gemma3-1b", "decode_32k", False)
+FCVI_SMOKE = dict(n=1 << 24, d=128, m=8, batch=1024, k=100, kprime=400)
+FCVI_MESH = ((2, 4), ("data", "model"))
+PEAK_WINDOW = (0.8, 1.25)    # the dry-run's whole-card peak / the card's
+FCVI_TIE_RTOL, FCVI_TIE_ATOL = 1e-5, 1e-6
+# predictions written in PERF.md before the first run: the train cell's
+# whole-card peak over the card's, and each FCVI cell's ms
+DRY_PREDICTED_PEAK_RATIO = 0.95
+FCVI_PREDICTED_MS = {"base": 300.0, "bf16": 200.0}
+
+
+def placed_bytes(tree) -> int:
+    """Bytes of the distinct storages of a tree of placed tensors."""
+    seen, total = set(), 0
+    for p in dryrun.placed_leaves(tree):
+        for t in p.blocks.flat:
+            st = t.untyped_storage()
+            if st.data_ptr() not in seen:
+                seen.add(st.data_ptr())
+                total += st.nbytes()
+    return total
+
+
+def colls_equal(a: dict, b: dict) -> bool:
+    """Two collective records equal kind by kind: bytes, count, by axis."""
+    norm = lambda r: {k: (int(v["bytes"]), int(v["count"]),  # noqa: E731
+                          {x: int(y) for x, y in v["by_axis"].items()})
+                      for k, v in r.items()}
+    return norm(a) == norm(b)
+
+
+def dry_train_cell(dev, power: str, shard: dict) -> None:
+    """(a) The gemma3-1b train cell of 3m (8 x 1024 tokens on the logical
+    (2, 2, 2) mesh, fp32 params as 3m's, ZeRO-1, the int8 pod hop) traced
+    on meta positions, every group and layer, and run once for real on the
+    card under ``FlopCounterMode``."""
+    from torch.utils.flop_counter import FlopCounterMode
+    launch_specs.SHAPES[DRY_SHAPE] = dict(kind="train", seq=TRAIN_SEQ,
+                                          batch=TRAIN_BATCH)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), remat=True)
+
+    def build(mesh, device):
+        return launch_specs.build_cell(
+            cfg, TRAIN_ARCH, DRY_SHAPE, mesh, device=device,
+            param_dtype=torch.float32)
+
+    t0 = time.perf_counter()
+    meta = make_mesh(SHARD_SHAPE, SHARD_AXES, device="meta")
+    tr = dryrun.trace(lambda: build(meta, "meta"), meta, one_group=False)
+    res = dryrun.cell_result(tr, meta)
+    trace_s = time.perf_counter() - t0
+    mesh = make_mesh(SHARD_SHAPE, SHARD_AXES, device=dev)
+    cell = build(mesh, dev)
+    torch.cuda.synchronize()
+    other = torch.cuda.memory_allocated() - placed_bytes(cell.inputs)
+    torch.cuda.reset_peak_memory_stats()
+    stats = S.CollectiveStats()
+    with FlopCounterMode(display=False) as fc:
+        out = cell.run(stats)
+    torch.cuda.synchronize()
+    real_peak = torch.cuda.max_memory_allocated() - other
+    flops = float(fc.get_total_flops())
+    del out, cell
+    torch.cuda.empty_cache()
+    dry_flops = tr["exec"]["flops"] + tr["exec"]["conv_flops"]
+    ratio = tr["exec"]["peak_bytes"] / real_peak
+    bound_s = res["roofline"]["step_lower_bound_s"]
+    step_s = shard["step_ms"] / 1e3
+    mine = {k: v for k, v in stats.by_kind.items()}
+    print(f"[3n] (a) {cfg.name} train cell, {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens on a logical {SHARD_SHAPE} mesh: traced in {trace_s:.1f} s"
+          f" ({tr['ops']:,} ops); dot FLOPs executed {dry_flops:.6g} "
+          f"(FlopCounterMode of the real step {flops:.6g}); collective bytes "
+          f"{colls_str(tr['stats'].by_kind, 8)} (the real step's equal: "
+          f"{colls_equal(tr['stats'].by_kind, mine)}; 3m's step's: "
+          f"{colls_equal(tr['stats'].by_kind, shard['collectives'])}); "
+          f"whole-card live peak {tr['exec']['peak_bytes'] / 1e9:.3f} GB "
+          f"against max_memory_allocated {real_peak / 1e9:.3f} GB (ratio "
+          f"{ratio:.3f}, predicted {DRY_PREDICTED_PEAK_RATIO}); per position "
+          f"{res['per_device_flops']:.6g} FLOPs, "
+          f"{res['per_device_bytes']:.6g} op-boundary bytes, peak "
+          f"{res['memory']['peak_estimate_bytes'] / 1e9:.3f} GB, roofline "
+          f"{res['roofline']['dominant']} {1e3 * bound_s:.3f} ms; 3m's step "
+          f"{shard['step_ms']:.1f} ms >= 8 x {1e3 * bound_s:.3f} ms; card "
+          f"{power}")
+    check(dry_flops == flops, f"3n: the dry-run's dot FLOPs {dry_flops} "
+          f"against the real step's {flops}")
+    check(colls_equal(tr["stats"].by_kind, mine)
+          and colls_equal(tr["stats"].by_kind, shard["collectives"]),
+          "3n: the dry-run's collective bytes are not the real step's")
+    check(PEAK_WINDOW[0] <= ratio <= PEAK_WINDOW[1], f"3n: the dry-run's "
+          f"peak is {ratio:.3f} of max_memory_allocated")
+    check(step_s >= 8 * bound_s, f"3n: the bound 8 x {bound_s} s exceeds "
+          f"the measured step {step_s} s")
+
+
+def exact_candidates(data: dict, variant: str, kprime: int):
+    """The FCVI cell's search computed whole on the card: the exact L2
+    top-(k' + 1) (scores, ids) of the transformed queries over every row,
+    one fp32 product 64 queries at a time (the bf16 variant: the queries
+    rounded to bf16 and the rows as stored, widened)."""
+    from repro_torch.core.transform import psi_partition
+    q_t = psi_partition(data["q"], data["fq"], 1.0)
+    rows = data["corpus_t"]
+    if variant == "bf16":
+        q_t, rows = q_t.to(torch.bfloat16).float(), rows.float()
+    vals, ids = [], []
+    for lo in range(0, q_t.shape[0], 64):
+        qc = q_t[lo:lo + 64]
+        s = (2.0 * (qc @ rows.T) - data["sq_norms"][None]) - torch.sum(
+            qc * qc, -1, keepdim=True)
+        v, i = torch.topk(s, kprime + 1, dim=-1)
+        vals.append(v), ids.append(i)
+        del s
+    return torch.cat(vals), torch.cat(ids)
+
+
+def exact_rerank(data: dict, cand: torch.Tensor, k: int):
+    """The cell's re-rank of ``cand`` computed whole: the lambda = 0.5
+    cosine score of each candidate's row and filter, its top-(k + 1)."""
+    q, fq = data["q"], data["fq"]
+
+    def cos(c, v):
+        return torch.sum(c * v[:, None], -1) / (
+            torch.linalg.norm(c, dim=-1) * torch.linalg.norm(v, dim=-1)[
+                :, None] + 1e-8)
+
+    idx = cand.long()
+    score = 0.5 * cos(data["vectors_n"][idx], q) + \
+        0.5 * cos(data["filters_n"][idx], fq)
+    vals, pos = torch.topk(score, k + 1, dim=-1)
+    return vals, torch.gather(idx, -1, pos)
+
+
+def dry_fcvi_cells(dev, power: str) -> dict:
+    """(b) The FCVI base and bf16 cells at n = 2^24 on a logical (2, 4)
+    mesh: traced on meta, then run for real on the card (B2 on each of the
+    8 row blocks, the tree merge, the candidates' gather, the re-rank).
+    The candidates equal the exact L2 top-k' outside near-ties, and the
+    top-k the exact re-rank of those candidates outside near-ties."""
+    counts: dict = {}
+    shape, axes = FCVI_MESH
+    k, kp = FCVI_SMOKE["k"], FCVI_SMOKE["kprime"]
+    for variant in ("base", "bf16"):
+        meta = make_mesh(shape, axes, device="meta")
+        tr = dryrun.trace(lambda: launch_specs.build_fcvi_cell(
+            FCVI_SMOKE, meta, variant=variant), meta)
+        peak = PEAK_TF32_S if variant == "base" else PEAK_BF16_S
+        res = dryrun.cell_result(tr, meta, peak)
+        calls = sum(v["calls"] for v in tr["kernels"].values())
+        mesh = make_mesh(shape, axes, device=dev)
+        data = launch_specs.fcvi_inputs(FCVI_SMOKE, variant, dev, 7)
+        cell = launch_specs.build_fcvi_cell(FCVI_SMOKE, mesh,
+                                            variant=variant, data=data)
+        cell.run(S.CollectiveStats())
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        vals, ids, cand = cell.run(S.CollectiveStats())
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launched = _build.launch_counts()
+        add_counts(counts, launched)
+        b2 = sum(v for name, v in launched.items()
+                 if name.startswith(scan_mod.NAME))
+        l2_v, l2_i = exact_candidates(data, variant, kp)
+        c_agree, c_kept = ids_outside_ties(l2_v, l2_i, cand, L2_RTOL,
+                                         L2_ATOL)
+        rr_v, rr_i = exact_rerank(data, cand, k)
+        agree, kept = ids_outside_ties(rr_v, rr_i, ids, FCVI_TIE_RTOL,
+                                       FCVI_TIE_ATOL)
+        bound = res["roofline"]["step_lower_bound_s"]
+        print(f"[3n] (b) FCVI {variant}, n = {FCVI_SMOKE['n']:,}, d = "
+              f"{FCVI_SMOKE['d']}, batch {FCVI_SMOKE['batch']}, k = {k}, "
+              f"k' = {kp} on a logical {shape} mesh: {ms:.1f} ms (predicted "
+              f"{FCVI_PREDICTED_MS[variant]:.0f}) >= 8 x the per-position "
+              f"bound {1e3 * bound:.3f} ms ({res['roofline']['dominant']}; "
+              f"{res['per_device_flops']:.4g} FLOPs, "
+              f"{res['per_device_bytes']:.4g} bytes, "
+              f"{res['per_device_collective_bytes']:.4g} collective bytes a "
+              f"position); B2 launches {b2} ({json.dumps(launched)}), the "
+              f"dry-run's score_topk calls {calls:g}; the k' candidates "
+              f"equal the exact L2 top-k' in {c_agree} of {c_kept} slots "
+              f"outside near-ties, the top-k the exact re-rank of them in "
+              f"{agree} of {kept}; card {power}")
+        check(b2 == calls, f"3n: FCVI {variant} launched B2 {b2} times, the "
+              f"dry-run counts {calls}")
+        check(c_agree == c_kept and c_kept > 0, f"3n: FCVI {variant}'s "
+              f"candidates differ from the exact L2 top-k' in "
+              f"{c_kept - c_agree} of {c_kept} slots")
+        check(agree == kept and kept > 0, f"3n: FCVI {variant}'s ids differ "
+              f"from the exact re-rank in {kept - agree} of {kept} slots")
+        check(ms / 1e3 >= 8 * bound, f"3n: FCVI {variant}'s bound 8 x "
+              f"{bound} s exceeds its {ms} ms")
+        del cell, data, vals, ids, cand, l2_v, l2_i, rr_v, rr_i
+        torch.cuda.empty_cache()
+    return counts
+
+
+def print_table(path: str) -> None:
+    """(c) The dry-run of every cell on both production meshes, as
+    ``launch.dryrun --all --mesh both --summary`` wrote it (meta
+    positions only: no card needed): each cell's busiest
+    position's live peak against the card's 80 GB, the dominant roofline
+    term and the bound. Every cell of the current lists must be there,
+    ok or skipped, and ``DRY_RECHECK``'s cell traced again must equal its
+    row."""
+    with open(path) as fh:
+        results = json.load(fh)
+    print(f"[3n] (c) the dry-run of every cell on both production meshes "
+          f"({os.path.relpath(path)}: meta positions, per position; the "
+          f"roofline of {results[0].get('card', '?')}, links NVLink inside "
+          f"a node of 8, InfiniBand across):")
+    for line in dryrun.table(results).splitlines():
+        print("[3n]   " + line)
+    want = {(a, sh, m) for a in list_archs() for sh in launch_specs.SHAPES
+            if sh != DRY_SHAPE for m in ("pod16x16", "pod2x16x16")}
+    want |= {("fcvi", sh + tag, m) for sh in launch_specs.FCVI_SHAPES
+             for tag in ("", "_fcvi-bf16") for m in ("pod16x16", "pod2x16x16")}
+    have = {(r["arch"], r["shape"], r["mesh"]) for r in results}
+    ok = [r for r in results if r.get("status") in ("ok", "skipped")]
+    check(have == want and len(ok) == len(results), f"3n: the dry-run "
+          f"table {path} lacks {sorted(want - have)} or has cells not ok: "
+          f"{[r['arch'] for r in results if r not in ok]}")
+    # one cheap cell traced again: the table is the current code's
+    arch, shape, multi = DRY_RECHECK
+    t0 = time.perf_counter()
+    again = dryrun.run_cell(arch, shape, multi, verbose=False)
+    row = next(r for r in results if (r["arch"], r["shape"], r["mesh"])
+               == (arch, shape, again["mesh"]))
+    keys = ("per_device_flops", "per_device_bytes",
+            "per_device_collective_bytes", "useful_flops_fraction")
+    same = all(again[k] == row[k] for k in keys) and (
+        again["memory"]["peak_estimate_bytes"]
+        == row["memory"]["peak_estimate_bytes"])
+    print(f"[3n] (c) {arch} {shape} {again['mesh']} traced again in "
+          f"{time.perf_counter() - t0:.1f} s: "
+          f"{', '.join(f'{k} {again[k]!r}' for k in keys)}, peak "
+          f"{again['memory']['peak_estimate_bytes']!r}; the table's row "
+          f"equal: {same}")
+    check(same, f"3n: {arch} {shape} traced again differs from its row in "
+          f"{path}: the table is stale")
+
+
+def phase_dryrun(dev, power: str, shard: dict) -> dict:
+    """Phase 3n: the dry-run held to the card. Returns B2's launches."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    dry_train_cell(dev, power, shard)
+    counts = dry_fcvi_cells(dev, power)
+    print_table(DRY_TABLE)
+    print(f"[3n] phase in {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -4644,13 +4937,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_counts, train_ms = phase_train(dev, power)
     torch.cuda.empty_cache()
-    shard_counts = phase_shard_train(dev, power, train_ms)
+    shard_counts, shard_timed = phase_shard_train(dev, power, train_ms)
+    torch.cuda.empty_cache()
+    dry_counts = phase_dryrun(dev, power, shard_timed)
     for tag, r, c in (("3b", ivf_res, ivf_counts), ("3c", pq_res, pq_counts),
                       ("3d", sf_res, sf_counts), ("3e", si_res, si_counts),
                       ("3f", pf_res, pf_counts), ("3g", sg_res, sg_counts),
                       ("3h", {}, lc_counts), ("3i", {}, sh_counts),
                       ("3j", {}, lm_counts), ("3k", {}, lmk_counts),
-                      ("3l", {}, train_counts), ("3m", {}, shard_counts)):
+                      ("3l", {}, train_counts), ("3m", {}, shard_counts),
+                      ("3n", {}, dry_counts)):
         phases[tag] = dict(c)
         res.update(r)
         for name, n in c.items():
@@ -4664,7 +4960,7 @@ def main() -> int:
     for name, (source, replaces) in SOURCES.items():
         launches = counts.get(name, 0)
         check(launches > 0, f"kernel {name} was not launched on the main "
-              "paths (phases 3 and 3b to 3m)")
+              "paths (phases 3 and 3b to 3n)")
         r = res[name]
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches,

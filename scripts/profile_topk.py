@@ -70,8 +70,7 @@ from repro_torch.kernels import fused_score_topk as scan  # noqa: E402
 from repro_torch.kernels import ivf_score  # noqa: E402
 from repro_torch.kernels import pq_lut  # noqa: E402
 from repro_torch.kernels import topk_select  # noqa: E402
-
-PEAK_BYTES_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
+from repro_torch.launch.cost_analysis import PEAK_BYTES_S  # noqa: E402
 
 
 def kernel_times(fn, iters: int) -> list:

@@ -22,7 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor
 
-from repro_torch.distributed.sharding import CollectiveStats, positions
+from repro_torch.distributed.sharding import (CollectiveStats, flat_index,
+                                              positions, quiet_ops, scope)
 
 BLOCK = 256
 
@@ -96,52 +97,60 @@ def cross_pod_grad_sync(mesh, pod_axis: str = "pod",
         if stats is not None and axes:
             stats.add(kind, ",".join(axes), nbytes)
 
-    def sync(blocks: np.ndarray, gen: torch.Generator, dim=None):
+    def hop(totals, slot, gen, dim):
+        """One slot's pod partials quantized, crossed and summed."""
+        partials = [t if slot is None else
+                    t.chunk(n_inner, dim)[slot].contiguous() for t in totals]
+        if not has_pod:
+            return partials[0]
+        deq = []
+        width = n_inner if slot is None else 1
+        for part in partials:
+            if not int8:
+                record("all-reduce", (pod_axis,), width * part.numel() * 4)
+                deq.append(part)
+                continue
+            codes, scales, pad = quantize_int8(
+                part if gen is None else part.to(gen.device), gen)
+            record("all-reduce", (pod_axis,), width * (
+                codes.numel() + 4 * scales.numel()))
+            deq.append(dequantize_int8(codes, scales, pad, part.shape,
+                                       torch.float32))
+        with quiet_ops():      # the cross-pod all-reduce's own sum
+            synced = deq[0]
+            for t in deq[1:]:
+                synced = synced + t.to(synced.device)
+        return synced
+
+    def sync(blocks: np.ndarray, gen: Optional[torch.Generator], dim=None):
         pods: list = [[] for _ in range(n_pods)]
+        flat: dict = {}
         for pos, coords in positions(mesh):
             pods[coords.get(pod_axis, 0)].append((pos, blocks[pos]))
+            flat[pos] = flat_index(mesh, coords)
         leaf = pods[0][0][1]
         kind = "all-reduce" if dim is None else "reduce-scatter"
         record(kind, inner, mesh.size * leaf.numel() * leaf.element_size())
         totals = []
-        for members in pods:
-            home = mesh.devices[members[0][0]]
-            total = members[0][1].float().to(home)
-            for _, t in members[1:]:
-                total = total + t.float().to(home)
-            totals.append(total)
+        with quiet_ops():      # the within-pod reduce's own sums
+            for members in pods:
+                home = mesh.devices[members[0][0]]
+                total = members[0][1].float().to(home)
+                for _, t in members[1:]:
+                    total = total + t.float().to(home)
+                totals.append(total)
         out = np.empty(mesh.devices.shape, dtype=object)
         # each inner position's slot (its block of dim), or the whole leaf
-        # for all of them
-        slots = range(n_inner) if dim is not None else [None]
-        for slot in slots:
-            partials = [t if slot is None else
-                        t.chunk(n_inner, dim)[slot].contiguous()
-                        for t in totals]
-            if has_pod:
-                deq = []
-                width = n_inner if slot is None else 1
-                for part in partials:
-                    if not int8:
-                        record("all-reduce", (pod_axis,),
-                               width * part.numel() * 4)
-                        deq.append(part)
-                        continue
-                    codes, scales, pad = quantize_int8(part.to(gen.device),
-                                                       gen)
-                    record("all-reduce", (pod_axis,), width * (
-                        codes.numel() + 4 * scales.numel()))
-                    deq.append(dequantize_int8(codes, scales, pad,
-                                               part.shape, torch.float32))
-                synced = deq[0]
-                for t in deq[1:]:
-                    synced = synced + t.to(synced.device)
-            else:
-                synced = partials[0]
-            for members in pods:
-                for i, (pos, _) in enumerate(members):
-                    if slot is None or i == slot:
-                        out[pos] = synced.to(mesh.devices[pos])
+        # for all of them; a cost trace counts each slot's hop for the
+        # positions holding it
+        for slot in (range(n_inner) if dim is not None else [None]):
+            held = [(pos, flat[pos]) for members in pods
+                    for i, (pos, _) in enumerate(members)
+                    if slot is None or i == slot]
+            with scope([f for _, f in held]):
+                synced = hop(totals, slot, gen, dim)
+            for pos, _ in held:
+                out[pos] = synced.to(mesh.devices[pos])
         return out
 
     return sync

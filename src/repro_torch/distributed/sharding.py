@@ -38,6 +38,14 @@ group's first device, and is computed once; a value the positions hold
 differently is a list, one tensor a position on its device. On one card
 every position is ``cuda:0`` and the collectives move nothing: they
 count. A collective never falls back: mismatched shapes raise.
+
+Which positions a tensor belongs to, for a cost trace
+(``launch.cost_analysis``): ``place``/``from_blocks`` mark each block with
+the positions holding it, a collective marks each position's output with
+that position and runs its own arithmetic ``quiet`` (it is the
+collective's, not the positions' compute), and ``scope`` names the
+positions a batch group or a shard loop runs for. Outside a trace these
+marks are read by nothing.
 """
 from __future__ import annotations
 
@@ -53,7 +61,7 @@ from torch import Tensor
 # backward, and the recompute of a checkpointed block in it, on threads of
 # its own, which must see them (the reference's rules are thread-local: JAX
 # traces in the calling thread)
-_state = types.SimpleNamespace(rules=None)
+_state = types.SimpleNamespace(rules=None, scope=None, quiet=0)
 
 # logical name -> mesh axis (or tuple of axes, or None = replicate)
 DEFAULT_RULES = {
@@ -114,6 +122,58 @@ def use_rules(rules: Optional[AxisRules]):
         yield rules
     finally:
         _state.rules = prev
+
+
+@contextlib.contextmanager
+def scope(positions):
+    """Run with ``positions`` (flat row-major mesh indices) as the
+    positions a value computed from no marked operand counts for."""
+    prev = _state.scope
+    _state.scope = frozenset(int(p) for p in positions)
+    try:
+        yield
+    finally:
+        _state.scope = prev
+
+
+def current_scope():
+    return _state.scope
+
+
+def quiet() -> bool:
+    """Whether a collective's own arithmetic is running."""
+    return _state.quiet > 0
+
+
+@contextlib.contextmanager
+def quiet_ops():
+    """Run a collective's own arithmetic (a cost trace counts its bytes as
+    the collective's, not as the positions' compute)."""
+    _state.quiet += 1
+    try:
+        yield
+    finally:
+        _state.quiet -= 1
+
+
+def mark(t: Tensor, positions) -> Tensor:
+    """Mark ``t`` as the value of ``positions`` (flat mesh indices)."""
+    t._cost_pos = frozenset(int(p) for p in positions)
+    return t
+
+
+def marked(t: Tensor):
+    """The positions ``t`` is marked with, or None."""
+    return getattr(t, "_cost_pos", None)
+
+
+def flat_index(mesh, coords: Dict[str, int]) -> int:
+    """A position's flat row-major index (axes missing from ``coords``
+    at 0)."""
+    idx = 0
+    for a in mesh.axis_names:
+        idx = idx * mesh.shape[a] + int(coords.get(a, 0))
+    return idx
 
 
 def axes_of(entry) -> Tuple[str, ...]:
@@ -285,15 +345,32 @@ def from_blocks(mesh, spec: tuple, shape, make) -> Placed:
     """A ``Placed`` whose block at each position is ``make(coords,
     device)``, called once for each distinct (block, device)."""
     spec = _check_spec(spec, shape, mesh)
-    blocks = np.empty(mesh.devices.shape, dtype=object)
-    made: dict = {}
-    for pos, coords in positions(mesh):
-        dev = mesh.devices[pos]
-        key = (tuple(block_index(mesh, e, coords)[0] for e in spec), dev)
-        if key not in made:
-            made[key] = make(coords, dev)
-        blocks[pos] = made[key]
-    return Placed(mesh, spec, shape, blocks)
+    # each position's block index along every dimension, row-major over
+    # the dimension's axes (vectorised over the mesh's positions)
+    grid = np.indices(mesh.devices.shape).reshape(len(mesh.axis_names), -1)
+    at = dict(zip(mesh.axis_names, grid))
+    index = np.zeros((len(spec), mesh.size), dtype=np.int64)
+    for i, e in enumerate(spec):
+        for a in axes_of(e):
+            index[i] = index[i] * mesh.shape[a] + at[a]
+    devs = list(mesh.devices.flat)
+    made, first, holders = {}, {}, {}
+    keys = []
+    for flat in range(mesh.size):
+        key = (tuple(index[:, flat].tolist()), devs[flat])
+        keys.append(key)
+        if key not in first:
+            first[key] = flat
+            holders[key] = []
+        holders[key].append(flat)
+    for key, flat in first.items():
+        coords = dict(zip(mesh.axis_names, grid[:, flat].tolist()))
+        with scope(holders[key]):
+            made[key] = mark(make(coords, key[1]), holders[key])
+    blocks = np.empty(mesh.size, dtype=object)
+    for flat, key in enumerate(keys):
+        blocks[flat] = made[key]
+    return Placed(mesh, spec, shape, blocks.reshape(mesh.devices.shape))
 
 
 def place(x: Tensor, spec: tuple, mesh) -> Placed:
@@ -370,82 +447,98 @@ def _sum(ts, dev) -> Tensor:
     return out
 
 
+def _collective(fn):
+    """A collective's forward or backward: its arithmetic runs ``quiet``."""
+    def run(ctx, *args):
+        with quiet_ops():
+            return fn(ctx, *args)
+    return staticmethod(run)
+
+
+def _each(group, ts) -> tuple:
+    """Each member's output, its own tensor marked with the member's
+    positions."""
+    out = tuple(_alias(t, d) for t, d in zip(ts, group.devices))
+    if group.positions is not None:
+        for t, p in zip(out, group.positions):
+            mark(t, p)
+    return out
+
+
 class _Sum(torch.autograd.Function):
-    @staticmethod
+    @_collective
     def forward(ctx, group, *parts):
         ctx.group = group
         group.record("all-reduce", parts)
         return _sum(parts, group.home)
 
-    @staticmethod
+    @_collective
     def backward(ctx, g):
-        return (None,) + tuple(_to(g, d) for d in ctx.group.devices)
+        return (None,) + _each(ctx.group, [g] * ctx.group.n)
 
 
 class _Broadcast(torch.autograd.Function):
-    @staticmethod
+    @_collective
     def forward(ctx, group, x):
         ctx.group = group
-        return tuple(_alias(x, d) for d in group.devices)
+        return _each(group, [x] * group.n)
 
-    @staticmethod
+    @_collective
     def backward(ctx, *gs):
         ctx.group.record("all-reduce", gs)
         return None, _sum(gs, ctx.group.home)
 
 
 class _AllGather(torch.autograd.Function):
-    @staticmethod
+    @_collective
     def forward(ctx, group, dim, *parts):
         ctx.group, ctx.dim = group, dim
         ctx.sizes = [p.shape[dim] for p in parts]
         group.record("all-gather", parts)
         full = torch.cat([_to(p, group.home) for p in parts], dim)
-        return tuple(_alias(full, d) for d in group.devices)
+        return _each(group, [full] * group.n)
 
-    @staticmethod
+    @_collective
     def backward(ctx, *gs):
         group = ctx.group
         group.record("reduce-scatter", gs)
         total = _sum(gs, group.home)
-        return (None, None) + tuple(
-            _to(b, d) for b, d in zip(total.split(ctx.sizes, ctx.dim),
-                                      group.devices))
+        return (None, None) + _each(group, total.split(ctx.sizes, ctx.dim))
 
 
 class _ReduceScatter(torch.autograd.Function):
-    @staticmethod
+    @_collective
     def forward(ctx, group, dim, *parts):
         ctx.group, ctx.dim = group, dim
         group.record("reduce-scatter", parts)
         total = _sum(parts, group.home)
-        return tuple(_to(b.contiguous(), d) for b, d in
-                     zip(total.chunk(group.n, dim), group.devices))
+        return _each(group, [b.contiguous()
+                             for b in total.chunk(group.n, dim)])
 
-    @staticmethod
+    @_collective
     def backward(ctx, *gs):
         group = ctx.group
         group.record("all-gather", gs)
         full = torch.cat([_to(g, group.home) for g in gs], ctx.dim)
-        return (None, None) + tuple(_to(full, d) for d in group.devices)
+        return (None, None) + _each(group, [full] * group.n)
 
 
 def _exchange(group, parts, split_dim: int, concat_dim: int) -> tuple:
     n = group.n
     chunks = [p.chunk(n, split_dim) for p in parts]
-    return tuple(torch.cat([_to(chunks[j][m], d) for j in range(n)],
-                           concat_dim)
-                 for m, d in enumerate(group.devices))
+    return _each(group, [torch.cat([_to(chunks[j][m], d) for j in range(n)],
+                                   concat_dim)
+                         for m, d in enumerate(group.devices)])
 
 
 class _AllToAll(torch.autograd.Function):
-    @staticmethod
+    @_collective
     def forward(ctx, group, split_dim, concat_dim, *parts):
         ctx.group, ctx.dims = group, (split_dim, concat_dim)
         group.record("all-to-all", parts)
         return _exchange(group, parts, split_dim, concat_dim)
 
-    @staticmethod
+    @_collective
     def backward(ctx, *gs):
         split_dim, concat_dim = ctx.dims
         ctx.group.record("all-to-all", gs)
@@ -454,13 +547,12 @@ class _AllToAll(torch.autograd.Function):
 
 
 class _Split(torch.autograd.Function):
-    @staticmethod
+    @_collective
     def forward(ctx, group, dim, x):
         ctx.group, ctx.dim = group, dim
-        return tuple(_to(b.clone(), d) for b, d in
-                     zip(x.chunk(group.n, dim), group.devices))
+        return _each(group, [b.clone() for b in x.chunk(group.n, dim)])
 
-    @staticmethod
+    @_collective
     def backward(ctx, *gs):
         group = ctx.group
         group.record("all-gather", gs)
@@ -479,16 +571,22 @@ class Blocks(list):
 
 
 class AxisGroup:
-    """The positions along one mesh axis (``axis``, the label the stats
-    use), one device each in order: its collectives. With one position
-    each is the identity and records nothing."""
+    """The positions along one mesh axis, or a row-major product of axes
+    (``axis``, the label the stats use: comma-joined), one device each in
+    order: its collectives. With one position each is the identity and
+    records nothing."""
 
     def __init__(self, devices: Sequence[torch.device], axis: str,
-                 stats: Optional[CollectiveStats] = None):
+                 stats: Optional[CollectiveStats] = None,
+                 positions: Optional[Sequence] = None):
         self.devices = list(devices)
         self.axis, self.stats = axis, stats
         self.n = len(self.devices)
         self.home = self.devices[0]
+        # each member's flat mesh indices (its outputs' marks), where known:
+        # the member's position, and the replicas running it alike
+        self.positions = None if positions is None else [
+            frozenset(p) for p in positions]
 
     def record(self, kind: str, ts) -> None:
         if self.stats is not None:
@@ -511,9 +609,10 @@ class AxisGroup:
         """All-reduce max, outside autograd (a softmax's shift)."""
         self._check(parts, "pmax")
         self.record("all-reduce", parts)
-        out = _to(parts[0].detach(), self.home)
-        for p in parts[1:]:
-            out = torch.maximum(out, _to(p.detach(), self.home))
+        with quiet_ops():
+            out = _to(parts[0].detach(), self.home)
+            for p in parts[1:]:
+                out = torch.maximum(out, _to(p.detach(), self.home))
         return out
 
     def broadcast(self, x: Tensor) -> list:
@@ -523,11 +622,20 @@ class AxisGroup:
 
     def all_gather(self, parts, dim: int) -> list:
         """Each position's copy of the blocks joined along ``dim``
-        (backward: a reduce-scatter). A replicated consumer takes the
-        first copy."""
+        (backward: a reduce-scatter). A replicated consumer takes
+        ``gathered``."""
         self._check(parts, "all_gather")
         return list(parts) if self.n == 1 else list(
             _AllGather.apply(self, dim, *parts))
+
+    def gathered(self, parts, dim: int) -> Tensor:
+        """The blocks joined along ``dim`` as one value the group holds
+        replicated, computed on by every member: ``all_gather``'s first
+        copy, marked as every member's."""
+        out = self.all_gather(parts, dim)[0]
+        if self.positions is not None and self.n > 1:
+            mark(out, frozenset().union(*self.positions))
+        return out
 
     def reduce_scatter(self, parts, dim: int) -> Blocks:
         """The sum of equal-shaped tensors, each position keeping its
@@ -562,11 +670,24 @@ class AxisGroup:
         return Blocks(_Split.apply(self, dim, x), dim, self)
 
 
-def mesh_group(mesh, axis: str, coords: Dict[str, int],
+def mesh_group(mesh, axis, coords: Dict[str, int],
                stats: Optional[CollectiveStats] = None) -> AxisGroup:
-    """The positions along ``axis`` at ``coords`` on the other axes."""
-    return AxisGroup([mesh.device_at({**coords, axis: i})
-                      for i in range(mesh.shape[axis])], axis, stats)
+    """The positions along ``axis`` (a mesh axis or a tuple of them,
+    row-major) at ``coords`` on the other axes. A mesh axis in neither
+    ``axis`` nor ``coords`` is a replica axis: each member stands for its
+    positions along it too, which run the member's program alike."""
+    axes = axes_of(axis)
+    members = [{**coords, **dict(zip(axes, idx))} for idx in
+               np.ndindex(*[mesh.shape[a] for a in axes])]
+    held: list = [[] for _ in members]
+    for flat, (_, c) in enumerate(positions(mesh)):
+        for i, m in enumerate(members):
+            if all(c[a] == v for a, v in m.items()):
+                held[i].append(flat)
+    group = AxisGroup([mesh.device_at(c) for c in members], ",".join(axes),
+                      stats, held)
+    group.member_coords = members
+    return group
 
 
 def group_of(module) -> Optional[AxisGroup]:

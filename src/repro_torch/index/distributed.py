@@ -183,7 +183,7 @@ def _blocks(n: int, ns: int):
 
 
 def sharded_search_fn(mesh, shard_axes: Sequence[str], k: int,
-                      k_local: int = 0):
+                      k_local: int = 0, stats=None):
     """An exact search over a corpus split into row-contiguous blocks over
     ``shard_axes``: fn(vectors (n, d), sq_norms (n,), queries (q, d)) ->
     (vals (q, k), ids (q, k) int32). Each block runs the fused scan
@@ -191,7 +191,13 @@ def sharded_search_fn(mesh, shard_axes: Sequence[str], k: int,
     candidates with global ids, and the tree merge keeps k_local until its
     last stage. ``k_local`` > 0 truncates the per-shard sets
     (statistically safe when it well exceeds k / n_shards times the merge
-    fan-in); 0 keeps k."""
+    fan-in); 0 keeps k. ``vectors`` and ``sq_norms`` may be whole, or
+    ``Placed`` in row blocks over ``shard_axes`` (the blocks are read as
+    they are). Each block's scan runs under ``sharding.scope`` of the
+    positions holding it; ``stats`` (a ``CollectiveStats``) records each
+    merge stage as the all-gather of every position's candidate set
+    (values and ids), as the reference's ``shard_map`` merges them."""
+    from repro_torch.distributed.sharding import Placed, positions, scope
     from repro_torch.index.slab import axes_size, shard_devices
 
     axes = tuple(shard_axes)
@@ -199,8 +205,12 @@ def sharded_search_fn(mesh, shard_axes: Sequence[str], k: int,
     ns = axes_size(mesh, axes)
     devs = shard_devices(mesh, axes)
     kl = k_local if k_local and k_local < k else k
+    holders = [[] for _ in range(ns)]
+    for flat, (_, c) in enumerate(positions(mesh)):
+        holders[linear_shard_index(axes, sizes, c)].append(flat)
 
-    def fn(vectors: Tensor, sq_norms: Tensor, queries: Tensor):
+    def fn(vectors, sq_norms, queries: Tensor):
+        placed = isinstance(vectors, Placed)
         nl, blocks = _blocks(vectors.shape[0], ns)
         vals, ids = [], []
         for s, (lo, hi) in enumerate(blocks):
@@ -208,11 +218,22 @@ def sharded_search_fn(mesh, shard_axes: Sequence[str], k: int,
                 vals.append(None), ids.append(None)
                 continue
             dev = devs[s]
-            v, i = ops.score_topk(vectors[lo:hi].to(dev),
-                                  sq_norms[lo:hi].to(dev),
-                                  queries.to(dev), min(kl, hi - lo))
-            vals.append(v.to(queries.device))
-            ids.append(i.to(queries.device) + lo)
+            with scope(holders[s]):
+                if placed:
+                    c = shard_coords(s, axes, sizes)
+                    rows, norms = vectors.block(c), sq_norms.block(c)
+                else:
+                    rows, norms = vectors[lo:hi], sq_norms[lo:hi]
+                v, i = ops.score_topk(rows.to(dev), norms.to(dev),
+                                      queries.to(dev), min(kl, hi - lo))
+                vals.append(v.to(queries.device))
+                ids.append(i.to(queries.device) + lo)
+        if stats is not None:
+            width = max(v.shape[-1] for v in vals if v is not None)
+            for ax in reversed(axes):
+                stats.add("all-gather", ax,
+                          mesh.size * queries.shape[0] * width * 8)
+                width = kl
         v, i, _ = _tree(vals, ids, None, sizes, k, inner=kl)
         if v is None:
             return _empty(queries, k)

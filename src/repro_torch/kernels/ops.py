@@ -13,6 +13,12 @@ The scans take the corpus or grouped slab as stored (float32, bfloat16 or
 int8 codes) and an optional ``scales=`` operand, the int8 rung's per-row
 dequantization scale, which multiplies each dot product's output. A CUDA
 tensor of another dtype raises in the kernel's wrapper; it is never cast.
+
+On the meta device (a cost trace, ``launch.cost_analysis``) an entry
+records its kernel's own work from the shapes and returns empty outputs:
+the plain version would materialise what no kernel writes (``score_topk``'s
+(q, n) score matrix). ``score_topk`` is the one a dry-run cell reaches;
+every other entry raises on meta.
 """
 from __future__ import annotations
 
@@ -30,6 +36,25 @@ from repro_torch.kernels import rescore as _rescore
 Tensor = torch.Tensor
 
 
+def _bytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def _kernel_on_meta(name: str, flops: float, nbytes: float) -> None:
+    from repro_torch.launch.cost_analysis import active_mode
+    mode = active_mode()
+    if mode is None:
+        raise RuntimeError(f"kernel {name} reached on the meta device "
+                           "outside a cost trace")
+    mode.record_kernel(name, flops, nbytes)
+
+
+def _no_meta(name: str, x: Tensor) -> None:
+    if x.is_meta:
+        raise NotImplementedError(f"kernel {name} has no cost on the meta "
+                                  "device: no dry-run cell reaches it")
+
+
 def fused_transform(v: Tensor, f: Tensor, proj: Tensor, alpha: float,
                     mean_v: Optional[Tensor] = None,
                     std_v: Optional[Tensor] = None,
@@ -40,6 +65,7 @@ def fused_transform(v: Tensor, f: Tensor, proj: Tensor, alpha: float,
     if v.is_cuda:
         return _transform.fused_transform(v, f, proj, alpha, mean_v, std_v,
                                           mean_f, std_f)
+    _no_meta("fused_transform", v)
     return ref.ref_fused_transform(v, f, proj, alpha, mean_v, std_v,
                                    mean_f, std_f)
 
@@ -53,6 +79,16 @@ def score_topk(corpus: Tensor, sq_norms: Tensor, queries: Tensor, k: int,
     slots no eligible row fills read (-inf, 0)."""
     if corpus.is_cuda:
         return _scan.score_topk(corpus, sq_norms, queries, k, scales, mask)
+    if corpus.is_meta:
+        # B2's work: 2 q n d multiply-adds; the rows, norms, scales and
+        # mask read once, the queries, the (q, k) values and ids written
+        nq, n = queries.shape[0], corpus.shape[0]
+        vals = torch.empty((nq, k), dtype=torch.float32, device="meta")
+        ids = torch.empty((nq, k), dtype=torch.int32, device="meta")
+        _kernel_on_meta(_scan.NAME, 2.0 * nq * n * corpus.shape[1],
+                        _bytes(corpus, sq_norms, queries, scales, mask,
+                               vals, ids))
+        return vals, ids
     return ref.ref_score_topk(corpus, sq_norms, queries, k, scales, mask)
 
 
@@ -64,6 +100,7 @@ def score_topk_rows(corpus: Tensor, sq_norms: Tensor, payload_v: Tensor,
     if corpus.is_cuda:
         return _scan.score_topk_rows(corpus, sq_norms, payload_v, payload_f,
                                      queries, k, scales)
+    _no_meta("score_topk_rows", corpus)
     return ref.ref_score_topk_rows(corpus, sq_norms, payload_v, payload_f,
                                    queries, k, scales)
 
@@ -74,6 +111,7 @@ def rescore(cand_v: Tensor, cand_f: Tensor, qn: Tensor, fqn: Tensor,
     bf16 candidate tiles are cast up to fp32 first, on either device."""
     if cand_v.is_cuda:
         return _rescore.rescore(cand_v, cand_f, qn, fqn, lam)
+    _no_meta("rescore", cand_v)
     return ref.ref_rescore(cand_v, cand_f, qn, fqn, lam)
 
 
@@ -86,6 +124,7 @@ def rescore_topk(cand_v: Tensor, cand_f: Tensor, qn: Tensor, fqn: Tensor,
     if cand_v.is_cuda:
         return _rescore.rescore_topk(cand_v, cand_f, qn, fqn, lam, cand_ids,
                                      k)
+    _no_meta("rescore_topk", cand_v)
     return ref.ref_rescore_topk(cand_v, cand_f, qn, fqn, lam, cand_ids, k)
 
 
@@ -100,6 +139,7 @@ def ivf_score_topk_batch(grouped: Tensor, grouped_sq: Tensor, valid: Tensor,
     if grouped.is_cuda:
         return _ivf.ivf_score_topk_batch(grouped, grouped_sq, valid, probes,
                                          queries, k, scales)
+    _no_meta("ivf_score_topk_batch", grouped)
     return ref.ref_ivf_score_topk_batch(grouped, grouped_sq, valid, probes,
                                         queries, k, scales)
 
@@ -126,6 +166,7 @@ def ivf_score_topk_dedup(grouped: Tensor, grouped_sq: Tensor, valid: Tensor,
     if grouped.is_cuda:
         return _ivf.ivf_score_topk_dedup(grouped, grouped_sq, valid, uniq,
                                          member, queries, k, scales, mask)
+    _no_meta("ivf_score_topk_dedup", grouped)
     return ref.ref_ivf_score_topk_dedup(grouped, grouped_sq, valid, uniq,
                                         member, queries, k, scales, mask)
 
@@ -141,6 +182,7 @@ def ivf_score_topk_dedup_rows(grouped: Tensor, grouped_sq: Tensor,
         return _ivf.ivf_score_topk_dedup_rows(grouped, grouped_sq, valid,
                                               uniq, member, queries,
                                               payload_v, payload_f, k, scales)
+    _no_meta("ivf_score_topk_dedup_rows", grouped)
     return ref.ref_ivf_score_topk_dedup_rows(grouped, grouped_sq, valid, uniq,
                                              member, queries, payload_v,
                                              payload_f, k, scales)
@@ -160,6 +202,7 @@ def pq_lut_qdot(queries_sub: Tensor, codebooks: Tensor) -> Tensor:
     (q, M, dsub) x codebooks (M, ksub, dsub) -> (q, M, ksub)."""
     if queries_sub.is_cuda:
         return _pq.pq_lut_qdot(queries_sub, codebooks)
+    _no_meta("pq_lut_qdot", queries_sub)
     return ref.ref_pq_lut_qdot(queries_sub, codebooks)
 
 
@@ -172,6 +215,7 @@ def pq_scan_luts(queries: Tensor, codebooks: Tensor, coarse_centers: Tensor,
     if queries.is_cuda:
         return _pq.pq_scan_luts(queries, codebooks, coarse_centers,
                                 coarse_dot, cb_sq)
+    _no_meta("pq_scan_luts", queries)
     return ref.ref_pq_scan_luts(queries, codebooks, coarse_centers,
                                 coarse_dot, cb_sq)
 
@@ -181,6 +225,7 @@ def pq_score_batch(codes: Tensor, luts: Tensor) -> Tensor:
     (q, n)."""
     if codes.is_cuda:
         return _pq.pq_score_batch(codes, luts)
+    _no_meta("pq_score_batch", codes)
     return ref.ref_pq_score_batch(codes, luts)
 
 
@@ -193,6 +238,7 @@ def pq_score_topk(codes: Tensor, luts: Tensor, k: int, grouped):
     ``index.pq.PQIndex.grouped``), which the kernel reads."""
     if codes.is_cuda:
         return _pq.pq_score_topk(*grouped, luts, k)
+    _no_meta("pq_score_topk", codes)
     return ref.ref_pq_score_topk(codes, luts, k)
 
 
@@ -200,4 +246,5 @@ def pq_score(codes: Tensor, lut: Tensor) -> Tensor:
     """Single-LUT ADC: codes (n, M), lut (M, K) -> squared distances (n,)."""
     if codes.is_cuda:
         return _pq.pq_score(codes, lut)
+    _no_meta("pq_score", codes)
     return ref.ref_pq_score(codes, lut)

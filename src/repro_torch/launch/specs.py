@@ -1,7 +1,12 @@
-"""Per-arch sharding rules and ZeRO-1's moment shardings. Mirrors the
-layout half of ``repro.launch.specs`` (``SHAPES``, ``ARCH_RULES``, the
-serving and training extras, ``arch_rules``, ``cell_applicable``,
-``zero1_specs``); its input specs and the dry-run cells are not ported.
+"""Per-arch sharding rules, input specs and the dry-run's cells. Mirrors
+``repro.launch.specs``: ``SHAPES``, ``ARCH_RULES``, the serving and
+training extras, ``arch_rules``, ``cell_applicable``, ``zero1_specs``, the
+input specs (meta tensors stand in for ``ShapeDtypeStruct``s), the batch
+and cache specs, ``Cell``/``build_cell`` for train, prefill and decode, and
+``FCVI_SHAPES``/``build_fcvi_cell`` (the ``base`` and ``bf16`` variants).
+A cell holds its inputs placed on the mesh (``Placed``: on the meta device
+for a dry-run, on a card or the CPU for a real run) and a ``step`` that runs
+the port's sharded program over them under the cell's rules.
 
 Archs whose head count divides the 16-way model axis use Megatron tensor
 parallelism over heads (the default rules); the rest split the attention
@@ -12,9 +17,15 @@ its mixers.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
-from repro_torch.distributed.sharding import AxisRules, axes_of
+import torch
+
+from repro_torch.distributed.sharding import (AxisRules, CollectiveStats,
+                                              axes_of, block_slices, place,
+                                              positions, quiet_ops, scope,
+                                              use_rules)
 
 SHAPES = {
     "train_4k": dict(kind="train", seq=4096, batch=256),
@@ -94,3 +105,389 @@ def zero1_specs(shapes, base_specs, rules: AxisRules):
         return one(tuple(getattr(sh, "shape", sh)), sp)
 
     return visit(shapes, base_specs)
+
+
+WHISPER_DEC_LEN = 448  # whisper's decoder context
+
+
+# ---------------------------------------------------------------------------
+# Input specs (meta tensors: shapes and dtypes, nothing allocated)
+# ---------------------------------------------------------------------------
+
+def _empty(shape, dtype, device) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device=device)
+
+
+def train_batch_specs(cfg, seq: int, batch: int, device="meta") -> dict:
+    """The train batch: whisper's encoder frames carry ``seq`` (its
+    decoder ``WHISPER_DEC_LEN`` tokens); a vision stub's patches fill
+    ``n_prefix`` of it."""
+    if cfg.enc_dec:
+        return {"frames": _empty((batch, seq, cfg.d_model), torch.float32,
+                                 device),
+                "tokens": _empty((batch, WHISPER_DEC_LEN), torch.int32,
+                                 device)}
+    if cfg.frontend == "vision_stub":
+        return {"patches": _empty((batch, cfg.n_prefix, cfg.d_model),
+                                  torch.float32, device),
+                "tokens": _empty((batch, seq - cfg.n_prefix), torch.int32,
+                                 device)}
+    return {"tokens": _empty((batch, seq), torch.int32, device)}
+
+
+def prefill_batch_specs(cfg, seq: int, batch: int, device="meta") -> dict:
+    return train_batch_specs(cfg, seq, batch, device)
+
+
+def decode_input_specs(cfg, seq: int, batch: int, device="meta"):
+    """(token (batch, 1) int32, cache): the port's caches, one a layer
+    (``models.model.init_cache``; whisper's self cache of 512 and cross
+    caches over ``seq`` encoder positions)."""
+    from repro_torch.models import model as M
+    token = _empty((batch, 1), torch.int32, device)
+    if cfg.enc_dec:
+        return token, {"self": M.init_cache(cfg, batch, 512, device),
+                       "cross": M.init_cross_cache(cfg, batch, seq, device)}
+    return token, {"self": M.init_cache(cfg, batch, seq, device),
+                   "cross": None}
+
+
+# ---------------------------------------------------------------------------
+# Spec trees of the inputs
+# ---------------------------------------------------------------------------
+
+def batch_pspecs(cfg, batch_specs: dict, rules: AxisRules) -> dict:
+    return {k: rules.spec("batch", *([None] * (v.ndim - 1)))
+            for k, v in batch_specs.items()}
+
+
+def _kv_cache_pspec(rules: AxisRules, lead: tuple = ()) -> dict:
+    return {"k": rules.spec(*lead, "batch", "kv_seq", "kv_heads", None),
+            "v": rules.spec(*lead, "batch", "kv_seq", "kv_heads", None),
+            "slot_pos": rules.spec(*lead, None),
+            "pos": rules.spec(*lead)}
+
+
+def _block_cache_pspec(cfg, kind: str, rules: AxisRules,
+                       lead: tuple = ()) -> dict:
+    if kind in ("attn", "local"):
+        return _kv_cache_pspec(rules, lead)
+    if kind == "rec":
+        return {"h": rules.spec(*lead, "batch", "rnn"),
+                "conv": rules.spec(*lead, "batch", None, "rnn")}
+    if kind == "mlstm":
+        return {"C": rules.spec(*lead, "batch", "heads", None, None),
+                "n": rules.spec(*lead, "batch", "heads", None),
+                "m": rules.spec(*lead, "batch", "heads")}
+    if kind == "slstm":
+        v = rules.spec(*lead, "batch", "heads", None)
+        return {"c": v, "n": v, "h": v, "m": v}
+    raise ValueError(kind)
+
+
+def cache_pspecs(cfg, rules: AxisRules, enc_dec_cross: bool) -> dict:
+    """The specs of ``decode_input_specs``' cache, one a layer (the
+    reference's stacked ``scan`` slots, their leading periods entry
+    dropped, in layer order)."""
+    self_spec = [_block_cache_pspec(cfg, kind, rules)
+                 for kind in cfg.layer_kinds()]
+    cross = None
+    if enc_dec_cross:
+        kv = rules.spec("batch", "kv_seq", "kv_heads", None)
+        cross = [(kv, kv) for _ in range(cfg.n_layers)]
+    return {"self": self_spec, "cross": cross}
+
+
+def _place_tree(tree, specs, mesh):
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _place_tree(tree[k], specs[k], mesh) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_place_tree(a, b, mesh) for a, b in
+                          zip(tree, specs))
+    return place(tree, specs, mesh)
+
+
+# ---------------------------------------------------------------------------
+# Cells
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Cell:
+    """One (arch, shape) cell on a mesh: ``inputs`` placed by the rules,
+    ``run(stats)`` the port's sharded step over them (its collectives
+    recorded into ``stats``)."""
+    arch: str
+    shape: str
+    kind: str
+    cfg: object
+    mesh: object
+    rules: object
+    inputs: dict
+    run: object
+    n_micro: int = 1
+
+
+def _cell_rules(arch: str, kind: str, batch: int, mesh,
+                extra_rules: Optional[dict]) -> AxisRules:
+    extra = dict(extra_rules or {})
+    if kind in ("prefill", "decode"):
+        extra = {**SERVE_EXTRA_RULES.get(arch, {}), **extra}
+    if kind == "train":
+        extra = {**TRAIN_EXTRA_RULES.get(arch, {}), **extra}
+    if kind == "decode" and batch == 1:
+        # long-context decode: batch replicated, the KV sequence over
+        # data x model
+        extra.setdefault("batch", None)
+        extra.setdefault("kv_seq", ("data", "model"))
+    return arch_rules(mesh, arch, extra)
+
+
+def _random_batch(cfg, specs: dict, seed: int) -> dict:
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, v in specs.items():
+        if v.dtype == torch.int32:
+            out[k] = torch.randint(0, cfg.vocab_size, v.shape, generator=gen,
+                                   dtype=torch.int32)
+        else:
+            out[k] = torch.randn(v.shape, generator=gen)
+    return out
+
+
+def _model(cfg, device, dtype):
+    """The cell's params: shapes only on meta, else drawn from seed 0;
+    bf16 in production (mixed precision keeps fp32 masters apart)."""
+    from repro_torch.models import model as M
+    dev = torch.device(device)
+    model = (M.Model(cfg, dev) if dev.type == "meta"
+             else M.init_params(0, cfg, dev))
+    return model.to(dtype)
+
+
+def build_cell(cfg, arch: str, shape: str, mesh, n_micro: int = 1,
+               extra_rules: Optional[dict] = None, device="meta",
+               param_dtype=torch.bfloat16) -> Optional[Cell]:
+    """The cell of ``arch`` at ``shape`` on ``mesh`` (None where
+    ``cell_applicable`` says no). Train: bf16 params, fp32 masters and
+    ZeRO-1 moments, ``n_micro`` microbatches (halved until each stays
+    divisible by the data-parallel degree); prefill and decode: bf16
+    params, decode's cache laid out by ``cache_pspecs``. On a device
+    other than meta the params are drawn from seed 0, the batch from 1.
+    A train cell's ``run(stats, groups, micro, fill)`` takes
+    ``sharded_grads``' ``groups`` and ``micro``, and ``fill(grads)`` sets
+    the entries of the groups it did not differentiate before the sync."""
+    from repro_torch.models import model as M
+    from repro_torch.train import loop as train_loop
+    from repro_torch.train import optimizer as opt
+    ok, _ = cell_applicable(cfg, shape)
+    if not ok:
+        return None
+    info = SHAPES[shape]
+    seq, batch, kind = info["seq"], info["batch"], info["kind"]
+    rules = _cell_rules(arch, kind, batch, mesh, extra_rules)
+    meta = torch.device(device).type == "meta"
+    model = _model(cfg, device, param_dtype)
+    structure = M.Model(cfg, torch.device("meta"))
+    specs = M.param_specs(cfg, rules)
+    params = {k: place(p, specs[k], mesh)
+              for k, p in model.named_parameters()}
+
+    if kind == "train":
+        dp = 1
+        for a in axes_of(rules.rules.get("batch")):
+            dp *= mesh.shape[a]
+        while n_micro > 1 and (batch // n_micro) % max(dp, 1):
+            n_micro //= 2
+        named = dict(model.named_parameters())
+        _, state, zspecs = train_loop.place_train_state(
+            model, opt.init(named), rules)
+        del named
+        bspecs = train_batch_specs(cfg, seq, batch, device)
+        data = bspecs if meta else _random_batch(cfg, bspecs, 1)
+        placed = train_loop.place_batch(data, rules)
+        adamw = opt.AdamWConfig()
+        inputs = {"params": params, "state": state, "batch": placed}
+
+        def run(stats: CollectiveStats, groups=None, micro=None, fill=None):
+            with use_rules(rules):
+                grads, metrics = train_loop.sharded_grads(
+                    cfg, structure, inputs["params"], inputs["batch"],
+                    rules, n_micro, stats, groups, micro)
+                if fill is not None:
+                    fill(grads)
+                return train_loop.apply_grads(
+                    adamw, grads, metrics, inputs["params"],
+                    inputs["state"], zspecs, rules, stats)
+
+        return Cell(arch, shape, "train", cfg, mesh, rules, inputs, run,
+                    n_micro)
+
+    if kind == "prefill":
+        bspecs = prefill_batch_specs(cfg, seq, batch, device)
+        data = bspecs if meta else _random_batch(cfg, bspecs, 1)
+        placed = {k: place(v, sp, mesh) for (k, v), sp in zip(
+            data.items(), batch_pspecs(cfg, data, rules).values())}
+        inputs = {"params": params, "batch": placed}
+
+        def run(stats: CollectiveStats, groups=None):
+            with use_rules(rules):
+                return M.sharded_prefill(structure, inputs["params"],
+                                         inputs["batch"], seq, rules, stats,
+                                         groups)
+
+        return Cell(arch, shape, "prefill", cfg, mesh, rules, inputs, run)
+
+    token, cache = decode_input_specs(cfg, seq, batch, device)
+    if not meta:
+        token = _random_batch(cfg, {"t": token}, 1)["t"]
+    inputs = {"params": params,
+              "token": place(token, rules.spec("batch", None), mesh),
+              "cache": _place_tree(cache, cache_pspecs(cfg, rules,
+                                                       cfg.enc_dec), mesh)}
+    del token, cache
+
+    def run(stats: CollectiveStats, groups=None):
+        with use_rules(rules):
+            return M.sharded_decode_step(structure, inputs["params"],
+                                         inputs["token"], inputs["cache"],
+                                         rules, stats, groups)
+
+    return Cell(arch, shape, "decode", cfg, mesh, rules, inputs, run)
+
+
+# ---------------------------------------------------------------------------
+# The FCVI serving cell: the paper's technique on the production mesh
+# ---------------------------------------------------------------------------
+
+FCVI_SHAPES = {
+    # 268M corpus vectors (SIFT-like d=128, m=8 filters), 1024-query batches
+    "serve_268m": dict(n=1 << 28, d=128, m=8, batch=1024, k=100, kprime=400),
+}
+FCVI_VARIANTS = ("base", "bf16")
+
+
+def build_fcvi_cell(shape, mesh, extra_rules: Optional[dict] = None,
+                    variant: str = "base", device="meta",
+                    data: Optional[dict] = None) -> Cell:
+    """The distributed FCVI query step: the psi transform of the queries,
+    an exact top-k' over the corpus split in row blocks over every mesh
+    axis (``index.distributed.sharded_search_fn``: the B2 kernel on each
+    block, the tree merge over the axes, the last first), the candidates'
+    rows gathered from the blocks holding them (an all-reduce of each
+    block's hits), the lambda-weighted cosine re-rank and its top-k.
+    ``base``: fp32 corpus; ``bf16``: the transformed corpus stored in bf16
+    (re-rank rows stay fp32). ``shape``: a key of ``FCVI_SHAPES`` or a
+    dict of its fields. ``data``: the inputs to place (default: meta
+    stand-ins, or random rows on another device). ``run`` returns the
+    top-k (scores, ids) and the k' candidates' ids."""
+    from repro_torch.core.transform import psi_partition
+    from repro_torch.index.distributed import sharded_search_fn
+    from repro_torch.kernels.ref import topk_first
+    if variant not in FCVI_VARIANTS:
+        raise ValueError(f"FCVI variant {variant!r}: the port builds "
+                         f"{FCVI_VARIANTS}")
+    info = FCVI_SHAPES[shape] if isinstance(shape, str) else dict(shape)
+    n, d, m = info["n"], info["d"], info["m"]
+    batch, k, kprime = info["batch"], info["k"], info["kprime"]
+    lam, alpha = 0.5, 1.0
+    rules = AxisRules(mesh, dict(extra_rules or {}))
+    axes = tuple(a for a in ("pod", "data", "model") if a in mesh.axis_names)
+    dtype = torch.bfloat16 if variant == "bf16" else torch.float32
+    if data is None:
+        if torch.device(device).type == "meta":
+            data = {"corpus_t": _empty((n, d), dtype, device),
+                    "sq_norms": _empty((n,), torch.float32, device),
+                    "vectors_n": _empty((n, d), torch.float32, device),
+                    "filters_n": _empty((n, m), torch.float32, device),
+                    "q": _empty((batch, d), torch.float32, device),
+                    "fq": _empty((batch, m), torch.float32, device)}
+        else:
+            data = fcvi_inputs(info, variant, device, 0)
+    specs = {"corpus_t": (axes, None), "sq_norms": (axes,),
+             "vectors_n": (axes, None), "filters_n": (axes, None),
+             "q": (), "fq": ()}
+    inputs = {name: place(t, specs[name], mesh) for name, t in data.items()}
+    del data
+
+    def run(stats: CollectiveStats):
+        x = inputs
+        search = sharded_search_fn(mesh, axes, kprime, stats=stats)
+        q, fq = (x[name].blocks.flat[0] for name in ("q", "fq"))
+        q_t = psi_partition(q, fq, alpha)
+        if dtype != torch.float32:
+            # the queries as the bf16 rows' scan takes them: rounded to
+            # bf16 (the reference's cast), held in fp32
+            q_t = q_t.to(dtype).float()
+        _, cand = search(x["corpus_t"], x["sq_norms"], q_t)
+        cv, cf = gather_rows(x["vectors_n"], x["filters_n"], cand, axes,
+                             stats)
+
+        def cos(c, qv):
+            num = torch.sum(c * qv[:, None, :], dim=-1)
+            den = (torch.linalg.norm(c, dim=-1)
+                   * torch.linalg.norm(qv, dim=-1)[:, None] + 1e-8)
+            return num / den
+
+        score = lam * cos(cv, q) + (1 - lam) * cos(cf, fq)
+        vals, pos = topk_first(score, k)
+        return vals, torch.gather(cand, -1, pos), cand
+
+    return Cell("fcvi", shape if isinstance(shape, str) else "custom",
+                "fcvi_serve", None, mesh, rules, inputs, run)
+
+
+def fcvi_inputs(info: dict, variant: str, device, seed: int) -> dict:
+    """Random FCVI inputs on ``device``: unit-normalised rows and filters,
+    the transformed corpus (psi of the rows with their filters), its
+    squared norms, and queries with their filters."""
+    from repro_torch.core.transform import psi_partition
+    from repro_torch.device import resolve_device
+    n, d, m, b = info["n"], info["d"], info["m"], info["batch"]
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    v = torch.randn((n, d), generator=gen, device=dev)
+    v = v / torch.linalg.norm(v, dim=-1, keepdim=True)
+    f = torch.rand((n, m), generator=gen, device=dev)
+    f = f / torch.linalg.norm(f, dim=-1, keepdim=True)
+    corpus = psi_partition(v, f, 1.0)
+    if variant == "bf16":
+        corpus = corpus.to(torch.bfloat16)
+    sq = torch.sum(corpus.float() ** 2, dim=-1)
+    q = torch.randn((b, d), generator=gen, device=dev)
+    fq = torch.rand((b, m), generator=gen, device=dev)
+    return {"corpus_t": corpus, "sq_norms": sq, "vectors_n": v,
+            "filters_n": f, "q": q, "fq": fq}
+
+
+def gather_rows(vectors, filters, cand: torch.Tensor, axes,
+                stats: Optional[CollectiveStats] = None) -> tuple:
+    """The rows of ``cand`` (b, k') ids from row blocks (``Placed`` over
+    ``axes``): each block gathers the candidates it holds (zeros for the
+    others) under ``sharding.scope`` of its positions, and the blocks'
+    rows are summed (an all-reduce over ``axes``, at each position's
+    (b, k', d + m) fp32). Equal to indexing the whole tables."""
+    mesh = vectors.mesh
+    held = []
+    for coords, vb in vectors.unique():
+        fb = filters.block(coords)
+        lo = block_slices(mesh, vectors.spec, vectors.shape, coords)[0].start
+        holders = [f for f, (_, c) in enumerate(positions(mesh))
+                   if all(c[a] == coords[a] for a in axes)]
+        with scope(holders):
+            local = cand.to(vb.device) - lo
+            own = (local >= 0) & (local < vb.shape[0])
+            ix = local.clamp(0, vb.shape[0] - 1).long()
+            held.append((torch.where(own[..., None], vb[ix], 0.0),
+                         torch.where(own[..., None], fb[ix], 0.0)))
+    if stats is not None:
+        b, kp = cand.shape
+        stats.add("all-reduce", ",".join(axes), mesh.size * b * kp * 4
+                  * (vectors.shape[1] + filters.shape[1]))
+    with quiet_ops():
+        cv, cf = held[0]
+        for v2, f2 in held[1:]:
+            cv = cv + v2.to(cv.device)
+            cf = cf + f2.to(cf.device)
+    return cv, cf

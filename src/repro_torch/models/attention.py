@@ -177,7 +177,7 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
             _no_seq_shard=True)
             for m, (qm, km, vm) in enumerate(zip(
                 group.split(q, 1), group.broadcast(k), group.broadcast(v)))]
-        return group.all_gather(outs, 1)[0]
+        return group.gathered(outs, 1)
     KV = k.shape[2]
     g = H // KV
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
@@ -350,6 +350,15 @@ def attn_forward(p: Attention, x, *, causal: bool, window: int = 0,
 def attn_prefill(p: Attention, x, cache, *, window: int = 0,
                  rope_theta: float = 10000.0, use_rope: bool = True,
                  cap=None, q_chunk=512, kv_chunk=512):
+    """The prompt's attention and its cache. In a sharded step's group
+    (``p`` a view) the projections run split as ``_split_attend`` runs
+    them, and the cache's k and v come out split along the sequence over
+    the group's ``kv_group`` (the rules' ``kv_seq`` axes): ``Blocks``."""
+    kvg = getattr(p, "kv_group", None)
+    if kvg is not None:
+        return _group_prefill(p, x, cache, kvg, window=window,
+                              rope_theta=rope_theta, use_rope=use_rope,
+                              cap=cap, q_chunk=q_chunk, kv_chunk=kv_chunk)
     q, k, v = _qkv(p, x)
     if use_rope:
         positions = _positions(x)
@@ -363,7 +372,13 @@ def attn_prefill(p: Attention, x, cache, *, window: int = 0,
 def attn_decode(p: Attention, x, cache, *, window: int = 0,
                 rope_theta: float = 10000.0, use_rope: bool = True,
                 cap=None):
-    """x: (b, 1, d), the one new token."""
+    """x: (b, 1, d), the one new token. A cache whose k and v are
+    ``Blocks`` along the sequence (a sharded step's group) takes
+    ``_group_decode``."""
+    if isinstance(cache["k"], Blocks):
+        return _group_decode(p, x, cache, window=window,
+                             rope_theta=rope_theta, use_rope=use_rope,
+                             cap=cap)
     q, k, v = _qkv(p, x)
     if use_rope:
         pos = cache["pos"].expand(x.shape[0], 1)
@@ -393,7 +408,12 @@ def cross_kv(p: Attention, enc_out: Tensor):
 def cross_attend(p: Attention, x: Tensor, k, v, *, q_chunk=512,
                  kv_chunk=512, cap=None) -> Tensor:
     """x: (b, s, d) attends, non-causal and without RoPE, over the encoder's
-    k, v."""
+    k, v (in a sharded step's group: ``Blocks`` of head_dim, or of the
+    sequence, which ``_combine_attend`` reads)."""
+    if isinstance(k, Blocks) and k.dim == 1:
+        tp = p.wq.group if isinstance(p.wq, Blocks) else None
+        return _split_out(p, _combine_attend(
+            _whole_queries(p, x), k, v, lambda j, kj: None, cap=cap, tp=tp))
     if any(_split_dims(p)):
         return _split_attend(p, x, (k, v), rope=None, causal=False,
                              window=0, cap=cap, q_chunk=q_chunk,
@@ -448,11 +468,12 @@ def _kv_heads(m: int, n_q: int, g: int) -> slice:
 
 def _split_attend(p, x: Tensor, kv, *, rope, causal: bool, window: int,
                   cap, q_chunk: int, kv_chunk: int,
-                  banded_causal: bool = False) -> Tensor:
+                  banded_causal: bool = False, want_kv: bool = False):
     """Attention of x (b, s, d) over its own keys and values (``kv`` None)
     or over ``kv`` (cross attention, ``cross_kv``'s), with the
     projections split over the group's tensor-parallel axis. Returns
-    (b, s, d) bf16."""
+    (b, s, d) bf16; with ``want_kv``, also the whole keys (after RoPE) and
+    values, (b, s, KV, dh) each, as the group holds them."""
     layout = _layout(p)
     tp = p.wq.group
     core = dict(causal=causal, window=window, cap=cap, kv_chunk=kv_chunk,
@@ -470,6 +491,7 @@ def _split_attend(p, x: Tensor, kv, *, rope, causal: bool, window: int,
         k, v = kv
     if layout == "heads":
         k = _rope(k, rope)
+        whole = (k, v)
         g = p.wq[0].shape[1] * tp.n // k.shape[2]
         o = []
         for m, (qm, km, vm) in enumerate(zip(q, tp.broadcast(k),
@@ -485,16 +507,166 @@ def _split_attend(p, x: Tensor, kv, *, rope, causal: bool, window: int,
             s_loc = s // tp.n
             qs = tp.all_to_all(q, 1, 3)
             ks, vs = tp.all_gather(k, 3), tp.all_gather(v, 3)
+            ks = [_rope(km, rope) for km in ks]
+            whole = (ks[0], vs[0])
             outs = [chunked_attention(
-                _rope(qm, rope, m * s_loc), _rope(km, rope), vm,
+                _rope(qm, rope, m * s_loc), km, vm,
                 q_offset=m * s_loc, q_chunk=min(q_chunk, s_loc), **core)
                 for m, (qm, km, vm) in enumerate(zip(qs, ks, vs))]
             o = tp.all_to_all(outs, 3, 1)
         else:
-            qf, kf, vf = (tp.all_gather(t, 3)[0] for t in (q, k, v))
+            qf, kf, vf = (tp.gathered(t, 3) for t in (q, k, v))
+            kf = _rope(kf, rope)
+            whole = (kf, vf)
             o = tp.split(chunked_attention(
-                _rope(qf, rope), _rope(kf, rope), vf, q_chunk=q_chunk,
-                **core), 3)
-    d = x.shape[-1]
+                _rope(qf, rope), kf, vf, q_chunk=q_chunk, **core), 3)
+    out = _split_out(p, o)
+    return (out, whole) if want_kv else out
+
+
+def _split_out(p, o) -> Tensor:
+    """The output projection of attention outputs ``o`` split as wo is
+    (each position's heads or head_dim columns; whole ``o`` is cut),
+    fp32 partials joined by an all-reduce that rounds once."""
+    if not isinstance(p.wo, Blocks):
+        return _out(p, o)
+    tp = p.wo.group
+    if isinstance(o, Tensor):
+        o = tp.split(o, 2 if _layout(p) == "heads" else 3)
+    d = p.wo[0].shape[-1]
     return bf16(tp.psum([dot_f32(om.flatten(-2), w.reshape(-1, d))
                          for om, w in zip(o, p.wo)]))
+
+
+# ---------------------------------------------------------------------------
+# Serving in a sharded step's group: caches split along the sequence
+# ---------------------------------------------------------------------------
+
+def _group_prefill(p, x, cache, kvg, *, window, rope_theta, use_rope, cap,
+                   q_chunk, kv_chunk):
+    """``attn_prefill`` in a group: the output as ``_split_attend``
+    computes it (whole projections where none is split), the cache filled
+    whole and then cut along the sequence over ``kvg`` (a replicated value
+    each position keeps its block of)."""
+    rope = (_positions(x), rope_theta) if use_rope else None
+    if any(_split_dims(p)):
+        out, (k, v) = _split_attend(p, x, None, rope=rope, causal=True,
+                                    window=window, cap=cap, q_chunk=q_chunk,
+                                    kv_chunk=kv_chunk, want_kv=True)
+    else:
+        q, k, v = _qkv(p, x)
+        q, k = _rope(q, rope), _rope(k, rope)
+        out = _out(p, chunked_attention(q, k, v, causal=True, window=window,
+                                        cap=cap, q_chunk=q_chunk,
+                                        kv_chunk=kv_chunk))
+    new = cache_update_prefill(cache, k, v)
+    if kvg.n > 1:
+        new = dict(new, k=kvg.split(new["k"], 1), v=kvg.split(new["v"], 1))
+    return out, new
+
+
+def _whole_queries(p, x) -> list:
+    """Each tensor-parallel position's copy of the whole queries (b, s, H,
+    dh): the split projections all-gathered (or one whole projection)."""
+    if not isinstance(p.wq, Blocks):
+        return [_proj(bf16(x), p.wq)]
+    tp = p.wq.group
+    q = [_proj(xm, w) for xm, w in zip(tp.broadcast(bf16(x)), p.wq)]
+    return tp.all_gather(q, 2 if _layout(p) == "heads" else 3)
+
+
+def _whole_kv(p, x) -> tuple:
+    """The new token's whole keys and values: each tensor-parallel
+    position's copy (one where the projections are whole)."""
+    if not isinstance(p.wk, Blocks):
+        xc = bf16(x)
+        return [_proj(xc, p.wk)], [_proj(xc, p.wv)]
+    tp = p.wk.group
+    xs = tp.broadcast(bf16(x))
+    return tuple(tp.all_gather([_proj(xm, w) for xm, w in zip(xs, ws)], 3)
+                 for ws in (p.wk, p.wv))
+
+
+def _member_of(kvg, tp) -> list:
+    """For each member of ``kvg``, the index of the ``tp`` member whose
+    positions it shares (whose copy of a whole value it reads)."""
+    if tp is None or tp.positions is None or kvg.positions is None:
+        return [0] * kvg.n
+    return [next(m for m, q in enumerate(tp.positions) if q & pos)
+            for pos in kvg.positions]
+
+
+def _combine_attend(qs: list, kb: Blocks, vb: Blocks, ok_fn, *, cap=None,
+                    tp=None) -> Tensor:
+    """Attention of whole queries over keys and values split along the
+    sequence (``kb``, ``vb``: ``Blocks`` of dim 1 over a group): each
+    position's partial softmax, shifted by the group's max (an all-reduce
+    max) and normalised by the group's sum (an all-reduce), its PV
+    product in fp32, the partials' all-reduce rounded to bf16 once.
+    ``ok_fn(j, k_j)`` masks position j's slots (None: all valid); ``qs``
+    is each ``tp`` member's copy. Returns (b, s, H, dh) bf16."""
+    kvg = kb.group
+    which = _member_of(kvg, tp)
+    b, sq, H, dh = qs[0].shape
+    KV = kb[0].shape[2]
+    g = H // KV
+    scale = 1.0 / math.sqrt(dh)
+    scores = []
+    for j, (kj, m) in enumerate(zip(kb, which)):
+        qh = qs[m if len(qs) > 1 else 0].reshape(b, sq, KV, g, dh)
+        sj = torch.einsum("bqhgd,bkhd->bhgqk", bf16(qh).float(),
+                          bf16(kj).float())
+        sj = softcap(sj * scale, cap)
+        ok = ok_fn(j, kj)
+        scores.append(sj if ok is None else torch.where(ok, sj, NEG))
+    mx = kvg.pmax([torch.amax(sj, dim=-1) for sj in scores])
+    es = [torch.exp(sj - mx.to(sj.device)[..., None]) for sj in scores]
+    l = kvg.psum([torch.sum(e, dim=-1) for e in es])
+    outs = [torch.einsum("bhgqk,bkhd->bqhgd",
+                         bf16(e / l.to(e.device)[..., None]).float(),
+                         bf16(vj).float()) for e, vj in zip(es, vb)]
+    return bf16(kvg.psum(outs)).reshape(b, sq, H, dh)
+
+
+def _group_decode(p, x, cache, *, window, rope_theta, use_rope, cap):
+    """``attn_decode`` over a cache whose k and v are ``Blocks`` along the
+    sequence: the new token's key and value written at slot ``pos % size``
+    by the position holding it (a masked index copy at each, no host
+    sync), then ``_combine_attend`` over every position's slots."""
+    kb, vb = cache["k"], cache["v"]
+    kvg = kb.group
+    tp = p.wq.group if isinstance(p.wq, Blocks) else None
+    which = _member_of(kvg, tp)
+    qs = _whole_queries(p, x)
+    k1, v1 = _whole_kv(p, x)
+    pos = cache["pos"]
+    if use_rope:
+        at = pos.expand(x.shape[0], 1)
+        qs = [apply_rope(qm, at, rope_theta) for qm in qs]
+        k1 = [apply_rope(km, at, rope_theta) for km in k1]
+    blk = kb[0].shape[1]
+    size = blk * kvg.n
+    slot = torch.remainder(pos, size).long().reshape(1)
+    new_k, new_v = [], []
+    for j, (kj, vj) in enumerate(zip(kb, vb)):
+        local = slot - j * blk
+        inside = (local >= 0) & (local < blk)
+        loc = local.clamp(0, blk - 1)
+        m = which[j] if len(k1) > 1 else 0
+        for old, one, out in ((kj, k1[m], new_k), (vj, v1[m], new_v)):
+            val = torch.where(inside, one.to(old.dtype),
+                              old.index_select(1, loc))
+            out.append(old.index_copy(1, loc, val))
+    slot_pos = cache["slot_pos"].index_copy(0, slot, pos.reshape(1))
+    new_k, new_v = Blocks(new_k, 1, kvg), Blocks(new_v, 1, kvg)
+
+    def ok(j, kj):
+        sp = slot_pos[j * blk:(j + 1) * blk]
+        m = (sp >= 0) & (sp <= pos)
+        if window > 0:
+            m = m & (pos - sp < window)
+        return m
+
+    o = _combine_attend(qs, new_k, new_v, ok, cap=cap, tp=tp)
+    return _split_out(p, o), {"k": new_k, "v": new_v, "slot_pos": slot_pos,
+                              "pos": pos + 1}

@@ -39,15 +39,16 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import Tensor, nn
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.clustering import Seed, make_generator
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed.sharding import (AxisGroup, AxisRules, Blocks,
+from repro_torch.distributed.sharding import (AxisRules, Blocks,
                                               CollectiveStats, Placed,
                                               _leaf_logical, axes_of,
-                                              block_slices, mesh_group,
-                                              positions)
+                                              block_slices, mark, mesh_group,
+                                              positions, quiet_ops, scope)
 from repro_torch.models import attention as attn
 from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import (MLP, Embedding, LayerNorm, RMSNorm,
@@ -445,10 +446,12 @@ GATHERED = (rec.MLSTM, rec.SLSTM)
 
 
 class ShardGroup:
-    """One batch group of a sharded train step: the positions that share
-    a block of the batch (coordinates ``coords`` on the rules' batch
-    axes), one along the tensor-parallel axis each (the mesh's one axis
-    the batch does not split; ``tp``). The model runs over the group with
+    """One batch group of a sharded step: the positions that share a block
+    of the batch (coordinates ``coords`` on the rules' batch axes), one
+    along the tensor-parallel axis each (``tp``: the mesh's one axis the
+    batch does not split, or, where several are left, the one the
+    parameters split over; the others are replica axes, whose positions
+    run the group's program alike). The model runs over the group with
     its parameters as the group's positions hold them: a parameter split
     over the tensor-parallel axis is ``Blocks``, one block a position,
     which the model's layers compute on and join with ``tp``'s
@@ -461,26 +464,64 @@ class ShardGroup:
     def __init__(self, mesh, rules: AxisRules, coords: dict, params: dict,
                  stats: Optional[CollectiveStats] = None):
         self.mesh, self.coords, self.params = mesh, coords, params
-        self.stats = stats
+        self.stats, self.rules = stats, rules
         self.batch_axes = axes_of(rules.rules.get("batch"))
         other = [a for a in mesh.axis_names if a not in self.batch_axes]
-        if len(other) > 1:
-            raise ValueError(f"mesh axes {other} besides the batch's "
-                             f"{self.batch_axes}: one tensor-parallel axis "
-                             "at most")
-        self.tp_axis = other[0] if other else None
+        split = other if len(other) <= 1 else sorted(
+            {a for p in params.values() for e in p.spec for a in axes_of(e)
+             if a in other}, key=mesh.axis_names.index)
+        if len(split) > 1:
+            raise ValueError(f"parameters split over {split} besides the "
+                             f"batch's {self.batch_axes}: one "
+                             "tensor-parallel axis at most")
+        # the other axes the parameters do not split are replica axes:
+        # their positions run the group's program alike
+        self.tp_axis = split[0] if split else None
         self.tp = (mesh_group(mesh, self.tp_axis, coords, stats)
-                   if other else AxisGroup([mesh.device_at(coords)], "-",
-                                           stats))
+                   if split else mesh_group(mesh, (), coords, stats))
+        if not split:
+            self.tp.axis = "-"
         self.home = self.tp.home
+        # the flat mesh indices of the group's positions (``sharding.scope``)
+        self.positions = sorted(set().union(*self.tp.positions))
+        # the positions a KV cache's sequence splits over (``kv_seq``)
+        kv_axes = axes_of(rules.rules.get("kv_seq"))
+        self.kv = (self.tp if kv_axes == (self.tp_axis,) else
+                   mesh_group(mesh, kv_axes, coords, stats))
         self.leaves: dict = {}
+
+    def use_stats(self, stats: Optional[CollectiveStats]) -> None:
+        """Record the group's collectives into ``stats`` from now on."""
+        self.stats = self.tp.stats = self.kv.stats = stats
+
+    def local(self, p: Placed):
+        """A placed serving input (a batch block, a cache leaf) as the
+        group holds it: its block where only batch axes split it, else
+        ``Blocks`` over the group's tensor-parallel axis or its ``kv``
+        axes, whichever splits its one other dimension."""
+        dims = [(i, axes_of(e)) for i, e in enumerate(p.spec)
+                if axes_of(e) and not set(axes_of(e)) <= set(self.batch_axes)]
+        if not dims:
+            return p.block(self.coords)
+        if len(dims) > 1:
+            raise ValueError(f"spec {p.spec} splits two dimensions inside "
+                             "a batch group")
+        dim, axes = dims[0]
+        group = next((g for g in (self.tp, self.kv)
+                      if g.axis == ",".join(axes)), None)
+        if group is None:
+            raise ValueError(f"spec {p.spec} splits over {axes}: neither the "
+                             f"group's {self.tp.axis!r} nor its "
+                             f"{self.kv.axis!r}")
+        return Blocks([p.block({**self.coords, **c})
+                       for c in group.member_coords], dim, group)
 
     def param(self, name: str, gather: bool = False):
         if name not in self.leaves:
             self.leaves[name] = self._leaf(self.params[name])
         leaf = self.leaves[name]
         if gather and isinstance(leaf, Blocks):
-            return self.tp.all_gather(leaf, leaf.dim)[0]
+            return self.tp.gathered(leaf, leaf.dim)
         return leaf
 
     def _leaf(self, p: Placed):
@@ -500,32 +541,40 @@ class ShardGroup:
             coords = dict(self.coords)
             if self.tp_axis is not None:
                 coords[self.tp_axis] = m
-            t = self._gathered(p, coords, fsdp) if fsdp else p.block(coords)
+            # a leaf the tensor-parallel axis does not split is the whole
+            # group's value, gathered once on its first device
+            held = (self.tp.positions[m] if tp_dim is not None
+                    else frozenset(self.positions))
+            t = (self._gathered(p, coords, fsdp, held) if fsdp
+                 else p.block(coords))
             leaves.append(t.detach().requires_grad_())
         return (Blocks(leaves, tp_dim, self.tp) if tp_dim is not None
                 else leaves[0])
 
-    def _gathered(self, p: Placed, coords: dict, dims: list) -> Tensor:
+    def _gathered(self, p: Placed, coords: dict, dims: list,
+                  held: frozenset) -> Tensor:
         """The position's block with its batch-axis dimensions whole: an
-        all-gather over those axes."""
+        all-gather over those axes, its result the value of ``held``."""
         dev = self.mesh.device_at(coords)
         mine = p.block(coords)
         shape = [p.shape[i] if i in dims else s
                  for i, s in enumerate(mine.shape)]
-        out = torch.empty(shape, dtype=mine.dtype, device=dev)
         parts, seen = [], set()
-        for _, c in positions(self.mesh):
-            if any(c[a] != v for a, v in coords.items()
-                   if a not in self.batch_axes):
-                continue
-            sl = block_slices(self.mesh, p.spec, p.shape, c)
-            key = tuple((sl[i].start, sl[i].stop) for i in dims)
-            if key not in seen:
-                seen.add(key)
-                part = p.block(c)
-                parts.append(part)
-                out[tuple(sl[i] if i in dims else slice(None)
-                          for i in range(len(shape)))] = part.to(dev)
+        with quiet_ops():
+            out = mark(torch.empty(shape, dtype=mine.dtype, device=dev),
+                       held)
+            for _, c in positions(self.mesh):
+                if any(c[a] != v for a, v in coords.items()
+                       if a not in self.batch_axes):
+                    continue
+                sl = block_slices(self.mesh, p.spec, p.shape, c)
+                key = tuple((sl[i].start, sl[i].stop) for i in dims)
+                if key not in seen:
+                    seen.add(key)
+                    part = p.block(c)
+                    parts.append(part)
+                    out[tuple(sl[i] if i in dims else slice(None)
+                              for i in range(len(shape)))] = part.to(dev)
         if self.stats is not None:
             axes = sorted({a for i in dims for a in axes_of(p.spec[i])},
                           key=self.mesh.axis_names.index)
@@ -581,6 +630,8 @@ class _View:
             return self._group.home
         if name == "tp_group":
             return self._group.tp
+        if name == "kv_group" and isinstance(m, attn.Attention):
+            return self._group.kv
         return getattr(m, name)
 
     def __getitem__(self, i: int) -> "_View":
@@ -656,6 +707,14 @@ def _tokens(model: Model, batch: dict) -> Tensor:
     return torch.as_tensor(batch["tokens"], device=model.device).long()
 
 
+def _layer(i: int, encoder: bool = False):
+    """The profiler range of a loop's work on layer ``i`` (an encoder
+    layer's where ``encoder``): the serving loops name their layers, which
+    ``torch.profiler`` shows and a cost trace cuts its live bytes by
+    (``launch.cost_analysis``)."""
+    return record_function(f"encoder layer {i}" if encoder else f"layer {i}")
+
+
 def encode(model: Model, frames) -> Tensor:
     """The whisper encoder over precomputed frame embeddings (the conv
     stub's), (b, s_enc, d): sinusoidal positions where the config asks,
@@ -666,8 +725,9 @@ def encode(model: Model, frames) -> Tensor:
     if cfg.pos_kind == "sinusoidal":
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                      x.device)[None].to(x.dtype)
-    for bp in model.encoder:
-        x, _ = apply_block(bp, x, cfg, "encode")
+    for i, bp in enumerate(model.encoder):
+        with _layer(i, encoder=True):
+            x, _ = apply_block(bp, x, cfg, "encode")
     return model.enc_norm(x)
 
 
@@ -779,14 +839,16 @@ def _cache_pos(cfg: ModelConfig, caches: list):
 
 
 @torch.no_grad()
-def prefill(model: Model, batch: dict, max_len: int):
+def prefill(model: Model, batch: dict, max_len: int, caches=None):
     """Process the prompt; returns (the last position's logits (b, 1, V),
     the cache ``{"self": [a cache a layer], "cross": [(k, v) a layer] or
     None}``). The encoder-decoder encodes ``batch["frames"]`` once here and
-    keeps each decoder layer's cross keys and values."""
+    keeps each decoder layer's cross keys and values. ``caches``: the
+    empty caches to fill (default ``init_cache``'s)."""
     cfg = model.cfg
     tokens = _tokens(model, batch)
-    caches = init_cache(cfg, tokens.shape[0], max_len, model.device)
+    if caches is None:
+        caches = init_cache(cfg, tokens.shape[0], max_len, model.device)
     x = _embed_in(model, tokens)
     cross = None
     if cfg.enc_dec:
@@ -795,15 +857,21 @@ def prefill(model: Model, batch: dict, max_len: int):
         x = _with_prefix(model, x, batch)
     new = []
     for i, (bp, c) in enumerate(zip(model.layers, caches)):
-        x, c = apply_block(bp, x, cfg, "prefill", c,
-                           cross_cache=None if cross is None else cross[i])
+        with _layer(i):
+            x, c = apply_block(bp, x, cfg, "prefill", c,
+                               cross_cache=None if cross is None
+                               else cross[i])
         new.append(c)
     return _logits(model, x[:, -1:]), {"self": new, "cross": cross}
 
 
 def build_cross_cache(model: Model, enc_out: Tensor) -> list:
     """Each decoder layer's cross keys and values over ``enc_out``."""
-    return [attn.cross_kv(bp.cross, enc_out) for bp in model.layers]
+    out = []
+    for i, bp in enumerate(model.layers):
+        with _layer(i):
+            out.append(attn.cross_kv(bp.cross, enc_out))
+    return out
 
 
 def init_cross_cache(cfg: ModelConfig, batch: int, enc_len: int,
@@ -827,10 +895,111 @@ def decode_step(model: Model, token, cache: dict):
     cross = cache.get("cross")
     new = []
     for i, (bp, c) in enumerate(zip(model.layers, cache["self"])):
-        x, c = apply_block(bp, x, cfg, "decode", c,
-                           cross_cache=None if cross is None else cross[i])
+        with _layer(i):
+            x, c = apply_block(bp, x, cfg, "decode", c,
+                               cross_cache=None if cross is None
+                               else cross[i])
         new.append(c)
     return _logits(model, x), {"self": new, "cross": cross}
+
+
+# ---------------------------------------------------------------------------
+# Sharded serving
+# ---------------------------------------------------------------------------
+
+def batch_groups(rules: AxisRules) -> list:
+    """The coordinates of each batch group on the rules' batch axes,
+    row-major."""
+    axes = axes_of(rules.rules.get("batch"))
+    shape = [rules.mesh.shape[a] for a in axes]
+    return [dict(zip(axes, idx)) for idx in np.ndindex(*shape)]
+
+
+def _group_caches(view, cfg: ModelConfig, batch: int, max_len: int) -> list:
+    """Empty caches in a group's layout: attention's whole (``attn_prefill``
+    cuts them along the sequence), the RG-LRU's channels as ``Blocks``
+    where its weights split over rnn, the LSTMs' whole."""
+    out = []
+    for i, kind in enumerate(cfg.layer_kinds()):
+        with _layer(i):
+            c = _block_cache(cfg, kind, batch, max_len, view.device)
+            w = view.layers[i].mixer.w_rnn_in if kind == "rec" else None
+            if isinstance(w, Blocks):
+                c = {"h": w.group.split(c["h"], 1),
+                     "conv": w.group.split(c["conv"], 2)}
+        out.append(c)
+    return out
+
+
+def _seq_split(kv, group: ShardGroup):
+    """A cross cache's (k, v) along the sequence over the group's ``kv``
+    axes, as ``cache_pspecs`` lays it out: from head_dim ``Blocks`` of the
+    same group by an all-to-all, from a whole value by a cut."""
+    kvg = group.kv
+    if kvg.n == 1:
+        return kv
+    out = []
+    for t in kv:
+        if isinstance(t, Blocks):
+            if t.group is not kvg:
+                raise ValueError("a cross cache split over another group "
+                                 "than its sequence's")
+            out.append(kvg.all_to_all(t, 1, t.dim))
+        else:
+            out.append(kvg.split(t, 1))
+    return tuple(out)
+
+
+def sharded_prefill(structure: Model, params: dict, batch: dict,
+                    max_len: int, rules: AxisRules,
+                    stats: Optional[CollectiveStats] = None,
+                    groups: Optional[list] = None) -> list:
+    """``prefill`` sharded by ``rules``: each batch group (``groups``,
+    default all of ``batch_groups``) runs over its positions with
+    ``params`` and ``batch`` as they hold them (``{name: Placed}``, the
+    batch's rows split over the batch axes), under ``sharding.scope`` of
+    its positions. The KV caches come out along the sequence over the
+    rules' ``kv_seq`` axes, the RG-LRU's over rnn, the cross caches along
+    the sequence too. Returns [(logits, cache)] a group: logits ``Blocks``
+    of vocab where the unembedding splits, else one tensor."""
+    cfg = structure.cfg
+    out = []
+    for coords in (batch_groups(rules) if groups is None else groups):
+        s = ShardGroup(rules.mesh, rules, coords, params, stats)
+        mb = {k: s.local(v) for k, v in batch.items()}
+        with scope(s.positions), torch.no_grad():
+            view = s.view(structure)
+            b = mb["tokens"].shape[0]
+            logits, cache = prefill(view, mb, max_len,
+                                    _group_caches(view, cfg, b, max_len))
+            cross = cache["cross"] or []
+            for i in range(len(cross)):
+                with _layer(i):
+                    cross[i] = _seq_split(cross[i], s)
+        out.append((logits, cache))
+    return out
+
+
+def sharded_decode_step(structure: Model, params: dict, token: Placed,
+                        cache: dict, rules: AxisRules,
+                        stats: Optional[CollectiveStats] = None,
+                        groups: Optional[list] = None) -> list:
+    """``decode_step`` sharded by ``rules`` over placed params, token and
+    cache (``cache_pspecs``' layout: k and v along the sequence over the
+    ``kv_seq`` axes, each position attending over its slots and the
+    partial softmaxes joined by the group's all-reduce max and sum; the
+    RG-LRU's state over rnn). Returns [(logits, new cache)] a group."""
+    out = []
+    for coords in (batch_groups(rules) if groups is None else groups):
+        s = ShardGroup(rules.mesh, rules, coords, params, stats)
+        local = [{k: s.local(v) for k, v in c.items()}
+                 for c in cache["self"]]
+        cross = None if cache.get("cross") is None else [
+            tuple(s.local(t) for t in kv) for kv in cache["cross"]]
+        with scope(s.positions), torch.no_grad():
+            out.append(decode_step(s.view(structure), s.local(token),
+                                   {"self": local, "cross": cross}))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -98,8 +98,8 @@ def route(p: MoE, xt: Tensor, top_k: int, cap: int):
     w = p.w_router
     if isinstance(w, Blocks):       # experts split: each position's logits
         tp = w.group
-        logits = tp.all_gather([xm.float() @ wm.float() for xm, wm in
-                                zip(tp.broadcast(xt), w)], 1)[0]
+        logits = tp.gathered([xm.float() @ wm.float() for xm, wm in
+                              zip(tp.broadcast(xt), w)], 1)
     else:
         logits = xt.float() @ w.float()
     n_experts = logits.shape[-1]
@@ -118,8 +118,11 @@ def slots(experts: Tensor, n_experts: int, cap: int):
     (t * K,) bool)."""
     flat_e = experts.reshape(-1)                       # token-major, k inner
     # each pair's rank among its expert's pairs: a running count along the
-    # pairs, one row an expert (a scan along the inner, contiguous axis)
-    rank = torch.cumsum(F.one_hot(flat_e, n_experts).T.contiguous(), dim=1)
+    # pairs, one row an expert (a scan along the inner, contiguous axis);
+    # the one-hot rows by comparison (``F.one_hot`` checks its range on
+    # the host)
+    hot = torch.arange(n_experts, device=flat_e.device)[:, None] == flat_e
+    rank = torch.cumsum(hot.long(), dim=1)
     pos = torch.gather(rank, 0, flat_e[None, :])[0] - 1
     return pos, pos < cap
 
@@ -138,7 +141,7 @@ def _experts(p: MoE, buf: Tensor) -> Tensor:
                           * torch.bmm(bm, bf16(wi)), bf16(wo))
                 for bm, wi, wg, wo in zip(tp.split(buf, 0), we_in, we_gate,
                                           we_out)]
-        return tp.all_gather(outs, 0)[0]
+        return tp.gathered(outs, 0)
     if dims == (2, 2, 1):           # moe_ff: partial products
         return bf16(tp.psum([dot_f32(silu(torch.bmm(bm, bf16(wg)))
                                      * torch.bmm(bm, bf16(wi)), wo)

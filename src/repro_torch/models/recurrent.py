@@ -167,10 +167,7 @@ def rglru_block(p: RGLRU, x: Tensor, cache: Optional[dict] = None):
     (b, width - 1, d_rnn) bf16}."""
     xc = bf16(x)
     if isinstance(p.w_rnn_in, Blocks):
-        if cache is not None:
-            raise ValueError("a split RG-LRU runs the training forward "
-                             "only, without a cache")
-        return _rglru_split(p, xc), None
+        return _rglru_split(p, xc, cache)
     gate = gelu(xc @ bf16(p.w_rnn_gate))
     u = xc @ bf16(p.w_rnn_in)
     conv_state = cache["conv"] if cache is not None else None
@@ -185,11 +182,13 @@ def rglru_block(p: RGLRU, x: Tensor, cache: Optional[dict] = None):
     return out, new_cache
 
 
-def _rglru_split(p: RGLRU, xc: Tensor) -> Tensor:
+def _rglru_split(p: RGLRU, xc: Tensor, cache: Optional[dict] = None):
     """The block with ``rnn`` split over a sharded step's group: each
     position runs its channels (input projections, conv, gates' output
     columns over the all-gathered input, the recurrence) and its fp32
-    partial of the output product; their all-reduce rounds once."""
+    partial of the output product; their all-reduce rounds once. A cache
+    (serving) holds each position's channels: ``h`` and ``conv`` as
+    ``Blocks`` along rnn. Returns (out, the new cache or None)."""
     tp = p.w_rnn_in.group
     if any(not isinstance(w, Blocks) or w.dim != dim for w, dim in (
             (p.w_rnn_gate, 1), (p.conv_w, 1), (p.w_gate_a, 1),
@@ -198,15 +197,21 @@ def _rglru_split(p: RGLRU, xc: Tensor) -> Tensor:
                          "only along rnn")
     lam = p.lam if isinstance(p.lam, Blocks) else tp.split(p.lam, 0)
     xs = tp.broadcast(xc)
-    us = [causal_conv1d(xm @ bf16(w), c.to(xc.dtype))[0]
-          for xm, w, c in zip(xs, p.w_rnn_in, p.conv_w)]
-    parts = []
+    states = [None] * tp.n if cache is None else cache["conv"]
+    convs = [causal_conv1d(xm @ bf16(w), c.to(xc.dtype), st)
+             for xm, w, c, st in zip(xs, p.w_rnn_in, p.conv_w, states)]
+    us = [u for u, _ in convs]
+    parts, hs = [], []
     for m, u_full in enumerate(tp.all_gather(us, 2)):
         a, bx = _gates(u_full, us[m], p.w_gate_a[m], p.w_gate_x[m], lam[m])
         gate = gelu(xs[m] @ bf16(p.w_rnn_gate[m]))
-        y = bf16(gate.float() * rglru_scan(a, bx))
+        h = rglru_scan(a, bx, None if cache is None else cache["h"][m])
+        hs.append(h[:, -1])
+        y = bf16(gate.float() * h)
         parts.append(dot_f32(y, p.w_rnn_out[m]))
-    return bf16(tp.psum(parts))
+    new = None if cache is None else {
+        "h": Blocks(hs, 1, tp), "conv": Blocks([c for _, c in convs], 2, tp)}
+    return bf16(tp.psum(parts)), new
 
 
 def init_rglru_cache(batch: int, d_rnn: int, conv_width: int = 4,

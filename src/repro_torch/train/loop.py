@@ -40,7 +40,8 @@ from repro_torch.distributed.compression import cross_pod_grad_sync
 from repro_torch.distributed.sharding import (AxisRules, CollectiveStats,
                                               Placed, axes_of, block_slices,
                                               current_rules, from_blocks,
-                                              join, place, positions)
+                                              join, mark, place, positions,
+                                              quiet_ops, scope)
 from repro_torch.launch.mesh import ShardMesh
 from repro_torch.launch.specs import zero1_specs
 from repro_torch.models import model as M
@@ -195,17 +196,15 @@ def _batch_axes(rules: AxisRules) -> tuple:
     return axes_of(rules.rules.get("batch"))
 
 
-def batch_groups(rules: AxisRules) -> list:
-    """The coordinates of each batch group on the batch axes, row-major."""
-    axes = _batch_axes(rules)
-    shape = [rules.mesh.shape[a] for a in axes]
-    return [dict(zip(axes, idx)) for idx in np.ndindex(*shape)]
+batch_groups = M.batch_groups
 
 
 def _rows(batch: dict, groups: list, g: int, i: int, n_micro: int,
-          device, rules: AxisRules, stats: CollectiveStats) -> dict:
-    """Group ``g``'s rows of microbatch ``i`` on ``device``, from the
-    group holding them."""
+          shard: M.ShardGroup, rules: AxisRules,
+          stats: CollectiveStats) -> dict:
+    """Group ``g``'s rows of microbatch ``i`` on ``shard``'s home device,
+    from the group holding them (rows another group holds arrive by an
+    all-to-all, and are then the value of ``shard``'s positions)."""
     out = {}
     n_groups = len(groups)
     for k, p in batch.items():
@@ -219,50 +218,74 @@ def _rows(batch: dict, groups: list, g: int, i: int, n_micro: int,
         holder = start // held
         t = p.block(groups[holder])[start - holder * held:
                                     start - holder * held + per]
+        t = t.to(shard.home)
         if holder != g:
             stats.add("all-to-all", ",".join(_batch_axes(rules)),
                       t.numel() * t.element_size())
-        out[k] = t.to(device)
+            t = mark(t, shard.positions)
+        out[k] = t
     return out
 
 
 def sharded_grads(cfg, structure, params: dict, batch: dict,
-                  rules: AxisRules, n_micro: int,
-                  stats: CollectiveStats) -> tuple:
+                  rules: AxisRules, n_micro: int, stats: CollectiveStats,
+                  groups: Optional[list] = None,
+                  micro: Optional[list] = None) -> tuple:
     """Each batch group's gradients (``ShardGroup.grads``, accumulated
-    ``/ n_micro`` in fp32 over microbatches) and the loss metrics."""
-    groups = batch_groups(rules)
+    ``/ n_micro`` in fp32 over microbatches) and the loss metrics. Each
+    group runs under ``sharding.scope`` of its positions; the profiler
+    ranges ``"microbatch i"`` (a microbatch's work once its rows arrive)
+    and ``"batch group g"`` (a group's forward and backward) name the
+    parts.
+
+    ``groups``: the indices of the batch groups to differentiate (default
+    all; the others' entries are None); ``micro``: the microbatches to run
+    (default all): a partial accumulation, as a cost trace runs one group's
+    first microbatches to stand for the rest."""
+    shard_coords = batch_groups(rules)
     axes = ",".join(_batch_axes(rules))
-    grads = [None] * len(groups)
+    run = set(range(len(shard_coords)) if groups is None else groups)
+    grads = [None] * len(shard_coords)
     loss = nll_all = logz_all = denom = None
-    for i in range(n_micro):
+    for i in (range(n_micro) if micro is None else micro):
         shards = [M.ShardGroup(rules.mesh, rules, c, params, stats)
-                  for c in groups]
-        mbs = [_rows(batch, groups, g, i, n_micro, s.home, rules, stats)
+                  for c in shard_coords]
+        mbs = [_rows(batch, shard_coords, g, i, n_micro, s, rules, stats)
                for g, s in enumerate(shards)]
         home = shards[0].home
-        counts = [M.loss_tokens(s.view(structure), mb)
-                  for s, mb in zip(shards, mbs)]
-        stats.add("all-reduce", axes, 4 * len(counts))
-        denom = torch.clamp_min(sum(c.to(home) for c in counts), 1.0)
-        nll_all = logz_all = 0.0
-        for g, (s, mb) in enumerate(zip(shards, mbs)):
-            with torch.enable_grad():
-                nll, logz, _ = M.loss_sums(s.view(structure), mb)
-                gs = s.grads(nll / denom.to(s.home))
-            nll_all = nll_all + nll.detach().to(home)
-            logz_all = logz_all + logz.detach().to(home)
-            if n_micro > 1:
-                gs = {k: [t.float() / n_micro for t in v]
-                      for k, v in gs.items()}
-                if grads[g] is not None:
-                    gs = {k: [a + b for a, b in zip(grads[g][k], v)]
-                          for k, v in gs.items()}
-            grads[g] = gs
-        stats.add("all-reduce", axes, 8 * len(groups))
-        mloss = nll_all / denom
-        loss = mloss if n_micro <= 1 else (
-            (0.0 if loss is None else loss) + mloss / n_micro)
+        with torch.profiler.record_function(f"microbatch {i}"):
+            counts = []
+            for s, mb in zip(shards, mbs):
+                with scope(s.positions):
+                    counts.append(M.loss_tokens(s.view(structure), mb))
+            # the cross-group sums are the all-reduces' own arithmetic
+            stats.add("all-reduce", axes, 4 * len(counts))
+            with quiet_ops():
+                denom = torch.clamp_min(sum(c.to(home) for c in counts),
+                                        1.0)
+            nll_all = logz_all = 0.0
+            for g, (s, mb) in enumerate(zip(shards, mbs)):
+                if g not in run:
+                    continue
+                with torch.profiler.record_function(f"batch group {g}"), \
+                        scope(s.positions), torch.enable_grad():
+                    nll, logz, _ = M.loss_sums(s.view(structure), mb)
+                    gs = s.grads(nll / denom.to(s.home))
+                with quiet_ops():
+                    nll_all = nll_all + nll.detach().to(home)
+                    logz_all = logz_all + logz.detach().to(home)
+                if n_micro > 1:
+                    with scope(s.positions):
+                        gs = {k: [t.float() / n_micro for t in v]
+                              for k, v in gs.items()}
+                        if grads[g] is not None:
+                            gs = {k: [a + b for a, b in zip(grads[g][k], v)]
+                                  for k, v in gs.items()}
+                grads[g] = gs
+            stats.add("all-reduce", axes, 8 * len(shard_coords))
+            mloss = nll_all / denom
+            loss = mloss if n_micro <= 1 else (
+                (0.0 if loss is None else loss) + mloss / n_micro)
     if n_micro > 1:
         return grads, {"loss": loss}
     return grads, {"loss": loss, "ppl_log": loss, "tokens": denom,
@@ -301,13 +324,20 @@ def sync_grads(grads: list, params: dict, rules: AxisRules,
         zspec = grad_specs[name] if grad_specs else p.spec
         extra = [i for i, (a, b) in enumerate(zip(p.spec, zspec)) if a != b]
         if extra and (len(extra) > 1 or p.spec[extra[0]] is not None
-                      or axes_of(zspec[extra[0]]) != tuple(inner)):
+                      or not set(axes_of(zspec[extra[0]])) <= set(inner)):
             raise ValueError(f"{name}: gradient spec {zspec} is its param "
                              f"spec {p.spec} with one more dimension split "
-                             f"over {inner}, or the same")
-        dim = extra[0] if extra else None
+                             f"over axes of {inner}, or the same")
+        # the within-pod sum is a reduce-scatter where the extra dimension
+        # splits over every inner batch axis; over fewer of them (a batch
+        # over data x model, ZeRO-1 over its last axis) an all-reduce, each
+        # position then keeping its block
+        dim = (extra[0] if extra and axes_of(zspec[extra[0]]) == tuple(inner)
+               else None)
         fsdp = [i for i, e in enumerate(p.spec)
                 if axes_of(e) and tp_axis not in axes_of(e)]
+        if extra and dim is None:
+            fsdp = fsdp + extra
         per_t = len(grads[0][name])
         synced = []
         for t in range(per_t):
@@ -427,6 +457,14 @@ def _distinct_blocks(p: Placed) -> list:
     return out
 
 
+def pod_generator(home: torch.device, step) -> Optional[torch.Generator]:
+    """The int8 pod hop's noise generator, seeded with the step; None on
+    the meta device (a cost trace: no values, so no noise)."""
+    if home.type == "meta":
+        return None
+    return torch.Generator(device=home).manual_seed(int(step))
+
+
 def _sharded_step(cfg, structure, adamw, n_micro, grad_specs, params,
                   state, batch):
     rules = current_rules()
@@ -437,10 +475,21 @@ def _sharded_step(cfg, structure, adamw, n_micro, grad_specs, params,
     stats = CollectiveStats()
     grads, metrics = sharded_grads(cfg, structure, params, batch, rules,
                                    n_micro, stats)
-    home = mesh.devices.flat[0]
-    gen = torch.Generator(device=home).manual_seed(int(state.step))
+    return apply_grads(adamw, grads, metrics, params, state, grad_specs,
+                       rules, stats)
+
+
+def apply_grads(adamw, grads: list, metrics: dict, params: dict, state,
+                grad_specs: Optional[dict], rules: AxisRules,
+                stats: CollectiveStats) -> tuple:
+    """The sharded step after ``sharded_grads``: the groups' gradients
+    synced (the pod hop at int8) and the ZeRO-1 update. ``grads`` is
+    emptied once synced, so that its memory goes before the update.
+    Returns (params, state, metrics with the step's ``collectives``)."""
+    home = rules.mesh.devices.flat[0]
+    gen = pod_generator(home, state.step)
     synced = sync_grads(grads, params, rules, grad_specs, gen, True, stats)
-    del grads
+    grads.clear()
     new_params, new_state, opt_metrics = sharded_update(
         adamw, synced, state, params, stats)
     return new_params, new_state, {**metrics, **opt_metrics,

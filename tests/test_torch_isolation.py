@@ -8,9 +8,11 @@
   card; whether there is one is decided inside the test.
 * No handler in the package catches an exception to fall back to the plain
   versions: the only ``except`` clauses are the engine's retry on
-  ``TransientShardError`` and the checkpoint module's four: the cleanup of
-  a failed save (which re-raises), unreadable manifests and arrays turned
-  into ``CheckpointCorruptError``, and the walk back past corrupt steps.
+  ``TransientShardError``, the checkpoint module's four (the cleanup of a
+  failed save, which re-raises; unreadable manifests and arrays turned
+  into ``CheckpointCorruptError``; the walk back past corrupt steps) and
+  the dry-run's one, which writes a cell's failure into that cell's JSON
+  (``status: error``, as the reference's dry-run does) and fails the run.
 """
 import ast
 import os
@@ -77,7 +79,8 @@ def test_module_list_covers_every_slice():
             "repro_torch.data.tokens", "repro_torch.train",
             "repro_torch.train.optimizer", "repro_torch.train.loop",
             "repro_torch.distributed.compression", "repro_torch.launch.train",
-            "repro_torch.launch.specs"} <= mods
+            "repro_torch.launch.specs", "repro_torch.launch.cost_analysis",
+            "repro_torch.launch.dryrun"} <= mods
 
 
 def test_entry_points_default_to_cuda_and_raise_without_a_card():
@@ -150,6 +153,33 @@ def test_lm_entry_points_default_to_cuda_and_raise_without_a_card():
         train.main(["--steps", "1"])
 
 
+def test_dryrun_cells_trace_on_meta_and_run_only_on_a_card():
+    """The dry-run's cells are built on meta positions by design; asked to
+    run for real they default to nothing and raise for a card that is not
+    there."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_production_mesh()
+    mesh = make_mesh((2, 2), ("data", "model"), device="meta")
+    cell = specs.build_cell(reduced(get_config("gemma3-1b")), "gemma3-1b",
+                            "decode_32k", mesh)
+    assert all(p.blocks.flat[0].is_meta for p in cell.inputs["params"]
+               .values())
+    with pytest.raises(RuntimeError, match="cuda"):
+        specs.build_cell(reduced(get_config("gemma3-1b")), "gemma3-1b",
+                         "decode_32k", mesh, device="cuda")
+    small = dict(n=64, d=16, m=4, batch=4, k=2, kprime=4)
+    assert specs.build_fcvi_cell(small, mesh).inputs["corpus_t"].blocks \
+        .flat[0].is_meta
+    with pytest.raises(RuntimeError, match="cuda"):
+        specs.build_fcvi_cell(small, mesh, device="cuda")
+
+
 def test_no_handler_falls_back():
     handlers = []
     for path in PKG.rglob("*.py"):
@@ -162,4 +192,5 @@ def test_no_handler_falls_back():
         ("ckpt.py", "BaseException"),
         ("ckpt.py", "CheckpointCorruptError"),
         ("ckpt.py", "_UNREADABLE"),
+        ("dryrun.py", "Exception"),
         ("engine.py", "TransientShardError")], handlers
