@@ -276,7 +276,18 @@ Phases, each of which raises (and exits non-zero) on a failure:
    exact L2 top-k' and the top-k the exact re-rank of those candidates,
    outside near-ties, B2's launches equal to the trace's
    ``score_topk`` calls, the measured time at least 8 times the
-   per-position bound; B2's launches join the counts. (c) The table of
+   per-position bound; B2's launches join the counts. (d) The IVF layouts'
+   cells (``ivf8``, ``ivf8-trunc``, ``opt``) on the same mesh and corpus
+   laid out as the reference's shard-major slab (8 blocks of 64 lists of
+   32,768 bf16 rows), a warm run then a timed one each: B7 on each block
+   (its launches equal to the trace's calls, 8 a run), the candidates
+   equal to the search computed whole on the card (the same probes, every
+   probed slot scored at once, the cuts, truncation and pads) outside
+   near-ties, the top-k equal to the exact re-rank of the candidates,
+   ``opt``'s top-k equal to ``ivf8-trunc``'s, the time at least 8 times
+   the per-position bound; B7 alone at the cell's shape beside its bound,
+   and ``ivf8``'s recall@k against the exhaustive search printed; B7's
+   launches join the counts. (c) The table of
    every cell on both production meshes (``--all --mesh both``, meta
    positions only, so any host can write it), as a run of the dry-run
    wrote it to ``docs/dryrun_torch.json``: each cell's per-position peak against
@@ -295,6 +306,7 @@ the script prints no result and exits 1.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import os
@@ -353,6 +365,7 @@ PEAK_BYTES_S = cost_analysis.PEAK_BYTES_S
 PEAK_FP32_S = cost_analysis.PEAK_FP32_S
 PEAK_TF32_S = cost_analysis.PEAK_TF32_S     # dense TF32 on the tensor cores
 PEAK_BF16_S = cost_analysis.PEAK_BF16_S     # dense bf16 on the tensor cores
+PEAK_INT8_S = 1979e12     # dense int8 on the tensor cores, OP/s
 FLAT_RECALL_BEFORE = 0.9992   # phase 3's flat recall@10 before the
                               # tensor-core scan (PERF.md)
 # phases 3b's and 3e's IVF recall@10 before the list scan's redesign (fp32,
@@ -493,11 +506,20 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float):
-    """(least time in ms, what bounds it) from bytes moved and fp32 ops."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FP32_S
+def bound_ms(nbytes: float, flops: float, peak: float = PEAK_FP32_S):
+    """(least time in ms, what bounds it) from bytes moved and operations
+    at ``peak``, the rate of their type (fp32 outside the tensor cores by
+    default)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def op_peak(dtype) -> float:
+    """The card's peak operation rate for operands of ``dtype``: the
+    tensor cores' for bf16 and int8, fp32's outside them otherwise."""
+    return {torch.bfloat16: PEAK_BF16_S,
+            torch.int8: PEAK_INT8_S}.get(dtype, PEAK_FP32_S)
 
 
 def scan_bound_ms(nbytes: float, pairs: float, d: int, dtype):
@@ -958,8 +980,8 @@ def ivf_bound(be, uniq, member, nq, k, row_floats):
     scan: the unique probed lists' valid flags and live rows (stored vector,
     norm and, for int8, scale) read once, the queries and member matrix
     read, (vals, ids) and ``row_floats`` payload floats per winner written
-    (and read); fp32 operations 2d + 2 per (member pair, live row), one more
-    with a scale."""
+    (and read); operations 2d + 2 per (member pair, live row), one more
+    with a scale, at the peak of the stored rows' type (``op_peak``)."""
     sizes = be.list_sizes.long().cpu().numpy()
     mem = member.cpu().numpy() > 0.5
     live = mem.any(axis=1)
@@ -975,7 +997,8 @@ def ivf_bound(be, uniq, member, nq, k, row_floats):
     real = rows * row_bytes + 4 * len(lists) * be.max_list
     padded = len(lists) * be.max_list * (row_bytes + 4)
     io = 4 * (nq * d + member.numel()) + 8 * nq * k + 8 * nq * k * row_floats
-    bnd, by = bound_ms(real + io, pair_rows * per_op)
+    bnd, by = bound_ms(real + io, pair_rows * per_op,
+                       op_peak(be.grouped.dtype))
     return bnd, by, real, padded
 
 
@@ -4646,6 +4669,9 @@ FCVI_TIE_RTOL, FCVI_TIE_ATOL = 1e-5, 1e-6
 # whole-card peak over the card's, and each FCVI cell's ms
 DRY_PREDICTED_PEAK_RATIO = 0.95
 FCVI_PREDICTED_MS = {"base": 300.0, "bf16": 200.0}
+# (d): the IVF layouts' cells on the same mesh, one layout for the three
+FCVI_IVF = ("ivf8", "ivf8-trunc", "opt")
+FCVI_IVF_PREDICTED_MS = {"ivf8": 150.0, "ivf8-trunc": 140.0, "opt": 130.0}
 
 
 def placed_bytes(tree) -> int:
@@ -4836,6 +4862,264 @@ def dry_fcvi_cells(dev, power: str) -> dict:
     return counts
 
 
+def ivf_whole(data: dict, kprime: int):
+    """The IVF cells' search computed whole on the card, block by block:
+    the cell's own probe product (the same op on the same shapes, TF32
+    off, so the same probes), every slot of the block's lists scored at
+    once (the bf16 rows and the queries rounded to bf16, widened to fp32
+    and multiplied on the tensor cores in TF32, which holds bf16 values
+    exactly, 128 queries at a time), the probed lists' slots in probe
+    order and their first k' + 1 (``topk_first``); the first k' over
+    every list of the block (for the recall of the exhaustive search).
+    Returns per block the probed (vals, ids) and the unprobed ones, global
+    ids."""
+    from repro_torch.core.transform import psi_partition
+    q_t = psi_partition(data["q"], data["fq"], 1.0)
+    q_b = q_t.to(torch.bfloat16).float()
+    shards, nl, ls, _ = data["grouped"].shape
+    every_probes = [ref.topk_first(q_t @ data["centroids"][s].T,
+                                   launch_specs.NPROBE)[1]
+                    for s in range(shards)]
+    keep = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    probed, every = [], []
+    try:
+        for s, probes in enumerate(every_probes):
+            rows = data["grouped"][s].reshape(nl * ls, -1).float()
+            sq = data["grouped_sq"][s].reshape(-1)
+            pv, pi, ev, ei = [], [], [], []
+            for lo in range(0, q_b.shape[0], 128):
+                sc = 2.0 * (q_b[lo:lo + 128] @ rows.T) - sq
+                pr = probes[lo:lo + 128]
+                pick = torch.gather(sc.view(-1, nl, ls), 1,
+                                    pr[:, :, None].expand(-1, -1, ls))
+                slot = pr[:, :, None] * ls + torch.arange(ls, device=sc.device)
+                v, i = ref.topk_first(pick.reshape(pick.shape[0], -1),
+                                      kprime + 1)
+                pv.append(v)
+                pi.append(torch.gather(slot.reshape(slot.shape[0], -1), 1, i))
+                v, i = torch.topk(sc, kprime, dim=1)
+                ev.append(v), ei.append(i)
+                del sc, pick
+            off = s * nl * ls
+            probed.append((torch.cat(pv), torch.cat(pi) + off))
+            every.append((torch.cat(ev), torch.cat(ei) + off))
+            del rows
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = keep
+    return probed, every
+
+
+def ivf_stages(probed: list, mesh_shape, kl: int, kprime: int):
+    """The cell's cuts on ``ivf_whole``'s block sets: each block's first
+    ``kl``, the merge stages over the mesh (the last axis first) keeping
+    ``kl`` but the last, which keeps k', padded (-inf, id 0) where its
+    pool is smaller. Returns the candidates (b, k') and each cut's last
+    kept and first dropped scores, (b, cuts, 2)."""
+    bounds = []
+
+    def cut(v, i, keep):
+        if v.shape[1] > keep:
+            bounds.append(v[:, keep - 1:keep + 1])
+        return v[:, :keep], i[:, :keep]
+
+    sets = [cut(v, i, kl) for v, i in probed]
+    fan = list(reversed(mesh_shape))
+    for j, n_ax in enumerate(fan):
+        keep = kprime if j == len(fan) - 1 else kl
+        nxt = []
+        for g in range(0, len(sets), n_ax):
+            v = torch.cat([x[0] for x in sets[g:g + n_ax]], 1)
+            i = torch.cat([x[1] for x in sets[g:g + n_ax]], 1)
+            if v.shape[1] < keep:
+                pad = keep - v.shape[1]
+                v = torch.cat([v, v.new_full((v.shape[0], pad),
+                                             float("-inf"))], 1)
+                i = torch.cat([i, i.new_zeros((i.shape[0], pad))], 1)
+            top, pos = ref.topk_first(v, min(v.shape[1], keep + 1))
+            nxt.append(cut(top, torch.gather(i, 1, pos), keep))
+        sets = nxt
+    return sets[0][1], torch.stack(bounds, 1)
+
+
+def cand_check(data: dict, cand: torch.Tensor, want: torch.Tensor,
+               bounds: torch.Tensor) -> tuple:
+    """(queries whose candidates equal ``want``'s as multisets, queries
+    differing only at near-ties, [queries differing elsewhere]): an id in
+    one set and not the other is a near-tie where its score (the bf16
+    rows and queries, fp32) lies within the L2 tolerance of a cut's last
+    kept or first dropped score (``ivf_stages``' bounds)."""
+    from repro_torch.core.transform import psi_partition
+    a = torch.sort(cand.long(), 1).values
+    w = torch.sort(want.long(), 1).values
+    rows = torch.nonzero((a != w).any(1)).flatten().tolist()
+    q_b = psi_partition(data["q"], data["fq"], 1.0).to(
+        torch.bfloat16).float()
+    flat = data["grouped"].reshape(-1, data["grouped"].shape[-1])
+    sq = data["grouped_sq"].reshape(-1)
+    ties, bad = 0, []
+    for r in rows:
+        got = collections.Counter(a[r].tolist())
+        exp = collections.Counter(w[r].tolist())
+        ids = torch.tensor(list((got - exp) + (exp - got)),
+                           device=cand.device)
+        sc = 2.0 * (flat[ids].float() @ q_b[r]) - sq[ids]
+        edge = bounds[r].reshape(-1)
+        edge = edge[torch.isfinite(edge)]
+        gap = (sc[:, None] - edge[None, :]).abs().min(1).values
+        if bool((gap <= L2_ATOL + L2_RTOL * sc.abs()).all()):
+            ties += 1
+        else:
+            bad.append(r)
+    return a.shape[0] - len(rows), ties, bad
+
+
+def dry_fcvi_ivf_cells(dev, power: str) -> dict:
+    """(d) The IVF layouts' cells (``ivf8``, ``ivf8-trunc``, ``opt``) at
+    ``FCVI_SMOKE`` on ``FCVI_MESH``, over one layout (``fcvi_inputs``: 8
+    blocks of 64 lists of 32,768 rows): traced on meta, then run for real
+    (a warm run, then a timed one): B7 on each block, the merges, the
+    re-rank. B7's launches equal the trace's calls; the candidates equal
+    the search computed whole (``ivf_whole``, ``ivf_stages``) outside
+    near-ties, pads included; the top-k equals the exact re-rank of the
+    candidates; ``opt``'s top-k equals ``ivf8-trunc``'s; the time is at
+    least 8 times the per-position bound. Prints B7 alone at the cell's
+    shape beside its bound, and the recall@k of ``ivf8`` against the
+    exhaustive search of every row (the same k', information only)."""
+    counts: dict = {}
+    shape, axes = FCVI_MESH
+    k, kp = FCVI_SMOKE["k"], FCVI_SMOKE["kprime"]
+    shards = int(np.prod(shape))
+    t0 = time.perf_counter()
+    data = launch_specs.fcvi_inputs(FCVI_SMOKE, "ivf8", dev, 7, shards)
+    torch.cuda.synchronize()
+    made_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    probed, every = ivf_whole(data, kp)
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    print(f"[3n] (d) IVF layout of n = {FCVI_SMOKE['n']:,} rows over "
+          f"{shards} blocks of {launch_specs.NLIST} lists of "
+          f"{data['grouped'].shape[2]:,} rows made in {made_s:.1f} s; the "
+          f"search computed whole in {whole_s:.1f} s")
+    # B7 alone at the cell's shape: one block's slab, 1,024 queries
+    from repro_torch.core.transform import psi_partition
+    q_t = psi_partition(data["q"], data["fq"], 1.0)
+    probes = ref.topk_first(q_t @ data["centroids"][0].T,
+                            launch_specs.NPROBE)[1].to(torch.int32)
+    valid = torch.ones(data["grouped_sq"][0].shape, device=dev)
+    b7 = lambda: ops.ivf_score_topk_batch(  # noqa: E731
+        data["grouped"][0], data["grouped_sq"][0], valid, probes,
+        q_t.to(torch.bfloat16).float(), kp)
+    plain = lambda k_: ref.ref_ivf_score_topk_batch(  # noqa: E731
+        data["grouped"][0], data["grouped_sq"][0], valid, probes,
+        q_t.to(torch.bfloat16).float(), k_)
+    got, want = b7(), plain(kp + 1)
+    wv = want[0][:, :kp]
+    tol_all = L2_ATOL + L2_RTOL * wv.abs()
+    err = (got[0] - wv).abs().max().item()
+    within = bool(((got[0] - wv).abs() <= tol_all).all())
+    agree, total = ids_outside_ties(want[0], want[1], got[1], L2_RTOL,
+                                    L2_ATOL)
+    del got, want, wv, tol_all
+    b7_ms = time_ms(b7, iters=5, warmup=1)
+    plain_ms = time_ms(lambda: plain(kp), iters=1, warmup=0)
+    b, npr, nl, ls, d = (q_t.shape[0], launch_specs.NPROBE,
+                         *data["grouped"].shape[1:])
+    lists = min(nl, b * npr)
+    nbytes = lists * ls * (2 * d + 8) + b * npr * 4 + b * d * 4 + b * kp * 8
+    b7_bound, b7_by = bound_ms(nbytes, 2.0 * b * npr * ls * d,
+                               op_peak(data["grouped"].dtype))
+    print(f"[kernel] ivf_score_topk_batch_bf16 at the IVF cell's shape (b = "
+          f"{b}, nprobe = {npr}, {nl} lists of {ls:,}, d = {d}, k' = {kp}): "
+          f"max_abs_err {err:.3g} against the plain version, ids "
+          f"{agree}/{total} outside near-ties; {b7_ms:.3f} ms (plain "
+          f"{plain_ms:.1f} ms) against the bound {b7_bound:.3f} ms ({b7_by}:"
+          f" {nbytes / 1e9:.3f} GB, the slab once, "
+          f"{2.0 * b * npr * ls * d:.4g} FLOPs on bf16 operands at "
+          f"{PEAK_BF16_S / 1e12:.0f} TFLOP/s); each (query, probe) "
+          f"reads a {ls * d * 2 / 1e6:.1f} MB list, "
+          f"{b * npr * ls * d * 2 / 1e9:.1f} GB where the cache keeps none; "
+          f"card {power}")
+    check(within and agree == total and total > 0,
+          f"3n: B7 at the IVF cell's shape: error {err} or {total - agree} "
+          "ids outside near-ties against its plain version")
+    del valid, probes
+    tops = {}
+    for variant in FCVI_IVF:
+        meta = make_mesh(shape, axes, device="meta")
+        tr = dryrun.trace(lambda: launch_specs.build_fcvi_cell(
+            FCVI_SMOKE, meta, variant=variant), meta)
+        res = dryrun.cell_result(tr, meta, PEAK_BF16_S)
+        calls = tr["kernels"][ivf_kern.NAME_BATCH]["calls"]
+        mesh = make_mesh(shape, axes, device=dev)
+        cell = launch_specs.build_fcvi_cell(FCVI_SMOKE, mesh,
+                                            variant=variant, data=data)
+        cell.run(S.CollectiveStats())
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        vals, ids, cand = cell.run(S.CollectiveStats())
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launched = _build.launch_counts()
+        add_counts(counts, launched)
+        n_b7 = launched.get(ivf_kern.NAME_BATCH + "_bf16", 0)
+        kl = (launch_specs.K_LOCAL if variant != "ivf8" else kp)
+        want, bounds = ivf_stages(probed, shape, kl, kp)
+        same, ties, bad = cand_check(data, cand, want, bounds)
+        pads = int((cand == 0).sum(1).max())
+        rr_v, rr_i = exact_rerank(data, cand, k)
+        agree, kept = ids_outside_ties(rr_v, rr_i, ids, FCVI_TIE_RTOL,
+                                       FCVI_TIE_ATOL)
+        tops[variant] = (rr_v, ids)
+        bound = res["roofline"]["step_lower_bound_s"]
+        print(f"[3n] (d) FCVI {variant}, n = {FCVI_SMOKE['n']:,}, batch "
+              f"{FCVI_SMOKE['batch']}, k = {k}, k' = {kp} on a logical "
+              f"{shape} mesh: {ms:.1f} ms (predicted "
+              f"{FCVI_IVF_PREDICTED_MS[variant]:.0f}) >= 8 x the "
+              f"per-position bound {1e3 * bound:.3f} ms "
+              f"({res['roofline']['dominant']}; {res['per_device_flops']:.4g}"
+              f" FLOPs, {res['per_device_bytes']:.4g} bytes, "
+              f"{res['per_device_collective_bytes']:.4g} collective bytes a "
+              f"position); B7 launches {n_b7} ({json.dumps(launched)}), the "
+              f"dry-run's calls {calls:g}; the k' candidates equal the "
+              f"search computed whole for {same} of {cand.shape[0]} queries "
+              f"and differ only at near-ties of a cut for {ties} (elsewhere "
+              f"{len(bad)}; up to {pads} pads a query), the top-k the exact "
+              f"re-rank of them in {agree} of {kept}; card {power}")
+        check(n_b7 == calls == shards, f"3n: FCVI {variant} launched B7 "
+              f"{n_b7} times, the dry-run counts {calls}")
+        check(not bad and same > 0, f"3n: FCVI {variant}'s candidates "
+              f"differ from the search computed whole outside near-ties "
+              f"for queries {bad[:8]}")
+        check(agree == kept and kept > 0, f"3n: FCVI {variant}'s ids differ "
+              f"from the exact re-rank in {kept - agree} of {kept} slots")
+        check(ms / 1e3 >= 8 * bound, f"3n: FCVI {variant}'s bound 8 x "
+              f"{bound} s exceeds its {ms} ms")
+        if variant == "ivf8":
+            ev = torch.cat([v for v, _ in every], 1)
+            ei = torch.cat([i for _, i in every], 1)
+            top, pos = torch.topk(ev, kp, dim=1)
+            _, flat_ids = exact_rerank(data, torch.gather(ei, 1, pos), k)
+            hit = (ids.long()[:, :, None] == flat_ids[:, None, :k]).any(-1)
+            print(f"[3n] (d) recall@{k} of ivf8 against the exhaustive "
+                  f"search of every row (the same k' and re-rank): "
+                  f"{hit.float().mean().item():.4f}")
+            del ev, ei, top, pos, flat_ids
+        del cell, vals, cand, want, bounds, rr_i
+        torch.cuda.empty_cache()
+    agree, kept = ids_outside_ties(*tops["ivf8-trunc"], tops["opt"][1],
+                                   FCVI_TIE_RTOL, FCVI_TIE_ATOL)
+    print(f"[3n] (d) opt's top-k equals ivf8-trunc's in {agree} of {kept} "
+          f"slots outside near-ties")
+    check(agree == kept and kept > 0, f"3n: opt's top-k differs from "
+          f"ivf8-trunc's in {kept - agree} of {kept} slots")
+    del data, probed, every, tops
+    torch.cuda.empty_cache()
+    return counts
+
+
 def print_table(path: str) -> None:
     """(c) The dry-run of every cell on both production meshes, as
     ``launch.dryrun --all --mesh both --summary`` wrote it (meta
@@ -4855,7 +5139,9 @@ def print_table(path: str) -> None:
     want = {(a, sh, m) for a in list_archs() for sh in launch_specs.SHAPES
             if sh != DRY_SHAPE for m in ("pod16x16", "pod2x16x16")}
     want |= {("fcvi", sh + tag, m) for sh in launch_specs.FCVI_SHAPES
-             for tag in ("", "_fcvi-bf16") for m in ("pod16x16", "pod2x16x16")}
+             for tag in [""] + ["_" + name for name, v in
+                                dryrun.VARIANTS.items() if v["arch"] == "fcvi"]
+             for m in ("pod16x16", "pod2x16x16")}
     have = {(r["arch"], r["shape"], r["mesh"]) for r in results}
     ok = [r for r in results if r.get("status") in ("ok", "skipped")]
     check(have == want and len(ok) == len(results), f"3n: the dry-run "
@@ -4882,11 +5168,13 @@ def print_table(path: str) -> None:
 
 
 def phase_dryrun(dev, power: str, shard: dict) -> dict:
-    """Phase 3n: the dry-run held to the card. Returns B2's launches."""
+    """Phase 3n: the dry-run held to the card. Returns B2's and B7's
+    launches."""
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     dry_train_cell(dev, power, shard)
     counts = dry_fcvi_cells(dev, power)
+    add_counts(counts, dry_fcvi_ivf_cells(dev, power))
     print_table(DRY_TABLE)
     print(f"[3n] phase in {time.perf_counter() - t_phase:.1f} s")
     return counts

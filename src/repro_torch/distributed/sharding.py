@@ -455,6 +455,16 @@ def _collective(fn):
     return staticmethod(run)
 
 
+def _own(group, m: int):
+    """The scope member ``m``'s own output of a collective is made in: its
+    positions, where a group's scope is open (a cost trace charges a
+    collective's buffer to the scope it is made in, so a block each
+    member keeps is not charged to every member)."""
+    if group.positions is None or current_scope() is None:
+        return contextlib.nullcontext()
+    return scope(group.positions[m])
+
+
 def _each(group, ts) -> tuple:
     """Each member's output, its own tensor marked with the member's
     positions."""
@@ -512,8 +522,11 @@ class _ReduceScatter(torch.autograd.Function):
         ctx.group, ctx.dim = group, dim
         group.record("reduce-scatter", parts)
         total = _sum(parts, group.home)
-        return _each(group, [b.contiguous()
-                             for b in total.chunk(group.n, dim)])
+        out = []
+        for m, b in enumerate(total.chunk(group.n, dim)):
+            with _own(group, m):
+                out.append(b.contiguous())
+        return _each(group, out)
 
     @_collective
     def backward(ctx, *gs):
@@ -526,9 +539,12 @@ class _ReduceScatter(torch.autograd.Function):
 def _exchange(group, parts, split_dim: int, concat_dim: int) -> tuple:
     n = group.n
     chunks = [p.chunk(n, split_dim) for p in parts]
-    return _each(group, [torch.cat([_to(chunks[j][m], d) for j in range(n)],
-                                   concat_dim)
-                         for m, d in enumerate(group.devices)])
+    out = []
+    for m, d in enumerate(group.devices):
+        with _own(group, m):
+            out.append(torch.cat([_to(chunks[j][m], d) for j in range(n)],
+                                 concat_dim))
+    return _each(group, out)
 
 
 class _AllToAll(torch.autograd.Function):
@@ -550,7 +566,11 @@ class _Split(torch.autograd.Function):
     @_collective
     def forward(ctx, group, dim, x):
         ctx.group, ctx.dim = group, dim
-        return _each(group, [b.clone() for b in x.chunk(group.n, dim)])
+        out = []
+        for m, b in enumerate(x.chunk(group.n, dim)):
+            with _own(group, m):
+                out.append(b.clone())
+        return _each(group, out)
 
     @_collective
     def backward(ctx, *gs):

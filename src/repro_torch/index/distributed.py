@@ -25,6 +25,7 @@ probes. Mirrors ``repro.index.distributed``.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -108,9 +109,33 @@ def merge_over_axis_rows(vals: Sequence[Optional[Tensor]],
                  [rows[j] for j in live], k)
 
 
+def _gathered(vals, idx, rows):
+    """A merge stage's sets as each member of its group holds them after
+    the stage's all-gather. Where every set is marked with its positions
+    (``sharding.mark``: a cost trace's sharded step), views of them marked
+    with all the members' positions, and those positions: the stage's work
+    inside their ``sharding.scope`` counts for each member, as SPMD runs
+    it. Elsewhere the sets as they are, and None."""
+    from repro_torch.distributed.sharding import mark, marked
+    marks = [marked(v) for v in vals if v is not None]
+    if not marks or any(m is None for m in marks):
+        return vals, idx, rows, None
+    pos = frozenset().union(*marks)
+
+    def held(t):
+        return None if t is None else mark(t.view(t.shape), pos)
+
+    return ([held(v) for v in vals], [held(i) for i in idx],
+            None if rows is None else
+            [None if r is None else tuple(held(x) for x in r) for r in rows],
+            pos)
+
+
 def _tree(vals, idx, rows, sizes, k, inner: Optional[int] = None):
     """The merge stages, the last mesh axis first: a stage keeps min(k,
-    pool) candidates, or ``inner`` before the last stage when given."""
+    pool) candidates, or ``inner`` before the last stage when given. In a
+    cost trace each group's stage counts for its members (``_gathered``)."""
+    from repro_torch.distributed.sharding import scope
     vals, idx = list(vals), list(idx)
     rows = list(rows) if rows is not None else None
     stages = list(reversed(tuple(int(s) for s in sizes)))
@@ -121,14 +146,15 @@ def _tree(vals, idx, rows, sizes, k, inner: Optional[int] = None):
             keep = min(k, sum(widths)) if widths else k
             if inner and j < len(stages) - 1:
                 keep = inner
-            if rows is None:
-                v, i = merge_over_axis(vals[g:g + n_ax], idx[g:g + n_ax],
-                                       keep)
-                r = None
-            else:
-                v, i, r = merge_over_axis_rows(vals[g:g + n_ax],
-                                               idx[g:g + n_ax],
-                                               rows[g:g + n_ax], keep)
+            gv, gi, gr, pos = _gathered(
+                vals[g:g + n_ax], idx[g:g + n_ax],
+                None if rows is None else rows[g:g + n_ax])
+            with scope(pos) if pos is not None else contextlib.nullcontext():
+                if rows is None:
+                    v, i = merge_over_axis(gv, gi, keep)
+                    r = None
+                else:
+                    v, i, r = merge_over_axis_rows(gv, gi, gr, keep)
             nv.append(v), ni.append(i), nr.append(r)
         vals, idx = nv, ni
         rows = nr if rows is not None else None
@@ -182,6 +208,30 @@ def _blocks(n: int, ns: int):
     return nl, [(s * nl, min(n, (s + 1) * nl)) for s in range(ns)]
 
 
+def holders_of(mesh, axes: Sequence[str]) -> List[list]:
+    """The flat mesh indices of the positions holding each row block of a
+    layout over ``axes`` (linear shard order): the block's coordinates
+    along ``axes``, any along the mesh's other axes."""
+    from repro_torch.distributed.sharding import positions
+    sizes = tuple(mesh.shape[a] for a in axes)
+    out: List[list] = [[] for _ in range(int(np.prod(sizes)))]
+    for flat, (_, c) in enumerate(positions(mesh)):
+        out[linear_shard_index(axes, sizes, c)].append(flat)
+    return out
+
+
+def merge_stats(stats, mesh, axes: Sequence[str], q: int, width: int,
+                inner: int) -> None:
+    """Record ``_tree``'s merge stages, the last axis first, as the
+    reference's ``shard_map`` runs them: each the all-gather over its axis
+    of every position's candidate set (q x its width values and ids, 8
+    bytes a candidate), ``width`` the blocks' sets at the first stage and
+    ``inner`` at the others."""
+    for ax in reversed(tuple(axes)):
+        stats.add("all-gather", ax, mesh.size * q * width * 8)
+        width = inner
+
+
 def sharded_search_fn(mesh, shard_axes: Sequence[str], k: int,
                       k_local: int = 0, stats=None):
     """An exact search over a corpus split into row-contiguous blocks over
@@ -197,7 +247,7 @@ def sharded_search_fn(mesh, shard_axes: Sequence[str], k: int,
     positions holding it; ``stats`` (a ``CollectiveStats``) records each
     merge stage as the all-gather of every position's candidate set
     (values and ids), as the reference's ``shard_map`` merges them."""
-    from repro_torch.distributed.sharding import Placed, positions, scope
+    from repro_torch.distributed.sharding import Placed, scope
     from repro_torch.index.slab import axes_size, shard_devices
 
     axes = tuple(shard_axes)
@@ -205,9 +255,7 @@ def sharded_search_fn(mesh, shard_axes: Sequence[str], k: int,
     ns = axes_size(mesh, axes)
     devs = shard_devices(mesh, axes)
     kl = k_local if k_local and k_local < k else k
-    holders = [[] for _ in range(ns)]
-    for flat, (_, c) in enumerate(positions(mesh)):
-        holders[linear_shard_index(axes, sizes, c)].append(flat)
+    holders = holders_of(mesh, axes)
 
     def fn(vectors, sq_norms, queries: Tensor):
         placed = isinstance(vectors, Placed)
@@ -229,11 +277,8 @@ def sharded_search_fn(mesh, shard_axes: Sequence[str], k: int,
                 vals.append(v.to(queries.device))
                 ids.append(i.to(queries.device) + lo)
         if stats is not None:
-            width = max(v.shape[-1] for v in vals if v is not None)
-            for ax in reversed(axes):
-                stats.add("all-gather", ax,
-                          mesh.size * queries.shape[0] * width * 8)
-                width = kl
+            merge_stats(stats, mesh, axes, queries.shape[0],
+                        max(v.shape[-1] for v in vals if v is not None), kl)
         v, i, _ = _tree(vals, ids, None, sizes, k, inner=kl)
         if v is None:
             return _empty(queries, k)

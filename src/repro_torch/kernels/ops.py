@@ -17,8 +17,12 @@ tensor of another dtype raises in the kernel's wrapper; it is never cast.
 On the meta device (a cost trace, ``launch.cost_analysis``) an entry
 records its kernel's own work from the shapes and returns empty outputs:
 the plain version would materialise what no kernel writes (``score_topk``'s
-(q, n) score matrix). ``score_topk`` is the one a dry-run cell reaches;
-every other entry raises on meta.
+(q, n) score matrix). ``score_topk`` and ``ivf_score_topk_batch`` are the
+ones the dry-run's cells reach; every other entry raises on meta. In a
+cost trace on CPU tensors those two record the same work and run the
+plain version uncounted (``sharding.quiet_ops``), so the trace counts what
+the meta trace of the same step counts. On a CUDA tensor they call the
+kernel and nothing else.
 """
 from __future__ import annotations
 
@@ -40,13 +44,28 @@ def _bytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def _kernel_on_meta(name: str, flops: float, nbytes: float) -> None:
+def _traced(name: str, x: Tensor, run, shapes, cost):
+    """A kernel entry on a CPU or meta tensor: ``run()``, the plain
+    version, outside a cost trace (on meta it raises there). Inside one it
+    runs uncounted (on meta, empty outputs of ``shapes``, (shape, dtype)
+    pairs, stand for it), ``cost()``, the kernel's own (flops, bytes),
+    is recorded as one call of kernel ``name``, and the outputs are marked
+    as the values of the current ``sharding.scope``."""
+    from repro_torch.distributed.sharding import current_scope, mark, \
+        quiet_ops
     from repro_torch.launch.cost_analysis import active_mode
     mode = active_mode()
     if mode is None:
-        raise RuntimeError(f"kernel {name} reached on the meta device "
-                           "outside a cost trace")
-    mode.record_kernel(name, flops, nbytes)
+        if x.is_meta:
+            raise RuntimeError(f"kernel {name} reached on the meta device "
+                               "outside a cost trace")
+        return run()
+    with quiet_ops():
+        out = (tuple(torch.empty(sh, dtype=dt, device="meta")
+                     for sh, dt in shapes) if x.is_meta else run())
+    mode.record_kernel(name, *cost())
+    held = current_scope()
+    return out if held is None else tuple(mark(t, held) for t in out)
 
 
 def _no_meta(name: str, x: Tensor) -> None:
@@ -79,17 +98,19 @@ def score_topk(corpus: Tensor, sq_norms: Tensor, queries: Tensor, k: int,
     slots no eligible row fills read (-inf, 0)."""
     if corpus.is_cuda:
         return _scan.score_topk(corpus, sq_norms, queries, k, scales, mask)
-    if corpus.is_meta:
+    nq = queries.shape[0]
+
+    def cost():
         # B2's work: 2 q n d multiply-adds; the rows, norms, scales and
-        # mask read once, the queries, the (q, k) values and ids written
-        nq, n = queries.shape[0], corpus.shape[0]
-        vals = torch.empty((nq, k), dtype=torch.float32, device="meta")
-        ids = torch.empty((nq, k), dtype=torch.int32, device="meta")
-        _kernel_on_meta(_scan.NAME, 2.0 * nq * n * corpus.shape[1],
-                        _bytes(corpus, sq_norms, queries, scales, mask,
-                               vals, ids))
-        return vals, ids
-    return ref.ref_score_topk(corpus, sq_norms, queries, k, scales, mask)
+        # mask read once, the queries read, the (q, k) values and ids
+        # written
+        return (2.0 * nq * corpus.shape[0] * corpus.shape[1],
+                _bytes(corpus, sq_norms, queries, scales, mask) + nq * k * 8)
+
+    return _traced(_scan.NAME, corpus,
+                   lambda: ref.ref_score_topk(corpus, sq_norms, queries, k,
+                                              scales, mask),
+                   (((nq, k), torch.float32), ((nq, k), torch.int32)), cost)
 
 
 def score_topk_rows(corpus: Tensor, sq_norms: Tensor, payload_v: Tensor,
@@ -135,13 +156,32 @@ def ivf_score_topk_batch(grouped: Tensor, grouped_sq: Tensor, valid: Tensor,
                          probes: Tensor, queries: Tensor, k: int, *,
                          scales: Optional[Tensor] = None):
     """Query-major probed scan: probes (b, nprobe) int32, queries (b, d).
-    Ties go to the earlier probe position, then the earlier slot."""
+    Ties go to the earlier probe position, then the earlier slot.
+
+    B7's work in a cost trace: 2 b nprobe max_list d multiply-adds (every
+    probed slot of every query); each list the batch's probes can reach
+    (min(nlist, b nprobe) of them) read once with its norms, ``valid``
+    and ``scales`` rows, the queries and probes read, the (b, k) values
+    and ids written. The kernel reads a list once per probe of it where
+    the cache does not keep it: the bound is the least it can move."""
     if grouped.is_cuda:
         return _ivf.ivf_score_topk_batch(grouped, grouped_sq, valid, probes,
                                          queries, k, scales)
-    _no_meta("ivf_score_topk_batch", grouped)
-    return ref.ref_ivf_score_topk_batch(grouped, grouped_sq, valid, probes,
-                                        queries, k, scales)
+    b, nprobe = probes.shape
+
+    def cost():
+        nlist, max_list, d = grouped.shape
+        row = _bytes(grouped[0], grouped_sq[0], valid[0],
+                     None if scales is None else scales[0])
+        return (2.0 * b * nprobe * max_list * d,
+                min(nlist, b * nprobe) * row + _bytes(probes, queries)
+                + b * k * 8)
+
+    return _traced(_ivf.NAME_BATCH, grouped,
+                   lambda: ref.ref_ivf_score_topk_batch(
+                       grouped, grouped_sq, valid, probes, queries, k,
+                       scales),
+                   (((b, k), torch.float32), ((b, k), torch.int32)), cost)
 
 
 def ivf_score_topk(grouped: Tensor, grouped_sq: Tensor, valid: Tensor,

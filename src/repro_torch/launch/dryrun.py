@@ -13,6 +13,8 @@ and the useful-FLOPs share, written to
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch fcvi --mesh both
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --variant fcvi-opt --mesh both
 
 Two shortcuts keep a production cell to minutes (``run_cell``'s
 ``one_group``/``exact_depth`` turn them off;
@@ -94,8 +96,7 @@ N_MICRO = {
     ("granite-moe-3b-a800m", "train_4k"): 4,
 }
 
-# the reference's variants that stand on the ported cells (its IVF layouts
-# are not ported)
+# the reference's variants
 VARIANTS = {
     # xlstm replicates its mixers over 'model': pure 256-way DP instead
     "xlstm-dp256": dict(arch="xlstm-125m", shape="train_4k",
@@ -108,6 +109,13 @@ VARIANTS = {
                                extra_rules={"moe_ff": None}, n_micro=2),
     # the paper's serving step with a bf16 transformed corpus
     "fcvi-bf16": dict(arch="fcvi", shape="serve_268m", fcvi_variant="bf16"),
+    # the IVF layout: each block probes 8 of its 64 lists (B7)
+    "fcvi-ivf8": dict(arch="fcvi", shape="serve_268m", fcvi_variant="ivf8"),
+    # ... with 64 candidates a block into the merge tree
+    "fcvi-ivf8-trunc": dict(arch="fcvi", shape="serve_268m",
+                            fcvi_variant="ivf8-trunc"),
+    # ... and the re-rank computed where the rows are
+    "fcvi-opt": dict(arch="fcvi", shape="serve_268m", fcvi_variant="opt"),
 }
 
 
@@ -563,7 +571,8 @@ def run_fcvi_cell(shape: str, multi_pod: bool, verbose: bool = True,
     peak = C.PEAK_TF32_S if fcvi_variant == "base" else C.PEAK_BF16_S
     result.update(status="ok", kind="fcvi_serve", n_micro=1,
                   **cell_result(t, mesh, peak))
-    # useful work: 2 n d FLOPs of exact scoring a query
+    # useful work: 2 n d FLOPs of exact scoring a query (an IVF cell
+    # scores an eighth of the rows: ``USEFUL_NOTE``)
     mf = 2.0 * info["n"] * info["d"] * info["batch"]
     flops = result["per_device_flops"]
     result.update(params_total=0, params_active=0, model_flops_global=mf,
@@ -601,9 +610,12 @@ USEFUL_NOTE = ("useful = model_flops_global over the dot FLOPs of every "
                "embedding table as a product for each token (a lookup "
                "computes nothing, and prefill unembeds its last position "
                "only) and whisper's encoder and decoder tokens each against "
-               "both stacks, and the dot FLOPs leave out convolutions; so "
-               "it can pass 100%: a ratio to a yardstick, not a share of "
-               "the work")
+               "both stacks, and the dot FLOPs leave out convolutions; the "
+               "FCVI cells' model_flops is the reference's 2 n d a query of "
+               "an exact scan, which an IVF cell (fcvi-ivf8, -trunc, -opt) "
+               "runs over the eighth of the rows its probes reach; so it "
+               "can pass 100%: a ratio to a yardstick, not a share of the "
+               "work")
 
 
 def table(results: list) -> str:
@@ -731,7 +743,7 @@ def main(argv=None) -> list:
         cells += [("fcvi", sh) for sh in fshapes]
     if args.arch == "fcvi":
         cells = [(a, sh) for (a, sh) in cells if a == "fcvi"]
-    if args.all:
+    if args.all or args.arch == "fcvi":
         cells += [(name, None) for name, v in VARIANTS.items()
                   if v["arch"] == "fcvi"]
 

@@ -3,7 +3,8 @@
 training extras, ``arch_rules``, ``cell_applicable``, ``zero1_specs``, the
 input specs (meta tensors stand in for ``ShapeDtypeStruct``s), the batch
 and cache specs, ``Cell``/``build_cell`` for train, prefill and decode, and
-``FCVI_SHAPES``/``build_fcvi_cell`` (the ``base`` and ``bf16`` variants).
+``FCVI_SHAPES``/``build_fcvi_cell`` (every variant: ``base``, ``bf16``
+and the IVF layouts ``ivf8``, ``ivf8-trunc``, ``opt``).
 A cell holds its inputs placed on the mesh (``Placed``: on the meta device
 for a dry-run, on a card or the CPU for a real run) and a ``step`` that runs
 the port's sharded program over them under the cell's rules.
@@ -20,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.distributed.sharding import (AxisRules, CollectiveStats,
@@ -365,83 +367,202 @@ FCVI_SHAPES = {
     # 268M corpus vectors (SIFT-like d=128, m=8 filters), 1024-query batches
     "serve_268m": dict(n=1 << 28, d=128, m=8, batch=1024, k=100, kprime=400),
 }
-FCVI_VARIANTS = ("base", "bf16")
+FCVI_VARIANTS = ("base", "bf16", "ivf8", "ivf8-trunc", "opt")
+IVF_VARIANTS = ("ivf8", "ivf8-trunc", "opt")
+NLIST, NPROBE = 64, 8        # an IVF shard's lists and the lists it probes
+QUERY_CHUNK = 64             # the reference's query chunk (``qc``)
+K_LOCAL = 64                 # ivf8-trunc / opt: candidates a block keeps
+
+
+def ivf_sizes(n: int, shards: int, batch: int) -> tuple:
+    """(rows a shard, rows a list) of the IVF layout. Raises where n does
+    not split into ``shards`` blocks of ``NLIST`` equal lists, or the batch
+    into the reference's query chunks (its scan drops the rest)."""
+    if n % shards or (n // shards) % NLIST:
+        raise ValueError(f"n={n} does not split into {shards} shards of "
+                         f"{NLIST} equal lists")
+    if batch % QUERY_CHUNK:
+        raise ValueError(f"batch={batch} is not a multiple of the "
+                         f"reference's query chunk {QUERY_CHUNK}")
+    return n // shards, n // shards // NLIST
+
+
+def _corpus_shards(mesh) -> tuple:
+    """(the corpus axes, their extents, the number of row blocks)."""
+    axes = tuple(a for a in ("pod", "data", "model") if a in mesh.axis_names)
+    sizes = tuple(mesh.shape[a] for a in axes)
+    return axes, sizes, int(np.prod(sizes)) if sizes else 1
 
 
 def build_fcvi_cell(shape, mesh, extra_rules: Optional[dict] = None,
                     variant: str = "base", device="meta",
                     data: Optional[dict] = None) -> Cell:
     """The distributed FCVI query step: the psi transform of the queries,
-    an exact top-k' over the corpus split in row blocks over every mesh
-    axis (``index.distributed.sharded_search_fn``: the B2 kernel on each
-    block, the tree merge over the axes, the last first), the candidates'
-    rows gathered from the blocks holding them (an all-reduce of each
-    block's hits), the lambda-weighted cosine re-rank and its top-k.
-    ``base``: fp32 corpus; ``bf16``: the transformed corpus stored in bf16
-    (re-rank rows stay fp32). ``shape``: a key of ``FCVI_SHAPES`` or a
-    dict of its fields. ``data``: the inputs to place (default: meta
-    stand-ins, or random rows on another device). ``run`` returns the
-    top-k (scores, ids) and the k' candidates' ids."""
-    from repro_torch.core.transform import psi_partition
-    from repro_torch.index.distributed import sharded_search_fn
-    from repro_torch.kernels.ref import topk_first
+    a top-k' over the corpus split in row blocks over every mesh axis, the
+    tree merge over the axes (the last first), the lambda-weighted cosine
+    re-rank of the candidates and its top-k.
+    ``base``: an exact scan of the fp32 corpus (``index.distributed.
+    sharded_search_fn``: B2 on each block), the candidates' rows gathered
+    from the blocks holding them (an all-reduce of each block's hits);
+    ``bf16``: the same over the transformed corpus stored in bf16 (re-rank
+    rows stay fp32). The IVF layouts (the reference's shard-major slab,
+    ``fcvi_inputs``): each block probes its ``NPROBE`` of ``NLIST`` lists
+    and scans them with B7; ``ivf8`` keeps k' a block; ``ivf8-trunc``
+    keeps its first ``K_LOCAL`` and every merge stage but the last keeps
+    ``K_LOCAL``, the last k' padded (-inf, id 0) where its pool is
+    smaller (the pads are re-ranked as row 0, as in the reference);
+    ``opt`` is ``ivf8-trunc`` with the re-rank computed where the rows
+    are (four (b, k') partials a block, summed by an all-reduce).
+    ``shape``: a key of ``FCVI_SHAPES`` or a dict of its fields.
+    ``data``: the inputs to place (default: meta stand-ins, or
+    ``fcvi_inputs`` on another device). ``run`` returns the top-k (scores,
+    ids) and the k' candidates' ids."""
     if variant not in FCVI_VARIANTS:
         raise ValueError(f"FCVI variant {variant!r}: the port builds "
                          f"{FCVI_VARIANTS}")
     info = FCVI_SHAPES[shape] if isinstance(shape, str) else dict(shape)
-    n, d, m = info["n"], info["d"], info["m"]
-    batch, k, kprime = info["batch"], info["k"], info["kprime"]
-    lam, alpha = 0.5, 1.0
+    n, d, m, batch = info["n"], info["d"], info["m"], info["batch"]
     rules = AxisRules(mesh, dict(extra_rules or {}))
-    axes = tuple(a for a in ("pod", "data", "model") if a in mesh.axis_names)
-    dtype = torch.bfloat16 if variant == "bf16" else torch.float32
-    if data is None:
-        if torch.device(device).type == "meta":
-            data = {"corpus_t": _empty((n, d), dtype, device),
-                    "sq_norms": _empty((n,), torch.float32, device),
-                    "vectors_n": _empty((n, d), torch.float32, device),
-                    "filters_n": _empty((n, m), torch.float32, device),
-                    "q": _empty((batch, d), torch.float32, device),
-                    "fq": _empty((batch, m), torch.float32, device)}
-        else:
-            data = fcvi_inputs(info, variant, device, 0)
+    axes, _, shards = _corpus_shards(mesh)
+    ivf = variant in IVF_VARIANTS
+    if ivf:
+        n_loc, list_sz = ivf_sizes(n, shards, batch)
+    meta = torch.device(device).type == "meta"
+    if data is None and not meta:
+        data = fcvi_inputs(info, variant, device, 0, shards)
+    if data is None and ivf:
+        data = {"grouped": _empty((shards, NLIST, list_sz, d),
+                                  torch.bfloat16, device),
+                "grouped_sq": _empty((shards, NLIST, list_sz),
+                                     torch.float32, device),
+                "centroids": _empty((shards, NLIST, d), torch.float32,
+                                    device)}
+    elif data is None:
+        dtype = torch.bfloat16 if variant == "bf16" else torch.float32
+        data = {"corpus_t": _empty((n, d), dtype, device),
+                "sq_norms": _empty((n,), torch.float32, device)}
+    if meta and "q" not in data:
+        data.update(vectors_n=_empty((n, d), torch.float32, device),
+                    filters_n=_empty((n, m), torch.float32, device),
+                    q=_empty((batch, d), torch.float32, device),
+                    fq=_empty((batch, m), torch.float32, device))
     specs = {"corpus_t": (axes, None), "sq_norms": (axes,),
+             "grouped": (axes, None, None, None),
+             "grouped_sq": (axes, None, None), "centroids": (axes, None, None),
              "vectors_n": (axes, None), "filters_n": (axes, None),
              "q": (), "fq": ()}
     inputs = {name: place(t, specs[name], mesh) for name, t in data.items()}
     del data
-
-    def run(stats: CollectiveStats):
-        x = inputs
-        search = sharded_search_fn(mesh, axes, kprime, stats=stats)
-        q, fq = (x[name].blocks.flat[0] for name in ("q", "fq"))
-        q_t = psi_partition(q, fq, alpha)
-        if dtype != torch.float32:
-            # the queries as the bf16 rows' scan takes them: rounded to
-            # bf16 (the reference's cast), held in fp32
-            q_t = q_t.to(dtype).float()
-        _, cand = search(x["corpus_t"], x["sq_norms"], q_t)
-        cv, cf = gather_rows(x["vectors_n"], x["filters_n"], cand, axes,
-                             stats)
-
-        def cos(c, qv):
-            num = torch.sum(c * qv[:, None, :], dim=-1)
-            den = (torch.linalg.norm(c, dim=-1)
-                   * torch.linalg.norm(qv, dim=-1)[:, None] + 1e-8)
-            return num / den
-
-        score = lam * cos(cv, q) + (1 - lam) * cos(cf, fq)
-        vals, pos = topk_first(score, k)
-        return vals, torch.gather(cand, -1, pos), cand
-
+    run = (_ivf_step if ivf else _flat_step)(info, variant, mesh, inputs)
     return Cell("fcvi", shape if isinstance(shape, str) else "custom",
                 "fcvi_serve", None, mesh, rules, inputs, run)
 
 
-def fcvi_inputs(info: dict, variant: str, device, seed: int) -> dict:
+def _cos(c: torch.Tensor, qv: torch.Tensor) -> torch.Tensor:
+    num = torch.sum(c * qv[:, None, :], dim=-1)
+    den = (torch.linalg.norm(c, dim=-1)
+           * torch.linalg.norm(qv, dim=-1)[:, None] + 1e-8)
+    return num / den
+
+
+def _rerank(x: dict, cand: torch.Tensor, k: int, axes, stats):
+    """The candidates' rows gathered, the lambda = 0.5 cosine score, its
+    first-occurrence top-k: (scores, ids)."""
+    from repro_torch.kernels.ref import topk_first
+    q, fq = (x[name].blocks.flat[0] for name in ("q", "fq"))
+    cv, cf = gather_rows(x["vectors_n"], x["filters_n"], cand, axes, stats)
+    score = 0.5 * _cos(cv, q) + 0.5 * _cos(cf, fq)
+    vals, pos = topk_first(score, k)
+    return vals, torch.gather(cand, -1, pos)
+
+
+def _flat_step(info: dict, variant: str, mesh, inputs: dict):
+    from repro_torch.core.transform import psi_partition
+    from repro_torch.index.distributed import sharded_search_fn
+    axes, _, _ = _corpus_shards(mesh)
+
+    def run(stats: CollectiveStats):
+        x = inputs
+        search = sharded_search_fn(mesh, axes, info["kprime"], stats=stats)
+        q, fq = (x[name].blocks.flat[0] for name in ("q", "fq"))
+        q_t = psi_partition(q, fq, 1.0)
+        if variant == "bf16":
+            # the queries as the bf16 rows' scan takes them: rounded to
+            # bf16 (the reference's cast), held in fp32
+            q_t = q_t.to(torch.bfloat16).float()
+        _, cand = search(x["corpus_t"], x["sq_norms"], q_t)
+        return _rerank(x, cand, info["k"], axes, stats) + (cand,)
+
+    return run
+
+
+def _ivf_step(info: dict, variant: str, mesh, inputs: dict):
+    """The IVF layouts' step (``build_fcvi_cell``): each block, under the
+    scope of the positions holding it, takes its probes (the fp32 product
+    of the transformed queries with its centroids, first-occurrence top
+    ``NPROBE``) and runs B7 over its (NLIST, list_sz, d) bf16 slab with
+    the queries rounded to bf16 (the reference's ``qs.astype(rows.dtype)``;
+    B7 keeps the fp32 sum of the bf16 products, where the reference's
+    bf16 einsum rounds it to bf16); slot ids become global
+    (``shard * n_loc + list * list_sz + slot``), then the tree merge."""
+    from repro_torch.core.transform import psi_partition
+    from repro_torch.index.distributed import (_pool, _tree, holders_of,
+                                               merge_stats, shard_coords)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import topk_first
+    axes, sizes, shards = _corpus_shards(mesh)
+    b, kprime = info["batch"], info["kprime"]
+    n_loc, list_sz = ivf_sizes(info["n"], shards, b)
+    kl = K_LOCAL if variant in ("ivf8-trunc", "opt") else kprime
+    holders = holders_of(mesh, axes)
+
+    def run(stats: CollectiveStats):
+        x = inputs
+        q, fq = (x[name].blocks.flat[0] for name in ("q", "fq"))
+        q_t = psi_partition(q, fq, 1.0)
+        q_b = q_t.to(torch.bfloat16).float()
+        vals, ids, valid = [], [], {}
+        for s in range(shards):
+            c = shard_coords(s, axes, sizes)
+            with scope(holders[s]):
+                gr = x["grouped"].block(c)[0]
+                dev = gr.device
+                if dev not in valid:
+                    valid[dev] = torch.ones((NLIST, list_sz), device=dev)
+                probes = topk_first(q_t.to(dev) @ x["centroids"].block(c)[0].T,
+                                    NPROBE)[1].to(torch.int32)
+                v, i = ops.ivf_score_topk_batch(
+                    gr, x["grouped_sq"].block(c)[0], valid[dev], probes,
+                    q_b.to(dev), kprime)
+                vals.append(v[:, :kl].to(q.device))
+                ids.append(i[:, :kl].to(q.device) + s * n_loc)
+        if stats is not None:
+            merge_stats(stats, mesh, axes, b, kl, kl)
+        v, cand, _ = _tree(vals, ids, None, sizes, kprime, inner=kl)
+        if v.shape[-1] < kprime:
+            v, cand, _ = _pool([v], [cand], [], kprime)
+        if variant != "opt":
+            return _rerank(x, cand, info["k"], axes, stats) + (cand,)
+        nv, dv, nf, df = rescore_partials(x["vectors_n"], x["filters_n"],
+                                          cand, q, fq, axes, stats)
+        qn = torch.linalg.norm(q, dim=-1)[:, None]
+        fqn = torch.linalg.norm(fq, dim=-1)[:, None]
+        score = (0.5 * nv / (dv * qn + 1e-8)
+                 + (1 - 0.5) * nf / (df * fqn + 1e-8))
+        top, pos = topk_first(score, info["k"])
+        return top, torch.gather(cand, -1, pos), cand
+
+    return run
+
+
+def fcvi_inputs(info: dict, variant: str, device, seed: int,
+                shards: int = 1) -> dict:
     """Random FCVI inputs on ``device``: unit-normalised rows and filters,
-    the transformed corpus (psi of the rows with their filters), its
-    squared norms, and queries with their filters."""
+    queries with their filters, and the transformed corpus (psi of the
+    rows with their filters): for ``base`` / ``bf16`` the rows (bf16
+    stored for ``bf16``) and their squared norms; for the IVF layouts
+    the reference's shard-major slab over ``shards`` row blocks
+    (``ivf_layout``), with ``vectors_n`` / ``filters_n`` in its order."""
     from repro_torch.core.transform import psi_partition
     from repro_torch.device import resolve_device
     n, d, m, b = info["n"], info["d"], info["m"], info["batch"]
@@ -452,24 +573,59 @@ def fcvi_inputs(info: dict, variant: str, device, seed: int) -> dict:
     f = torch.rand((n, m), generator=gen, device=dev)
     f = f / torch.linalg.norm(f, dim=-1, keepdim=True)
     corpus = psi_partition(v, f, 1.0)
+    q = torch.randn((b, d), generator=gen, device=dev)
+    fq = torch.rand((b, m), generator=gen, device=dev)
+    if variant in IVF_VARIANTS:
+        ivf_sizes(n, shards, b)
+        out = ivf_layout(corpus, shards, gen)
+        order = out.pop("order")
+        del corpus
+        return dict(out, vectors_n=v[order], filters_n=f[order], q=q, fq=fq)
     if variant == "bf16":
         corpus = corpus.to(torch.bfloat16)
     sq = torch.sum(corpus.float() ** 2, dim=-1)
-    q = torch.randn((b, d), generator=gen, device=dev)
-    fq = torch.rand((b, m), generator=gen, device=dev)
     return {"corpus_t": corpus, "sq_norms": sq, "vectors_n": v,
             "filters_n": f, "q": q, "fq": fq}
 
 
-def gather_rows(vectors, filters, cand: torch.Tensor, axes,
-                stats: Optional[CollectiveStats] = None) -> tuple:
-    """The rows of ``cand`` (b, k') ids from row blocks (``Placed`` over
-    ``axes``): each block gathers the candidates it holds (zeros for the
-    others) under ``sharding.scope`` of its positions, and the blocks'
-    rows are summed (an all-reduce over ``axes``, at each position's
-    (b, k', d + m) fp32). Equal to indexing the whole tables."""
+def ivf_layout(corpus: torch.Tensor, shards: int, gen) -> dict:
+    """The IVF cells' shard-major layout of the transformed rows
+    ``corpus`` (n, d) fp32: each of ``shards`` row blocks cut into
+    ``NLIST`` equal lists, its rows sorted by their nearest of ``NLIST``
+    centres drawn from its rows (ties to the first, the sort stable) and
+    cut in order. Returns ``grouped`` (S, NLIST, list_sz, d) bf16,
+    ``grouped_sq`` (S, NLIST, list_sz) fp32 (the bf16 rows' squared
+    norms), ``centroids`` (S, NLIST, d) fp32 (each list's mean of its
+    fp32 rows) and ``order`` (n,) int64, the rows in the slab's order (a
+    global id ``shard * n_loc + list * list_sz + slot`` names row
+    ``order[id]``)."""
+    n, d = corpus.shape
+    n_loc = n // shards
+    list_sz = n_loc // NLIST
+    grouped, sq, cen, order = [], [], [], []
+    for s in range(shards):
+        xs = corpus[s * n_loc:(s + 1) * n_loc]
+        pick = torch.randperm(n_loc, generator=gen, device=xs.device)[:NLIST]
+        centres = xs[pick]
+        near = torch.argmax(2.0 * xs @ centres.T
+                            - torch.sum(centres * centres, -1), dim=-1)
+        perm = torch.sort(near, stable=True).indices
+        rows = xs[perm].reshape(NLIST, list_sz, d)
+        g = rows.to(torch.bfloat16)
+        grouped.append(g)
+        sq.append(torch.sum(g.float() ** 2, dim=-1))
+        cen.append(rows.mean(dim=1))
+        order.append(perm + s * n_loc)
+    return {"grouped": torch.stack(grouped), "grouped_sq": torch.stack(sq),
+            "centroids": torch.stack(cen), "order": torch.cat(order)}
+
+
+def _held_rows(vectors, filters, cand: torch.Tensor, axes):
+    """For each row block of ``vectors`` / ``filters`` (``Placed`` over
+    ``axes``), in block order: the rows of the candidates ``cand`` (b, k')
+    it holds, zeros for the others, yielded inside ``sharding.scope`` of
+    the block's positions (the caller's work on them runs there too)."""
     mesh = vectors.mesh
-    held = []
     for coords, vb in vectors.unique():
         fb = filters.block(coords)
         lo = block_slices(mesh, vectors.spec, vectors.shape, coords)[0].start
@@ -479,15 +635,57 @@ def gather_rows(vectors, filters, cand: torch.Tensor, axes,
             local = cand.to(vb.device) - lo
             own = (local >= 0) & (local < vb.shape[0])
             ix = local.clamp(0, vb.shape[0] - 1).long()
-            held.append((torch.where(own[..., None], vb[ix], 0.0),
-                         torch.where(own[..., None], fb[ix], 0.0)))
+            yield (torch.where(own[..., None], vb[ix], 0.0),
+                   torch.where(own[..., None], fb[ix], 0.0))
+
+
+def _block_sum(parts: list) -> torch.Tensor:
+    """The blocks' tensors summed in block order, as a collective's own
+    arithmetic."""
+    with quiet_ops():
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + p.to(total.device)
+    return total
+
+
+def gather_rows(vectors, filters, cand: torch.Tensor, axes,
+                stats: Optional[CollectiveStats] = None) -> tuple:
+    """The rows of ``cand`` (b, k') ids from row blocks (``Placed`` over
+    ``axes``): each block gathers the candidates it holds (zeros for the
+    others) under ``sharding.scope`` of its positions, and the blocks'
+    rows are summed (an all-reduce over ``axes``, at each position's
+    (b, k', d + m) fp32). Equal to indexing the whole tables."""
+    held = list(_held_rows(vectors, filters, cand, axes))
     if stats is not None:
         b, kp = cand.shape
-        stats.add("all-reduce", ",".join(axes), mesh.size * b * kp * 4
-                  * (vectors.shape[1] + filters.shape[1]))
-    with quiet_ops():
-        cv, cf = held[0]
-        for v2, f2 in held[1:]:
-            cv = cv + v2.to(cv.device)
-            cf = cf + f2.to(cf.device)
-    return cv, cf
+        stats.add("all-reduce", ",".join(axes), vectors.mesh.size * b * kp
+                  * 4 * (vectors.shape[1] + filters.shape[1]))
+    return (_block_sum([cv for cv, _ in held]),
+            _block_sum([cf for _, cf in held]))
+
+
+def rescore_partials(vectors, filters, cand: torch.Tensor, q: torch.Tensor,
+                     fq: torch.Tensor, axes,
+                     stats: Optional[CollectiveStats] = None) -> tuple:
+    """The compute-to-data re-rank's sums over the candidates ``cand``
+    (b, k'): each row block (``Placed`` over ``axes``), under the scope of
+    its positions, computes q.v, ||v||, fq.f and ||f|| of the candidates
+    it holds (zeros for the others), and the blocks' partials are summed
+    in block order (an all-reduce over ``axes`` of 4 (b, k') fp32 a
+    position). Each sum is the holder's value exactly (x + 0 = x), so the
+    scores equal ``gather_rows``' cosines."""
+    parts = []
+    for cv, cf in _held_rows(vectors, filters, cand, axes):
+        qd, fd = q.to(cv.device), fq.to(cv.device)
+        parts.append(torch.stack([
+            torch.sum(cv * qd[:, None, :], dim=-1),
+            torch.linalg.norm(cv, dim=-1),
+            torch.sum(cf * fd[:, None, :], dim=-1),
+            torch.linalg.norm(cf, dim=-1)]))
+        del cv, cf
+    if stats is not None:
+        b, kp = cand.shape
+        stats.add("all-reduce", ",".join(axes),
+                  vectors.mesh.size * 4 * b * kp * 4)
+    return tuple(_block_sum(parts))

@@ -32,6 +32,7 @@ evaluation entry points (``forward_hidden``, ``forward``,
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional
@@ -459,7 +460,13 @@ class ShardGroup:
     Dimensions split over batch axes (FSDP) are gathered whole at the
     layer's first use, as are the parameters of the ``GATHERED`` kinds.
     Each parameter becomes a leaf of the group's autograd graph, so
-    ``grads`` gives each position's gradient of its blocks."""
+    ``grads`` gives each position's gradient of its blocks.
+
+    A gathered leaf is kept for the group's whole run where autograd is
+    on (the train step's backward reads it again). Without autograd (the
+    serving passes) one first gathered inside a ``layer()`` is dropped
+    where that layer ends, so a pass holds one layer's gathered weights at
+    a time and still gathers each weight once."""
 
     def __init__(self, mesh, rules: AxisRules, coords: dict, params: dict,
                  stats: Optional[CollectiveStats] = None):
@@ -489,6 +496,7 @@ class ShardGroup:
         self.kv = (self.tp if kv_axes == (self.tp_axis,) else
                    mesh_group(mesh, kv_axes, coords, stats))
         self.leaves: dict = {}
+        self._opened: Optional[list] = None   # gathered in the open layer
 
     def use_stats(self, stats: Optional[CollectiveStats]) -> None:
         """Record the group's collectives into ``stats`` from now on."""
@@ -516,15 +524,33 @@ class ShardGroup:
         return Blocks([p.block({**self.coords, **c})
                        for c in group.member_coords], dim, group)
 
+    @contextlib.contextmanager
+    def layer(self):
+        """A layer of a pass: without autograd, the leaves first gathered
+        inside it are dropped at its end."""
+        if torch.is_grad_enabled():
+            yield
+            return
+        outer, self._opened = self._opened, []
+        try:
+            yield
+        finally:
+            for name in self._opened:
+                del self.leaves[name]
+            self._opened = outer
+
     def param(self, name: str, gather: bool = False):
         if name not in self.leaves:
-            self.leaves[name] = self._leaf(self.params[name])
+            self.leaves[name], gathered = self._leaf(self.params[name])
+            if gathered and self._opened is not None:
+                self._opened.append(name)
         leaf = self.leaves[name]
         if gather and isinstance(leaf, Blocks):
             return self.tp.gathered(leaf, leaf.dim)
         return leaf
 
     def _leaf(self, p: Placed):
+        """(the group's leaf of ``p``, whether it was gathered)."""
         tp_dim, fsdp = None, []
         for i, entry in enumerate(p.spec):
             axes = axes_of(entry)
@@ -549,18 +575,20 @@ class ShardGroup:
                  else p.block(coords))
             leaves.append(t.detach().requires_grad_())
         return (Blocks(leaves, tp_dim, self.tp) if tp_dim is not None
-                else leaves[0])
+                else leaves[0]), bool(fsdp)
 
     def _gathered(self, p: Placed, coords: dict, dims: list,
                   held: frozenset) -> Tensor:
         """The position's block with its batch-axis dimensions whole: an
-        all-gather over those axes, its result the value of ``held``."""
+        all-gather over those axes, its result the value of ``held`` (and
+        held by them alone: a cost trace charges a collective's buffer to
+        the scope it is made in)."""
         dev = self.mesh.device_at(coords)
         mine = p.block(coords)
         shape = [p.shape[i] if i in dims else s
                  for i, s in enumerate(mine.shape)]
         parts, seen = [], set()
-        with quiet_ops():
+        with scope(held), quiet_ops():
             out = mark(torch.empty(shape, dtype=mine.dtype, device=dev),
                        held)
             for _, c in positions(self.mesh):
@@ -707,12 +735,19 @@ def _tokens(model: Model, batch: dict) -> Tensor:
     return torch.as_tensor(batch["tokens"], device=model.device).long()
 
 
-def _layer(i: int, encoder: bool = False):
+@contextlib.contextmanager
+def _layer(i: int, model, encoder: bool = False):
     """The profiler range of a loop's work on layer ``i`` (an encoder
     layer's where ``encoder``): the serving loops name their layers, which
     ``torch.profiler`` shows and a cost trace cuts its live bytes by
-    (``launch.cost_analysis``)."""
-    return record_function(f"encoder layer {i}" if encoder else f"layer {i}")
+    (``launch.cost_analysis``). Where ``model`` is a ``ShardGroup``'s view,
+    also the group's ``layer()``, inside the range."""
+    with record_function(f"encoder layer {i}" if encoder else f"layer {i}"):
+        if isinstance(model, _View):
+            with model._group.layer():
+                yield
+        else:
+            yield
 
 
 def encode(model: Model, frames) -> Tensor:
@@ -726,7 +761,7 @@ def encode(model: Model, frames) -> Tensor:
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                      x.device)[None].to(x.dtype)
     for i, bp in enumerate(model.encoder):
-        with _layer(i, encoder=True):
+        with _layer(i, model, encoder=True):
             x, _ = apply_block(bp, x, cfg, "encode")
     return model.enc_norm(x)
 
@@ -857,7 +892,7 @@ def prefill(model: Model, batch: dict, max_len: int, caches=None):
         x = _with_prefix(model, x, batch)
     new = []
     for i, (bp, c) in enumerate(zip(model.layers, caches)):
-        with _layer(i):
+        with _layer(i, model):
             x, c = apply_block(bp, x, cfg, "prefill", c,
                                cross_cache=None if cross is None
                                else cross[i])
@@ -869,7 +904,7 @@ def build_cross_cache(model: Model, enc_out: Tensor) -> list:
     """Each decoder layer's cross keys and values over ``enc_out``."""
     out = []
     for i, bp in enumerate(model.layers):
-        with _layer(i):
+        with _layer(i, model):
             out.append(attn.cross_kv(bp.cross, enc_out))
     return out
 
@@ -895,7 +930,7 @@ def decode_step(model: Model, token, cache: dict):
     cross = cache.get("cross")
     new = []
     for i, (bp, c) in enumerate(zip(model.layers, cache["self"])):
-        with _layer(i):
+        with _layer(i, model):
             x, c = apply_block(bp, x, cfg, "decode", c,
                                cross_cache=None if cross is None
                                else cross[i])
@@ -921,7 +956,7 @@ def _group_caches(view, cfg: ModelConfig, batch: int, max_len: int) -> list:
     where its weights split over rnn, the LSTMs' whole."""
     out = []
     for i, kind in enumerate(cfg.layer_kinds()):
-        with _layer(i):
+        with _layer(i, view):
             c = _block_cache(cfg, kind, batch, max_len, view.device)
             w = view.layers[i].mixer.w_rnn_in if kind == "rec" else None
             if isinstance(w, Blocks):
@@ -960,8 +995,11 @@ def sharded_prefill(structure: Model, params: dict, batch: dict,
     batch's rows split over the batch axes), under ``sharding.scope`` of
     its positions. The KV caches come out along the sequence over the
     rules' ``kv_seq`` axes, the RG-LRU's over rnn, the cross caches along
-    the sequence too. Returns [(logits, cache)] a group: logits ``Blocks``
-    of vocab where the unembedding splits, else one tensor."""
+    the sequence too. A weight split over batch axes (FSDP) is gathered
+    at its layer's first use and dropped at the layer's end
+    (``ShardGroup.layer``). Returns [(logits, cache)] a group:
+    logits ``Blocks`` of vocab where the unembedding splits, else one
+    tensor."""
     cfg = structure.cfg
     out = []
     for coords in (batch_groups(rules) if groups is None else groups):
@@ -974,7 +1012,7 @@ def sharded_prefill(structure: Model, params: dict, batch: dict,
                                     _group_caches(view, cfg, b, max_len))
             cross = cache["cross"] or []
             for i in range(len(cross)):
-                with _layer(i):
+                with _layer(i, view):
                     cross[i] = _seq_split(cross[i], s)
         out.append((logits, cache))
     return out
@@ -988,7 +1026,8 @@ def sharded_decode_step(structure: Model, params: dict, token: Placed,
     cache (``cache_pspecs``' layout: k and v along the sequence over the
     ``kv_seq`` axes, each position attending over its slots and the
     partial softmaxes joined by the group's all-reduce max and sum; the
-    RG-LRU's state over rnn). Returns [(logits, new cache)] a group."""
+    RG-LRU's state over rnn), FSDP weights gathered a layer at a time as
+    in ``sharded_prefill``. Returns [(logits, new cache)] a group."""
     out = []
     for coords in (batch_groups(rules) if groups is None else groups):
         s = ShardGroup(rules.mesh, rules, coords, params, stats)

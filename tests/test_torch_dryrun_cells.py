@@ -17,9 +17,9 @@ forced host devices (one an arch, run while the port traces) and read by
   FLOPs and collective bytes exactly, op-boundary bytes within 1e-6 (the
   CPU reads the step counter on the host for the pod hop's generator and
   fills a scalar with ``fill_`` where meta copies it); for FCVI the bytes
-  differ by design (on the CPU ``score_topk`` runs its plain version,
-  which writes the (q, n) scores no kernel writes; on meta it records
-  B2's own bytes);
+  exactly too (``score_topk`` records B2's own work in a trace on either
+  device, and its plain version, which writes the (q, n) scores no
+  kernel writes, runs uncounted on the CPU);
 * the one-group shortcut equal to tracing every group, per position:
   FLOPs, bytes, live peaks and collective bytes;
 * the sharded prefill and decode held to the unsharded port's logits by
@@ -311,5 +311,6 @@ def test_fcvi_cell_against_reference_and_cpu(reference):
     assert flops == pytest.approx(ref["flops"], rel=FLOPS_RTOL)
     assert meta["kernels"]["score_topk"]["calls"] == 4
     assert np.array_equal(meta["flops"], cpu["flops"])
+    assert np.array_equal(meta["bytes"], cpu["bytes"])
     assert _coll(meta["stats"]) == _coll(cpu["stats"])
 

@@ -142,6 +142,29 @@ def test_disjoint_operands_join_free():
     assert cm.bytes.tolist() == [0, 0] and cm.joins == 1
 
 
+def test_merge_stage_counts_for_its_group():
+    """The tree merge (``index.distributed._tree``) over sets marked with
+    their blocks' positions: each stage's pool and top-k count for every
+    member of the stage's group, as SPMD runs them after the stage's
+    all-gather, and for no other position. On a (2, 2) mesh with 4 sets of
+    (4, 8) (fp32 values, int32 ids) and k = 8, a stage is two 2-set
+    concatenations (read 2 x 128 B, write 256 B, each), the stable sort
+    (read 256 B, write 256 B of values and 512 B of int64 positions) and
+    the ids' gather (read 256 + 256 B, write 128 B): 2,688 B, counted once
+    a stage at each position."""
+    from repro_torch.index.distributed import _tree
+    mesh = make_mesh((2, 2), ("data", "model"), device="meta")
+    with C.CostMode(mesh) as cm:
+        vals = [S.mark(_meta(4, 8), (s,)) for s in range(4)]
+        ids = [S.mark(_meta(4, 8, dtype=torch.int32), (s,))
+               for s in range(4)]
+        v, i, _ = _tree(vals, ids, None, (2, 2), 8, inner=8)
+    assert v.shape == (4, 8) and i.dtype == torch.int32
+    assert S.marked(v) == frozenset(range(4))
+    stage = 2 * 512 + (256 + 256 + 512) + (256 + 256 + 128)
+    assert cm.bytes.tolist() == [2 * stage] * 4 and cm.joins == 0
+
+
 def test_kernel_entry_on_meta():
     """``ops.score_topk`` on meta records B2's own work (2 q n d, the rows
     and norms read once, the outputs written), not the plain version's
